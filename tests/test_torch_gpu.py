@@ -1,0 +1,101 @@
+"""The port on a CUDA device: kernels K1/K2 against the plain scan, and
+Encoder/Decoder(device="cuda") against the CPU path (exact equality).
+
+This file imports no JAX, so it runs on a host without it; there, skip
+tests/conftest.py (which imports jax):
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
+
+Tests marked gpu skip when no CUDA device is visible.  The unmarked ones
+check what holds on any host: the kernel wrapper refuses CPU tensors
+(no fallback) and device resolution never picks a device by itself.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from x266_tpu.config import CodecConfig, Profile, preset_cfg2
+from x266_tpu.core.hashing import frame_md5
+from x266_tpu.core.yuv import synthetic_clip
+from x266_tpu_torch import device as devmod
+from x266_tpu_torch import tables
+from x266_tpu_torch.api import Decoder, Encoder
+from x266_tpu_torch.engine import fused, recon, recon_cuda
+
+CFGS = [
+    CodecConfig(width=104, height=72, qp=30),
+    CodecConfig(width=128, height=64, qp=37, profile=Profile.VVC, mts=True),
+    CodecConfig(width=64, height=64, qp=22, max_cu_size=16),
+    CodecConfig(width=104, height=72, qp=30, ref_substitute=True),
+    preset_cfg2(128, 64),
+]
+NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(cfg, device, n=2, seed=9):
+    """Padded planes and the port's Pass-A maps of n frames."""
+    tab = tables.from_reference(cfg, device)
+    frames = synthetic_clip(cfg.width, cfg.height, n, "mixed", seed=seed)
+    planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+              .to(device) for p in ("y", "cb", "cr")]
+    src = fused._unpack_padded(cfg, *planes)
+    return tab, src, fused.make_pass_a(cfg, tab)(src[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", CFGS, ids=lambda c: f"{c.width}x{c.height}"
+                         f"-{c.profile.name}-qp{c.qp}-cu{c.max_cu_size}"
+                         f"{'-subst' if c.ref_substitute else ''}")
+def test_kernels_match_plain_scan_on_card(cfg, cuda):
+    tab, src, maps = _inputs(cfg, cuda)
+    got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    dec = recon_cuda.recon_intra(cfg, tab, False, *got[3:], *maps)
+    pdec = recon.make_recon_pass_raw(cfg, tab, False)(*got[3:], *maps)
+    for n, w, g, p in zip(NAMES, want, dec, pdec):
+        assert torch.equal(w, g) and torch.equal(p, g), n
+
+
+@pytest.mark.gpu
+def test_encode_decode_on_card_equals_cpu(cuda):
+    cfg = preset_cfg2(128, 64).replace(rows_per_segment=1,
+                                       ctx_inherit=True)
+    frames = synthetic_clip(128, 64, 3, "mixed", seed=5)
+    before = dict(recon_cuda.LAUNCHES)
+    on_card = Encoder(cfg, device=cuda, batch_frames=2).encode(frames)
+    on_cpu = Encoder(cfg, device="cpu", batch_frames=2).encode(frames)
+    assert on_card.bitstream == on_cpu.bitstream
+    _, dec = Decoder(device=cuda).decode(on_card.bitstream)
+    assert ([frame_md5(d) for d in dec]
+            == [frame_md5(r) for r in on_card.recon]
+            == [frame_md5(r) for r in on_cpu.recon])
+    assert recon_cuda.LAUNCHES["K1"] == before["K1"] + 2
+    assert recon_cuda.LAUNCHES["K2"] == before["K2"] + 3
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    cfg = CFGS[0]
+    tab, src, maps = _inputs(cfg, "cpu", n=1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+
+
+def test_device_is_never_chosen_implicitly():
+    assert devmod.resolve("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        devmod.resolve("meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            devmod.resolve("cuda")

@@ -1,0 +1,431 @@
+// Intra reconstruction scan, kernels K1 (encode) and K2 (decode).
+//
+// Replaces the Pallas TPU kernel x266_tpu/engine/recon_pallas.py:
+// _build_pallas (inter=False; pl.pallas_call at :943), which is the
+// normative Pass B of one picture: CTUs in raster order, 8x8 units in
+// z-order; per TU the reference vector (with closed-form substitution),
+// the intra prediction, forward MTS transform, deadzone or RDOQ
+// quantization (encode), dequantization, inverse transform, clip and
+// write-back; chroma TUs at half size follow each luma TU.  The plain
+// PyTorch version is engine/recon.py (make_recon_pass_raw); the two must
+// agree bit for bit.
+//
+// What bounds it on the H100: the serial dependency chain.  Every TU
+// reads the reconstruction of the TUs before it, so a picture is one
+// chain of ~3 x (units) dependent steps of a few hundred integer MACs
+// each; neither bytes (a 1080p frame moves ~10 MB) nor operations come
+// near the card's limits.  The design keeps each step's latency short:
+// one thread block per frame (frames are the grid, blockIdx.x), its
+// threads share out each TU's pixels and dot products, and the current
+// CTU's reconstruction window -- the CTU, the row above and the column
+// to the left, including the top-right and bottom-left overhang -- sits
+// in shared memory, loaded when the CTU starts and written back to the
+// output planes when it ends.  Samples not yet coded (or outside the
+// picture) hold mid-gray, which is the reference's availability rule.
+// A faster schedule (one block per CTU along the anti-diagonals
+// cx + 2*cy, which engine/recon_wave.py proves independent) is later work.
+//
+// Integer math is int32 multiply-accumulate (|residual x matrix| sums stay
+// below 2^31).  RDOQ compares float32 costs e*e*err_scale + lam*rate with
+// explicitly rounded __fmul_rn/__fadd_rn (and the library is built with
+// -fmad=false), so no FMA contraction changes which level wins.  qp and
+// lambda are runtime arguments.
+//
+// The launch goes through cudaLaunchKernel rather than <<<...>>>, so this
+// file is plain C++ apart from CUDA's built-ins: tests/test_torch_kernel_host.py
+// compiles it with g++ against a host stand-in of the runtime
+// (tests/cuda_host/cuda_runtime.h) and holds it against the plain scan.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kCtu = 64;
+constexpr int kWinY = 1 + 96;     // luma window: CTU origin -1 .. +95
+constexpr int kWinC = 1 + 48;     // chroma window
+constexpr int kMaxS = 32;
+constexpr int kMaxR = 4 * kMaxS + 1;
+
+// specmodel.quant QUANT_SCALES / DEQUANT_SCALES
+__constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
+__constant__ int kDequantScale[6] = {40, 45, 51, 57, 64, 72};
+
+struct Params {
+  int frames, width, height;      // luma picture size
+  int pitch_y, pitch_c;           // padded source plane widths (encode)
+  int plane_y, plane_c;           // padded source plane sizes (encode)
+  int qp, rdoq, mts, subst, n_modes;
+  float lam;
+  const uint8_t* src[3];          // encode: padded planes (F, Hp, Wp)
+  const int16_t* coef_in[3];      // decode: levels (F, H, W)
+  const int32_t *size_map, *mode_map, *mts_map;   // (F, H/8, W/8)
+  uint8_t* rec[3];                // (F, H, W) / (F, H/2, W/2)
+  int16_t* coef_out[3];           // encode: levels
+  const int32_t *taps, *smooth, *tx, *shift;
+  const float* rate;              // (32768,) rate surrogate
+};
+
+struct Shared {
+  uint8_t win_y[kWinY * kWinY];
+  uint8_t win_c[2][kWinC * kWinC];
+  int ref[kMaxR];
+  int ext[2 * kMaxR];
+  uint8_t avail[kMaxR];
+  int dc;
+  int pred[kMaxS * kMaxS];
+  int a[kMaxS * kMaxS];
+  int b[kMaxS * kMaxS];
+};
+
+__device__ __forceinline__ int size_index(int s) {
+  return s == 4 ? 0 : s == 8 ? 1 : s == 16 ? 2 : 3;
+}
+
+// Offsets of size s in the flat tables (sizes 4, 8, 16, 32 in order).
+__device__ __forceinline__ int tx_offset(int s) {
+  return s == 4 ? 0 : s == 8 ? 16 : s == 16 ? 80 : 336;
+}
+constexpr int kTxPerType = 16 + 64 + 256 + 1024;
+
+__device__ __forceinline__ int smooth_offset(int s) {
+  return s == 4 ? 0 : s == 8 ? 17 * 3 : s == 16 ? (17 + 33) * 3
+                                               : (17 + 33 + 65) * 3;
+}
+
+__device__ __forceinline__ int taps_offset(int s, int n_modes) {
+  int o = 0;
+  for (int t = 4; t < s; t *= 2) o += n_modes * t * t * 4;
+  return o;
+}
+
+__device__ __forceinline__ int z_index(int ux, int uy) {
+  int z = 0;
+  for (int b = 0; b < 3; ++b) {
+    z |= ((ux >> b) & 1) << (2 * b);
+    z |= ((uy >> b) & 1) << (2 * b + 1);
+  }
+  return z;
+}
+
+// engine.availability.decoded_before on luma coordinates.
+__device__ __forceinline__ bool decoded_before(int px, int py, int bx,
+                                               int by, int w, int h) {
+  if (px < 0 || py < 0 || px >= w || py >= h) return false;
+  int cp = (py / kCtu) * (1 << 20) + px / kCtu;
+  int cb = (by / kCtu) * (1 << 20) + bx / kCtu;
+  if (cp != cb) return cp < cb;
+  return z_index((px % kCtu) / 8, (py % kCtu) / 8) <
+         z_index((bx % kCtu) / 8, (by % kCtu) / 8);
+}
+
+__device__ __forceinline__ int rshift_round(int x, int sh) {
+  return (x + (1 << (sh - 1))) >> sh;
+}
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// One plane's view for a TU: the shared window and where it sits.
+struct View {
+  uint8_t* win;
+  int wdim;            // window side
+  int ox, oy;          // plane coords of window element (0, 0)
+  int pw, ph;          // plane size
+  int scale;           // 1 luma, 2 chroma
+};
+
+__device__ __forceinline__ uint8_t& at(const View& v, int x, int y) {
+  return v.win[(y - v.oy) * v.wdim + (x - v.ox)];
+}
+
+// One TU at plane coords (x, y), size s.  All threads of the block call
+// it with the same arguments.
+template <bool kEncode>
+__device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
+                   int s, int mode, int tv, int th, const uint8_t* src,
+                   int pitch, const int16_t* cin, int16_t* cout, int f) {
+  const int tid = threadIdx.x;
+  const int r_len = 4 * s + 1;
+  const int mid = 128;
+
+  // 1. reference vector [corner, top 2s, left 2s] and its availability
+  for (int i = tid; i < r_len; i += kThreads) {
+    int px, py;
+    if (i == 0) { px = x - 1; py = y - 1; }
+    else if (i <= 2 * s) { px = x + i - 1; py = y - 1; }
+    else { px = x - 1; py = y + i - 1 - 2 * s; }
+    sh.ref[i] = at(v, px, py);
+    if (p.subst)
+      sh.avail[i] = decoded_before(px * v.scale, py * v.scale, x * v.scale,
+                                   y * v.scale, p.width, p.height);
+  }
+  __syncthreads();
+
+  // 2. substitution: scan left bottom->top, corner, top left->right;
+  //    a gap takes the nearest available sample before it in the scan,
+  //    leading gaps the first available one, an empty vector mid-gray
+  if (p.subst && tid == 0) {
+    auto idx = [&](int k) { return k < 2 * s ? 4 * s - k
+                                              : (k == 2 * s ? 0 : k - 2 * s); };
+    int first = -1;
+    for (int k = 0; k < r_len; ++k)
+      if (sh.avail[idx(k)]) { first = k; break; }
+    int last = first < 0 ? mid : sh.ref[idx(first)];
+    for (int k = 0; k < r_len; ++k) {
+      int i = idx(k);
+      if (sh.avail[i]) last = sh.ref[i];
+      else sh.ref[i] = last;
+    }
+  }
+  __syncthreads();
+
+  // 3. [raw, smoothed] extension; the DC sum
+  const int* smt = p.smooth + smooth_offset(s);
+  for (int i = tid; i < r_len; i += kThreads) {
+    int acc = 0;
+    for (int t = 0; t < 3; ++t) {
+      int e = __ldg(smt + i * 3 + t);
+      acc += (e & 255) * sh.ref[e >> 8];
+    }
+    sh.ext[i] = sh.ref[i];
+    sh.ext[r_len + i] = (acc + 2) >> 2;
+  }
+  if (tid == 0 && mode == 1) {
+    int acc = 0;
+    for (int i = 0; i < s; ++i) acc += sh.ref[1 + i] + sh.ref[1 + 2 * s + i];
+    sh.dc = acc;
+  }
+  __syncthreads();
+
+  // 4. prediction; encode: residual into a
+  const int n = s * s;
+  const int shift = __ldg(p.shift + size_index(s) * p.n_modes + mode);
+  const int* tp = p.taps + taps_offset(s, p.n_modes) + (mode * n) * 4;
+  for (int i = tid; i < n; i += kThreads) {
+    int acc;
+    if (mode == 1) {
+      acc = sh.dc;
+    } else {
+      acc = 0;
+      for (int t = 0; t < 4; ++t) {
+        int e = __ldg(tp + i * 4 + t);
+        acc += (e & 255) * sh.ext[e >> 8];
+      }
+    }
+    int pr = rshift_round(acc, shift);
+    sh.pred[i] = pr;
+    if (kEncode) sh.a[i] = src[(y + 1 + i / s) * pitch + x + 1 + i % s] - pr;
+  }
+  __syncthreads();
+
+  const int log2s = 31 - __clz(s);
+  const int* mv = p.tx + tv * kTxPerType + tx_offset(s);   // (s, s) [k][n]
+  const int* mh = p.tx + th * kTxPerType + tx_offset(s);
+  const int tsh = 7 - log2s;                               // 8-bit
+  const int cpitch = p.width / v.scale;
+  const size_t cbase = (size_t)f * (p.width / v.scale) * (p.height / v.scale);
+
+  if (kEncode) {
+    // 5. forward vertical: b[k][m] = sum_n Tv[k][n] a[n][m]
+    for (int i = tid; i < n; i += kThreads) {
+      int k = i / s, m = i % s, acc = 0;
+      for (int j = 0; j < s; ++j) acc += __ldg(mv + k * s + j) * sh.a[j * s + m];
+      sh.b[i] = rshift_round(acc, log2s - 1);
+    }
+    __syncthreads();
+    // 6. forward horizontal + quantization: level into a, out to global
+    const int qbits = 14 + p.qp / 6 + tsh;
+    const int qscale = kQuantScale[p.qp % 6];
+    const int ishift = 6 - tsh;
+    const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
+    for (int i = tid; i < n; i += kThreads) {
+      int k = i / s, l = i % s, acc = 0;
+      for (int j = 0; j < s; ++j) acc += sh.b[k * s + j] * __ldg(mh + l * s + j);
+      int c = clampi(rshift_round(acc, log2s + 6), -32768, 32767);
+      int a = c < 0 ? -c : c;
+      int lv;
+      if (p.rdoq) {
+        int lup = clampi((a * qscale + (1 << (qbits - 1))) >> qbits, 0, 32767);
+        int ldn = lup > 0 ? lup - 1 : 0;
+        float err_scale = ldexpf(1.0f, -2 * tsh);
+        auto cost = [&](int l) {
+          int dq = clampi((l * dscale + (1 << (ishift - 1))) >> ishift,
+                          -32768, 32767);
+          float e = (float)(a - dq);
+          return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
+                           __fmul_rn(p.lam, __ldg(p.rate + l)));
+        };
+        float c0 = cost(0), cd = cost(ldn), cu = cost(lup);
+        int lev = cu <= cd ? lup : ldn;
+        lv = fminf(cu, cd) <= c0 ? lev : 0;
+      } else {
+        int add = 171 << (qbits - 9);
+        lv = clampi((a * qscale + add) >> qbits, 0, 32767);
+      }
+      lv = c < 0 ? -lv : (c > 0 ? lv : 0);
+      sh.a[i] = lv;
+      cout[cbase + (size_t)(y + k) * cpitch + x + l] = (int16_t)lv;
+    }
+  } else {
+    for (int i = tid; i < n; i += kThreads)
+      sh.a[i] = cin[cbase + (size_t)(y + i / s) * cpitch + x + i % s];
+  }
+  __syncthreads();
+
+  // 7. dequantization, in place
+  {
+    const int ishift = 6 - tsh;
+    const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
+    for (int i = tid; i < n; i += kThreads)
+      sh.a[i] = clampi((sh.a[i] * dscale + (1 << (ishift - 1))) >> ishift,
+                       -32768, 32767);
+  }
+  __syncthreads();
+
+  // 8. inverse vertical: b[n][m] = clip((sum_k Tv[k][n] a[k][m] + 64) >> 7)
+  for (int i = tid; i < n; i += kThreads) {
+    int nn = i / s, m = i % s, acc = 0;
+    for (int k = 0; k < s; ++k) acc += __ldg(mv + k * s + nn) * sh.a[k * s + m];
+    sh.b[i] = clampi(rshift_round(acc, 7), -32768, 32767);
+  }
+  __syncthreads();
+
+  // 9. inverse horizontal, add the prediction, clip, write the window
+  for (int i = tid; i < n; i += kThreads) {
+    int nn = i / s, l = i % s, acc = 0;
+    for (int m = 0; m < s; ++m) acc += sh.b[nn * s + m] * __ldg(mh + m * s + l);
+    int res = clampi(rshift_round(acc, 12), -32768, 32767);
+    at(v, x + l, y + nn) = (uint8_t)clampi(sh.pred[i] + res, 0, 255);
+  }
+  __syncthreads();
+}
+
+// Fill a plane's window for the CTU at plane origin (x0, y0): samples of
+// earlier CTUs come from the output plane, everything else is mid-gray.
+__device__ void load_window(const View& v, const uint8_t* rec, int x0,
+                            int y0, int ctu) {
+  for (int i = threadIdx.x; i < v.wdim * v.wdim; i += kThreads) {
+    int px = v.ox + i % v.wdim, py = v.oy + i / v.wdim;
+    bool coded = px >= 0 && py >= 0 && px < v.pw && py < v.ph &&
+                 (py < y0 || (py < y0 + ctu && px < x0));
+    v.win[i] = coded ? rec[(size_t)py * v.pw + px] : 128;
+  }
+}
+
+__device__ void store_window(const View& v, uint8_t* rec, int x0, int y0,
+                             int ctu) {
+  for (int i = threadIdx.x; i < ctu * ctu; i += kThreads) {
+    int px = x0 + i % ctu, py = y0 + i / ctu;
+    if (px < v.pw && py < v.ph)
+      rec[(size_t)py * v.pw + px] = at(v, px, py);
+  }
+}
+
+template <bool kEncode>
+__global__ void __launch_bounds__(kThreads)
+recon_intra_kernel(Params p) {
+  __shared__ Shared sh;
+  const int f = blockIdx.x;
+  const int w = p.width, h = p.height, cw = w / 2, ch = h / 2;
+  const int ux_n = w / 8, uy_n = h / 8;
+  const int ctus_x = (w + kCtu - 1) / kCtu, ctus_y = (h + kCtu - 1) / kCtu;
+  const size_t map_base = (size_t)f * ux_n * uy_n;
+  uint8_t* rec_y = p.rec[0] + (size_t)f * w * h;
+  uint8_t* rec_c[2] = {p.rec[1] + (size_t)f * cw * ch,
+                       p.rec[2] + (size_t)f * cw * ch};
+  const uint8_t* src_y = kEncode ? p.src[0] + (size_t)f * p.plane_y : nullptr;
+  const uint8_t* src_c[2] = {
+      kEncode ? p.src[1] + (size_t)f * p.plane_c : nullptr,
+      kEncode ? p.src[2] + (size_t)f * p.plane_c : nullptr};
+
+  for (int cy = 0; cy < ctus_y; ++cy) {
+    for (int cx = 0; cx < ctus_x; ++cx) {
+      const int x0 = cx * kCtu, y0 = cy * kCtu;
+      View vy{sh.win_y, kWinY, x0 - 1, y0 - 1, w, h, 1};
+      View vc[2] = {{sh.win_c[0], kWinC, x0 / 2 - 1, y0 / 2 - 1, cw, ch, 2},
+                    {sh.win_c[1], kWinC, x0 / 2 - 1, y0 / 2 - 1, cw, ch, 2}};
+      load_window(vy, rec_y, x0, y0, kCtu);
+      for (int c = 0; c < 2; ++c)
+        load_window(vc[c], rec_c[c], x0 / 2, y0 / 2, kCtu / 2);
+      __syncthreads();
+      for (int z = 0; z < 64; ++z) {
+        int zx = (z & 1) | (((z >> 2) & 1) << 1) | (((z >> 4) & 1) << 2);
+        int zy = ((z >> 1) & 1) | (((z >> 3) & 1) << 1) | (((z >> 5) & 1) << 2);
+        int ux = cx * 8 + zx, uy = cy * 8 + zy;
+        if (ux >= ux_n || uy >= uy_n) continue;
+        size_t mi = map_base + (size_t)uy * ux_n + ux;
+        int s = p.size_map[mi];
+        int u = s >> 3;
+        if ((ux & (u - 1)) || (uy & (u - 1))) continue;
+        int mode = p.mode_map[mi];
+        int mts = p.mts ? (p.mts_map[mi] & 7) : 0;
+        // MTS combos (tables.MTS_COMBOS): (vertical, horizontal) types,
+        // 0 DCT-II, 1 DST-VII, 2 DCT-VIII
+        const int tvs[5] = {0, 1, 2, 1, 2}, ths[5] = {0, 1, 1, 2, 2};
+        int x = ux * 8, y = uy * 8;
+        tu<kEncode>(p, sh, vy, x, y, s, mode, tvs[mts], ths[mts], src_y,
+                    p.pitch_y, p.coef_in[0], p.coef_out[0], f);
+        for (int c = 0; c < 2; ++c)
+          tu<kEncode>(p, sh, vc[c], x / 2, y / 2, s / 2, mode, 0, 0,
+                      src_c[c], p.pitch_c, p.coef_in[1 + c],
+                      p.coef_out[1 + c], f);
+      }
+      store_window(vy, rec_y, x0, y0, kCtu);
+      for (int c = 0; c < 2; ++c)
+        store_window(vc[c], rec_c[c], x0 / 2, y0 / 2, kCtu / 2);
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K1 (encode != 0) or K2 on `stream`; returns cudaGetLastError().
+int x266_recon_intra(
+    int encode, int frames, int width, int height, int pitch_y, int pitch_c,
+    int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
+    int n_modes, const void* src_y, const void* src_cb, const void* src_cr,
+    const void* cin_y, const void* cin_cb, const void* cin_cr,
+    const void* size_map, const void* mode_map, const void* mts_map,
+    void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
+    void* cout_cr, const void* taps, const void* smooth, const void* tx,
+    const void* shift, const void* rate, void* stream) {
+  Params p;
+  p.frames = frames; p.width = width; p.height = height;
+  p.pitch_y = pitch_y; p.pitch_c = pitch_c;
+  p.plane_y = plane_y; p.plane_c = plane_c;
+  p.qp = qp; p.lam = lam; p.rdoq = rdoq; p.mts = mts; p.subst = subst;
+  p.n_modes = n_modes;
+  p.src[0] = (const uint8_t*)src_y; p.src[1] = (const uint8_t*)src_cb;
+  p.src[2] = (const uint8_t*)src_cr;
+  p.coef_in[0] = (const int16_t*)cin_y; p.coef_in[1] = (const int16_t*)cin_cb;
+  p.coef_in[2] = (const int16_t*)cin_cr;
+  p.size_map = (const int32_t*)size_map; p.mode_map = (const int32_t*)mode_map;
+  p.mts_map = (const int32_t*)mts_map;
+  p.rec[0] = (uint8_t*)rec_y; p.rec[1] = (uint8_t*)rec_cb;
+  p.rec[2] = (uint8_t*)rec_cr;
+  p.coef_out[0] = (int16_t*)cout_y; p.coef_out[1] = (int16_t*)cout_cb;
+  p.coef_out[2] = (int16_t*)cout_cr;
+  p.taps = (const int32_t*)taps; p.smooth = (const int32_t*)smooth;
+  p.tx = (const int32_t*)tx; p.shift = (const int32_t*)shift;
+  p.rate = (const float*)rate;
+  void* args[] = {&p};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      encode ? cudaLaunchKernel(recon_intra_kernel<true>, dim3(frames),
+                                dim3(kThreads), args, 0, st)
+             : cudaLaunchKernel(recon_intra_kernel<false>, dim3(frames),
+                                dim3(kThreads), args, 0, st);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+const char* x266_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

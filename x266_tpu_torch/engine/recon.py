@@ -1,0 +1,189 @@
+"""Pass B: the normative reconstruction scan (C6/C10/C11/C12, decode
+C18) -- the plain PyTorch version of kernels K1/K2.
+
+Counterpart of x266_tpu/engine/recon.py:180-541 (intra branches, no
+CCLM/MTT/LFNST/SDH/DQ): a loop over CTUs in raster order and 8x8 units
+in z-order; at each TU origin predict -> [transform -> quantize] ->
+dequantize -> inverse -> clip, written back into the padded plane that
+later TUs read their references from.  Planes start at mid-gray and are
+written in coding order, so a reference to a sample not yet coded reads
+mid-gray; with cfg.ref_substitute the decode-order availability masks
+(engine.availability) drive the substitution fill instead.
+
+This is the oracle the CUDA kernel (engine.recon_cuda) is held against
+and the path CPU tensors take (``recon_pass``).  Control flow reads the
+maps on the host; the math runs on whatever device the planes are on.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from x266_tpu.config import CodecConfig
+from x266_tpu.engine import availability as avail
+
+from x266_tpu_torch.engine import recon_cuda
+from x266_tpu_torch.engine.availability import ref_masks
+from x266_tpu_torch.engine.mode_decision import PAD, _check_cfg
+from x266_tpu_torch.kernels import intra as kintra
+from x266_tpu_torch.kernels import quant as kquant
+from x266_tpu_torch.kernels import transforms as ktx
+from x266_tpu_torch.tables import MTS_COMBOS, Tables
+
+
+def _gather_ref(plane: torch.Tensor, x: int, y: int, s: int):
+    return torch.cat([plane[y, x:x + 2 * s + 1],
+                      plane[y + 1:y + 1 + 2 * s, x]])
+
+
+def _subst_tables(cfg: CodecConfig, device: torch.device):
+    """{s: (gy, gx, 4s+1) bool} luma and {s/2: ...} chroma masks."""
+    if not cfg.ref_substitute:
+        return None, None
+    w, h = cfg.width, cfg.height
+    sizes = [s for s in (8, 16, 32) if s <= cfg.max_cu_size]
+
+    def dev(m):
+        return torch.from_numpy(np.ascontiguousarray(m)).to(device)
+
+    lum = {s: dev(ref_masks(w, h, s)) for s in sizes}
+    chro = {s // 2: dev(ref_masks(w, h, s // 2, scale=2))
+            for s in sizes}
+    return lum, chro
+
+
+def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
+        mask, rdoq_lam):
+    """One TU: (recon (s, s), levels (s, s)) int32."""
+    ref = _gather_ref(plane, x, y, s)
+    if mask is not None:
+        ref = kintra.substitute_refs(ref, mask, cfg.mid_val)
+    pred = kintra.predict_mode(tab, ref, mode, s)
+    tv, th = MTS_COMBOS[mts_idx]
+    bd, qp = cfg.bit_depth, cfg.qp
+    if encode:
+        res = src[y + 1:y + 1 + s, x + 1:x + 1 + s] - pred
+        c = ktx.forward_transform(tab, res[None], s, tv, th, bd)
+        if rdoq_lam is not None:
+            lev = kquant.rd_quantize(tab, c, qp, s, rdoq_lam, bd)[0]
+        else:
+            lev = kquant.quantize(tab, c, qp, s, bd)[0]
+    else:
+        lev = coef[y:y + s, x:x + s]
+    d = kquant.dequantize(tab, lev[None], qp, s, bd)
+    rres = ktx.inverse_transform(tab, d, s, tv, th, bd)[0]
+    return (pred + rres).clamp(0, cfg.max_val), lev
+
+
+def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
+                masks):
+    """One frame of the scan.  a, b, c: padded sources (encode) or
+    coefficient planes (decode) as int32; maps as host numpy."""
+    w, h = cfg.width, cfg.height
+    cw, ch = w // 2, h // 2
+    dev = a.device
+    mid = cfg.mid_val
+    lum_masks, chro_masks = masks
+    rdoq_lam = cfg.lambda_mode if (cfg.rdoq and encode) else None
+    yP = torch.full((1 + h + PAD, 1 + w + PAD), mid, dtype=torch.int32,
+                    device=dev)
+    cbP = torch.full((1 + ch + PAD, 1 + cw + PAD), mid, dtype=torch.int32,
+                     device=dev)
+    crP = cbP.clone()
+    if encode:
+        src = (a, b, c)
+        coefs = [torch.zeros((h, w), dtype=torch.int32, device=dev),
+                 torch.zeros((ch, cw), dtype=torch.int32, device=dev),
+                 torch.zeros((ch, cw), dtype=torch.int32, device=dev)]
+    else:
+        src = (None, None, None)
+        coefs = [a, b, c]
+    for cy in range(cfg.ctus_y):
+        for cx in range(cfg.ctus_x):
+            for z in range(64):
+                zx, zy = avail.z_deinterleave(z)
+                ux, uy = cx * 8 + zx, cy * 8 + zy
+                if ux >= cfg.units_x or uy >= cfg.units_y:
+                    continue
+                s = int(size_map[uy, ux])
+                u = s // 8
+                if ux & (u - 1) or uy & (u - 1):
+                    continue
+                mode = int(mode_map[uy, ux])
+                mts_idx = int(mts_map[uy, ux]) & 7 if cfg.mts else 0
+                x, y = ux * 8, uy * 8
+                ml = (lum_masks[s][uy // u, ux // u]
+                      if lum_masks is not None else None)
+                rec, lev = _tu(tab, cfg, yP, src[0], coefs[0], x, y, mode,
+                               s, mts_idx, encode, ml, rdoq_lam)
+                yP[y + 1:y + 1 + s, x + 1:x + 1 + s] = rec
+                coefs[0][y:y + s, x:x + s] = lev
+                xc, yc, cs = x // 2, y // 2, s // 2
+                mc = (chro_masks[cs][yc // cs, xc // cs]
+                      if chro_masks is not None else None)
+                for p, (plane, k) in enumerate(((cbP, 1), (crP, 2))):
+                    rec, lev = _tu(tab, cfg, plane, src[k], coefs[k], xc,
+                                   yc, mode, cs, 0, encode, mc, rdoq_lam)
+                    plane[yc + 1:yc + 1 + cs, xc + 1:xc + 1 + cs] = rec
+                    coefs[k][yc:yc + cs, xc:xc + cs] = lev
+    return (yP[1:1 + h, 1:1 + w].to(torch.uint8),
+            cbP[1:1 + ch, 1:1 + cw].to(torch.uint8),
+            crP[1:1 + ch, 1:1 + cw].to(torch.uint8),
+            *(cf.to(torch.int16) for cf in coefs))
+
+
+def check_slice(cfg: CodecConfig) -> None:
+    """Raise for configurations outside the port's first slice."""
+    _check_cfg(cfg)
+    if cfg.bit_depth != 8:
+        raise NotImplementedError("the port's first slice is 8-bit")
+    for flag in ("sign_data_hiding", "dep_quant"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"{flag} is not in the port's "
+                                      "first slice")
+
+
+def make_recon_pass_raw(cfg: CodecConfig, tab: Tables, encode: bool):
+    """The plain scan over a batch of frames.
+
+    encode=True:  f(origY_pad, origCb_pad, origCr_pad,
+                    size_map, mode_map, mts_map)
+    encode=False: f(coefY, coefCb, coefCr, size_map, mode_map, mts_map)
+    Inputs carry a leading frame dim: padded planes (F, 1+H+PAD,
+    1+W+PAD), coefficient planes (F, H, W) / (F, H/2, W/2), maps
+    (F, H/8, W/8).  Returns (reconY, reconCb, reconCr) uint8 and
+    (coefY, coefCb, coefCr) int16, each with the frame dim.
+    """
+    check_slice(cfg)
+    masks = {}                          # device -> availability masks
+
+    def run(a, b, c, size_map, mode_map, mts_map):
+        if a.device not in masks:
+            masks[a.device] = _subst_tables(cfg, a.device)
+        maps = [m.cpu().numpy() for m in (size_map, mode_map, mts_map)]
+        outs = [_scan_frame(cfg, tab, encode, a[f].to(torch.int32),
+                            b[f].to(torch.int32), c[f].to(torch.int32),
+                            maps[0][f], maps[1][f], maps[2][f],
+                            masks[a.device])
+                for f in range(a.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    return run
+
+
+def recon_pass(cfg: CodecConfig, tab: Tables, encode: bool):
+    """Pass B for a batch of frames: CPU tensors take the plain scan,
+    CUDA tensors the hand-written kernel (K1 encode / K2 decode) and
+    nothing else."""
+    plain = make_recon_pass_raw(cfg, tab, encode)
+
+    def run(a, b, c, size_map, mode_map, mts_map):
+        if a.device.type == "cuda":
+            return recon_cuda.recon_intra(cfg, tab, encode, a, b, c,
+                                          size_map, mode_map, mts_map)
+        if a.device.type != "cpu":
+            raise ValueError(f"unsupported device {a.device}")
+        return plain(a, b, c, size_map, mode_map, mts_map)
+
+    return run

@@ -1,0 +1,118 @@
+"""Wrapper of the CUDA recon-scan kernels K1 (encode) and K2 (decode),
+csrc/recon_intra.cu.
+
+They replace the Pallas kernel x266_tpu/engine/recon_pallas.py:
+_build_pallas (inter=False).  The plain version is
+engine.recon.make_recon_pass_raw; ``engine.recon.recon_pass`` routes CUDA
+tensors here and CPU tensors there.  This wrapper launches the kernel or
+raises -- it never falls back.
+
+LAUNCHES counts the launches of each kernel (one per call here and
+nowhere else), so a run can show that its main path went through them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from x266_tpu.config import CodecConfig
+
+from x266_tpu_torch import _build
+from x266_tpu_torch.engine.mode_decision import PAD
+from x266_tpu_torch.tables import Tables
+
+LAUNCHES = {"K1": 0, "K2": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def recon_intra(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
+                size_map, mode_map, mts_map):
+    """Launch K1 (encode) or K2 (decode) over a batch of F frames.
+
+    encode: a, b, c are the padded uint8 source planes (F, 1+H+PAD,
+    1+W+PAD) / (F, 1+H/2+PAD, 1+W/2+PAD); decode: the int16 level planes
+    (F, H, W) / (F, H/2, W/2).  Maps are int32 (F, H/8, W/8).  Returns
+    (reconY, reconCb, reconCr) uint8 and (coefY, coefCb, coefCr) int16,
+    as make_recon_pass_raw; in decode the levels are the inputs."""
+    h, w = cfg.height, cfg.width
+    ch, cw = h // 2, w // 2
+    f = a.shape[0]
+    if encode:
+        py, pc = (1 + h + PAD, 1 + w + PAD), (1 + ch + PAD, 1 + cw + PAD)
+        _check(a, "srcY", torch.uint8, (f, *py))
+        _check(b, "srcCb", torch.uint8, (f, *pc))
+        _check(c, "srcCr", torch.uint8, (f, *pc))
+    else:
+        _check(a, "coefY", torch.int16, (f, h, w))
+        _check(b, "coefCb", torch.int16, (f, ch, cw))
+        _check(c, "coefCr", torch.int16, (f, ch, cw))
+    for name, m in (("size_map", size_map), ("mode_map", mode_map),
+                    ("mts_map", mts_map)):
+        _check(m, name, torch.int32, (f, cfg.units_y, cfg.units_x))
+    for name, t in (("taps", tab.k_taps), ("smooth", tab.k_smooth),
+                    ("tx", tab.k_tx), ("shift", tab.k_shift)):
+        _check(t, name, torch.int32, t.shape)
+    _check(tab.rate, "rate", torch.float32, (32768,))
+
+    lib = _build.LIBRARY.build()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err, out = _launch(lib, stream, cfg, tab, encode, a, b, c,
+                           size_map, mode_map, mts_map)
+    _build.check(err)
+    LAUNCHES["K1" if encode else "K2"] += 1
+    return out
+
+
+def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
+            mts_map):
+    """Allocate the outputs and call the library's entry point on
+    checked tensors; returns (error code, outputs)."""
+    h, w = cfg.height, cfg.width
+    ch, cw = h // 2, w // 2
+    f = a.shape[0]
+    dev = a.device
+    rec = [torch.empty((f, h, w), dtype=torch.uint8, device=dev),
+           torch.empty((f, ch, cw), dtype=torch.uint8, device=dev),
+           torch.empty((f, ch, cw), dtype=torch.uint8, device=dev)]
+    if encode:
+        coef = [torch.empty((f, h, w), dtype=torch.int16, device=dev),
+                torch.empty((f, ch, cw), dtype=torch.int16, device=dev),
+                torch.empty((f, ch, cw), dtype=torch.int16, device=dev)]
+        src, cin, cout = (a, b, c), (None,) * 3, coef
+    else:
+        coef = [a, b, c]
+        src, cin, cout = (None,) * 3, (a, b, c), (None,) * 3
+    py = src[0].shape[1:] if encode else (0, 0)
+    pc = src[1].shape[1:] if encode else (0, 0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.x266_recon_intra(
+        int(encode), f, w, h, py[1], pc[1], py[0] * py[1], pc[0] * pc[1],
+        cfg.qp, float(np.float32(cfg.lambda_mode)),
+        int(cfg.rdoq and encode), int(cfg.mts), int(cfg.ref_substitute),
+        cfg.n_pred_modes, *map(ptr, src), *map(ptr, cin),
+        size_map.data_ptr(), mode_map.data_ptr(), mts_map.data_ptr(),
+        *map(ptr, rec), *map(ptr, cout),
+        tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
+        tab.k_shift.data_ptr(), tab.rate.data_ptr(), stream)
+    return err, (*rec, *coef)
