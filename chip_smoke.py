@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,20 +6,31 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
  1. environment: torch / CUDA / nvcc versions, the card, TF32 flags off,
     the native entropy coder loaded;
  2. build: the CUDA kernels from x266_tpu_torch/csrc with nvcc;
- 3. kernels K1 (encode) and K2 (decode) against the plain torch scan on
-    the card, bit for bit, at 128x64 and 416x240 for a config-2 shaped
-    VVC config and an HEVC config, and on the main path's frames and
-    shapes (1920x1080, K1 on a batch of 4 frames, K2 on one at a time);
- 4. golden stream: decode tests/fixtures/ai_hevc.266t to its manifest
-    MD5 and re-encode its source to the identical bytes;
- 5. main path: all-intra 1080p VVC (config 2) frames 0-3 through
-    Encoder/Decoder(device="cuda"), held against the JAX reference in
-    x266_tpu_torch/data/cfg2_1080p_ref.json; the kernels' launch counts
+ 3. [kernels] K1 (intra encode) and K2 (intra decode) against the plain
+    torch scan on the card, bit for bit, at 128x64 and 416x240 for a
+    config-2 shaped VVC config and an HEVC config, and on the main
+    path's frames and shapes (1920x1080, K1 on a batch of 4 frames, K2
+    on one at a time);
+ 4. [kernels-p] K3-P (P recon, encode and decode, final-MV planes
+    included), K4 (MC warp) and K5 (ME refine) against their plain
+    versions, bit for bit, at 112x80 / 128x64 on four P configs, at
+    416x240 and at the config-3 main path's 1080p shapes (K4 with T=6
+    fields, K5 and K3 on one P picture whose reference is the frame
+    shifted);
+ 5. [golden] decode tests/fixtures/ai_hevc.266t to its manifest MD5 and
+    re-encode its source to the identical bytes;
+ 6. [main] all-intra 1080p VVC (config 2) frames 0-3 through
+    Encoder/Decoder (on the card by default), held against the JAX
+    reference in x266_tpu_torch/data/cfg2_1080p_ref.json; K1/K2 launch
+    counts of that run; one warm encode's frame rate;
+ 7. [main-p] low-delay P 1080p (config 3) frames 0-3 (IDR + 3 P) the
+    same way, against data/cfg3_1080p_ref.json; K3/K4/K5 launch counts
     of that run; one warm encode's frame rate.
-The second line from the end is a JSON object with each kernel's
-launches on the main path, its error and its times (one launch at the
-main path's shapes, against the plain scan's on the same inputs); the
-next is the card's name and power limit; the last line is the result.
+The third line from the end is a JSON object with each kernel's
+launches on its main path, its error and its times (CUDA events at the
+main path's shapes, against the plain version's on the same inputs and
+the kernel's bound); the next is the card's name and power limit; the
+last line is the result.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -35,16 +46,26 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-REF_JSON = os.path.join(ROOT, "x266_tpu_torch", "data",
-                        "cfg2_1080p_ref.json")
+DATA = os.path.join(ROOT, "x266_tpu_torch", "data")
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+RECON_SRC = "x266_tpu_torch/csrc/recon_intra.cu"
+ME_SRC = "x266_tpu_torch/csrc/me.cu"
+RECON_TPU = "x266_tpu/engine/recon_pallas.py:943"
 KERNELS = {
-    "K1": ("recon_intra encode", "x266_tpu/engine/recon_pallas.py:943"),
-    "K2": ("recon_intra decode", "x266_tpu/engine/recon_pallas.py:943"),
+    "K1": ("recon_intra encode", RECON_SRC, RECON_TPU),
+    "K2": ("recon_intra decode", RECON_SRC, RECON_TPU),
+    "K3": ("recon_inter P encode", RECON_SRC, RECON_TPU),
+    "K3d": ("recon_inter P decode", RECON_SRC, RECON_TPU),
+    "K4": ("mc warp", ME_SRC, "x266_tpu/kernels/me_pallas.py:91"),
+    "K5": ("me refine", ME_SRC, "x266_tpu/kernels/me_pallas.py:285"),
 }
-SOURCE = "x266_tpu_torch/csrc/recon_intra.cu"
 BITS_TOL = 0.005          # relative, per frame
 PSNR_TOL = 0.02           # dB, per frame (float32 SSE in the reference)
+# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, and the float32 rate
+# outside the tensor cores, which the integer work of these kernels is
+# counted against (a lower bound: int32 issues at most at that rate)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
 
 
 def log(*a):
@@ -59,6 +80,7 @@ def card_line() -> str:
 
 
 def timed(fn, *args):
+    """One call on the host clock around synchronizes: (out, ms)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn(*args)
@@ -66,9 +88,116 @@ def timed(fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def event_ms(fn, *args, reps=3):
+    """Mean ms per call over reps calls after a warm one, CUDA events."""
+    fn(*args)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def read_bytes(t, *indices) -> int:
+    """Bytes of t that the index tuples address, each byte counted once:
+    what a kernel that reads only those elements must move."""
+    mask = torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+    for idx in indices:
+        mask[idx] = True
+    return int(mask.sum()) * t.element_size()
+
+
+def mc_index(x, y, mvx, mvy, size):
+    """The pyramid index of interp.mc_block's size x size reads at
+    picture positions (x, y) and quarter-pel MVs (mvx, mvy), 1-D."""
+    from x266_tpu_torch.kernels.interp import REF_PAD
+
+    ar = torch.arange(size, device=x.device)
+    return (((mvy & 3) * 4 + (mvx & 3)).long()[:, None, None],
+            (y + REF_PAD + (mvy >> 2)).long()[:, None, None] + ar[:, None],
+            (x + REF_PAD + (mvx >> 2)).long()[:, None, None] + ar)
+
+
+def k3_read_bytes(pyrs, size_map, pred_map, mvx, mvy) -> int:
+    """Pyramid bytes a P recon scan reads for these maps: each inter or
+    skip CU's MC window at its final MV, luma and both chroma planes."""
+    sm, pm = size_map[0], pred_map[0]
+    mx, my = mvx[0].int(), mvy[0].int()
+    uy, ux = torch.meshgrid(torch.arange(sm.shape[0], device=sm.device),
+                            torch.arange(sm.shape[1], device=sm.device),
+                            indexing="ij")
+    u = sm // 8
+    cu = ((ux % u) == 0) & ((uy % u) == 0) & (pm != 0)
+    luma, chroma = [], []
+    for s in (8, 16, 32):
+        sel = cu & (sm == s)
+        x, y, vx, vy = ux[sel] * 8, uy[sel] * 8, mx[sel], my[sel]
+        luma.append(mc_index(x, y, vx, vy, s))
+        chroma.append(mc_index(x // 2, y // 2, vx >> 1, vy >> 1, s // 2))
+    return (read_bytes(pyrs[0], *luma) + read_bytes(pyrs[1], *chroma)
+            + read_bytes(pyrs[2], *chroma))
+
+
+def k5_read_bytes(pyr, cur, base) -> int:
+    """Pyramid bytes ME refine reads: the 16x16 windows of every
+    candidate of its three searches, around the centres this run's data
+    gives them."""
+    from x266_tpu_torch.kernels import me
+
+    b, a, ib, _ = (v.reshape(-1, 2) for v in
+                   me.refine_search_stages(cur, pyr, base))
+    by, bx = base.shape[:2]
+    gy, gx = torch.meshgrid(torch.arange(by, device=cur.device) * 16,
+                            torch.arange(bx, device=cur.device) * 16,
+                            indexing="ij")
+    gx, gy = gx.reshape(-1), gy.reshape(-1)
+    idx = [mc_index(gx, gy, (c[:, 0] + dx) * 4, (c[:, 1] + dy) * 4, 16)
+           for c, deltas in ((b, me._REF_DELTAS_A), (a, me._REF_DELTAS_B))
+           for dx, dy in deltas]
+    idx += [mc_index(gx, gy, ib[:, 0] + dx, ib[:, 1] + dy, 16)
+            for dx, dy in me._QP_DELTAS]
+    return read_bytes(pyr, *idx)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """The least time the card could take: (ms, what bounds it)."""
+    tb, to = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def recon_ops(size_map, encode: bool, pred_map=None) -> float:
+    """Integer operations a recon scan needs for these maps (2 per MAC):
+    per luma TU of side s and its two s/2 chroma TUs, intra prediction
+    (4 taps a sample; MC copies), the forward transform when encoding
+    and the inverse (each two s x s x s products), skipped for skip CUs
+    when encoding."""
+    ops = 0.0
+    for f in range(size_map.shape[0]):
+        sm = size_map[f]
+        kinds = pred_map[f] if pred_map is not None else np.zeros_like(sm)
+        uy, ux = np.mgrid[0:sm.shape[0], 0:sm.shape[1]]
+        u = sm // 8
+        origin = ((ux % u) == 0) & ((uy % u) == 0)
+        for s, kind in zip(sm[origin], kinds[origin]):
+            for side, n in ((int(s), 1), (int(s) // 2, 2)):
+                pred = 8 * side * side if kind == 0 else 0
+                tx = 4 * side ** 3
+                coded = not (encode and kind == 2)
+                ops += n * (pred + (tx if encode and coded else 0)
+                            + (tx if coded or not encode else 0))
+    return ops
+
+
 def phase_environment():
-    from x266_tpu.cabac import native_bind
     from x266_tpu_torch import _build, device
+    from x266_tpu_torch.cabac import native_bind
 
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -99,23 +228,39 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
+def _upload(frames):
+    return [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+            .cuda() for p in ("y", "cb", "cr")]
+
+
 def _inputs(cfg, n, seed):
     """Padded planes and Pass-A maps of n synthetic frames, on the card."""
-    from x266_tpu.core.yuv import synthetic_clip
     from x266_tpu_torch import tables
+    from x266_tpu_torch.core.yuv import synthetic_clip
     from x266_tpu_torch.engine import fused
 
     tab = tables.from_reference(cfg, "cuda")
     frames = synthetic_clip(cfg.width, cfg.height, n, "mixed", seed=seed)
-    planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
-              .cuda() for p in ("y", "cb", "cr")]
-    src = fused._unpack_padded(cfg, *planes)
+    src = fused._unpack_padded(cfg, *_upload(frames))
     return tab, src, fused.make_pass_a(cfg, tab)(src[0])
 
 
 def _max_err(got, ref) -> int:
     return max(int((g.int() - r.int()).abs().max()) for g, r in
                zip(got, ref))
+
+
+def _require_equal(name, tag, names, got, ref):
+    for n_, g, r in zip(names, got, ref):
+        if not torch.equal(g, r):
+            bad = (g != r).nonzero()[:5].tolist()
+            raise AssertionError(f"{name} {tag} {n_} differs from the "
+                                 f"plain version at {bad}")
+
+
+def _record(stats, k, err, **kw):
+    stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], err)
+    stats[k].update(kw)
 
 
 def compare_kernels(cfg, n, seed, stats):
@@ -127,48 +272,52 @@ def compare_kernels(cfg, n, seed, stats):
     tab, src, maps = _inputs(cfg, n, seed)
     plain_enc = recon.make_recon_pass_raw(cfg, tab, encode=True)
     plain_dec = recon.make_recon_pass_raw(cfg, tab, encode=False)
-    got, k1_ms = timed(recon_cuda.recon_intra, cfg, tab, True, *src, *maps)
+    got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
     ref, p1_ms = timed(plain_enc, *src, *maps)
     coefs = got[3:]
     pdec, p2_ms = timed(plain_dec, *coefs, *maps)
     dec = recon_cuda.recon_intra(cfg, tab, False, *coefs, *maps)
     err1 = _max_err(got, ref)
     err2 = max(_max_err(dec[:3], pdec[:3]), _max_err(dec[:3], got[:3]))
-    k2_ms = []
+    one = [t[:1].contiguous() for t in (*coefs, *maps)]
     for f in range(n):
-        one = [t[f:f + 1].contiguous() for t in (*coefs, *maps)]
-        dec1, ms = timed(recon_cuda.recon_intra, cfg, tab, False, *one)
-        k2_ms.append(ms)
+        dec1 = recon_cuda.recon_intra(
+            cfg, tab, False, *[t[f:f + 1].contiguous()
+                               for t in (*coefs, *maps)])
         err2 = max(err2, _max_err(dec1[:3], [p[f:f + 1] for p in pdec[:3]]))
-    k2_ms, p2_ms = sum(k2_ms) / n, p2_ms / n
     names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr"]
     tag = f"{cfg.width}x{cfg.height}x{n} {cfg.profile.name}"
-    log(f"[kernels] {tag}: K1 {k1_ms:.2f} ms for {n} frames (plain "
-        f"{p1_ms:.0f} ms) max_abs_err {err1}; K2 {k2_ms:.2f} ms per frame "
-        f"(plain {p2_ms:.0f} ms) max_abs_err {err2}")
-    for n_, g, r in zip(names, got, ref):
-        if not torch.equal(g, r):
-            bad = (g != r).nonzero()[:5].tolist()
-            raise AssertionError(f"K1 {tag} {n_} differs from the plain "
-                                 f"scan at {bad}")
+    k1_ms = event_ms(recon_cuda.recon_intra, cfg, tab, True, *src, *maps)
+    k2_ms = event_ms(recon_cuda.recon_intra, cfg, tab, False, *one)
+    log(f"[kernels] {tag}: K1 {k1_ms:.3f} ms for {n} frames (plain "
+        f"{p1_ms:.0f} ms) max_abs_err {err1}; K2 {k2_ms:.3f} ms per frame "
+        f"(plain {p2_ms / n:.0f} ms) max_abs_err {err2}")
+    _require_equal("K1", tag, names, got, ref)
     if err2:
         raise AssertionError(f"K2 {tag} differs from the plain scan")
     shape = f"{cfg.width}x{cfg.height}"
-    stats["K1"].update(max_abs_err=max(stats["K1"]["max_abs_err"], err1),
-                       ms=k1_ms, plain_ms=p1_ms, shape=f"{shape}x{n}")
-    stats["K2"].update(max_abs_err=max(stats["K2"]["max_abs_err"], err2),
-                       ms=k2_ms, plain_ms=p2_ms, shape=f"{shape}x1")
+    hm = maps[0].cpu().numpy()
+    b1 = bound(nbytes(*src, *maps, *got, tab.k_taps, tab.k_smooth,
+                      tab.k_tx, tab.k_shift, tab.rate),
+               recon_ops(hm, True))
+    b2 = bound(nbytes(*one, *(d[:1] for d in dec[:3]), tab.k_taps,
+                      tab.k_smooth, tab.k_tx, tab.k_shift),
+               recon_ops(hm[:1], False))
+    _record(stats, "K1", err1, ms=k1_ms, plain_ms=p1_ms, bound_ms=b1[0],
+            bound_by=b1[1], shape=f"{shape}x{n}")
+    _record(stats, "K2", err2, ms=k2_ms, plain_ms=p2_ms / n,
+            bound_ms=b2[0], bound_by=b2[1], shape=f"{shape}x1")
 
 
 def main_cfg():
-    from x266_tpu.config import preset_cfg2
+    from x266_tpu_torch.config import preset_cfg2
 
     return preset_cfg2(1920, 1080).replace(rows_per_segment=1,
                                            ctx_inherit=True)
 
 
 def phase_kernels(stats):
-    from x266_tpu.config import CodecConfig, preset_cfg2
+    from x266_tpu_torch.config import CodecConfig, preset_cfg2
 
     for w, h in ((128, 64), (416, 240)):
         compare_kernels(preset_cfg2(w, h), 2, 11, stats)
@@ -179,23 +328,149 @@ def phase_kernels(stats):
     compare_kernels(main_cfg(), 4, 0, stats)
 
 
+def compare_p_kernels(cfg, seed, stats):
+    """K3-P (encode, decode), K4 and K5 against their plain versions on
+    one P picture whose reference is the frame shifted (2, -3) in luma
+    and (1, -1) in chroma; bit-exact or raise."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import fused, inter, recon_cuda
+    from x266_tpu_torch.kernels import interp, me, me_cuda
+
+    tab = tables.from_reference(cfg, "cuda")
+    planes = _upload(synthetic_clip(cfg.width, cfg.height, 1, "mixed",
+                                    seed=seed))
+    refs = [torch.roll(p[0], sh, (0, 1))
+            for p, sh in zip(planes, ((2, -3), (1, -1), (1, -1)))]
+    pyrs = fused.build_pyramids_device(*refs)
+    src = fused._unpack_padded(cfg, *planes)
+    tag = f"{cfg.width}x{cfg.height} cu{cfg.max_cu_size}" + (
+        " merge" if cfg.merge_cands else "") + (
+        " subst" if cfg.ref_substitute else "")
+
+    # K5 on the main path's ME inputs
+    cur = me._ceil_pad(planes[0][0].to(torch.int32))
+    base = me.coarse_search(cur, pyrs[0], float(cfg.lambda_mode))
+    mv5 = me_cuda.refine_search(cur, pyrs[0], base)
+    ref5, p5_ms = timed(me.refine_search_ref, cur, pyrs[0], base)
+    err5 = _max_err([mv5], [ref5])
+    k5_ms = event_ms(me_cuda.refine_search, cur, pyrs[0], base, reps=20)
+    _require_equal("K5", tag, ["mv"], [mv5], [ref5])
+
+    # K4 on Pass A's fields (T = 6 with 32x32 CUs)
+    bd = interp.mv_bounds(cfg, 16) - 8
+    mvs = inter.warp_fields(ref5.clamp(-bd, bd), cfg.max_cu_size)
+    w4 = me_cuda.warp_frames_cuda(pyrs[0], mvs)
+    ref4, p4_ms = timed(me_cuda.warp_frames_ref, pyrs[0], mvs)
+    err4 = _max_err([w4], [ref4])
+    k4_ms = event_ms(me_cuda.warp_frames_cuda, pyrs[0], mvs, reps=20)
+    _require_equal("K4", tag, ["frames"], [w4], [ref4])
+    # the library call: one advanced-indexing gather on precomputed
+    # indices (timed here, used nowhere in the port)
+    idx = me_cuda.warp_index(mvs)
+    lib4_ms = event_ms(lambda: pyrs[0][idx], reps=20)
+
+    # K3-P on Pass A's maps, encode then decode of its levels
+    maps = [mp[None] for mp in inter.make_mode_decision_p_raw(cfg, tab)(
+        src[0][0], pyrs[0])]
+    mts = torch.zeros_like(maps[0])
+    args = (maps[0], maps[1], mts, *maps[2:], *pyrs)
+    got = recon_cuda.recon_inter(cfg, tab, True, *src, *args)
+    ref, p3_ms = timed(inter.make_recon_inter_raw(cfg, tab, True), *src,
+                       *args)
+    names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
+             "mvx_fin", "mvy_fin"]
+    err3 = _max_err(got, ref)
+    _require_equal("K3", tag, names, got, ref)
+    dargs = (*got[3:6], maps[0], maps[1], mts, maps[2],
+             got[6].int(), got[7].int(), *pyrs)
+    dec = recon_cuda.recon_inter(cfg, tab, False, *dargs)
+    pdec, p3d_ms = timed(inter.make_recon_inter_raw(cfg, tab, False), *dargs)
+    err3d = max(_max_err(dec[:3], pdec[:3]), _max_err(dec[:3], got[:3]))
+    _require_equal("K3d", tag, names[:3], dec[:3], pdec[:3])
+    _require_equal("K3d", tag, names[:3], dec[:3], got[:3])
+    k3_ms = event_ms(recon_cuda.recon_inter, cfg, tab, True, *src, *args)
+    k3d_ms = event_ms(recon_cuda.recon_inter, cfg, tab, False, *dargs)
+    kinds = np.bincount(maps[2].cpu().numpy().ravel(), minlength=3)
+    log(f"[kernels-p] {tag}: units intra/inter/skip {kinds.tolist()}; "
+        f"K3 {k3_ms:.3f} ms (plain {p3_ms:.0f} ms) err {err3}; K3d "
+        f"{k3d_ms:.3f} ms (plain {p3d_ms:.0f} ms) err {err3d}; K4 "
+        f"T={mvs.shape[0]} {k4_ms:.4f} ms (plain {p4_ms:.2f} ms, one "
+        f"indexing gather {lib4_ms:.4f} ms) err {err4}; K5 {k5_ms:.4f} ms "
+        f"(plain {p5_ms:.2f} ms) err {err5}")
+
+    # bounds: every input and output whole, except the pyramids, of
+    # which only the bytes this run's MVs address count
+    hm = [mp.cpu().numpy() for mp in maps]
+    tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift)
+    reads3 = k3_read_bytes(pyrs, maps[0], maps[2], got[6], got[7])
+    b3 = bound(nbytes(*src, *args[:6], *got, *tabs, tab.rate) + reads3,
+               recon_ops(hm[0], True, hm[2]))
+    b3d = bound(nbytes(*dargs[:9], *dec[:3], *tabs) + reads3,
+                recon_ops(hm[0], False, hm[2]))
+    n4 = mvs.numel() // 2 * 256
+    reads4 = read_bytes(pyrs[0], idx)
+    b4 = bound(nbytes(mvs, w4) + reads4, 0)
+    reads5 = k5_read_bytes(pyrs[0], cur, base)
+    b5 = bound(nbytes(cur, base, mv5) + reads5,
+               3.0 * 43 * 256 * base.numel() // 2)
+    log(f"[kernels-p] {tag}: pyramid bytes read (of "
+        f"{nbytes(pyrs[0])} luma): K3 {reads3}, K4 {reads4}, K5 {reads5}; "
+        f"bounds K3 {b3[0]:.4f} ms ({b3[1]}), K3d {b3d[0]:.4f} ms "
+        f"({b3d[1]}), K4 {b4[0]:.4f} ms ({b4[1]}), K5 {b5[0]:.4f} ms "
+        f"({b5[1]})")
+    shape = f"{cfg.width}x{cfg.height}"
+    _record(stats, "K3", err3, ms=k3_ms, plain_ms=p3_ms, bound_ms=b3[0],
+            bound_by=b3[1], shape=shape)
+    _record(stats, "K3d", err3d, ms=k3d_ms, plain_ms=p3d_ms,
+            bound_ms=b3d[0], bound_by=b3d[1], shape=shape)
+    _record(stats, "K4", err4, ms=k4_ms, plain_ms=p4_ms, bound_ms=b4[0],
+            bound_by=b4[1], library_ms=lib4_ms,
+            shape=f"{shape} T={mvs.shape[0]} ({n4} samples)")
+    _record(stats, "K5", err5, ms=k5_ms, plain_ms=p5_ms, bound_ms=b5[0],
+            bound_by=b5[1], shape=shape)
+
+
+def cfg3():
+    from x266_tpu_torch.config import preset_cfg3
+
+    return preset_cfg3(1920, 1080)
+
+
+def phase_kernels_p(stats):
+    from x266_tpu_torch.config import CodecConfig, preset_cfg3
+
+    # the P configs of tests/test_recon_pallas.py (ME reaches into the
+    # pad at 112x80), then 416x240, then the main path's shapes
+    for cfg in (
+            CodecConfig(width=112, height=80, qp=30, intra_period=8),
+            CodecConfig(width=128, height=64, qp=35, intra_period=8,
+                        max_cu_size=16),
+            CodecConfig(width=112, height=80, qp=30, intra_period=8,
+                        merge_cands=True),
+            CodecConfig(width=112, height=80, qp=30, intra_period=8,
+                        ref_substitute=True),
+            preset_cfg3(416, 240), cfg3()):
+        compare_p_kernels(cfg, 3, stats)
+
+
 def phase_golden():
-    from x266_tpu.config import CodecConfig
-    from x266_tpu.core.hashing import frame_md5
-    from x266_tpu.core.yuv import synthetic_clip
     from x266_tpu_torch.api import Decoder, Encoder
+    from x266_tpu_torch.config import CodecConfig
+    from x266_tpu_torch.core.hashing import frame_md5
+    from x266_tpu_torch.core.yuv import synthetic_clip
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         want = json.load(f)["ai_hevc"]["md5"]
     with open(os.path.join(FIXTURES, "ai_hevc.266t"), "rb") as f:
         stream = f.read()
-    _, dec = Decoder(device="cuda").decode(stream)
+    _, dec = Decoder().decode(stream)
     got = [frame_md5(d) for d in dec]
     log(f"[golden] ai_hevc decode md5 {got} manifest {want}")
     if got != want:
         raise AssertionError("ai_hevc decode MD5 differs from the manifest")
     cfg = CodecConfig(width=96, height=64, qp=32, rdoq=True)
-    res = Encoder(cfg, device="cuda", with_recon=False).encode(
+    res = Encoder(cfg, with_recon=False).encode(
         synthetic_clip(96, 64, 1, "mixed", seed=77))
     same = res.bitstream == stream
     log(f"[golden] ai_hevc re-encode: {len(res.bitstream)} bytes, "
@@ -205,60 +480,76 @@ def phase_golden():
 
 
 def _slice_md5s(stream: bytes):
-    from x266_tpu.core.nal import NalType, split_nals, write_nal
+    from x266_tpu_torch.core.nal import NalType, split_nals, write_nal
 
     return [hashlib.md5(write_nal(t, rbsp)).hexdigest()
             for t, rbsp in split_nals(stream)
             if t in (NalType.IDR, NalType.TRAIL)]
 
 
-def phase_main(stats, card):
-    from x266_tpu.core.hashing import frame_md5
-    from x266_tpu.core.yuv import synthetic_clip
-    from x266_tpu_torch.api import Decoder, Encoder
+def _reset_launches():
     from x266_tpu_torch.engine import recon_cuda
-
-    with open(REF_JSON) as f:
-        ref = json.load(f)["frames"]
-    w, h, n = 1920, 1080, 4
-    cfg = main_cfg()
-    frames = synthetic_clip(w, h, n, "mixed")
-    t0 = time.perf_counter()
-    enc = Encoder(cfg, device="cuda", with_recon=True, batch_frames=4)
-    dec = Decoder(device="cuda")
-    log(f"[main] encoder/decoder set-up {time.perf_counter() - t0:.1f} s")
+    from x266_tpu_torch.kernels import me_cuda
 
     recon_cuda.reset_launches()
+    me_cuda.reset_launches()
+
+
+def _launches():
+    from x266_tpu_torch.engine import recon_cuda
+    from x266_tpu_torch.kernels import me_cuda
+
+    return {**recon_cuda.LAUNCHES, **me_cuda.LAUNCHES}
+
+
+def run_main(tag, cfg, kind, ref_name, kernels, stats, card, **enc_kw):
+    """Frames 0-3 of the clip through Encoder() and Decoder() (on the
+    card by default), held against the JAX reference file; the launch
+    counts of the run; one warm encode's frame rate."""
+    from x266_tpu_torch.api import Decoder, Encoder
+    from x266_tpu_torch.core.hashing import frame_md5
+    from x266_tpu_torch.core.yuv import synthetic_clip
+
+    with open(os.path.join(DATA, ref_name)) as f:
+        ref = json.load(f)["frames"]
+    w, h, n = cfg.width, cfg.height, 4
+    frames = synthetic_clip(w, h, n, kind)
+    t0 = time.perf_counter()
+    enc = Encoder(cfg, with_recon=True, **enc_kw)
+    dec = Decoder()
+    log(f"[{tag}] encoder/decoder set-up {time.perf_counter() - t0:.1f} s")
+
+    _reset_launches()
     t0 = time.perf_counter()
     res = enc.encode(frames)
     t_enc = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, decoded = dec.decode(res.bitstream)
     t_dec = time.perf_counter() - t0
-    launches = dict(recon_cuda.LAUNCHES)
-    log(f"[main] first encode {t_enc:.2f} s, decode {t_dec:.2f} s, "
+    launches = _launches()
+    log(f"[{tag}] first encode {t_enc:.2f} s, decode {t_dec:.2f} s, "
         f"launches {launches}")
 
     rec_md5 = [frame_md5(r) for r in res.recon]
     dec_md5 = [frame_md5(d) for d in decoded]
     if rec_md5 != dec_md5:
-        raise AssertionError("decoded pictures differ from the encoder's "
-                             "recon")
+        raise AssertionError(f"{tag}: decoded pictures differ from the "
+                             "encoder's recon")
+    if not all(f.y.shape == (h, w) for f in decoded):
+        raise AssertionError(f"{tag}: decoded picture shape")
     psnrs = res.psnr_y(w, h)
     nal_md5 = _slice_md5s(res.bitstream)
     for i, r in enumerate(ref):
         ident = nal_md5[i] == r["nal_md5"]
-        log(f"[main] frame {i}: {res.frame_bits[i]} bits (ref {r['bits']}), "
-            f"PSNR-Y {psnrs[i]:.4f} dB (ref {r['psnr_y']:.4f}), nal md5 "
+        log(f"[{tag}] frame {i}: {res.frame_bits[i]} bits (ref {r['bits']}),"
+            f" PSNR-Y {psnrs[i]:.4f} dB (ref {r['psnr_y']:.4f}), nal md5 "
             f"{nal_md5[i]} byte-identical {ident}, recon md5 "
             f"{'==' if rec_md5[i] == r['recon_md5'] else '!='} ref")
         if abs(res.frame_bits[i] - r["bits"]) > BITS_TOL * r["bits"]:
-            raise AssertionError(f"frame {i} bits outside +-0.5%")
+            raise AssertionError(f"{tag}: frame {i} bits outside +-0.5%")
         if abs(psnrs[i] - r["psnr_y"]) > PSNR_TOL:
-            raise AssertionError(f"frame {i} PSNR outside +-0.02 dB")
-        if not all(f.y.shape == (h, w) for f in decoded):
-            raise AssertionError("decoded picture shape")
-    for k in ("K1", "K2"):
+            raise AssertionError(f"{tag}: frame {i} PSNR outside +-0.02 dB")
+    for k in kernels:
         if launches[k] < 1:
             raise AssertionError(f"{k} was not launched on the main path")
         stats[k]["launches"] = launches[k]
@@ -266,7 +557,7 @@ def phase_main(stats, card):
     t0 = time.perf_counter()
     enc.encode(frames)
     t_warm = time.perf_counter() - t0
-    log(f"[main] warm encode of {n} 1080p frames: {t_warm:.3f} s = "
+    log(f"[{tag}] warm encode of {n} {w}x{h} frames: {t_warm:.3f} s = "
         f"{n / t_warm:.3f} fps on {card}")
 
 
@@ -277,18 +568,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     stats = {k: {"max_abs_err": 0, "launches": 0, "ms": None,
-                 "plain_ms": None} for k in KERNELS}
+                 "plain_ms": None, "bound_ms": None, "bound_by": None,
+                 "library_ms": None} for k in KERNELS}
+    t_start = time.perf_counter()
     phase_environment()
     card = card_line()
     phase_build()
     phase_kernels(stats)
+    phase_kernels_p(stats)
     phase_golden()
-    phase_main(stats, card)
+    run_main("main", main_cfg(), "mixed", "cfg2_1080p_ref.json",
+             ("K1", "K2"), stats, card, batch_frames=4)
+    run_main("main-p", cfg3(), "motion", "cfg3_1080p_ref.json",
+             ("K3", "K3d", "K4", "K5"), stats, card)
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": [
-        {"name": f"{k} {KERNELS[k][0]}", "route": "cuda", "source": SOURCE,
-         "replaces": KERNELS[k][1], "launches": stats[k]["launches"],
-         "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
-         "plain_ms": stats[k]["plain_ms"], "shape": stats[k]["shape"]}
+        {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",
+         "source": KERNELS[k][1], "replaces": KERNELS[k][2],
+         **{key: stats[k][key] for key in (
+             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "shape")}}
         for k in KERNELS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

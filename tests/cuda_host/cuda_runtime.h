@@ -7,9 +7,13 @@
 // their CUDA namesakes do (build with -ffp-contract=off).  This checks a
 // kernel's logic and arithmetic; it says nothing about speed, occupancy
 // or races that the block-wide barriers do not already order.
+//
+// X266_ASSERT(cond), a no-op in the card build, records a failed check
+// here (an out-of-range read, say); the launch then returns an error.
 
 #pragma once
 
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -35,6 +39,12 @@ inline std::barrier<>* host_block_barrier = nullptr;
 #define __constant__
 #define __launch_bounds__(n)
 
+inline std::atomic<bool> host_check_failed{false};
+#define X266_ASSERT(cond)                          \
+  do {                                             \
+    if (!(cond)) host_check_failed = true;         \
+  } while (0)
+
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
@@ -51,6 +61,7 @@ inline float __fadd_rn(float a, float b) {
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr cudaError_t cudaSuccess = 0;
+constexpr cudaError_t cudaErrorHostCheck = 1;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 
@@ -72,5 +83,6 @@ cudaError_t cudaLaunchKernel(void (*kernel)(P), dim3 grid, dim3 block,
       });
     for (auto& th : threads) th.join();
   }
-  return cudaSuccess;
+  return host_check_failed.exchange(false) ? cudaErrorHostCheck
+                                           : cudaSuccess;
 }

@@ -1,5 +1,6 @@
-"""The port on a CUDA device: kernels K1/K2 against the plain scan, and
-Encoder/Decoder(device="cuda") against the CPU path (exact equality).
+"""The port on a CUDA device: kernels K1/K2 against the plain scan, K3-P,
+K4 and K5 against their plain versions, and Encoder/Decoder on the card
+against the CPU path (exact equality), all-intra and low-delay P.
 
 This file imports no JAX, so it runs on a host without it; there, skip
 tests/conftest.py (which imports jax):
@@ -7,21 +8,23 @@ tests/conftest.py (which imports jax):
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Tests marked gpu skip when no CUDA device is visible.  The unmarked ones
-check what holds on any host: the kernel wrapper refuses CPU tensors
-(no fallback) and device resolution never picks a device by itself.
+check what holds on any host: the kernel wrappers refuse CPU tensors
+(no fallback), device resolution never picks a device by itself, and
+the entry points default to the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from x266_tpu.config import CodecConfig, Profile, preset_cfg2
-from x266_tpu.core.hashing import frame_md5
-from x266_tpu.core.yuv import synthetic_clip
 from x266_tpu_torch import device as devmod
 from x266_tpu_torch import tables
 from x266_tpu_torch.api import Decoder, Encoder
-from x266_tpu_torch.engine import fused, recon, recon_cuda
+from x266_tpu_torch.config import CodecConfig, Profile, preset_cfg2
+from x266_tpu_torch.core.hashing import frame_md5
+from x266_tpu_torch.core.yuv import synthetic_clip
+from x266_tpu_torch.engine import fused, inter, recon, recon_cuda
+from x266_tpu_torch.kernels import me, me_cuda
 
 CFGS = [
     CodecConfig(width=104, height=72, qp=30),
@@ -30,7 +33,15 @@ CFGS = [
     CodecConfig(width=104, height=72, qp=30, ref_substitute=True),
     preset_cfg2(128, 64),
 ]
-NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr"]
+NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
+         "mvx_fin", "mvy_fin"]
+PCFGS = [
+    CodecConfig(width=112, height=80, qp=30, intra_period=8),
+    CodecConfig(width=128, height=64, qp=35, intra_period=8,
+                max_cu_size=16),
+    CodecConfig(width=112, height=80, qp=30, intra_period=8,
+                merge_cands=True, ref_substitute=True),
+]
 
 
 @pytest.fixture
@@ -85,11 +96,87 @@ def test_encode_decode_on_card_equals_cpu(cuda):
     assert recon_cuda.LAUNCHES["K2"] == before["K2"] + 3
 
 
+def _p_inputs(cfg, device, seed=3):
+    """A P picture (a mixed frame) with the frame shifted as its
+    reference: padded planes, pyramids, the ME inputs and Pass-A maps."""
+    tab = tables.from_reference(cfg, device)
+    f = synthetic_clip(cfg.width, cfg.height, 1, "mixed", seed=seed)[0]
+    planes = [torch.from_numpy(getattr(f, p)[None].copy()).to(device)
+              for p in ("y", "cb", "cr")]
+    refs = [torch.roll(p[0], sh, (0, 1))
+            for p, sh in zip(planes, ((2, -3), (1, -1), (1, -1)))]
+    pyrs = fused.build_pyramids_device(*refs)
+    src = fused._unpack_padded(cfg, *planes)
+    cur = me._ceil_pad(planes[0][0].to(torch.int32)).contiguous()
+    base = me.coarse_search(cur, pyrs[0], float(cfg.lambda_mode))
+    maps = [m[None] for m in inter.make_mode_decision_p_raw(cfg, tab)(
+        src[0][0], pyrs[0])]
+    args = (maps[0], maps[1], torch.zeros_like(maps[0]), *maps[2:], *pyrs)
+    return tab, src, pyrs, cur, base, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", PCFGS, ids=["cu32", "cu16", "merge-subst"])
+def test_inter_kernels_match_plain_on_card(cfg, cuda):
+    tab, src, pyrs, cur, base, args = _p_inputs(cfg, cuda)
+    assert torch.equal(me_cuda.refine_search(cur, pyrs[0], base),
+                       me.refine_search_ref(cur, pyrs[0], base))
+    mvs = torch.stack([base * 4, -base * 4]).contiguous()
+    assert torch.equal(me_cuda.warp_frames_cuda(pyrs[0], mvs),
+                       me_cuda.warp_frames_ref(pyrs[0], mvs))
+    got = recon_cuda.recon_inter(cfg, tab, True, *src, *args)
+    want = inter.make_recon_inter_raw(cfg, tab, True)(*src, *args)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    dargs = (*args[:4], got[6].int(), got[7].int(), *args[6:])
+    dec = recon_cuda.recon_inter(cfg, tab, False, *got[3:6], *dargs)
+    for n, w, g in zip(NAMES, want, dec):
+        assert torch.equal(w, g), n
+
+
+@pytest.mark.gpu
+def test_lowdelay_encode_decode_on_card_equals_cpu(cuda):
+    cfg = CodecConfig(width=128, height=64, qp=32, intra_period=4,
+                      rdoq=True, ref_substitute=True, merge_cands=True)
+    frames = synthetic_clip(128, 64, 5, "motion", seed=3)
+    me_cuda.reset_launches()
+    recon_cuda.reset_launches()
+    on_card = Encoder(cfg).encode(frames)
+    on_cpu = Encoder(cfg, device="cpu").encode(frames)
+    assert on_card.bitstream == on_cpu.bitstream
+    _, dec = Decoder().decode(on_card.bitstream)
+    assert ([frame_md5(d) for d in dec]
+            == [frame_md5(r) for r in on_card.recon]
+            == [frame_md5(r) for r in on_cpu.recon])
+    assert recon_cuda.LAUNCHES["K3"] == recon_cuda.LAUNCHES["K3d"] == 3
+    assert me_cuda.LAUNCHES["K4"] == me_cuda.LAUNCHES["K5"] == 3
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     cfg = CFGS[0]
     tab, src, maps = _inputs(cfg, "cpu", n=1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+
+
+def test_motion_kernel_wrappers_refuse_cpu_tensors():
+    cfg = PCFGS[0]
+    tab, src, pyrs, cur, base, args = _p_inputs(cfg, "cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        me_cuda.refine_search(cur, pyrs[0], base)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        me_cuda.warp_frames_cuda(pyrs[0], base[None].contiguous())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        recon_cuda.recon_inter(cfg, tab, True, *src, *args)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a host without a card")
+    with pytest.raises(RuntimeError, match="is_available"):
+        Encoder(CodecConfig(width=64, height=64))
+    with pytest.raises(RuntimeError, match="is_available"):
+        Decoder()
 
 
 def test_device_is_never_chosen_implicitly():

@@ -7,10 +7,24 @@ PSNR, which the reference sums in float32 (F4): within 1e-4 dB.
 - a 3-frame 128x64 config-2 shaped clip gives the JAX encoder's bytes,
   the port decodes the JAX stream to JAX's recon, and the JAX decoder
   decodes the port's stream to the port's recon;
+- a 5-frame 128x64 low-delay clip (config-3 shaped, IDR every 4 frames:
+  I P P P I), plain and with merge candidates, AMVP and signalled
+  reference lists, gives the JAX encoder's bytes and recon, and the
+  streams cross-decode: the port decodes the JAX stream, and the JAX
+  decoder's MD5s of that same stream equal the port's recon.  The JAX
+  side is recorded in x266_tpu_torch/data/p128x64_ref.json by
+  tools/make_torch_refs.py (compiling the JAX GOP encode here would add
+  over a minute to the suite); one live anchor ties that file to JAX:
+  its configs are the tool's, and the JAX decoder decodes its plain
+  stream to its recorded recon;
+- P slices whose reference is missing, or whose MVs read past the pad,
+  are refused;
 - the one-frame device step gives what the batched step gives per frame;
 - configurations outside the slice raise NotImplementedError.
 """
 
+import base64
+import importlib.util
 import json
 import os
 
@@ -22,7 +36,10 @@ from x266_tpu.api import Encoder as JaxEncoder
 from x266_tpu.config import CodecConfig, preset_cfg2
 from x266_tpu.core.hashing import frame_md5
 from x266_tpu.core.yuv import synthetic_clip
+from x266_tpu_torch import config as tconfig
 from x266_tpu_torch.api import Decoder, Encoder
+from x266_tpu_torch.core.headers import parse_slice_header
+from x266_tpu_torch.core.nal import NalType, split_nals
 from x266_tpu_torch.engine.picture import (tile_compute_async, tile_entropy,
                                            tiles_compute_batched_async)
 
@@ -71,6 +88,97 @@ def test_cfg2_clip_matches_jax_both_ways():
     assert [frame_md5(d) for d in jdec] == port_md5
 
 
+@pytest.mark.parametrize("variant", ["plain", "merge-amvp-rpl"])
+def test_lowdelay_p_clip_matches_jax_both_ways(variant):
+    with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
+                           "p128x64_ref.json")) as f:
+        data = json.load(f)
+    ref = data["variants"][variant]
+    kw = dict(data["base"], **ref["tools"])
+    frames = synthetic_clip(128, 64, 5, "motion", seed=3)
+    port = Encoder(tconfig.CodecConfig(**kw), device="cpu").encode(frames)
+    stream = base64.b64decode(ref["stream_b64"])
+    assert port.bitstream == stream
+    assert port.frame_bits == ref["frame_bits"]
+    port_md5 = [frame_md5(r) for r in port.recon]
+    assert port_md5 == ref["recon_md5"] == ref["decode_md5"]
+    assert np.allclose(port.psnr_y(128, 64), ref["psnr_y"], rtol=0,
+                       atol=1e-4)
+    cfg = tconfig.CodecConfig(**kw)
+    kinds = [parse_slice_header(rbsp, False, cfg.ctus_y * cfg.ctus_x,
+                                has_rpl=cfg.rpl)[0].slice_type.name
+             for t, rbsp in split_nals(port.bitstream)
+             if t in (NalType.IDR, NalType.TRAIL)]
+    assert kinds == ["I", "P", "P", "P", "I"]
+    _, dec = Decoder(device="cpu").decode(stream)
+    assert [frame_md5(d) for d in dec] == port_md5
+
+
+def test_recorded_lowdelay_streams_match_live_jax():
+    """Ties p128x64_ref.json to the JAX package: its configs and clip are
+    those tools/make_torch_refs.py encodes, and the JAX decoder decodes
+    its plain stream (the port's bytes, by the test above) to the
+    recorded recon MD5s.  The merge-amvp-rpl stream is decoded by the
+    tool only: here it would compile a second JAX GOP path."""
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_refs", os.path.join(os.path.dirname(__file__), "..",
+                                        "tools", "make_torch_refs.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
+                           "p128x64_ref.json")) as f:
+        data = json.load(f)
+    assert data["base"] == tool.P128_BASE
+    assert data["clip"] == "synthetic_clip(128, 64, 5, 'motion', seed=3)"
+    assert {v: r["tools"] for v, r in data["variants"].items()} == \
+        tool.P128_TOOLS
+    ref = data["variants"]["plain"]
+    _, jdec = JaxDecoder().decode(base64.b64decode(ref["stream_b64"]))
+    assert [frame_md5(d) for d in jdec] == ref["recon_md5"]
+
+
+def _p_slice(cfg, poc, ref_poc, mv_x):
+    """A P slice RBSP of inter CUs at MV (mv_x, 0) referencing ref_poc."""
+    from x266_tpu_torch.config import SliceType
+    from x266_tpu_torch.engine.picture import assemble_slice, code_segments
+
+    units = np.zeros((cfg.units_y, cfg.units_x), np.int32)
+    zeros = [np.zeros((64, 64), np.int32)] + [np.zeros((32, 32), np.int32)] * 2
+    segs = code_segments(cfg, units + 8, units, *zeros, units,
+                         (units + 1, units + mv_x, units))
+    return assemble_slice(cfg, poc, segs, SliceType.P, [[ref_poc]])
+
+
+@pytest.mark.parametrize("rpl", [False, True])
+def test_p_slice_without_its_reference_is_refused(rpl):
+    """A P slice whose reference is not in the DPB -- without a reference
+    list, no picture before it; with one, a POC never decoded -- is
+    refused with a clear error."""
+    from x266_tpu_torch.core.nal import write_nal
+
+    cfg = tconfig.CodecConfig(width=64, height=64, intra_period=4, rpl=rpl)
+    good = Encoder(cfg, device="cpu").encode(
+        synthetic_clip(64, 64, 1, "motion", seed=1)).bitstream
+    poc = 2 if rpl else 0
+    bad = good + write_nal(NalType.TRAIL, _p_slice(cfg, poc, 1, 0))
+    with pytest.raises(ValueError, match="not in the DPB"):
+        Decoder(device="cpu").decode(bad)
+
+
+def test_p_stream_mv_beyond_the_pad_is_refused():
+    """A P slice whose MVs would read past the reference's pad: the
+    reference clamps such reads, the kernel cannot, so the decoder
+    refuses the stream instead."""
+    from x266_tpu_torch.core.nal import write_nal
+
+    cfg = tconfig.CodecConfig(width=64, height=64, intra_period=4)
+    good = Encoder(cfg, device="cpu").encode(
+        synthetic_clip(64, 64, 1, "motion", seed=1)).bitstream
+    bad = good + write_nal(NalType.TRAIL, _p_slice(cfg, 1, 0, 4 * 90))
+    with pytest.raises(ValueError, match="MV beyond"):
+        Decoder(device="cpu").decode(bad)
+
+
 def test_single_frame_step_equals_batched():
     cfg = preset_cfg2(64, 64)
     enc = Encoder(cfg, device="cpu")
@@ -84,7 +192,7 @@ def test_single_frame_step_equals_batched():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(intra_period=4), dict(deblock=True), dict(tile_rows=1),
+    dict(gop_size=4), dict(deblock=True), dict(tile_rows=1),
     dict(lossless=True), dict(transform_skip=True),
     dict(sign_data_hiding=True), dict(bit_depth=10)])
 def test_out_of_slice_configs_raise(kw):

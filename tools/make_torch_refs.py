@@ -1,18 +1,28 @@
 """Write the JAX reference results that the PyTorch port is held to on a
 machine without JAX.
 
-Encodes frames 0-3 of the config-2 main path (all-intra 1080p VVC,
-``preset_cfg2`` + one entropy segment per CTU row + WPP context
-inheritance, the ``bench.py`` headline configuration) with the JAX
-package on the CPU, and records per frame the coded bits, the
-device-accounted PSNR-Y, the MD5 of the slice NAL and the MD5 of the
-reconstruction.  ``chip_smoke.py`` compares the port's encode of the same
-frames against this file.
+Encodes frames 0-3 of a main-path clip with the JAX package on the CPU
+and records per frame the coded bits, the device-accounted PSNR-Y, the
+MD5 of the slice NAL and the MD5 of the reconstruction.
+``chip_smoke.py`` compares the port's encode of the same frames against
+these files.
 
-    python tools/make_torch_refs.py      # about a minute per frame
+- cfg2: all-intra 1080p VVC (``preset_cfg2`` + one entropy segment per
+  CTU row + WPP context inheritance, the ``bench.py`` headline
+  configuration) on the 'mixed' clip -> data/cfg2_1080p_ref.json;
+- cfg3: low-delay P 1080p (``preset_cfg3``: IDR then P pictures) on the
+  'motion' clip -> data/cfg3_1080p_ref.json;
+- p128x64: the JAX encoder's whole stream, its recon MD5s and the JAX
+  decoder's MD5s of that stream for a 5-frame 128x64 low-delay clip
+  (I P P P I), plain and with merge candidates, AMVP and signalled
+  reference lists -> data/p128x64_ref.json, which
+  tests/test_torch_pipeline.py holds the port's CPU encoder and decoder
+  to (compiling the JAX GOP path in the test would cost over a minute).
 
-Output: x266_tpu_torch/data/cfg2_1080p_ref.json
+    python tools/make_torch_refs.py [cfg2] [cfg3] [p128x64]
+    # default: all; minutes per 1080p frame, about a minute for p128x64
 """
+import base64
 import hashlib
 import json
 import os
@@ -27,13 +37,21 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 from x266_tpu.api import Decoder, Encoder  # noqa: E402
-from x266_tpu.config import preset_cfg2  # noqa: E402
+from x266_tpu.config import CodecConfig, preset_cfg2, preset_cfg3  # noqa
 from x266_tpu.core.hashing import frame_md5  # noqa: E402
 from x266_tpu.core.nal import NalType, split_nals, write_nal  # noqa: E402
 from x266_tpu.core.yuv import synthetic_clip  # noqa: E402
 
 W, H, N = 1920, 1080, 4
-OUT = os.path.join(ROOT, "x266_tpu_torch", "data", "cfg2_1080p_ref.json")
+DATA = os.path.join(ROOT, "x266_tpu_torch", "data")
+REFS = {
+    "cfg2": (lambda: preset_cfg2(W, H).replace(rows_per_segment=1,
+                                                ctx_inherit=True),
+             "preset_cfg2(1920, 1080).replace(rows_per_segment=1, "
+             "ctx_inherit=True)", "mixed"),
+    "cfg3": (lambda: preset_cfg3(W, H), "preset_cfg3(1920, 1080)",
+             "motion"),
+}
 
 
 def slice_nal_md5s(stream: bytes) -> list[str]:
@@ -42,9 +60,10 @@ def slice_nal_md5s(stream: bytes) -> list[str]:
             if t in (NalType.IDR, NalType.TRAIL)]
 
 
-def main() -> None:
-    cfg = preset_cfg2(W, H).replace(rows_per_segment=1, ctx_inherit=True)
-    frames = synthetic_clip(W, H, N, "mixed")
+def make(name: str) -> None:
+    make_cfg, cfg_text, kind = REFS[name]
+    cfg = make_cfg()
+    frames = synthetic_clip(W, H, N, kind)
     t0 = time.time()
     res = Encoder(cfg, with_recon=True).encode(frames)
     secs = time.time() - t0
@@ -53,9 +72,8 @@ def main() -> None:
                                            for r in res.recon]
     out = {
         "source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
-        "config": "preset_cfg2(1920, 1080).replace(rows_per_segment=1, "
-                  "ctx_inherit=True)",
-        "clip": "synthetic_clip(1920, 1080, 4, 'mixed')",
+        "config": cfg_text,
+        "clip": f"synthetic_clip(1920, 1080, 4, '{kind}')",
         "stream_md5": hashlib.md5(res.bitstream).hexdigest(),
         "frames": [
             {"poc": i, "bits": int(b), "psnr_y": float(p),
@@ -64,11 +82,46 @@ def main() -> None:
                 res.frame_bits, res.psnr_y(W, H),
                 slice_nal_md5s(res.bitstream), res.recon))],
     }
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT, "w") as f:
+    path = os.path.join(DATA, f"{name}_1080p_ref.json")
+    os.makedirs(DATA, exist_ok=True)
+    with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out["frames"]))
-    print(f"wrote {OUT} ({secs:.0f} s to encode)")
+    print(f"wrote {path} ({secs:.0f} s to encode)")
+
+
+# the small low-delay clip: config-3 shaped at 128x64, IDR every 4 frames
+P128_BASE = dict(width=128, height=64, qp=32, intra_period=4, rdoq=True,
+                 ref_substitute=True)
+P128_TOOLS = {"plain": {},
+              "merge-amvp-rpl": dict(merge_cands=True, amvp=True, rpl=True)}
+
+
+def make_p128() -> None:
+    frames = synthetic_clip(128, 64, 5, "motion", seed=3)
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "clip": "synthetic_clip(128, 64, 5, 'motion', seed=3)",
+           "base": P128_BASE, "variants": {}}
+    for name, tools in P128_TOOLS.items():
+        res = Encoder(CodecConfig(**P128_BASE, **tools),
+                      with_recon=True).encode(frames)
+        _, dec = Decoder().decode(res.bitstream)
+        out["variants"][name] = {
+            "tools": tools,
+            "stream_b64": base64.b64encode(res.bitstream).decode(),
+            "frame_bits": [int(b) for b in res.frame_bits],
+            "psnr_y": [float(p) for p in res.psnr_y(128, 64)],
+            "recon_md5": [frame_md5(r) for r in res.recon],
+            "decode_md5": [frame_md5(d) for d in dec]}
+    path = os.path.join(DATA, "p128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
+def main() -> None:
+    for name in sys.argv[1:] or [*REFS, "p128x64"]:
+        make_p128() if name == "p128x64" else make(name)
 
 
 if __name__ == "__main__":

@@ -76,6 +76,13 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.x266_recon_intra.argtypes = (
         [i] * 9 + [fl] + [i] * 4 + [p] * 20 + [p])   # ..., stream
     lib.x266_recon_intra.restype = i
+    lib.x266_recon_inter.argtypes = (
+        [i] * 8 + [fl] + [i] * 9 + [p] * 28 + [p])  # ..., stream
+    lib.x266_recon_inter.restype = i
+    lib.x266_warp_frames.argtypes = [i] * 5 + [p] * 4
+    lib.x266_warp_frames.restype = i
+    lib.x266_refine_search.argtypes = [i] * 4 + [p] * 5
+    lib.x266_refine_search.restype = i
     lib.x266_error_string.argtypes = [i]
     lib.x266_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,4 +1,5 @@
-// Intra reconstruction scan, kernels K1 (encode) and K2 (decode).
+// Reconstruction scan: kernels K1 (intra encode), K2 (intra decode) and
+// K3-P (P-picture encode and decode).
 //
 // Replaces the Pallas TPU kernel x266_tpu/engine/recon_pallas.py:
 // _build_pallas (inter=False; pl.pallas_call at :943), which is the
@@ -31,6 +32,23 @@
 // -fmad=false), so no FMA contraction changes which level wins.  qp and
 // lambda are runtime arguments.
 //
+// K3-P replaces the same Pallas kernel with inter=True, b_mode=False
+// (make_recon_inter_pallas_raw, recon_pallas.py:1075-1152).  Its plain
+// version is engine/inter.py (make_recon_inter_raw).  A P picture's CU is
+// intra (K1's TU pipeline unchanged), inter (MC from the previous
+// picture's 16-plane pyramids at the CU's MV, then the residual) or skip
+// (MC at a derived MV, zero levels).  The skip MV comes from a unit
+// MV-state plane -- the final-MV output planes themselves, in global
+// memory: the left unit's MV if its CU is a coded-MV inter CU, else the
+// above unit's while inside the CTU row's 8 unit rows, else (0, 0); skip
+// CUs' own MVs are never predictors (one hop).  Under merge candidates
+// the encoder takes the above rule when the mvx map holds 1 and the
+// decoder the MV the entropy walker resolved.  MC reads the pyramid plane
+// (mvy&3)*4 + (mvx&3) at x + REF_PAD + (mvx>>2); chroma uses mv >> 1 on
+// the chroma pyramids.  Each CU writes its final MV over its units.  What
+// bounds it is the same serial chain as K1, and P pictures depend on each
+// other, so a launch holds one frame: one block walks the picture.
+//
 // The launch goes through cudaLaunchKernel rather than <<<...>>>, so this
 // file is plain C++ apart from CUDA's built-ins: tests/test_torch_kernel_host.py
 // compiles it with g++ against a host stand-in of the runtime
@@ -38,6 +56,10 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifndef X266_ASSERT
+#define X266_ASSERT(cond) ((void)0)   // checked on the host stand-in only
+#endif
 
 namespace {
 
@@ -47,6 +69,8 @@ constexpr int kWinY = 1 + 96;     // luma window: CTU origin -1 .. +95
 constexpr int kWinC = 1 + 48;     // chroma window
 constexpr int kMaxS = 32;
 constexpr int kMaxR = 4 * kMaxS + 1;
+constexpr int kRefPad = 80;       // kernels/interp.py REF_PAD
+constexpr int kSkip = 2, kIntra = 0;   // engine/inter.py PRED_*
 
 // specmodel.quant QUANT_SCALES / DEQUANT_SCALES
 __constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
@@ -65,6 +89,12 @@ struct Params {
   int16_t* coef_out[3];           // encode: levels
   const int32_t *taps, *smooth, *tx, *shift;
   const float* rate;              // (32768,) rate surrogate
+  // K3-P only (frames == 1)
+  int merge;                      // merge candidates on
+  const int32_t *pred_map, *mvx_map, *mvy_map;   // (H/8, W/8)
+  const uint8_t* pyr[3];          // (16, Hp, Wp) luma, Cb, Cr
+  int pyr_h[2], pyr_w[2];         // luma, chroma pyramid plane sizes
+  int16_t* mv_out[2];             // final MVs (H/8, W/8); the MV state
 };
 
 struct Shared {
@@ -142,15 +172,20 @@ __device__ __forceinline__ uint8_t& at(const View& v, int x, int y) {
 }
 
 // One TU at plane coords (x, y), size s.  All threads of the block call
-// it with the same arguments.
+// it with the same arguments.  mc: the top-left sample of an inter CU's
+// MC block in its pyramid plane (row pitch mc_pitch), nullptr for intra;
+// skip: an inter CU coded without residual (encode writes zero levels).
 template <bool kEncode>
 __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
                    int s, int mode, int tv, int th, const uint8_t* src,
-                   int pitch, const int16_t* cin, int16_t* cout, int f) {
+                   int pitch, const int16_t* cin, int16_t* cout, int f,
+                   const uint8_t* mc = nullptr, int mc_pitch = 0,
+                   bool skip = false) {
   const int tid = threadIdx.x;
   const int r_len = 4 * s + 1;
   const int mid = 128;
 
+  if (mc == nullptr) {
   // 1. reference vector [corner, top 2s, left 2s] and its availability
   for (int i = tid; i < r_len; i += kThreads) {
     int px, py;
@@ -199,23 +234,29 @@ __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
     sh.dc = acc;
   }
   __syncthreads();
+  }
 
-  // 4. prediction; encode: residual into a
+  // 4. prediction (intra, or the MC block); encode: residual into a
   const int n = s * s;
   const int shift = __ldg(p.shift + size_index(s) * p.n_modes + mode);
   const int* tp = p.taps + taps_offset(s, p.n_modes) + (mode * n) * 4;
   for (int i = tid; i < n; i += kThreads) {
-    int acc;
-    if (mode == 1) {
-      acc = sh.dc;
+    int pr;
+    if (mc != nullptr) {
+      pr = __ldg(mc + (size_t)(i / s) * mc_pitch + i % s);
     } else {
-      acc = 0;
-      for (int t = 0; t < 4; ++t) {
-        int e = __ldg(tp + i * 4 + t);
-        acc += (e & 255) * sh.ext[e >> 8];
+      int acc;
+      if (mode == 1) {
+        acc = sh.dc;
+      } else {
+        acc = 0;
+        for (int t = 0; t < 4; ++t) {
+          int e = __ldg(tp + i * 4 + t);
+          acc += (e & 255) * sh.ext[e >> 8];
+        }
       }
+      pr = rshift_round(acc, shift);
     }
-    int pr = rshift_round(acc, shift);
     sh.pred[i] = pr;
     if (kEncode) sh.a[i] = src[(y + 1 + i / s) * pitch + x + 1 + i % s] - pr;
   }
@@ -228,7 +269,12 @@ __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
   const int cpitch = p.width / v.scale;
   const size_t cbase = (size_t)f * (p.width / v.scale) * (p.height / v.scale);
 
-  if (kEncode) {
+  if (kEncode && skip) {
+    for (int i = tid; i < n; i += kThreads) {
+      sh.a[i] = 0;
+      cout[cbase + (size_t)(y + i / s) * cpitch + x + i % s] = 0;
+    }
+  } else if (kEncode) {
     // 5. forward vertical: b[k][m] = sum_n Tv[k][n] a[n][m]
     for (int i = tid; i < n; i += kThreads) {
       int k = i / s, m = i % s, acc = 0;
@@ -324,9 +370,43 @@ __device__ void store_window(const View& v, uint8_t* rec, int x0, int y0,
   }
 }
 
-template <bool kEncode>
+// K3-P: the skip MV of the CU at unit (ux, uy) from the MV state.
+__device__ __forceinline__ bool coded_mv(int kind) {
+  return kind != kIntra && kind != kSkip;
+}
+
+__device__ void above_mv(const Params& p, int ux, int uy, int ux_n, int* mv) {
+  if (uy > 0 && (uy & 7) != 0 && coded_mv(p.pred_map[(uy - 1) * ux_n + ux])) {
+    mv[0] = p.mv_out[0][(uy - 1) * ux_n + ux];
+    mv[1] = p.mv_out[1][(uy - 1) * ux_n + ux];
+  } else {
+    mv[0] = mv[1] = 0;
+  }
+}
+
+__device__ void derive_mv(const Params& p, int ux, int uy, int ux_n,
+                          int* mv) {
+  if (ux > 0 && coded_mv(p.pred_map[uy * ux_n + ux - 1])) {
+    mv[0] = p.mv_out[0][uy * ux_n + ux - 1];
+    mv[1] = p.mv_out[1][uy * ux_n + ux - 1];
+  } else {
+    above_mv(p, ux, uy, ux_n, mv);
+  }
+}
+
+// K3-P: an inter CU's MC block origin in pyramid plane (mvy&3)*4 + (mvx&3);
+// the s x s block read from there must lie inside the plane.
+__device__ __forceinline__ const uint8_t* mc_origin(const uint8_t* pyr, int h,
+                                                    int w, int x, int y,
+                                                    int mvx, int mvy, int s) {
+  const int py = y + kRefPad + (mvy >> 2), px = x + kRefPad + (mvx >> 2);
+  X266_ASSERT(py >= 0 && py + s <= h && px >= 0 && px + s <= w);
+  return pyr + ((size_t)((mvy & 3) * 4 + (mvx & 3)) * h + py) * w + px;
+}
+
+template <bool kEncode, bool kInter>
 __global__ void __launch_bounds__(kThreads)
-recon_intra_kernel(Params p) {
+recon_kernel(Params p) {
   __shared__ Shared sh;
   const int f = blockIdx.x;
   const int w = p.width, h = p.height, cw = w / 2, ch = h / 2;
@@ -340,6 +420,11 @@ recon_intra_kernel(Params p) {
   const uint8_t* src_c[2] = {
       kEncode ? p.src[1] + (size_t)f * p.plane_c : nullptr,
       kEncode ? p.src[2] + (size_t)f * p.plane_c : nullptr};
+  if (kInter) {
+    for (int i = threadIdx.x; i < ux_n * uy_n; i += kThreads)
+      p.mv_out[0][i] = p.mv_out[1][i] = 0;
+    __syncthreads();
+  }
 
   for (int cy = 0; cy < ctus_y; ++cy) {
     for (int cx = 0; cx < ctus_x; ++cx) {
@@ -366,12 +451,45 @@ recon_intra_kernel(Params p) {
         // 0 DCT-II, 1 DST-VII, 2 DCT-VIII
         const int tvs[5] = {0, 1, 2, 1, 2}, ths[5] = {0, 1, 1, 2, 2};
         int x = ux * 8, y = uy * 8;
+        const int kind = kInter ? p.pred_map[mi] : kIntra;
+        const bool skip = kind == kSkip;
+        int mv[2] = {0, 0};
+        if (kInter) {
+          if (!skip || (p.merge && !kEncode)) {
+            mv[0] = p.mvx_map[mi];
+            mv[1] = p.mvy_map[mi];
+          } else if (p.merge && p.mvx_map[mi] == 1) {
+            above_mv(p, ux, uy, ux_n, mv);     // merge candidate 1
+          } else {
+            derive_mv(p, ux, uy, ux_n, mv);
+          }
+        }
+        const bool is_mc = kind != kIntra;
         tu<kEncode>(p, sh, vy, x, y, s, mode, tvs[mts], ths[mts], src_y,
-                    p.pitch_y, p.coef_in[0], p.coef_out[0], f);
+                    p.pitch_y, p.coef_in[0], p.coef_out[0], f,
+                    is_mc ? mc_origin(p.pyr[0], p.pyr_h[0], p.pyr_w[0], x,
+                                      y, mv[0], mv[1], s) : nullptr,
+                    p.pyr_w[0], skip);
         for (int c = 0; c < 2; ++c)
           tu<kEncode>(p, sh, vc[c], x / 2, y / 2, s / 2, mode, 0, 0,
                       src_c[c], p.pitch_c, p.coef_in[1 + c],
-                      p.coef_out[1 + c], f);
+                      p.coef_out[1 + c], f,
+                      is_mc ? mc_origin(p.pyr[1 + c], p.pyr_h[1], p.pyr_w[1],
+                                        x / 2, y / 2, mv[0] >> 1, mv[1] >> 1,
+                                        s / 2)
+                            : nullptr,
+                      p.pyr_w[1], skip);
+        if (kInter) {
+          // the CU's final MV over its units: the MV state of later CUs
+          for (int i = threadIdx.x; i < u * u; i += kThreads) {
+            int mux = ux + i % u, muy = uy + i / u;
+            if (mux < ux_n && muy < uy_n) {
+              p.mv_out[0][muy * ux_n + mux] = (int16_t)mv[0];
+              p.mv_out[1][muy * ux_n + mux] = (int16_t)mv[1];
+            }
+          }
+          __syncthreads();
+        }
       }
       store_window(vy, rec_y, x0, y0, kCtu);
       for (int c = 0; c < 2; ++c)
@@ -379,6 +497,45 @@ recon_intra_kernel(Params p) {
       __syncthreads();
     }
   }
+}
+
+void set_common(Params& p, int frames, int width, int height,
+                int pitch_y, int pitch_c, int plane_y, int plane_c, int qp,
+                float lam, int rdoq, int mts, int subst, int n_modes,
+                const void* const* src, const void* const* cin,
+                const void* size_map, const void* mode_map,
+                const void* mts_map, void* const* rec, void* const* cout,
+                const void* taps, const void* smooth, const void* tx,
+                const void* shift, const void* rate) {
+  p = Params{};
+  p.frames = frames; p.width = width; p.height = height;
+  p.pitch_y = pitch_y; p.pitch_c = pitch_c;
+  p.plane_y = plane_y; p.plane_c = plane_c;
+  p.qp = qp; p.lam = lam; p.rdoq = rdoq; p.mts = mts; p.subst = subst;
+  p.n_modes = n_modes;
+  for (int i = 0; i < 3; ++i) {
+    p.src[i] = (const uint8_t*)src[i];
+    p.coef_in[i] = (const int16_t*)cin[i];
+    p.rec[i] = (uint8_t*)rec[i];
+    p.coef_out[i] = (int16_t*)cout[i];
+  }
+  p.size_map = (const int32_t*)size_map; p.mode_map = (const int32_t*)mode_map;
+  p.mts_map = (const int32_t*)mts_map;
+  p.taps = (const int32_t*)taps; p.smooth = (const int32_t*)smooth;
+  p.tx = (const int32_t*)tx; p.shift = (const int32_t*)shift;
+  p.rate = (const float*)rate;
+}
+
+template <bool kInter>
+int launch(Params& p, int encode, void* stream) {
+  void* args[] = {&p};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      encode ? cudaLaunchKernel(recon_kernel<true, kInter>, dim3(p.frames),
+                                dim3(kThreads), args, 0, st)
+             : cudaLaunchKernel(recon_kernel<false, kInter>, dim3(p.frames),
+                                dim3(kThreads), args, 0, st);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -395,33 +552,52 @@ int x266_recon_intra(
     void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
     void* cout_cr, const void* taps, const void* smooth, const void* tx,
     const void* shift, const void* rate, void* stream) {
+  const void* src[3] = {src_y, src_cb, src_cr};
+  const void* cin[3] = {cin_y, cin_cb, cin_cr};
+  void* rec[3] = {rec_y, rec_cb, rec_cr};
+  void* cout[3] = {cout_y, cout_cb, cout_cr};
   Params p;
-  p.frames = frames; p.width = width; p.height = height;
-  p.pitch_y = pitch_y; p.pitch_c = pitch_c;
-  p.plane_y = plane_y; p.plane_c = plane_c;
-  p.qp = qp; p.lam = lam; p.rdoq = rdoq; p.mts = mts; p.subst = subst;
-  p.n_modes = n_modes;
-  p.src[0] = (const uint8_t*)src_y; p.src[1] = (const uint8_t*)src_cb;
-  p.src[2] = (const uint8_t*)src_cr;
-  p.coef_in[0] = (const int16_t*)cin_y; p.coef_in[1] = (const int16_t*)cin_cb;
-  p.coef_in[2] = (const int16_t*)cin_cr;
-  p.size_map = (const int32_t*)size_map; p.mode_map = (const int32_t*)mode_map;
-  p.mts_map = (const int32_t*)mts_map;
-  p.rec[0] = (uint8_t*)rec_y; p.rec[1] = (uint8_t*)rec_cb;
-  p.rec[2] = (uint8_t*)rec_cr;
-  p.coef_out[0] = (int16_t*)cout_y; p.coef_out[1] = (int16_t*)cout_cb;
-  p.coef_out[2] = (int16_t*)cout_cr;
-  p.taps = (const int32_t*)taps; p.smooth = (const int32_t*)smooth;
-  p.tx = (const int32_t*)tx; p.shift = (const int32_t*)shift;
-  p.rate = (const float*)rate;
-  void* args[] = {&p};
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      encode ? cudaLaunchKernel(recon_intra_kernel<true>, dim3(frames),
-                                dim3(kThreads), args, 0, st)
-             : cudaLaunchKernel(recon_intra_kernel<false>, dim3(frames),
-                                dim3(kThreads), args, 0, st);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  set_common(p, frames, width, height, pitch_y, pitch_c, plane_y,
+             plane_c, qp, lam, rdoq, mts, subst, n_modes, src, cin, size_map,
+             mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
+  return launch<false>(p, encode, stream);
+}
+
+// Launches K3-P on one P picture (encode != 0: the encoder's form) on
+// `stream`; returns cudaGetLastError().  Arguments as x266_recon_intra,
+// plus the inter maps, the reference's three pyramids (16, Hp, Wp) and
+// the final-MV planes (int16, H/8 x W/8).
+int x266_recon_inter(
+    int encode, int width, int height, int pitch_y, int pitch_c,
+    int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
+    int n_modes, int merge, int pyr_hy, int pyr_wy, int pyr_hc, int pyr_wc,
+    const void* src_y, const void* src_cb, const void* src_cr,
+    const void* cin_y, const void* cin_cb, const void* cin_cr,
+    const void* size_map, const void* mode_map, const void* mts_map,
+    const void* pred_map, const void* mvx_map, const void* mvy_map,
+    const void* pyr_y, const void* pyr_cb, const void* pyr_cr,
+    void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
+    void* cout_cr, void* mv_x, void* mv_y, const void* taps,
+    const void* smooth, const void* tx, const void* shift, const void* rate,
+    void* stream) {
+  const void* src[3] = {src_y, src_cb, src_cr};
+  const void* cin[3] = {cin_y, cin_cb, cin_cr};
+  void* rec[3] = {rec_y, rec_cb, rec_cr};
+  void* cout[3] = {cout_y, cout_cb, cout_cr};
+  Params p;
+  set_common(p, 1, width, height, pitch_y, pitch_c, plane_y,
+             plane_c, qp, lam, rdoq, mts, subst, n_modes, src, cin, size_map,
+             mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
+  p.merge = merge;
+  p.pred_map = (const int32_t*)pred_map;
+  p.mvx_map = (const int32_t*)mvx_map;
+  p.mvy_map = (const int32_t*)mvy_map;
+  p.pyr[0] = (const uint8_t*)pyr_y; p.pyr[1] = (const uint8_t*)pyr_cb;
+  p.pyr[2] = (const uint8_t*)pyr_cr;
+  p.pyr_h[0] = pyr_hy; p.pyr_w[0] = pyr_wy;
+  p.pyr_h[1] = pyr_hc; p.pyr_w[1] = pyr_wc;
+  p.mv_out[0] = (int16_t*)mv_x; p.mv_out[1] = (int16_t*)mv_y;
+  return launch<true>(p, encode, stream);
 }
 
 const char* x266_error_string(int err) {

@@ -1,4 +1,4 @@
-"""Torch counterparts of x266_tpu.engine: Pass A (mode_decision), Pass B
-(recon: the plain scan; recon_cuda: kernels K1/K2), the fused I-picture
-step (fused) and the picture glue around the reused entropy coder
-(picture)."""
+"""Torch counterparts of x266_tpu/engine: Pass A (mode_decision, and
+inter for P pictures), Pass B (recon and inter: the plain scans;
+recon_cuda: kernels K1/K2/K3-P), the fused I and P steps (fused) and the
+picture glue around the entropy coder (picture)."""

@@ -1,10 +1,15 @@
-"""The all-intra picture step on the device, for a batch of frames.
+"""The picture steps on the device: I pictures for a batch of frames,
+P pictures one at a time.
 
 Counterpart of x266_tpu/engine/fused.py: ``_unpack_padded`` (:59-71),
 the I step Pass A -> MTS select -> Pass B -> SSE (:554-631 with the SSE
-part of ``_filters_and_stats``, :417-419 and :483-486) and the decode
-step ``make_decode_step_i`` (:1182-1238).  Config 2 runs no deblock,
-SAO or ALF; those wait for a later slice.
+part of ``_filters_and_stats``, :417-419 and :483-486), the P step
+(``_p_body``, :651-703), the reference pyramids (``_pyr_target``,
+``_build_pyramids_device``, :493-525) and the I decode step
+(``make_decode_step_i`` :1182-1238; the P decode step,
+``make_decode_step_p`` :1098-1117, is engine.inter.recon_inter_pass
+with encode=False).  Configs 2 and 3 run no deblock, SAO, ALF or
+weighted prediction; those wait for a later slice.
 
 The reference vmaps its step over frames; here the frame is the leading
 dimension of the tensors and the grid dimension of the recon kernel.
@@ -17,12 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from x266_tpu.config import CodecConfig
-
+from x266_tpu_torch.config import CodecConfig
+from x266_tpu_torch.engine.inter import (make_mode_decision_p_raw,
+                                         recon_inter_pass)
 from x266_tpu_torch.engine.mode_decision import (make_mode_decision_raw,
                                                  make_mts_select_raw,
                                                  pad_plane)
 from x266_tpu_torch.engine.recon import recon_pass
+from x266_tpu_torch.kernels import interp
 from x266_tpu_torch.tables import Tables
 
 
@@ -62,10 +69,38 @@ def frame_sse(rec: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
     return (d.to(torch.int64) ** 2).sum((-2, -1))
 
 
-def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool):
+def _pyr_target(h: int, w: int) -> tuple[int, int]:
+    """The reference's pyramid plane shape for an (h, w) picture plane:
+    it covers every aligned-window read of the Pallas kernels, and the
+    port keeps it so every MC read lands where the reference's does."""
+    def up(n, m):
+        return -(-n // m) * m
+
+    wp = up(up(w, 16) + interp.REF_PAD + (interp.REF_PAD - 8), 128) + 256
+    hp = up(h, 16) + 2 * interp.REF_PAD + 48
+    return hp, wp
+
+
+def build_pyramids_device(y, cb, cr):
+    """(H, W) / (H/2, W/2) uint8 reconstruction -> the three (16, Hp, Wp)
+    uint8 pyramids of the next P picture's reference, zero-padded out
+    to _pyr_target, on the planes' device."""
+    def one(p, chroma):
+        pyr = interp.build_pyramid(interp.pad_ref(p), chroma)
+        hp, wp = _pyr_target(*p.shape)
+        return torch.nn.functional.pad(
+            pyr, (0, max(0, wp - pyr.shape[2]), 0,
+                  max(0, hp - pyr.shape[1])))
+
+    return one(y, False), one(cb, True), one(cr, True)
+
+
+def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool,
+                       with_pyramids: bool = False):
     """step(y, cb, cr) over F frames -> dict of device tensors:
     coef (Y, Cb, Cr) int16, maps size/mode/mts (F, H/8, W/8) int16,
-    sse (F, 3) int64 and, with with_recon, recon (Y, Cb, Cr) uint8."""
+    sse (F, 3) int64, with with_recon recon (Y, Cb, Cr) uint8 and, with
+    with_pyramids (F = 1), the next P picture's reference pyramids."""
     pass_a = make_pass_a(cfg, tab)
     rp = recon_pass(cfg, tab, encode=True)
 
@@ -77,6 +112,38 @@ def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool):
                "maps": tuple(m.to(torch.int16) for m in maps),
                "sse": torch.stack([frame_sse(y8, y), frame_sse(cb8, cb),
                                    frame_sse(cr8, cr)], dim=1)}
+        if with_recon:
+            out["recon"] = (y8, cb8, cr8)
+        if with_pyramids:
+            out["pyramids"] = build_pyramids_device(y8[0], cb8[0], cr8[0])
+        return out
+
+    return step
+
+
+def make_encode_step_p(cfg: CodecConfig, tab: Tables, with_recon: bool):
+    """step(y, cb, cr, pyr_y, pyr_cb, pyr_cr) for one frame (F = 1) and
+    the previous picture's pyramids -> the dict of make_encode_step_i
+    with maps size/mode/mts/pred/mvx/mvy (the final MVs, derived skip
+    MVs included) and the new pyramids, which stay on the device."""
+    mdp = make_mode_decision_p_raw(cfg, tab)
+    rp = recon_inter_pass(cfg, tab, encode=True)
+
+    def step(y, cb, cr, pyr_y, pyr_cb, pyr_cr):
+        yP, cbP, crP = _unpack_padded(cfg, y, cb, cr)
+        size_map, mode_map, pred_map, mvx_map, mvy_map = (
+            m[None] for m in mdp(yP[0], pyr_y))
+        mts_map = torch.zeros_like(size_map)     # MTS is intra-only
+        (y8, cb8, cr8, cY, cCb, cCr, mvx_fin, mvy_fin) = rp(
+            yP, cbP, crP, size_map, mode_map, mts_map, pred_map, mvx_map,
+            mvy_map, pyr_y, pyr_cb, pyr_cr)
+        out = {"coef": (cY, cCb, cCr),
+               "maps": (*(m.to(torch.int16) for m in (size_map, mode_map,
+                                                       mts_map, pred_map)),
+                        mvx_fin, mvy_fin),
+               "sse": torch.stack([frame_sse(y8, y), frame_sse(cb8, cb),
+                                   frame_sse(cr8, cr)], dim=1),
+               "pyramids": build_pyramids_device(y8[0], cb8[0], cr8[0])}
         if with_recon:
             out["recon"] = (y8, cb8, cr8)
         return out

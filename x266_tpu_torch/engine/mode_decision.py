@@ -21,8 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x266_tpu.config import CodecConfig
-from x266_tpu.engine import availability as avail
+from x266_tpu_torch.config import CodecConfig
+from x266_tpu_torch.engine import availability as avail
 
 from x266_tpu_torch.engine.availability import ref_masks
 from x266_tpu_torch.kernels import cost as kcost
@@ -35,6 +35,7 @@ PAD = 72                 # right/bottom plane padding, as the reference
 MODE_SIGNAL_BITS = 6.0   # flat estimate for coding one luma mode
 SPLIT_BITS = 2.0         # estimate for quadtree split signalling
 RD_MODES = 8             # modes surviving the SAD preselect into full RD
+RD_MODES_INTER = 4       # the same on P slices, where intra is the minority
 
 
 def pad_plane(img: torch.Tensor, mid: int = 128) -> torch.Tensor:
@@ -114,10 +115,11 @@ class _Geometry:
 
 
 def _eval_size(plane: torch.Tensor, size: int, cfg: CodecConfig,
-               tab: Tables, geom: _Geometry):
+               tab: Tables, geom: _Geometry, inter_slice: bool = False):
     """Best mode, its RD cost and its residual for every size-aligned
     block: (cost (gy, gx) f32, mode (gy, gx) i32, res (nb, s, s) i32).
-    Blocks partly outside the picture cost +inf."""
+    Blocks partly outside the picture cost +inf.  inter_slice keeps
+    RD_MODES_INTER modes after the SAD preselect instead of RD_MODES."""
     s = size
     gy, gx, mask, valid = geom.by_size[s]
     lam = torch.tensor(np.float32(cfg.lambda_mode), device=plane.device)
@@ -126,7 +128,7 @@ def _eval_size(plane: torch.Tensor, size: int, cfg: CodecConfig,
     orig = _block_gather(plane, gy, gx, s)[:, None]
     res = orig - preds
     nb, nm = preds.shape[:2]
-    k = min(RD_MODES, nm)
+    k = min(RD_MODES_INTER if inter_slice else RD_MODES, nm)
     sad = res.abs().sum((2, 3)).to(torch.float32)
     top = torch.sort(sad, dim=1, stable=True).indices[:, :k]  # (B, K)
     res_k = torch.gather(res, 1, top[:, :, None, None].expand(-1, -1, s, s))
@@ -175,10 +177,10 @@ def _check_cfg(cfg: CodecConfig) -> None:
                  "lfnst", "cclm"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} is not in the port's "
-                                      "first slice")
+                                      "slices")
     if cfg.max_cu_size > 32:
         raise NotImplementedError("max_cu_size 64 is not in the port's "
-                                  "first slice")
+                                  "slices")
 
 
 def make_mode_decision_raw(cfg: CodecConfig, tab: Tables,

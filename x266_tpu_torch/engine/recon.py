@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x266_tpu.config import CodecConfig
-from x266_tpu.engine import availability as avail
+from x266_tpu_torch.config import CodecConfig
+from x266_tpu_torch.engine import availability as avail
 
 from x266_tpu_torch.engine import recon_cuda
 from x266_tpu_torch.engine.availability import ref_masks
@@ -55,14 +55,26 @@ def _subst_tables(cfg: CodecConfig, device: torch.device):
 
 def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
         mask, rdoq_lam):
-    """One TU: (recon (s, s), levels (s, s)) int32."""
+    """One intra TU: (recon (s, s), levels (s, s)) int32."""
     ref = _gather_ref(plane, x, y, s)
     if mask is not None:
         ref = kintra.substitute_refs(ref, mask, cfg.mid_val)
     pred = kintra.predict_mode(tab, ref, mode, s)
+    return residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx,
+                         encode, rdoq_lam)
+
+
+def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
+                  rdoq_lam, skip=False):
+    """A TU's residual around its prediction pred (s, s) int32: encode
+    transforms and quantizes the source minus pred (zero levels when
+    skip), decode reads the levels; both dequantize, inverse-transform
+    and clip.  Returns (recon (s, s), levels (s, s)) int32."""
     tv, th = MTS_COMBOS[mts_idx]
     bd, qp = cfg.bit_depth, cfg.qp
-    if encode:
+    if encode and skip:
+        lev = torch.zeros((s, s), dtype=torch.int32, device=pred.device)
+    elif encode:
         res = src[y + 1:y + 1 + s, x + 1:x + 1 + s] - pred
         c = ktx.forward_transform(tab, res[None], s, tv, th, bd)
         if rdoq_lam is not None:
@@ -77,9 +89,15 @@ def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
 
 
 def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
-                masks):
+                masks, inter=None):
     """One frame of the scan.  a, b, c: padded sources (encode) or
-    coefficient planes (decode) as int32; maps as host numpy."""
+    coefficient planes (decode) as int32; maps as host numpy.
+
+    inter: a P picture's per-CU predictor (engine.inter.InterScan):
+    ``inter.predict(ux, uy, s)`` is called once per CU in coding order;
+    it returns None for an intra CU, else the CU's (luma, Cb, Cr) MC
+    predictions and its skip flag.  Its final MV planes are appended to
+    the outputs."""
     w, h = cfg.width, cfg.height
     cw, ch = w // 2, h // 2
     dev = a.device
@@ -113,35 +131,42 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
                 mode = int(mode_map[uy, ux])
                 mts_idx = int(mts_map[uy, ux]) & 7 if cfg.mts else 0
                 x, y = ux * 8, uy * 8
-                ml = (lum_masks[s][uy // u, ux // u]
-                      if lum_masks is not None else None)
-                rec, lev = _tu(tab, cfg, yP, src[0], coefs[0], x, y, mode,
-                               s, mts_idx, encode, ml, rdoq_lam)
-                yP[y + 1:y + 1 + s, x + 1:x + 1 + s] = rec
-                coefs[0][y:y + s, x:x + s] = lev
                 xc, yc, cs = x // 2, y // 2, s // 2
-                mc = (chro_masks[cs][yc // cs, xc // cs]
-                      if chro_masks is not None else None)
-                for p, (plane, k) in enumerate(((cbP, 1), (crP, 2))):
-                    rec, lev = _tu(tab, cfg, plane, src[k], coefs[k], xc,
-                                   yc, mode, cs, 0, encode, mc, rdoq_lam)
-                    plane[yc + 1:yc + 1 + cs, xc + 1:xc + 1 + cs] = rec
-                    coefs[k][yc:yc + cs, xc:xc + cs] = lev
-    return (yP[1:1 + h, 1:1 + w].to(torch.uint8),
-            cbP[1:1 + ch, 1:1 + cw].to(torch.uint8),
-            crP[1:1 + ch, 1:1 + cw].to(torch.uint8),
-            *(cf.to(torch.int16) for cf in coefs))
+                mcp = inter.predict(ux, uy, s) if inter is not None else None
+                planes = ((yP, 0, x, y, s, mts_idx),
+                          (cbP, 1, xc, yc, cs, 0), (crP, 2, xc, yc, cs, 0))
+                for plane, k, px, py, ps, m in planes:
+                    if mcp is not None:
+                        rec, lev = residual_path(
+                            tab, cfg, mcp[0][k], src[k], coefs[k], px, py,
+                            ps, m, encode, rdoq_lam, skip=mcp[1])
+                    else:
+                        lm = lum_masks if k == 0 else chro_masks
+                        msk = (lm[ps][py // ps, px // ps]
+                               if lm is not None else None)
+                        rec, lev = _tu(tab, cfg, plane, src[k], coefs[k],
+                                       px, py, mode, ps, m, encode, msk,
+                                       rdoq_lam)
+                    plane[py + 1:py + 1 + ps, px + 1:px + 1 + ps] = rec
+                    coefs[k][py:py + ps, px:px + ps] = lev
+    out = (yP[1:1 + h, 1:1 + w].to(torch.uint8),
+           cbP[1:1 + ch, 1:1 + cw].to(torch.uint8),
+           crP[1:1 + ch, 1:1 + cw].to(torch.uint8),
+           *(cf.to(torch.int16) for cf in coefs))
+    if inter is not None:
+        out = out + inter.final_mvs()
+    return out
 
 
 def check_slice(cfg: CodecConfig) -> None:
-    """Raise for configurations outside the port's first slice."""
+    """Raise for configurations outside the port's slices."""
     _check_cfg(cfg)
     if cfg.bit_depth != 8:
-        raise NotImplementedError("the port's first slice is 8-bit")
+        raise NotImplementedError("the port's slices are 8-bit")
     for flag in ("sign_data_hiding", "dep_quant"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} is not in the port's "
-                                      "first slice")
+                                      "slices")
 
 
 def make_recon_pass_raw(cfg: CodecConfig, tab: Tables, encode: bool):

@@ -1,11 +1,13 @@
-"""Wrapper of the CUDA recon-scan kernels K1 (encode) and K2 (decode),
-csrc/recon_intra.cu.
+"""Wrappers of the CUDA recon-scan kernels K1 (intra encode), K2 (intra
+decode) and K3-P (P-picture encode and decode), csrc/recon_intra.cu.
 
 They replace the Pallas kernel x266_tpu/engine/recon_pallas.py:
-_build_pallas (inter=False).  The plain version is
-engine.recon.make_recon_pass_raw; ``engine.recon.recon_pass`` routes CUDA
-tensors here and CPU tensors there.  This wrapper launches the kernel or
-raises -- it never falls back.
+_build_pallas (inter=False; inter=True, b_mode=False).  The plain
+versions are engine.recon.make_recon_pass_raw and
+engine.inter.make_recon_inter_raw; ``engine.recon.recon_pass`` and
+``engine.inter.recon_inter_pass`` route CUDA tensors here and CPU tensors
+there.  These wrappers launch the kernel or raise -- they never fall
+back.
 
 LAUNCHES counts the launches of each kernel (one per call here and
 nowhere else), so a run can show that its main path went through them.
@@ -16,13 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x266_tpu.config import CodecConfig
+from x266_tpu_torch.config import CodecConfig
 
 from x266_tpu_torch import _build
 from x266_tpu_torch.engine.mode_decision import PAD
 from x266_tpu_torch.tables import Tables
 
-LAUNCHES = {"K1": 0, "K2": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K3d": 0}
 
 
 def reset_launches() -> None:
@@ -30,7 +32,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+def check_tensor(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless t is a contiguous CUDA tensor of dtype and shape."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -40,6 +43,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _check_tables(tab: Tables) -> None:
+    for name, t in (("taps", tab.k_taps), ("smooth", tab.k_smooth),
+                    ("tx", tab.k_tx), ("shift", tab.k_shift)):
+        check_tensor(t, name, torch.int32, t.shape)
+    check_tensor(tab.rate, "rate", torch.float32, (32768,))
 
 
 def recon_intra(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
@@ -56,20 +66,17 @@ def recon_intra(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
     f = a.shape[0]
     if encode:
         py, pc = (1 + h + PAD, 1 + w + PAD), (1 + ch + PAD, 1 + cw + PAD)
-        _check(a, "srcY", torch.uint8, (f, *py))
-        _check(b, "srcCb", torch.uint8, (f, *pc))
-        _check(c, "srcCr", torch.uint8, (f, *pc))
+        check_tensor(a, "srcY", torch.uint8, (f, *py))
+        check_tensor(b, "srcCb", torch.uint8, (f, *pc))
+        check_tensor(c, "srcCr", torch.uint8, (f, *pc))
     else:
-        _check(a, "coefY", torch.int16, (f, h, w))
-        _check(b, "coefCb", torch.int16, (f, ch, cw))
-        _check(c, "coefCr", torch.int16, (f, ch, cw))
+        check_tensor(a, "coefY", torch.int16, (f, h, w))
+        check_tensor(b, "coefCb", torch.int16, (f, ch, cw))
+        check_tensor(c, "coefCr", torch.int16, (f, ch, cw))
     for name, m in (("size_map", size_map), ("mode_map", mode_map),
                     ("mts_map", mts_map)):
-        _check(m, name, torch.int32, (f, cfg.units_y, cfg.units_x))
-    for name, t in (("taps", tab.k_taps), ("smooth", tab.k_smooth),
-                    ("tx", tab.k_tx), ("shift", tab.k_shift)):
-        _check(t, name, torch.int32, t.shape)
-    _check(tab.rate, "rate", torch.float32, (32768,))
+        check_tensor(m, name, torch.int32, (f, cfg.units_y, cfg.units_x))
+    _check_tables(tab)
 
     lib = _build.LIBRARY.build()
     with torch.cuda.device(a.device):
@@ -116,3 +123,88 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
         tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
         tab.k_shift.data_ptr(), tab.rate.data_ptr(), stream)
     return err, (*rec, *coef)
+
+
+def recon_inter(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
+                size_map, mode_map, mts_map, pred_map, mvx_map, mvy_map,
+                pyr_y, pyr_cb, pyr_cr):
+    """Launch K3-P over one P picture (encode, or the decoder's form).
+
+    a, b, c and the maps as recon_intra with a frame dim of 1, plus the
+    pred/mvx/mvy maps (1, H/8, W/8) int32 and the reference's pyramids
+    (16, Hp, Wp) uint8.  Returns recon_intra's six outputs and the final
+    MV maps (mvx, mvy) int16 (1, H/8, W/8), as
+    engine.inter.make_recon_inter_raw."""
+    h, w = cfg.height, cfg.width
+    ch, cw = h // 2, w // 2
+    if encode:
+        check_tensor(a, "srcY", torch.uint8, (1, 1 + h + PAD, 1 + w + PAD))
+        check_tensor(b, "srcCb", torch.uint8, (1, 1 + ch + PAD,
+                                                1 + cw + PAD))
+        check_tensor(c, "srcCr", torch.uint8, (1, 1 + ch + PAD,
+                                                1 + cw + PAD))
+    else:
+        check_tensor(a, "coefY", torch.int16, (1, h, w))
+        check_tensor(b, "coefCb", torch.int16, (1, ch, cw))
+        check_tensor(c, "coefCr", torch.int16, (1, ch, cw))
+    for name, m in (("size_map", size_map), ("mode_map", mode_map),
+                    ("mts_map", mts_map), ("pred_map", pred_map),
+                    ("mvx_map", mvx_map), ("mvy_map", mvy_map)):
+        check_tensor(m, name, torch.int32, (1, cfg.units_y, cfg.units_x))
+    check_tensor(pyr_y, "pyr_y", torch.uint8, (16, *pyr_y.shape[1:]))
+    check_tensor(pyr_cb, "pyr_cb", torch.uint8, (16, *pyr_cb.shape[1:]))
+    check_tensor(pyr_cr, "pyr_cr", torch.uint8, pyr_cb.shape)
+    _check_tables(tab)
+
+    lib = _build.LIBRARY.build()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err, out = _launch_inter(lib, stream, cfg, tab, encode, a, b, c,
+                                 size_map, mode_map, mts_map, pred_map,
+                                 mvx_map, mvy_map, pyr_y, pyr_cb, pyr_cr)
+    _build.check(err)
+    LAUNCHES["K3" if encode else "K3d"] += 1
+    return out
+
+
+def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
+                  mode_map, mts_map, pred_map, mvx_map, mvy_map, pyr_y,
+                  pyr_cb, pyr_cr):
+    """Allocate K3-P's outputs and call its entry point on checked
+    tensors; returns (error code, outputs)."""
+    h, w = cfg.height, cfg.width
+    ch, cw = h // 2, w // 2
+    dev = a.device
+    rec = [torch.empty((1, h, w), dtype=torch.uint8, device=dev),
+           torch.empty((1, ch, cw), dtype=torch.uint8, device=dev),
+           torch.empty((1, ch, cw), dtype=torch.uint8, device=dev)]
+    mvs = [torch.empty((1, cfg.units_y, cfg.units_x), dtype=torch.int16,
+                       device=dev) for _ in range(2)]
+    if encode:
+        coef = [torch.empty((1, h, w), dtype=torch.int16, device=dev),
+                torch.empty((1, ch, cw), dtype=torch.int16, device=dev),
+                torch.empty((1, ch, cw), dtype=torch.int16, device=dev)]
+        src, cin, cout = (a, b, c), (None,) * 3, coef
+    else:
+        coef = [a, b, c]
+        src, cin, cout = (None,) * 3, (a, b, c), (None,) * 3
+    py = src[0].shape[1:] if encode else (0, 0)
+    pc = src[1].shape[1:] if encode else (0, 0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.x266_recon_inter(
+        int(encode), w, h, py[1], pc[1], py[0] * py[1], pc[0] * pc[1],
+        cfg.qp, float(np.float32(cfg.lambda_mode)),
+        int(cfg.rdoq and encode), int(cfg.mts), int(cfg.ref_substitute),
+        cfg.n_pred_modes, int(cfg.merge_cands), pyr_y.shape[1],
+        pyr_y.shape[2], pyr_cb.shape[1], pyr_cb.shape[2],
+        *map(ptr, src), *map(ptr, cin), size_map.data_ptr(),
+        mode_map.data_ptr(), mts_map.data_ptr(), pred_map.data_ptr(),
+        mvx_map.data_ptr(), mvy_map.data_ptr(), pyr_y.data_ptr(),
+        pyr_cb.data_ptr(), pyr_cr.data_ptr(), *map(ptr, rec),
+        *map(ptr, cout), mvs[0].data_ptr(), mvs[1].data_ptr(),
+        tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
+        tab.k_shift.data_ptr(), tab.rate.data_ptr(), stream)
+    return err, (*rec, *coef, *mvs)

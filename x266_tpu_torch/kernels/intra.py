@@ -56,7 +56,7 @@ def extend_refs(tab: Tables, refs: torch.Tensor, size: int) -> torch.Tensor:
 
 def _check_tools(pdpc: bool) -> None:
     if pdpc:
-        raise NotImplementedError("PDPC is not in the port's first slice")
+        raise NotImplementedError("PDPC is not in the port's slices")
 
 
 def predict_all_modes(tab: Tables, refs: torch.Tensor, size: int,

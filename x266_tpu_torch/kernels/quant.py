@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x266_tpu.specmodel.quant import transform_shift
+from x266_tpu_torch.specmodel.quant import transform_shift
 
 from x266_tpu_torch.tables import Tables
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from x266_tpu.specmodel import transforms as spec
+from x266_tpu_torch.specmodel import transforms as spec
 
 from x266_tpu_torch.tables import Tables
 

@@ -1,7 +1,8 @@
 """The codec's parameters, carried across from the reference.
 
 A codec has no learned weights: its parameters are the static integer
-tables the JAX package builds with numpy in ``x266_tpu.specmodel``.
+tables built with numpy in ``specmodel`` (the port's copy of the
+reference's).
 ``from_reference(cfg, device)`` turns them into the port's tensors once
 per session; the torch functions take the resulting ``Tables`` as an
 argument, and the CUDA kernel reads the flat int32 copies (``k_*``).
@@ -19,10 +20,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from x266_tpu.config import CodecConfig
-from x266_tpu.specmodel import intra as spec_intra
-from x266_tpu.specmodel import transforms as spec_tx
-from x266_tpu.specmodel.quant import DEQUANT_SCALES, QUANT_SCALES
+from x266_tpu_torch.config import CodecConfig
+from x266_tpu_torch.specmodel import intra as spec_intra
+from x266_tpu_torch.specmodel import transforms as spec_tx
+from x266_tpu_torch.specmodel.quant import DEQUANT_SCALES, QUANT_SCALES
 
 RATE_PATH = os.path.join(os.path.dirname(__file__), "data", "rate_f32.npy")
 
