@@ -25,7 +25,36 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     counts of that run; one warm encode's frame rate;
  7. [main-p] low-delay P 1080p (config 3) frames 0-3 (IDR + 3 P) the
     same way, against data/cfg3_1080p_ref.json; K3/K4/K5 launch counts
-    of that run; one warm encode's frame rate.
+    of that run; one warm encode's frame rate;
+ 8. [kernels-b] K3-B (B recon, encode and decode, final-MV planes
+    included) against the plain B scan, bit for bit, with L1 and bi CUs
+    present, at 112x80 and 128x64 (two B configs, one with merge
+    candidates), 416x240, 1920x1080 and the config-4 main path's
+    3840x2160, each on a B picture whose L0 and L1 references are the
+    frame shifted two ways, each noisy on two thirds of its width; at
+    3840x2160 the loop filters of that picture and its whole B encode
+    step make no host sync (torch's sync debug mode) and its
+    ALF normal equations and their float64 solution on the card equal
+    the CPU's bit for bit;
+ 9. [golden-filters] decode the fixtures lowdelay_p_filters (deblock,
+    SAO) and ra_alf (random access, nonlinear ALF, CC-ALF, signalled
+    reference lists) to their manifest MD5s;
+10. [main-ra-ref] random access with deblock, SAO and ALF at 416x240,
+    17 frames (IDR, P, 15 B): without ALF byte-identical, NAL for NAL
+    and recon for recon, to the JAX reference
+    (data/cfg4noalf_416x240_ref.json, and at 1920x1080
+    data/cfg4noalf_1080p_ref.json); with ALF (config 4) byte-identical
+    to the JAX encoder whose ALF estimators sum exactly, as the port's
+    do (data/cfg4exact_416x240_ref.json), and beside the reference with
+    its float32 estimators (data/cfg4_416x240_ref.json; ROADMAP queue
+    3, F9) its IDR within +-0.5 % bits and +-0.02 dB, per-frame
+    differences printed; each JAX stream decodes to JAX's MD5s; each
+    encode prints its count of B Pass-A blocks exposed to F10 (a float32
+    error sum past 2^24, where the order of addition may matter);
+11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
+    IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
+    encoder's recon; K3B/K3Bd launch counts (15 each), the F10 count,
+    bits/frame, PSNR-Y, one warm encode's frame rate.
 The third line from the end is a JSON object with each kernel's
 launches on its main path, its error and its times (CUDA events at the
 main path's shapes, against the plain version's on the same inputs and
@@ -56,6 +85,8 @@ KERNELS = {
     "K2": ("recon_intra decode", RECON_SRC, RECON_TPU),
     "K3": ("recon_inter P encode", RECON_SRC, RECON_TPU),
     "K3d": ("recon_inter P decode", RECON_SRC, RECON_TPU),
+    "K3B": ("recon_inter B encode", RECON_SRC, RECON_TPU),
+    "K3Bd": ("recon_inter B decode", RECON_SRC, RECON_TPU),
     "K4": ("mc warp", ME_SRC, "x266_tpu/kernels/me_pallas.py:91"),
     "K5": ("me refine", ME_SRC, "x266_tpu/kernels/me_pallas.py:285"),
 }
@@ -128,21 +159,7 @@ def mc_index(x, y, mvx, mvy, size):
 def k3_read_bytes(pyrs, size_map, pred_map, mvx, mvy) -> int:
     """Pyramid bytes a P recon scan reads for these maps: each inter or
     skip CU's MC window at its final MV, luma and both chroma planes."""
-    sm, pm = size_map[0], pred_map[0]
-    mx, my = mvx[0].int(), mvy[0].int()
-    uy, ux = torch.meshgrid(torch.arange(sm.shape[0], device=sm.device),
-                            torch.arange(sm.shape[1], device=sm.device),
-                            indexing="ij")
-    u = sm // 8
-    cu = ((ux % u) == 0) & ((uy % u) == 0) & (pm != 0)
-    luma, chroma = [], []
-    for s in (8, 16, 32):
-        sel = cu & (sm == s)
-        x, y, vx, vy = ux[sel] * 8, uy[sel] * 8, mx[sel], my[sel]
-        luma.append(mc_index(x, y, vx, vy, s))
-        chroma.append(mc_index(x // 2, y // 2, vx >> 1, vy >> 1, s // 2))
-    return (read_bytes(pyrs[0], *luma) + read_bytes(pyrs[1], *chroma)
-            + read_bytes(pyrs[2], *chroma))
+    return read_union(pyrs, [(size_map, pred_map, mvx, mvy, (1, 2))])
 
 
 def k5_read_bytes(pyr, cur, base) -> int:
@@ -187,7 +204,9 @@ def recon_ops(size_map, encode: bool, pred_map=None) -> float:
         origin = ((ux % u) == 0) & ((uy % u) == 0)
         for s, kind in zip(sm[origin], kinds[origin]):
             for side, n in ((int(s), 1), (int(s) // 2, 2)):
-                pred = 8 * side * side if kind == 0 else 0
+                # intra: 4 taps a sample; bi: an add and a shift; MC: copy
+                pred = (8 * side * side if kind == 0 else
+                        2 * side * side if kind == 4 else 0)
                 tx = 4 * side ** 3
                 coded = not (encode and kind == 2)
                 ops += n * (pred + (tx if encode and coded else 0)
@@ -454,6 +473,156 @@ def phase_kernels_p(stats):
         compare_p_kernels(cfg, 3, stats)
 
 
+def b_references(planes, amp=8, seed=5):
+    """The L0 and L1 pyramids of a B test picture: the planes (each (1,
+    h, w)) shifted two ways, with noise of +-amp on L0's left two thirds
+    and L1's right two thirds, so that L0, bi and L1 each pay somewhere
+    (as tests/test_torch_kernel_host.py builds them)."""
+    from x266_tpu_torch.engine import fused
+
+    gen = torch.Generator(device=planes[0].device).manual_seed(seed)
+
+    def ref(p, sh, cols):
+        p = torch.roll(p[0], sh, (0, 1)).int()
+        w = p.shape[1]
+        n = torch.randint(-amp, amp + 1, p.shape, generator=gen,
+                          device=p.device)
+        keep = torch.zeros(w, dtype=torch.bool, device=p.device)
+        keep[cols(w)] = True
+        return (p + torch.where(keep, 0, n)).clamp(0, 255).to(torch.uint8)
+
+    return [fused.build_pyramids_device(*(
+        ref(p, sh, cols) for p, sh in zip(planes, shifts)))
+        for shifts, cols in (
+            (((2, -3), (1, 0), (1, 0)), lambda w: slice(2 * w // 3, w)),
+            (((-1, 2), (0, -1), (0, -1)), lambda w: slice(0, w // 3)))]
+
+
+def compare_b_kernels(cfg, seed, stats, record=False):
+    """K3-B (encode, decode) against the plain B scan on one B picture of
+    b_references, on the port's B Pass-A maps; bit-exact or raise, and
+    L1 and bi CUs must occur.  record: this shape's times and bounds go
+    into the kernels line."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import fused, inter, recon_cuda
+
+    tab = tables.from_reference(cfg, "cuda")
+    planes = _upload(synthetic_clip(cfg.width, cfg.height, 1, "mixed",
+                                    seed=seed))
+    p0, p1 = b_references(planes)
+    src = fused._unpack_padded(cfg, *planes)
+    tag = f"{cfg.width}x{cfg.height} cu{cfg.max_cu_size}" + (
+        " merge" if cfg.merge_cands else "") + (
+        " subst" if cfg.ref_substitute else "")
+    maps, pa_ms = timed(inter.make_mode_decision_b_raw(cfg, tab),
+                        src[0][0], p0[0], p1[0])
+    maps = [m[None] for m in maps]
+    kinds = np.bincount(maps[2].cpu().numpy().ravel(), minlength=5)
+    if not (kinds[inter.PRED_L1] and kinds[inter.PRED_BI]):
+        raise AssertionError(f"K3B {tag}: no L1 or bi CUs ({kinds})")
+    mts = torch.zeros_like(maps[0])
+    args = (maps[0], maps[1], mts, *maps[2:5], *p0, *p1, maps[5], maps[6])
+    got = recon_cuda.recon_inter(cfg, tab, True, *src, *args)
+    ref, pb_ms = timed(inter.make_recon_inter_raw(cfg, tab, True, True),
+                       *src, *args)
+    names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
+             "mvx_fin", "mvy_fin"]
+    errb = _max_err(got, ref)
+    _require_equal("K3B", tag, names, got, ref)
+    dargs = (maps[0], maps[1], mts, maps[2], got[6].int(), got[7].int(),
+             *p0, *p1, maps[5], maps[6])
+    dec = recon_cuda.recon_inter(cfg, tab, False, *got[3:6], *dargs)
+    pdec, pbd_ms = timed(inter.make_recon_inter_raw(cfg, tab, False, True),
+                         *got[3:6], *dargs)
+    errbd = max(_max_err(dec, pdec), _max_err(dec[:3], got[:3]))
+    _require_equal("K3Bd", tag, names, dec, pdec)
+    _require_equal("K3Bd", tag, names[:3], dec[:3], got[:3])
+    kb_ms = event_ms(recon_cuda.recon_inter, cfg, tab, True, *src, *args)
+    kbd_ms = event_ms(recon_cuda.recon_inter, cfg, tab, False, *got[3:6],
+                      *dargs)
+    log(f"[kernels-b] {tag}: units intra/L0/skip/L1/bi {kinds.tolist()}; "
+        f"B Pass A {pa_ms:.1f} ms; K3B {kb_ms:.3f} ms (plain {pb_ms:.0f} "
+        f"ms) err {errb}; K3Bd {kbd_ms:.3f} ms (plain {pbd_ms:.0f} ms) "
+        f"err {errbd}")
+    # bounds: every input and output whole, except the pyramids, of
+    # which only the windows this run's MVs address count: L0 at the
+    # final MV for L0, skip and bi CUs, L1 at it for L1 CUs and at mv1
+    # for bi CUs
+    hm = [mp.cpu().numpy() for mp in maps]
+    tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift)
+    reads = (read_union(p0, [(maps[0], maps[2], got[6], got[7], (1, 2, 4))])
+             + read_union(p1, [(maps[0], maps[2], got[6], got[7], (3,)),
+                               (maps[0], maps[2], maps[5], maps[6], (4,))]))
+    bb = bound(nbytes(*src, *args[:6], maps[5], maps[6], *got, *tabs,
+                      tab.rate) + reads, recon_ops(hm[0], True, hm[2]))
+    bbd = bound(nbytes(*dargs[:6], maps[5], maps[6], *got[3:6], *dec[:3],
+                       *tabs) + reads, recon_ops(hm[0], False, hm[2]))
+    log(f"[kernels-b] {tag}: pyramid bytes read {reads} (of "
+        f"{2 * nbytes(*p0)}); bounds K3B {bb[0]:.4f} ms ({bb[1]}), K3Bd "
+        f"{bbd[0]:.4f} ms ({bbd[1]})")
+    _record(stats, "K3B", errb)
+    _record(stats, "K3Bd", errbd)
+    if record:
+        check_filters(cfg, tab, tag, planes, p0, p1, got, maps)
+        shape = f"{cfg.width}x{cfg.height}"
+        _record(stats, "K3B", errb, ms=kb_ms, plain_ms=pb_ms,
+                bound_ms=bb[0], bound_by=bb[1], shape=shape)
+        _record(stats, "K3Bd", errbd, ms=kbd_ms, plain_ms=pbd_ms,
+                bound_ms=bbd[0], bound_by=bbd[1], shape=shape)
+
+
+def read_union(pyrs, parts) -> int:
+    """Pyramid bytes of pyrs (luma, Cb, Cr) that the MC windows of
+    several (size_map, pred_map, mvx, mvy, kinds) selections read, each
+    byte counted once: each CU whose kind is in kinds, at its MV (chroma
+    at MV >> 1)."""
+    masks = [torch.zeros(p.shape, dtype=torch.bool, device=p.device)
+             for p in pyrs]
+    for part in parts:
+        _mark_windows(masks, *part)
+    return sum(int(m.sum()) * p.element_size() for m, p in zip(masks, pyrs))
+
+
+def _mark_windows(masks, size_map, pred_map, mvx, mvy, kinds):
+    sm, pm = size_map[0], pred_map[0]
+    mx, my = mvx[0].int(), mvy[0].int()
+    uy, ux = torch.meshgrid(torch.arange(sm.shape[0], device=sm.device),
+                            torch.arange(sm.shape[1], device=sm.device),
+                            indexing="ij")
+    u = sm // 8
+    cu = ((ux % u) == 0) & ((uy % u) == 0) & torch.isin(
+        pm, torch.tensor(kinds, device=pm.device))
+    for s in (8, 16, 32):
+        sel = cu & (sm == s)
+        x, y, vx, vy = ux[sel] * 8, uy[sel] * 8, mx[sel], my[sel]
+        masks[0][mc_index(x, y, vx, vy, s)] = True
+        for m in masks[1:]:
+            m[mc_index(x // 2, y // 2, vx >> 1, vy >> 1, s // 2)] = True
+
+
+def cfg4(width=3840, height=2160):
+    from x266_tpu_torch.config import preset_cfg4
+
+    return preset_cfg4(width, height)
+
+
+def phase_kernels_b(stats):
+    from x266_tpu_torch.config import CodecConfig
+
+    # the B config of tests/test_recon_pallas.py, one with merge
+    # candidates and substitution, then config 4's picture sizes
+    for cfg, record in (
+            (CodecConfig(width=112, height=80, qp=30, intra_period=8,
+                         gop_size=4), False),
+            (CodecConfig(width=128, height=64, qp=32, intra_period=8,
+                         gop_size=4, rdoq=True, ref_substitute=True,
+                         merge_cands=True), False),
+            (cfg4(416, 240), False), (cfg4(1920, 1080), False),
+            (cfg4(), True)):
+        compare_b_kernels(cfg, 21, stats, record)
+
+
 def phase_golden():
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.config import CodecConfig
@@ -477,6 +646,196 @@ def phase_golden():
         f"byte-identical {same}")
     if not same:
         raise AssertionError("ai_hevc re-encode differs from the fixture")
+
+
+def phase_golden_filters():
+    """The fixtures with loop filters decode to their manifest MD5s."""
+    from x266_tpu_torch.api import Decoder
+    from x266_tpu_torch.core.hashing import frame_md5
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name in ("lowdelay_p_filters", "ra_alf"):
+        with open(os.path.join(FIXTURES, f"{name}.266t"), "rb") as f:
+            stream = f.read()
+        _, dec = Decoder().decode(stream)
+        got = [frame_md5(d) for d in dec]
+        ok = got == manifest[name]["md5"]
+        log(f"[golden-filters] {name}: {len(got)} pictures, decode md5 "
+            f"{'==' if ok else '!='} manifest")
+        if not ok:
+            raise AssertionError(f"{name} decode MD5s differ from the "
+                                 "manifest")
+
+
+def phase_main_ra_ref():
+    """Config 4 at 416x240, 17 frames, without and with ALF, against the
+    recorded JAX references; each JAX stream decodes to JAX's MD5s."""
+    import base64
+
+    from x266_tpu_torch.api import Decoder, Encoder
+    from x266_tpu_torch.core.hashing import frame_md5
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import inter
+
+    noalf = dict(alf=False, alf_chroma=False)
+    for name, refs, (w, h), tools in (
+            ("cfg4noalf", ("cfg4noalf_416x240",), (416, 240), noalf),
+            ("cfg4noalf 1080p", ("cfg4noalf_1080p",), (1920, 1080), noalf),
+            ("cfg4", ("cfg4exact_416x240", "cfg4_416x240"), (416, 240), {})):
+        frames = synthetic_clip(w, h, 17, "mixed")
+        inter.F10_BLOCKS.clear()
+        res, t_enc = timed(Encoder(cfg4(w, h).replace(**tools)).encode,
+                           frames)
+        md5 = hashlib.md5(res.bitstream).hexdigest()
+        rec = [frame_md5(r) for r in res.recon]
+        _, dec = Decoder().decode(res.bitstream)
+        if [frame_md5(d) for d in dec] != rec:
+            raise AssertionError(f"[main-ra-ref] {name}: decoded pictures "
+                                 "differ from the encoder's recon")
+        log(f"[main-ra-ref] {name}: encode {t_enc / 1e3:.2f} s; stream md5 "
+            f"{md5}; bits {res.frame_bits}; {f10_line()}")
+        for file in refs:
+            with open(os.path.join(DATA, f"{file}_ref.json")) as f:
+                ref = json.load(f)
+            _, jdec = Decoder().decode(base64.b64decode(ref["stream_b64"]))
+            if [frame_md5(d) for d in jdec] != [
+                    r["decode_md5"] for r in ref["frames"]]:
+                raise AssertionError(f"[main-ra-ref] {file}: the JAX stream "
+                                     "does not decode to JAX's MD5s")
+            same = (md5 == ref["stream_md5"]
+                    and _slice_md5s(res.bitstream) == ref[
+                        "nal_md5_coding_order"]
+                    and rec == [r["recon_md5"] for r in ref["frames"]])
+            dbits = [100.0 * (b - r["bits"]) / r["bits"]
+                     for b, r in zip(res.frame_bits, ref["frames"])]
+            dpsnr = [p - r["psnr_y"]
+                     for p, r in zip(res.psnr_y(w, h), ref["frames"])]
+            log(f"[main-ra-ref] {name} vs {file} ({ref['source']}): "
+                f"byte-identical {same}; per frame bits % "
+                f"{[round(d, 3) for d in dbits]}, PSNR-Y dB "
+                f"{[round(d, 4) for d in dpsnr]}; the JAX stream decodes to "
+                "JAX's md5s")
+            if file != "cfg4_416x240" and not same:
+                raise AssertionError(f"[main-ra-ref] {name} differs from "
+                                     f"{file}")
+            # the reference's own float32 ALF estimators (F9): its
+            # pictures feed the later ones, so only the IDR is held
+            if abs(dbits[0]) > 100 * BITS_TOL or abs(dpsnr[0]) > PSNR_TOL:
+                raise AssertionError(f"[main-ra-ref] {name} IDR outside "
+                                     f"+-0.5 % bits or +-0.02 dB of {file}")
+
+
+def run_main_ra(stats, card):
+    """Config 4 at 3840x2160, 17 frames, through Encoder and Decoder on
+    the card: decoded pictures equal the encoder's recon, K3B and K3Bd
+    launched once per B picture."""
+    from x266_tpu_torch.api import Decoder, Encoder
+    from x266_tpu_torch.core.hashing import frame_md5
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import inter
+
+    cfg = cfg4()
+    w, h, n = cfg.width, cfg.height, 17
+    frames = synthetic_clip(w, h, n, "mixed")
+    (enc, dec), t_set = timed(lambda: (Encoder(cfg), Decoder()))
+    log(f"[main-ra] encoder/decoder set-up {t_set / 1e3:.1f} s")
+    _reset_launches()
+    inter.F10_BLOCKS.clear()
+    res, t_enc = timed(enc.encode, frames)
+    (_, decoded), t_dec = timed(dec.decode, res.bitstream)
+    launches = _launches()
+    log(f"[main-ra] first encode {t_enc / 1e3:.2f} s, decode "
+        f"{t_dec / 1e3:.2f} s, launches {launches}; {f10_line()}")
+    if [frame_md5(r) for r in res.recon] != [frame_md5(d) for d in decoded]:
+        raise AssertionError("[main-ra] decoded pictures differ from the "
+                             "encoder's recon")
+    if len(decoded) != n or not all(f.y.shape == (h, w) for f in decoded):
+        raise AssertionError("[main-ra] decoded picture count or shape")
+    psnrs = res.psnr_y(w, h)
+    if not all(np.isfinite(psnrs)) or min(psnrs) < 25.0:
+        raise AssertionError(f"[main-ra] PSNR-Y {psnrs}")
+    log(f"[main-ra] bits/frame {res.frame_bits} (stream "
+        f"{res.total_bits / n:.0f} bits/frame, as bench.py counts); PSNR-Y "
+        f"{[round(p, 4) for p in psnrs]} (mean {np.mean(psnrs):.4f} dB)")
+    for k, want in (("K3B", 15), ("K3Bd", 15)):
+        if launches[k] != want:
+            raise AssertionError(f"[main-ra] {k} launched {launches[k]} "
+                                 f"times, not {want}")
+        stats[k]["launches"] = launches[k]
+    for k in ("K1", "K2", "K3", "K3d", "K4", "K5"):
+        if launches[k] < 1:
+            raise AssertionError(f"[main-ra] {k} was not launched")
+    _, t_warm = timed(enc.encode, frames)
+    log(f"[main-ra] warm encode of {n} {w}x{h} frames: {t_warm / 1e3:.3f} "
+        f"s = {n / (t_warm / 1e3):.3f} fps on {card}")
+
+
+def f10_line() -> str:
+    """The B Pass-A blocks of the run where the port's float32 order may
+    differ from XLA's (ROADMAP queue 3, F10)."""
+    from x266_tpu_torch.engine import inter
+
+    n = inter.f10_blocks()
+    return (f"F10: B Pass-A blocks with an error sum >= 2^24 {n[16]} "
+            f"(16x16), {n[32]} (32x32)")
+
+
+def count_syncs(fn, *args):
+    """The host syncs of one call of fn after a warm-up call (torch's
+    CUDA sync debug mode, 'warn'): (count, fn's result)."""
+    import warnings
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught), out
+
+
+def check_filters(cfg, tab, tag, planes, p0, p1, got, maps):
+    """On one B picture: the loop filters (deblock, SAO, ALF estimate and
+    apply) and the whole B encode step queue their work without a host
+    sync, and the ALF estimator's normal equations and float64 solution
+    on the card equal the CPU's bit for bit."""
+    from x266_tpu_torch.engine import fused
+    from x266_tpu_torch.kernels import alf as kalf
+
+    y, o = got[0][0].int(), planes[0][0].int()
+    sols = []
+    for dev in ("cuda", "cpu"):
+        yd = y.to(dev)
+        gram, rhs = kalf.normal_equations(kalf._diff_planes(yd),
+                                          o.to(dev) - yd, kalf.classify(yd),
+                                          kalf.NUM_CLASSES)
+        g = gram + 64.0 * torch.eye(12, dtype=torch.float64, device=dev)
+        sols.append([t.cpu() for t in (gram, rhs, kalf.ldl_solve(
+            g, rhs * 128.0))])
+    same = all(torch.equal(a, b) for a, b in zip(*sols))
+    log(f"[kernels-b] {tag}: ALF normal equations and float64 solution, "
+        f"card == CPU bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"[kernels-b] {tag}: the ALF solve differs "
+                             "between the card and the CPU")
+
+    n_filt, _ = count_syncs(
+        fused.loop_filters, cfg, *(g[0] for g in got[:3]), maps[0][0],
+        [p[0] for p in planes], (maps[2][0], got[6][0].int(),
+                                 got[7][0].int(), got[3][0].int()))
+    n_step, _ = count_syncs(fused.make_encode_step_b(cfg, tab, False),
+                            *planes, *p0, *p1)
+    log(f"[kernels-b] {tag}: host syncs in the loop filters {n_filt}, in "
+        f"one whole B encode step {n_step}")
+    if n_filt or n_step:
+        raise AssertionError(f"[kernels-b] {tag}: host syncs in the loop "
+                             f"filters {n_filt}, in the B step {n_step}")
 
 
 def _slice_md5s(stream: bytes):
@@ -581,6 +940,10 @@ def main() -> int:
              ("K1", "K2"), stats, card, batch_frames=4)
     run_main("main-p", cfg3(), "motion", "cfg3_1080p_ref.json",
              ("K3", "K3d", "K4", "K5"), stats, card)
+    phase_kernels_b(stats)
+    phase_golden_filters()
+    phase_main_ra_ref()
+    run_main_ra(stats, card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",

@@ -1,6 +1,7 @@
 """The port on a CUDA device: kernels K1/K2 against the plain scan, K3-P,
 K4 and K5 against their plain versions, and Encoder/Decoder on the card
-against the CPU path (exact equality), all-intra and low-delay P.
+against the CPU path (exact equality), all-intra, low-delay P and random
+access with deblock, SAO and ALF (K3-B).
 
 This file imports no JAX, so it runs on a host without it; there, skip
 tests/conftest.py (which imports jax):
@@ -25,6 +26,10 @@ from x266_tpu_torch.core.hashing import frame_md5
 from x266_tpu_torch.core.yuv import synthetic_clip
 from x266_tpu_torch.engine import fused, inter, recon, recon_cuda
 from x266_tpu_torch.kernels import me, me_cuda
+
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
 
 CFGS = [
     CodecConfig(width=104, height=72, qp=30),
@@ -152,6 +157,48 @@ def test_lowdelay_encode_decode_on_card_equals_cpu(cuda):
     assert me_cuda.LAUNCHES["K4"] == me_cuda.LAUNCHES["K5"] == 3
 
 
+@pytest.mark.gpu
+def test_ra_encode_decode_on_card_equals_cpu(cuda):
+    """Random access (I, P, B at POC 2, 1, 3) with the loop filters: the
+    card's stream is the CPU's, byte for byte (the ALF estimator sums
+    exactly on both), and K3-B runs once per B picture each way."""
+    from x266_tpu_torch.config import preset_cfg4
+
+    cfg = preset_cfg4(128, 64).replace(gop_size=4, intra_period=8)
+    frames = synthetic_clip(128, 64, 5, "mixed", seed=4)
+    recon_cuda.reset_launches()
+    on_card = Encoder(cfg).encode(frames)
+    on_cpu = Encoder(cfg, device="cpu").encode(frames)
+    assert on_card.bitstream == on_cpu.bitstream
+    _, dec = Decoder().decode(on_card.bitstream)
+    assert ([frame_md5(d) for d in dec]
+            == [frame_md5(r) for r in on_card.recon]
+            == [frame_md5(r) for r in on_cpu.recon])
+    assert recon_cuda.LAUNCHES["K3B"] == recon_cuda.LAUNCHES["K3Bd"] == 3
+
+
+@pytest.mark.gpu
+def test_alf_estimators_on_card_equal_cpu(cuda):
+    """The ALF estimators' exact normal equations, LDL^T solve and
+    coefficients give the same bits on the card as on the CPU."""
+    from x266_tpu_torch.kernels import alf
+
+    rng = np.random.default_rng(9)
+    orig = torch.from_numpy(rng.integers(0, 256, (128, 192)).astype(np.int32))
+    rec = (orig + torch.from_numpy(rng.integers(-6, 7, (128, 192)))).clamp(
+        0, 255).to(torch.int32)
+    out = []
+    for dev in ("cpu", cuda):
+        o, r = orig.to(dev), rec.to(dev)
+        res = (*alf.normal_equations(alf._diff_planes(r), o - r,
+                                     alf.classify(r), alf.NUM_CLASSES),
+               *alf.estimate_alf(o, r, 57.0),
+               *alf.estimate_alf_chroma(o[:64, :96], r[:64, :96], 57.0))
+        out.append([t.cpu() for t in res])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     cfg = CFGS[0]
     tab, src, maps = _inputs(cfg, "cpu", n=1)
@@ -168,6 +215,9 @@ def test_motion_kernel_wrappers_refuse_cpu_tensors():
         me_cuda.warp_frames_cuda(pyrs[0], base[None].contiguous())
     with pytest.raises(ValueError, match="CUDA tensor"):
         recon_cuda.recon_inter(cfg, tab, True, *src, *args)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        recon_cuda.recon_inter(cfg, tab, True, *src, *args, *args[6:9],
+                               args[4], args[5])
 
 
 def test_entry_points_default_to_the_card():

@@ -25,6 +25,10 @@ from x266_tpu_torch import config as tconfig
 from x266_tpu_torch import tables
 from x266_tpu_torch.engine import inter as tinter
 
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
+
 NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
          "mvx_fin", "mvy_fin"]
 PCFGS = [

@@ -31,6 +31,10 @@ from x266_tpu_torch.kernels import interp as tinterp
 from x266_tpu_torch.kernels import me as tme
 from x266_tpu_torch.kernels import me_cuda
 
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
+
 
 def _pyr(w, h, seed):
     """A random picture and its luma pyramid, as tests/test_me_pallas.py

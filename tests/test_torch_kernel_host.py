@@ -1,7 +1,7 @@
 """The CUDA kernels' sources, compiled for the host, against their plain
-versions (exact equality): K1/K2 against the plain intra scan, K3-P
-(encode and decode, final MVs included) against the plain P scan, K4
-against warp_frames_ref and K5 against refine_search_ref.
+versions (exact equality): K1/K2 against the plain intra scan, K3-P and
+K3-B (encode and decode, final MVs included) against the plain P and B
+scans, K4 against warp_frames_ref and K5 against refine_search_ref.
 
 csrc/*.cu launch through cudaLaunchKernel, so g++ compiles them as C++
 against tests/cuda_host/cuda_runtime.h, a host stand-in that runs each
@@ -25,6 +25,10 @@ from x266_tpu_torch.config import CodecConfig, preset_cfg2
 from x266_tpu_torch.core.yuv import synthetic_clip
 from x266_tpu_torch.engine import fused, inter, recon, recon_cuda
 from x266_tpu_torch.kernels import interp, me, me_cuda
+
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CFGS = [
@@ -104,6 +108,66 @@ def test_inter_kernel_source_matches_plain_scan(cfg, host_lib):
     for n, w, g in zip(NAMES, want, got):
         assert torch.equal(w, g), n
     dargs = (*args[:4], got[6].int(), got[7].int(), *pyrs)
+    err, dec = recon_cuda._launch_inter(host_lib, 0, cfg, tab, False,
+                                        *got[3:6], *dargs)
+    assert err == 0
+    for n, w, g in zip(NAMES, want, dec):
+        assert torch.equal(w, g), n
+
+
+def b_references(planes, amp=8, seed=5):
+    """The L0 and L1 pyramids of a B test picture: planes (each (1, h,
+    w)) shifted two ways, with noise of +-amp on L0's left two thirds
+    and L1's right two thirds."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def ref(p, sh, cols):
+        p = torch.roll(p[0], sh, (0, 1)).int()
+        w = p.shape[1]
+        n = torch.randint(-amp, amp + 1, p.shape, generator=gen)
+        keep = torch.zeros(w, dtype=torch.bool)
+        keep[cols(w)] = True
+        return (p + torch.where(keep, 0, n)).clamp(0, 255).to(torch.uint8)
+
+    return (fused.build_pyramids_device(*(
+        ref(p, sh, cols) for p, sh in zip(planes, shifts)))
+        for shifts, cols in (
+            (((2, -3), (1, 0), (1, 0)), lambda w: slice(2 * w // 3, w)),
+            (((-1, 2), (0, -1), (0, -1)), lambda w: slice(0, w // 3))))
+
+
+BCFGS = [
+    CodecConfig(width=112, height=80, qp=30, intra_period=8, gop_size=4),
+    CodecConfig(width=128, height=64, qp=32, intra_period=8, gop_size=4,
+                rdoq=True, ref_substitute=True, merge_cands=True),
+]
+
+
+@pytest.mark.parametrize("cfg", BCFGS, ids=["plain", "merge-subst"])
+def test_b_kernel_source_matches_plain_scan(cfg, host_lib):
+    """K3-B on a B picture whose L0 and L1 references are the frame
+    shifted two ways, noisy in L0 on the left third, in both in the
+    middle and in L1 on the right (so each of L1, bi and L0 pays
+    somewhere), on the port's own B Pass-A maps."""
+    tab = tables.from_reference(cfg, "cpu")
+    planes = _planes(synthetic_clip(cfg.width, cfg.height, 1, "mixed",
+                                    seed=21)[0])
+    p0, p1 = b_references(planes)
+    src = fused._unpack_padded(cfg, *planes)
+    maps = [m[None] for m in inter.make_mode_decision_b_raw(cfg, tab)(
+        src[0][0], p0[0], p1[0])]
+    assert (maps[2] == inter.PRED_L1).any() and (
+        maps[2] == inter.PRED_BI).any()
+    args = (maps[0], maps[1], torch.zeros_like(maps[0]), *maps[2:5], *p0,
+            *p1, maps[5], maps[6])
+    err, got = recon_cuda._launch_inter(host_lib, 0, cfg, tab, True, *src,
+                                        *args)
+    assert err == 0
+    want = inter.make_recon_inter_raw(cfg, tab, True, b_mode=True)(*src,
+                                                                   *args)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    dargs = (*args[:4], got[6].int(), got[7].int(), *args[6:])
     err, dec = recon_cuda._launch_inter(host_lib, 0, cfg, tab, False,
                                         *got[3:6], *dargs)
     assert err == 0

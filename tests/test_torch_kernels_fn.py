@@ -23,6 +23,10 @@ from x266_tpu_torch.kernels import intra as tintra
 from x266_tpu_torch.kernels import quant as tquant
 from x266_tpu_torch.kernels import transforms as ttx
 
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
+
 SIZES = (4, 8, 16, 32)
 TX_PAIRS = [(v, h) for v in tables.TX_TYPES for h in tables.TX_TYPES]
 

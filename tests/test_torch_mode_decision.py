@@ -16,6 +16,10 @@ from x266_tpu.engine import mode_decision as jmd
 from x266_tpu_torch import tables
 from x266_tpu_torch.engine import mode_decision as tmd
 
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
+
 # the configs of tests/test_torch_recon.py, so the JAX compilations
 # (functools-cached in x266_tpu.engine.mode_decision) are shared
 CFGS = [

@@ -19,8 +19,19 @@ PSNR, which the reference sums in float32 (F4): within 1e-4 dB.
   stream to its recorded recon;
 - P slices whose reference is missing, or whose MVs read past the pad,
   are refused;
+- a 5-frame 128x64 random-access clip with deblock, SAO and ALF (GOP 4:
+  I, P, then B pictures at POC 2, 1, 3; recorded by the same tool in
+  data/ra128x64_ref.json): without ALF the JAX encoder's bytes; with
+  ALF the bytes of the JAX encoder whose ALF estimators sum exactly, as
+  the port's do (variant "exact"), and beside the reference's own
+  float32 estimators (ROADMAP queue 3, F9) its IDR within +-0.5 % bits
+  and +-0.02 dB; the port decodes the JAX streams to JAX's recon, and
+  the JAX decoder decodes the port's ALF stream to the port's recon
+  (live);
+- the golden fixtures lowdelay_p_filters and ra_alf decode to their
+  manifest MD5s;
 - the one-frame device step gives what the batched step gives per frame;
-- configurations outside the slice raise NotImplementedError.
+- configurations outside the slices raise NotImplementedError.
 """
 
 import base64
@@ -42,6 +53,11 @@ from x266_tpu_torch.core.headers import parse_slice_header
 from x266_tpu_torch.core.nal import NalType, split_nals
 from x266_tpu_torch.engine.picture import (tile_compute_async, tile_entropy,
                                            tiles_compute_batched_async)
+import torch  # noqa: E402
+
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -179,6 +195,75 @@ def test_p_stream_mv_beyond_the_pad_is_refused():
         Decoder(device="cpu").decode(bad)
 
 
+def _ra128():
+    with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
+                           "ra128x64_ref.json")) as f:
+        data = json.load(f)
+    return data, synthetic_clip(128, 64, 5, "mixed", seed=4)
+
+
+@pytest.fixture(scope="module")
+def port_ra():
+    """tools -> the port's CPU encode of the ra128x64 clip, made once per
+    set of tools for this module's tests."""
+    streams = {}
+
+    def get(variant):
+        data, frames = _ra128()
+        tools = data["variants"][variant]["tools"]
+        key = json.dumps(tools, sort_keys=True)
+        if key not in streams:
+            cfg = tconfig.preset_cfg4(128, 64).replace(**data["gop"], **tools)
+            streams[key] = Encoder(cfg, device="cpu").encode(frames)
+        return streams[key]
+
+    return get
+
+
+@pytest.mark.parametrize("variant", ["noalf", "full", "exact"])
+def test_ra_clip_matches_recorded_jax(variant, port_ra):
+    data, _ = _ra128()
+    ref = data["variants"][variant]
+    port = port_ra(variant)
+    stream = base64.b64decode(ref["stream_b64"])
+    port_md5 = [frame_md5(r) for r in port.recon]
+    jax_md5 = [f["recon_md5"] for f in ref["frames"]]
+    if variant == "full":
+        b0, p0 = ref["frames"][0]["bits"], ref["frames"][0]["psnr_y"]
+        assert abs(port.frame_bits[0] - b0) <= 0.005 * b0
+        assert abs(port.psnr_y(128, 64)[0] - p0) <= 0.02
+    else:
+        assert port.bitstream == stream
+        assert port_md5 == jax_md5
+    _, dec = Decoder(device="cpu").decode(port.bitstream)
+    assert [frame_md5(d) for d in dec] == port_md5
+    _, dec = Decoder(device="cpu").decode(stream)
+    assert [frame_md5(d) for d in dec] == jax_md5 == [
+        f["decode_md5"] for f in ref["frames"]]
+    cfg = tconfig.preset_cfg4(128, 64).replace(**data["gop"], **ref["tools"])
+    kinds = [(sh.poc, sh.slice_type.name) for sh in (
+        parse_slice_header(rbsp, cfg.alf, cfg.ctus_y * cfg.ctus_x,
+                           cfg.alf_chroma)[0]
+        for t, rbsp in split_nals(port.bitstream)
+        if t in (NalType.IDR, NalType.TRAIL))]
+    assert kinds == [(0, "I"), (4, "P"), (2, "B"), (1, "B"), (3, "B")]
+
+
+def test_jax_decodes_port_ra_alf_stream(port_ra):
+    """The live anchor: the JAX decoder decodes the port's random-access
+    stream with deblock, SAO and ALF to the port's recon."""
+    port = port_ra("full")
+    _, jdec = JaxDecoder().decode(port.bitstream)
+    assert [frame_md5(d) for d in jdec] == [frame_md5(r)
+                                            for r in port.recon]
+
+
+@pytest.mark.parametrize("name", ["lowdelay_p_filters", "ra_alf"])
+def test_decodes_filter_fixtures(name):
+    _, dec = Decoder(device="cpu").decode(_fixture(name))
+    assert [frame_md5(d) for d in dec] == _manifest(name)["md5"]
+
+
 def test_single_frame_step_equals_batched():
     cfg = preset_cfg2(64, 64)
     enc = Encoder(cfg, device="cpu")
@@ -192,9 +277,11 @@ def test_single_frame_step_equals_batched():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(gop_size=4), dict(deblock=True), dict(tile_rows=1),
-    dict(lossless=True), dict(transform_skip=True),
-    dict(sign_data_hiding=True), dict(bit_depth=10)])
+    dict(multi_ref=True, intra_period=8), dict(alf=True, ccalf=True),
+    dict(tile_rows=1), dict(lossless=True), dict(transform_skip=True),
+    dict(sign_data_hiding=True), dict(bit_depth=10),
+    dict(weighted_pred=True, intra_period=8),
+    dict(alf=True, alf_nonlinear=True)])
 def test_out_of_slice_configs_raise(kw):
     cfg = CodecConfig(width=128, height=128, **kw)
     with pytest.raises(NotImplementedError):
@@ -202,5 +289,6 @@ def test_out_of_slice_configs_raise(kw):
 
 
 def test_out_of_slice_streams_raise():
+    """GPB with weighted prediction (multi_ref) is not in the slices."""
     with pytest.raises(NotImplementedError):
-        Decoder(device="cpu").decode(_fixture("lowdelay_p_filters"))
+        Decoder(device="cpu").decode(_fixture("gpb_rpl_wp"))

@@ -23,6 +23,10 @@ from x266_tpu.engine.recon_pallas import make_recon_pallas_raw
 from x266_tpu_torch import tables
 from x266_tpu_torch.engine import recon as trecon
 
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
+
 CFGS = [
     CodecConfig(width=104, height=72, qp=30),
     CodecConfig(width=128, height=64, qp=37, profile=Profile.VVC, mts=True),

@@ -22,6 +22,10 @@ from x266_tpu.specmodel.quant import DEQUANT_SCALES, QUANT_SCALES
 from x266_tpu_torch import tables
 from x266_tpu_torch.engine import availability as tavail
 
+# The tests' tensors are small: intra-op threads gain nothing, and the
+# suite's parallel workers would oversubscribe the cores with them.
+torch.set_num_threads(1)
+
 PROFILES = [Profile.HEVC_SUBSET, Profile.VVC]
 
 

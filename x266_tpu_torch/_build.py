@@ -77,7 +77,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         [i] * 9 + [fl] + [i] * 4 + [p] * 20 + [p])   # ..., stream
     lib.x266_recon_intra.restype = i
     lib.x266_recon_inter.argtypes = (
-        [i] * 8 + [fl] + [i] * 9 + [p] * 28 + [p])  # ..., stream
+        [i] * 8 + [fl] + [i] * 9 + [p] * 33 + [p])  # ..., stream
     lib.x266_recon_inter.restype = i
     lib.x266_warp_frames.argtypes = [i] * 5 + [p] * 4
     lib.x266_warp_frames.restype = i

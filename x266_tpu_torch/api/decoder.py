@@ -1,10 +1,16 @@
-"""Decoder front-end: bytestream -> pictures, for I and P slices.
+"""Decoder front-end: bytestream -> pictures, for I, P and B slices.
 
 Counterpart of x266_tpu/api/decoder.py restricted to the port's slices:
-VPS, SPS, PPS, I slices and low-delay P slices, which reference the
-previous picture through a one-entry DPB of device pyramids (the slice
-header's reference list when signalled).  B slices, and any SPS flag
-outside the slices, raise NotImplementedError.
+VPS, SPS, PPS, I slices, P slices and random-access B slices, with
+deblock, SAO and ALF (nonlinear and CC-ALF included).  The DPB holds
+device pyramids.  A low-delay P slice references the previous picture
+(a one-entry DPB), an RA P slice the latest picture below it; a B slice
+takes L0 = the nearest POC below and L1 = the nearest above, or the
+slice header's reference lists when signalled.  Leaf B pictures (odd
+POC) are never referenced and build no pyramids, and each anchor evicts
+the pyramids older than the previous anchor.  Pictures come out in POC
+order.  GPB (multi_ref), weighted prediction, tiles and any other SPS
+flag outside the slices raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,17 +28,32 @@ from x266_tpu_torch.engine.inter import recon_inter_pass
 from x266_tpu_torch.engine.picture import decode_picture_gop
 
 
-def _reference(dpb: dict, sh) -> tuple:
-    """A P slice's reference pyramids: the POC its reference list names,
-    else the latest picture before it."""
-    if sh.rpl is not None:
-        poc = sh.poc - sh.rpl[0][0]
-    else:
-        poc = max((p for p in dpb if p < sh.poc), default=None)
+def _ref(dpb: dict, sh, poc) -> tuple:
     if poc not in dpb:
-        raise ValueError(f"P slice at POC {sh.poc} references POC {poc}, "
-                         "which is not in the DPB")
+        raise ValueError(f"{sh.slice_type.name} slice at POC {sh.poc} "
+                         f"references POC {poc}, which is not in the DPB")
     return dpb[poc]
+
+
+def _references(dpb: dict, sh):
+    """An inter slice's reference pyramids and whether the picture is
+    itself referenced.  P: the POC its reference list names, else the
+    latest picture before it.  B: the POCs its lists name, else the
+    nearest below (L0) and above (L1); a B picture with an L1 above it
+    is referenced at even POCs only (the hierarchy's leaves are odd)."""
+    if sh.slice_type == SliceType.P:
+        poc = (sh.poc - sh.rpl[0][0] if sh.rpl is not None
+               else max((p for p in dpb if p < sh.poc), default=None))
+        return _ref(dpb, sh, poc), True
+    if sh.rpl is not None:
+        l0, l1 = sh.poc - sh.rpl[0][0], sh.poc - sh.rpl[1][0]
+    else:
+        l0 = max((p for p in dpb if p < sh.poc), default=None)
+        l1 = min((p for p in dpb if p > sh.poc), default=None)
+    if l1 is not None and l1 < sh.poc:
+        raise NotImplementedError("B slices with two past references "
+                                  "(GPB) are not in the port's slices")
+    return (_ref(dpb, sh, l0), _ref(dpb, sh, l1)), sh.poc % 2 == 0
 
 
 class Decoder:
@@ -45,7 +66,7 @@ class Decoder:
         cfg: CodecConfig | None = None
         qp: int | None = None
         tab = None
-        steps = {}                      # slice qp -> decode steps (I, P)
+        steps = {}                      # slice qp -> decode steps (I, P, B)
         frames: dict[int, Frame] = {}
         dpb: dict[int, tuple] = {}      # poc -> device pyramids
         vps = None
@@ -54,7 +75,7 @@ class Decoder:
                 vps = headers.parse_vps(rbsp)
             elif nal_type == NalType.SPS:
                 cfg = headers.parse_sps(rbsp)
-                check_config(cfg)
+                check_config(cfg, encode=False)
                 if vps is not None:
                     want = headers.PROFILE_IDS[cfg.profile]
                     if vps["profile_idc"] != want:
@@ -77,20 +98,30 @@ class Decoder:
                     cfg.alf_chroma, cfg.alf_nonlinear, cfg.ccalf,
                     has_wp=cfg.weighted_pred, n_bands=cfg.num_tiles,
                     has_rpl=cfg.rpl)
-                if sh.slice_type == SliceType.B:
-                    raise NotImplementedError(
-                        "B slices are not in the port's slices")
                 use = cfg if sh.qp == cfg.qp else cfg.replace(qp=sh.qp)
                 if sh.qp not in steps:
                     steps[sh.qp] = (fused.make_decode_step_i(use, tab),
-                                    recon_inter_pass(use, tab, encode=False))
-                ref = (_reference(dpb, sh) if sh.slice_type == SliceType.P
-                       else None)
-                # pyramids only where a P picture can follow
+                                    recon_inter_pass(use, tab, encode=False),
+                                    recon_inter_pass(use, tab, encode=False,
+                                                     b_mode=True))
+                ref, is_ref = ((None, True) if sh.slice_type == SliceType.I
+                               else _references(dpb, sh))
+                # pyramids only where an inter picture can follow
                 frames[sh.poc], pyr = decode_picture_gop(
                     use, steps[sh.qp], sh, rbsp[off:], ref, self.device,
-                    with_pyramids=use.intra_period != 1)
-                if pyr is not None:
+                    with_pyramids=is_ref and (use.intra_period != 1
+                                              or use.gop_size > 1))
+                if pyr is None:
+                    continue
+                if cfg.gop_size > 1:
+                    dpb[sh.poc] = pyr
+                    if sh.slice_type != SliceType.B and sh.poc > 0:
+                        # a new span: pyramids older than the previous
+                        # anchor are no longer referenced
+                        for p in [p for p in dpb
+                                  if p < sh.poc - cfg.gop_size]:
+                            del dpb[p]
+                else:
                     dpb = {sh.poc: pyr}         # low-delay: the latest
             elif nal_type == NalType.EOS:
                 break

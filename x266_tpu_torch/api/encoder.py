@@ -1,15 +1,20 @@
 """Encoder front-end: frames -> Annex-B style bytestream.
 
-Counterpart of x266_tpu/api/encoder.py: the all-intra branch (:88-161)
-and the low-delay loop ``_encode_gop`` (:163-223) without rate control,
-weighted prediction or tiles.  All-intra frames go to the device in
+Counterpart of x266_tpu/api/encoder.py: the all-intra branch (:88-161),
+the low-delay loop ``_encode_gop`` (:163-223) and the random-access loop
+``_encode_ra`` (:304-382), without rate control, weighted prediction,
+multiple references or tiles.  All-intra frames go to the device in
 chunks of ``batch_frames``; every chunk's step is queued before the
 first is finalized, so the device works on later chunks while the host
-entropy-codes earlier ones.  In a low-delay stream (intra_period > 1)
-an IDR starts every intra_period frames and the pictures between are P
-pictures; frame i+1 is dispatched before frame i is finalized, its only
-dependency being frame i's pyramids on the device.  The stream is
-identical to the reference's for the same frames and config.
+entropy-codes earlier ones.  In a low-delay stream (intra_period > 1,
+gop_size 1) an IDR starts every intra_period frames and the pictures
+between are P pictures; frame i+1 is dispatched before frame i is
+finalized, its only dependency being frame i's pyramids on the device.
+A random-access stream (gop_size > 1) codes anchors every gop_size
+pictures and hierarchical B pictures between them, in coding order.
+The stream is identical to the reference's for the same frames and
+config, except with ALF, whose estimator sums its normal equations
+exactly where the reference sums them in float32 (ROADMAP queue 3, F9).
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ from x266_tpu_torch.core.yuv import Frame
 from x266_tpu_torch import device as devmod
 from x266_tpu_torch import tables
 from x266_tpu_torch.engine import fused
-from x266_tpu_torch.engine.picture import (assemble_slice,
+from x266_tpu_torch.engine.picture import (assemble_slice, b_qp_offset,
+                                           encode_picture_b_async,
                                            encode_picture_gop_async,
+                                           gop_coding_order,
                                            tiles_compute_batched_async,
                                            tile_entropy)
 from x266_tpu_torch.engine.recon import check_slice
@@ -53,18 +60,19 @@ class EncodeResult:
         return 8 * len(self.bitstream)
 
 
-def check_config(cfg: CodecConfig) -> None:
+def check_config(cfg: CodecConfig, encode: bool = True) -> None:
     """Raise NotImplementedError for anything outside the port's slices:
-    all-intra or low-delay P (gop_size 1), one tile, 8-bit, no loop
-    filters, CU <= 32, tools limited to MTS, RDOQ, reference
-    substitution, merge candidates, AMVP and signalled reference
-    lists."""
-    if cfg.gop_size > 1:
-        raise NotImplementedError("B pictures (gop_size > 1) are not in "
-                                  "the port's slices")
+    all-intra, low-delay P or random access (gop_size > 1), one tile,
+    8-bit, CU <= 32, tools limited to MTS, RDOQ, reference substitution,
+    merge candidates, AMVP, signalled reference lists, deblock, SAO and
+    ALF.  The decoder (encode=False) also takes nonlinear ALF and
+    CC-ALF, whose estimators are not ported."""
     if cfg.num_tiles != 1:
         raise NotImplementedError("tiles are not in the port's slices")
-    for flag in ("deblock", "sao", "alf", "weighted_pred", "multi_ref"):
+    flags = ["weighted_pred", "multi_ref"]
+    if encode:
+        flags += ["alf_nonlinear", "ccalf"]
+    for flag in flags:
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} is not in the port's "
                                       "slices")
@@ -72,8 +80,8 @@ def check_config(cfg: CodecConfig) -> None:
 
 
 class Encoder:
-    """All-intra or low-delay P encoder, on the card unless the caller
-    asks for the CPU (device="cpu").
+    """All-intra, low-delay P or random-access encoder, on the card
+    unless the caller asks for the CPU (device="cpu").
 
     >>> enc = Encoder(preset_cfg3(1920, 1080))
     >>> result = enc.encode(frames)
@@ -98,6 +106,7 @@ class Encoder:
                                                    with_recon, True),
                           fused.make_encode_step_p(cfg, self.tab,
                                                    with_recon))
+        self.b_steps = {}       # (qp, is_ref) -> B step
 
     def encode(self, frames: list[Frame]) -> EncodeResult:
         cfg = self.cfg
@@ -108,6 +117,8 @@ class Encoder:
                write_nal(NalType.SPS, headers.write_sps(cfg)),
                write_nal(NalType.PPS, headers.write_pps(cfg))]
         if cfg.intra_period != 1:
+            if cfg.gop_size > 1:
+                return self._encode_ra(frames, out)
             return self._encode_gop(frames, out)
         bf = self.batch_frames
         fins = [tiles_compute_batched_async(cfg, self.step,
@@ -118,7 +129,7 @@ class Encoder:
         for fin in fins:
             for td in fin():
                 nal = write_nal(NalType.IDR, assemble_slice(
-                    cfg, poc, tile_entropy(td)))
+                    cfg, poc, tile_entropy(td), alf=td.alf))
                 out.append(nal)
                 if td.recon is not None:
                     res.recon.append(td.recon)
@@ -158,3 +169,73 @@ class Encoder:
             drain()
         res.bitstream = b"".join(out)
         return res
+
+    def _b_step(self, poc: int):
+        """The B step of POC poc: its QP is the anchor's plus
+        b_qp_offset, and a leaf (odd POC) builds no pyramids.  Steps are
+        made once per (QP, referenced) and reused."""
+        bc = self.cfg.replace(qp=self.cfg.qp + b_qp_offset(self.cfg, poc))
+        key = (bc.qp, poc % 2 == 0)
+        if key not in self.b_steps:
+            self.b_steps[key] = (bc, fused.make_encode_step_b(
+                bc, self.tab, self.with_recon, with_pyramids=key[1]))
+        return self.b_steps[key]
+
+    def _encode_ra(self, frames: list[Frame],
+                   out: list[bytes]) -> EncodeResult:
+        """Random access: anchors every gop_size pictures (IDR at
+        multiples of intra_period, else P on the previous anchor) and
+        hierarchical B pictures between, each on the nearest coded
+        pictures below and above.  NALs leave in coding order; recon,
+        bits and SSE come back in display order.  The DPB keeps the
+        pyramids of POCs from the previous anchor on; leaf B pictures
+        are never referenced and build none.  The next picture is
+        dispatched before the last one is finalized."""
+        cfg = self.cfg
+        dpb: dict[int, tuple] = {}
+        per_poc: dict[int, tuple] = {}
+        pending = []
+
+        def drain():
+            poc, fin, nal_type = pending.pop(0)
+            rbsp, recon, sse = fin()
+            nal = write_nal(nal_type, rbsp)
+            out.append(nal)
+            per_poc[poc] = (nal, recon, sse)
+
+        for poc, kind in gop_coding_order(len(frames), cfg.intra_period,
+                                          cfg.gop_size):
+            if kind == "B":
+                l0 = max(p for p in dpb if p < poc)
+                l1 = min(p for p in dpb if p > poc)
+                bc, step = self._b_step(poc)
+                fin, pyr = encode_picture_b_async(
+                    bc, step, frames[poc], poc, dpb[l0], dpb[l1],
+                    self.device, ref_pocs=[[l0], [l1]])
+                nal_type = NalType.TRAIL
+            else:
+                rpoc = (None if kind == "I"
+                        else max(p for p in dpb if p < poc))
+                fin, pyr, st = encode_picture_gop_async(
+                    cfg, self.steps, frames[poc], poc,
+                    None if rpoc is None else dpb[rpoc], self.device,
+                    ref_poc=rpoc)
+                nal_type = NalType.IDR if st == SliceType.I else \
+                    NalType.TRAIL
+            if pyr is not None:
+                dpb[poc] = pyr
+            pending.append((poc, fin, nal_type))
+            while len(pending) > 1:
+                drain()
+            if kind != "B" and poc > 0:
+                # a new span (previous anchor, poc]: older pyramids go
+                for p in [p for p in dpb if p < poc - cfg.gop_size]:
+                    del dpb[p]
+        while pending:
+            drain()
+        pocs = sorted(per_poc)
+        return EncodeResult(b"".join(out),
+                            [per_poc[p][1] for p in pocs
+                             if per_poc[p][1] is not None],
+                            [8 * len(per_poc[p][0]) for p in pocs],
+                            [per_poc[p][2] for p in pocs])

@@ -1,5 +1,5 @@
-// Reconstruction scan: kernels K1 (intra encode), K2 (intra decode) and
-// K3-P (P-picture encode and decode).
+// Reconstruction scan: kernels K1 (intra encode), K2 (intra decode), K3-P
+// (P-picture encode and decode) and K3-B (B-picture encode and decode).
 //
 // Replaces the Pallas TPU kernel x266_tpu/engine/recon_pallas.py:
 // _build_pallas (inter=False; pl.pallas_call at :943), which is the
@@ -49,6 +49,17 @@
 // bounds it is the same serial chain as K1, and P pictures depend on each
 // other, so a launch holds one frame: one block walks the picture.
 //
+// K3-B replaces the same Pallas kernel with b_mode=True (recon_pallas.py
+// :280-291, 587-592, 758-770, 858-868); its plain version is
+// make_recon_inter_raw(..., b_mode=True).  It is K3-P's instantiation with
+// a second reference: the L1 pyramids and the mvx1/mvy1 maps.  Kind
+// PRED_L1 takes the pointer path from the L1 pyramid at the primary MV;
+// PRED_BI hands tu() a second MC origin (L0 at the primary MV, L1 at mv1;
+// chroma mv >> 1) and the prediction load forms (p0 + p1 + 1) >> 1.  L1
+// and bi CUs are coded-MV CUs for the skip derivation, and the MV state
+// holds their primary MV.  B pictures depend on their references, so one
+// launch still holds one picture.
+//
 // The launch goes through cudaLaunchKernel rather than <<<...>>>, so this
 // file is plain C++ apart from CUDA's built-ins: tests/test_torch_kernel_host.py
 // compiles it with g++ against a host stand-in of the runtime
@@ -70,7 +81,7 @@ constexpr int kWinC = 1 + 48;     // chroma window
 constexpr int kMaxS = 32;
 constexpr int kMaxR = 4 * kMaxS + 1;
 constexpr int kRefPad = 80;       // kernels/interp.py REF_PAD
-constexpr int kSkip = 2, kIntra = 0;   // engine/inter.py PRED_*
+constexpr int kIntra = 0, kSkip = 2, kL1 = 3, kBi = 4;  // inter.PRED_*
 
 // specmodel.quant QUANT_SCALES / DEQUANT_SCALES
 __constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
@@ -89,12 +100,13 @@ struct Params {
   int16_t* coef_out[3];           // encode: levels
   const int32_t *taps, *smooth, *tx, *shift;
   const float* rate;              // (32768,) rate surrogate
-  // K3-P only (frames == 1)
+  // K3-P and K3-B only (frames == 1)
   int merge;                      // merge candidates on
   const int32_t *pred_map, *mvx_map, *mvy_map;   // (H/8, W/8)
-  const uint8_t* pyr[3];          // (16, Hp, Wp) luma, Cb, Cr
+  const uint8_t* pyr[6];          // (16, Hp, Wp) L0 Y, Cb, Cr; L1 (K3-B)
   int pyr_h[2], pyr_w[2];         // luma, chroma pyramid plane sizes
   int16_t* mv_out[2];             // final MVs (H/8, W/8); the MV state
+  const int32_t* mv1_map[2];      // K3-B: a bi CU's L1 MV (H/8, W/8)
 };
 
 struct Shared {
@@ -174,13 +186,14 @@ __device__ __forceinline__ uint8_t& at(const View& v, int x, int y) {
 // One TU at plane coords (x, y), size s.  All threads of the block call
 // it with the same arguments.  mc: the top-left sample of an inter CU's
 // MC block in its pyramid plane (row pitch mc_pitch), nullptr for intra;
-// skip: an inter CU coded without residual (encode writes zero levels).
+// skip: an inter CU coded without residual (encode writes zero levels);
+// mc1: a bi CU's second MC block (same pitch), averaged with mc's.
 template <bool kEncode>
 __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
                    int s, int mode, int tv, int th, const uint8_t* src,
                    int pitch, const int16_t* cin, int16_t* cout, int f,
                    const uint8_t* mc = nullptr, int mc_pitch = 0,
-                   bool skip = false) {
+                   bool skip = false, const uint8_t* mc1 = nullptr) {
   const int tid = threadIdx.x;
   const int r_len = 4 * s + 1;
   const int mid = 128;
@@ -243,7 +256,9 @@ __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
   for (int i = tid; i < n; i += kThreads) {
     int pr;
     if (mc != nullptr) {
-      pr = __ldg(mc + (size_t)(i / s) * mc_pitch + i % s);
+      const size_t o = (size_t)(i / s) * mc_pitch + i % s;
+      pr = __ldg(mc + o);
+      if (mc1 != nullptr) pr = (pr + __ldg(mc1 + o) + 1) >> 1;
     } else {
       int acc;
       if (mode == 1) {
@@ -404,7 +419,7 @@ __device__ __forceinline__ const uint8_t* mc_origin(const uint8_t* pyr, int h,
   return pyr + ((size_t)((mvy & 3) * 4 + (mvx & 3)) * h + py) * w + px;
 }
 
-template <bool kEncode, bool kInter>
+template <bool kEncode, bool kInter, bool kB = false>
 __global__ void __launch_bounds__(kThreads)
 recon_kernel(Params p) {
   __shared__ Shared sh;
@@ -465,20 +480,34 @@ recon_kernel(Params p) {
           }
         }
         const bool is_mc = kind != kIntra;
+        // K3-B: an L1 CU predicts from the L1 pyramids (pyr[3..5]); a bi
+        // CU adds the L1 block at its mv1 to the L0 block at its MV
+        const uint8_t* const* pyr = p.pyr + (kB && kind == kL1 ? 3 : 0);
+        const bool bi = kB && kind == kBi;
+        int mv1[2] = {0, 0};
+        if (bi) {
+          mv1[0] = p.mv1_map[0][mi];
+          mv1[1] = p.mv1_map[1][mi];
+        }
         tu<kEncode>(p, sh, vy, x, y, s, mode, tvs[mts], ths[mts], src_y,
                     p.pitch_y, p.coef_in[0], p.coef_out[0], f,
-                    is_mc ? mc_origin(p.pyr[0], p.pyr_h[0], p.pyr_w[0], x,
+                    is_mc ? mc_origin(pyr[0], p.pyr_h[0], p.pyr_w[0], x,
                                       y, mv[0], mv[1], s) : nullptr,
-                    p.pyr_w[0], skip);
+                    p.pyr_w[0], skip,
+                    bi ? mc_origin(p.pyr[3], p.pyr_h[0], p.pyr_w[0], x, y,
+                                   mv1[0], mv1[1], s) : nullptr);
         for (int c = 0; c < 2; ++c)
           tu<kEncode>(p, sh, vc[c], x / 2, y / 2, s / 2, mode, 0, 0,
                       src_c[c], p.pitch_c, p.coef_in[1 + c],
                       p.coef_out[1 + c], f,
-                      is_mc ? mc_origin(p.pyr[1 + c], p.pyr_h[1], p.pyr_w[1],
+                      is_mc ? mc_origin(pyr[1 + c], p.pyr_h[1], p.pyr_w[1],
                                         x / 2, y / 2, mv[0] >> 1, mv[1] >> 1,
                                         s / 2)
                             : nullptr,
-                      p.pyr_w[1], skip);
+                      p.pyr_w[1], skip,
+                      bi ? mc_origin(p.pyr[4 + c], p.pyr_h[1], p.pyr_w[1],
+                                     x / 2, y / 2, mv1[0] >> 1, mv1[1] >> 1,
+                                     s / 2) : nullptr);
         if (kInter) {
           // the CU's final MV over its units: the MV state of later CUs
           for (int i = threadIdx.x; i < u * u; i += kThreads) {
@@ -526,16 +555,30 @@ void set_common(Params& p, int frames, int width, int height,
   p.rate = (const float*)rate;
 }
 
-template <bool kInter>
+template <bool kInter, bool kB = false>
 int launch(Params& p, int encode, void* stream) {
   void* args[] = {&p};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err =
-      encode ? cudaLaunchKernel(recon_kernel<true, kInter>, dim3(p.frames),
-                                dim3(kThreads), args, 0, st)
-             : cudaLaunchKernel(recon_kernel<false, kInter>, dim3(p.frames),
-                                dim3(kThreads), args, 0, st);
+      encode ? cudaLaunchKernel(recon_kernel<true, kInter, kB>,
+                                dim3(p.frames), dim3(kThreads), args, 0, st)
+             : cudaLaunchKernel(recon_kernel<false, kInter, kB>,
+                                dim3(p.frames), dim3(kThreads), args, 0, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+void set_inter(Params& p, int merge, int pyr_hy, int pyr_wy, int pyr_hc,
+               int pyr_wc, const void* pred_map, const void* mvx_map,
+               const void* mvy_map, const void* const* pyr, void* mv_x,
+               void* mv_y) {
+  p.merge = merge;
+  p.pred_map = (const int32_t*)pred_map;
+  p.mvx_map = (const int32_t*)mvx_map;
+  p.mvy_map = (const int32_t*)mvy_map;
+  for (int i = 0; i < 3; ++i) p.pyr[i] = (const uint8_t*)pyr[i];
+  p.pyr_h[0] = pyr_hy; p.pyr_w[0] = pyr_wy;
+  p.pyr_h[1] = pyr_hc; p.pyr_w[1] = pyr_wc;
+  p.mv_out[0] = (int16_t*)mv_x; p.mv_out[1] = (int16_t*)mv_y;
 }
 
 }  // namespace
@@ -563,10 +606,12 @@ int x266_recon_intra(
   return launch<false>(p, encode, stream);
 }
 
-// Launches K3-P on one P picture (encode != 0: the encoder's form) on
-// `stream`; returns cudaGetLastError().  Arguments as x266_recon_intra,
-// plus the inter maps, the reference's three pyramids (16, Hp, Wp) and
-// the final-MV planes (int16, H/8 x W/8).
+// Launches K3-P on one P picture, or K3-B on one B picture when pyr1_y is
+// not null (encode != 0: the encoder's form), on `stream`; returns
+// cudaGetLastError().  Arguments as x266_recon_intra, plus the inter maps,
+// the reference's three pyramids (16, Hp, Wp), the final-MV planes (int16,
+// H/8 x W/8) and, for K3-B, the L1 pyramids (the shapes of L0's) and the
+// mvx1/mvy1 maps (int32, H/8 x W/8).
 int x266_recon_inter(
     int encode, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
@@ -579,25 +624,25 @@ int x266_recon_inter(
     void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
     void* cout_cr, void* mv_x, void* mv_y, const void* taps,
     const void* smooth, const void* tx, const void* shift, const void* rate,
-    void* stream) {
+    const void* pyr1_y, const void* pyr1_cb, const void* pyr1_cr,
+    const void* mvx1_map, const void* mvy1_map, void* stream) {
   const void* src[3] = {src_y, src_cb, src_cr};
   const void* cin[3] = {cin_y, cin_cb, cin_cr};
   void* rec[3] = {rec_y, rec_cb, rec_cr};
   void* cout[3] = {cout_y, cout_cb, cout_cr};
+  const void* pyr[3] = {pyr_y, pyr_cb, pyr_cr};
   Params p;
   set_common(p, 1, width, height, pitch_y, pitch_c, plane_y,
              plane_c, qp, lam, rdoq, mts, subst, n_modes, src, cin, size_map,
              mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
-  p.merge = merge;
-  p.pred_map = (const int32_t*)pred_map;
-  p.mvx_map = (const int32_t*)mvx_map;
-  p.mvy_map = (const int32_t*)mvy_map;
-  p.pyr[0] = (const uint8_t*)pyr_y; p.pyr[1] = (const uint8_t*)pyr_cb;
-  p.pyr[2] = (const uint8_t*)pyr_cr;
-  p.pyr_h[0] = pyr_hy; p.pyr_w[0] = pyr_wy;
-  p.pyr_h[1] = pyr_hc; p.pyr_w[1] = pyr_wc;
-  p.mv_out[0] = (int16_t*)mv_x; p.mv_out[1] = (int16_t*)mv_y;
-  return launch<true>(p, encode, stream);
+  set_inter(p, merge, pyr_hy, pyr_wy, pyr_hc, pyr_wc, pred_map, mvx_map,
+            mvy_map, pyr, mv_x, mv_y);
+  if (pyr1_y == nullptr) return launch<true>(p, encode, stream);
+  p.pyr[3] = (const uint8_t*)pyr1_y; p.pyr[4] = (const uint8_t*)pyr1_cb;
+  p.pyr[5] = (const uint8_t*)pyr1_cr;
+  p.mv1_map[0] = (const int32_t*)mvx1_map;
+  p.mv1_map[1] = (const int32_t*)mvy1_map;
+  return launch<true, true>(p, encode, stream);
 }
 
 const char* x266_error_string(int err) {

@@ -1,15 +1,19 @@
 """The picture steps on the device: I pictures for a batch of frames,
-P pictures one at a time.
+P and B pictures one at a time.
 
 Counterpart of x266_tpu/engine/fused.py: ``_unpack_padded`` (:59-71),
-the I step Pass A -> MTS select -> Pass B -> SSE (:554-631 with the SSE
-part of ``_filters_and_stats``, :417-419 and :483-486), the P step
-(``_p_body``, :651-703), the reference pyramids (``_pyr_target``,
-``_build_pyramids_device``, :493-525) and the I decode step
-(``make_decode_step_i`` :1182-1238; the P decode step,
-``make_decode_step_p`` :1098-1117, is engine.inter.recon_inter_pass
-with encode=False).  Configs 2 and 3 run no deblock, SAO, ALF or
-weighted prediction; those wait for a later slice.
+the I step Pass A -> MTS select -> Pass B -> loop filters -> SSE
+(:554-631), the loop filters (``_filters_and_stats`` :399-490), the P
+step (``_p_body``, :651-703), the B step (``_b_body``,
+``make_encode_step_b``, :750-782, 935-961), the reference pyramids
+(``_pyr_target``, ``_build_pyramids_device``, :493-525) and the decode
+side: the I decode step (``make_decode_step_i`` :1182-1238; the P and B
+decode steps, :1074-1117, are engine.inter.recon_inter_pass with
+encode=False) and the decoder's loop filters (``decode_filters``, the
+filter half of ``_decode_inter_body`` and ``_apply_alf_decode``,
+:1003-1071).  Deblock, SAO and ALF are plain torch ops on the planes'
+device, as they are XLA ops in the reference; weighted prediction is not
+ported.
 
 The reference vmaps its step over frames; here the frame is the leading
 dimension of the tensors and the grid dimension of the recon kernel.
@@ -23,13 +27,17 @@ from __future__ import annotations
 import torch
 
 from x266_tpu_torch.config import CodecConfig
-from x266_tpu_torch.engine.inter import (make_mode_decision_p_raw,
+from x266_tpu_torch.engine.inter import (make_mode_decision_b_raw,
+                                         make_mode_decision_p_raw,
                                          recon_inter_pass)
 from x266_tpu_torch.engine.mode_decision import (make_mode_decision_raw,
                                                  make_mts_select_raw,
                                                  pad_plane)
 from x266_tpu_torch.engine.recon import recon_pass
+from x266_tpu_torch.kernels import alf as kalf
 from x266_tpu_torch.kernels import interp
+from x266_tpu_torch.kernels.deblock import deblock_picture
+from x266_tpu_torch.kernels.sao import apply_sao, estimate_sao
 from x266_tpu_torch.tables import Tables
 
 
@@ -69,6 +77,146 @@ def frame_sse(rec: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
     return (d.to(torch.int64) ** 2).sum((-2, -1))
 
 
+def has_filters(cfg: CodecConfig) -> bool:
+    return cfg.deblock or cfg.sao or cfg.alf
+
+
+def _zero_alf(cfg: CodecConfig, dev) -> tuple:
+    """The ALF parameter tuple of a picture without ALF: (alf_flag,
+    alf_coef, alf_cflag, alf_ccoef, alf_clip, alf_cclip, ccalf_coef,
+    ccalf_flag), zeros."""
+    cy, cx = cfg.ctus_y, cfg.ctus_x
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    return (z(cy, cx), z(25, 12), z(2, cy, cx), z(2, 6), z(25), z(2),
+            z(2, 7), z(2, cy, cx))
+
+
+def loop_filters(cfg: CodecConfig, y8, cb8, cr8, size_map, src,
+                 db_info=None):
+    """The encoder's filter chain of one picture: deblock, SAO (estimate
+    and apply, luma and with cfg.sao_chroma chroma), ALF (luma and with
+    cfg.alf_chroma chroma).  y8, cb8, cr8: the (H, W) / (H/2, W/2) uint8
+    reconstruction; src the source planes; size_map (H/8, W/8); db_info:
+    an inter picture's (pred_map, mvx, mvy, coef_y) for the boundary
+    strengths.  Returns ((y, cb, cr) uint8, sao (type, band, off) each
+    with a leading plane axis of 3, the ALF parameter tuple)."""
+    bdv = cfg.bit_depth
+    lam = float(cfg.lambda_mode)
+    y, cb, cr = (p.to(torch.int32) for p in (y8, cb8, cr8))
+    orig_y, orig_cb, orig_cr = (p.to(torch.int32) for p in src)
+    dev = y.device
+    if cfg.deblock:
+        pm, mx, my, cy_ = db_info if db_info else (None,) * 4
+        y, cb, cr = deblock_picture(y, cb, cr, size_map.to(torch.int32),
+                                    cfg.qp, pred_map=pm, mvx=mx, mvy=my,
+                                    coef_y=cy_, bit_depth=bdv)
+    zc = torch.zeros((cfg.ctus_y, cfg.ctus_x), dtype=torch.int32,
+                     device=dev)
+    zo = torch.zeros((cfg.ctus_y, cfg.ctus_x, 4), dtype=torch.int32,
+                     device=dev)
+    params = [[zc, zc, zc], [zc, zc, zc], [zo, zo, zo]]
+    if cfg.sao:
+        planes = [(y, orig_y, 64)] + ([(cb, orig_cb, 32), (cr, orig_cr, 32)]
+                                      if cfg.sao_chroma else [])
+        out = []
+        for i, (p, o, ctb) in enumerate(planes):
+            st, sb, so = estimate_sao(o, p, lam, ctb=ctb, bit_depth=bdv)
+            out.append(apply_sao(p, st, sb, so, ctb=ctb, bit_depth=bdv))
+            params[0][i], params[1][i], params[2][i] = st, sb, so
+        y = out[0]
+        if cfg.sao_chroma:
+            cb, cr = out[1], out[2]
+    sao = tuple(torch.stack(p) for p in params)
+    alf = _zero_alf(cfg, dev)
+    if cfg.alf:
+        if cfg.alf_nonlinear or cfg.ccalf:
+            raise NotImplementedError("the nonlinear and CC-ALF estimators "
+                                      "are not ported")
+        coef, flag, y = kalf.estimate_alf(orig_y, y, lam, bdv)
+        alf = (flag, coef) + alf[2:]
+        if cfg.alf_chroma:
+            ccb, fcb, cb = kalf.estimate_alf_chroma(orig_cb, cb, lam, bdv)
+            ccr, fcr, cr = kalf.estimate_alf_chroma(orig_cr, cr, lam, bdv)
+            alf = (flag, coef, torch.stack([fcb, fcr]),
+                   torch.stack([ccb, ccr])) + alf[4:]
+    return tuple(p.to(torch.uint8) for p in (y, cb, cr)), sao, alf
+
+
+def decode_filters(cfg: CodecConfig, y8, cb8, cr8, size_map, sao, alf,
+                   db_info=None):
+    """The decoder's filter chain of one picture, from the stream's
+    parameters: deblock, SAO, ALF (linear or nonlinear with transposes,
+    chroma, CC-ALF).  y8, cb8, cr8 (H, W) / (H/2, W/2) uint8; sao the
+    (type, band, off) planes with the leading plane axis; alf a dict of
+    the slice header's ALF maps (picture.alf_maps_from_header); db_info
+    as loop_filters'.  Returns (y, cb, cr) uint8."""
+    bdv = cfg.bit_depth
+    y, cb, cr = (p.to(torch.int32) for p in (y8, cb8, cr8))
+    if cfg.deblock:
+        pm, mx, my, cy_ = db_info if db_info else (None,) * 4
+        y, cb, cr = deblock_picture(y, cb, cr, size_map.to(torch.int32),
+                                    cfg.qp, pred_map=pm, mvx=mx, mvy=my,
+                                    coef_y=cy_, bit_depth=bdv)
+    if cfg.sao:
+        st, sb, so = sao
+        y = apply_sao(y, st[0], sb[0], so[0], bit_depth=bdv)
+        if cfg.sao_chroma:
+            cb = apply_sao(cb, st[1], sb[1], so[1], ctb=32, bit_depth=bdv)
+            cr = apply_sao(cr, st[2], sb[2], so[2], ctb=32, bit_depth=bdv)
+    if cfg.alf:
+        y_sao = y
+        if cfg.alf_nonlinear:
+            cls, tr = kalf.classify_full(y)
+            y = kalf.apply_alf(y, cls, alf["alf_coef"], alf["alf_flag"], bdv,
+                               transpose_map=tr, clip_idx=alf["alf_clip"])
+        else:
+            y = kalf.apply_alf(y, kalf.classify(y), alf["alf_coef"],
+                               alf["alf_flag"], bdv)
+        if cfg.alf_chroma:
+            acc, acf = alf["alf_ccoef"], alf["alf_cflag"]
+            lvl = (alf["alf_cclip"].tolist() if cfg.alf_nonlinear
+                   else (None, None))
+            cb = kalf.apply_alf_chroma(cb, acc[0], acf[0], bdv, lvl[0])
+            cr = kalf.apply_alf_chroma(cr, acc[1], acf[1], bdv, lvl[1])
+        if cfg.ccalf:
+            ccc, ccf = alf["ccalf_coef"], alf["ccalf_flag"]
+            cb = kalf.apply_ccalf(cb, y_sao, ccc[0], ccf[0], bdv)
+            cr = kalf.apply_ccalf(cr, y_sao, ccc[1], ccf[1], bdv)
+    return tuple(p.to(torch.uint8) for p in (y, cb, cr))
+
+
+def _finish(cfg: CodecConfig, out: dict, rec, src, size_map, with_recon,
+            with_pyramids, db_info=None):
+    """The common tail of the encode steps over F frames: the loop
+    filters (when the config has any), the per-frame SSE against the
+    source, and with with_recon / with_pyramids (F = 1) the filtered
+    reconstruction and the next pictures' reference pyramids."""
+    if has_filters(cfg):
+        frames, saos, alfs = [], [], []
+        for f in range(rec[0].shape[0]):
+            dbf = (None if db_info is None
+                   else tuple(d[f].to(torch.int32) for d in db_info))
+            planes, sao, alf = loop_filters(
+                cfg, *(r[f] for r in rec), size_map[f],
+                tuple(p[f] for p in src), dbf)
+            frames.append(planes)
+            saos.append(sao)
+            alfs.append(alf)
+        rec = tuple(torch.stack(p) for p in zip(*frames))
+        out["sao"] = tuple(torch.stack(p) for p in zip(*saos))
+        out["alf"] = tuple(torch.stack(p) for p in zip(*alfs))
+    out["sse"] = torch.stack([frame_sse(r, p) for r, p in zip(rec, src)],
+                             dim=1)
+    if with_recon:
+        out["recon"] = rec
+    if with_pyramids:
+        out["pyramids"] = build_pyramids_device(*(r[0] for r in rec))
+    return out
+
+
 def _pyr_target(h: int, w: int) -> tuple[int, int]:
     """The reference's pyramid plane shape for an (h, w) picture plane:
     it covers every aligned-window read of the Pallas kernels, and the
@@ -100,7 +248,10 @@ def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool,
     """step(y, cb, cr) over F frames -> dict of device tensors:
     coef (Y, Cb, Cr) int16, maps size/mode/mts (F, H/8, W/8) int16,
     sse (F, 3) int64, with with_recon recon (Y, Cb, Cr) uint8 and, with
-    with_pyramids (F = 1), the next P picture's reference pyramids."""
+    with_pyramids (F = 1), the next P picture's reference pyramids.  With
+    loop filters, recon, SSE and pyramids are of the filtered picture,
+    and sao (type, band, off) and alf (the ALF parameter tuple) carry the
+    filters' parameters with the frame dim."""
     pass_a = make_pass_a(cfg, tab)
     rp = recon_pass(cfg, tab, encode=True)
 
@@ -109,14 +260,9 @@ def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool,
         maps = pass_a(yP)
         y8, cb8, cr8, cY, cCb, cCr = rp(yP, cbP, crP, *maps)
         out = {"coef": (cY, cCb, cCr),
-               "maps": tuple(m.to(torch.int16) for m in maps),
-               "sse": torch.stack([frame_sse(y8, y), frame_sse(cb8, cb),
-                                   frame_sse(cr8, cr)], dim=1)}
-        if with_recon:
-            out["recon"] = (y8, cb8, cr8)
-        if with_pyramids:
-            out["pyramids"] = build_pyramids_device(y8[0], cb8[0], cr8[0])
-        return out
+               "maps": tuple(m.to(torch.int16) for m in maps)}
+        return _finish(cfg, out, (y8, cb8, cr8), (y, cb, cr), maps[0],
+                       with_recon, with_pyramids)
 
     return step
 
@@ -140,13 +286,39 @@ def make_encode_step_p(cfg: CodecConfig, tab: Tables, with_recon: bool):
         out = {"coef": (cY, cCb, cCr),
                "maps": (*(m.to(torch.int16) for m in (size_map, mode_map,
                                                        mts_map, pred_map)),
-                        mvx_fin, mvy_fin),
-               "sse": torch.stack([frame_sse(y8, y), frame_sse(cb8, cb),
-                                   frame_sse(cr8, cr)], dim=1),
-               "pyramids": build_pyramids_device(y8[0], cb8[0], cr8[0])}
-        if with_recon:
-            out["recon"] = (y8, cb8, cr8)
-        return out
+                        mvx_fin, mvy_fin)}
+        return _finish(cfg, out, (y8, cb8, cr8), (y, cb, cr), size_map,
+                       with_recon, True,
+                       (pred_map, mvx_fin, mvy_fin, cY))
+
+    return step
+
+
+def make_encode_step_b(cfg: CodecConfig, tab: Tables, with_recon: bool,
+                       with_pyramids: bool = True):
+    """step(y, cb, cr, p0y, p0cb, p0cr, p1y, p1cb, p1cr) for one B picture
+    and its L0 / L1 reference pyramids -> the dict of make_encode_step_p
+    with maps size/mode/mts/pred/mvx/mvy (final)/mvx1/mvy1; no pyramids
+    without with_pyramids (a leaf B picture is never referenced)."""
+    mdb = make_mode_decision_b_raw(cfg, tab)
+    rp = recon_inter_pass(cfg, tab, encode=True, b_mode=True)
+
+    def step(y, cb, cr, p0y, p0cb, p0cr, p1y, p1cb, p1cr):
+        yP, cbP, crP = _unpack_padded(cfg, y, cb, cr)
+        (size_map, mode_map, pred_map, mvx_map, mvy_map, mvx1_map,
+         mvy1_map) = (m[None] for m in mdb(yP[0], p0y, p1y))
+        mts_map = torch.zeros_like(size_map)     # MTS is intra-only
+        (y8, cb8, cr8, cY, cCb, cCr, mvx_fin, mvy_fin) = rp(
+            yP, cbP, crP, size_map, mode_map, mts_map, pred_map, mvx_map,
+            mvy_map, p0y, p0cb, p0cr, p1y, p1cb, p1cr, mvx1_map, mvy1_map)
+        out = {"coef": (cY, cCb, cCr),
+               "maps": (*(m.to(torch.int16) for m in (size_map, mode_map,
+                                                       mts_map, pred_map)),
+                        mvx_fin, mvy_fin, mvx1_map.to(torch.int16),
+                        mvy1_map.to(torch.int16))}
+        return _finish(cfg, out, (y8, cb8, cr8), (y, cb, cr), size_map,
+                       with_recon, with_pyramids,
+                       (pred_map, mvx_fin, mvy_fin, cY))
 
     return step
 

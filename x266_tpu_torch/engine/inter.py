@@ -1,5 +1,5 @@
-"""The P half of the inter engine (C7/C8/C16): P Pass A and the P recon
-scan, as x266_tpu/engine/inter.py:42-256 and 596-877 (b_mode=False).
+"""The inter engine (C7/C8/C16): P and B Pass A and the P/B recon scan,
+as x266_tpu/engine/inter.py:42-573 and 596-877.
 
 Low-delay P: one reference (the previous decoded picture, on the device
 as three interpolation pyramids), one MV per CU, skip (derived MV, no
@@ -19,10 +19,21 @@ skip CUs derive their MV (left coded-MV unit, else the above one inside
 the CTU row, else zero; skip CUs' own MVs are never predictors).
 ``make_recon_inter_raw`` is the plain version of K3;
 ``recon_inter_pass`` routes CUDA tensors to K3 and CPU tensors to it.
+
+B pictures (random access) add a second reference list.  B Pass A
+(``make_mode_decision_b_raw``) runs ME against both references and
+ranks three explicit candidates per block -- L0, L1 and their average
+``(p0 + p1 + 1) >> 1`` -- by the transform-domain cost of
+``_b_candidates``, then competes the winner against intra and skip.
+The kinds PRED_L1 (MC from L1 at the primary MV) and PRED_BI (L0 at the
+primary MV, L1 at the mv1 maps) are coded-MV kinds, so they feed the
+one-hop skip derivation; the B scan (``b_mode``, the plain K3-B) is the
+P scan with those two predictions.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -44,6 +55,23 @@ from x266_tpu_torch.kernels import transforms as ktx
 from x266_tpu_torch.tables import Tables
 
 PRED_INTRA, PRED_INTER, PRED_SKIP = 0, 1, 2
+PRED_L1, PRED_BI = 3, 4          # B slices: L1-only and bi-prediction
+
+# B Pass A's 16x16 and 32x32 blocks whose float32 transform-domain error
+# sum reached 2^24 for one of the three candidates: below it every
+# partial sum is an exact integer, above it the port's order of addition
+# may round differently from XLA's (ROADMAP queue 3, F10).  Device counts
+# per (size, device), added to without a host read; see f10_blocks.
+F10_BLOCKS: dict = {}
+
+
+def f10_blocks() -> dict[int, int]:
+    """The F10_BLOCKS counts per block size, summed over devices."""
+    out = {16: 0, 32: 0}
+    for (s, _), n in F10_BLOCKS.items():
+        out[s] += int(n)
+    return out
+
 
 MVBITS_PATH = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                            "data", "mvbits_f32.npy")
@@ -77,6 +105,15 @@ def _blockify(frame: torch.Tensor, gy: int, gx: int, s: int
     return blk.reshape(gy * gx, s, s)
 
 
+@functools.lru_cache(maxsize=None)
+def _me_cells(w: int, h: int, s: int, device: torch.device):
+    """(m_y, m_x): the ME-grid cell of each size-s block of a w x h
+    picture, on device, uploaded once."""
+    xs, ys, _, _ = _block_positions(w, h, s)
+    return (torch.from_numpy(ys // kme.ME_BLOCK).to(device),
+            torch.from_numpy(xs // kme.ME_BLOCK).to(device))
+
+
 def _mv_bits(mvbits: torch.Tensor, mv: torch.Tensor,
              mvl: torch.Tensor) -> torch.Tensor:
     """sum over x, y of 2 + 2*log2(|mv - mvl| + 1), float32, from the
@@ -94,11 +131,10 @@ def _inter_cost(cfg: CodecConfig, tab: Tables, mvbits: torch.Tensor,
     size's MV fields."""
     w, h, s = cfg.width, cfg.height, size
     dev = plane.device
-    lam = torch.tensor(np.float32(cfg.lambda_mode), device=dev)
-    xs_np, ys_np, gy, gx = _block_positions(w, h, s)
-    nb = xs_np.shape[0]
-    m_y = torch.from_numpy(ys_np // kme.ME_BLOCK).to(dev)
-    m_x = torch.from_numpy(xs_np // kme.ME_BLOCK).to(dev)
+    lam = float(np.float32(cfg.lambda_mode))    # a multiplier: no upload
+    _, _, gy, gx = _block_positions(w, h, s)
+    m_y, m_x = _me_cells(w, h, s, dev)
+    nb = m_y.shape[0]
     mv = mv_grid[m_y, m_x]                        # (B, 2) quarter-pel
     mvl = mv_grid[m_y, (m_x - 1).clamp_min(0)]
 
@@ -151,8 +187,8 @@ def warp_fields(mv_grid: torch.Tensor, max_cu_size: int) -> torch.Tensor:
     replicated -> (T, By, Bx, 2) int32, T = 3 or 6."""
     by, bx = mv_grid.shape[:2]
     dev = mv_grid.device
-    left = torch.from_numpy(np.maximum(np.arange(bx) - 1, 0)).to(dev)
-    above = torch.from_numpy(np.maximum(np.arange(by) - 1, 0)).to(dev)
+    left = (torch.arange(bx, device=dev) - 1).clamp_min(0)
+    above = (torch.arange(by, device=dev) - 1).clamp_min(0)
     fields = [mv_grid, mv_grid[:, left], mv_grid[above, :]]
     if max_cu_size >= 32:
         fields += [_rep2(f, by, bx) for f in fields]
@@ -219,17 +255,200 @@ def make_mode_decision_p_raw(cfg: CodecConfig, tab: Tables):
     return run
 
 
+def _fwd_gain2(tab: Tables, s: int, bit_depth: int) -> float:
+    """||T(r)||^2 / ||r||^2 of the exact forward DCT-II on the reference's
+    fixed random residuals (numpy default_rng(7)): the factor that puts
+    B Pass A's transform-domain quantization error on the spatial SSE
+    scale.  The transform is exact, so this equals the reference's."""
+    r = np.random.default_rng(7).integers(-64, 64, (64, s, s)).astype(
+        np.int32)
+    c = ktx.forward_transform(tab, torch.from_numpy(r).to(tab.device), s,
+                              bit_depth=bit_depth).cpu().numpy()
+    return float(np.sum(c.astype(np.float64) ** 2)
+                 / np.sum(r.astype(np.float64) ** 2))
+
+
+def _b_candidates(cfg: CodecConfig, tab: Tables, mvbits: torch.Tensor,
+                  plane: torch.Tensor, pyr0_y: torch.Tensor,
+                  g0: torch.Tensor, g1: torch.Tensor, size: int, warp0,
+                  warp1, g2: torch.Tensor):
+    """The explicit B candidates (L0, L1, bi) and skip of all size-s
+    blocks: the three MC predictions are ranked by the transform-domain
+    cost (quantization error / g2 + lambda * bits) and only the winner
+    runs the inverse transform.  warp0: this size's (explicit, skip-left,
+    skip-above) L0 MC frames, warp1 its L1 frame; g2: _fwd_gain2 of the
+    size, a float32 divisor on the device (a CUDA division by a host
+    scalar multiplies by its reciprocal, which rounds differently).
+
+    Returns (cost_expl, kind_expl, pmx, pmy, smx, smy, cost_skip, midx),
+    each (gy, gx): kind_expl in {PRED_INTER, PRED_L1, PRED_BI}; the
+    primary MV (L1's for PRED_L1, else L0's) and, for PRED_BI, the L1
+    MV."""
+    w, h, s = cfg.width, cfg.height, size
+    dev = plane.device
+    lam = float(np.float32(cfg.lambda_mode))    # a multiplier: no upload
+    _, _, gy, gx = _block_positions(w, h, s)
+    m_y, m_x = _me_cells(w, h, s, dev)
+    nb = m_y.shape[0]
+    m_xl = (m_x - 1).clamp_min(0)
+    mv0, mv1 = g0[m_y, m_x], g1[m_y, m_x]
+    mvl0, mvl1 = g0[m_y, m_xl], g1[m_y, m_xl]
+
+    orig = _block_gather(plane, gy, gx, s)
+    p0 = _blockify(warp0[0], gy, gx, s)
+    p_skl = _blockify(warp0[1], gy, gx, s)
+    p_ska = _blockify(warp0[2], gy, gx, s)
+    p1 = _blockify(warp1, gy, gx, s)
+    pbi = (p0 + p1 + 1) >> 1
+    rp = interp.REF_PAD
+    p_zero = _blockify(pyr0_y[0, rp:rp + h, rp:rp + w].to(torch.int32),
+                       gy, gx, s)
+
+    b0 = _mv_bits(mvbits, mv0, mvl0)
+    b1 = _mv_bits(mvbits, mv1, mvl1)
+    bits = (b0 + 3.0, b1 + 3.0, (b0 + b1) + 6.0)
+
+    sse_l = kcost.sse(p_skl, orig)
+    sse_a = kcost.sse(p_ska, orig)
+    sse_z = kcost.sse(p_zero, orig)
+    d_c0 = torch.maximum(torch.maximum(sse_l, sse_a), sse_z)
+    if cfg.merge_cands:
+        d_c1 = torch.maximum(sse_a, sse_z)
+        midx = (d_c1 < d_c0).to(torch.int32)
+        dist_s = torch.minimum(d_c0, d_c1)
+    else:
+        midx = torch.zeros(sse_l.shape, dtype=torch.int32, device=dev)
+        dist_s = d_c0
+
+    bd = cfg.bit_depth
+    cands, large = [], None
+    for p, b in zip((p0, p1, pbi), bits):
+        coefs = ktx.forward_transform(tab, (orig - p).reshape(nb, s, s), s,
+                                      bit_depth=bd)
+        levels = kquant.quantize(tab, coefs, cfg.qp, s, bd)
+        rate = kcost.rate_estimate_levels(tab, levels)
+        deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
+        # the reference's float32 block sum, in XLA CPU's order for 8x8
+        # (for 16x16 and 32x32 only while it stays below 2^24: F10)
+        err = kcost.xla_cpu_sum((coefs - deq).to(torch.float32) ** 2)
+        if s > 8:
+            big = err >= 2.0 ** 24
+            large = big if large is None else large | big
+        dt = err / g2
+        rb = rate + b
+        cands.append((deq, dt + lam * rb, rb))
+    if large is not None:
+        key = (s, str(dev))
+        F10_BLOCKS[key] = F10_BLOCKS.get(key, 0) + large.sum()
+    kind_pre = torch.argmin(torch.stack([c[1] for c in cands], dim=1),
+                            dim=1)
+    sel3 = kind_pre[:, None, None]
+    deq = torch.where(sel3 == 0, cands[0][0],
+                      torch.where(sel3 == 1, cands[1][0], cands[2][0]))
+    rb = torch.where(kind_pre == 0, cands[0][2],
+                     torch.where(kind_pre == 1, cands[1][2], cands[2][2]))
+    pred = torch.where(sel3 == 0, p0, torch.where(sel3 == 1, p1, pbi))
+    rres = ktx.inverse_transform(tab, deq, s, bit_depth=bd)
+    rec = (pred + rres).clamp(0, cfg.max_val)
+    cost = kcost.sse(rec, orig) + lam * rb
+    cost_s = dist_s + lam * 2.0
+
+    kind_expl = torch.where(kind_pre == 0, PRED_INTER,
+                            torch.where(kind_pre == 1, PRED_L1, PRED_BI))
+    pmx = torch.where(kind_pre == 1, mv1[:, 0], mv0[:, 0])
+    pmy = torch.where(kind_pre == 1, mv1[:, 1], mv0[:, 1])
+    smx = torch.where(kind_pre == 2, mv1[:, 0], 0)
+    smy = torch.where(kind_pre == 2, mv1[:, 1], 0)
+    g = lambda v: v.reshape(gy, gx)              # noqa: E731
+    return (g(cost), g(kind_expl), g(pmx), g(pmy), g(smx), g(smy),
+            g(cost_s), g(midx))
+
+
+def make_mode_decision_b_raw(cfg: CodecConfig, tab: Tables):
+    """B Pass A: padded luma plane and the L0 / L1 luma pyramids ->
+    (size_map, mode_map, pred_map, mvx_map, mvy_map, mvx1_map,
+    mvy1_map), each (H/8, W/8) int32.  The primary MV maps carry L0's MV
+    for INTER, SKIP and BI and L1's for PRED_L1 (skip CUs the merge index
+    with cfg.merge_cands); the mv1 maps carry BI's L1 MV, else 0.  K4
+    warps T = 6 fields on L0 and T = 2 on L1, K5 refines once per list."""
+    _check_cfg(cfg)
+    uy, ux = cfg.units_y, cfg.units_x
+    geom = _Geometry(cfg, tab.device)
+    mvbits = torch.from_numpy(np.load(MVBITS_PATH)).to(tab.device)
+    split = torch.tensor(np.float32(cfg.lambda_mode) * np.float32(
+        SPLIT_BITS), device=tab.device)
+    sizes = [s for s in (8, 16, 32) if s <= cfg.max_cu_size]
+    gain2 = {s: torch.tensor(np.float32(_fwd_gain2(tab, s, cfg.bit_depth)),
+                             device=tab.device) for s in sizes}
+
+    def run(plane: torch.Tensor, pyr0_y: torch.Tensor, pyr1_y: torch.Tensor):
+        plane = plane.to(torch.int32)
+        dev = plane.device
+        cur = plane[1:1 + cfg.height, 1:1 + cfg.width]
+        lam = float(cfg.lambda_mode)
+        g0 = kme.me_search(cur, pyr0_y, cfg, lam)
+        g1 = kme.me_search(cur, pyr1_y, cfg, lam)
+        fr0 = me_cuda.warp_frames(pyr0_y, warp_fields(g0, cfg.max_cu_size))
+        f1 = [g1]
+        if cfg.max_cu_size >= 32:
+            f1.append(_rep2(g1, *g1.shape[:2]))
+        fr1 = me_cuda.warp_frames(pyr1_y, torch.stack(f1).contiguous())
+        warp = {8: (fr0[0:3], fr1[0]), 16: (fr0[0:3], fr1[0]),
+                32: (fr0[3:6], fr1[-1])}
+
+        per_size = {}
+        for s in sizes:
+            cost_intra, mode_intra, _ = _eval_size(plane, s, cfg, tab, geom,
+                                                   inter_slice=True)
+            (c_expl, kind_expl, pmx, pmy, smx, smy, c_skip,
+             midx) = _b_candidates(cfg, tab, mvbits, plane, pyr0_y, g0, g1,
+                                   s, *warp[s], gain2[s])
+            inf = torch.full_like(c_expl, float("inf"))
+            valid = torch.isfinite(cost_intra)
+            c_expl = torch.where(valid, c_expl, inf)
+            c_skip = torch.where(valid, c_skip, inf)
+            kind = torch.where(
+                c_skip <= torch.minimum(cost_intra, c_expl), PRED_SKIP,
+                torch.where(c_expl < cost_intra, kind_expl, PRED_INTRA)
+            ).to(torch.int32)
+            best = torch.minimum(torch.minimum(cost_intra, c_expl), c_skip)
+            if cfg.merge_cands:
+                pmx = torch.where(kind == PRED_SKIP, midx, pmx)
+                pmy = torch.where(kind == PRED_SKIP, 0, pmy)
+            smx = torch.where(kind == PRED_BI, smx, 0)
+            smy = torch.where(kind == PRED_BI, smy, 0)
+            per_size[s] = (best, mode_intra, kind, pmx, pmy, smx, smy)
+
+        best, *maps = per_size[8]
+        maps = [m.to(torch.int32) for m in maps]
+        size_map = torch.full((uy, ux), 8, dtype=torch.int32, device=dev)
+        for s in sizes[1:]:
+            bs, *ms = per_size[s]
+            child = _sum_children(best, *bs.shape) + split
+            use = bs <= child
+            sel = _upsample(use, s // 8, uy, ux)
+            size_map = torch.where(sel, s, size_map)
+            maps = [torch.where(sel, _upsample(m, s // 8, uy, ux), mp)
+                    for m, mp in zip(ms, maps)]
+            best = torch.where(use, bs, child)
+        return tuple(m.contiguous() for m in (size_map, *maps))
+
+    return run
+
+
 class InterScan:
-    """The inter state of one P picture's recon scan (the plain K3):
+    """The inter state of one P or B picture's recon scan (the plain K3):
     hands recon._scan_frame each inter CU's MC predictions and keeps the
     unit MV-state plane the skip derivation reads, which is also the
     final-MV output.  Maps are host numpy; pyramids are on the scan's
-    device."""
+    device.  A B picture adds the L1 pyramids and the mv1 maps."""
 
-    def __init__(self, cfg, encode, pred_map, mvx_map, mvy_map, pyrs):
+    def __init__(self, cfg, encode, pred_map, mvx_map, mvy_map, pyrs,
+                 pyrs1=None, mvx1_map=None, mvy1_map=None):
         self.cfg, self.encode = cfg, encode
         self.pred, self.mvx, self.mvy = pred_map, mvx_map, mvy_map
-        self.pyrs = pyrs
+        self.pyrs, self.pyrs1 = pyrs, pyrs1
+        self.mvx1, self.mvy1 = mvx1_map, mvy1_map
         self.st_x = np.zeros(pred_map.shape, np.int32)
         self.st_y = np.zeros(pred_map.shape, np.int32)
 
@@ -261,12 +480,22 @@ class InterScan:
         if kind == PRED_INTRA:
             return None
         x, y = ux * 8, uy * 8
-        py, pcb, pcr = self.pyrs
-        cmx, cmy = mvx >> 1, mvy >> 1
-        return ((interp.mc_block(py, x, y, mvx, mvy, s),
-                 interp.mc_block(pcb, x // 2, y // 2, cmx, cmy, s // 2),
-                 interp.mc_block(pcr, x // 2, y // 2, cmx, cmy, s // 2)),
-                skip)
+
+        def mc(pyrs, mx, my):
+            py, pcb, pcr = pyrs
+            cmx, cmy = mx >> 1, my >> 1
+            return (interp.mc_block(py, x, y, mx, my, s),
+                    interp.mc_block(pcb, x // 2, y // 2, cmx, cmy, s // 2),
+                    interp.mc_block(pcr, x // 2, y // 2, cmx, cmy, s // 2))
+
+        if kind == PRED_L1:
+            return mc(self.pyrs1, mvx, mvy), False
+        if kind == PRED_BI:
+            p0 = mc(self.pyrs, mvx, mvy)
+            p1 = mc(self.pyrs1, int(self.mvx1[uy, ux]),
+                    int(self.mvy1[uy, ux]))
+            return tuple((a + b + 1) >> 1 for a, b in zip(p0, p1)), False
+        return mc(self.pyrs, mvx, mvy), skip
 
     def final_mvs(self):
         dev = self.pyrs[0].device
@@ -274,30 +503,39 @@ class InterScan:
                      for m in (self.st_x, self.st_y))
 
 
-def make_recon_inter_raw(cfg: CodecConfig, tab: Tables, encode: bool):
-    """The plain P recon scan (the plain version of K3) over one frame.
+def make_recon_inter_raw(cfg: CodecConfig, tab: Tables, encode: bool,
+                         b_mode: bool = False):
+    """The plain P or B recon scan (the plain version of K3-P, K3-B) over
+    one frame.
 
     encode: f(srcY_pad, srcCb_pad, srcCr_pad, size_map, mode_map,
-              mts_map, pred_map, mvx_map, mvy_map, pyr_y, pyr_cb, pyr_cr)
+              mts_map, pred_map, mvx_map, mvy_map, pyr_y, pyr_cb, pyr_cr
+              [, pyr1_y, pyr1_cb, pyr1_cr, mvx1_map, mvy1_map])
     decode: f(coefY, coefCb, coefCr, ...same maps and pyramids...)
-    Planes and maps carry a leading frame dim of 1, as
-    engine.recon.make_recon_pass_raw; pyramids are (16, Hp, Wp) uint8.
-    Returns (reconY, reconCb, reconCr) uint8, (coefY, coefCb, coefCr)
-    int16 and the final MV maps (mvx, mvy) int16 (H/8, W/8) with the
-    frame dim, derived skip MVs included."""
+    The bracketed L1 arguments are those of b_mode.  Planes and maps
+    carry a leading frame dim of 1, as engine.recon.make_recon_pass_raw;
+    pyramids are (16, Hp, Wp) uint8.  Returns (reconY, reconCb, reconCr)
+    uint8, (coefY, coefCb, coefCr) int16 and the final (primary) MV maps
+    (mvx, mvy) int16 (H/8, W/8) with the frame dim, derived skip MVs
+    included."""
     recon.check_slice(cfg)
     masks = {}
 
     def run(a, b, c, size_map, mode_map, mts_map, pred_map, mvx_map,
-            mvy_map, pyr_y, pyr_cb, pyr_cr):
+            mvy_map, pyr_y, pyr_cb, pyr_cr, *l1):
         if a.shape[0] != 1:
-            raise ValueError("P pictures are scanned one at a time")
+            raise ValueError("inter pictures are scanned one at a time")
+        if len(l1) != (5 if b_mode else 0):
+            raise ValueError("the B scan takes the L1 pyramids and mv1 "
+                             "maps, the P scan neither")
         if a.device not in masks:
             masks[a.device] = recon._subst_tables(cfg, a.device)
         maps = [m[0].cpu().numpy() for m in (size_map, mode_map, mts_map,
                                              pred_map, mvx_map, mvy_map)]
+        extra = ((l1[:3], l1[3][0].cpu().numpy(), l1[4][0].cpu().numpy())
+                 if b_mode else ())
         inter = InterScan(cfg, encode, *maps[3:],
-                          (pyr_y, pyr_cb, pyr_cr))
+                          (pyr_y, pyr_cb, pyr_cr), *extra)
         out = recon._scan_frame(cfg, tab, encode, a[0].to(torch.int32),
                                 b[0].to(torch.int32), c[0].to(torch.int32),
                                 *maps[:3], masks[a.device], inter)
@@ -306,10 +544,11 @@ def make_recon_inter_raw(cfg: CodecConfig, tab: Tables, encode: bool):
     return run
 
 
-def recon_inter_pass(cfg: CodecConfig, tab: Tables, encode: bool):
-    """P Pass B: CPU tensors take the plain scan, CUDA tensors kernel K3
-    (encode or decode form) and nothing else."""
-    plain = make_recon_inter_raw(cfg, tab, encode)
+def recon_inter_pass(cfg: CodecConfig, tab: Tables, encode: bool,
+                     b_mode: bool = False):
+    """P or B Pass B: CPU tensors take the plain scan, CUDA tensors kernel
+    K3-P or K3-B (encode or decode form) and nothing else."""
+    plain = make_recon_inter_raw(cfg, tab, encode, b_mode)
 
     def run(*args):
         dev = args[0].device

@@ -122,7 +122,7 @@ def _eval_size(plane: torch.Tensor, size: int, cfg: CodecConfig,
     RD_MODES_INTER modes after the SAD preselect instead of RD_MODES."""
     s = size
     gy, gx, mask, valid = geom.by_size[s]
-    lam = torch.tensor(np.float32(cfg.lambda_mode), device=plane.device)
+    lam = float(np.float32(cfg.lambda_mode))    # a multiplier: no upload
     refs = _mask_refs(_gather_refs(plane, gy, gx, s), mask, cfg)
     preds = kintra.predict_all_modes(tab, refs, s)          # (B, nm, s, s)
     orig = _block_gather(plane, gy, gx, s)[:, None]

@@ -1,21 +1,23 @@
-"""Per-picture encode/decode orchestration for single-tile I and P
+"""Per-picture encode/decode orchestration for single-tile I, P and B
 pictures: the device step, host entropy coding and slice assembly.
 
 Counterpart of x266_tpu/engine/picture.py (tile_compute_async :50-83,
 tiles_compute_batched_async :114-160, code_segments :163-201,
 tile_entropy :204-208, assemble_slice :247-312, _parse_segments
-:332-365, encode_picture_gop_async :563-616, decode_picture_gop
-:764-795, which here decodes every I picture too), without
-SAO, ALF or weighted prediction.  The entropy coder is the reference's
-own, carried in x266_tpu_torch.cabac (the native C++ range coder, or its
-Python mirror where no C++ toolchain exists), so equal maps and levels
-give equal bytes.
+:332-365, _alf_maps_from_header :368-412, encode_picture_gop_async
+:563-616, b_qp_offset, gop_coding_order, encode_picture_b_async and
+decode_picture_b :633-761, decode_picture_gop :764-795, which here
+decodes every I picture too), with SAO and ALF and without weighted
+prediction.  The entropy coder is the reference's own, carried in
+x266_tpu_torch.cabac (the native C++ range coder, or its Python mirror
+where no C++ toolchain exists), so equal maps and levels give equal
+bytes.
 
 Dispatch is asynchronous: the device step of a chunk of frames (or of
-one P picture) is queued and ``finalize()`` does the ``.cpu()`` copies,
-so the kernels of later pictures run while the host entropy-codes
-earlier ones.  A P picture's only dependency is the previous picture's
-pyramids, which stay on the device.
+one P or B picture) is queued and ``finalize()`` does the ``.cpu()``
+copies, so the kernels of later pictures run while the host
+entropy-codes earlier ones.  An inter picture's only dependencies are
+its references' pyramids, which stay on the device.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from x266_tpu_torch.cabac.syntax import SyntaxDecoder, SyntaxEncoder
 from x266_tpu_torch.config import CodecConfig, SliceType
 from x266_tpu_torch.core.headers import SliceHeader, write_slice_header
 from x266_tpu_torch.core.yuv import Frame
-from x266_tpu_torch.engine.fused import build_pyramids_device
+from x266_tpu_torch.engine.fused import (build_pyramids_device,
+                                         decode_filters, has_filters)
 from x266_tpu_torch.kernels.interp import mv_bounds
 
 
@@ -47,7 +50,10 @@ class TileData:
     coef_cr: np.ndarray
     recon: Frame | None
     sse: np.ndarray                # (3,) SSE against the source
-    inter_maps: tuple | None = None   # P: (pred, mvx, mvy) final maps
+    inter_maps: tuple | None = None   # P: (pred, mvx, mvy) final maps;
+    #                                   B: and (mvx1, mvy1)
+    sao: tuple | None = None       # (type, band, off), plane axis first
+    alf: tuple | None = None       # the ALF parameter tuple (fused)
 
 
 def _upload(frames: list[Frame], device: torch.device):
@@ -74,6 +80,8 @@ def _download(cfg: CodecConfig, out: dict, n: int) -> list[TileData]:
     sse = out["sse"].cpu().numpy()
     rec = ([r.cpu().numpy() for r in out["recon"]]
            if "recon" in out else None)
+    sao, alf = ([[a.cpu().numpy() for a in out[k]] if k in out else None
+                 for k in ("sao", "alf")])
     return [TileData(cfg, maps[0][i], maps[1][i], maps[2][i],
                      coef[0][i].astype(np.int32),
                      coef[1][i].astype(np.int32),
@@ -81,7 +89,9 @@ def _download(cfg: CodecConfig, out: dict, n: int) -> list[TileData]:
                      Frame(rec[0][i], rec[1][i], rec[2][i])
                      if rec is not None else None, sse[i],
                      tuple(m[i] for m in maps[3:]) if len(maps) > 3
-                     else None)
+                     else None,
+                     tuple(a[i] for a in sao) if cfg.sao else None,
+                     tuple(a[i] for a in alf) if cfg.alf else None)
             for i in range(n)]
 
 
@@ -93,11 +103,14 @@ def tile_compute_async(cfg: CodecConfig, step, frame: Frame,
 
 
 def code_segments(cfg: CodecConfig, size_map, mode_map, cy, ccb, ccr,
-                  mts_map=None, inter_maps=None) -> list[bytes]:
+                  mts_map=None, inter_maps=None,
+                  sao_params=None) -> list[bytes]:
     """Entropy-code a picture's segments in order, chaining WPP context
     inheritance when cfg.ctx_inherit: segment i > 0 starts from segment
     i-1's states after its first min(2, ctus_x) CTUs.  inter_maps: a P
-    picture's (pred, mvx, mvy) maps, None for an I picture."""
+    picture's (pred, mvx, mvy) maps, a B picture's (pred, mvx, mvy, mvx1,
+    mvy1), None for an I picture; sao_params: (type, band, off) with
+    cfg.sao."""
     rows = cfg.segment_ctu_rows()
     inherit = cfg.ctx_inherit and len(rows) > 1
     segs: list[bytes] = []
@@ -107,16 +120,19 @@ def code_segments(cfg: CodecConfig, size_map, mode_map, cy, ccb, ccr,
             snap = (np.zeros(2 * NUM_CONTEXTS, np.int32)
                     if inherit and i < len(rows) - 1 else None)
             segs.append(native_bind.encode_segment(
-                cfg, size_map, mode_map, cy, ccb, ccr, r0, r1, None,
+                cfg, size_map, mode_map, cy, ccb, ccr, r0, r1, sao_params,
                 mts_map, inter_maps, init_states=prev, snapshot=snap))
             prev = snap
         return segs
-    is_p = inter_maps is not None
+    is_b = inter_maps is not None and len(inter_maps) == 5
     enc = SyntaxEncoder(
-        cfg, size_map, mode_map, cy, ccb, ccr, None, mts_map, is_p=is_p,
-        pred_map=inter_maps[0] if is_p else None,
-        mvx_map=inter_maps[1] if is_p else None,
-        mvy_map=inter_maps[2] if is_p else None)
+        cfg, size_map, mode_map, cy, ccb, ccr, sao_params, mts_map,
+        is_p=inter_maps is not None and not is_b, is_b=is_b,
+        pred_map=inter_maps[0] if inter_maps else None,
+        mvx_map=inter_maps[1] if inter_maps else None,
+        mvy_map=inter_maps[2] if inter_maps else None,
+        mvx1_map=inter_maps[3] if is_b else None,
+        mvy1_map=inter_maps[4] if is_b else None)
     for i, (r0, r1) in enumerate(rows):
         segs.append(enc.encode_segment(
             r0, r1, init_states=prev,
@@ -127,15 +143,23 @@ def code_segments(cfg: CodecConfig, size_map, mode_map, cy, ccb, ccr,
 
 def tile_entropy(td: TileData) -> list[bytes]:
     return code_segments(td.cfg, td.size_map, td.mode_map, td.coef_y,
-                         td.coef_cb, td.coef_cr, td.mts_map, td.inter_maps)
+                         td.coef_cb, td.coef_cr, td.mts_map, td.inter_maps,
+                         td.sao)
+
+
+def _ints(a) -> list[int]:
+    return [int(v) for v in np.asarray(a).ravel()]
 
 
 def assemble_slice(cfg: CodecConfig, poc: int, segments: list[bytes],
                    slice_type: SliceType = SliceType.I,
-                   ref_pocs: list[list[int]] | None = None) -> bytes:
+                   ref_pocs: list[list[int]] | None = None,
+                   alf: tuple | None = None) -> bytes:
     """Slice RBSP: header with the entry points, segment payloads and
-    the 0x80 stop byte.  ref_pocs: a P slice's reference POCs ([[L0]]),
-    signalled as POC deltas when cfg.rpl."""
+    the 0x80 stop byte.  ref_pocs: an inter slice's reference POCs
+    ([[L0]] for P, [[L0], [L1]] for B), signalled as POC deltas when
+    cfg.rpl; alf: the picture's ALF parameter tuple (fused.loop_filters)
+    with cfg.alf."""
     entry_points = [int(e) for e in np.cumsum([len(s)
                                                for s in segments[:-1]])]
     payload = b"".join(segments) + b"\x80"
@@ -143,9 +167,22 @@ def assemble_slice(cfg: CodecConfig, poc: int, segments: list[bytes],
     rpl = None
     if cfg.rpl and inter and ref_pocs is not None:
         rpl = [[poc - rp for rp in lst] for lst in ref_pocs]
+    kw = {}
+    if cfg.alf:
+        flag, coef, cflag, ccoef, clip, cclip, cc_coef, cc_flag = alf
+        kw = dict(alf_coeffs=_ints(coef), alf_flags=_ints(flag))
+        if cfg.alf_nonlinear:
+            kw["alf_clips"] = _ints(clip)
+        if cfg.alf_chroma:
+            kw.update(alf_ccoeffs=_ints(ccoef), alf_cflags=_ints(cflag))
+            if cfg.alf_nonlinear:
+                kw["alf_cclips"] = _ints(cclip)
+        if cfg.ccalf:
+            kw.update(ccalf_coeffs=_ints(cc_coef),
+                      ccalf_flags=_ints(cc_flag))
     sh = SliceHeader(slice_type, poc=poc, qp=cfg.qp,
                      entry_points=entry_points, rpl=rpl,
-                     rpl_expected=cfg.rpl and inter)
+                     rpl_expected=cfg.rpl and inter, **kw)
     return write_slice_header(sh) + payload
 
 
@@ -172,17 +209,78 @@ def encode_picture_gop_async(cfg: CodecConfig, steps, frame: Frame,
         rbsp = assemble_slice(
             cfg, poc, tile_entropy(td), st,
             ref_pocs=[[ref_poc]] if (is_p and ref_poc is not None)
-            else None)
+            else None, alf=td.alf)
         return rbsp, td.recon, td.sse
 
     return finalize, out["pyramids"], st
 
 
+def b_qp_offset(cfg: CodecConfig, poc: int) -> int:
+    """An RA B picture's QP offset: +1 for referenced (even-POC) B
+    pictures, +3 for the hierarchy's leaves (0 when lossless)."""
+    if cfg.lossless:
+        return 0
+    return 1 if poc % 2 == 0 else 3
+
+
+def gop_coding_order(n: int, intra_period: int, gop: int
+                     ) -> list[tuple[int, str]]:
+    """Random-access coding order: [(poc, kind)], kind "I", "P" or "B".
+    Anchors sit at multiples of gop -- an IDR at multiples of
+    intra_period, else a P picture referencing the previous anchor --
+    and the POCs between two anchors code as hierarchical-B midpoints,
+    each referencing the nearest coded pictures below and above it.  A
+    tail after the last anchor codes low-delay P."""
+    order: list[tuple[int, str]] = []
+
+    def mids(lo, hi):
+        if hi - lo <= 1:
+            return
+        m = (lo + hi) // 2
+        order.append((m, "B"))
+        mids(lo, m)
+        mids(m, hi)
+
+    anchors = list(range(0, n, max(gop, 1)))
+    prev = None
+    for a in anchors:
+        order.append((a, "I" if (intra_period <= 0 or a % intra_period == 0)
+                      else "P"))
+        if prev is not None:
+            mids(prev, a)
+        prev = a
+    order += [(p, "P") for p in range(anchors[-1] + 1, n)]
+    return order
+
+
+def encode_picture_b_async(cfg: CodecConfig, step, frame: Frame, poc: int,
+                           pyr0, pyr1, device: torch.device,
+                           ref_pocs=None):
+    """Queue one B picture without blocking.  step:
+    fused.make_encode_step_b(cfg, tab, with_recon, with_pyramids); pyr0,
+    pyr1: the L0 and L1 references' pyramids.  Returns (finalize,
+    new_pyramids or None); finalize() -> (rbsp, recon | None, sse)."""
+    out = step(*_upload([frame], device), *pyr0, *pyr1)
+
+    def finalize():
+        td = _download(cfg, out, 1)[0]
+        rbsp = assemble_slice(cfg, poc, tile_entropy(td), SliceType.B,
+                              ref_pocs=ref_pocs, alf=td.alf)
+        return rbsp, td.recon, td.sse
+
+    return finalize, out.get("pyramids")
+
+
 def _parse_segments(cfg: CodecConfig, segments: list[bytes],
-                    is_p: bool = False) -> SyntaxDecoder:
+                    is_p: bool = False, is_b: bool = False
+                    ) -> SyntaxDecoder:
     dec = SyntaxDecoder(cfg)
-    dec.is_p = is_p
-    imaps = (dec.pred_map, dec.mvx_map, dec.mvy_map) if is_p else None
+    dec.is_p = is_p or is_b
+    dec.is_b = is_b
+    imaps = ((dec.pred_map, dec.mvx_map, dec.mvy_map, dec.mvx1_map,
+              dec.mvy1_map) if is_b
+             else (dec.pred_map, dec.mvx_map, dec.mvy_map) if is_p
+             else None)
     rows = cfg.segment_ctu_rows()
     if len(segments) != len(rows):
         raise ValueError("segment count mismatch")
@@ -205,13 +303,37 @@ def _parse_segments(cfg: CodecConfig, segments: list[bytes],
     return dec
 
 
-def _decode_device(cfg: CodecConfig, decode_step, segments: list[bytes],
-                   device: torch.device, pyramids=None):
-    """Host entropy parse, then the device recon: K2 on CUDA for an I
-    picture, K3 (decode form) for a P picture (pyramids given).
+def alf_maps_from_header(cfg: CodecConfig, sh: SliceHeader,
+                         device: torch.device) -> dict:
+    """The picture's ALF maps from the slice header (single tile):
+    int32 tensors on the device, zeros for what the header lacks."""
+    cy, cx = cfg.ctus_y, cfg.ctus_x
+    fields = {"alf_flag": (sh.alf_flags, (cy, cx)),
+              "alf_coef": (sh.alf_coeffs, (25, 12)),
+              "alf_clip": (sh.alf_clips, (25,)),
+              "alf_cflag": (sh.alf_cflags, (2, cy, cx)),
+              "alf_ccoef": (sh.alf_ccoeffs, (2, 6)),
+              "alf_cclip": (sh.alf_cclips, (2,)),
+              "ccalf_coef": (sh.ccalf_coeffs, (2, 7)),
+              "ccalf_flag": (sh.ccalf_flags, (2, cy, cx))}
+    out = {}
+    for name, (vals, shape) in fields.items():
+        a = (np.asarray(vals, np.int32).reshape(shape) if vals is not None
+             else np.zeros(shape, np.int32))
+        out[name] = torch.from_numpy(a).to(device)
+    return out
+
+
+def _decode_device(cfg: CodecConfig, decode_step, sh: SliceHeader,
+                   segments: list[bytes], device: torch.device,
+                   pyramids=()):
+    """Host entropy parse, then the device recon -- K2 on CUDA for an I
+    picture, K3-P for a P picture (the reference's pyramids given), K3-B
+    for a B picture (L0's then L1's pyramids) -- and the loop filters.
     Returns the recon planes (1, H, W) / (1, H/2, W/2) on the device."""
-    is_p = pyramids is not None
-    dec = _parse_segments(cfg, segments, is_p)
+    is_b = len(pyramids) == 6
+    is_p = len(pyramids) == 3
+    dec = _parse_segments(cfg, segments, is_p, is_b)
 
     def up(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a[None]).astype(
@@ -219,16 +341,32 @@ def _decode_device(cfg: CodecConfig, decode_step, segments: list[bytes],
 
     args = [up(dec.coef[p], np.int16) for p in ("y", "cb", "cr")]
     maps = [dec.size_map, dec.mode_map, dec.mts_map]
-    if is_p:
+    mv_maps = ([dec.mvx_map, dec.mvy_map]
+               + ([dec.mvx1_map, dec.mvy1_map] if is_b else []))
+    if is_p or is_b:
         # MVs come from the stream: a read past the reference's pad is
         # refused here, as the kernel cannot clamp it the way the
         # reference's slices do
         bound = mv_bounds(cfg, 16)
-        if max(np.abs(dec.mvx_map).max(), np.abs(dec.mvy_map).max()) > bound:
-            raise ValueError(f"P slice MV beyond +-{bound} quarter-pels")
-        maps += [dec.pred_map, dec.mvx_map, dec.mvy_map]
+        if max(int(np.abs(m).max()) for m in mv_maps) > bound:
+            raise ValueError(f"{sh.slice_type.name} slice MV beyond "
+                             f"+-{bound} quarter-pels")
+        maps += [dec.pred_map, *mv_maps[:2]]
     args += [up(m, np.int32) for m in maps]
-    return decode_step(*args, *(pyramids or ()))[:3]
+    l1 = [up(m, np.int32) for m in mv_maps[2:]]
+    out = decode_step(*args, *pyramids, *l1)
+    rec = [r[0] for r in out[:3]]
+    if not has_filters(cfg):
+        return out[:3]
+    db_info = None
+    if is_p or is_b:
+        db_info = (args[6][0], out[6][0].to(torch.int32),
+                   out[7][0].to(torch.int32), args[0][0].to(torch.int32))
+    sao = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+           for a in dec.sao]
+    rec = decode_filters(cfg, *rec, args[3][0], sao,
+                         alf_maps_from_header(cfg, sh, device), db_info)
+    return tuple(r[None] for r in rec)
 
 
 def _split_payload(sh: SliceHeader, payload: bytes) -> list[bytes]:
@@ -239,18 +377,21 @@ def _split_payload(sh: SliceHeader, payload: bytes) -> list[bytes]:
 def decode_picture_gop(cfg: CodecConfig, steps, sh: SliceHeader,
                        payload: bytes, pyramids, device: torch.device,
                        with_pyramids: bool = True):
-    """One I or P picture; payload: the slice RBSP after the header
+    """One I, P or B picture; payload: the slice RBSP after the header
     (incl. the stop byte); steps: (fused.make_decode_step_i(cfg, tab),
-    engine.inter.recon_inter_pass(cfg, tab, encode=False)); pyramids:
-    the reference's, for a P slice.  Returns (Frame, new_pyramids), the
-    pyramids built from this picture and left on the device, or None
-    without with_pyramids."""
-    is_p = sh.slice_type == SliceType.P
-    if is_p and pyramids is None:
-        raise ValueError("P slice before any reference picture")
-    rec = _decode_device(cfg, steps[1] if is_p else steps[0],
-                         _split_payload(sh, payload), device,
-                         pyramids if is_p else None)
+    engine.inter.recon_inter_pass(cfg, tab, encode=False), the same with
+    b_mode=True); pyramids: the reference's for a P slice, (L0's, L1's)
+    for a B slice.  Returns (Frame, new_pyramids), the pyramids built
+    from this picture and left on the device, or None without
+    with_pyramids."""
+    kind = {SliceType.I: 0, SliceType.P: 1, SliceType.B: 2}[sh.slice_type]
+    if kind and pyramids is None:
+        raise ValueError(f"{sh.slice_type.name} slice before any reference "
+                         "picture")
+    refs = (() if kind == 0 else tuple(pyramids) if kind == 1
+            else (*pyramids[0], *pyramids[1]))
+    rec = _decode_device(cfg, steps[kind], sh, _split_payload(sh, payload),
+                         device, refs)
     new_pyr = (build_pyramids_device(*(r[0] for r in rec))
                if with_pyramids else None)
     return Frame(*(r[0].cpu().numpy() for r in rec)), new_pyr

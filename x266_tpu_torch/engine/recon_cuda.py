@@ -1,9 +1,10 @@
 """Wrappers of the CUDA recon-scan kernels K1 (intra encode), K2 (intra
-decode) and K3-P (P-picture encode and decode), csrc/recon_intra.cu.
+decode), K3-P (P-picture encode and decode) and K3-B (B-picture encode
+and decode), csrc/recon_intra.cu.
 
 They replace the Pallas kernel x266_tpu/engine/recon_pallas.py:
-_build_pallas (inter=False; inter=True, b_mode=False).  The plain
-versions are engine.recon.make_recon_pass_raw and
+_build_pallas (inter=False; inter=True with b_mode False and True).  The
+plain versions are engine.recon.make_recon_pass_raw and
 engine.inter.make_recon_inter_raw; ``engine.recon.recon_pass`` and
 ``engine.inter.recon_inter_pass`` route CUDA tensors here and CPU tensors
 there.  These wrappers launch the kernel or raise -- they never fall
@@ -24,7 +25,7 @@ from x266_tpu_torch import _build
 from x266_tpu_torch.engine.mode_decision import PAD
 from x266_tpu_torch.tables import Tables
 
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K3d": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K3d": 0, "K3B": 0, "K3Bd": 0}
 
 
 def reset_launches() -> None:
@@ -127,14 +128,36 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
 
 def recon_inter(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
                 size_map, mode_map, mts_map, pred_map, mvx_map, mvy_map,
-                pyr_y, pyr_cb, pyr_cr):
-    """Launch K3-P over one P picture (encode, or the decoder's form).
+                pyr_y, pyr_cb, pyr_cr, *l1):
+    """Launch K3-P over one P picture, or K3-B over one B picture when l1
+    is given (encode, or the decoder's form).
 
     a, b, c and the maps as recon_intra with a frame dim of 1, plus the
     pred/mvx/mvy maps (1, H/8, W/8) int32 and the reference's pyramids
-    (16, Hp, Wp) uint8.  Returns recon_intra's six outputs and the final
-    MV maps (mvx, mvy) int16 (1, H/8, W/8), as
-    engine.inter.make_recon_inter_raw."""
+    (16, Hp, Wp) uint8; l1, for K3-B: the L1 pyramids (the shapes of
+    L0's) and the mvx1/mvy1 maps (1, H/8, W/8) int32.  Returns
+    recon_intra's six outputs and the final MV maps (mvx, mvy) int16
+    (1, H/8, W/8), as engine.inter.make_recon_inter_raw."""
+    _check_inter(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
+                 pred_map, mvx_map, mvy_map, pyr_y, pyr_cb, pyr_cr, *l1)
+    lib = _build.LIBRARY.build()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err, out = _launch_inter(lib, stream, cfg, tab, encode, a, b, c,
+                                 size_map, mode_map, mts_map, pred_map,
+                                 mvx_map, mvy_map, pyr_y, pyr_cb, pyr_cr,
+                                 *l1)
+    _build.check(err)
+    LAUNCHES[("K3B" if l1 else "K3") + ("" if encode else "d")] += 1
+    return out
+
+
+def _check_inter(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
+                 pred_map, mvx_map, mvy_map, pyr_y, pyr_cb, pyr_cr, *l1):
+    """The checks of K3-P's and K3-B's arguments."""
+    if len(l1) not in (0, 5):
+        raise ValueError("K3-B takes the three L1 pyramids and the two mv1 "
+                         f"maps, got {len(l1)} L1 arguments")
     h, w = cfg.height, cfg.width
     ch, cw = h // 2, w // 2
     if encode:
@@ -154,24 +177,21 @@ def recon_inter(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
     check_tensor(pyr_y, "pyr_y", torch.uint8, (16, *pyr_y.shape[1:]))
     check_tensor(pyr_cb, "pyr_cb", torch.uint8, (16, *pyr_cb.shape[1:]))
     check_tensor(pyr_cr, "pyr_cr", torch.uint8, pyr_cb.shape)
+    if l1:
+        for name, t, ref in zip(("pyr1_y", "pyr1_cb", "pyr1_cr"), l1,
+                                (pyr_y, pyr_cb, pyr_cr)):
+            check_tensor(t, name, torch.uint8, ref.shape)
+        for name, m in zip(("mvx1_map", "mvy1_map"), l1[3:]):
+            check_tensor(m, name, torch.int32, (1, cfg.units_y, cfg.units_x))
     _check_tables(tab)
-
-    lib = _build.LIBRARY.build()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err, out = _launch_inter(lib, stream, cfg, tab, encode, a, b, c,
-                                 size_map, mode_map, mts_map, pred_map,
-                                 mvx_map, mvy_map, pyr_y, pyr_cb, pyr_cr)
-    _build.check(err)
-    LAUNCHES["K3" if encode else "K3d"] += 1
-    return out
 
 
 def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
                   mode_map, mts_map, pred_map, mvx_map, mvy_map, pyr_y,
-                  pyr_cb, pyr_cr):
+                  pyr_cb, pyr_cr, *l1):
     """Allocate K3-P's outputs and call its entry point on checked
-    tensors; returns (error code, outputs)."""
+    tensors -- K3-B when l1 holds the L1 pyramids and the mv1 maps;
+    returns (error code, outputs)."""
     h, w = cfg.height, cfg.width
     ch, cw = h // 2, w // 2
     dev = a.device
@@ -206,5 +226,6 @@ def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
         pyr_cb.data_ptr(), pyr_cr.data_ptr(), *map(ptr, rec),
         *map(ptr, cout), mvs[0].data_ptr(), mvs[1].data_ptr(),
         tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
-        tab.k_shift.data_ptr(), tab.rate.data_ptr(), stream)
+        tab.k_shift.data_ptr(), tab.rate.data_ptr(),
+        *(map(ptr, l1) if l1 else (None,) * 5), stream)
     return err, (*rec, *coef, *mvs)

@@ -10,6 +10,8 @@ are outside this slice.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -25,6 +27,12 @@ def _subst_perm(size: int):
     return perm, np.argsort(perm)
 
 
+@functools.lru_cache(maxsize=None)
+def _subst_perm_on(size: int, device: torch.device):
+    """_subst_perm's (perm, inv) on device, uploaded once."""
+    return tuple(torch.from_numpy(a).to(device) for a in _subst_perm(size))
+
+
 def substitute_refs(refs: torch.Tensor, mask: torch.Tensor,
                     mid: int) -> torch.Tensor:
     """HEVC-style reference substitution [STD 8.4.4.2.2]: each
@@ -32,9 +40,7 @@ def substitute_refs(refs: torch.Tensor, mask: torch.Tensor,
     entry in the scan order; entries before the first available take the
     first available; a fully unavailable vector reads mid."""
     s = (refs.shape[-1] - 1) // 4
-    perm, inv = _subst_perm(s)
-    perm = torch.from_numpy(perm).to(refs.device)
-    inv = torch.from_numpy(inv).to(refs.device)
+    perm, inv = _subst_perm_on(s, refs.device)
     v = refs[..., perm]
     m = mask[..., perm]
     j = torch.arange(v.shape[-1], device=refs.device)

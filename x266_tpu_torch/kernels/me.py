@@ -69,8 +69,9 @@ def integer_search(cur: torch.Tensor, ref_pad: torch.Tensor, lam: float,
     r = radius
     dev = cur.device
     dxs = torch.arange(-r, r + 1, dtype=torch.int32, device=dev)
-    pen_w = torch.tensor(np.float32(lam * pen_scale), device=dev)
-    rate_w = torch.tensor(np.float32(lam_rate), device=dev)
+    # float32 multipliers, as Python scalars (no upload, the same product)
+    pen_w = float(np.float32(lam * pen_scale))
+    rate_w = float(np.float32(lam_rate))
     best_cost = torch.full((by, bx), float("inf"), dtype=torch.float32,
                            device=dev)
     best_mv = torch.zeros((by, bx, 2), dtype=torch.int32, device=dev)
@@ -110,7 +111,7 @@ def coarse_search(cur: torch.Tensor, pyramid: torch.Tensor,
               blk=ME_BLOCK // 4)
     mv4 = integer_search(cur4, ref4, lam, pen_scale=8.0, **kw)
     bx = mv4.shape[1]
-    left = torch.from_numpy(np.maximum(np.arange(bx) - 1, 0)).to(cur.device)
+    left = (torch.arange(bx, device=cur.device) - 1).clamp_min(0)
     pred = mv4[:, left, :]
     mv4 = integer_search(cur4, ref4, lam, pred=pred,
                          lam_rate=float(lam) ** 0.5 * 2.0, **kw)
