@@ -33,9 +33,15 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     3840x2160, each on a B picture whose L0 and L1 references are the
     frame shifted two ways, each noisy on two thirds of its width; at
     3840x2160 the loop filters of that picture and its whole B encode
-    step make no host sync (torch's sync debug mode) and its
-    ALF normal equations and their float64 solution on the card equal
-    the CPU's bit for bit;
+    step make no host sync (torch's sync debug mode) and the ALF
+    kernel's normal equations and coefficients of that picture equal
+    the plain version's bit for bit;
+    [kernels-alf] the ALF kernels (the estimators' normal equations in
+    XLA CPU's float32 order and their float32 solve; the per-CTB SSE of
+    the on/off decision in XLA's reduction order) against their plain
+    versions on the card, bit for bit, luma and chroma, at 416x240,
+    1920x1080 and 3840x2160 (at 416x240 the normal equations also
+    against the plain version on the CPU);
  9. [golden-filters] decode the fixtures lowdelay_p_filters (deblock,
     SAO) and ra_alf (random access, nonlinear ALF, CC-ALF, signalled
     reference lists) to their manifest MD5s;
@@ -44,16 +50,16 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     and recon for recon, to the JAX reference
     (data/cfg4noalf_416x240_ref.json, and at 1920x1080
     data/cfg4noalf_1080p_ref.json); with ALF (config 4) byte-identical
-    to the JAX encoder whose ALF estimators sum exactly, as the port's
-    do (data/cfg4exact_416x240_ref.json), and beside the reference with
-    its float32 estimators (data/cfg4_416x240_ref.json; ROADMAP queue
-    3, F9) its IDR within +-0.5 % bits and +-0.02 dB, per-frame
-    differences printed; each JAX stream decodes to JAX's MD5s; each
-    encode prints its count of B Pass-A blocks exposed to F10 (a float32
-    error sum past 2^24, where the order of addition may matter);
+    the same way to the reference with its float32 estimators
+    (data/cfg4_416x240_ref.json; ROADMAP queue 3, F9), per-frame bit and
+    PSNR differences printed; each JAX stream decodes to JAX's MD5s;
+    each encode prints its count of B Pass-A blocks exposed to F10 (a
+    float32 error sum past 2^24, where the order of addition may
+    matter);
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
-    encoder's recon; K3B/K3Bd launch counts (15 each), the F10 count,
+    encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
+    (normal equations three per picture, CTB SSE six), the F10 count,
     bits/frame, PSNR-Y, one warm encode's frame rate.
 The third line from the end is a JSON object with each kernel's
 launches on its main path, its error and its times (CUDA events at the
@@ -79,6 +85,7 @@ DATA = os.path.join(ROOT, "x266_tpu_torch", "data")
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 RECON_SRC = "x266_tpu_torch/csrc/recon_intra.cu"
 ME_SRC = "x266_tpu_torch/csrc/me.cu"
+ALF_SRC = "x266_tpu_torch/csrc/alf.cu"
 RECON_TPU = "x266_tpu/engine/recon_pallas.py:943"
 KERNELS = {
     "K1": ("recon_intra encode", RECON_SRC, RECON_TPU),
@@ -89,6 +96,12 @@ KERNELS = {
     "K3Bd": ("recon_inter B decode", RECON_SRC, RECON_TPU),
     "K4": ("mc warp", ME_SRC, "x266_tpu/kernels/me_pallas.py:91"),
     "K5": ("me refine", ME_SRC, "x266_tpu/kernels/me_pallas.py:285"),
+    # port-only (F9): no Pallas kernel; the reference's XLA dots and
+    # jnp.linalg.solve at x266_tpu/kernels/alf.py:367-370
+    "ALF": ("alf normal equations and solve", ALF_SRC,
+            "x266_tpu/kernels/alf.py:367"),
+    # port-only (F9): the reference's per-CTB SSE reduction, :379-382
+    "ALFSSE": ("alf ctb sse", ALF_SRC, "x266_tpu/kernels/alf.py:379"),
 }
 BITS_TOL = 0.005          # relative, per frame
 PSNR_TOL = 0.02           # dB, per frame (float32 SSE in the reference)
@@ -623,6 +636,85 @@ def phase_kernels_b(stats):
         compare_b_kernels(cfg, 21, stats, record)
 
 
+def compare_alf_kernel(w, h, seed, stats):
+    """The ALF kernel against its plain version on the card, luma and
+    chroma, on a picture's source and a recon far from it (features near
+    +-510, errors near +-255); bit-exact or raise.  The 4K luma times go
+    into the kernels line."""
+    from x266_tpu_torch.core.yuv import synthetic_frame
+    from x266_tpu_torch.kernels import alf as kalf
+    from x266_tpu_torch.kernels import alf_cuda
+
+    f = synthetic_frame(w, h, 0, "mixed", seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for plane, src in (("luma", f.y), ("chroma", f.cb)):
+        o = torch.from_numpy(src).cuda().int()
+        noise = torch.randint(-255, 256, o.shape, generator=gen,
+                              device="cuda", dtype=torch.int32)
+        r = (o + noise).clamp(0, 255)
+        if plane == "luma":
+            feats, cls, nc = (kalf._diff_planes(r),
+                              kalf._up4(kalf.classify(r)), 25)
+        else:
+            feats = kalf._diff_planes(r, kalf.CHROMA_DIAMOND)
+            cls, nc = None, 1
+        err = o - r
+        got = alf_cuda.normal_solve(feats, err, cls, nc, with_sums=True)
+
+        def plain(feats, err, cls):
+            gram, rhs = kalf.normal_sums(feats, err, cls, nc)
+            return kalf.coefficients(gram, rhs), gram, rhs
+
+        want, pc_ms = timed(plain, feats, err, cls)
+        tag = f"{o.shape[1]}x{o.shape[0]} {plane}"
+        _require_equal("ALF", tag, ("coef", "gram", "rhs"), got, want)
+        if (w, h) == (416, 240):
+            cpu = plain(feats.cpu(), err.cpu(),
+                        None if cls is None else cls.cpu())
+            _require_equal("ALF", tag + " (plain on the CPU)",
+                           ("coef", "gram", "rhs"), [g.cpu() for g in got],
+                           cpu)
+        err_abs = max(_max_err(got[:1], want[:1]),
+                      float((got[1] - want[1]).abs().max()),
+                      float((got[2] - want[2]).abs().max()))
+        k_ms = event_ms(alf_cuda.normal_solve, feats, err, cls, nc, reps=10)
+        n = err.numel()
+        t = feats.shape[0]
+        # inputs read once (features, errors, classes), outputs written
+        # once; a multiply and an add per product, and the solves
+        b = bound(nbytes(feats.int(), err.int(), *([] if cls is None else
+                                                    [cls.int()]), *got),
+                  2.0 * n * (t * t + t) + nc * 2 * t ** 3)
+        log(f"[kernels-alf] {tag}: ALF kernel {k_ms:.4f} ms (plain "
+            f"{pc_ms:.0f} ms) err {err_abs}; bound {b[0]:.4f} ms ({b[1]})")
+        _record(stats, "ALF", err_abs)
+        if plane == "luma" and (w, h) == (3840, 2160):
+            _record(stats, "ALF", err_abs, ms=k_ms, plain_ms=pc_ms,
+                    bound_ms=b[0], bound_by=b[1], shape=f"{w}x{h} luma")
+
+        # the per-CTB SSE of the on/off decision, in XLA's order
+        ctb = 64 if plane == "luma" else 32
+        sse = alf_cuda.ctb_sse(r, o, ctb)
+        want_sse, ps_ms = timed(kalf.ctb_sse_plain, r, o, ctb)
+        _require_equal("ALFSSE", tag, ("sse",), [sse], [want_sse])
+        err_sse = float((sse - want_sse).abs().max())
+        ks_ms = event_ms(alf_cuda.ctb_sse, r, o, ctb, reps=10)
+        bs = bound(nbytes(r, o, sse), 2.0 * n)
+        log(f"[kernels-alf] {tag}: CTB SSE kernel (order "
+            f"{alf_cuda.sse_mode(ctb, o.shape[1])}) {ks_ms:.4f} ms (plain "
+            f"{ps_ms:.0f} ms) err {err_sse}; bound {bs[0]:.4f} ms "
+            f"({bs[1]})")
+        _record(stats, "ALFSSE", err_sse)
+        if plane == "luma" and (w, h) == (3840, 2160):
+            _record(stats, "ALFSSE", err_sse, ms=ks_ms, plain_ms=ps_ms,
+                    bound_ms=bs[0], bound_by=bs[1], shape=f"{w}x{h} luma")
+
+
+def phase_kernels_alf(stats):
+    for w, h in ((416, 240), (1920, 1080), (3840, 2160)):
+        compare_alf_kernel(w, h, 31, stats)
+
+
 def phase_golden():
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.config import CodecConfig
@@ -682,7 +774,7 @@ def phase_main_ra_ref():
     for name, refs, (w, h), tools in (
             ("cfg4noalf", ("cfg4noalf_416x240",), (416, 240), noalf),
             ("cfg4noalf 1080p", ("cfg4noalf_1080p",), (1920, 1080), noalf),
-            ("cfg4", ("cfg4exact_416x240", "cfg4_416x240"), (416, 240), {})):
+            ("cfg4", ("cfg4_416x240",), (416, 240), {})):
         frames = synthetic_clip(w, h, 17, "mixed")
         inter.F10_BLOCKS.clear()
         res, t_enc = timed(Encoder(cfg4(w, h).replace(**tools)).encode,
@@ -716,14 +808,9 @@ def phase_main_ra_ref():
                 f"{[round(d, 3) for d in dbits]}, PSNR-Y dB "
                 f"{[round(d, 4) for d in dpsnr]}; the JAX stream decodes to "
                 "JAX's md5s")
-            if file != "cfg4_416x240" and not same:
+            if not same:
                 raise AssertionError(f"[main-ra-ref] {name} differs from "
                                      f"{file}")
-            # the reference's own float32 ALF estimators (F9): its
-            # pictures feed the later ones, so only the IDR is held
-            if abs(dbits[0]) > 100 * BITS_TOL or abs(dpsnr[0]) > PSNR_TOL:
-                raise AssertionError(f"[main-ra-ref] {name} IDR outside "
-                                     f"+-0.5 % bits or +-0.02 dB of {file}")
 
 
 def run_main_ra(stats, card):
@@ -758,7 +845,8 @@ def run_main_ra(stats, card):
     log(f"[main-ra] bits/frame {res.frame_bits} (stream "
         f"{res.total_bits / n:.0f} bits/frame, as bench.py counts); PSNR-Y "
         f"{[round(p, 4) for p in psnrs]} (mean {np.mean(psnrs):.4f} dB)")
-    for k, want in (("K3B", 15), ("K3Bd", 15)):
+    for k, want in (("K3B", 15), ("K3Bd", 15), ("ALF", 3 * n),
+                    ("ALFSSE", 6 * n)):
         if launches[k] != want:
             raise AssertionError(f"[main-ra] {k} launched {launches[k]} "
                                  f"times, not {want}")
@@ -803,27 +891,24 @@ def count_syncs(fn, *args):
 def check_filters(cfg, tab, tag, planes, p0, p1, got, maps):
     """On one B picture: the loop filters (deblock, SAO, ALF estimate and
     apply) and the whole B encode step queue their work without a host
-    sync, and the ALF estimator's normal equations and float64 solution
-    on the card equal the CPU's bit for bit."""
+    sync, and the ALF kernel's normal equations and coefficients of the
+    picture equal the plain version's bit for bit."""
     from x266_tpu_torch.engine import fused
     from x266_tpu_torch.kernels import alf as kalf
 
     y, o = got[0][0].int(), planes[0][0].int()
-    sols = []
-    for dev in ("cuda", "cpu"):
-        yd = y.to(dev)
-        gram, rhs = kalf.normal_equations(kalf._diff_planes(yd),
-                                          o.to(dev) - yd, kalf.classify(yd),
-                                          kalf.NUM_CLASSES)
-        g = gram + 64.0 * torch.eye(12, dtype=torch.float64, device=dev)
-        sols.append([t.cpu() for t in (gram, rhs, kalf.ldl_solve(
-            g, rhs * 128.0))])
-    same = all(torch.equal(a, b) for a, b in zip(*sols))
-    log(f"[kernels-b] {tag}: ALF normal equations and float64 solution, "
-        f"card == CPU bit for bit: {same}")
+    feats, err, cls = (kalf._diff_planes(y), o - y,
+                       kalf._up4(kalf.classify(y)))
+    kern = kalf.normal_solve(feats, err, cls, kalf.NUM_CLASSES,
+                             with_sums=True)
+    gram, rhs = kalf.normal_sums(feats, err, cls, kalf.NUM_CLASSES)
+    plain = (kalf.coefficients(gram, rhs), gram, rhs)
+    same = all(torch.equal(a, b) for a, b in zip(kern, plain))
+    log(f"[kernels-b] {tag}: ALF normal equations and coefficients of the "
+        f"picture, kernel == plain version bit for bit: {same}")
     if not same:
-        raise AssertionError(f"[kernels-b] {tag}: the ALF solve differs "
-                             "between the card and the CPU")
+        raise AssertionError(f"[kernels-b] {tag}: the ALF kernel differs "
+                             "from its plain version")
 
     n_filt, _ = count_syncs(
         fused.loop_filters, cfg, *(g[0] for g in got[:3]), maps[0][0],
@@ -848,17 +933,18 @@ def _slice_md5s(stream: bytes):
 
 def _reset_launches():
     from x266_tpu_torch.engine import recon_cuda
-    from x266_tpu_torch.kernels import me_cuda
+    from x266_tpu_torch.kernels import alf_cuda, me_cuda
 
     recon_cuda.reset_launches()
     me_cuda.reset_launches()
+    alf_cuda.reset_launches()
 
 
 def _launches():
     from x266_tpu_torch.engine import recon_cuda
-    from x266_tpu_torch.kernels import me_cuda
+    from x266_tpu_torch.kernels import alf_cuda, me_cuda
 
-    return {**recon_cuda.LAUNCHES, **me_cuda.LAUNCHES}
+    return {**recon_cuda.LAUNCHES, **me_cuda.LAUNCHES, **alf_cuda.LAUNCHES}
 
 
 def run_main(tag, cfg, kind, ref_name, kernels, stats, card, **enc_kw):
@@ -941,6 +1027,7 @@ def main() -> int:
     run_main("main-p", cfg3(), "motion", "cfg3_1080p_ref.json",
              ("K3", "K3d", "K4", "K5"), stats, card)
     phase_kernels_b(stats)
+    phase_kernels_alf(stats)
     phase_golden_filters()
     phase_main_ra_ref()
     run_main_ra(stats, card)

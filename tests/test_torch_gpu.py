@@ -179,8 +179,9 @@ def test_ra_encode_decode_on_card_equals_cpu(cuda):
 
 @pytest.mark.gpu
 def test_alf_estimators_on_card_equal_cpu(cuda):
-    """The ALF estimators' exact normal equations, LDL^T solve and
-    coefficients give the same bits on the card as on the CPU."""
+    """The ALF estimators' normal sums, float32 solve and coefficients
+    (the ALF kernel on the card, the plain torch ops on the CPU) and
+    their flags and filtered planes give the same bits on both."""
     from x266_tpu_torch.kernels import alf
 
     rng = np.random.default_rng(9)
@@ -190,8 +191,9 @@ def test_alf_estimators_on_card_equal_cpu(cuda):
     out = []
     for dev in ("cpu", cuda):
         o, r = orig.to(dev), rec.to(dev)
-        res = (*alf.normal_equations(alf._diff_planes(r), o - r,
-                                     alf.classify(r), alf.NUM_CLASSES),
+        res = (*alf.normal_solve(alf._diff_planes(r), o - r,
+                                 alf._up4(alf.classify(r)), alf.NUM_CLASSES,
+                                 with_sums=True),
                *alf.estimate_alf(o, r, 57.0),
                *alf.estimate_alf_chroma(o[:64, :96], r[:64, :96], 57.0))
         out.append([t.cpu() for t in res])
@@ -204,6 +206,16 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     tab, src, maps = _inputs(cfg, "cpu", n=1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+
+
+def test_alf_kernel_wrapper_refuses_cpu_tensors():
+    from x266_tpu_torch.kernels import alf, alf_cuda
+
+    r = torch.zeros((16, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        alf_cuda.normal_solve(alf._diff_planes(r), r)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        alf_cuda.ctb_sse(r, r, 64)
 
 
 def test_motion_kernel_wrappers_refuse_cpu_tensors():

@@ -1,15 +1,19 @@
 """The CUDA kernels' sources, compiled for the host, against their plain
 versions (exact equality): K1/K2 against the plain intra scan, K3-P and
 K3-B (encode and decode, final MVs included) against the plain P and B
-scans, K4 against warp_frames_ref and K5 against refine_search_ref.
+scans, K4 against warp_frames_ref, K5 against refine_search_ref and the
+ALF kernel against kernels/alf.py's normal sums and float32 solve.
 
 csrc/*.cu launch through cudaLaunchKernel, so g++ compiles them as C++
 against tests/cuda_host/cuda_runtime.h, a host stand-in that runs each
-thread block as 256 threads meeting at a barrier and turns the kernels'
-range checks (X266_ASSERT) into a launch error.  This checks the
-kernels' indexing, tables and integer/float arithmetic on any machine
-with g++; the card itself is tested by tests/test_torch_gpu.py and
-chip_smoke.py.
+thread block as its threads meeting at a barrier and turns the kernels'
+range checks (X266_ASSERT) into a launch error.  The recon kernels run
+one block per CTU row that waits on the row above: with X266_HOST_BLOCKS
+set, the stand-in runs that many blocks at once, so the row tickets,
+progress waits and fences run concurrently on pictures of 3x3 CTUs.
+This checks the kernels' indexing, tables, ordering and integer/float
+arithmetic on any machine with g++; the card itself is tested by
+tests/test_torch_gpu.py and chip_smoke.py.
 """
 
 import os
@@ -24,7 +28,7 @@ from x266_tpu_torch import _build, tables
 from x266_tpu_torch.config import CodecConfig, preset_cfg2
 from x266_tpu_torch.core.yuv import synthetic_clip
 from x266_tpu_torch.engine import fused, inter, recon, recon_cuda
-from x266_tpu_torch.kernels import interp, me, me_cuda
+from x266_tpu_torch.kernels import alf, alf_cuda, interp, me, me_cuda
 
 # The tests' tensors are small: intra-op threads gain nothing, and the
 # suite's parallel workers would oversubscribe the cores with them.
@@ -204,3 +208,116 @@ def test_refine_kernel_source_matches_plain(host_lib):
                                       base)
     assert err == 0
     assert torch.equal(got, me.refine_search_ref(cur, pyr, base))
+
+
+WAVE = {
+    "intra": CodecConfig(width=192, height=160, qp=30),
+    "p": CodecConfig(width=192, height=160, qp=32, intra_period=4,
+                     rdoq=True, ref_substitute=True, merge_cands=True),
+    "b": CodecConfig(width=192, height=160, qp=30, intra_period=8,
+                     gop_size=4),
+}
+
+
+@pytest.mark.parametrize("kind", list(WAVE))
+def test_wavefront_rows_run_concurrently(kind, host_lib, monkeypatch):
+    """K1/K2, K3-P and K3-B on a picture of 3x3 CTUs (the last row
+    partial) with every CTU row's block running at once: the rows take
+    their tickets, wait on the row above and publish their progress
+    concurrently, and the result is the plain raster scan's."""
+    monkeypatch.setenv("X266_HOST_BLOCKS", "8")
+    cfg = WAVE[kind]
+    tab = tables.from_reference(cfg, "cpu")
+    if kind == "intra":
+        frames = synthetic_clip(cfg.width, cfg.height, 2, "mixed", seed=5)
+        planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+                  for p in ("y", "cb", "cr")]
+        src = fused._unpack_padded(cfg, *planes)
+        maps = fused.make_pass_a(cfg, tab)(src[0])
+        err, got = recon_cuda._launch(host_lib, 0, cfg, tab, True, *src,
+                                      *maps)
+        want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+        assert err == 0
+        for n, w, g in zip(NAMES, want, got):
+            assert torch.equal(w, g), n
+        err, dec = recon_cuda._launch(host_lib, 0, cfg, tab, False,
+                                      *got[3:], *maps)
+        assert err == 0
+        for n, w, g in zip(NAMES, want, dec):
+            assert torch.equal(w, g), n
+        return
+    if kind == "p":
+        f0, f1 = synthetic_clip(cfg.width, cfg.height, 2, "motion", seed=5)
+        pyrs = fused.make_encode_step_i(cfg, tab, False, True)(
+            *_planes(f0))["pyramids"]
+        src = fused._unpack_padded(cfg, *_planes(f1))
+        maps = [m[None] for m in inter.make_mode_decision_p_raw(cfg, tab)(
+            src[0][0], pyrs[0])]
+        args = (maps[0], maps[1], torch.zeros_like(maps[0]), *maps[2:],
+                *pyrs)
+        raw = inter.make_recon_inter_raw(cfg, tab, True)
+    else:
+        planes = _planes(synthetic_clip(cfg.width, cfg.height, 1, "mixed",
+                                        seed=23)[0])
+        p0, p1 = b_references(planes)
+        src = fused._unpack_padded(cfg, *planes)
+        maps = [m[None] for m in inter.make_mode_decision_b_raw(cfg, tab)(
+            src[0][0], p0[0], p1[0])]
+        assert (maps[2] == inter.PRED_BI).any()
+        args = (maps[0], maps[1], torch.zeros_like(maps[0]), *maps[2:5],
+                *p0, *p1, maps[5], maps[6])
+        raw = inter.make_recon_inter_raw(cfg, tab, True, b_mode=True)
+    err, got = recon_cuda._launch_inter(host_lib, 0, cfg, tab, True, *src,
+                                        *args)
+    assert err == 0
+    want = raw(*src, *args)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    dargs = (*args[:4], got[6].int(), got[7].int(), *args[6:])
+    err, dec = recon_cuda._launch_inter(host_lib, 0, cfg, tab, False,
+                                        *got[3:6], *dargs)
+    assert err == 0
+    for n, w, g in zip(NAMES, want, dec):
+        assert torch.equal(w, g), n
+
+
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("size", [(112, 80), (416, 240)])
+def test_alf_kernel_source_matches_plain(plane, size, host_lib):
+    """The ALF kernel's normal sums, gram and rhs, and coefficients equal
+    the plain version's bit for bit (416x240: 99,840 luma samples, not a
+    multiple of the 1,024-sample blocks)."""
+    w, h = size if plane == "luma" else (size[0] // 2, size[1] // 2)
+    rng = np.random.default_rng(w)
+    orig = rng.integers(0, 256, (h, w)).astype(np.int32)
+    rec = np.clip(orig + rng.integers(-40, 41, (h, w)), 0, 255).astype(
+        np.int32)
+    y = torch.from_numpy(rec)
+    err = torch.from_numpy(orig - rec)
+    if plane == "luma":
+        feats, cls, nc = alf._diff_planes(y), alf._up4(alf.classify(y)), 25
+    else:
+        feats, cls, nc = alf._diff_planes(y, alf.CHROMA_DIAMOND), None, 1
+    code, got = alf_cuda._launch(host_lib, 0, feats, err, cls, nc)
+    assert code == 0
+    want = alf.normal_solve(feats, err, cls, nc, with_sums=True)
+    for n, a, b in zip(("coef", "gram", "rhs"), want, got):
+        assert torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("shape,ctb", [((80, 112), 64), ((120, 208), 32),
+                                       ((64, 128), 32)])
+def test_alf_sse_kernel_source_matches_plain(shape, ctb, host_lib):
+    """The per-CTB SSE kernel equals alf.ctb_sse in all three of XLA's
+    orders (64x64 windows; 32x32 with a plane width that is not and is a
+    multiple of 32), with sums past 2^24."""
+    h, w = shape
+    rng = np.random.default_rng(w)
+    a = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32))
+    o = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32))
+    a[::3], o[::3] = 255, 0
+    code, got = alf_cuda._launch_sse(host_lib, 0, a, o, ctb)
+    assert code == 0
+    want = alf.ctb_sse_plain(a, o, ctb)
+    assert torch.equal(want, got)
+    assert (want > 2.0 ** 24).any()

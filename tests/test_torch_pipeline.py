@@ -21,13 +21,11 @@ PSNR, which the reference sums in float32 (F4): within 1e-4 dB.
   are refused;
 - a 5-frame 128x64 random-access clip with deblock, SAO and ALF (GOP 4:
   I, P, then B pictures at POC 2, 1, 3; recorded by the same tool in
-  data/ra128x64_ref.json): without ALF the JAX encoder's bytes; with
-  ALF the bytes of the JAX encoder whose ALF estimators sum exactly, as
-  the port's do (variant "exact"), and beside the reference's own
-  float32 estimators (ROADMAP queue 3, F9) its IDR within +-0.5 % bits
-  and +-0.02 dB; the port decodes the JAX streams to JAX's recon, and
-  the JAX decoder decodes the port's ALF stream to the port's recon
-  (live);
+  data/ra128x64_ref.json): with luma and chroma ALF, with luma ALF only
+  and without ALF, the JAX encoder's bytes and recon (the ALF
+  estimators in the reference's float32 order, ROADMAP queue 3, F9);
+  the port decodes the JAX streams to JAX's recon, and the JAX decoder
+  decodes the port's ALF stream to the port's recon (live);
 - the golden fixtures lowdelay_p_filters and ra_alf decode to their
   manifest MD5s;
 - the one-frame device step gives what the batched step gives per frame;
@@ -220,7 +218,7 @@ def port_ra():
     return get
 
 
-@pytest.mark.parametrize("variant", ["noalf", "full", "exact"])
+@pytest.mark.parametrize("variant", ["noalf", "full", "lumaalf"])
 def test_ra_clip_matches_recorded_jax(variant, port_ra):
     data, _ = _ra128()
     ref = data["variants"][variant]
@@ -228,13 +226,8 @@ def test_ra_clip_matches_recorded_jax(variant, port_ra):
     stream = base64.b64decode(ref["stream_b64"])
     port_md5 = [frame_md5(r) for r in port.recon]
     jax_md5 = [f["recon_md5"] for f in ref["frames"]]
-    if variant == "full":
-        b0, p0 = ref["frames"][0]["bits"], ref["frames"][0]["psnr_y"]
-        assert abs(port.frame_bits[0] - b0) <= 0.005 * b0
-        assert abs(port.psnr_y(128, 64)[0] - p0) <= 0.02
-    else:
-        assert port.bitstream == stream
-        assert port_md5 == jax_md5
+    assert port.bitstream == stream
+    assert port_md5 == jax_md5
     _, dec = Decoder(device="cpu").decode(port.bitstream)
     assert [frame_md5(d) for d in dec] == port_md5
     _, dec = Decoder(device="cpu").decode(stream)

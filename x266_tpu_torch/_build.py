@@ -23,6 +23,7 @@ import subprocess
 PKG = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PKG)
 SOURCES = sorted(glob.glob(os.path.join(PKG, "csrc", "*.cu")))
+HEADERS = sorted(glob.glob(os.path.join(PKG, "csrc", "*.cuh")))
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,7 +39,7 @@ def nvcc_path() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(FLAGS).encode())
@@ -74,15 +75,19 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of the library's entry points."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.x266_recon_intra.argtypes = (
-        [i] * 9 + [fl] + [i] * 4 + [p] * 20 + [p])   # ..., stream
+        [i] * 9 + [fl] + [i] * 4 + [p] * 21 + [p])   # ..., sync, stream
     lib.x266_recon_intra.restype = i
     lib.x266_recon_inter.argtypes = (
-        [i] * 8 + [fl] + [i] * 9 + [p] * 33 + [p])  # ..., stream
+        [i] * 8 + [fl] + [i] * 9 + [p] * 34 + [p])  # ..., sync, stream
     lib.x266_recon_inter.restype = i
     lib.x266_warp_frames.argtypes = [i] * 5 + [p] * 4
     lib.x266_warp_frames.restype = i
     lib.x266_refine_search.argtypes = [i] * 4 + [p] * 5
     lib.x266_refine_search.restype = i
+    lib.x266_alf_normal.argtypes = [i] * 3 + [p] * 3 + [i] * 6 + [p] * 6
+    lib.x266_alf_normal.restype = i
+    lib.x266_alf_ctb_sse.argtypes = [i] * 3 + [p] * 4
+    lib.x266_alf_ctb_sse.restype = i
     lib.x266_error_string.argtypes = [i]
     lib.x266_error_string.restype = ctypes.c_char_p
     return lib

@@ -35,9 +35,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef X266_ASSERT
-#define X266_ASSERT(cond) ((void)0)   // checked on the host stand-in only
-#endif
+#include "x266_device.cuh"
 
 namespace {
 
@@ -115,8 +113,9 @@ __device__ int best_candidate(const RefineParams& p, int (*part)[kThreads],
 }
 
 __global__ void __launch_bounds__(kThreads) refine_kernel(RefineParams p) {
-  __shared__ int part[kMaxCands][kThreads];
-  __shared__ int best;
+  using Part = int[kMaxCands][kThreads];
+  X266_SHARED(Part, part);
+  X266_SHARED(int, best);
   // kernels/me.py candidate lists, in order
   const int ax[9] = {-2, 0, 2, -2, 0, 2, -2, 0, 2};
   const int ay[9] = {-2, -2, -2, 0, 0, 0, 2, 2, 2};

@@ -12,20 +12,39 @@
 // agree bit for bit.
 //
 // What bounds it on the H100: the serial dependency chain.  Every TU
-// reads the reconstruction of the TUs before it, so a picture is one
-// chain of ~3 x (units) dependent steps of a few hundred integer MACs
-// each; neither bytes (a 1080p frame moves ~10 MB) nor operations come
-// near the card's limits.  The design keeps each step's latency short:
-// one thread block per frame (frames are the grid, blockIdx.x), its
-// threads share out each TU's pixels and dot products, and the current
-// CTU's reconstruction window -- the CTU, the row above and the column
-// to the left, including the top-right and bottom-left overhang -- sits
-// in shared memory, loaded when the CTU starts and written back to the
-// output planes when it ends.  Samples not yet coded (or outside the
-// picture) hold mid-gray, which is the reference's availability rule.
-// A faster schedule (one block per CTU along the anti-diagonals
-// cx + 2*cy, which engine/recon_wave.py proves independent) is later work.
-//
+// reads the reconstruction of the TUs before it, so a CTU row is one chain
+// of dependent steps of a few hundred integer MACs each; neither bytes (a
+// 1080p frame moves ~10 MB) nor operations come near the card's limits.
+// The design shortens the chain and keeps each step's latency short:
+// - Schedule: a CTU-row wavefront.  The grid is frames x CTU rows, one
+//   thread block per row.  A block takes its row from an atomic ticket
+//   (so rows start in order whatever order the hardware runs blocks in,
+//   and a block only ever waits on a row that started before it); before
+//   CTU cx, thread 0 waits (acquire) until the row above has published
+//   progress >= min(cx + 2, CTUs per row); after the CTU's stores every
+//   thread fences, the block meets at a barrier and thread 0 publishes
+//   progress cx + 1 (release).  So CTU (cx, cy) runs after (cx + 1,
+//   cy - 1), the order d = cx + 2*cy that engine/recon_wave.py proves
+//   bit-identical to the raster order; the longest chain is ctus_x +
+//   2*(ctus_y - 1) CTUs (126 at 3840x2160 against 2,040 in raster order).
+//   The ticket and the progress counters are an int32 buffer the launcher
+//   zeroes on the stream; the launcher also zeroes the MV-state planes
+//   and refuses a grid that does not fit the card's resident blocks.
+// - Why it stays exact: load_window's `coded` predicate depends on
+//   positions only, so samples of CTUs not yet coded read as mid-gray
+//   whatever memory holds; store_window writes only the CTU itself;
+//   above_mv reads only inside the CTU row and derive_mv only the left
+//   unit.  No CTU of a diagonal touches another's window: (cx +- 2,
+//   cy -+ 1) lie outside x0 - 1 .. x0 + 95.  Rows above are read through
+//   the L2 (__ldcg), after the acquire.
+// - Inside a block: its threads share out each TU's pixels and dot
+//   products, and the current CTU's reconstruction window -- the CTU, the
+//   row above and the column to the left, including the top-right and
+//   bottom-left overhang -- sits in shared memory, loaded when the CTU
+//   starts and written back to the output planes when it ends.  Samples
+//   not yet coded (or outside the picture) hold mid-gray, which is the
+//   reference's availability rule.
+
 // Integer math is int32 multiply-accumulate (|residual x matrix| sums stay
 // below 2^31).  RDOQ compares float32 costs e*e*err_scale + lam*rate with
 // explicitly rounded __fmul_rn/__fadd_rn (and the library is built with
@@ -68,14 +87,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef X266_ASSERT
-#define X266_ASSERT(cond) ((void)0)   // checked on the host stand-in only
-#endif
+#include "x266_device.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCtu = 64;
+constexpr int kMaxSpins = 1 << 24;   // row wait cap, ~10 s at 64 ns a spin
 constexpr int kWinY = 1 + 96;     // luma window: CTU origin -1 .. +95
 constexpr int kWinC = 1 + 48;     // chroma window
 constexpr int kMaxS = 32;
@@ -107,6 +125,7 @@ struct Params {
   int pyr_h[2], pyr_w[2];         // luma, chroma pyramid plane sizes
   int16_t* mv_out[2];             // final MVs (H/8, W/8); the MV state
   const int32_t* mv1_map[2];      // K3-B: a bi CU's L1 MV (H/8, W/8)
+  int* sync;                      // row ticket, then progress per row
 };
 
 struct Shared {
@@ -372,7 +391,7 @@ __device__ void load_window(const View& v, const uint8_t* rec, int x0,
     int px = v.ox + i % v.wdim, py = v.oy + i / v.wdim;
     bool coded = px >= 0 && py >= 0 && px < v.pw && py < v.ph &&
                  (py < y0 || (py < y0 + ctu && px < x0));
-    v.win[i] = coded ? rec[(size_t)py * v.pw + px] : 128;
+    v.win[i] = coded ? __ldcg(rec + (size_t)py * v.pw + px) : 128;
   }
 }
 
@@ -422,11 +441,15 @@ __device__ __forceinline__ const uint8_t* mc_origin(const uint8_t* pyr, int h,
 template <bool kEncode, bool kInter, bool kB = false>
 __global__ void __launch_bounds__(kThreads)
 recon_kernel(Params p) {
-  __shared__ Shared sh;
-  const int f = blockIdx.x;
+  X266_SHARED(Shared, sh);
+  X266_SHARED(int, ticket);
   const int w = p.width, h = p.height, cw = w / 2, ch = h / 2;
   const int ux_n = w / 8, uy_n = h / 8;
   const int ctus_x = (w + kCtu - 1) / kCtu, ctus_y = (h + kCtu - 1) / kCtu;
+  if (threadIdx.x == 0) ticket = atomicAdd(p.sync, 1);
+  __syncthreads();
+  const int f = ticket / ctus_y, cy = ticket % ctus_y;
+  int* progress = p.sync + 1 + (size_t)f * ctus_y;
   const size_t map_base = (size_t)f * ux_n * uy_n;
   uint8_t* rec_y = p.rec[0] + (size_t)f * w * h;
   uint8_t* rec_c[2] = {p.rec[1] + (size_t)f * cw * ch,
@@ -435,96 +458,103 @@ recon_kernel(Params p) {
   const uint8_t* src_c[2] = {
       kEncode ? p.src[1] + (size_t)f * p.plane_c : nullptr,
       kEncode ? p.src[2] + (size_t)f * p.plane_c : nullptr};
-  if (kInter) {
-    for (int i = threadIdx.x; i < ux_n * uy_n; i += kThreads)
-      p.mv_out[0][i] = p.mv_out[1][i] = 0;
-    __syncthreads();
-  }
 
-  for (int cy = 0; cy < ctus_y; ++cy) {
-    for (int cx = 0; cx < ctus_x; ++cx) {
-      const int x0 = cx * kCtu, y0 = cy * kCtu;
-      View vy{sh.win_y, kWinY, x0 - 1, y0 - 1, w, h, 1};
-      View vc[2] = {{sh.win_c[0], kWinC, x0 / 2 - 1, y0 / 2 - 1, cw, ch, 2},
-                    {sh.win_c[1], kWinC, x0 / 2 - 1, y0 / 2 - 1, cw, ch, 2}};
-      load_window(vy, rec_y, x0, y0, kCtu);
-      for (int c = 0; c < 2; ++c)
-        load_window(vc[c], rec_c[c], x0 / 2, y0 / 2, kCtu / 2);
-      __syncthreads();
-      for (int z = 0; z < 64; ++z) {
-        int zx = (z & 1) | (((z >> 2) & 1) << 1) | (((z >> 4) & 1) << 2);
-        int zy = ((z >> 1) & 1) | (((z >> 3) & 1) << 1) | (((z >> 5) & 1) << 2);
-        int ux = cx * 8 + zx, uy = cy * 8 + zy;
-        if (ux >= ux_n || uy >= uy_n) continue;
-        size_t mi = map_base + (size_t)uy * ux_n + ux;
-        int s = p.size_map[mi];
-        int u = s >> 3;
-        if ((ux & (u - 1)) || (uy & (u - 1))) continue;
-        int mode = p.mode_map[mi];
-        int mts = p.mts ? (p.mts_map[mi] & 7) : 0;
-        // MTS combos (tables.MTS_COMBOS): (vertical, horizontal) types,
-        // 0 DCT-II, 1 DST-VII, 2 DCT-VIII
-        const int tvs[5] = {0, 1, 2, 1, 2}, ths[5] = {0, 1, 1, 2, 2};
-        int x = ux * 8, y = uy * 8;
-        const int kind = kInter ? p.pred_map[mi] : kIntra;
-        const bool skip = kind == kSkip;
-        int mv[2] = {0, 0};
-        if (kInter) {
-          if (!skip || (p.merge && !kEncode)) {
-            mv[0] = p.mvx_map[mi];
-            mv[1] = p.mvy_map[mi];
-          } else if (p.merge && p.mvx_map[mi] == 1) {
-            above_mv(p, ux, uy, ux_n, mv);     // merge candidate 1
-          } else {
-            derive_mv(p, ux, uy, ux_n, mv);
-          }
-        }
-        const bool is_mc = kind != kIntra;
-        // K3-B: an L1 CU predicts from the L1 pyramids (pyr[3..5]); a bi
-        // CU adds the L1 block at its mv1 to the L0 block at its MV
-        const uint8_t* const* pyr = p.pyr + (kB && kind == kL1 ? 3 : 0);
-        const bool bi = kB && kind == kBi;
-        int mv1[2] = {0, 0};
-        if (bi) {
-          mv1[0] = p.mv1_map[0][mi];
-          mv1[1] = p.mv1_map[1][mi];
-        }
-        tu<kEncode>(p, sh, vy, x, y, s, mode, tvs[mts], ths[mts], src_y,
-                    p.pitch_y, p.coef_in[0], p.coef_out[0], f,
-                    is_mc ? mc_origin(pyr[0], p.pyr_h[0], p.pyr_w[0], x,
-                                      y, mv[0], mv[1], s) : nullptr,
-                    p.pyr_w[0], skip,
-                    bi ? mc_origin(p.pyr[3], p.pyr_h[0], p.pyr_w[0], x, y,
-                                   mv1[0], mv1[1], s) : nullptr);
-        for (int c = 0; c < 2; ++c)
-          tu<kEncode>(p, sh, vc[c], x / 2, y / 2, s / 2, mode, 0, 0,
-                      src_c[c], p.pitch_c, p.coef_in[1 + c],
-                      p.coef_out[1 + c], f,
-                      is_mc ? mc_origin(pyr[1 + c], p.pyr_h[1], p.pyr_w[1],
-                                        x / 2, y / 2, mv[0] >> 1, mv[1] >> 1,
-                                        s / 2)
-                            : nullptr,
-                      p.pyr_w[1], skip,
-                      bi ? mc_origin(p.pyr[4 + c], p.pyr_h[1], p.pyr_w[1],
-                                     x / 2, y / 2, mv1[0] >> 1, mv1[1] >> 1,
-                                     s / 2) : nullptr);
-        if (kInter) {
-          // the CU's final MV over its units: the MV state of later CUs
-          for (int i = threadIdx.x; i < u * u; i += kThreads) {
-            int mux = ux + i % u, muy = uy + i / u;
-            if (mux < ux_n && muy < uy_n) {
-              p.mv_out[0][muy * ux_n + mux] = (int16_t)mv[0];
-              p.mv_out[1][muy * ux_n + mux] = (int16_t)mv[1];
-            }
-          }
-          __syncthreads();
-        }
+  for (int cx = 0; cx < ctus_x; ++cx) {
+    if (cy > 0) {
+      if (threadIdx.x == 0) {
+        // tickets make the row above a running block, so the wait ends;
+        // the cap (seconds) only keeps a fault from hanging the card
+        const int need = cx + 2 < ctus_x ? cx + 2 : ctus_x;
+        for (int spins = 0;
+             x266_ld_acquire(progress + cy - 1) < need && spins < kMaxSpins;
+             ++spins)
+          __nanosleep(64);
       }
-      store_window(vy, rec_y, x0, y0, kCtu);
-      for (int c = 0; c < 2; ++c)
-        store_window(vc[c], rec_c[c], x0 / 2, y0 / 2, kCtu / 2);
       __syncthreads();
     }
+    const int x0 = cx * kCtu, y0 = cy * kCtu;
+    View vy{sh.win_y, kWinY, x0 - 1, y0 - 1, w, h, 1};
+    View vc[2] = {{sh.win_c[0], kWinC, x0 / 2 - 1, y0 / 2 - 1, cw, ch, 2},
+                  {sh.win_c[1], kWinC, x0 / 2 - 1, y0 / 2 - 1, cw, ch, 2}};
+    load_window(vy, rec_y, x0, y0, kCtu);
+    for (int c = 0; c < 2; ++c)
+      load_window(vc[c], rec_c[c], x0 / 2, y0 / 2, kCtu / 2);
+    __syncthreads();
+    for (int z = 0; z < 64; ++z) {
+      int zx = (z & 1) | (((z >> 2) & 1) << 1) | (((z >> 4) & 1) << 2);
+      int zy = ((z >> 1) & 1) | (((z >> 3) & 1) << 1) | (((z >> 5) & 1) << 2);
+      int ux = cx * 8 + zx, uy = cy * 8 + zy;
+      if (ux >= ux_n || uy >= uy_n) continue;
+      size_t mi = map_base + (size_t)uy * ux_n + ux;
+      int s = p.size_map[mi];
+      int u = s >> 3;
+      if ((ux & (u - 1)) || (uy & (u - 1))) continue;
+      int mode = p.mode_map[mi];
+      int mts = p.mts ? (p.mts_map[mi] & 7) : 0;
+      // MTS combos (tables.MTS_COMBOS): (vertical, horizontal) types,
+      // 0 DCT-II, 1 DST-VII, 2 DCT-VIII
+      const int tvs[5] = {0, 1, 2, 1, 2}, ths[5] = {0, 1, 1, 2, 2};
+      int x = ux * 8, y = uy * 8;
+      const int kind = kInter ? p.pred_map[mi] : kIntra;
+      const bool skip = kind == kSkip;
+      int mv[2] = {0, 0};
+      if (kInter) {
+        if (!skip || (p.merge && !kEncode)) {
+          mv[0] = p.mvx_map[mi];
+          mv[1] = p.mvy_map[mi];
+        } else if (p.merge && p.mvx_map[mi] == 1) {
+          above_mv(p, ux, uy, ux_n, mv);     // merge candidate 1
+        } else {
+          derive_mv(p, ux, uy, ux_n, mv);
+        }
+      }
+      const bool is_mc = kind != kIntra;
+      // K3-B: an L1 CU predicts from the L1 pyramids (pyr[3..5]); a bi
+      // CU adds the L1 block at its mv1 to the L0 block at its MV
+      const uint8_t* const* pyr = p.pyr + (kB && kind == kL1 ? 3 : 0);
+      const bool bi = kB && kind == kBi;
+      int mv1[2] = {0, 0};
+      if (bi) {
+        mv1[0] = p.mv1_map[0][mi];
+        mv1[1] = p.mv1_map[1][mi];
+      }
+      tu<kEncode>(p, sh, vy, x, y, s, mode, tvs[mts], ths[mts], src_y,
+                  p.pitch_y, p.coef_in[0], p.coef_out[0], f,
+                  is_mc ? mc_origin(pyr[0], p.pyr_h[0], p.pyr_w[0], x,
+                                    y, mv[0], mv[1], s) : nullptr,
+                  p.pyr_w[0], skip,
+                  bi ? mc_origin(p.pyr[3], p.pyr_h[0], p.pyr_w[0], x, y,
+                                 mv1[0], mv1[1], s) : nullptr);
+      for (int c = 0; c < 2; ++c)
+        tu<kEncode>(p, sh, vc[c], x / 2, y / 2, s / 2, mode, 0, 0,
+                    src_c[c], p.pitch_c, p.coef_in[1 + c],
+                    p.coef_out[1 + c], f,
+                    is_mc ? mc_origin(pyr[1 + c], p.pyr_h[1], p.pyr_w[1],
+                                      x / 2, y / 2, mv[0] >> 1, mv[1] >> 1,
+                                      s / 2)
+                          : nullptr,
+                    p.pyr_w[1], skip,
+                    bi ? mc_origin(p.pyr[4 + c], p.pyr_h[1], p.pyr_w[1],
+                                   x / 2, y / 2, mv1[0] >> 1, mv1[1] >> 1,
+                                   s / 2) : nullptr);
+      if (kInter) {
+        // the CU's final MV over its units: the MV state of later CUs
+        for (int i = threadIdx.x; i < u * u; i += kThreads) {
+          int mux = ux + i % u, muy = uy + i / u;
+          if (mux < ux_n && muy < uy_n) {
+            p.mv_out[0][muy * ux_n + mux] = (int16_t)mv[0];
+            p.mv_out[1][muy * ux_n + mux] = (int16_t)mv[1];
+          }
+        }
+        __syncthreads();
+      }
+    }
+    store_window(vy, rec_y, x0, y0, kCtu);
+    for (int c = 0; c < 2; ++c)
+      store_window(vc[c], rec_c[c], x0 / 2, y0 / 2, kCtu / 2);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) x266_st_release(progress + cy, cx + 1);
   }
 }
 
@@ -555,15 +585,33 @@ void set_common(Params& p, int frames, int width, int height,
   p.rate = (const float*)rate;
 }
 
+// Launch one block per CTU row of each frame, after zeroing the row
+// ticket and progress counters (and, for K3, the MV state) on the
+// stream.  Every row must be resident at once on the card, or the launch
+// is refused (cudaErrorInvalidConfiguration).
 template <bool kInter, bool kB = false>
 int launch(Params& p, int encode, void* stream) {
   void* args[] = {&p};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      encode ? cudaLaunchKernel(recon_kernel<true, kInter, kB>,
-                                dim3(p.frames), dim3(kThreads), args, 0, st)
-             : cudaLaunchKernel(recon_kernel<false, kInter, kB>,
-                                dim3(p.frames), dim3(kThreads), args, 0, st);
+  void (*kernel)(Params) = encode ? recon_kernel<true, kInter, kB>
+                                  : recon_kernel<false, kInter, kB>;
+  const int rows = p.frames * ((p.height + kCtu - 1) / kCtu);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  if (err == cudaSuccess && rows > per_sm * sms)
+    err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(p.sync, 0, sizeof(int) * (1 + rows), st);
+  const size_t mv_bytes = sizeof(int16_t) * (p.width / 8) * (p.height / 8);
+  for (int i = 0; kInter && i < 2 && err == cudaSuccess; ++i)
+    err = cudaMemsetAsync(p.mv_out[i], 0, mv_bytes, st);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernel(kernel, dim3(rows), dim3(kThreads), args, 0, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -585,7 +633,8 @@ void set_inter(Params& p, int merge, int pyr_hy, int pyr_wy, int pyr_hc,
 
 extern "C" {
 
-// Launches K1 (encode != 0) or K2 on `stream`; returns cudaGetLastError().
+// Launches K1 (encode != 0) or K2 on `stream`; `sync` is scratch of
+// 1 + frames x CTU rows int32.  Returns cudaGetLastError().
 int x266_recon_intra(
     int encode, int frames, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
@@ -594,7 +643,7 @@ int x266_recon_intra(
     const void* size_map, const void* mode_map, const void* mts_map,
     void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
     void* cout_cr, const void* taps, const void* smooth, const void* tx,
-    const void* shift, const void* rate, void* stream) {
+    const void* shift, const void* rate, void* sync, void* stream) {
   const void* src[3] = {src_y, src_cb, src_cr};
   const void* cin[3] = {cin_y, cin_cb, cin_cr};
   void* rec[3] = {rec_y, rec_cb, rec_cr};
@@ -603,6 +652,7 @@ int x266_recon_intra(
   set_common(p, frames, width, height, pitch_y, pitch_c, plane_y,
              plane_c, qp, lam, rdoq, mts, subst, n_modes, src, cin, size_map,
              mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
+  p.sync = (int*)sync;
   return launch<false>(p, encode, stream);
 }
 
@@ -610,8 +660,9 @@ int x266_recon_intra(
 // not null (encode != 0: the encoder's form), on `stream`; returns
 // cudaGetLastError().  Arguments as x266_recon_intra, plus the inter maps,
 // the reference's three pyramids (16, Hp, Wp), the final-MV planes (int16,
-// H/8 x W/8) and, for K3-B, the L1 pyramids (the shapes of L0's) and the
-// mvx1/mvy1 maps (int32, H/8 x W/8).
+// H/8 x W/8), for K3-B the L1 pyramids (the shapes of L0's) and the
+// mvx1/mvy1 maps (int32, H/8 x W/8), and the scratch `sync` of 1 + CTU
+// rows int32.
 int x266_recon_inter(
     int encode, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
@@ -625,7 +676,7 @@ int x266_recon_inter(
     void* cout_cr, void* mv_x, void* mv_y, const void* taps,
     const void* smooth, const void* tx, const void* shift, const void* rate,
     const void* pyr1_y, const void* pyr1_cb, const void* pyr1_cr,
-    const void* mvx1_map, const void* mvy1_map, void* stream) {
+    const void* mvx1_map, const void* mvy1_map, void* sync, void* stream) {
   const void* src[3] = {src_y, src_cb, src_cr};
   const void* cin[3] = {cin_y, cin_cb, cin_cr};
   void* rec[3] = {rec_y, rec_cb, rec_cr};
@@ -637,6 +688,7 @@ int x266_recon_inter(
              mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
   set_inter(p, merge, pyr_hy, pyr_wy, pyr_hc, pyr_wc, pred_map, mvx_map,
             mvy_map, pyr, mv_x, mv_y);
+  p.sync = (int*)sync;
   if (pyr1_y == nullptr) return launch<true>(p, encode, stream);
   p.pyr[3] = (const uint8_t*)pyr1_y; p.pyr[4] = (const uint8_t*)pyr1_cb;
   p.pyr[5] = (const uint8_t*)pyr1_cr;

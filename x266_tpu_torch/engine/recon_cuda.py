@@ -12,6 +12,9 @@ back.
 
 LAUNCHES counts the launches of each kernel (one per call here and
 nowhere else), so a run can show that its main path went through them.
+Each launch is one thread block per CTU row of each frame (the row
+wavefront of csrc/recon_intra.cu), with an int32 scratch of 1 + rows for
+the row ticket and the rows' progress.
 """
 
 from __future__ import annotations
@@ -114,6 +117,7 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    sync = _sync_buffer(f, h, dev)
     err = lib.x266_recon_intra(
         int(encode), f, w, h, py[1], pc[1], py[0] * py[1], pc[0] * pc[1],
         cfg.qp, float(np.float32(cfg.lambda_mode)),
@@ -122,8 +126,15 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
         size_map.data_ptr(), mode_map.data_ptr(), mts_map.data_ptr(),
         *map(ptr, rec), *map(ptr, cout),
         tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
-        tab.k_shift.data_ptr(), tab.rate.data_ptr(), stream)
+        tab.k_shift.data_ptr(), tab.rate.data_ptr(), sync.data_ptr(), stream)
     return err, (*rec, *coef)
+
+
+def _sync_buffer(frames: int, height: int, dev) -> torch.Tensor:
+    """The wavefront's scratch: the row ticket and each CTU row's
+    progress (the kernel's launcher zeroes it on the stream)."""
+    return torch.empty(1 + frames * -(-height // 64), dtype=torch.int32,
+                       device=dev)
 
 
 def recon_inter(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
@@ -214,6 +225,7 @@ def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    sync = _sync_buffer(1, h, dev)
     err = lib.x266_recon_inter(
         int(encode), w, h, py[1], pc[1], py[0] * py[1], pc[0] * pc[1],
         cfg.qp, float(np.float32(cfg.lambda_mode)),
@@ -227,5 +239,5 @@ def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
         *map(ptr, cout), mvs[0].data_ptr(), mvs[1].data_ptr(),
         tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
         tab.k_shift.data_ptr(), tab.rate.data_ptr(),
-        *(map(ptr, l1) if l1 else (None,) * 5), stream)
+        *(map(ptr, l1) if l1 else (None,) * 5), sync.data_ptr(), stream)
     return err, (*rec, *coef, *mvs)

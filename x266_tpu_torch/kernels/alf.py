@@ -9,19 +9,24 @@ The reference looks the per-block coefficients up through a one-hot
 matmul (a gather is slow on the TPU); here it is a gather.
 
 The encoder's estimators of config 4, ``estimate_alf`` and
-``estimate_alf_chroma``, solve per-class normal equations.  The
-reference accumulates them in float32 and solves in float32 (XLA CPU,
-LAPACK); the port accumulates them exactly -- features and errors are
-integers, every partial sum of their products is an integer below 2^53,
-so float64 sums them exactly in any order, on the CPU and on the card --
-and solves in float64 by an LDL^T elimination written as a fixed
-sequence of elementwise ops, each rounded once by IEEE rules, so its CPU
-and CUDA routes give the same coefficients bit for bit, with no round
-trip to the host.  On small pictures they equal the reference's except
-where its unrounded solution lies near a half-integer; on larger ones
-the reference's float32 sums drift further from the exact ones (ROADMAP
-queue 3, F9).  The per-CTB on/off decision sums the SSE exactly (int64)
-and then compares as the reference does in float32.
+``estimate_alf_chroma``, compute what the reference computes in float32
+on XLA's CPU backend, bit for bit (ROADMAP queue 3, F9):
+
+- the per-class normal equations (x266_tpu/kernels/alf.py:367-368,
+  278-279) are XLA dots whose float32 sums run in blocks of samples,
+  each block in a few interleaved sequential lanes (``SUM_ORDERS``,
+  measured by cancellation probes on XLA's dots and checked against
+  them on random data of full magnitude);
+- the solve (``jnp.linalg.solve``, :370 and :280) is LAPACK's sgetrf and
+  two strsm calls of the OpenBLAS that jaxlib calls; ``solve_f32``
+  repeats their float32 operations in their order (``_fma`` gives the
+  fused multiply-adds from float64 ops);
+- the per-CTB SSE (:335-338, :379-382) follows XLA's reduction order
+  (``ctb_sse``).
+
+The plain versions here are torch ops on any device; on a CUDA tensor
+``normal_solve`` runs the hand-written kernel of kernels/alf_cuda.py
+(csrc/alf.cu) instead.
 """
 
 from __future__ import annotations
@@ -195,77 +200,309 @@ def apply_ccalf(c, luma, coeffs, ctb_flags, bit_depth: int = 8):
 
 
 # ---- encoder estimators ----------------------------------------------------
-
-def ldl_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x of a x = b for symmetric positive definite a (..., n, n) and b
-    (..., n), float64, by an LDL^T elimination.  Every step is one
-    multiply, subtract or divide of whole tensors (no square root: torch's
-    CPU one is not correctly rounded; no reduction), each rounded once by
-    IEEE rules, so the result does not depend on the device."""
-    n = a.shape[-1]
-    a = a.clone()
-    low = torch.zeros_like(a)
-    diag = torch.zeros_like(b)
-    for k in range(n):
-        diag[..., k] = a[..., k, k]
-        low[..., k + 1:, k] = a[..., k + 1:, k] / a[..., k, k, None]
-        a[..., k + 1:, k + 1:] -= (low[..., k + 1:, k, None]
-                                   * a[..., None, k + 1:, k])
-    y = b.clone()
-    for k in range(n):
-        y[..., k + 1:] -= low[..., k + 1:, k] * y[..., k, None]
-    y = y / diag
-    for k in reversed(range(n)):
-        y[..., :k] -= low[..., k, :k] * y[..., k, None]
-    return y
+#
+# XLA CPU's float32 order for the estimators' four dots (measured on
+# jaxlib 0.9's CPU backend: cancellation probes on each dot shape, then
+# the model held to the live dot on random full-magnitude data from 8,192
+# to 2,073,600 samples).  Per (class, entry), the samples run in
+# blocks of ``block`` in raster order (0: one block); inside a block,
+# lane l takes the samples at offsets l, l + lanes, ... one after another
+# from 0; the lanes then combine in pairs ((l0 + l1) + (l2 + l3)) or in
+# halves ((l0 + l4) + (l2 + l6)) + ..., and the block sums add up in
+# order from 0.  A sample outside the class adds 0, which changes no
+# float32 sum, so each class keeps only its own samples.  Checked for
+# sample counts that are multiples of 8, which every picture here gives.
+SUM_ORDERS = {
+    "luma_gram": (1024, 2, "pairs"),    # f32[144, N] . f32[25, N]
+    "luma_rhs": (2728, 4, "pairs"),     # f32[25, N] . f32[12, N]
+    "chroma_gram": (4096, 4, "pairs"),  # f32[6, N] . f32[6, N]
+    "chroma_rhs": (0, 8, "halves"),     # f32[6, N] . f32[N]
+}
 
 
-def _solve(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Round and clip the solution of (gram + 64 I) c = 128 rhs, solved
-    in float64 on the inputs' device: (..., n) int32."""
-    n = gram.shape[-1]
-    g = gram + 64.0 * torch.eye(n, dtype=torch.float64, device=gram.device)
-    sol = ldl_solve(g, rhs * float(1 << COEF_BITS))
-    return torch.round(sol).clamp(-COEF_MAX, COEF_MAX).to(torch.int32)
+def _combine(lanes: torch.Tensor, how: str) -> torch.Tensor:
+    """Add the trailing lane dim in XLA's order."""
+    while lanes.shape[-1] > 1:
+        if how == "pairs":
+            lanes = lanes[..., 0::2] + lanes[..., 1::2]
+        else:
+            h = lanes.shape[-1] // 2
+            lanes = lanes[..., :h] + lanes[..., h:]
+    return lanes[..., 0]
 
 
-def normal_equations(feats, err, cls_blk=None, n_classes: int = 1):
-    """Exact per-class sums (gram (C, T, T), rhs (C, T) float64) of
-    feats (T, H, W) and err (H, W) integer planes, each 4x4 block's
-    pixels in the class cls_blk (H/4, W/4) gives it (all in class 0 when
-    None): each block's sums by a batched matmul, then the classes' by a
-    matmul with the blocks' one-hot classes, with nothing read back to
-    the host."""
+def ordered_sums(x: torch.Tensor, cls: torch.Tensor | None, n_classes: int,
+                 order: str) -> torch.Tensor:
+    """Per-class float32 sums of x (E, N), exact products, in XLA's order
+    SUM_ORDERS[order]: (n_classes, E).  cls (N,) int64 gives each
+    sample's class (all class 0 when None).  An explicit loop over a
+    block's lane steps on (classes, entries, blocks, lanes) tensors."""
+    block, lanes, how = SUM_ORDERS[order]
+    e, n = x.shape
+    if n % 8:
+        raise ValueError(f"XLA's sum order is pinned for sample counts "
+                         f"that are multiples of 8, got {n}")
+    block = min(block or n, n)
+    nb = -(-n // block)
+    pad = nb * block - n
+    steps = block // lanes
+    xs = torch.nn.functional.pad(x, (0, pad)).reshape(e, nb, steps, lanes)
+    if cls is None:
+        cls = torch.zeros(n, dtype=torch.int64, device=x.device)
+    # padding samples go to a class of their own, dropped at the end
+    cs = torch.nn.functional.pad(cls, (0, pad), value=n_classes).reshape(
+        nb, steps, lanes)
+    acc = torch.zeros((n_classes + 1, e, nb, lanes), dtype=torch.float32,
+                      device=x.device)
+    bi = torch.arange(nb, device=x.device)[:, None].expand(nb, lanes)
+    li = torch.arange(lanes, device=x.device)[None, :].expand(nb, lanes)
+    for q in range(steps):
+        c = cs[:, q]                                   # (nb, lanes)
+        acc[c, :, bi, li] = acc[c, :, bi, li] + xs[:, :, q].permute(1, 2, 0)
+    blocks = _combine(acc[:n_classes], how)            # (C, E, nb)
+    tot = torch.zeros((n_classes, e), dtype=torch.float32, device=x.device)
+    for b in range(nb):
+        tot = tot + blocks[..., b]
+    return tot
+
+
+def _products(feats: torch.Tensor, err: torch.Tensor):
+    """(T*T, N) and (T, N) float32 products f_i f_j and f_i e, exact
+    (|f| <= 510, |e| <= 255 at 8 bits: every product is below 2^24)."""
+    f = feats.reshape(feats.shape[0], -1).to(torch.int32)
+    e = err.reshape(-1).to(torch.int32)
+    gram = (f[:, None, :] * f[None, :, :]).reshape(-1, f.shape[1])
+    return gram.to(torch.float32), (f * e).to(torch.float32)
+
+
+def normal_sums(feats, err, cls_px=None, n_classes: int = 1):
+    """The reference's float32 normal equations of feats (T, H, W) and
+    err (H, W): gram (C, T, T) and rhs (C, T) (the rhs before the
+    reference's exact scaling by 128), per class of cls_px (H, W) when
+    given (luma), else one class (chroma)."""
     t = feats.shape[0]
-    f = feats.to(torch.float64)
-    e = err.to(torch.float64)
-    if cls_blk is None:
-        f = f.reshape(t, -1)
-        return (f @ f.T)[None], (f @ e.reshape(-1))[None]
-    h, w = err.shape
-    fb = f.reshape(t, h // 4, 4, w // 4, 4).permute(1, 3, 0, 2, 4).reshape(
-        -1, t, 16)
-    eb = e.reshape(h // 4, 4, w // 4, 4).permute(0, 2, 1, 3).reshape(
-        -1, 16, 1)
-    hot = (cls_blk.reshape(-1, 1) == torch.arange(
-        n_classes, device=f.device)).to(torch.float64).T
-    gram = hot @ torch.bmm(fb, fb.transpose(1, 2)).reshape(-1, t * t)
-    rhs = hot @ torch.bmm(fb, eb).reshape(-1, t)
+    pg, pr = _products(feats, err)
+    cls = None if cls_px is None else cls_px.reshape(-1).long()
+    kind = "luma" if cls_px is not None else "chroma"
+    gram = ordered_sums(pg, cls, n_classes, kind + "_gram")
+    rhs = ordered_sums(pr, cls, n_classes, kind + "_rhs")
     return gram.reshape(n_classes, t, t), rhs
 
 
-def _ctb_flags(filt, recon, orig, ctb: int, lam: float) -> torch.Tensor:
-    """Per-CTB on/off: the SSE gain of filtering, summed exactly, then
-    gain + lam * 1.5 < 0 in float32 as the reference decides."""
+_INF = float("inf")
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once (an FMA), from float64 ops: the
+    product is exact in float64; where the float64 sum lies exactly
+    halfway between two float32 values its rounding error (TwoSum)
+    decides, as the unrounded sum would."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    z = s - p
+    t = (p - (s - z)) + (cd - z)
+    r = s.float()
+    rd = r.double()
+    other = torch.where(s > rd, torch.nextafter(r, torch.full_like(r, _INF)),
+                        torch.nextafter(r, torch.full_like(r, -_INF)))
+    tie = (s != rd) & ((rd + other.double()) * 0.5 == s) & (t != 0)
+    fix = torch.where(t > 0, torch.maximum(r, other),
+                      torch.minimum(r, other))
+    return torch.where(tie, fix, r)
+
+
+def _fma_chain(a: torch.Tensor, x: torch.Tensor, cols) -> torch.Tensor:
+    """sum over k in cols of a[..., k] * x[..., k], one FMA after another
+    from 0."""
+    acc = torch.zeros_like(a[..., 0])
+    for k in cols:
+        acc = _fma(a[..., k], x[..., k], acc)
+    return acc
+
+
+def _getf2(a: torch.Tensor):
+    """OpenBLAS 0.3.30's sgetf2 on (B, n, n) float32 (SkylakeX kernels):
+    left-looking, column by column.  Returns the packed LU and the row
+    permutation."""
+    a = a.clone()
+    bsz, n, _ = a.shape
+    rows = torch.arange(bsz, device=a.device)
+    perm = torch.arange(n, device=a.device).repeat(bsz, 1)
+    for j in range(n):
+        col = a[:, :, j].clone()
+        # U: b[i] -= sdot(L[i, :i], b[:i]); sdot's strided loop makes
+        # float32 FMA pairs y0*x0 + (y1*x1) and adds them in float64
+        for i in range(1, j):
+            x, y = a[:, i, :i], col[:, :i]
+            m = i // 2
+            pairs = _fma(y[:, 0:2 * m:2], x[:, 0:2 * m:2],
+                         y[:, 1:2 * m:2] * x[:, 1:2 * m:2]).double()
+            acc = torch.zeros(bsz, dtype=torch.float64, device=a.device)
+            for k in range(m):
+                acc = acc + pairs[:, k]
+            if i % 2:
+                acc = acc + (y[:, i - 1] * x[:, i - 1]).double()
+            col[:, i] = col[:, i] - acc.float()
+        # L: b[j:] -= A[j:, :j] b[:j] (sgemv_n): one FMA chain per row,
+        # except for 4 columns, where rows in whole groups of 4 take two
+        # chains (columns 0, 2 and 1, 3) added at the end
+        if j:
+            lo, xb = a[:, j:, :j], col[:, None, :j]
+            acc = _fma_chain(lo, xb, range(j))
+            if j == 4:
+                two = (_fma_chain(lo, xb, (0, 2)) + _fma_chain(lo, xb, (1, 3)))
+                vec = torch.arange(n - j, device=a.device) < ((n - j) & ~3)
+                acc = torch.where(vec, two, acc)
+            col[:, j:] = col[:, j:] - acc
+        a[:, :, j] = col
+        # pivot: the first largest |b[j:]|; swap whole rows (the later
+        # columns' swaps are the same exchanges, made now)
+        jp = j + torch.argmax(col[:, j:].abs(), dim=1)
+        rj, rp = a[rows, j].clone(), a[rows, jp].clone()
+        a[rows, j], a[rows, jp] = rp, rj
+        pj, pp = perm[rows, j].clone(), perm[rows, jp].clone()
+        perm[rows, j], perm[rows, jp] = pp, pj
+        inv = torch.ones_like(a[:, j, j]) / a[:, j, j]
+        a[:, j + 1:, j] = a[:, j + 1:, j] * inv[:, None]
+    return a, perm
+
+
+def _trsm_blocks(n: int, lower: bool):
+    """The row blocks OpenBLAS's trsm kernels solve, in order (GEMM
+    unroll 16): forward from the top in blocks of 16, 8, 4, 2, 1, or
+    backward from the bottom in blocks of 1, 2, 4, 8, then 16."""
+    full, rem = divmod(n, 16)
+    if lower:
+        out, s = [], 0
+        for _ in range(full):
+            out.append((s, 16))
+            s += 16
+        for i in (8, 4, 2, 1):
+            if rem & i:
+                out.append((s, i))
+                s += i
+        return out
+    out = [((n & ~(i - 1)) - i, i) for i in (1, 2, 4, 8) if n & i]
+    return out + [((full - 1 - q) * 16, 16) for q in range(full)]
+
+
+def _trsm(lu: torch.Tensor, c: torch.Tensor, lower: bool) -> torch.Tensor:
+    """strsm (left side, no transpose; unit lower or non-unit upper) of
+    (B, n) c by the packed LU (B, n, n): per block, an FMA chain over the
+    solved rows (the GEMM kernel's update), then substitution inside the
+    block by FMAs, the upper diagonal applied through its float32
+    reciprocal."""
+    c = c.clone()
+    n = c.shape[1]
+    for s0, sz in _trsm_blocks(n, lower):
+        blk = slice(s0, s0 + sz)
+        done = range(0, s0) if lower else range(s0 + sz, n)
+        if len(done):
+            cols = list(done)
+            acc = _fma_chain(lu[:, blk][:, :, cols], c[:, None, cols],
+                             range(len(cols)))
+            c[:, blk] = c[:, blk] - acc
+        order = range(s0, s0 + sz) if lower else reversed(range(s0, s0 + sz))
+        for i in order:
+            if not lower:
+                c[:, i] = c[:, i] * (torch.ones_like(c[:, i]) / lu[:, i, i])
+            rest = slice(i + 1, s0 + sz) if lower else slice(s0, i)
+            bb = c[:, i:i + 1]
+            c[:, rest] = _fma(-bb.expand_as(c[:, rest]), lu[:, rest, i],
+                              c[:, rest])
+    return c
+
+
+def solve_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.linalg.solve(a, b) on XLA's CPU backend, bit for bit: a
+    (..., n, n), b (..., n) float32.  jaxlib calls LAPACK's sgetrf, then
+    strsm with the unit lower and the upper factor; these are the float32
+    operations of OpenBLAS 0.3.30 (SkylakeX), held to jnp on thousands of
+    systems of the estimators' sizes and magnitudes."""
+    shape = b.shape
+    n = a.shape[-1]
+    lu, perm = _getf2(a.reshape(-1, n, n).to(torch.float32))
+    x = torch.gather(b.reshape(-1, n).to(torch.float32), 1, perm)
+    x = _trsm(lu, x, lower=True)
+    return _trsm(lu, x, lower=False).reshape(shape)
+
+
+def coefficients(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Round and clip the reference's solution of (gram + 64 I) c =
+    128 rhs: (..., T) int32."""
+    n = gram.shape[-1]
+    g = gram + 64.0 * torch.eye(n, dtype=torch.float32, device=gram.device)
+    sol = solve_f32(g, rhs * float(1 << COEF_BITS))
+    return torch.round(sol).clamp(-COEF_MAX, COEF_MAX).to(torch.int32)
+
+
+def normal_solve(feats, err, cls_px=None, n_classes: int = 1,
+                 with_sums: bool = False):
+    """The estimator's coefficients (C, T) int32 (with_sums: and the
+    float32 gram (C, T, T) and rhs (C, T)): the normal equations in XLA's
+    order and their float32 solve -- the CUDA kernel (kernels/alf_cuda.py)
+    for CUDA tensors, the plain torch ops here for CPU ones."""
+    if feats.device.type == "cuda":
+        from x266_tpu_torch.kernels import alf_cuda
+        return alf_cuda.normal_solve(feats, err, cls_px, n_classes,
+                                     with_sums)
+    gram, rhs = normal_sums(feats, err, cls_px, n_classes)
+    coef = coefficients(gram, rhs)
+    return (coef, gram, rhs) if with_sums else coef
+
+
+def _seq(v: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the trailing (r, c) dims, one sample after
+    another in raster order from 0."""
+    v = v.reshape(*v.shape[:-2], -1)
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+    for k in range(v.shape[-1]):
+        acc = acc + v[..., k]
+    return acc
+
+
+def ctb_sse(a, orig, ctb: int) -> torch.Tensor:
+    """The reference's float32 SSE of each CTB (:335-338, :379-382), in
+    XLA CPU's order: the CUDA kernel of kernels/alf_cuda.py for CUDA
+    tensors (one thread per CTB), ctb_sse_plain for CPU ones."""
+    if orig.device.type == "cuda":
+        from x266_tpu_torch.kernels import alf_cuda
+        return alf_cuda.ctb_sse(a, orig, ctb)
+    return ctb_sse_plain(a, orig, ctb)
+
+
+def ctb_sse_plain(a, orig, ctb: int) -> torch.Tensor:
+    """ctb_sse in torch ops, in XLA CPU's order (read from its optimized
+    LLVM IR, checked at 112x80 to 3840x2160): a 64x64 CTB is four 32x32
+    windows (XLA's tree rewrite of reductions longer than 32), each
+    summed in raster order, then added in raster order; a 32x32 CTB is
+    summed in raster order when the plane's width is a multiple of 32,
+    else row by row through eight-lane vectors (kernels.cost._row_sum32).
+    """
+    from x266_tpu_torch.kernels.cost import _row_sum32
+
     h, w = orig.shape
     cy, cx = -(-h // ctb), -(-w // ctb)
+    d = (a.to(torch.int32) - orig.to(torch.int32)).to(torch.float32) ** 2
+    d = torch.nn.functional.pad(d, (0, cx * ctb - w, 0, cy * ctb - h))
+    blocks = d.reshape(cy, ctb, cx, ctb).permute(0, 2, 1, 3)
+    if ctb == 64:
+        tot = torch.zeros((cy, cx), dtype=torch.float32, device=d.device)
+        for y in (0, 32):
+            for x in (0, 32):
+                tot = tot + _seq(blocks[..., y:y + 32, x:x + 32])
+        return tot
+    if ctb != 32:
+        raise ValueError(f"XLA's CTB-SSE order is pinned for 64 and 32, "
+                         f"got {ctb}")
+    return _seq(blocks) if w % 32 == 0 else _row_sum32(blocks)
 
-    def ctb_sse(a):
-        d = (a - orig).to(torch.int64) ** 2
-        d = torch.nn.functional.pad(d, (0, cx * ctb - w, 0, cy * ctb - h))
-        return d.reshape(cy, ctb, cx, ctb).sum((1, 3))
 
-    gain = (ctb_sse(filt) - ctb_sse(recon)).to(torch.float32)
+def _ctb_flags(filt, recon, orig, ctb: int, lam: float) -> torch.Tensor:
+    """Per-CTB on/off: gain + lam * 1.5 < 0 on the reference's float32
+    SSE gain."""
+    gain = ctb_sse(filt, orig, ctb) - ctb_sse(recon, orig, ctb)
     return ((gain + float(np.float32(lam * 1.5))) < 0).to(torch.int32)
 
 
@@ -276,9 +513,8 @@ def estimate_alf(orig, recon, lam: float, bit_depth: int = 8):
     recon = recon.to(torch.int32)
     h, w = orig.shape
     cls = classify(recon)
-    gram, rhs = normal_equations(_diff_planes(recon), orig - recon, cls,
-                                 NUM_CLASSES)
-    coeffs = _solve(gram, rhs)
+    coeffs = normal_solve(_diff_planes(recon), orig - recon, _up4(cls),
+                          NUM_CLASSES)
     all_on = torch.ones(((h + 63) // 64, (w + 63) // 64), dtype=torch.int32,
                         device=orig.device)
     filt = apply_alf(recon, cls, coeffs, all_on, bit_depth)
@@ -292,9 +528,8 @@ def estimate_alf_chroma(orig, recon, lam: float, bit_depth: int = 8):
     orig = orig.to(torch.int32)
     recon = recon.to(torch.int32)
     h, w = orig.shape
-    gram, rhs = normal_equations(_diff_planes(recon, CHROMA_DIAMOND),
-                                 orig - recon)
-    coeffs = _solve(gram, rhs)[0]
+    coeffs = normal_solve(_diff_planes(recon, CHROMA_DIAMOND),
+                          orig - recon)[0]
     all_on = torch.ones((-(-h // 32), -(-w // 32)), dtype=torch.int32,
                         device=orig.device)
     filt = apply_alf_chroma(recon, coeffs, all_on, bit_depth)
