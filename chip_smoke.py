@@ -37,11 +37,15 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     kernel's normal equations and coefficients of that picture equal
     the plain version's bit for bit;
     [kernels-alf] the ALF kernels (the estimators' normal equations in
-    XLA CPU's float32 order and their float32 solve; the per-CTB SSE of
-    the on/off decision in XLA's reduction order) against their plain
-    versions on the card, bit for bit, luma and chroma, at 416x240,
-    1920x1080 and 3840x2160 (at 416x240 the normal equations also
-    against the plain version on the CPU);
+    XLA CPU's float32 order and their float32 solve, from the recon and
+    the source; the per-CTB on/off decision from the SSEs in XLA's
+    reduction order) against their plain versions, bit for bit, luma and
+    chroma, at 416x240, 1920x1080 and 3840x2160, on three data sets:
+    noise far from the source, the planes the encoder's estimators get
+    (config 4's IDR), and the two mixed so that chains cross 2^24
+    partway; the shares of chains summed exactly and in order are
+    printed, and both paths must occur; the 4K times on the noise and on
+    the encoder's planes;
  9. [golden-filters] decode the fixtures lowdelay_p_filters (deblock,
     SAO) and ra_alf (random access, nonlinear ALF, CC-ALF, signalled
     reference lists) to their manifest MD5s;
@@ -53,13 +57,14 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     the same way to the reference with its float32 estimators
     (data/cfg4_416x240_ref.json; ROADMAP queue 3, F9), per-frame bit and
     PSNR differences printed; each JAX stream decodes to JAX's MD5s;
-    each encode prints its count of B Pass-A blocks exposed to F10 (a
-    float32 error sum past 2^24, where the order of addition may
-    matter);
+    each encode prints its count of B Pass-A blocks whose float32 error
+    sum passes 2^24, where only XLA's order of addition gives the
+    reference's sum (F10, which the port follows);
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
-    (normal equations three per picture, CTB SSE six), the F10 count,
+    (normal equations and CTB decisions three per picture each), the
+    F10 count, each kernel's launches in this run (launches_cfg4),
     bits/frame, PSNR-Y, one warm encode's frame rate.
 The third line from the end is a JSON object with each kernel's
 launches on its main path, its error and its times (CUDA events at the
@@ -636,83 +641,161 @@ def phase_kernels_b(stats):
         compare_b_kernels(cfg, 21, stats, record)
 
 
-def compare_alf_kernel(w, h, seed, stats):
-    """The ALF kernel against its plain version on the card, luma and
-    chroma, on a picture's source and a recon far from it (features near
-    +-510, errors near +-255); bit-exact or raise.  The 4K luma times go
-    into the kernels line."""
-    from x266_tpu_torch.core.yuv import synthetic_frame
+def _encoder_planes(w, h):
+    """The (orig, recon, lam) luma and chroma planes the encoder's ALF
+    estimators get for the IDR of config 4's clip at w x h (its post-SAO
+    recon and the source)."""
+    from x266_tpu_torch.api import Encoder
+    from x266_tpu_torch.core.yuv import synthetic_clip
     from x266_tpu_torch.kernels import alf as kalf
-    from x266_tpu_torch.kernels import alf_cuda
+
+    got = {}
+    est = {"luma": kalf.estimate_alf, "chroma": kalf.estimate_alf_chroma}
+
+    def grab(plane):
+        def f(orig, recon, lam, *a):
+            got.setdefault(plane, (orig.clone(), recon.clone(), lam))
+            return est[plane](orig, recon, lam, *a)
+        return f
+
+    kalf.estimate_alf, kalf.estimate_alf_chroma = grab("luma"), grab("chroma")
+    try:
+        Encoder(cfg4(w, h)).encode(synthetic_clip(w, h, 1, "mixed"))
+    finally:
+        kalf.estimate_alf, kalf.estimate_alf_chroma = (est["luma"],
+                                                       est["chroma"])
+    return got
+
+
+def _alf_data(w, h, seed):
+    """Per data set and plane, (orig, recon, lam) int32 on the card:
+    "noise", a picture's source and a recon of +-255 noise around it
+    (features near +-510, errors near +-255: few chains exact); "encoder",
+    the planes the encoder's estimators get (nearly every chain exact);
+    "crossing", the encoder's planes on the top 45 % of the rows and below
+    the source against a recon of 0s and 255s, so that chains (and the
+    CTB decision's windows) cross 2^24 partway."""
+    from x266_tpu_torch.core.yuv import synthetic_frame
 
     f = synthetic_frame(w, h, 0, "mixed", seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    enc = _encoder_planes(w, h)
+    data = {"noise": {}, "encoder": {}, "crossing": {}}
     for plane, src in (("luma", f.y), ("chroma", f.cb)):
         o = torch.from_numpy(src).cuda().int()
         noise = torch.randint(-255, 256, o.shape, generator=gen,
                               device="cuda", dtype=torch.int32)
-        r = (o + noise).clamp(0, 255)
-        if plane == "luma":
-            feats, cls, nc = (kalf._diff_planes(r),
-                              kalf._up4(kalf.classify(r)), 25)
-        else:
-            feats = kalf._diff_planes(r, kalf.CHROMA_DIAMOND)
-            cls, nc = None, 1
-        err = o - r
-        got = alf_cuda.normal_solve(feats, err, cls, nc, with_sums=True)
+        data["noise"][plane] = (o, (o + noise).clamp(0, 255), 100.0)
+        eo, er, lam = (x.int() if torch.is_tensor(x) else float(x)
+                       for x in enc[plane])
+        data["encoder"][plane] = (eo, er, lam)
+        low = torch.arange(o.shape[0], device="cuda")[:, None] >= int(
+            o.shape[0] * 0.45)
+        extreme = torch.where(torch.rand(o.shape, generator=gen,
+                                         device="cuda") < 0.5, 0, 255)
+        data["crossing"][plane] = (
+            torch.where(low, o, eo),
+            torch.where(low, extreme, er).to(torch.int32), lam)
+    return data
 
-        def plain(feats, err, cls):
-            gram, rhs = kalf.normal_sums(feats, err, cls, nc)
-            return kalf.coefficients(gram, rhs), gram, rhs
 
-        want, pc_ms = timed(plain, feats, err, cls)
-        tag = f"{o.shape[1]}x{o.shape[0]} {plane}"
-        _require_equal("ALF", tag, ("coef", "gram", "rhs"), got, want)
-        if (w, h) == (416, 240):
-            cpu = plain(feats.cpu(), err.cpu(),
-                        None if cls is None else cls.cpu())
-            _require_equal("ALF", tag + " (plain on the CPU)",
-                           ("coef", "gram", "rhs"), [g.cpu() for g in got],
-                           cpu)
-        err_abs = max(_max_err(got[:1], want[:1]),
-                      float((got[1] - want[1]).abs().max()),
-                      float((got[2] - want[2]).abs().max()))
-        k_ms = event_ms(alf_cuda.normal_solve, feats, err, cls, nc, reps=10)
-        n = err.numel()
-        t = feats.shape[0]
-        # inputs read once (features, errors, classes), outputs written
-        # once; a multiply and an add per product, and the solves
-        b = bound(nbytes(feats.int(), err.int(), *([] if cls is None else
-                                                    [cls.int()]), *got),
-                  2.0 * n * (t * t + t) + nc * 2 * t ** 3)
-        log(f"[kernels-alf] {tag}: ALF kernel {k_ms:.4f} ms (plain "
-            f"{pc_ms:.0f} ms) err {err_abs}; bound {b[0]:.4f} ms ({b[1]})")
-        _record(stats, "ALF", err_abs)
-        if plane == "luma" and (w, h) == (3840, 2160):
-            _record(stats, "ALF", err_abs, ms=k_ms, plain_ms=pc_ms,
-                    bound_ms=b[0], bound_by=b[1], shape=f"{w}x{h} luma")
+ALF_SHARES = {"exact": 0, "ordered": 0}
 
-        # the per-CTB SSE of the on/off decision, in XLA's order
-        ctb = 64 if plane == "luma" else 32
-        sse = alf_cuda.ctb_sse(r, o, ctb)
-        want_sse, ps_ms = timed(kalf.ctb_sse_plain, r, o, ctb)
-        _require_equal("ALFSSE", tag, ("sse",), [sse], [want_sse])
-        err_sse = float((sse - want_sse).abs().max())
-        ks_ms = event_ms(alf_cuda.ctb_sse, r, o, ctb, reps=10)
-        bs = bound(nbytes(r, o, sse), 2.0 * n)
-        log(f"[kernels-alf] {tag}: CTB SSE kernel (order "
-            f"{alf_cuda.sse_mode(ctb, o.shape[1])}) {ks_ms:.4f} ms (plain "
-            f"{ps_ms:.0f} ms) err {err_sse}; bound {bs[0]:.4f} ms "
-            f"({bs[1]})")
-        _record(stats, "ALFSSE", err_sse)
-        if plane == "luma" and (w, h) == (3840, 2160):
-            _record(stats, "ALFSSE", err_sse, ms=ks_ms, plain_ms=ps_ms,
-                    bound_ms=bs[0], bound_by=bs[1], shape=f"{w}x{h} luma")
+
+def compare_alf_kernel(w, h, seed, stats):
+    """The ALF kernels against their plain versions on the card, luma and
+    chroma, on the three data sets of _alf_data; bit-exact or raise.  The
+    normal equations' plain version runs on the card for luma and on the
+    CPU for chroma (its plane-long lane chains are a Python loop); the
+    CTB decision's on the card.  The shares of chains summed exactly and
+    in order are printed; at 4K the times on the noise and the encoder's
+    planes, the encoder's luma ones going into the kernels line."""
+    from x266_tpu_torch.kernels import alf as kalf
+    from x266_tpu_torch.kernels import alf_cuda
+
+    for kind, planes in _alf_data(w, h, seed).items():
+        for plane, (o, r, lam) in planes.items():
+            luma = plane == "luma"
+            cls = kalf.classify(r) if luma else None
+            *got, st = alf_cuda.normal_solve(r, o, cls, with_sums=True,
+                                             with_stats=True)
+            dev = "cuda" if luma else "cpu"
+            want, pc_ms = timed(lambda: kalf.normal_solve_plain(
+                r.to(dev), o.to(dev), None if cls is None else cls.to(dev),
+                with_sums=True))
+            tag = f"{w}x{h} {kind} {plane}"
+            _require_equal("ALF", tag, ("coef", "gram", "rhs"),
+                           [g.to(dev) for g in got], want)
+            ex, od, tex, tod = st.tolist()
+            ALF_SHARES["exact"] += ex
+            ALF_SHARES["ordered"] += od
+            line = (f"[kernels-alf] {tag}: ALF == plain (on the {dev}); "
+                    f"chains exact {ex / max(ex + od, 1):.4f}, ordered "
+                    f"{od / max(ex + od, 1):.4f} of {ex + od}; totals over "
+                    f"blocks exact {tex}, ordered {tod}")
+            coef = got[0]
+            if luma:
+                all_on = torch.ones((-(-h // 64), -(-w // 64)),
+                                    dtype=torch.int32, device="cuda")
+                filt = kalf.apply_alf(r, cls, coef, all_on)
+                ctb = 64
+            else:
+                all_on = torch.ones((-(-r.shape[0] // 32),
+                                     -(-r.shape[1] // 32)),
+                                    dtype=torch.int32, device="cuda")
+                filt = kalf.apply_alf_chroma(r, coef[0], all_on)
+                ctb = 32
+            flags, sst = alf_cuda.ctb_flags(filt, r, o, ctb, lam,
+                                            with_stats=True)
+            want_f, pf_ms = timed(kalf._ctb_flags, filt, r, o, ctb, lam)
+            _require_equal("ALFSSE", tag, ("flags",), [flags], [want_f])
+            sse = alf_cuda.ctb_sse(r, o, ctb)
+            _require_equal("ALFSSE", tag, ("sse",), [sse],
+                           [kalf.ctb_sse_plain(r, o, ctb)])
+            we, wo = sst.tolist()
+            line += (f"; ALFSSE flags == plain ({int(flags.sum())} of "
+                     f"{flags.numel()} on), windows exact {we}, ordered {wo}")
+            log(line)
+            _record(stats, "ALF", 0)
+            _record(stats, "ALFSSE", 0)
+            if (w, h) != (3840, 2160) or kind == "crossing":
+                continue
+            k_ms = event_ms(alf_cuda.normal_solve, r, o, cls, reps=10)
+            n = r.numel()
+            t = kalf.DIAMOND.shape[0] if luma else \
+                kalf.CHROMA_DIAMOND.shape[0]
+            nc = coef.shape[0]
+            # recon, source and class map read once, the outputs written
+            # once; a multiply and an add per product, and the solves
+            b = bound(nbytes(r, o, *([] if cls is None else [cls]), *got),
+                      2.0 * n * (t * t + t) + nc * 2 * t ** 3)
+            ks_ms = event_ms(alf_cuda.ctb_flags, filt, r, o, ctb, lam,
+                             reps=10)
+            # three planes read, the flags written; per sample and plane a
+            # subtraction, a square and an add
+            bs = bound(nbytes(filt, r, o, flags), 6.0 * n)
+            log(f"[kernels-alf] {tag}: ALF kernel {k_ms:.4f} ms (plain "
+                f"{pc_ms:.0f} ms on the {dev}); bound {b[0]:.4f} ms "
+                f"({b[1]}); ALFSSE kernel (order "
+                f"{alf_cuda.sse_mode(ctb, o.shape[1])}) {ks_ms:.4f} ms "
+                f"(plain {pf_ms:.0f} ms); bound {bs[0]:.4f} ms ({bs[1]})")
+            if luma and kind == "encoder":
+                _record(stats, "ALF", 0, ms=k_ms, plain_ms=pc_ms,
+                        bound_ms=b[0], bound_by=b[1],
+                        shape=f"{w}x{h} luma, the encoder's planes")
+                _record(stats, "ALFSSE", 0, ms=ks_ms, plain_ms=pf_ms,
+                        bound_ms=bs[0], bound_by=bs[1],
+                        shape=f"{w}x{h} luma, the encoder's planes")
 
 
 def phase_kernels_alf(stats):
     for w, h in ((416, 240), (1920, 1080), (3840, 2160)):
         compare_alf_kernel(w, h, 31, stats)
+    log(f"[kernels-alf] chains summed exactly {ALF_SHARES['exact']}, in "
+        f"order {ALF_SHARES['ordered']} over all data sets")
+    if not (ALF_SHARES["exact"] and ALF_SHARES["ordered"]):
+        raise AssertionError("[kernels-alf] the exact or the ordered path "
+                             "was never taken")
 
 
 def phase_golden():
@@ -832,6 +915,8 @@ def run_main_ra(stats, card):
     res, t_enc = timed(enc.encode, frames)
     (_, decoded), t_dec = timed(dec.decode, res.bitstream)
     launches = _launches()
+    for k in KERNELS:
+        stats[k]["launches_cfg4"] = launches[k]
     log(f"[main-ra] first encode {t_enc / 1e3:.2f} s, decode "
         f"{t_dec / 1e3:.2f} s, launches {launches}; {f10_line()}")
     if [frame_md5(r) for r in res.recon] != [frame_md5(d) for d in decoded]:
@@ -846,7 +931,7 @@ def run_main_ra(stats, card):
         f"{res.total_bits / n:.0f} bits/frame, as bench.py counts); PSNR-Y "
         f"{[round(p, 4) for p in psnrs]} (mean {np.mean(psnrs):.4f} dB)")
     for k, want in (("K3B", 15), ("K3Bd", 15), ("ALF", 3 * n),
-                    ("ALFSSE", 6 * n)):
+                    ("ALFSSE", 3 * n)):
         if launches[k] != want:
             raise AssertionError(f"[main-ra] {k} launched {launches[k]} "
                                  f"times, not {want}")
@@ -860,13 +945,14 @@ def run_main_ra(stats, card):
 
 
 def f10_line() -> str:
-    """The B Pass-A blocks of the run where the port's float32 order may
-    differ from XLA's (ROADMAP queue 3, F10)."""
+    """The B Pass-A blocks of the run whose error sums pass 2^24, where
+    the port's sums depend on following XLA's order (ROADMAP queue 3,
+    F10)."""
     from x266_tpu_torch.engine import inter
 
     n = inter.f10_blocks()
-    return (f"F10: B Pass-A blocks with an error sum >= 2^24 {n[16]} "
-            f"(16x16), {n[32]} (32x32)")
+    return (f"F10: B Pass-A blocks with an error sum >= 2^24 {n[8]} (8x8), "
+            f"{n[16]} (16x16), {n[32]} (32x32)")
 
 
 def count_syncs(fn, *args):
@@ -897,12 +983,9 @@ def check_filters(cfg, tab, tag, planes, p0, p1, got, maps):
     from x266_tpu_torch.kernels import alf as kalf
 
     y, o = got[0][0].int(), planes[0][0].int()
-    feats, err, cls = (kalf._diff_planes(y), o - y,
-                       kalf._up4(kalf.classify(y)))
-    kern = kalf.normal_solve(feats, err, cls, kalf.NUM_CLASSES,
-                             with_sums=True)
-    gram, rhs = kalf.normal_sums(feats, err, cls, kalf.NUM_CLASSES)
-    plain = (kalf.coefficients(gram, rhs), gram, rhs)
+    cls = kalf.classify(y)
+    kern = kalf.normal_solve(y, o, cls, with_sums=True)
+    plain = kalf.normal_solve_plain(y, o, cls, with_sums=True)
     same = all(torch.equal(a, b) for a, b in zip(kern, plain))
     log(f"[kernels-b] {tag}: ALF normal equations and coefficients of the "
         f"picture, kernel == plain version bit for bit: {same}")
@@ -1035,9 +1118,9 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",
          "source": KERNELS[k][1], "replaces": KERNELS[k][2],
-         **{key: stats[k][key] for key in (
+         **{key: stats[k].get(key) for key in (
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms", "shape")}}
+             "bound_by", "library_ms", "shape", "launches_cfg4")}}
         for k in KERNELS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

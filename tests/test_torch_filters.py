@@ -249,15 +249,13 @@ def _jax_sums(feats, err, cls_px=None):
     return np.asarray(gram), np.asarray(rhs), np.asarray(sol)
 
 
-def _port_sums(rec, err, plane):
+def _port_sums(rec, orig, plane):
     y = _t(rec)
     if plane == "luma":
-        cls = talf._up4(talf.classify(y))
-        out = talf.normal_solve(talf._diff_planes(y), _t(err), cls, 25,
-                                with_sums=True)
-        return out, talf._diff_planes(y).numpy(), cls.numpy()
-    out = talf.normal_solve(talf._diff_planes(y, talf.CHROMA_DIAMOND),
-                            _t(err), with_sums=True)
+        cls = talf.classify(y)
+        out = talf.normal_solve(y, _t(orig), cls, with_sums=True)
+        return out, talf._diff_planes(y).numpy(), talf._up4(cls).numpy()
+    out = talf.normal_solve(y, _t(orig), with_sums=True)
     return out, talf._diff_planes(y, talf.CHROMA_DIAMOND).numpy(), None
 
 
@@ -268,8 +266,7 @@ def test_alf_normal_equations_and_solve(seed):
     the coefficients its rounded float32 solution."""
     orig, rec = _noisy(112, 80, seed, amp=4 + seed)
     for k, plane in ((0, "luma"), (1, "chroma"), (2, "chroma")):
-        (coef, gram, rhs), feats, cls = _port_sums(rec[k], orig[k] - rec[k],
-                                                   plane)
+        (coef, gram, rhs), feats, cls = _port_sums(rec[k], orig[k], plane)
         jg, jr, sol = _jax_sums(feats, orig[k] - rec[k], cls)
         assert np.array_equal(jg, gram.numpy()), plane
         assert np.array_equal(jr, rhs.numpy()), plane
@@ -290,7 +287,7 @@ def test_alf_sums_follow_xla_order(plane, size):
     rng = np.random.default_rng(h)
     orig = rng.integers(0, 256, (h, w)).astype(np.int32)
     rec = np.where(rng.random((h, w)) < 0.5, 0, 255).astype(np.int32)
-    (_, gram, rhs), feats, cls = _port_sums(rec, orig - rec, plane)
+    (_, gram, rhs), feats, cls = _port_sums(rec, orig, plane)
     jg, jr, _ = _jax_sums(feats, orig - rec, cls)
     assert np.array_equal(jg, gram.numpy())
     assert np.array_equal(jr, rhs.numpy())
@@ -308,7 +305,7 @@ def test_alf_solve_matches_jnp(n):
         o = f.y.astype(np.int32)
         r = np.clip(o + rng.integers(-3 - 5 * i, 4 + 5 * i, o.shape), 0,
                     255).astype(np.int32)
-        (_, gram, rhs), _, _ = _port_sums(r, o - r, "luma" if n == 12
+        (_, gram, rhs), _, _ = _port_sums(r, o, "luma" if n == 12
                                           else "chroma")
         a.append(gram.numpy() + 64.0 * np.eye(n, dtype=np.float32))
         b.append(rhs.numpy() * 128.0)

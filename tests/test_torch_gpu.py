@@ -191,9 +191,9 @@ def test_alf_estimators_on_card_equal_cpu(cuda):
     out = []
     for dev in ("cpu", cuda):
         o, r = orig.to(dev), rec.to(dev)
-        res = (*alf.normal_solve(alf._diff_planes(r), o - r,
-                                 alf._up4(alf.classify(r)), alf.NUM_CLASSES,
-                                 with_sums=True),
+        res = (*alf.normal_solve(r, o, alf.classify(r), with_sums=True),
+               *alf.normal_solve(r[:64, :96], o[:64, :96], with_sums=True),
+               alf.ctb_flags(r, (r + 3).clamp(0, 255), o, 64, 57.0),
                *alf.estimate_alf(o, r, 57.0),
                *alf.estimate_alf_chroma(o[:64, :96], r[:64, :96], 57.0))
         out.append([t.cpu() for t in res])
@@ -213,7 +213,9 @@ def test_alf_kernel_wrapper_refuses_cpu_tensors():
 
     r = torch.zeros((16, 16), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        alf_cuda.normal_solve(alf._diff_planes(r), r)
+        alf_cuda.normal_solve(r, r, alf.classify(r))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        alf_cuda.ctb_flags(r, r, r, 64, 1.0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         alf_cuda.ctb_sse(r, r, 64)
 

@@ -2,7 +2,10 @@
 versions (exact equality): K1/K2 against the plain intra scan, K3-P and
 K3-B (encode and decode, final MVs included) against the plain P and B
 scans, K4 against warp_frames_ref, K5 against refine_search_ref and the
-ALF kernel against kernels/alf.py's normal sums and float32 solve.
+ALF kernels against kernels/alf.py's normal_solve_plain (the normal
+equations from the recon and the source, and their float32 solve) and
+_ctb_flags (the per-CTB decision), on data that takes their exact int32
+path, their ordered float32 path, and both in one launch.
 
 csrc/*.cu launch through cudaLaunchKernel, so g++ compiles them as C++
 against tests/cuda_host/cuda_runtime.h, a host stand-in that runs each
@@ -281,43 +284,98 @@ def test_wavefront_rows_run_concurrently(kind, host_lib, monkeypatch):
         assert torch.equal(w, g), n
 
 
-@pytest.mark.parametrize("plane", ["luma", "chroma"])
-@pytest.mark.parametrize("size", [(112, 80), (416, 240)])
-def test_alf_kernel_source_matches_plain(plane, size, host_lib):
-    """The ALF kernel's normal sums, gram and rhs, and coefficients equal
-    the plain version's bit for bit (416x240: 99,840 luma samples, not a
-    multiple of the 1,024-sample blocks)."""
-    w, h = size if plane == "luma" else (size[0] // 2, size[1] // 2)
-    rng = np.random.default_rng(w)
-    orig = rng.integers(0, 256, (h, w)).astype(np.int32)
-    rec = np.clip(orig + rng.integers(-40, 41, (h, w)), 0, 255).astype(
-        np.int32)
-    y = torch.from_numpy(rec)
-    err = torch.from_numpy(orig - rec)
-    if plane == "luma":
-        feats, cls, nc = alf._diff_planes(y), alf._up4(alf.classify(y)), 25
+def _alf_planes(kind, w, h, seed):
+    """A source and a post-SAO recon of w x h: "realistic", a smooth
+    source (not periodic, so the wrap at the edges matters) and a recon
+    within +-3 of it; "noise", a noise source and a recon within +-255
+    of it (features near +-510, errors near +-255); "crossing", realistic
+    on the top 45 % of the rows and noise below, so the (class, entry)
+    chains of the lower blocks, and the whole-plane lane chains of the
+    chroma rhs partway, pass 2^24."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = (128 + 60 * np.sin(xx / 7.0) + 40 * np.cos(yy / 5.0)
+              + xx * 0.2).astype(np.int32)
+    noise = rng.integers(0, 256, (h, w)).astype(np.int32)
+    small = rng.integers(-3, 4, (h, w))
+    big = rng.integers(-255, 256, (h, w))
+    if kind == "realistic":
+        orig, d = smooth, small
+    elif kind == "noise":
+        orig, d = noise, big
     else:
-        feats, cls, nc = alf._diff_planes(y, alf.CHROMA_DIAMOND), None, 1
-    code, got = alf_cuda._launch(host_lib, 0, feats, err, cls, nc)
+        low = yy >= int(h * 0.45)
+        orig, d = np.where(low, noise, smooth), np.where(low, big, small)
+    rec = np.clip(orig + d, 0, 255).astype(np.int32)
+    return torch.from_numpy(orig), torch.from_numpy(rec)
+
+
+ALF_CASES = {          # luma size; chroma is half of it, or the same
+    "realistic": (112, 80), "noise": (112, 80), "crossing": (112, 80),
+    "tiny": (32, 16),
+}
+
+
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+@pytest.mark.parametrize("case", list(ALF_CASES))
+def test_alf_kernel_source_matches_plain(plane, case, host_lib):
+    """The ALF kernel's coefficients, gram and rhs, from the recon and
+    the source, equal normal_solve_plain's bit for bit: realistic planes
+    (every chain exact in int32), full-magnitude noise (many chains in
+    the ordered path), planes whose chains cross 2^24 partway (both
+    paths in one launch; the chroma plane of 208x120 spans four of the
+    rhs's segments, so its plane-long lane chains start their ordered
+    part past an exact prefix) and tiny planes (one partial block, the
+    diamond's rows wrapping around the plane).  112x80 is 8,960 luma
+    samples, not a multiple of the 1,024- and 2,728-sample blocks; the
+    sources are not periodic, so the wrap at the edges matters."""
+    w, h = ALF_CASES[case]
+    kind = "realistic" if case == "tiny" else case
+    if plane == "chroma":
+        w, h = (208, 120) if case == "crossing" else (w // 2, h // 2)
+    o, r = _alf_planes(kind, w, h, w + h)
+    cls = alf.classify(r).contiguous() if plane == "luma" else None
+    code, got = alf_cuda._launch(host_lib, 0, r, o, cls)
     assert code == 0
-    want = alf.normal_solve(feats, err, cls, nc, with_sums=True)
+    want = alf.normal_solve_plain(r, o, cls, with_sums=True)
     for n, a, b in zip(("coef", "gram", "rhs"), want, got):
         assert torch.equal(a, b), n
+    exact, ordered = got[3][:2].tolist()
+    assert exact > 0
+    assert (ordered > 0) == (kind != "realistic")
 
 
+@pytest.mark.parametrize("kind", ["crafted", "realistic"])
 @pytest.mark.parametrize("shape,ctb", [((80, 112), 64), ((120, 208), 32),
                                        ((64, 128), 32)])
-def test_alf_sse_kernel_source_matches_plain(shape, ctb, host_lib):
-    """The per-CTB SSE kernel equals alf.ctb_sse in all three of XLA's
-    orders (64x64 windows; 32x32 with a plane width that is not and is a
-    multiple of 32), with sums past 2^24."""
+def test_alf_sse_kernel_source_matches_plain(shape, ctb, kind, host_lib):
+    """The CTB decision kernel's two per-CTB SSEs equal alf.ctb_sse_plain
+    and its flags alf._ctb_flags in all three of XLA's orders (64x64
+    windows; 32x32 with a plane width that is not and is a multiple of
+    32): "crafted" planes whose windows' sums pass 2^24 (the ordered
+    path), "realistic" ones where every window is exact."""
     h, w = shape
     rng = np.random.default_rng(w)
-    a = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32))
     o = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32))
-    a[::3], o[::3] = 255, 0
-    code, got = alf_cuda._launch_sse(host_lib, 0, a, o, ctb)
+    if kind == "crafted":
+        a = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32))
+        a[::3], o[::3] = 255, 0
+        r = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32))
+    else:
+        # the filtered plane closer to the source on the left, further
+        # on the right, so that both flags occur
+        amp = np.where(np.arange(w) < w // 2, 2, 8)
+        a = (o + torch.from_numpy(rng.integers(-amp, amp + 1, (h, w)))
+             ).clamp(0, 255)
+        r = (o + torch.from_numpy(rng.integers(-5, 6, (h, w)))).clamp(0, 255)
+    a, r = a.int().contiguous(), r.int().contiguous()
+    code, (flags, sse, stats) = alf_cuda._launch_flags(host_lib, 0, a, r, o,
+                                                       ctb, 2.0)
     assert code == 0
     want = alf.ctb_sse_plain(a, o, ctb)
-    assert torch.equal(want, got)
-    assert (want > 2.0 ** 24).any()
+    assert torch.equal(want, sse[0])
+    assert torch.equal(alf.ctb_sse_plain(r, o, ctb), sse[1])
+    assert torch.equal(alf._ctb_flags(a, r, o, ctb, 2.0), flags)
+    assert (want > 2.0 ** 24).any() == (kind == "crafted")
+    assert (stats[1] > 0) == (kind == "crafted")
+    assert 0 < flags.sum() < flags.numel() or kind == "crafted"

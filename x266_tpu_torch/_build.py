@@ -84,10 +84,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.x266_warp_frames.restype = i
     lib.x266_refine_search.argtypes = [i] * 4 + [p] * 5
     lib.x266_refine_search.restype = i
-    lib.x266_alf_normal.argtypes = [i] * 3 + [p] * 3 + [i] * 6 + [p] * 6
+    lib.x266_alf_normal.argtypes = [i] * 4 + [p] * 3 + [i] * 6 + [p] * 11
     lib.x266_alf_normal.restype = i
-    lib.x266_alf_ctb_sse.argtypes = [i] * 3 + [p] * 4
-    lib.x266_alf_ctb_sse.restype = i
+    lib.x266_alf_ctb_flags.argtypes = [i] * 3 + [fl] + [p] * 7
+    lib.x266_alf_ctb_flags.restype = i
     lib.x266_error_string.argtypes = [i]
     lib.x266_error_string.restype = ctypes.c_char_p
     return lib

@@ -57,17 +57,18 @@ from x266_tpu_torch.tables import Tables
 PRED_INTRA, PRED_INTER, PRED_SKIP = 0, 1, 2
 PRED_L1, PRED_BI = 3, 4          # B slices: L1-only and bi-prediction
 
-# B Pass A's 16x16 and 32x32 blocks whose float32 transform-domain error
-# sum reached 2^24 for one of the three candidates: below it every
-# partial sum is an exact integer, above it the port's order of addition
-# may round differently from XLA's (ROADMAP queue 3, F10).  Device counts
-# per (size, device), added to without a host read; see f10_blocks.
+# B Pass A's blocks whose float32 transform-domain error sum reached
+# 2^24 for one of the three candidates: below it every partial sum is an
+# exact integer and any order gives the reference's sum; above it only
+# XLA CPU's order does, which kernels.cost.row_vector_sum follows (ROADMAP
+# queue 3, F10: closed).  Device counts per (size, device), added to
+# without a host read; see f10_blocks.
 F10_BLOCKS: dict = {}
 
 
 def f10_blocks() -> dict[int, int]:
     """The F10_BLOCKS counts per block size, summed over devices."""
-    out = {16: 0, 32: 0}
+    out = {8: 0, 16: 0, 32: 0}
     for (s, _), n in F10_BLOCKS.items():
         out[s] += int(n)
     return out
@@ -271,14 +272,14 @@ def _fwd_gain2(tab: Tables, s: int, bit_depth: int) -> float:
 def _b_candidates(cfg: CodecConfig, tab: Tables, mvbits: torch.Tensor,
                   plane: torch.Tensor, pyr0_y: torch.Tensor,
                   g0: torch.Tensor, g1: torch.Tensor, size: int, warp0,
-                  warp1, g2: torch.Tensor):
+                  warp1, g2_inv: torch.Tensor):
     """The explicit B candidates (L0, L1, bi) and skip of all size-s
     blocks: the three MC predictions are ranked by the transform-domain
     cost (quantization error / g2 + lambda * bits) and only the winner
     runs the inverse transform.  warp0: this size's (explicit, skip-left,
-    skip-above) L0 MC frames, warp1 its L1 frame; g2: _fwd_gain2 of the
-    size, a float32 divisor on the device (a CUDA division by a host
-    scalar multiplies by its reciprocal, which rounds differently).
+    skip-above) L0 MC frames, warp1 its L1 frame; g2_inv: the float32
+    reciprocal of the size's _fwd_gain2, on the device (XLA multiplies
+    by it where the reference divides by the constant).
 
     Returns (cost_expl, kind_expl, pmx, pmy, smx, smy, cost_skip, midx),
     each (gy, gx): kind_expl in {PRED_INTER, PRED_L1, PRED_BI}; the
@@ -321,25 +322,24 @@ def _b_candidates(cfg: CodecConfig, tab: Tables, mvbits: torch.Tensor,
         dist_s = d_c0
 
     bd = cfg.bit_depth
-    cands, large = [], None
+    coefs, deqs, rbs = [], [], []
     for p, b in zip((p0, p1, pbi), bits):
-        coefs = ktx.forward_transform(tab, (orig - p).reshape(nb, s, s), s,
-                                      bit_depth=bd)
-        levels = kquant.quantize(tab, coefs, cfg.qp, s, bd)
-        rate = kcost.rate_estimate_levels(tab, levels)
-        deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
-        # the reference's float32 block sum, in XLA CPU's order for 8x8
-        # (for 16x16 and 32x32 only while it stays below 2^24: F10)
-        err = kcost.xla_cpu_sum((coefs - deq).to(torch.float32) ** 2)
-        if s > 8:
-            big = err >= 2.0 ** 24
-            large = big if large is None else large | big
-        dt = err / g2
-        rb = rate + b
-        cands.append((deq, dt + lam * rb, rb))
-    if large is not None:
-        key = (s, str(dev))
-        F10_BLOCKS[key] = F10_BLOCKS.get(key, 0) + large.sum()
+        coefs.append(ktx.forward_transform(
+            tab, (orig - p).reshape(nb, s, s), s, bit_depth=bd))
+        levels = kquant.quantize(tab, coefs[-1], cfg.qp, s, bd)
+        deqs.append(kquant.dequantize(tab, levels, cfg.qp, s, bd))
+        rbs.append(kcost.rate_estimate_levels(tab, levels) + b)
+    # the reference's float32 block sums, in the order XLA CPU gives a
+    # reduction fused into the candidates' argmin (F10), then its
+    # division by g2, which XLA makes a product with the reciprocal
+    err = kcost.row_vector_sum(
+        (torch.stack(coefs) - torch.stack(deqs)).to(torch.float32) ** 2)
+    key = (s, str(dev))
+    F10_BLOCKS[key] = F10_BLOCKS.get(key, 0) + (
+        err >= 2.0 ** 24).any(0).sum()
+    dt = err * g2_inv
+    cands = [(deq, dt[k] + lam * rb, rb)
+             for k, (deq, rb) in enumerate(zip(deqs, rbs))]
     kind_pre = torch.argmin(torch.stack([c[1] for c in cands], dim=1),
                             dim=1)
     sel3 = kind_pre[:, None, None]
@@ -378,8 +378,9 @@ def make_mode_decision_b_raw(cfg: CodecConfig, tab: Tables):
     split = torch.tensor(np.float32(cfg.lambda_mode) * np.float32(
         SPLIT_BITS), device=tab.device)
     sizes = [s for s in (8, 16, 32) if s <= cfg.max_cu_size]
-    gain2 = {s: torch.tensor(np.float32(_fwd_gain2(tab, s, cfg.bit_depth)),
-                             device=tab.device) for s in sizes}
+    gain2_inv = {s: torch.tensor(np.float32(1) / np.float32(
+        _fwd_gain2(tab, s, cfg.bit_depth)), device=tab.device)
+        for s in sizes}
 
     def run(plane: torch.Tensor, pyr0_y: torch.Tensor, pyr1_y: torch.Tensor):
         plane = plane.to(torch.int32)
@@ -402,7 +403,7 @@ def make_mode_decision_b_raw(cfg: CodecConfig, tab: Tables):
                                                    inter_slice=True)
             (c_expl, kind_expl, pmx, pmy, smx, smy, c_skip,
              midx) = _b_candidates(cfg, tab, mvbits, plane, pyr0_y, g0, g1,
-                                   s, *warp[s], gain2[s])
+                                   s, *warp[s], gain2_inv[s])
             inf = torch.full_like(c_expl, float("inf"))
             valid = torch.isfinite(cost_intra)
             c_expl = torch.where(valid, c_expl, inf)

@@ -24,9 +24,12 @@ on XLA's CPU backend, bit for bit (ROADMAP queue 3, F9):
 - the per-CTB SSE (:335-338, :379-382) follows XLA's reduction order
   (``ctb_sse``).
 
-The plain versions here are torch ops on any device; on a CUDA tensor
-``normal_solve`` runs the hand-written kernel of kernels/alf_cuda.py
-(csrc/alf.cu) instead.
+The plain versions here are torch ops on any device
+(``normal_solve_plain``, ``_ctb_flags``); on CUDA tensors ``normal_solve``
+and ``ctb_flags`` run the hand-written kernels of kernels/alf_cuda.py
+(csrc/alf.cu) instead, which form the features from the recon
+themselves and sum exactly in integers wherever float32's order cannot
+change a bit.
 """
 
 from __future__ import annotations
@@ -437,17 +440,29 @@ def coefficients(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.round(sol).clamp(-COEF_MAX, COEF_MAX).to(torch.int32)
 
 
-def normal_solve(feats, err, cls_px=None, n_classes: int = 1,
-                 with_sums: bool = False):
+def normal_solve(recon, orig, cls=None, with_sums: bool = False,
+                 bit_depth: int = 8):
     """The estimator's coefficients (C, T) int32 (with_sums: and the
-    float32 gram (C, T, T) and rhs (C, T)): the normal equations in XLA's
-    order and their float32 solve -- the CUDA kernel (kernels/alf_cuda.py)
-    for CUDA tensors, the plain torch ops here for CPU ones."""
-    if feats.device.type == "cuda":
+    float32 gram (C, T, T) and rhs (C, T)) from the post-SAO recon and
+    the source (H, W): with the class map cls (H/4, W/4) the 25 luma
+    systems of the 7x7 diamond, without it the one chroma system of the
+    5x5 diamond.  The CUDA kernel (kernels/alf_cuda.py) for CUDA tensors,
+    normal_solve_plain for CPU ones."""
+    if recon.device.type == "cuda":
         from x266_tpu_torch.kernels import alf_cuda
-        return alf_cuda.normal_solve(feats, err, cls_px, n_classes,
-                                     with_sums)
-    gram, rhs = normal_sums(feats, err, cls_px, n_classes)
+        return alf_cuda.normal_solve(recon, orig, cls, with_sums, bit_depth)
+    return normal_solve_plain(recon, orig, cls, with_sums)
+
+
+def normal_solve_plain(recon, orig, cls=None, with_sums: bool = False):
+    """normal_solve in torch ops: the features, the normal equations in
+    XLA's order and their float32 solve."""
+    r = recon.to(torch.int32)
+    luma = cls is not None
+    feats = _diff_planes(r, DIAMOND if luma else CHROMA_DIAMOND)
+    nc = NUM_CLASSES if luma else 1
+    gram, rhs = normal_sums(feats, orig.to(torch.int32) - r,
+                            _up4(cls) if luma else None, nc)
     coef = coefficients(gram, rhs)
     return (coef, gram, rhs) if with_sums else coef
 
@@ -464,8 +479,8 @@ def _seq(v: torch.Tensor) -> torch.Tensor:
 
 def ctb_sse(a, orig, ctb: int) -> torch.Tensor:
     """The reference's float32 SSE of each CTB (:335-338, :379-382), in
-    XLA CPU's order: the CUDA kernel of kernels/alf_cuda.py for CUDA
-    tensors (one thread per CTB), ctb_sse_plain for CPU ones."""
+    XLA CPU's order: the CTB kernel of kernels/alf_cuda.py for CUDA
+    tensors, ctb_sse_plain for CPU ones."""
     if orig.device.type == "cuda":
         from x266_tpu_torch.kernels import alf_cuda
         return alf_cuda.ctb_sse(a, orig, ctb)
@@ -478,9 +493,9 @@ def ctb_sse_plain(a, orig, ctb: int) -> torch.Tensor:
     windows (XLA's tree rewrite of reductions longer than 32), each
     summed in raster order, then added in raster order; a 32x32 CTB is
     summed in raster order when the plane's width is a multiple of 32,
-    else row by row through eight-lane vectors (kernels.cost._row_sum32).
+    else row by row through eight-lane vectors (kernels.cost.row_vector_sum).
     """
-    from x266_tpu_torch.kernels.cost import _row_sum32
+    from x266_tpu_torch.kernels.cost import row_vector_sum
 
     h, w = orig.shape
     cy, cx = -(-h // ctb), -(-w // ctb)
@@ -496,13 +511,23 @@ def ctb_sse_plain(a, orig, ctb: int) -> torch.Tensor:
     if ctb != 32:
         raise ValueError(f"XLA's CTB-SSE order is pinned for 64 and 32, "
                          f"got {ctb}")
-    return _seq(blocks) if w % 32 == 0 else _row_sum32(blocks)
+    return _seq(blocks) if w % 32 == 0 else row_vector_sum(blocks)
+
+
+def ctb_flags(filt, recon, orig, ctb: int, lam: float) -> torch.Tensor:
+    """Per-CTB on/off of the filtered plane: the CTB kernel of
+    kernels/alf_cuda.py (one launch) for CUDA tensors, _ctb_flags for CPU
+    ones."""
+    if orig.device.type == "cuda":
+        from x266_tpu_torch.kernels import alf_cuda
+        return alf_cuda.ctb_flags(filt, recon, orig, ctb, lam)
+    return _ctb_flags(filt, recon, orig, ctb, lam)
 
 
 def _ctb_flags(filt, recon, orig, ctb: int, lam: float) -> torch.Tensor:
     """Per-CTB on/off: gain + lam * 1.5 < 0 on the reference's float32
-    SSE gain."""
-    gain = ctb_sse(filt, orig, ctb) - ctb_sse(recon, orig, ctb)
+    SSE gain, in torch ops."""
+    gain = ctb_sse_plain(filt, orig, ctb) - ctb_sse_plain(recon, orig, ctb)
     return ((gain + float(np.float32(lam * 1.5))) < 0).to(torch.int32)
 
 
@@ -513,12 +538,11 @@ def estimate_alf(orig, recon, lam: float, bit_depth: int = 8):
     recon = recon.to(torch.int32)
     h, w = orig.shape
     cls = classify(recon)
-    coeffs = normal_solve(_diff_planes(recon), orig - recon, _up4(cls),
-                          NUM_CLASSES)
+    coeffs = normal_solve(recon, orig, cls, bit_depth=bit_depth)
     all_on = torch.ones(((h + 63) // 64, (w + 63) // 64), dtype=torch.int32,
                         device=orig.device)
     filt = apply_alf(recon, cls, coeffs, all_on, bit_depth)
-    flags = _ctb_flags(filt, recon, orig, 64, lam)
+    flags = ctb_flags(filt, recon, orig, 64, lam)
     return coeffs, flags, apply_alf(recon, cls, coeffs, flags, bit_depth)
 
 
@@ -528,10 +552,9 @@ def estimate_alf_chroma(orig, recon, lam: float, bit_depth: int = 8):
     orig = orig.to(torch.int32)
     recon = recon.to(torch.int32)
     h, w = orig.shape
-    coeffs = normal_solve(_diff_planes(recon, CHROMA_DIAMOND),
-                          orig - recon)[0]
+    coeffs = normal_solve(recon, orig, bit_depth=bit_depth)[0]
     all_on = torch.ones((-(-h // 32), -(-w // 32)), dtype=torch.int32,
                         device=orig.device)
     filt = apply_alf_chroma(recon, coeffs, all_on, bit_depth)
-    flags = _ctb_flags(filt, recon, orig, 32, lam)
+    flags = ctb_flags(filt, recon, orig, 32, lam)
     return coeffs, flags, apply_alf_chroma(recon, coeffs, flags, bit_depth)

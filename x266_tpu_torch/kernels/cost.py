@@ -10,6 +10,8 @@ exactly as the reference does:
   adds the float32 terms in the order XLA's CPU backend does for an
   (s, s) block, so the sums equal the reference's bit for bit
   (``xla_cpu_sum``).
+- ``row_vector_sum`` is XLA CPU's order for a reduction that it fuses
+  into a loop (B Pass A's transform-domain error sums, ROADMAP F10).
 """
 
 from __future__ import annotations
@@ -47,19 +49,28 @@ def _lane_sum(v: torch.Tensor) -> torch.Tensor:
     return _fold(acc)
 
 
-def _row_sum32(v: torch.Tensor) -> torch.Tensor:
-    """s = 32: row by row, the row's four 8-wide vectors are added into
-    an 8-lane vector whose lane 0 starts at the running sum, which then
-    folds in halves into the new running sum.  Lanes 1-7 do not depend
-    on the running sum, so they are added for all rows at once."""
-    rows = ((v[..., 0:8] + v[..., 8:16]) + v[..., 16:24]) + v[..., 24:32]
+def row_vector_sum(v: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the trailing (s, s) dims, s a multiple of 8, in
+    the order LLVM gives XLA CPU's row loop of a reduction it emits
+    element by element: row by row, the row's s/8 8-wide vectors are
+    added in order into an 8-lane vector whose lane 0 starts at the
+    running sum, which then folds in halves into the new running sum.
+    Lanes 1-7 do not depend on the running sum, so they are added for
+    all rows at once.  XLA CPU emits a reduction so when it is nested in
+    a loop fusion (B Pass A's error sums, F10) or for 32x32 sums (the
+    rate sums, F2; the CTB SSE of 32-wide planes, F9)."""
+    s = v.shape[-1]
+    rows = v[..., 0:8]
+    for j in range(8, s, 8):
+        rows = rows + v[..., j:j + 8]
     l4 = rows[..., 4]
     l26 = rows[..., 2] + rows[..., 6]
     odd = (rows[..., 1] + rows[..., 5]) + (rows[..., 3] + rows[..., 7])
     acc = torch.zeros(v.shape[:-2], dtype=torch.float32, device=v.device)
-    for r in range(32):
-        t0 = (((acc + v[..., r, 0]) + v[..., r, 8]) + v[..., r, 16]) \
-            + v[..., r, 24]
+    for r in range(v.shape[-2]):
+        t0 = acc + v[..., r, 0]
+        for j in range(8, s, 8):
+            t0 = t0 + v[..., r, j]
         acc = ((t0 + l4[..., r]) + l26[..., r]) + odd[..., r]
     return acc
 
@@ -68,7 +79,7 @@ def xla_cpu_sum(v: torch.Tensor) -> torch.Tensor:
     """float32 sum over the trailing (s, s) dims in the order XLA's CPU
     backend emits for the reference's reduction (read from its optimized
     LLVM IR: 8-wide vectors, reassociated adds, a halving fold)."""
-    return _row_sum32(v) if v.shape[-1] == 32 else _lane_sum(v)
+    return row_vector_sum(v) if v.shape[-1] == 32 else _lane_sum(v)
 
 
 def rate_estimate_levels(tab: Tables, levels: torch.Tensor) -> torch.Tensor:
