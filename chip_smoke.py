@@ -10,22 +10,38 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     torch scan on the card, bit for bit, at 128x64 and 416x240 for a
     config-2 shaped VVC config and an HEVC config, and on the main
     path's frames and shapes (1920x1080, K1 on a batch of 4 frames, K2
-    on one at a time);
+    on one at a time); [kernels-sse] kernel SSE (each plane's float32
+    SSE in XLA's reduction tree, F4) against its plain version, bit for
+    bit, on 1080p and 4K luma and chroma planes near and far from their
+    source;
  4. [kernels-p] K3-P (P recon, encode and decode, final-MV planes
     included), K4 (MC warp) and K5 (ME refine) against their plain
     versions, bit for bit, at 112x80 / 128x64 on four P configs, at
     416x240 and at the config-3 main path's 1080p shapes (K4 with T=6
     fields, K5 and K3 on one P picture whose reference is the frame
     shifted);
- 5. [golden] decode tests/fixtures/ai_hevc.266t to its manifest MD5 and
-    re-encode its source to the identical bytes;
+ 5. [golden] decode tests/fixtures/ai_hevc.266t and ai_hevc_lossless.266t
+    to their manifest MD5s and re-encode their sources to the identical
+    bytes;
  6. [main] all-intra 1080p VVC (config 2) frames 0-3 through
     Encoder/Decoder (on the card by default), held against the JAX
-    reference in x266_tpu_torch/data/cfg2_1080p_ref.json; K1/K2 launch
-    counts of that run; one warm encode's frame rate;
+    reference in x266_tpu_torch/data/cfg2_1080p_ref.json: every slice
+    NAL and recon byte-identical, PSNR-Y equal to the reference's float32
+    value; K1/K2/SSE launch counts of that run; one warm encode's frame
+    rate;
  7. [main-p] low-delay P 1080p (config 3) frames 0-3 (IDR + 3 P) the
     same way, against data/cfg3_1080p_ref.json; K3/K4/K5 launch counts
     of that run; one warm encode's frame rate;
+    [kernels-tools] K1 and K2's lossless, transform-skip, PDPC and MIP
+    branches against the plain scan, bit for bit, each tool alone at
+    416x240 and cfg2t (config 2 with PDPC, MIP and transform skip) and
+    lossless at 1080p, with the counts of the tools' TUs (a tool the
+    config enables with no TU fails);
+    [main-tools] cfg2t frames 0-3 of the 'text' clip at 1080p against
+    data/cfg2t_1080p_ref.json, and [main-lossless] ai_hevc_lossless's
+    configuration at 1080p against data/lossless_1080p_ref.json, each as
+    [main] (SSE equal too), lossless decoding to its input plane for
+    plane;
  8. [kernels-b] K3-B (B recon, encode and decode, final-MV planes
     included) against the plain B scan, bit for bit, with L1 and bi CUs
     present, at 112x80 and 128x64 (two B configs, one with merge
@@ -91,6 +107,7 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 RECON_SRC = "x266_tpu_torch/csrc/recon_intra.cu"
 ME_SRC = "x266_tpu_torch/csrc/me.cu"
 ALF_SRC = "x266_tpu_torch/csrc/alf.cu"
+SSE_SRC = "x266_tpu_torch/csrc/sse.cu"
 RECON_TPU = "x266_tpu/engine/recon_pallas.py:943"
 KERNELS = {
     "K1": ("recon_intra encode", RECON_SRC, RECON_TPU),
@@ -107,14 +124,20 @@ KERNELS = {
             "x266_tpu/kernels/alf.py:367"),
     # port-only (F9): the reference's per-CTB SSE reduction, :379-382
     "ALFSSE": ("alf ctb sse", ALF_SRC, "x266_tpu/kernels/alf.py:379"),
+    # port-only (F4): the reference's per-plane float32 SSE, fused.py:483
+    "SSE": ("picture sse in xla's reduction tree", SSE_SRC,
+            "x266_tpu/engine/fused.py:483"),
 }
-BITS_TOL = 0.005          # relative, per frame
-PSNR_TOL = 0.02           # dB, per frame (float32 SSE in the reference)
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, and the float32 rate
 # outside the tensor cores, which the integer work of these kernels is
 # counted against (a lower bound: int32 issues at most at that rate)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+
+
+# every kernel's entry in the kernels line has these keys
+REQUIRED_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
 
 
 def log(*a):
@@ -207,29 +230,65 @@ def bound(n_bytes: float, n_ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def recon_ops(size_map, encode: bool, pred_map=None) -> float:
+def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
+              mts_map=None, cfg=None) -> float:
     """Integer operations a recon scan needs for these maps (2 per MAC):
     per luma TU of side s and its two s/2 chroma TUs, intra prediction
     (4 taps a sample; MC copies), the forward transform when encoding
     and the inverse (each two s x s x s products), skipped for skip CUs
-    when encoding."""
+    when encoding.  With cfg's intra tools: a MIP luma TU predicts with
+    16 MACs a sample plus its 4s-sample group sums, a PDPC-class luma TU
+    adds its blend (3 MACs a sample), a transform-skip TU shifts (1 op a
+    sample each way) instead of transforming, and lossless coding has
+    neither transform nor quantizer (1 op a sample)."""
     ops = 0.0
     for f in range(size_map.shape[0]):
         sm = size_map[f]
         kinds = pred_map[f] if pred_map is not None else np.zeros_like(sm)
+        modes = mode_map[f] if mode_map is not None else np.zeros_like(sm)
+        mts = mts_map[f] if mts_map is not None else np.zeros_like(sm)
         uy, ux = np.mgrid[0:sm.shape[0], 0:sm.shape[1]]
         u = sm // 8
         origin = ((ux % u) == 0) & ((uy % u) == 0)
-        for s, kind in zip(sm[origin], kinds[origin]):
+        for s, kind, mode, mv in zip(sm[origin], kinds[origin],
+                                     modes[origin], mts[origin]):
             for side, n in ((int(s), 1), (int(s) // 2, 2)):
+                luma = n == 1
                 # intra: 4 taps a sample; bi: an add and a shift; MC: copy
                 pred = (8 * side * side if kind == 0 else
                         2 * side * side if kind == 4 else 0)
                 tx = 4 * side ** 3
+                if cfg is not None and kind == 0 and luma:
+                    if cfg.mip and mode >= cfg.n_intra_modes:
+                        pred = 32 * side * side + 4 * side
+                    elif cfg.pdpc and mode in (0, 1, 18, 50):
+                        pred += 6 * side * side
+                    if cfg.transform_skip and (mv & 7) == 5:
+                        tx = side * side
+                if cfg is not None and cfg.lossless:
+                    tx = side * side
                 coded = not (encode and kind == 2)
                 ops += n * (pred + (tx if encode and coded else 0)
                             + (tx if coded or not encode else 0))
     return ops
+
+
+def tool_counts(cfg, maps) -> dict:
+    """The intra tools' TUs on Pass-A maps (size, mode, mts; each (F,
+    H/8, W/8)): MIP CUs, transform-skip luma TUs, PDPC-class luma TUs
+    (planar, DC, pure H and V) and lossless TUs (luma and chroma)."""
+    sm, mm, tm = (m.cpu().numpy() for m in maps)
+    uy, ux = np.mgrid[0:sm.shape[1], 0:sm.shape[2]]
+    u = sm // 8
+    origin = ((ux % u) == 0) & ((uy % u) == 0)
+    modes, mts = mm[origin], tm[origin]
+    n = int(origin.sum())
+    return {"mip": int((modes >= cfg.n_intra_modes).sum()) if cfg.mip
+            else 0,
+            "ts": int(((mts & 7) == 5).sum()) if cfg.transform_skip else 0,
+            "pdpc": int(np.isin(modes, (0, 1, 18, 50)).sum()) if cfg.pdpc
+            else 0,
+            "lossless": 3 * n if cfg.lossless else 0}
 
 
 def phase_environment():
@@ -270,14 +329,14 @@ def _upload(frames):
             .cuda() for p in ("y", "cb", "cr")]
 
 
-def _inputs(cfg, n, seed):
+def _inputs(cfg, n, seed, kind="mixed"):
     """Padded planes and Pass-A maps of n synthetic frames, on the card."""
     from x266_tpu_torch import tables
     from x266_tpu_torch.core.yuv import synthetic_clip
     from x266_tpu_torch.engine import fused
 
     tab = tables.from_reference(cfg, "cuda")
-    frames = synthetic_clip(cfg.width, cfg.height, n, "mixed", seed=seed)
+    frames = synthetic_clip(cfg.width, cfg.height, n, kind, seed=seed)
     src = fused._unpack_padded(cfg, *_upload(frames))
     return tab, src, fused.make_pass_a(cfg, tab)(src[0])
 
@@ -300,13 +359,17 @@ def _record(stats, k, err, **kw):
     stats[k].update(kw)
 
 
-def compare_kernels(cfg, n, seed, stats):
+def compare_kernels(cfg, n, seed, stats, kind="mixed", tools=None,
+                    phase="kernels"):
     """K1 and K2 against the plain scan on one input; bit-exact or raise.
     K1 runs on all n frames at once, as the encoder batches them; K2 on
-    all n and on each frame alone, as the decoder calls it."""
+    all n and on each frame alone, as the decoder calls it.  tools: a
+    name under which the times go to stats[k]["tools"] instead of the
+    kernel's own entry; the counts of the intra tools' TUs are printed,
+    and a tool the config enables with no TU raises."""
     from x266_tpu_torch.engine import recon, recon_cuda
 
-    tab, src, maps = _inputs(cfg, n, seed)
+    tab, src, maps = _inputs(cfg, n, seed, kind)
     plain_enc = recon.make_recon_pass_raw(cfg, tab, encode=True)
     plain_dec = recon.make_recon_pass_raw(cfg, tab, encode=False)
     got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
@@ -323,23 +386,43 @@ def compare_kernels(cfg, n, seed, stats):
                                for t in (*coefs, *maps)])
         err2 = max(err2, _max_err(dec1[:3], [p[f:f + 1] for p in pdec[:3]]))
     names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr"]
-    tag = f"{cfg.width}x{cfg.height}x{n} {cfg.profile.name}"
+    tag = f"{cfg.width}x{cfg.height}x{n} {cfg.profile.name}" + (
+        f" {tools}" if tools else "")
     k1_ms = event_ms(recon_cuda.recon_intra, cfg, tab, True, *src, *maps)
     k2_ms = event_ms(recon_cuda.recon_intra, cfg, tab, False, *one)
-    log(f"[kernels] {tag}: K1 {k1_ms:.3f} ms for {n} frames (plain "
+    counts = tool_counts(cfg, maps)
+    log(f"[{phase}] {tag}: K1 {k1_ms:.3f} ms for {n} frames (plain "
         f"{p1_ms:.0f} ms) max_abs_err {err1}; K2 {k2_ms:.3f} ms per frame "
-        f"(plain {p2_ms / n:.0f} ms) max_abs_err {err2}")
+        f"(plain {p2_ms / n:.0f} ms) max_abs_err {err2}; tool TUs {counts}")
     _require_equal("K1", tag, names, got, ref)
     if err2:
         raise AssertionError(f"K2 {tag} differs from the plain scan")
+    for flag, key in (("mip", "mip"), ("transform_skip", "ts"),
+                      ("pdpc", "pdpc"), ("lossless", "lossless")):
+        if getattr(cfg, flag) and counts[key] == 0:
+            raise AssertionError(f"[{phase}] {tag}: {flag} is on but no TU "
+                                 "took its branch")
+    if cfg.lossless:
+        _require_equal("K1", tag + " lossless recon", names[:3], got[:3],
+                       [p[:, 1:1 + q.shape[1], 1:1 + q.shape[2]]
+                        for p, q in zip(src, got[:3])])
     shape = f"{cfg.width}x{cfg.height}"
-    hm = maps[0].cpu().numpy()
-    b1 = bound(nbytes(*src, *maps, *got, tab.k_taps, tab.k_smooth,
-                      tab.k_tx, tab.k_shift, tab.rate),
-               recon_ops(hm, True))
-    b2 = bound(nbytes(*one, *(d[:1] for d in dec[:3]), tab.k_taps,
-                      tab.k_smooth, tab.k_tx, tab.k_shift),
-               recon_ops(hm[:1], False))
+    hm = [m.cpu().numpy() for m in maps]
+    tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift, tab.k_mip)
+    b1 = bound(nbytes(*src, *maps, *got, *tabs, tab.rate),
+               recon_ops(hm[0], True, None, hm[1], hm[2], cfg))
+    b2 = bound(nbytes(*one, *(d[:1] for d in dec[:3]), *tabs),
+               recon_ops(hm[0][:1], False, None, hm[1][:1], hm[2][:1], cfg))
+    if tools:
+        for k, ms, pms, b in (("K1", k1_ms, p1_ms, b1),
+                              ("K2", k2_ms, p2_ms / n, b2)):
+            stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"],
+                                          err1 if k == "K1" else err2)
+            stats[k].setdefault("tools", {})[tools] = {
+                "ms": ms, "plain_ms": pms, "bound_ms": b[0],
+                "bound_by": b[1], "shape": f"{shape}x{n if k == 'K1' else 1}",
+                "tool_tus": counts}
+        return
     _record(stats, "K1", err1, ms=k1_ms, plain_ms=p1_ms, bound_ms=b1[0],
             bound_by=b1[1], shape=f"{shape}x{n}")
     _record(stats, "K2", err2, ms=k2_ms, plain_ms=p2_ms / n,
@@ -351,6 +434,95 @@ def main_cfg():
 
     return preset_cfg2(1920, 1080).replace(rows_per_segment=1,
                                            ctx_inherit=True)
+
+
+def phase_kernels_sse(stats):
+    """Kernel SSE against its plain version, bit for bit, on planes of
+    the main paths' shapes: config 2's batch of four 1080p frames (luma
+    and chroma), one 4K picture's, and 32x32 (one window): each near its
+    source (a coded picture's error, exact sums) and far from it (sums
+    past 2^24 that round, so only XLA's order gives the same bits)."""
+    from x266_tpu_torch.kernels import cost, sse_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(shape, lo, hi):
+        return torch.randint(lo, hi, shape, device="cuda", generator=gen)
+
+    for n, h, w in ((4, 1080, 1920), (4, 540, 960), (1, 2160, 3840),
+                    (1, 1080, 1920), (2, 32, 32)):
+        orig = rand((n, h, w), 0, 256).to(torch.uint8)
+        near = (orig.int() + rand((n, h, w), -6, 7)).clamp(0, 255).to(
+            torch.uint8)
+        far = (torch.where(orig < 128, 255, 0)
+               ^ rand((n, h, w), 0, 64)).to(torch.uint8)
+        tag = f"{n}x{h}x{w}"
+        for kind, rec in (("near", near), ("far", far)):
+            got = sse_cuda.plane_sse(rec, orig)
+            ref, p_ms = timed(cost.plane_sse_f32_plain, rec, orig)
+            _require_equal("SSE", f"{tag} {kind}", ("sse",), [got], [ref])
+        ms = event_ms(sse_cuda.plane_sse, near, orig, reps=20)
+        b = bound(nbytes(near, orig, got), 3.0 * near.numel())
+        log(f"[kernels-sse] {tag}: SSE {ms:.4f} ms (plain {p_ms:.0f} ms, "
+            f"bound {b[0]:.4f} ms, {b[1]}), near and far bit-exact")
+        if (n, h, w) == (4, 1080, 1920):
+            _record(stats, "SSE", 0, ms=ms, plain_ms=p_ms, bound_ms=b[0],
+                    bound_by=b[1], shape=f"{tag} luma")
+
+
+def cfg2t(w=1920, h=1080):
+    """Config 2 with VVC's intra tools: PDPC, MIP and transform skip."""
+    from x266_tpu_torch.config import preset_cfg2
+
+    return preset_cfg2(w, h).replace(pdpc=True, mip=True,
+                                     transform_skip=True,
+                                     rows_per_segment=1, ctx_inherit=True)
+
+
+def lossless_cfg(w=1920, h=1080):
+    """ai_hevc_lossless's configuration."""
+    from x266_tpu_torch.config import CodecConfig
+
+    return CodecConfig(width=w, height=h, qp=32, lossless=True, rdoq=False)
+
+
+def phase_kernels_tools(stats):
+    """K1 and K2's lossless, transform-skip, PDPC and MIP branches
+    against the plain scan on Pass-A maps: each tool alone at 416x240
+    (transform skip on text content, which it targets; PDPC and MIP on
+    the motion clip, where Pass A picks MIP in some 10 % of the CUs),
+    then cfg2t and lossless at 1080p on one frame (the plain scan's time
+    bounds the frame count), with K1 timed on the encoder's batch of 4."""
+    from x266_tpu_torch.config import CodecConfig, preset_cfg2
+    from x266_tpu_torch.engine import recon_cuda
+
+    w, h = 416, 240
+    for name, cfg, kind in (
+            ("lossless", lossless_cfg(w, h), "mixed"),
+            ("ts", CodecConfig(width=w, height=h, qp=32, rdoq=True,
+                               transform_skip=True), "text"),
+            ("pdpc", preset_cfg2(w, h).replace(pdpc=True), "motion"),
+            ("mip", preset_cfg2(w, h).replace(mip=True), "motion")):
+        compare_kernels(cfg, 1, 13, stats, kind, f"{name} {w}x{h}",
+                        "kernels-tools")
+    for name, cfg, kind in (("cfg2t", cfg2t(), "text"),
+                            ("lossless", lossless_cfg(), "mixed")):
+        compare_kernels(cfg, 1, 0, stats, kind, f"{name} 1080p",
+                        "kernels-tools")
+        tab, src, maps = _inputs(cfg, 4, 0, kind)
+        got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+        k1_ms = event_ms(recon_cuda.recon_intra, cfg, tab, True, *src,
+                         *maps)
+        hm = [m.cpu().numpy() for m in maps]
+        b1 = bound(nbytes(*src, *maps, *got, tab.k_taps, tab.k_smooth,
+                          tab.k_tx, tab.k_shift, tab.k_mip, tab.rate),
+                   recon_ops(hm[0], True, None, hm[1], hm[2], cfg))
+        stats["K1"]["tools"][f"{name} 1080p x4"] = {
+            "ms": k1_ms, "bound_ms": b1[0], "bound_by": b1[1],
+            "shape": "1920x1080x4", "tool_tus": tool_counts(cfg, maps)}
+        log(f"[kernels-tools] {name} 1080p x4: K1 {k1_ms:.3f} ms for 4 "
+            f"frames (bound {b1[0]:.4f} ms, {b1[1]}); tool TUs "
+            f"{tool_counts(cfg, maps)}")
 
 
 def phase_kernels(stats):
@@ -799,28 +971,36 @@ def phase_kernels_alf(stats):
 
 
 def phase_golden():
+    """ai_hevc and ai_hevc_lossless decode to their manifest MD5s and
+    re-encode from their sources (tools/make_fixtures.py) to the
+    fixtures' bytes."""
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.config import CodecConfig
     from x266_tpu_torch.core.hashing import frame_md5
     from x266_tpu_torch.core.yuv import synthetic_clip
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
-        want = json.load(f)["ai_hevc"]["md5"]
-    with open(os.path.join(FIXTURES, "ai_hevc.266t"), "rb") as f:
-        stream = f.read()
-    _, dec = Decoder().decode(stream)
-    got = [frame_md5(d) for d in dec]
-    log(f"[golden] ai_hevc decode md5 {got} manifest {want}")
-    if got != want:
-        raise AssertionError("ai_hevc decode MD5 differs from the manifest")
-    cfg = CodecConfig(width=96, height=64, qp=32, rdoq=True)
-    res = Encoder(cfg, with_recon=False).encode(
-        synthetic_clip(96, 64, 1, "mixed", seed=77))
-    same = res.bitstream == stream
-    log(f"[golden] ai_hevc re-encode: {len(res.bitstream)} bytes, "
-        f"byte-identical {same}")
-    if not same:
-        raise AssertionError("ai_hevc re-encode differs from the fixture")
+        manifest = json.load(f)
+    for name, cfg in (
+            ("ai_hevc", CodecConfig(width=96, height=64, qp=32, rdoq=True)),
+            ("ai_hevc_lossless", lossless_cfg(96, 64))):
+        want = manifest[name]["md5"]
+        with open(os.path.join(FIXTURES, f"{name}.266t"), "rb") as f:
+            stream = f.read()
+        _, dec = Decoder().decode(stream)
+        got = [frame_md5(d) for d in dec]
+        log(f"[golden] {name} decode md5 {got} manifest {want}")
+        if got != want:
+            raise AssertionError(f"{name} decode MD5 differs from the "
+                                 "manifest")
+        res = Encoder(cfg, with_recon=False).encode(
+            synthetic_clip(96, 64, 1, "mixed", seed=77))
+        same = res.bitstream == stream
+        log(f"[golden] {name} re-encode: {len(res.bitstream)} bytes, "
+            f"byte-identical {same}")
+        if not same:
+            raise AssertionError(f"{name} re-encode differs from the "
+                                 "fixture")
 
 
 def phase_golden_filters():
@@ -936,7 +1116,7 @@ def run_main_ra(stats, card):
             raise AssertionError(f"[main-ra] {k} launched {launches[k]} "
                                  f"times, not {want}")
         stats[k]["launches"] = launches[k]
-    for k in ("K1", "K2", "K3", "K3d", "K4", "K5"):
+    for k in ("K1", "K2", "K3", "K3d", "K4", "K5", "SSE"):
         if launches[k] < 1:
             raise AssertionError(f"[main-ra] {k} was not launched")
     _, t_warm = timed(enc.encode, frames)
@@ -1016,24 +1196,29 @@ def _slice_md5s(stream: bytes):
 
 def _reset_launches():
     from x266_tpu_torch.engine import recon_cuda
-    from x266_tpu_torch.kernels import alf_cuda, me_cuda
+    from x266_tpu_torch.kernels import alf_cuda, me_cuda, sse_cuda
 
-    recon_cuda.reset_launches()
-    me_cuda.reset_launches()
-    alf_cuda.reset_launches()
+    for mod in (recon_cuda, me_cuda, alf_cuda, sse_cuda):
+        mod.reset_launches()
 
 
 def _launches():
     from x266_tpu_torch.engine import recon_cuda
-    from x266_tpu_torch.kernels import alf_cuda, me_cuda
+    from x266_tpu_torch.kernels import alf_cuda, me_cuda, sse_cuda
 
-    return {**recon_cuda.LAUNCHES, **me_cuda.LAUNCHES, **alf_cuda.LAUNCHES}
+    return {**recon_cuda.LAUNCHES, **me_cuda.LAUNCHES, **alf_cuda.LAUNCHES,
+            **sse_cuda.LAUNCHES}
 
 
-def run_main(tag, cfg, kind, ref_name, kernels, stats, card, **enc_kw):
+def run_main(tag, cfg, kind, ref_name, kernels, stats, card,
+             tools=False, **enc_kw):
     """Frames 0-3 of the clip through Encoder() and Decoder() (on the
-    card by default), held against the JAX reference file; the launch
-    counts of the run; one warm encode's frame rate."""
+    card by default), held against the JAX reference file: each slice
+    NAL and recon byte-identical, the PSNR-Y equal (and the float32 SSE,
+    where the file records it; F4); lossless: the decoded pictures equal
+    the input; the launch counts of the run; one warm encode's frame
+    rate.  tools: the launches go to stats[k]["launches_tools"][tag],
+    not to the kernel's main-path count."""
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.core.hashing import frame_md5
     from x266_tpu_torch.core.yuv import synthetic_clip
@@ -1065,22 +1250,36 @@ def run_main(tag, cfg, kind, ref_name, kernels, stats, card, **enc_kw):
                              "encoder's recon")
     if not all(f.y.shape == (h, w) for f in decoded):
         raise AssertionError(f"{tag}: decoded picture shape")
+    if cfg.lossless:
+        for i, (d, fr) in enumerate(zip(decoded, frames)):
+            if not all(np.array_equal(getattr(d, p), getattr(fr, p))
+                       for p in ("y", "cb", "cr")):
+                raise AssertionError(f"{tag}: lossless frame {i} decodes "
+                                     "to other samples than its input")
+        log(f"[{tag}] lossless: every decoded plane equals the input")
     psnrs = res.psnr_y(w, h)
     nal_md5 = _slice_md5s(res.bitstream)
     for i, r in enumerate(ref):
         ident = nal_md5[i] == r["nal_md5"]
+        sse = [float(v) for v in res.sse[i]]
         log(f"[{tag}] frame {i}: {res.frame_bits[i]} bits (ref {r['bits']}),"
-            f" PSNR-Y {psnrs[i]:.4f} dB (ref {r['psnr_y']:.4f}), nal md5 "
+            f" PSNR-Y {psnrs[i]!r} dB (ref {r['psnr_y']!r}), SSE {sse} "
+            f"(ref {r.get('sse', 'not recorded')}), nal md5 "
             f"{nal_md5[i]} byte-identical {ident}, recon md5 "
             f"{'==' if rec_md5[i] == r['recon_md5'] else '!='} ref")
-        if abs(res.frame_bits[i] - r["bits"]) > BITS_TOL * r["bits"]:
-            raise AssertionError(f"{tag}: frame {i} bits outside +-0.5%")
-        if abs(psnrs[i] - r["psnr_y"]) > PSNR_TOL:
-            raise AssertionError(f"{tag}: frame {i} PSNR outside +-0.02 dB")
+        if not ident or rec_md5[i] != r["recon_md5"]:
+            raise AssertionError(f"{tag}: frame {i} differs from the "
+                                 "reference's bytes or recon")
+        if psnrs[i] != r["psnr_y"] or sse != r.get("sse", sse):
+            raise AssertionError(f"{tag}: frame {i} PSNR-Y or SSE differs "
+                                 "from the reference's float32 sum")
     for k in kernels:
         if launches[k] < 1:
             raise AssertionError(f"{k} was not launched on the main path")
-        stats[k]["launches"] = launches[k]
+        if tools:
+            stats[k].setdefault("launches_tools", {})[tag] = launches[k]
+        else:
+            stats[k]["launches"] = launches[k]
 
     t0 = time.perf_counter()
     enc.encode(frames)
@@ -1095,20 +1294,26 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    stats = {k: {"max_abs_err": 0, "launches": 0, "ms": None,
-                 "plain_ms": None, "bound_ms": None, "bound_by": None,
-                 "library_ms": None} for k in KERNELS}
+    stats = {k: {**dict.fromkeys(REQUIRED_KEYS), "max_abs_err": 0,
+                 "launches": 0} for k in KERNELS}
     t_start = time.perf_counter()
     phase_environment()
     card = card_line()
     phase_build()
     phase_kernels(stats)
+    phase_kernels_sse(stats)
     phase_kernels_p(stats)
     phase_golden()
     run_main("main", main_cfg(), "mixed", "cfg2_1080p_ref.json",
-             ("K1", "K2"), stats, card, batch_frames=4)
+             ("K1", "K2", "SSE"), stats, card, batch_frames=4)
     run_main("main-p", cfg3(), "motion", "cfg3_1080p_ref.json",
              ("K3", "K3d", "K4", "K5"), stats, card)
+    phase_kernels_tools(stats)
+    run_main("main-tools", cfg2t(), "text", "cfg2t_1080p_ref.json",
+             ("K1", "K2"), stats, card, tools=True, batch_frames=4)
+    run_main("main-lossless", lossless_cfg(), "mixed",
+             "lossless_1080p_ref.json", ("K1", "K2"), stats, card,
+             tools=True, batch_frames=4)
     phase_kernels_b(stats)
     phase_kernels_alf(stats)
     phase_golden_filters()
@@ -1118,9 +1323,10 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",
          "source": KERNELS[k][1], "replaces": KERNELS[k][2],
-         **{key: stats[k].get(key) for key in (
-             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms", "shape", "launches_cfg4")}}
+         **{key: stats[k].get(key) for key in REQUIRED_KEYS},
+         **{key: stats[k][key] for key in (
+             "shape", "launches_cfg4", "launches_tools", "tools")
+            if key in stats[k]}}
         for k in KERNELS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -37,6 +37,9 @@ CFGS = [
     CodecConfig(width=64, height=64, qp=22, max_cu_size=16),
     CodecConfig(width=104, height=72, qp=30, ref_substitute=True),
     preset_cfg2(128, 64),
+    CodecConfig(width=104, height=72, qp=30, lossless=True),
+    CodecConfig(width=104, height=72, qp=30, transform_skip=True),
+    preset_cfg2(128, 64).replace(pdpc=True, mip=True, transform_skip=True),
 ]
 NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
          "mvx_fin", "mvy_fin"]
@@ -71,7 +74,10 @@ def _inputs(cfg, device, n=2, seed=9):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg", CFGS, ids=lambda c: f"{c.width}x{c.height}"
                          f"-{c.profile.name}-qp{c.qp}-cu{c.max_cu_size}"
-                         f"{'-subst' if c.ref_substitute else ''}")
+                         f"{'-subst' if c.ref_substitute else ''}"
+                         f"{'-ll' if c.lossless else ''}"
+                         f"{'-pdpc-mip' if c.mip else ''}"
+                         f"{'-ts' if c.transform_skip else ''}")
 def test_kernels_match_plain_scan_on_card(cfg, cuda):
     tab, src, maps = _inputs(cfg, cuda)
     got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
@@ -93,6 +99,7 @@ def test_encode_decode_on_card_equals_cpu(cuda):
     on_card = Encoder(cfg, device=cuda, batch_frames=2).encode(frames)
     on_cpu = Encoder(cfg, device="cpu", batch_frames=2).encode(frames)
     assert on_card.bitstream == on_cpu.bitstream
+    assert np.array_equal(np.array(on_card.sse), np.array(on_cpu.sse))
     _, dec = Decoder(device=cuda).decode(on_card.bitstream)
     assert ([frame_md5(d) for d in dec]
             == [frame_md5(r) for r in on_card.recon]

@@ -5,7 +5,9 @@ scans, K4 against warp_frames_ref, K5 against refine_search_ref and the
 ALF kernels against kernels/alf.py's normal_solve_plain (the normal
 equations from the recon and the source, and their float32 solve) and
 _ctb_flags (the per-CTB decision), on data that takes their exact int32
-path, their ordered float32 path, and both in one launch.
+path, their ordered float32 path, and both in one launch; the intra
+tools' branches of K1/K2 (lossless, transform skip, PDPC, MIP) against
+the plain scan; kernel SSE against cost.plane_sse_f32_plain.
 
 csrc/*.cu launch through cudaLaunchKernel, so g++ compiles them as C++
 against tests/cuda_host/cuda_runtime.h, a host stand-in that runs each
@@ -379,3 +381,79 @@ def test_alf_sse_kernel_source_matches_plain(shape, ctb, kind, host_lib):
     assert (want > 2.0 ** 24).any() == (kind == "crafted")
     assert (stats[1] > 0) == (kind == "crafted")
     assert 0 < flags.sum() < flags.numel() or kind == "crafted"
+
+
+# 3x3 CTUs, the last row and column 8 samples wide; tool -> (config,
+# content on which Pass A picks the tool)
+TOOLS = {
+    "lossless": (CodecConfig(width=136, height=136, qp=30, lossless=True),
+                 "text"),
+    "ts": (CodecConfig(width=136, height=136, qp=30, rdoq=True,
+                       transform_skip=True), "text"),
+    "pdpc": (preset_cfg2(136, 136).replace(pdpc=True), "text"),
+    "mip": (preset_cfg2(136, 136).replace(mip=True), "motion"),
+}
+
+
+@pytest.mark.parametrize("tool", list(TOOLS))
+def test_intra_tools_kernel_source_matches_plain_scan(tool, host_lib):
+    """K1/K2's lossless, transform-skip, PDPC and MIP branches on a
+    3x3-CTU picture, on the port's own Pass-A maps, which use the tool:
+    the result is the plain scan's.  The CTU rows run one after another here (the wavefront's
+    concurrency is test_wavefront_rows_run_concurrently's: under a
+    loaded host a row's capped wait can run out before the row above
+    is done)."""
+    cfg, kind = TOOLS[tool]
+    tab = tables.from_reference(cfg, "cpu")
+    planes = _planes(synthetic_clip(cfg.width, cfg.height, 1, kind,
+                                    seed=9)[0])
+    src = fused._unpack_padded(cfg, *planes)
+    maps = fused.make_pass_a(cfg, tab)(src[0])
+    if cfg.transform_skip:
+        assert (maps[2] == 5).any()
+    if cfg.mip:
+        assert (maps[1] >= cfg.n_intra_modes).any()
+    if cfg.pdpc:
+        assert torch.isin(maps[1], torch.tensor([0, 1, 18, 50])).any()
+    err, got = recon_cuda._launch(host_lib, 0, cfg, tab, True, *src, *maps)
+    assert err == 0
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    if cfg.lossless:
+        for n, w, p in zip(NAMES, want, planes):
+            assert torch.equal(w, p), n
+    err, dec = recon_cuda._launch(host_lib, 0, cfg, tab, False, *got[3:],
+                                  *maps)
+    assert err == 0
+    for n, w, g in zip(NAMES, want, dec):
+        assert torch.equal(w, g), n
+
+
+@pytest.mark.parametrize("wh", [(64, 64), (104, 72), (416, 240),
+                                (1920, 1080)],
+                         ids=lambda wh: f"{wh[0]}x{wh[1]}")
+def test_sse_kernel_source_matches_plain(wh, host_lib):
+    """Kernel SSE (csrc/sse.cu) against cost.plane_sse_f32_plain, luma
+    and chroma planes of two frames: one near its source (exact sums) and
+    one far from it (the sums round, so only the order matches)."""
+    from x266_tpu_torch.kernels import cost, sse_cuda
+
+    w, h = wh
+    rng = np.random.default_rng(w)
+    rounded = []
+    for ph, pw in ((h, w), (h // 2, w // 2)):
+        orig = rng.integers(0, 256, (2, ph, pw)).astype(np.uint8)
+        rec = orig.copy()
+        rec[0] = np.clip(orig[0] + rng.integers(-3, 4, (ph, pw)), 0, 255)
+        rec[1] = np.where(orig[1] < 128, 255, 0) ^ rng.integers(
+            0, 64, (ph, pw))
+        rec, orig = torch.from_numpy(rec), torch.from_numpy(orig)
+        err, got = sse_cuda._launch(host_lib, 0, rec, orig)
+        assert err == 0
+        want = cost.plane_sse_f32_plain(rec, orig)
+        assert torch.equal(got, want)
+        exact = ((rec.long() - orig.long()) ** 2).sum((1, 2))
+        assert float(want[0]) == float(exact[0])
+        rounded.append(float(want[1]) != float(exact[1]))
+    assert any(rounded)

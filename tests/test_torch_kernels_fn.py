@@ -1,8 +1,10 @@
 """Port kernel functions against x266_tpu.kernels and specmodel.
 
 Same numpy inputs (seeded) through the JAX function and its PyTorch
-counterpart.  Tolerance: exact equality everywhere, the float32 rate
-sums included (the port adds them in XLA CPU's order).
+counterpart.  Tolerance: exact equality everywhere, the float32 sums
+included (the port adds them in XLA CPU's order): the rate sums, Pass
+A's costs where XLA nests them in the argmin's loop fusion, the lossless
+rate of a flattened block, and the picture SSE's reduction tree (F4).
 """
 
 import jax
@@ -136,9 +138,106 @@ def test_intra_matches_jax(size, profile, tabs):
     for mode in (0, 1, 2, nm // 2, nm - 1):
         one = tintra.predict_mode(tab, _t(s_j[4]), mode, size).numpy()
         assert np.array_equal(one, p_j[4, mode])
+    if profile != Profile.VVC:
+        return
+    # PDPC (VVC): the blend with the raw refs under every gate pattern
+    lok = np.array([1, 0, 1, 0] * 3, bool)
+    tok = np.array([1, 1, 0, 0] * 3, bool)
+    p_j = np.asarray(jintra.predict_all_modes(
+        jnp.asarray(s_j), size, nm, pdpc=True, left_ok=jnp.asarray(lok),
+        top_ok=jnp.asarray(tok)))
+    p_t = tintra.predict_all_modes(tab, _t(s_j), size, pdpc=True,
+                                   left_ok=_t(lok), top_ok=_t(tok)).numpy()
+    assert np.array_equal(p_j, p_t)
+    for b in range(4):
+        for mode in (0, 1, 18, 50, 30):
+            one = tintra.predict_mode(tab, _t(s_j[b]), mode, size, True,
+                                      bool(lok[b]), bool(tok[b])).numpy()
+            assert np.array_equal(one, p_j[b, mode])
+
+
+def test_mip_prediction_matches_jax():
+    """MIP's modes (67-74) through the stacked float32 product: the
+    reference's predictions of every MIP mode at the luma sizes, on
+    full-range references (the signed weights' largest sums)."""
+    tab = tables.from_reference(CodecConfig(width=64, height=64,
+                                            profile=Profile.VVC, mip=True),
+                                "cpu")
+    rng = np.random.default_rng(11)
+    for size in (8, 16, 32):
+        refs = rng.integers(0, 256, (6, 4 * size + 1)).astype(np.int32)
+        refs[0, 1::2] = 255
+        refs[0, 0::2] = 0
+        p_j = np.asarray(jintra.predict_all_modes(jnp.asarray(refs), size,
+                                                  75))
+        p_t = tintra.predict_all_modes(tab, _t(refs), size).numpy()
+        assert np.array_equal(p_j, p_t)
+        one = tintra.predict_mode(tab, _t(refs[0]), 70, size).numpy()
+        assert np.array_equal(one, p_j[0, 70])
 
 
 def test_out_of_slice_tools_raise(tabs):
-    refs = torch.zeros((1, 17), dtype=torch.int32)
+    """Reference pyramids above 8 bits are outside the port's slices."""
+    from x266_tpu_torch.kernels import interp
+
+    plane = torch.zeros((16, 16), dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        tintra.predict_all_modes(tabs[Profile.VVC], refs, 4, pdpc=True)
+        interp.build_pyramid(plane, max_val=1023)
+
+
+@pytest.mark.parametrize("wh", [(64, 64), (96, 64), (104, 72), (416, 240),
+                                (1920, 1080)],
+                         ids=lambda wh: f"{wh[0]}x{wh[1]}")
+def test_plane_sse_follows_xla(wh):
+    """The reference's per-plane float32 SSE (x266_tpu/engine/fused.py:
+    483-486, the live op) against kernels.cost.plane_sse_f32, on planes
+    far from their source so that the sums round (F4)."""
+    from x266_tpu.engine.fused import _filters_and_stats
+    from x266_tpu.engine.mode_decision import pad_plane
+
+    w, h = wh
+    cfg = CodecConfig(width=w, height=h)
+    rng = np.random.default_rng(w + h)
+    src = [rng.integers(0, 256, s).astype(np.uint8)
+           for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    rec = [np.where(a < 128, 255, 0).astype(np.uint8)
+           ^ rng.integers(0, 64, a.shape).astype(np.uint8) for a in src]
+    size = np.full((h // 8, w // 8), 8, np.int32)
+    sse_j = np.asarray(jax.jit(
+        lambda y, cb, cr, sm, yp, cbp, crp: _filters_and_stats(
+            cfg, y, cb, cr, sm, yp, cbp, crp)[-1])(
+        *rec, size, *(pad_plane(a).astype(np.int32) for a in src)))
+    for k in range(3):
+        got = tcost.plane_sse_f32(_t(rec[k])[None], _t(src[k])[None])
+        exact = int(((rec[k].astype(np.int64) - src[k]) ** 2).sum())
+        assert got.item() == sse_j[k]
+        assert exact > 1 << 24 and float(sse_j[k]) != exact
+
+
+@pytest.mark.parametrize("size", (8, 16, 32))
+def test_lossless_rate_follows_xla(size, tabs):
+    """Lossless Pass A's rate (x266_tpu/engine/mode_decision.py:191-193):
+    XLA flattens the selected residual blocks of the one-hot product and
+    sums 32-sample runs, then the runs (kernels.cost.window_then_sum)."""
+    tab = tabs[Profile.HEVC_SUBSET]
+    nm, k, nb = 35, 8, 16
+    rng = np.random.default_rng(size)
+    res = (rng.integers(-255, 256, (nb, nm, size, size))
+           * (rng.random((nb, nm, size, size)) < 0.6)).astype(np.int32)
+    top = np.stack([rng.permutation(nm)[:k] for _ in range(nb)]).astype(
+        np.int32)
+    lam = np.float32(36.48)
+
+    def ref(res, top):
+        onehot = (top[:, :, None] == jnp.arange(nm)[None, None, :]).astype(
+            jnp.float32)
+        rk = jnp.einsum("bkm,bmp->bkp", onehot, res.reshape(
+            nb, nm, size * size).astype(jnp.float32),
+            precision=jax.lax.Precision.HIGHEST)
+        rk = rk.astype(jnp.int32).reshape(nb, k, size, size)
+        return lam * (jcost.rate_estimate_levels(rk) + 6.0)
+
+    c_j = np.asarray(jax.jit(ref)(res, top))
+    rk = _t(np.take_along_axis(res, top[:, :, None, None], axis=1))
+    c_t = torch.tensor(lam) * (tcost.rate_estimate_residual(tab, rk) + 6.0)
+    assert np.array_equal(c_j, c_t.numpy())

@@ -1,9 +1,16 @@
 """The port's Encoder/Decoder on the CPU against the JAX package.
 
-Exact equality throughout (bytes and MD5s), except the device-computed
-PSNR, which the reference sums in float32 (F4): within 1e-4 dB.
-- the port re-encodes the ai_hevc golden fixture's source to its bytes
-  and decodes the fixture to its manifest MD5;
+Exact equality throughout: bytes, MD5s, and the device-computed SSE and
+PSNR, which the port sums in float32 in the reference's order (F4).
+- the port re-encodes the ai_hevc, ai_hevc_lossless and
+  lowdelay_p_filters golden fixtures' sources to their bytes and decodes
+  ai_hevc and ai_hevc_lossless to their manifest MD5s (lossless: the
+  source itself);
+- a 2-frame 128x64 clip with VVC's intra tools (cfg2t: PDPC, MIP,
+  transform skip) gives the JAX encoder's bytes, SSE and recon (recorded
+  in data/t128x64_ref.json by tools/make_torch_refs.py), the port
+  decodes that stream to that recon, and the JAX decoder decodes the
+  port's stream to the port's recon (live);
 - a 3-frame 128x64 config-2 shaped clip gives the JAX encoder's bytes,
   the port decodes the JAX stream to JAX's recon, and the JAX decoder
   decodes the port's stream to the port's recon;
@@ -83,6 +90,79 @@ def test_decodes_ai_hevc_fixture():
     assert [frame_md5(d) for d in dec] == _manifest("ai_hevc")["md5"]
 
 
+def test_reencodes_lowdelay_p_filters_fixture():
+    """The P step's loop filters on encode (deblock, SAO luma and chroma;
+    merge candidates, AMVP, signalled reference lists): the fixture's
+    source and config (tools/make_fixtures.py) give its bytes."""
+    cfg = CodecConfig(width=96, height=64, qp=32, rdoq=True, intra_period=4,
+                      deblock=True, sao=True, sao_chroma=True, rpl=True,
+                      merge_cands=True, amvp=True)
+    frames = synthetic_clip(96, 64, 4, kind="motion", seed=77)
+    res = Encoder(cfg, device="cpu", with_recon=False).encode(frames)
+    assert res.bitstream == _fixture("lowdelay_p_filters")
+
+
+def test_ai_hevc_lossless_fixture_both_ways():
+    """BASELINE's lossless gate: the fixture's source and config
+    re-encode to its bytes, and the fixture decodes to its manifest MD5,
+    which is the source's own."""
+    cfg = CodecConfig(width=96, height=64, qp=32, lossless=True, rdoq=False)
+    frames = synthetic_clip(96, 64, 1, kind="mixed", seed=77)
+    res = Encoder(cfg, device="cpu").encode(frames)
+    assert res.bitstream == _fixture("ai_hevc_lossless")
+    _, dec = Decoder(device="cpu").decode(res.bitstream)
+    want = _manifest("ai_hevc_lossless")["md5"]
+    assert [frame_md5(d) for d in dec] == want
+    assert [frame_md5(f) for f in frames] == want
+    assert [frame_md5(r) for r in res.recon] == want
+    assert all(float(s[0]) == 0.0 for s in res.sse)
+
+
+@pytest.fixture(scope="module")
+def t128():
+    """The recorded JAX cfg2t clip and the port's CPU encode of it."""
+    from x266_tpu_torch.config import preset_cfg2 as tpreset_cfg2
+
+    with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
+                           "t128x64_ref.json")) as f:
+        ref = json.load(f)
+    cfg = tpreset_cfg2(128, 64).replace(pdpc=True, mip=True,
+                                        transform_skip=True,
+                                        rows_per_segment=1, ctx_inherit=True)
+    frames = synthetic_clip(128, 64, 2, "text", seed=5)
+    return ref, Encoder(cfg, device="cpu", batch_frames=2).encode(frames)
+
+
+def test_cfg2t_clip_matches_recorded_jax(t128):
+    """cfg2t at 128x64: the JAX encoder's bytes, SSE, PSNR and recon, and
+    the port decodes the JAX stream to the JAX recon."""
+    ref, port = t128
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_refs", os.path.join(os.path.dirname(__file__), "..",
+                                        "tools", "make_torch_refs.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert (ref["config"], ref["clip"]) == (tool.T128_CONFIG, tool.T128_CLIP)
+    stream = base64.b64decode(ref["stream_b64"])
+    assert port.bitstream == stream
+    assert port.frame_bits == ref["frame_bits"]
+    assert [[float(v) for v in s] for s in port.sse] == ref["sse"]
+    assert port.psnr_y(128, 64) == ref["psnr_y"]
+    port_md5 = [frame_md5(r) for r in port.recon]
+    assert port_md5 == ref["recon_md5"]
+    _, dec = Decoder(device="cpu").decode(stream)
+    assert [frame_md5(d) for d in dec] == port_md5
+
+
+def test_jax_decodes_port_cfg2t_stream(t128):
+    """The live anchor: the JAX decoder decodes the port's cfg2t stream
+    to the port's recon."""
+    _, port = t128
+    _, jdec = JaxDecoder().decode(port.bitstream)
+    assert [frame_md5(d) for d in jdec] == [frame_md5(r)
+                                            for r in port.recon]
+
+
 def test_cfg2_clip_matches_jax_both_ways():
     cfg = preset_cfg2(128, 64).replace(rows_per_segment=1,
                                        ctx_inherit=True)
@@ -94,8 +174,8 @@ def test_cfg2_clip_matches_jax_both_ways():
     assert port.total_bits == ref.total_bits
     port_md5 = [frame_md5(r) for r in port.recon]
     assert port_md5 == [frame_md5(r) for r in ref.recon]
-    assert np.allclose(port.psnr_y(128, 64), ref.psnr_y(128, 64),
-                       rtol=0, atol=1e-4)
+    assert np.array_equal(np.array(port.sse), np.array(ref.sse))
+    assert port.psnr_y(128, 64) == ref.psnr_y(128, 64)
     _, dec = Decoder(device="cpu").decode(ref.bitstream)
     assert [frame_md5(d) for d in dec] == port_md5
     _, jdec = JaxDecoder().decode(port.bitstream)
@@ -116,8 +196,7 @@ def test_lowdelay_p_clip_matches_jax_both_ways(variant):
     assert port.frame_bits == ref["frame_bits"]
     port_md5 = [frame_md5(r) for r in port.recon]
     assert port_md5 == ref["recon_md5"] == ref["decode_md5"]
-    assert np.allclose(port.psnr_y(128, 64), ref["psnr_y"], rtol=0,
-                       atol=1e-4)
+    assert port.psnr_y(128, 64) == ref["psnr_y"]
     cfg = tconfig.CodecConfig(**kw)
     kinds = [parse_slice_header(rbsp, False, cfg.ctus_y * cfg.ctus_x,
                                 has_rpl=cfg.rpl)[0].slice_type.name
@@ -271,7 +350,8 @@ def test_single_frame_step_equals_batched():
 
 @pytest.mark.parametrize("kw", [
     dict(multi_ref=True, intra_period=8), dict(alf=True, ccalf=True),
-    dict(tile_rows=1), dict(lossless=True), dict(transform_skip=True),
+    dict(tile_rows=1), dict(lossless=True, intra_period=8),
+    dict(transform_skip=True, intra_period=8),
     dict(sign_data_hiding=True), dict(bit_depth=10),
     dict(weighted_pred=True, intra_period=8),
     dict(alf=True, alf_nonlinear=True)])
@@ -285,3 +365,26 @@ def test_out_of_slice_streams_raise():
     """GPB with weighted prediction (multi_ref) is not in the slices."""
     with pytest.raises(NotImplementedError):
         Decoder(device="cpu").decode(_fixture("gpb_rpl_wp"))
+
+
+@pytest.mark.parametrize("tool", ["lossless", "transform_skip", "pdpc",
+                                  "mip"])
+def test_intra_tools_on_p_slices_raise(tool):
+    """A stream whose P slices use an intra-only tool: the decoder codes
+    its IDR and refuses the first P slice."""
+    from x266_tpu_torch.core.nal import write_nal
+
+    cfg = tconfig.CodecConfig(width=64, height=64, intra_period=4,
+                              profile=tconfig.Profile.VVC, **{tool: True})
+    good = Encoder(cfg.replace(intra_period=1), device="cpu").encode(
+        synthetic_clip(64, 64, 1, "motion", seed=1)).bitstream
+    # the same IDR under an SPS that announces P pictures
+    nals = [write_nal(t, rbsp) for t, rbsp in split_nals(good)]
+    from x266_tpu_torch.core import headers
+    nals[1] = write_nal(NalType.SPS, headers.write_sps(cfg))
+    stream = b"".join(nals)
+    _, dec = Decoder(device="cpu").decode(stream)
+    assert len(dec) == 1
+    with pytest.raises(NotImplementedError, match="P/B"):
+        Decoder(device="cpu").decode(stream + write_nal(
+            NalType.TRAIL, _p_slice(cfg, 1, 0, 0)))

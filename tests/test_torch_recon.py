@@ -2,9 +2,10 @@
 the JAX reference, with Pass B isolated by feeding both the JAX Pass-A
 maps.  Tolerance: exact equality of recon and coefficient planes.
 
-The configs are the in-slice entries of tests/test_recon_pallas.py's
-CFGS (indices 0, 1, 3 and 7) plus a config-2 shaped 128x64 VVC
-MTS+RDOQ+substitution config; one config is also held against the
+The configs are tests/test_recon_pallas.py's CFGS (indices 0, 1, 3 and
+7; 2 lossless, 4 and 6 PDPC, 5 transform skip) plus a config-2 shaped
+128x64 VVC MTS+RDOQ+substitution config and the same with PDPC, MIP and
+transform skip (cfg2t's tools); one config is also held against the
 Pallas kernel itself (interpret mode).  The CUDA kernels are compared
 with the plain scan on the card in tests/test_torch_gpu.py.
 """
@@ -33,6 +34,13 @@ CFGS = [
     CodecConfig(width=64, height=64, qp=22, max_cu_size=16),
     CodecConfig(width=104, height=72, qp=30, ref_substitute=True),
     preset_cfg2(128, 64),
+    CodecConfig(width=104, height=72, qp=30, lossless=True),
+    CodecConfig(width=128, height=64, qp=30, profile=Profile.VVC,
+                mts=True, pdpc=True, rdoq=True),
+    CodecConfig(width=104, height=72, qp=30, transform_skip=True),
+    CodecConfig(width=128, height=64, qp=30, profile=Profile.VVC,
+                mts=True, pdpc=True, rdoq=True, ref_substitute=True),
+    preset_cfg2(128, 64).replace(pdpc=True, mip=True, transform_skip=True),
 ]
 NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr"]
 
@@ -40,7 +48,10 @@ NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr"]
 def _cfg_id(c):
     return (f"{c.width}x{c.height}-qp{c.qp}-{c.profile.name}"
             f"{'-mts' if c.mts else ''}{'-rdoq' if c.rdoq else ''}"
-            f"{'-subst' if c.ref_substitute else ''}-cu{c.max_cu_size}")
+            f"{'-subst' if c.ref_substitute else ''}"
+            f"{'-ll' if c.lossless else ''}{'-pdpc' if c.pdpc else ''}"
+            f"{'-mip' if c.mip else ''}{'-ts' if c.transform_skip else ''}"
+            f"-cu{c.max_cu_size}")
 
 
 def _jax_inputs(cfg, seed):
@@ -50,7 +61,8 @@ def _jax_inputs(cfg, seed):
     # tests/test_torch_mode_decision.py and tests/test_recon_pallas.py
     size_map, mode_map = make_mode_decision(cfg)(planes[0])
     mts_map = (make_mts_select(cfg)(planes[0], size_map, mode_map)
-               if cfg.mts else np.zeros_like(np.asarray(size_map)))
+               if cfg.mts or cfg.transform_skip
+               else np.zeros_like(np.asarray(size_map)))
     maps = [np.asarray(m).astype(np.int32)
             for m in (size_map, mode_map, mts_map)]
     return planes, maps

@@ -4,7 +4,9 @@ tables.from_reference must carry the JAX package's intra weights,
 smoothing matrices, transform matrices and quantizer scales across
 unchanged; rate_f32.npy must equal the JAX rate expression evaluated
 again; the CUDA kernel's sparse tables must expand back to the dense
-weights; the vectorized availability masks must equal the reference's.
+weights (MIP's matrices over the boundary group sums to the reference's
+dense MIP rows); the vectorized availability masks must equal the
+reference's.
 """
 
 import jax
@@ -61,15 +63,20 @@ def test_rate_table_equals_jax_expression():
     assert np.array_equal(tab, want)
 
 
-@pytest.mark.parametrize("profile", PROFILES, ids=lambda p: p.name)
-def test_kernel_tables_expand_to_dense_weights(profile):
-    n_modes = CodecConfig(width=64, height=64, profile=profile).n_pred_modes
-    taps, smooth, tx, shift = tables.kernel_tables(n_modes)
+@pytest.mark.parametrize("profile,mip", [(p, False) for p in PROFILES]
+                         + [(Profile.VVC, True)],
+                         ids=["HEVC_SUBSET", "VVC", "VVC-MIP"])
+def test_kernel_tables_expand_to_dense_weights(profile, mip):
+    n_modes = CodecConfig(width=64, height=64, profile=profile,
+                          mip=mip).n_pred_modes
+    taps, smooth, tx, shift, kmip = tables.kernel_tables(n_modes)
+    n_std = min(n_modes, spec_intra.NUM_MODES_VVC)
     off_t = off_s = off_x = 0
     for i, s in enumerate(tables.TU_SIZES):
         w, sh = spec_intra.stacked_weights(s, n_modes)
+        w = w[:n_std]
         r = spec_intra.ref_len(s)
-        t = taps[off_t:off_t + n_modes * s * s * 4].reshape(n_modes, s * s, 4)
+        t = taps[off_t:off_t + n_std * s * s * 4].reshape(n_std, s * s, 4)
         dense = np.zeros_like(w, dtype=np.int32)
         m, p, k = np.nonzero(t)
         np.add.at(dense, (m, p, t[m, p, k] >> 8), t[m, p, k] & 255)
@@ -83,7 +90,7 @@ def test_kernel_tables_expand_to_dense_weights(profile):
         np.add.at(dsm, (rows, sm.ravel() >> 8), sm.ravel() & 255)
         assert np.array_equal(dsm, spec_intra.smoothing_matrix(s))
         assert np.array_equal(shift[i * n_modes:(i + 1) * n_modes], sh)
-        off_t += n_modes * s * s * 4
+        off_t += n_std * s * s * 4
         off_s += r * 3
     per_type = sum(s * s for s in tables.TU_SIZES)
     for ti, t in enumerate(tables.TX_TYPES):
@@ -92,6 +99,33 @@ def test_kernel_tables_expand_to_dense_weights(profile):
             assert np.array_equal(tx[off_x:off_x + s * s].reshape(s, s),
                                   jtx._mat(t, s))
             off_x += s * s
+    # MIP: (K, s*s, 16) group weights, each replicated over its s/4 raw
+    # references, are the reference's rows n_std.. of the stacked weights
+    off_m = 0
+    for s in tables.MIP_SIZES:
+        n = spec_intra.MIP_K * s * s * 16
+        m = kmip[off_m:off_m + n].reshape(spec_intra.MIP_K, s * s, 16)
+        off_m += n
+        if not mip:
+            assert not m.any()
+            continue
+        w, _ = spec_intra.stacked_weights(s, n_modes)
+        r = spec_intra.ref_len(s)
+        dense = np.zeros((spec_intra.MIP_K, s * s, 2 * r), np.int32)
+        dense[:, :, 1:r] = np.repeat(m, s // 4, axis=2)
+        assert np.array_equal(dense, w[n_std:].astype(np.int32))
+    assert off_m == kmip.size
+
+
+def test_passa_weights_stay_exact_in_float32():
+    """Pass A's float32 product is exact while |weights| * 255 sum below
+    2^24 per row (tables.check_passa_exact); the MIP rows are the largest
+    and stay below it, and a row past it is refused."""
+    for s in tables.TU_SIZES:
+        w, _ = spec_intra.stacked_weights(s, 75)
+        tables.check_passa_exact(w)
+    with pytest.raises(AssertionError):
+        tables.check_passa_exact(np.full((1, 1, 2), 1 << 16, np.int32))
 
 
 @pytest.mark.parametrize("wh", [(104, 72), (128, 64), (96, 64)])

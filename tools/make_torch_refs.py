@@ -12,6 +12,11 @@ these files.
   configuration) on the 'mixed' clip -> data/cfg2_1080p_ref.json;
 - cfg3: low-delay P 1080p (``preset_cfg3``: IDR then P pictures) on the
   'motion' clip -> data/cfg3_1080p_ref.json;
+- cfg2t: config 2 with VVC's intra tools (PDPC, MIP, transform skip) on
+  the 'text' clip, the content transform skip targets ->
+  data/cfg2t_1080p_ref.json;
+- lossless: the ai_hevc_lossless fixture's configuration at 1080p on the
+  'mixed' clip -> data/lossless_1080p_ref.json;
 - p128x64: the JAX encoder's whole stream, its recon MD5s and the JAX
   decoder's MD5s of that stream for a 5-frame 128x64 low-delay clip
   (I P P P I), plain and with merge candidates, AMVP and signalled
@@ -25,13 +30,19 @@ these files.
   data/cfg4noalf_416x240_ref.json, per frame in display order, with the
   whole stream; cfg4noalf_1080p the same at 1920x1080 (frames 0-3 would
   not hold a B picture; it is recorded only on request);
+- t128x64: the JAX encoder's whole stream, recon MD5s, SSE and PSNR of
+  a 2-frame 128x64 cfg2t clip ('text') -> data/t128x64_ref.json, which
+  tests/test_torch_pipeline.py holds the port to (the JAX encode would
+  compile for ~20 s in the test; the test decodes the port's stream with
+  the JAX decoder live);
 - ra128x64: the same for a 5-frame 128x64 random-access clip (GOP 4:
   I, P, then B pictures at POC 2, 1, 3) with ALF ("full"), without it
   ("noalf") and with luma ALF only ("lumaalf") -> data/ra128x64_ref.json,
   for the CPU tests.
 
-    python tools/make_torch_refs.py [cfg2] [cfg3] [p128x64] [cfg4]
-        [cfg4noalf] [ra128x64] [cfg4noalf_1080p]
+    python tools/make_torch_refs.py [cfg2] [cfg3] [cfg2t] [lossless]
+        [p128x64] [t128x64] [cfg4] [cfg4noalf] [ra128x64]
+        [cfg4noalf_1080p]
     # default: all but cfg4noalf_1080p; minutes per 1080p frame, about
     # two minutes for each 416x240 RA clip and for ra128x64
 """
@@ -67,6 +78,16 @@ REFS = {
              "ctx_inherit=True)", "mixed"),
     "cfg3": (lambda: preset_cfg3(W, H), "preset_cfg3(1920, 1080)",
              "motion"),
+    "cfg2t": (lambda: preset_cfg2(W, H).replace(
+        pdpc=True, mip=True, transform_skip=True, rows_per_segment=1,
+        ctx_inherit=True),
+              "preset_cfg2(1920, 1080).replace(pdpc=True, mip=True, "
+              "transform_skip=True, rows_per_segment=1, ctx_inherit=True)",
+              "text"),
+    "lossless": (lambda: CodecConfig(width=W, height=H, qp=32,
+                                     lossless=True, rdoq=False),
+                 "CodecConfig(width=1920, height=1080, qp=32, "
+                 "lossless=True, rdoq=False)", "mixed"),
 }
 
 
@@ -93,9 +114,10 @@ def make(name: str) -> None:
         "stream_md5": hashlib.md5(res.bitstream).hexdigest(),
         "frames": [
             {"poc": i, "bits": int(b), "psnr_y": float(p),
+             "sse": [float(v) for v in np.asarray(e)[:3]],
              "nal_md5": n, "recon_md5": frame_md5(r)}
-            for i, (b, p, n, r) in enumerate(zip(
-                res.frame_bits, res.psnr_y(W, H),
+            for i, (b, p, e, n, r) in enumerate(zip(
+                res.frame_bits, res.psnr_y(W, H), res.sse,
                 slice_nal_md5s(res.bitstream), res.recon))],
     }
     path = os.path.join(DATA, f"{name}_1080p_ref.json")
@@ -130,6 +152,31 @@ def make_p128() -> None:
             "recon_md5": [frame_md5(r) for r in res.recon],
             "decode_md5": [frame_md5(d) for d in dec]}
     path = os.path.join(DATA, "p128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
+# the small all-intra clip with VVC's intra tools (cfg2t at 128x64)
+T128_CONFIG = ("preset_cfg2(128, 64).replace(pdpc=True, mip=True, "
+               "transform_skip=True, rows_per_segment=1, ctx_inherit=True)")
+T128_CLIP = "synthetic_clip(128, 64, 2, 'text', seed=5)"
+
+
+def make_t128() -> None:
+    cfg = preset_cfg2(128, 64).replace(pdpc=True, mip=True,
+                                       transform_skip=True,
+                                       rows_per_segment=1, ctx_inherit=True)
+    res = Encoder(cfg, with_recon=True).encode(
+        synthetic_clip(128, 64, 2, "text", seed=5))
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "config": T128_CONFIG, "clip": T128_CLIP,
+           "stream_b64": base64.b64encode(res.bitstream).decode(),
+           "frame_bits": [int(b) for b in res.frame_bits],
+           "sse": [[float(v) for v in np.asarray(e)[:3]] for e in res.sse],
+           "psnr_y": [float(p) for p in res.psnr_y(128, 64)],
+           "recon_md5": [frame_md5(r) for r in res.recon]}
+    path = os.path.join(DATA, "t128x64_ref.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(f"wrote {path}")
@@ -197,11 +244,12 @@ def make_ra128() -> None:
 
 
 def main() -> None:
-    makers = {"p128x64": make_p128, "ra128x64": make_ra128,
+    makers = {"p128x64": make_p128, "t128x64": make_t128,
+              "ra128x64": make_ra128,
               **{k: (lambda k=k: make(k)) for k in REFS},
               **{k: (lambda k=k: make_ra(k)) for k in RA_REFS}}
-    for name in sys.argv[1:] or [*REFS, "p128x64", "cfg4", "cfg4noalf",
-                                 "ra128x64"]:
+    for name in sys.argv[1:] or [*REFS, "p128x64", "t128x64", "cfg4",
+                                 "cfg4noalf", "ra128x64"]:
         makers[name]()
 
 

@@ -75,7 +75,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of the library's entry points."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.x266_recon_intra.argtypes = (
-        [i] * 9 + [fl] + [i] * 4 + [p] * 21 + [p])   # ..., sync, stream
+        [i] * 9 + [fl] + [i] * 7 + [p] * 22 + [p])   # ..., sync, stream
     lib.x266_recon_intra.restype = i
     lib.x266_recon_inter.argtypes = (
         [i] * 8 + [fl] + [i] * 9 + [p] * 34 + [p])  # ..., sync, stream
@@ -88,6 +88,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.x266_alf_normal.restype = i
     lib.x266_alf_ctb_flags.argtypes = [i] * 3 + [fl] + [p] * 7
     lib.x266_alf_ctb_flags.restype = i
+    lib.x266_plane_sse.argtypes = [i] * 3 + [p] * 6
+    lib.x266_plane_sse.restype = i
     lib.x266_error_string.argtypes = [i]
     lib.x266_error_string.restype = ctypes.c_char_p
     return lib

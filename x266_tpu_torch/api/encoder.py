@@ -45,14 +45,18 @@ class EncodeResult:
     bitstream: bytes
     recon: list[Frame]
     frame_bits: list[int] = field(default_factory=list)
-    sse: list = field(default_factory=list)   # per-frame (3,) SSE
+    # per-frame (3,) SSE: float32 as the reference sums it, and exact
+    sse: list = field(default_factory=list)
+    sse_exact: list = field(default_factory=list)
 
     def psnr_y(self, width: int, height: int,
                max_val: int = 255) -> list[float]:
-        """Luma PSNR per frame from the device-computed SSE."""
+        """Luma PSNR per frame from the device-computed float32 SSE, as
+        the reference reports it: with a float32 SSE the quotient and
+        the logarithm are float32 too (numpy's promotion)."""
         n = float(width * height)
         return [float(10 * np.log10(float(max_val) ** 2 * n
-                                    / max(float(s[0]), 1e-9)))
+                                    / max(s[0], 1e-9)))
                 for s in self.sse]
 
     @property
@@ -60,15 +64,33 @@ class EncodeResult:
         return 8 * len(self.bitstream)
 
 
+# the intra tools the port codes on all-intra streams only: the inter
+# Pass A and K3's lossless skip CU are not ported
+INTRA_ONLY_TOOLS = ("lossless", "transform_skip", "pdpc", "mip")
+
+
+def check_inter_tools(cfg: CodecConfig) -> None:
+    """Raise NotImplementedError for P/B pictures under an intra-only
+    tool (INTRA_ONLY_TOOLS)."""
+    for flag in INTRA_ONLY_TOOLS:
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"{flag} on P/B pictures is not in "
+                                      "the port's slices")
+
+
 def check_config(cfg: CodecConfig, encode: bool = True) -> None:
     """Raise NotImplementedError for anything outside the port's slices:
     all-intra, low-delay P or random access (gop_size > 1), one tile,
     8-bit, CU <= 32, tools limited to MTS, RDOQ, reference substitution,
     merge candidates, AMVP, signalled reference lists, deblock, SAO and
-    ALF.  The decoder (encode=False) also takes nonlinear ALF and
-    CC-ALF, whose estimators are not ported."""
+    ALF, and on all-intra streams lossless, transform skip, PDPC and
+    MIP.  The decoder (encode=False) also takes nonlinear ALF and
+    CC-ALF, whose estimators are not ported, and refuses the intra-only
+    tools at the first P/B slice instead."""
     if cfg.num_tiles != 1:
         raise NotImplementedError("tiles are not in the port's slices")
+    if encode and (cfg.intra_period != 1 or cfg.gop_size > 1):
+        check_inter_tools(cfg)
     flags = ["weighted_pred", "multi_ref"]
     if encode:
         flags += ["alf_nonlinear", "ccalf"]
@@ -135,6 +157,7 @@ class Encoder:
                     res.recon.append(td.recon)
                 res.frame_bits.append(8 * len(nal))
                 res.sse.append(td.sse)
+                res.sse_exact.append(td.sse_exact)
                 poc += 1
         res.bitstream = b"".join(out)
         return res
@@ -149,7 +172,7 @@ class Encoder:
 
         def drain():
             fin, st = pending.pop(0)
-            rbsp, recon, sse = fin()
+            rbsp, recon, sse, sse_exact = fin()
             nal = write_nal(NalType.IDR if st == SliceType.I
                             else NalType.TRAIL, rbsp)
             out.append(nal)
@@ -157,6 +180,7 @@ class Encoder:
                 res.recon.append(recon)
             res.frame_bits.append(8 * len(nal))
             res.sse.append(sse)
+            res.sse_exact.append(sse_exact)
 
         for poc, frame in enumerate(frames):
             fin, pyramids, st = encode_picture_gop_async(
@@ -198,10 +222,10 @@ class Encoder:
 
         def drain():
             poc, fin, nal_type = pending.pop(0)
-            rbsp, recon, sse = fin()
+            rbsp, recon, *sse = fin()
             nal = write_nal(nal_type, rbsp)
             out.append(nal)
-            per_poc[poc] = (nal, recon, sse)
+            per_poc[poc] = (nal, recon, *sse)
 
         for poc, kind in gop_coding_order(len(frames), cfg.intra_period,
                                           cfg.gop_size):
@@ -238,4 +262,5 @@ class Encoder:
                             [per_poc[p][1] for p in pocs
                              if per_poc[p][1] is not None],
                             [8 * len(per_poc[p][0]) for p in pocs],
-                            [per_poc[p][2] for p in pocs])
+                            [per_poc[p][2] for p in pocs],
+                            [per_poc[p][3] for p in pocs])

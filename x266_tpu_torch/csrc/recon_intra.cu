@@ -45,6 +45,25 @@
 //   not yet coded (or outside the picture) hold mid-gray, which is the
 //   reference's availability rule.
 
+// The intra tools of _build_pallas (recon_pallas.py :248, :391-393,
+// :503-534, :603-644, :688-689) are runtime fields of Params, like qp and
+// lambda (the registers do not call for template parameters: the branches
+// are uniform per TU and add no live state across the TU's steps):
+// - lossless: steps 5-9 are skipped; encode writes level = source -
+//   prediction and recon = source, decode clip(prediction + level);
+// - ts (transform skip, luma TUs whose mts map value is 5): coefficients
+//   = residual << (7 - log2 s) in place of the forward transform, and
+//   (dequantized + 2^(tsh-1)) >> tsh in place of the inverse; RDOQ and
+//   the quantizer are unchanged;
+// - pdpc (luma): after the prediction shift, planar / DC / pure H / pure V
+//   blend with the raw (substituted) references, a side gated off at the
+//   picture's left or top edge;
+// - MIP (modes >= n_std, luma): the 16 boundary group sums of the raw
+//   references (top 2s then left 2s, s/4 samples each) times the mode's
+//   16 int8 weights per sample, shifted by log2 s + 4: the same integers
+//   as the reference's dense row, so bit-exact by construction.  A chroma
+//   TU of a MIP CU predicts planar.
+//
 // Integer math is int32 multiply-accumulate (|residual x matrix| sums stay
 // below 2^31).  RDOQ compares float32 costs e*e*err_scale + lam*rate with
 // explicitly rounded __fmul_rn/__fadd_rn (and the library is built with
@@ -110,6 +129,8 @@ struct Params {
   int pitch_y, pitch_c;           // padded source plane widths (encode)
   int plane_y, plane_c;           // padded source plane sizes (encode)
   int qp, rdoq, mts, subst, n_modes;
+  int n_std;                      // analytic modes (taps); MIP above
+  int lossless, ts, pdpc;         // intra tools, see the header
   float lam;
   const uint8_t* src[3];          // encode: padded planes (F, Hp, Wp)
   const int16_t* coef_in[3];      // decode: levels (F, H, W)
@@ -117,6 +138,7 @@ struct Params {
   uint8_t* rec[3];                // (F, H, W) / (F, H/2, W/2)
   int16_t* coef_out[3];           // encode: levels
   const int32_t *taps, *smooth, *tx, *shift;
+  const int32_t* mip;             // (MIP_K, s*s, 16) for s = 8, 16, 32
   const float* rate;              // (32768,) rate surrogate
   // K3-P and K3-B only (frames == 1)
   int merge;                      // merge candidates on
@@ -135,6 +157,7 @@ struct Shared {
   int ext[2 * kMaxR];
   uint8_t avail[kMaxR];
   int dc;
+  int grp[16];                    // MIP boundary group sums
   int pred[kMaxS * kMaxS];
   int a[kMaxS * kMaxS];
   int b[kMaxS * kMaxS];
@@ -161,6 +184,12 @@ __device__ __forceinline__ int taps_offset(int s, int n_modes) {
   return o;
 }
 
+// tables.MIP_SIZES 8, 16, 32; MIP_K = 8 matrices of (s*s, 16) each.
+constexpr int kMipK = 8;
+__device__ __forceinline__ int mip_offset(int s) {
+  return s == 8 ? 0 : s == 16 ? kMipK * 64 * 16 : kMipK * (64 + 256) * 16;
+}
+
 __device__ __forceinline__ int z_index(int ux, int uy) {
   int z = 0;
   for (int b = 0; b < 3; ++b) {
@@ -185,6 +214,8 @@ __device__ __forceinline__ int rshift_round(int x, int sh) {
   return (x + (1 << (sh - 1))) >> sh;
 }
 
+__device__ __forceinline__ int mini(int a, int b) { return a < b ? a : b; }
+
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
@@ -206,16 +237,20 @@ __device__ __forceinline__ uint8_t& at(const View& v, int x, int y) {
 // it with the same arguments.  mc: the top-left sample of an inter CU's
 // MC block in its pyramid plane (row pitch mc_pitch), nullptr for intra;
 // skip: an inter CU coded without residual (encode writes zero levels);
-// mc1: a bi CU's second MC block (same pitch), averaged with mc's.
+// mc1: a bi CU's second MC block (same pitch), averaged with mc's; ts: a
+// luma TU coded with transform skip.
 template <bool kEncode>
 __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
                    int s, int mode, int tv, int th, const uint8_t* src,
                    int pitch, const int16_t* cin, int16_t* cout, int f,
                    const uint8_t* mc = nullptr, int mc_pitch = 0,
-                   bool skip = false, const uint8_t* mc1 = nullptr) {
+                   bool skip = false, const uint8_t* mc1 = nullptr,
+                   bool ts = false) {
   const int tid = threadIdx.x;
   const int r_len = 4 * s + 1;
   const int mid = 128;
+  const bool luma = v.scale == 1;
+  const bool mip = mc == nullptr && mode >= p.n_std;   // luma only
 
   if (mc == nullptr) {
   // 1. reference vector [corner, top 2s, left 2s] and its availability
@@ -265,13 +300,25 @@ __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
     for (int i = 0; i < s; ++i) acc += sh.ref[1 + i] + sh.ref[1 + 2 * s + i];
     sh.dc = acc;
   }
+  if (mip && tid < 16) {
+    // group tid: s/4 raw references of [top 2s, left 2s]
+    const int g = s >> 2;
+    int acc = 0;
+    for (int j = 0; j < g; ++j) acc += sh.ref[1 + tid * g + j];
+    sh.grp[tid] = acc;
+  }
   __syncthreads();
   }
 
   // 4. prediction (intra, or the MC block); encode: residual into a
   const int n = s * s;
+  const int log2s = 31 - __clz(s);
   const int shift = __ldg(p.shift + size_index(s) * p.n_modes + mode);
-  const int* tp = p.taps + taps_offset(s, p.n_modes) + (mode * n) * 4;
+  // PDPC's mode class (specmodel.intra.pdpc_mode_class) and gates
+  const bool pdpc = p.pdpc && luma && mc == nullptr;
+  const int hm = p.n_std == 35 ? 10 : 18, vm = p.n_std == 35 ? 26 : 50;
+  const int lok = x > 0, tok = y > 0;
+  const int pscale = (2 * log2s - 2) >> 2;
   for (int i = tid; i < n; i += kThreads) {
     int pr;
     if (mc != nullptr) {
@@ -279,29 +326,61 @@ __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
       pr = __ldg(mc + o);
       if (mc1 != nullptr) pr = (pr + __ldg(mc1 + o) + 1) >> 1;
     } else {
-      int acc;
-      if (mode == 1) {
+      int acc = 0;
+      if (mip) {
+        const int* m = p.mip + mip_offset(s) + ((mode - p.n_std) * n + i) * 16;
+        for (int k = 0; k < 16; ++k) acc += __ldg(m + k) * sh.grp[k];
+      } else if (mode == 1) {
         acc = sh.dc;
       } else {
-        acc = 0;
+        const int* tp = p.taps + taps_offset(s, p.n_std) + (mode * n + i) * 4;
         for (int t = 0; t < 4; ++t) {
-          int e = __ldg(tp + i * 4 + t);
+          int e = __ldg(tp + t);
           acc += (e & 255) * sh.ext[e >> 8];
         }
       }
       pr = rshift_round(acc, shift);
+      if (pdpc && (mode <= 1 || mode == hm || mode == vm)) {
+        const int xx = i % s, yy = i / s;
+        const int wl = (32 >> mini(31, (2 * xx) >> pscale)) * lok;
+        const int wt = (32 >> mini(31, (2 * yy) >> pscale)) * tok;
+        const int left = sh.ref[2 * s + 1 + yy], top = sh.ref[1 + xx];
+        const int corner = sh.ref[0];
+        if (mode <= 1)
+          pr = (wl * left + wt * top + (64 - wl - wt) * pr + 32) >> 6;
+        else if (lok && tok && mode == vm)
+          pr = (64 * pr + wl * (left - corner) + 32) >> 6;
+        else if (lok && tok)
+          pr = (64 * pr + wt * (top - corner) + 32) >> 6;
+      }
     }
     sh.pred[i] = pr;
     if (kEncode) sh.a[i] = src[(y + 1 + i / s) * pitch + x + 1 + i % s] - pr;
   }
   __syncthreads();
 
-  const int log2s = 31 - __clz(s);
+  const int cpitch = p.width / v.scale;
+  const size_t cbase = (size_t)f * cpitch * (p.height / v.scale);
+  if (p.lossless) {
+    // no transform, no quantizer: the level is the residual
+    for (int i = tid; i < n; i += kThreads) {
+      const size_t o = cbase + (size_t)(y + i / s) * cpitch + x + i % s;
+      int lv;
+      if (kEncode) {
+        lv = skip ? 0 : sh.a[i];
+        cout[o] = (int16_t)lv;
+      } else {
+        lv = cin[o];
+      }
+      at(v, x + i % s, y + i / s) = (uint8_t)clampi(sh.pred[i] + lv, 0, 255);
+    }
+    __syncthreads();
+    return;
+  }
+
   const int* mv = p.tx + tv * kTxPerType + tx_offset(s);   // (s, s) [k][n]
   const int* mh = p.tx + th * kTxPerType + tx_offset(s);
   const int tsh = 7 - log2s;                               // 8-bit
-  const int cpitch = p.width / v.scale;
-  const size_t cbase = (size_t)f * (p.width / v.scale) * (p.height / v.scale);
 
   if (kEncode && skip) {
     for (int i = tid; i < n; i += kThreads) {
@@ -310,21 +389,28 @@ __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
     }
   } else if (kEncode) {
     // 5. forward vertical: b[k][m] = sum_n Tv[k][n] a[n][m]
-    for (int i = tid; i < n; i += kThreads) {
+    for (int i = tid; i < n && !ts; i += kThreads) {
       int k = i / s, m = i % s, acc = 0;
       for (int j = 0; j < s; ++j) acc += __ldg(mv + k * s + j) * sh.a[j * s + m];
       sh.b[i] = rshift_round(acc, log2s - 1);
     }
     __syncthreads();
-    // 6. forward horizontal + quantization: level into a, out to global
+    // 6. forward horizontal (transform skip: the residual << tsh) +
+    //    quantization: level into a, out to global
     const int qbits = 14 + p.qp / 6 + tsh;
     const int qscale = kQuantScale[p.qp % 6];
     const int ishift = 6 - tsh;
     const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
     for (int i = tid; i < n; i += kThreads) {
-      int k = i / s, l = i % s, acc = 0;
-      for (int j = 0; j < s; ++j) acc += sh.b[k * s + j] * __ldg(mh + l * s + j);
-      int c = clampi(rshift_round(acc, log2s + 6), -32768, 32767);
+      int k = i / s, l = i % s, c;
+      if (ts) {
+        c = sh.a[i] << tsh;
+      } else {
+        int acc = 0;
+        for (int j = 0; j < s; ++j)
+          acc += sh.b[k * s + j] * __ldg(mh + l * s + j);
+        c = clampi(rshift_round(acc, log2s + 6), -32768, 32767);
+      }
       int a = c < 0 ? -c : c;
       int lv;
       if (p.rdoq) {
@@ -366,18 +452,25 @@ __device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
   __syncthreads();
 
   // 8. inverse vertical: b[n][m] = clip((sum_k Tv[k][n] a[k][m] + 64) >> 7)
-  for (int i = tid; i < n; i += kThreads) {
+  for (int i = tid; i < n && !ts; i += kThreads) {
     int nn = i / s, m = i % s, acc = 0;
     for (int k = 0; k < s; ++k) acc += __ldg(mv + k * s + nn) * sh.a[k * s + m];
     sh.b[i] = clampi(rshift_round(acc, 7), -32768, 32767);
   }
   __syncthreads();
 
-  // 9. inverse horizontal, add the prediction, clip, write the window
+  // 9. inverse horizontal (transform skip: (dequantized + round) >> tsh),
+  //    add the prediction, clip, write the window
   for (int i = tid; i < n; i += kThreads) {
-    int nn = i / s, l = i % s, acc = 0;
-    for (int m = 0; m < s; ++m) acc += sh.b[nn * s + m] * __ldg(mh + m * s + l);
-    int res = clampi(rshift_round(acc, 12), -32768, 32767);
+    int nn = i / s, l = i % s, res;
+    if (ts) {
+      res = (sh.a[i] + (1 << (tsh - 1))) >> tsh;
+    } else {
+      int acc = 0;
+      for (int m = 0; m < s; ++m)
+        acc += sh.b[nn * s + m] * __ldg(mh + m * s + l);
+      res = clampi(rshift_round(acc, 12), -32768, 32767);
+    }
     at(v, x + l, y + nn) = (uint8_t)clampi(sh.pred[i] + res, 0, 255);
   }
   __syncthreads();
@@ -490,7 +583,13 @@ recon_kernel(Params p) {
       int u = s >> 3;
       if ((ux & (u - 1)) || (uy & (u - 1))) continue;
       int mode = p.mode_map[mi];
-      int mts = p.mts ? (p.mts_map[mi] & 7) : 0;
+      // chroma of a MIP CU predicts planar
+      const int mode_c = mode >= p.n_std ? 0 : mode;
+      // the map holds an MTS pair (0-4) or transform skip (5), read when
+      // either tool is on
+      const int mval = (p.mts || p.ts) ? (p.mts_map[mi] & 7) : 0;
+      const bool ts = p.ts && mval == 5;
+      const int mts = p.mts && !ts ? mini(mval, 4) : 0;
       // MTS combos (tables.MTS_COMBOS): (vertical, horizontal) types,
       // 0 DCT-II, 1 DST-VII, 2 DCT-VIII
       const int tvs[5] = {0, 1, 2, 1, 2}, ths[5] = {0, 1, 1, 2, 2};
@@ -524,9 +623,9 @@ recon_kernel(Params p) {
                                     y, mv[0], mv[1], s) : nullptr,
                   p.pyr_w[0], skip,
                   bi ? mc_origin(p.pyr[3], p.pyr_h[0], p.pyr_w[0], x, y,
-                                 mv1[0], mv1[1], s) : nullptr);
+                                 mv1[0], mv1[1], s) : nullptr, ts);
       for (int c = 0; c < 2; ++c)
-        tu<kEncode>(p, sh, vc[c], x / 2, y / 2, s / 2, mode, 0, 0,
+        tu<kEncode>(p, sh, vc[c], x / 2, y / 2, s / 2, mode_c, 0, 0,
                     src_c[c], p.pitch_c, p.coef_in[1 + c],
                     p.coef_out[1 + c], f,
                     is_mc ? mc_origin(pyr[1 + c], p.pyr_h[1], p.pyr_w[1],
@@ -572,6 +671,7 @@ void set_common(Params& p, int frames, int width, int height,
   p.plane_y = plane_y; p.plane_c = plane_c;
   p.qp = qp; p.lam = lam; p.rdoq = rdoq; p.mts = mts; p.subst = subst;
   p.n_modes = n_modes;
+  p.n_std = n_modes < 67 ? n_modes : 67;   // MIP's modes follow the 67
   for (int i = 0; i < 3; ++i) {
     p.src[i] = (const uint8_t*)src[i];
     p.coef_in[i] = (const int16_t*)cin[i];
@@ -634,16 +734,18 @@ void set_inter(Params& p, int merge, int pyr_hy, int pyr_wy, int pyr_hc,
 extern "C" {
 
 // Launches K1 (encode != 0) or K2 on `stream`; `sync` is scratch of
-// 1 + frames x CTU rows int32.  Returns cudaGetLastError().
+// 1 + frames x CTU rows int32; lossless, ts and pdpc switch the intra
+// tools on, and `mip` holds tables.k_mip.  Returns cudaGetLastError().
 int x266_recon_intra(
     int encode, int frames, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
-    int n_modes, const void* src_y, const void* src_cb, const void* src_cr,
+    int n_modes, int lossless, int ts, int pdpc, const void* src_y, const void* src_cb, const void* src_cr,
     const void* cin_y, const void* cin_cb, const void* cin_cr,
     const void* size_map, const void* mode_map, const void* mts_map,
     void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
     void* cout_cr, const void* taps, const void* smooth, const void* tx,
-    const void* shift, const void* rate, void* sync, void* stream) {
+    const void* shift, const void* rate, const void* mip, void* sync,
+    void* stream) {
   const void* src[3] = {src_y, src_cb, src_cr};
   const void* cin[3] = {cin_y, cin_cb, cin_cr};
   void* rec[3] = {rec_y, rec_cb, rec_cr};
@@ -652,6 +754,8 @@ int x266_recon_intra(
   set_common(p, frames, width, height, pitch_y, pitch_c, plane_y,
              plane_c, qp, lam, rdoq, mts, subst, n_modes, src, cin, size_map,
              mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
+  p.lossless = lossless; p.ts = ts; p.pdpc = pdpc;
+  p.mip = (const int32_t*)mip;
   p.sync = (int*)sync;
   return launch<false>(p, encode, stream);
 }

@@ -35,6 +35,7 @@ from x266_tpu_torch.engine.mode_decision import (make_mode_decision_raw,
                                                  pad_plane)
 from x266_tpu_torch.engine.recon import recon_pass
 from x266_tpu_torch.kernels import alf as kalf
+from x266_tpu_torch.kernels import cost as kcost
 from x266_tpu_torch.kernels import interp
 from x266_tpu_torch.kernels.deblock import deblock_picture
 from x266_tpu_torch.kernels.sao import apply_sao, estimate_sao
@@ -51,9 +52,11 @@ def make_pass_a(cfg: CodecConfig, tab: Tables):
     """Pass A and the MTS select over F frames: padded luma planes
     (F, Hp, Wp) -> [size_map, mode_map, mts_map], each (F, H/8, W/8)
     int32.  Frames go one at a time (Pass A's working set at 1080p is
-    ~2 GB); mts_map is 0 without cfg.mts."""
+    ~2 GB); mts_map is 0 without cfg.mts or cfg.transform_skip
+    (x266_tpu/engine/fused.py:558)."""
     md = make_mode_decision_raw(cfg, tab, want_res=True)
-    mts_sel = make_mts_select_raw(cfg, tab) if cfg.mts else None
+    want_mts = cfg.mts or cfg.transform_skip
+    mts_sel = make_mts_select_raw(cfg, tab) if want_mts else None
 
     def run(yP):
         maps = ([], [], [])
@@ -71,10 +74,21 @@ def make_pass_a(cfg: CodecConfig, tab: Tables):
 
 def frame_sse(rec: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
     """(F, H, W) per-frame SSE, summed exactly in int64 after the int32
-    upcast (uint8 differences would wrap).  The reference sums in
-    float32, which rounds above 2^24: PSNRs agree to a tolerance."""
+    upcast (uint8 differences would wrap)."""
     d = rec.to(torch.int32) - orig.to(torch.int32)
     return (d.to(torch.int64) ** 2).sum((-2, -1))
+
+
+def _sse_outputs(rec, src) -> dict:
+    """The per-frame SSE of the three planes, (F, 3): "sse_exact" in
+    int64 and "sse" as the reference sums it (float32 in XLA CPU's order,
+    kernels.cost.plane_sse_f32, whose kernel reads dense planes), which
+    the reported PSNR reads."""
+    return {"sse_exact": torch.stack([frame_sse(r, p)
+                                      for r, p in zip(rec, src)], dim=1),
+            "sse": torch.stack([kcost.plane_sse_f32(r.contiguous(),
+                                                    p.contiguous())
+                                for r, p in zip(rec, src)], dim=1)}
 
 
 def has_filters(cfg: CodecConfig) -> bool:
@@ -208,8 +222,7 @@ def _finish(cfg: CodecConfig, out: dict, rec, src, size_map, with_recon,
         rec = tuple(torch.stack(p) for p in zip(*frames))
         out["sao"] = tuple(torch.stack(p) for p in zip(*saos))
         out["alf"] = tuple(torch.stack(p) for p in zip(*alfs))
-    out["sse"] = torch.stack([frame_sse(r, p) for r, p in zip(rec, src)],
-                             dim=1)
+    out.update(_sse_outputs(rec, src))
     if with_recon:
         out["recon"] = rec
     if with_pyramids:
@@ -247,7 +260,8 @@ def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool,
                        with_pyramids: bool = False):
     """step(y, cb, cr) over F frames -> dict of device tensors:
     coef (Y, Cb, Cr) int16, maps size/mode/mts (F, H/8, W/8) int16,
-    sse (F, 3) int64, with with_recon recon (Y, Cb, Cr) uint8 and, with
+    sse (F, 3) float32 in the reference's order and sse_exact (F, 3)
+    int64, with with_recon recon (Y, Cb, Cr) uint8 and, with
     with_pyramids (F = 1), the next P picture's reference pyramids.  With
     loop filters, recon, SSE and pyramids are of the filtered picture,
     and sao (type, band, off) and alf (the ALF parameter tuple) carry the

@@ -3,17 +3,22 @@ MTS transform choice (C5/C8/C9/C10).
 
 Counterpart of x266_tpu/engine/mode_decision.py:143-221, 328-431 and
 442-547 (the non-MTT path).  Every block of every CU size is evaluated
-for all intra modes at once from ORIGINAL-pixel references masked by
-the decode-order availability rule; an 8-mode SAD preselect feeds the
-full transform/quant/rate/recon RD chain; the quadtree is decided
-bottom-up.  Pass B (engine.recon) recomputes the normative levels
-against reconstructed pixels.
+for all intra modes at once (MIP's among them, and with PDPC blended in)
+from ORIGINAL-pixel references masked by the decode-order availability
+rule; an 8-mode SAD preselect feeds the full transform/quant/rate/recon
+RD chain, or in lossless mode the rate of the residual alone; the
+quadtree is decided bottom-up.  The transform choice follows: the MTS
+pairs and transform skip (mts_map value TS_IDX).  Pass B
+(engine.recon) recomputes the normative levels against reconstructed
+pixels.
 
 Decisions must equal the reference's, so the preselect orders modes by
 (SAD, mode index) with a stable sort (``jax.lax.top_k`` puts the lower
 index first on ties, ``torch.topk`` does not), ``argmin`` keeps the first
 minimum, and the float32 costs are built op by op in the reference's
-order (kernels.cost).
+order (kernels.cost: the rate sums nested in the argmin's loop fusion,
+rate_nested, and D + lam * R as one fused multiply-add, rd_cost; the
+lossless rate sum flattens the block first, window_then_sum).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from x266_tpu_torch.kernels import cost as kcost
 from x266_tpu_torch.kernels import intra as kintra
 from x266_tpu_torch.kernels import quant as kquant
 from x266_tpu_torch.kernels import transforms as ktx
+from x266_tpu_torch.specmodel.quant import transform_shift
 from x266_tpu_torch.tables import MTS_COMBOS, Tables
 
 PAD = 72                 # right/bottom plane padding, as the reference
@@ -36,6 +42,7 @@ MODE_SIGNAL_BITS = 6.0   # flat estimate for coding one luma mode
 SPLIT_BITS = 2.0         # estimate for quadtree split signalling
 RD_MODES = 8             # modes surviving the SAD preselect into full RD
 RD_MODES_INTER = 4       # the same on P slices, where intra is the minority
+TS_IDX = 5               # mts_map value of transform skip (luma)
 
 
 def pad_plane(img: torch.Tensor, mid: int = 128) -> torch.Tensor:
@@ -96,11 +103,13 @@ def _mask_refs(refs: torch.Tensor, mask: torch.Tensor,
 
 
 class _Geometry:
-    """Static per-size block geometry and availability masks of one
-    picture size, built once per session on the target device."""
+    """Static per-size block geometry, availability masks and PDPC gates
+    (block x > 0, y > 0) of one picture size, built once per session on
+    the target device."""
 
     def __init__(self, cfg: CodecConfig, device: torch.device):
         self.by_size = {}
+        self.gates = {}
         for s in (8, 16, 32):
             if s > cfg.max_cu_size:
                 continue
@@ -112,6 +121,8 @@ class _Geometry:
                 avail.valid_block_grid(cfg.width, cfg.height,
                                        s).reshape(nb)))
             self.by_size[s] = (gy, gx, mask.to(device), valid.to(device))
+            self.gates[s] = (torch.from_numpy(xs > 0).to(device),
+                             torch.from_numpy(ys > 0).to(device))
 
 
 def _eval_size(plane: torch.Tensor, size: int, cfg: CodecConfig,
@@ -124,7 +135,11 @@ def _eval_size(plane: torch.Tensor, size: int, cfg: CodecConfig,
     gy, gx, mask, valid = geom.by_size[s]
     lam = float(np.float32(cfg.lambda_mode))    # a multiplier: no upload
     refs = _mask_refs(_gather_refs(plane, gy, gx, s), mask, cfg)
-    preds = kintra.predict_all_modes(tab, refs, s)          # (B, nm, s, s)
+    # PDPC blended in under cfg.pdpc: Pass A scores the blend, as the
+    # reference does by default
+    preds = kintra.predict_all_modes(tab, refs, s, pdpc=cfg.pdpc,
+                                     left_ok=geom.gates[s][0],
+                                     top_ok=geom.gates[s][1])  # (B, nm, s, s)
     orig = _block_gather(plane, gy, gx, s)[:, None]
     res = orig - preds
     nb, nm = preds.shape[:2]
@@ -132,17 +147,23 @@ def _eval_size(plane: torch.Tensor, size: int, cfg: CodecConfig,
     sad = res.abs().sum((2, 3)).to(torch.float32)
     top = torch.sort(sad, dim=1, stable=True).indices[:, :k]  # (B, K)
     res_k = torch.gather(res, 1, top[:, :, None, None].expand(-1, -1, s, s))
-    pred_k = orig - res_k
-    bd = cfg.bit_depth
-    coefs = ktx.forward_transform(tab, res_k.reshape(nb * k, s, s), s,
-                                  bit_depth=bd)
-    levels = kquant.quantize(tab, coefs, cfg.qp, s, bd)
-    rate = kcost.rate_estimate_levels(tab, levels).reshape(nb, k)
-    deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
-    rres = ktx.inverse_transform(tab, deq, s, bit_depth=bd).reshape(
-        nb, k, s, s)
-    recon = (pred_k + rres).clamp(0, cfg.max_val)
-    cost = kcost.sse(recon, orig) + lam * (rate + MODE_SIGNAL_BITS)
+    if cfg.lossless:
+        # no distortion: the rate of the residual itself
+        rate = kcost.rate_estimate_residual(tab, res_k)
+        cost = lam * (rate + MODE_SIGNAL_BITS)
+    else:
+        pred_k = orig - res_k
+        bd = cfg.bit_depth
+        coefs = ktx.forward_transform(tab, res_k.reshape(nb * k, s, s), s,
+                                      bit_depth=bd)
+        levels = kquant.quantize(tab, coefs, cfg.qp, s, bd)
+        rate = kcost.rate_nested(tab, levels).reshape(nb, k)
+        deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
+        rres = ktx.inverse_transform(tab, deq, s, bit_depth=bd).reshape(
+            nb, k, s, s)
+        recon = (pred_k + rres).clamp(0, cfg.max_val)
+        cost = kcost.rd_cost(kcost.sse(recon, orig), lam,
+                             rate + MODE_SIGNAL_BITS)
     best_k = torch.argmin(cost, dim=1)
     best_mode = torch.gather(top, 1, best_k[:, None])[:, 0]
     best_cost = torch.gather(cost, 1, best_k[:, None])[:, 0]
@@ -173,8 +194,7 @@ def _upsample(a: torch.Tensor, f: int, gy: int, gx: int) -> torch.Tensor:
 
 
 def _check_cfg(cfg: CodecConfig) -> None:
-    for flag in ("mtt", "mip", "pdpc", "lossless", "transform_skip",
-                 "lfnst", "cclm"):
+    for flag in ("mtt", "lfnst", "cclm"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} is not in the port's "
                                       "slices")
@@ -221,14 +241,19 @@ def make_mode_decision_raw(cfg: CodecConfig, tab: Tables,
 
 
 def make_mts_select_raw(cfg: CodecConfig, tab: Tables):
-    """Per-CU transform choice over the 5 MTS pairs, staged after the
-    mode decision: f(plane, size_map, mode_map, res_by_size) -> mts_map
-    (units, int32).  res_by_size are Pass A's winner residuals, so the
-    prediction is orig - res (same values by construction)."""
+    """Per-CU transform choice, staged after the mode decision, over the
+    5 MTS pairs (cfg.mts, else DCT-II alone) and transform skip
+    (cfg.transform_skip, map value TS_IDX): f(plane, size_map, mode_map,
+    res_by_size) -> mts_map (units, int32).  res_by_size are Pass A's
+    winner residuals, so the prediction is orig - res (same values by
+    construction)."""
     _check_cfg(cfg)
     uy, ux = cfg.units_y, cfg.units_x
-    lam = torch.tensor(np.float32(cfg.lambda_mode), device=tab.device)
+    lam = float(np.float32(cfg.lambda_mode))
     combos = MTS_COMBOS if cfg.mts else MTS_COMBOS[:1]
+    vals = torch.tensor(list(range(len(combos)))
+                        + ([TS_IDX] if cfg.transform_skip else []),
+                        dtype=torch.int32, device=tab.device)
     bd = cfg.bit_depth
 
     def eval_size(plane, s, res):
@@ -239,13 +264,25 @@ def make_mts_select_raw(cfg: CodecConfig, tab: Tables):
         for tv, th in combos:
             coefs = ktx.forward_transform(tab, res, s, tv, th, bd)
             levels = kquant.quantize(tab, coefs, cfg.qp, s, bd)
-            rate = kcost.rate_estimate_levels(tab, levels)
+            rate = kcost.rate_nested(tab, levels)
             deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
             rres = ktx.inverse_transform(tab, deq, s, tv, th, bd)
             recon = (pred + rres).clamp(0, cfg.max_val)
-            costs.append(kcost.sse(recon, orig) + lam * (rate + 2.0))
+            costs.append(kcost.rd_cost(kcost.sse(recon, orig), lam,
+                                       rate + 2.0))
+        if cfg.transform_skip:
+            # the residual scaled up into the coefficient range, one
+            # flag bit instead of two
+            tsh = transform_shift(s, bd)
+            levels = kquant.quantize(tab, res << tsh, cfg.qp, s, bd)
+            rate = kcost.rate_nested(tab, levels)
+            deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
+            rres = (deq + (1 << (tsh - 1))) >> tsh
+            recon = (pred + rres).clamp(0, cfg.max_val)
+            costs.append(kcost.rd_cost(kcost.sse(recon, orig), lam,
+                                       rate + 1.0))
         choice = torch.argmin(torch.stack(costs, dim=1), dim=1)
-        return choice.to(torch.int32).reshape(gy, gx)
+        return vals[choice].reshape(gy, gx)
 
     def run(plane, size_map, mode_map, res_by_size):
         plane = plane.to(torch.int32)

@@ -49,7 +49,8 @@ class TileData:
     coef_cb: np.ndarray
     coef_cr: np.ndarray
     recon: Frame | None
-    sse: np.ndarray                # (3,) SSE against the source
+    sse: np.ndarray                # (3,) float32 SSE, the reference's sum
+    sse_exact: np.ndarray          # (3,) int64 SSE against the source
     inter_maps: tuple | None = None   # P: (pred, mvx, mvy) final maps;
     #                                   B: and (mvx1, mvy1)
     sao: tuple | None = None       # (type, band, off), plane axis first
@@ -78,6 +79,7 @@ def _download(cfg: CodecConfig, out: dict, n: int) -> list[TileData]:
     coef = [c.cpu().numpy() for c in out["coef"]]
     maps = [m.cpu().numpy().astype(np.int32) for m in out["maps"]]
     sse = out["sse"].cpu().numpy()
+    sse_exact = out["sse_exact"].cpu().numpy()
     rec = ([r.cpu().numpy() for r in out["recon"]]
            if "recon" in out else None)
     sao, alf = ([[a.cpu().numpy() for a in out[k]] if k in out else None
@@ -87,7 +89,7 @@ def _download(cfg: CodecConfig, out: dict, n: int) -> list[TileData]:
                      coef[1][i].astype(np.int32),
                      coef[2][i].astype(np.int32),
                      Frame(rec[0][i], rec[1][i], rec[2][i])
-                     if rec is not None else None, sse[i],
+                     if rec is not None else None, sse[i], sse_exact[i],
                      tuple(m[i] for m in maps[3:]) if len(maps) > 3
                      else None,
                      tuple(a[i] for a in sao) if cfg.sao else None,
@@ -197,7 +199,7 @@ def encode_picture_gop_async(cfg: CodecConfig, steps, frame: Frame,
     its POC is a multiple of cfg.intra_period.  Returns (finalize,
     new_pyramids, slice_type); the new pyramids are on the device at
     once (the next picture's only dependency) and finalize() ->
-    (rbsp, recon | None, sse) downloads and entropy-codes."""
+    (rbsp, recon | None, sse, sse_exact) downloads and entropy-codes."""
     is_p = (pyramids is not None and cfg.intra_period > 1
             and poc % cfg.intra_period != 0)
     planes = _upload([frame], device)
@@ -210,7 +212,7 @@ def encode_picture_gop_async(cfg: CodecConfig, steps, frame: Frame,
             cfg, poc, tile_entropy(td), st,
             ref_pocs=[[ref_poc]] if (is_p and ref_poc is not None)
             else None, alf=td.alf)
-        return rbsp, td.recon, td.sse
+        return rbsp, td.recon, td.sse, td.sse_exact
 
     return finalize, out["pyramids"], st
 
@@ -259,14 +261,15 @@ def encode_picture_b_async(cfg: CodecConfig, step, frame: Frame, poc: int,
     """Queue one B picture without blocking.  step:
     fused.make_encode_step_b(cfg, tab, with_recon, with_pyramids); pyr0,
     pyr1: the L0 and L1 references' pyramids.  Returns (finalize,
-    new_pyramids or None); finalize() -> (rbsp, recon | None, sse)."""
+    new_pyramids or None); finalize() -> (rbsp, recon | None, sse,
+    sse_exact)."""
     out = step(*_upload([frame], device), *pyr0, *pyr1)
 
     def finalize():
         td = _download(cfg, out, 1)[0]
         rbsp = assemble_slice(cfg, poc, tile_entropy(td), SliceType.B,
                               ref_pocs=ref_pocs, alf=td.alf)
-        return rbsp, td.recon, td.sse
+        return rbsp, td.recon, td.sse, td.sse_exact
 
     return finalize, out.get("pyramids")
 

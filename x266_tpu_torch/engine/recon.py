@@ -1,11 +1,16 @@
 """Pass B: the normative reconstruction scan (C6/C10/C11/C12, decode
 C18) -- the plain PyTorch version of kernels K1/K2.
 
-Counterpart of x266_tpu/engine/recon.py:180-541 (intra branches, no
+Counterpart of x266_tpu/engine/recon.py:125-541 (intra branches, no
 CCLM/MTT/LFNST/SDH/DQ): a loop over CTUs in raster order and 8x8 units
 in z-order; at each TU origin predict -> [transform -> quantize] ->
 dequantize -> inverse -> clip, written back into the padded plane that
-later TUs read their references from.  Planes start at mid-gray and are
+later TUs read their references from.  The intra tools: PDPC on luma
+TUs, MIP modes (a chroma TU of a MIP CU predicts planar), transform skip
+on luma TUs whose mts_map value is TS_IDX (coefficients = residual <<
+transform_shift, inverse (dequantized + round) >> transform_shift), and
+lossless coding (levels = source - prediction, recon = source; decode
+clip(prediction + levels)).  Planes start at mid-gray and are
 written in coding order, so a reference to a sample not yet coded reads
 mid-gray; with cfg.ref_substitute the decode-order availability masks
 (engine.availability) drive the substitution fill instead.
@@ -25,10 +30,11 @@ from x266_tpu_torch.engine import availability as avail
 
 from x266_tpu_torch.engine import recon_cuda
 from x266_tpu_torch.engine.availability import ref_masks
-from x266_tpu_torch.engine.mode_decision import PAD, _check_cfg
+from x266_tpu_torch.engine.mode_decision import PAD, TS_IDX, _check_cfg
 from x266_tpu_torch.kernels import intra as kintra
 from x266_tpu_torch.kernels import quant as kquant
 from x266_tpu_torch.kernels import transforms as ktx
+from x266_tpu_torch.specmodel.quant import transform_shift
 from x266_tpu_torch.tables import MTS_COMBOS, Tables
 
 
@@ -54,12 +60,14 @@ def _subst_tables(cfg: CodecConfig, device: torch.device):
 
 
 def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
-        mask, rdoq_lam):
-    """One intra TU: (recon (s, s), levels (s, s)) int32."""
+        mask, rdoq_lam, luma):
+    """One intra TU: (recon (s, s), levels (s, s)) int32.  PDPC blends
+    luma TUs only (its gates: the TU's plane x > 0 and y > 0)."""
     ref = _gather_ref(plane, x, y, s)
     if mask is not None:
         ref = kintra.substitute_refs(ref, mask, cfg.mid_val)
-    pred = kintra.predict_mode(tab, ref, mode, s)
+    pred = kintra.predict_mode(tab, ref, mode, s, pdpc=cfg.pdpc and luma,
+                               left_ok=x > 0, top_ok=y > 0)
     return residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx,
                          encode, rdoq_lam)
 
@@ -67,16 +75,31 @@ def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
 def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
                   rdoq_lam, skip=False):
     """A TU's residual around its prediction pred (s, s) int32: encode
-    transforms and quantizes the source minus pred (zero levels when
-    skip), decode reads the levels; both dequantize, inverse-transform
-    and clip.  Returns (recon (s, s), levels (s, s)) int32."""
-    tv, th = MTS_COMBOS[mts_idx]
+    transforms (or with mts_idx TS_IDX shifts) and quantizes the source
+    minus pred (zero levels when skip), decode reads the levels; both
+    dequantize, inverse-transform (or shift back) and clip.  Lossless:
+    the levels are the residual and the recon is the source (a skip CU:
+    zero levels and the clipped prediction).  Returns
+    (recon (s, s), levels (s, s)) int32."""
     bd, qp = cfg.bit_depth, cfg.qp
+    if cfg.lossless:
+        if encode and skip:
+            return (pred.clamp(0, cfg.max_val),
+                    torch.zeros((s, s), dtype=torch.int32, device=pred.device))
+        if encode:
+            orig = src[y + 1:y + 1 + s, x + 1:x + 1 + s]
+            return orig, orig - pred
+        lev = coef[y:y + s, x:x + s]
+        return (pred + lev).clamp(0, cfg.max_val), lev
+    ts = mts_idx == TS_IDX
+    tv, th = MTS_COMBOS[0 if ts else mts_idx]
+    tsh = transform_shift(s, bd)
     if encode and skip:
         lev = torch.zeros((s, s), dtype=torch.int32, device=pred.device)
     elif encode:
         res = src[y + 1:y + 1 + s, x + 1:x + 1 + s] - pred
-        c = ktx.forward_transform(tab, res[None], s, tv, th, bd)
+        c = (res[None] << tsh if ts
+             else ktx.forward_transform(tab, res[None], s, tv, th, bd))
         if rdoq_lam is not None:
             lev = kquant.rd_quantize(tab, c, qp, s, rdoq_lam, bd)[0]
         else:
@@ -84,7 +107,10 @@ def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
     else:
         lev = coef[y:y + s, x:x + s]
     d = kquant.dequantize(tab, lev[None], qp, s, bd)
-    rres = ktx.inverse_transform(tab, d, s, tv, th, bd)[0]
+    if ts:
+        rres = (d[0] + (1 << (tsh - 1))) >> tsh
+    else:
+        rres = ktx.inverse_transform(tab, d, s, tv, th, bd)[0]
     return (pred + rres).clamp(0, cfg.max_val), lev
 
 
@@ -129,13 +155,17 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
                 if ux & (u - 1) or uy & (u - 1):
                     continue
                 mode = int(mode_map[uy, ux])
-                mts_idx = int(mts_map[uy, ux]) & 7 if cfg.mts else 0
+                # chroma of a MIP CU predicts planar (the MIP matrices
+                # are luma-trained)
+                mode_c = 0 if mode >= cfg.n_intra_modes else mode
+                mts_idx = _transform_index(cfg, int(mts_map[uy, ux]))
                 x, y = ux * 8, uy * 8
                 xc, yc, cs = x // 2, y // 2, s // 2
                 mcp = inter.predict(ux, uy, s) if inter is not None else None
-                planes = ((yP, 0, x, y, s, mts_idx),
-                          (cbP, 1, xc, yc, cs, 0), (crP, 2, xc, yc, cs, 0))
-                for plane, k, px, py, ps, m in planes:
+                planes = ((yP, 0, x, y, s, mts_idx, mode),
+                          (cbP, 1, xc, yc, cs, 0, mode_c),
+                          (crP, 2, xc, yc, cs, 0, mode_c))
+                for plane, k, px, py, ps, m, pm in planes:
                     if mcp is not None:
                         rec, lev = residual_path(
                             tab, cfg, mcp[0][k], src[k], coefs[k], px, py,
@@ -145,8 +175,8 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
                         msk = (lm[ps][py // ps, px // ps]
                                if lm is not None else None)
                         rec, lev = _tu(tab, cfg, plane, src[k], coefs[k],
-                                       px, py, mode, ps, m, encode, msk,
-                                       rdoq_lam)
+                                       px, py, pm, ps, m, encode, msk,
+                                       rdoq_lam, k == 0)
                     plane[py + 1:py + 1 + ps, px + 1:px + 1 + ps] = rec
                     coefs[k][py:py + ps, px:px + ps] = lev
     out = (yP[1:1 + h, 1:1 + w].to(torch.uint8),
@@ -156,6 +186,16 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
     if inter is not None:
         out = out + inter.final_mvs()
     return out
+
+
+def _transform_index(cfg: CodecConfig, v: int) -> int:
+    """A luma TU's mts_map value -> its MTS_COMBOS index, or TS_IDX for
+    transform skip; the map is read when cfg.mts or
+    cfg.transform_skip, as in the reference's _fwd_mts/_inv_mts."""
+    v &= 7
+    if cfg.transform_skip and v == TS_IDX:
+        return TS_IDX
+    return min(v, len(MTS_COMBOS) - 1) if cfg.mts else 0
 
 
 def check_slice(cfg: CodecConfig) -> None:

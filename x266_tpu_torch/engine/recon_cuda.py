@@ -51,7 +51,8 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 def _check_tables(tab: Tables) -> None:
     for name, t in (("taps", tab.k_taps), ("smooth", tab.k_smooth),
-                    ("tx", tab.k_tx), ("shift", tab.k_shift)):
+                    ("tx", tab.k_tx), ("shift", tab.k_shift),
+                    ("mip", tab.k_mip)):
         check_tensor(t, name, torch.int32, t.shape)
     check_tensor(tab.rate, "rate", torch.float32, (32768,))
 
@@ -122,11 +123,13 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
         int(encode), f, w, h, py[1], pc[1], py[0] * py[1], pc[0] * pc[1],
         cfg.qp, float(np.float32(cfg.lambda_mode)),
         int(cfg.rdoq and encode), int(cfg.mts), int(cfg.ref_substitute),
-        cfg.n_pred_modes, *map(ptr, src), *map(ptr, cin),
+        cfg.n_pred_modes, int(cfg.lossless), int(cfg.transform_skip),
+        int(cfg.pdpc), *map(ptr, src), *map(ptr, cin),
         size_map.data_ptr(), mode_map.data_ptr(), mts_map.data_ptr(),
         *map(ptr, rec), *map(ptr, cout),
         tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
-        tab.k_shift.data_ptr(), tab.rate.data_ptr(), sync.data_ptr(), stream)
+        tab.k_shift.data_ptr(), tab.rate.data_ptr(), tab.k_mip.data_ptr(),
+        sync.data_ptr(), stream)
     return err, (*rec, *coef)
 
 

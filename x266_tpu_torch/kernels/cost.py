@@ -12,10 +12,14 @@ exactly as the reference does:
   (``xla_cpu_sum``).
 - ``row_vector_sum`` is XLA CPU's order for a reduction that it fuses
   into a loop (B Pass A's transform-domain error sums, ROADMAP F10).
+- ``plane_sse_f32`` is the reference's float32 SSE of a whole picture
+  plane (x266_tpu/engine/fused.py:483-486) in XLA CPU's order, reported
+  beside the exact int64 sum (ROADMAP F4).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from x266_tpu_torch.tables import Tables
@@ -25,6 +29,15 @@ def sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Sum of squared integer differences over the trailing 2 dims."""
     d = a.to(torch.int64) - b.to(torch.int64)
     return (d * d).sum((-2, -1)).to(torch.float32)
+
+
+# XLA CPU rewrites a reduction longer than 32 along a dimension into a
+# tree: 32x32 windows, each summed in raster order, over the plane padded
+# with zeros to whole windows (the pad split evenly, the odd element at
+# the end), until both dimensions are at most 32 (read from its optimized
+# HLO and LLVM IR; tests/test_torch_kernels_fn.py holds it to live XLA
+# from 64x64 to 3840x2160).
+_TREE_WINDOW = 32
 
 
 def _fold(t: torch.Tensor) -> torch.Tensor:
@@ -86,3 +99,113 @@ def rate_estimate_levels(tab: Tables, levels: torch.Tensor) -> torch.Tensor:
     """Surrogate coded bits of quantized levels over the trailing 2 dims:
     3 + 2*log2(|l|+1) per nonzero level, 1/16 per zero."""
     return xla_cpu_sum(tab.rate[levels.abs().long()])
+
+
+def rate_nested(tab: Tables, levels: torch.Tensor) -> torch.Tensor:
+    """rate_estimate_levels where XLA nests the sum in the loop fusion of
+    the candidates' argmin -- intra Pass A's and the transform select's
+    costs (x266_tpu/engine/mode_decision.py:198-205, 495-508): added in
+    row_vector_sum's order at every size.  Transposed residuals (modes
+    17 and 51 of a symmetric block) tie in the standalone order and not
+    in this one."""
+    return row_vector_sum(tab.rate[levels.abs().long()])
+
+
+def rd_cost(sse: torch.Tensor, lam: float, bits: torch.Tensor) -> torch.Tensor:
+    """float32 D + lam * R as XLA CPU emits it in those argmin fusions:
+    one fused multiply-add, rounded once.  Here the product and the sum
+    in float64, exact (lam * bits has at most 48 significant bits, the
+    integer SSE at most 24, within 53 of each other while the SSE stays
+    below 2^25), then rounded to float32 once."""
+    lam64 = float(np.float32(lam))
+    return (sse.to(torch.float64) + lam64 * bits.to(torch.float64)).to(
+        torch.float32)
+
+
+def window_then_sum(v: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the trailing (s, s) dims in XLA CPU's order for
+    Pass A's lossless rate (x266_tpu/engine/mode_decision.py:191-193),
+    where XLA flattens the block: runs of 32 consecutive samples (raster
+    order) are each added in order from 0, then the run sums are added
+    in order from 0 (its reduce-window tree and the loop fusion of the
+    cost, read from the optimized HLO and LLVM IR)."""
+    flat = v.reshape(*v.shape[:-2], -1)
+    n = flat.shape[-1]
+    runs = flat.reshape(*flat.shape[:-1], -1, min(n, _TREE_WINDOW))
+    acc = torch.zeros(runs.shape[:-1], dtype=torch.float32, device=v.device)
+    for k in range(runs.shape[-1]):
+        acc = acc + runs[..., k]
+    tot = torch.zeros(acc.shape[:-1], dtype=torch.float32, device=v.device)
+    for k in range(acc.shape[-1]):
+        tot = tot + acc[..., k]
+    return tot
+
+
+def rate_estimate_residual(tab: Tables, res: torch.Tensor) -> torch.Tensor:
+    """rate_estimate_levels of a lossless residual (the residual is
+    coded as levels), summed in window_then_sum's order."""
+    return window_then_sum(tab.rate[res.abs().long()])
+
+
+def _window_sums(v: torch.Tensor) -> torch.Tensor:
+    """One level of the tree: (N, H, W) float32 -> (N, ceil(H/32),
+    ceil(W/32)) window sums, each window added in raster order from 0; a
+    dimension of at most 32 is one window."""
+    n, h, w = v.shape
+
+    def geom(d):
+        if d <= _TREE_WINDOW:
+            return d, 0, 1
+        m = -(-d // _TREE_WINDOW)
+        return _TREE_WINDOW, (m * _TREE_WINDOW - d) // 2, m
+
+    wh, ph, nh = geom(h)
+    ww, pw, nw = geom(w)
+    v = torch.nn.functional.pad(v, (pw, nw * ww - w - pw,
+                                    ph, nh * wh - h - ph))
+    blocks = v.reshape(n, nh, wh, nw, ww).permute(0, 1, 3, 2, 4).reshape(
+        n, nh, nw, wh * ww)
+    acc = torch.zeros((n, nh, nw), dtype=torch.float32, device=v.device)
+    for k in range(wh * ww):
+        acc = acc + blocks[..., k]
+    return acc
+
+
+def _final_sum(v: torch.Tensor) -> torch.Tensor:
+    """(N, a, b) float32, a, b <= 32 -> (N,): the last reduction, which
+    XLA CPU fuses into the loop that stacks the three planes' sums.  LLVM
+    vectorizes it across rows when there are 2 or 4 of them (each lane
+    adds its row in order, then the lanes fold in halves); otherwise the
+    elements are added in raster order."""
+    n, a, b = v.shape
+    if a in (2, 4):
+        rows = torch.zeros((n, a), dtype=torch.float32, device=v.device)
+        for j in range(b):
+            rows = rows + v[..., j]
+        return _fold(rows)
+    flat = v.reshape(n, a * b)
+    acc = torch.zeros((n,), dtype=torch.float32, device=v.device)
+    for k in range(a * b):
+        acc = acc + flat[:, k]
+    return acc
+
+
+def plane_sse_f32(rec: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) uint8 planes -> (N,) float32 SSE in the reference's
+    order: kernel SSE (kernels/sse_cuda.py) for CUDA tensors,
+    plane_sse_f32_plain for CPU ones."""
+    if orig.device.type == "cuda":
+        from x266_tpu_torch.kernels import sse_cuda
+        return sse_cuda.plane_sse(rec, orig)
+    return plane_sse_f32_plain(rec, orig)
+
+
+def plane_sse_f32_plain(rec: torch.Tensor,
+                        orig: torch.Tensor) -> torch.Tensor:
+    """plane_sse_f32 in torch ops: the squares in float32, then XLA
+    CPU's reduction tree (one op per element of a window)."""
+    d = (rec.to(torch.int32) - orig.to(torch.int32)).to(torch.float32)
+    v = d * d
+    while max(v.shape[1:]) > _TREE_WINDOW:
+        v = _window_sums(v)
+    return _final_sum(v)
