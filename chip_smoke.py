@@ -65,6 +65,21 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
  9. [golden-filters] decode the fixtures lowdelay_p_filters (deblock,
     SAO) and ra_alf (random access, nonlinear ALF, CC-ALF, signalled
     reference lists) to their manifest MD5s;
+    [kernels-p-tools], [kernels-b-tools] K3-P and K3-B, encode and
+    decode, against the plain scan, bit for bit, with each intra tool on
+    (lossless with a forced skip CU, transform skip written on the intra
+    CUs, PDPC, MIP) at 416x240 on a 'motion' picture against noisy
+    references, then lossless_p's and tools_ra's configurations at
+    1080p, timed; each tool's CUs are counted and a tool with none
+    fails;
+    [main-p-lossless] lossless low-delay P at 1080p (config 3 with
+    lossless, frames 0-3 of 'motion') as [main], against
+    data/lossless_p_1080p_ref.json, decoding to its input;
+    [main-ra-tools] config 4 at 1080p with MTS, PDPC, MIP and transform
+    skip, 17 frames of 'motion', against data/tools_ra_1080p_ref.json
+    (stream, slice NALs, recon, PSNR-Y and SSE), with the counts of MIP
+    and PDPC-class CUs on its P and B pictures (none fails) and the
+    launch counts;
 10. [main-ra-ref] random access with deblock, SAO and ALF at 416x240,
     17 frames (IDR, P, 15 B): without ALF byte-identical, NAL for NAL
     and recon for recon, to the JAX reference
@@ -75,13 +90,16 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     PSNR differences printed; each JAX stream decodes to JAX's MD5s;
     each encode prints its count of B Pass-A blocks whose float32 error
     sum passes 2^24, where only XLA's order of addition gives the
-    reference's sum (F10, which the port follows);
+    reference's sum (F10, which the port follows); lossless random
+    access at 416x240 without loop filters against
+    data/lossless_ra_416x240_ref.json, decoding to its input;
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
     (normal equations and CTB decisions three per picture each), the
     F10 count, each kernel's launches in this run (launches_cfg4),
-    bits/frame, PSNR-Y, one warm encode's frame rate.
+    bits/frame, PSNR-Y, one warm encode's frame rate; the stream, slice
+    NALs, recon, PSNR-Y and SSE equal to data/cfg4_4k_ref.json.
 The third line from the end is a JSON object with each kernel's
 launches on its main path, its error and its times (CUDA events at the
 main path's shapes, against the plain version's on the same inputs and
@@ -813,6 +831,186 @@ def phase_kernels_b(stats):
         compare_b_kernels(cfg, 21, stats, record)
 
 
+# the intra tools on P and B pictures ([kernels-p-tools], [kernels-b-tools])
+def inter_tools():
+    from x266_tpu_torch.config import Profile
+
+    return {"lossless": dict(lossless=True, rdoq=False),
+            "ts": dict(transform_skip=True, rdoq=True),
+            "pdpc": dict(profile=Profile.VVC, pdpc=True),
+            "mip": dict(profile=Profile.VVC, mip=True)}
+
+
+def tools_ra_cfg(w=1920, h=1080):
+    """The tools_ra clip's configuration: config 4 with VVC's intra tools
+    (with MTS: the reference codes transform skip on P and B pictures
+    only beside it)."""
+    from x266_tpu_torch.config import Profile
+
+    return cfg4(w, h).replace(profile=Profile.VVC, mts=True, pdpc=True,
+                              mip=True, transform_skip=True)
+
+
+def lossless_p_cfg(w=1920, h=1080):
+    from x266_tpu_torch.config import preset_cfg3
+
+    return preset_cfg3(w, h).replace(lossless=True, rdoq=False)
+
+
+def lossless_ra_cfg(w=416, h=240):
+    """Random access, lossless, without loop filters (a lossless user
+    runs none)."""
+    return cfg4(w, h).replace(lossless=True, rdoq=False, deblock=False,
+                              sao=False, sao_chroma=False, alf=False,
+                              alf_chroma=False)
+
+
+def inter_tool_counts(cfg, maps, mts) -> dict:
+    """CUs of a P or B picture that take the intra tools' branches in K3:
+    lossless inter and skip CUs, MIP and PDPC-class (planar, DC, pure H,
+    pure V) intra CUs, transform-skip intra TUs."""
+    sm, mm, pm, tm = (m[0].cpu().numpy() for m in (*maps[:3], mts))
+    uy, ux = np.mgrid[0:sm.shape[0], 0:sm.shape[1]]
+    u = sm // 8
+    o = ((ux % u) == 0) & ((uy % u) == 0)
+    intra = o & (pm == 0)
+    return {"lossless_inter": int((o & (pm > 0)).sum()) if cfg.lossless
+            else 0,
+            "lossless_skip": int((o & (pm == 2)).sum()) if cfg.lossless
+            else 0,
+            "mip": int((intra & (mm >= cfg.n_intra_modes)).sum())
+            if cfg.mip else 0,
+            "pdpc": int((intra & np.isin(mm, (0, 1, 18, 50))).sum())
+            if cfg.pdpc else 0,
+            "ts": int((intra & ((tm & 7) == 5)).sum())
+            if cfg.transform_skip else 0}
+
+
+def compare_inter_tool_kernels(tag, cfg, b, stats, seed, force=None,
+                               record=None):
+    """K3-P (b False) or K3-B, encode and decode, against the plain scan
+    on one 'motion' picture whose references are b_references with
+    +-40 noise (so intra CUs, MIP and PDPC-class ones among them, sit
+    beside inter ones), on the port's own Pass-A maps; bit-exact or
+    raise, and each tool the config enables must have CUs.  force:
+    "skip" turns one coded 16x16 inter CU into a skip CU (lossless Pass
+    A never picks skip), "ts" writes transform skip (map value 5) on the
+    intra CUs (a P or B picture's map is 0).  record: a name under which
+    the times and bounds go to stats[k]["tools"]."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import fused, inter, recon_cuda
+
+    tab = tables.from_reference(cfg, "cuda")
+    planes = _upload(synthetic_clip(cfg.width, cfg.height, 1, "motion",
+                                    seed=seed))
+    p0, p1 = b_references(planes, amp=40)
+    src = fused._unpack_padded(cfg, *planes)
+    if b:
+        maps = inter.make_mode_decision_b_raw(cfg, tab)(src[0][0], p0[0],
+                                                       p1[0])
+    else:
+        maps = inter.make_mode_decision_p_raw(cfg, tab)(src[0][0], p0[0])
+    maps = [m[None].contiguous() for m in maps]
+    mts = torch.zeros_like(maps[0])
+    if force == "skip":
+        sel = ((maps[2] > 0) & (maps[0] == 16)).nonzero()
+        _, uy, ux = (int(v) & ~1 for v in sel[0])
+        maps[2][0, uy:uy + 2, ux:ux + 2] = inter.PRED_SKIP
+    elif force == "ts":
+        mts = torch.where(maps[2] == inter.PRED_INTRA, 5, mts)
+    counts = inter_tool_counts(cfg, maps, mts)
+    args = (maps[0], maps[1], mts, *maps[2:5], *p0)
+    if b:
+        args += (*p1, maps[5], maps[6])
+    k, kd = ("K3B", "K3Bd") if b else ("K3", "K3d")
+    got = recon_cuda.recon_inter(cfg, tab, True, *src, *args)
+    ref, p_ms = timed(inter.make_recon_inter_raw(cfg, tab, True, b), *src,
+                      *args)
+    names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
+             "mvx_fin", "mvy_fin"]
+    err = _max_err(got, ref)
+    _require_equal(k, tag, names, got, ref)
+    dargs = (*args[:4], got[6].int(), got[7].int(), *args[6:])
+    dec = recon_cuda.recon_inter(cfg, tab, False, *got[3:6], *dargs)
+    pdec, pd_ms = timed(inter.make_recon_inter_raw(cfg, tab, False, b),
+                        *got[3:6], *dargs)
+    errd = max(_max_err(dec, pdec), _max_err(dec[:3], got[:3]))
+    _require_equal(kd, tag, names, dec, pdec)
+    _require_equal(kd, tag, names[:3], dec[:3], got[:3])
+    if cfg.lossless:
+        unit = (maps[2][0] == inter.PRED_SKIP).repeat_interleave(
+            8, 0).repeat_interleave(8, 1)
+        y = planes[0][0]
+        if not torch.equal(got[0][0][~unit], y[~unit]):
+            raise AssertionError(f"{k} {tag}: lossless recon differs from "
+                                 "the source outside skip CUs")
+    phase = "kernels-b-tools" if b else "kernels-p-tools"
+    want = {"lossless": ("lossless_inter",), "mip": ("mip",),
+            "pdpc": ("pdpc",), "transform_skip": ("ts",)}
+    for flag, keys in want.items():
+        if getattr(cfg, flag) and (flag != "transform_skip" or force):
+            if not all(counts[key] for key in keys):
+                raise AssertionError(f"[{phase}] {tag}: {flag} is on but "
+                                     f"no CU takes its branch ({counts})")
+    if force == "skip" and counts["lossless_skip"] == 0:
+        raise AssertionError(f"[{phase}] {tag}: no lossless skip CU")
+    k_ms = event_ms(recon_cuda.recon_inter, cfg, tab, True, *src, *args)
+    kd_ms = event_ms(recon_cuda.recon_inter, cfg, tab, False, *got[3:6],
+                     *dargs)
+    kinds = np.bincount(maps[2].cpu().numpy().ravel(), minlength=5)
+    log(f"[{phase}] {tag}: units by kind {kinds.tolist()}; tool CUs "
+        f"{counts}; {k} {k_ms:.3f} ms (plain {p_ms:.0f} ms) err {err}; "
+        f"{kd} {kd_ms:.3f} ms (plain {pd_ms:.0f} ms) err {errd}")
+    _record(stats, k, err)
+    _record(stats, kd, errd)
+    if record is None:
+        return
+    hm = [m.cpu().numpy() for m in (*maps[:3], mts)]
+    tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift, tab.k_mip)
+    if b:
+        reads = (read_union(p0, [(maps[0], maps[2], got[6], got[7],
+                                  (1, 2, 4))])
+                 + read_union(p1, [(maps[0], maps[2], got[6], got[7], (3,)),
+                                   (maps[0], maps[2], maps[5], maps[6],
+                                    (4,))]))
+        extra = (maps[5], maps[6])
+    else:
+        reads = k3_read_bytes(p0, maps[0], maps[2], got[6], got[7])
+        extra = ()
+    be = bound(nbytes(*src, *args[:6], *extra, *got, *tabs, tab.rate)
+               + reads, recon_ops(hm[0], True, hm[2], hm[1], hm[3], cfg))
+    bd = bound(nbytes(*dargs[:6], *extra, *got[3:6], *dec[:3], *tabs)
+               + reads, recon_ops(hm[0], False, hm[2], hm[1], hm[3], cfg))
+    log(f"[{phase}] {tag}: bounds {k} {be[0]:.4f} ms ({be[1]}), {kd} "
+        f"{bd[0]:.4f} ms ({bd[1]})")
+    shape = f"{cfg.width}x{cfg.height}"
+    for key, ms, pms, bb in ((k, k_ms, p_ms, be), (kd, kd_ms, pd_ms, bd)):
+        stats[key].setdefault("tools", {})[record] = {
+            "ms": ms, "plain_ms": pms, "bound_ms": bb[0],
+            "bound_by": bb[1], "shape": shape, "tool_cus": counts}
+
+
+def phase_kernels_inter_tools(stats):
+    """K3-P and K3-B with each intra tool at 416x240 (lossless with a
+    forced skip CU, transform skip written on the intra CUs), then at
+    the slice's 1080p shapes: K3-P under lossless_p's configuration and
+    K3-B under tools_ra's, timed for the kernels line."""
+    from x266_tpu_torch.config import CodecConfig
+
+    for b in (False, True):
+        for tool, kw in inter_tools().items():
+            cfg = CodecConfig(width=416, height=240, qp=30, intra_period=8,
+                              gop_size=4 if b else 1, **kw)
+            force = {"lossless": "skip", "ts": "ts"}.get(tool)
+            compare_inter_tool_kernels(f"{tool} 416x240", cfg, b, stats, 9,
+                                       force)
+    compare_inter_tool_kernels("lossless_p 1080p", lossless_p_cfg(), False,
+                               stats, 9, record="lossless_p 1080p")
+    compare_inter_tool_kernels("tools_ra 1080p", tools_ra_cfg(), True,
+                               stats, 9, record="tools_ra 1080p")
+
+
 def _encoder_planes(w, h):
     """The (orig, recon, lam) luma and chroma planes the encoder's ALF
     estimators get for the IDR of config 4's clip at w x h (its post-SAO
@@ -1023,9 +1221,17 @@ def phase_golden_filters():
                                  "manifest")
 
 
-def phase_main_ra_ref():
-    """Config 4 at 416x240, 17 frames, without and with ALF, against the
-    recorded JAX references; each JAX stream decodes to JAX's MD5s."""
+def run_ra_ref(tag, name, file, cfg, kind, stats=None, kernels=(),
+               card=None, need=()):
+    """17 frames of the clip under a random-access cfg through Encoder
+    and Decoder, held against the recorded JAX reference data/file: the
+    whole stream, each slice NAL (coding order) and recon byte-identical,
+    PSNR-Y and the float32 SSE equal (where the file records the SSE);
+    the JAX stream decodes to JAX's MD5s; lossless decodes to its input.
+    kernels: each must have launched in this encode and decode, and its
+    count goes to stats[k]["launches_tools"][tag]; card: one warm
+    encode's frame rate is printed too; need: (picture type, tool) pairs
+    whose count of CUs (ToolCuTally) must not be 0."""
     import base64
 
     from x266_tpu_torch.api import Decoder, Encoder
@@ -1033,47 +1239,119 @@ def phase_main_ra_ref():
     from x266_tpu_torch.core.yuv import synthetic_clip
     from x266_tpu_torch.engine import inter
 
+    w, h = cfg.width, cfg.height
+    frames = synthetic_clip(w, h, 17, kind)
+    enc, dec = Encoder(cfg), Decoder()
+    inter.F10_BLOCKS.clear()
+    _reset_launches()
+    with ToolCuTally(cfg) as cus:
+        res, t_enc = timed(enc.encode, frames)
+    (_, decoded), t_dec = timed(dec.decode, res.bitstream)
+    launches = _launches()
+    md5 = hashlib.md5(res.bitstream).hexdigest()
+    rec = [frame_md5(r) for r in res.recon]
+    if [frame_md5(d) for d in decoded] != rec:
+        raise AssertionError(f"[{tag}] {name}: decoded pictures differ "
+                             "from the encoder's recon")
+    if cfg.lossless:
+        if rec != [frame_md5(f) for f in frames]:
+            raise AssertionError(f"[{tag}] {name}: lossless pictures "
+                                 "decode to other samples than the input")
+        log(f"[{tag}] {name} lossless: every decoded picture equals the "
+            "input")
+    log(f"[{tag}] {name}: encode {t_enc / 1e3:.2f} s, decode "
+        f"{t_dec / 1e3:.2f} s; stream md5 {md5}; bits {res.frame_bits}; "
+        f"{f10_line()}; tool CUs of the P and B pictures {cus}")
+    for pic, key in need:
+        if not cus[pic].get(key):
+            raise AssertionError(f"[{tag}] {name}: no {key} CU on the {pic} "
+                                 "pictures")
+    with open(os.path.join(DATA, file)) as f:
+        ref = json.load(f)
+    _, jdec = dec.decode(base64.b64decode(ref["stream_b64"]))
+    if [frame_md5(d) for d in jdec] != [
+            r["decode_md5"] for r in ref["frames"]]:
+        raise AssertionError(f"[{tag}] {file}: the JAX stream does not "
+                             "decode to JAX's MD5s")
+    psnr = res.psnr_y(w, h)
+    sse = [[float(v) for v in e] for e in res.sse]
+    same = (md5 == ref["stream_md5"]
+            and _slice_md5s(res.bitstream) == ref["nal_md5_coding_order"]
+            and rec == [r["recon_md5"] for r in ref["frames"]])
+    equal = all(p == r["psnr_y"] and e == r.get("sse", e)
+                for p, e, r in zip(psnr, sse, ref["frames"]))
+    dbits = [100.0 * (b - r["bits"]) / r["bits"]
+             for b, r in zip(res.frame_bits, ref["frames"])]
+    log(f"[{tag}] {name} vs {file} ({ref['source']}): byte-identical "
+        f"{same}; PSNR-Y and SSE equal {equal} (SSE "
+        f"{'recorded' if 'sse' in ref['frames'][0] else 'not recorded'}); "
+        f"per frame bits % {[round(d, 3) for d in dbits]}; the JAX stream "
+        "decodes to JAX's md5s")
+    if not (same and equal):
+        raise AssertionError(f"[{tag}] {name} differs from {file}")
+    for k in kernels:
+        if launches[k] < 1:
+            raise AssertionError(f"[{tag}] {k} was not launched")
+        stats[k].setdefault("launches_tools", {})[tag] = launches[k]
+    if kernels:
+        log(f"[{tag}] launches {launches}")
+    if card is not None:
+        _, t_warm = timed(enc.encode, frames)
+        log(f"[{tag}] warm encode of 17 {w}x{h} frames: "
+            f"{t_warm / 1e3:.3f} s = {17 / (t_warm / 1e3):.3f} fps on "
+            f"{card}")
+
+
+class ToolCuTally:
+    """Within the block, count the CUs of the encoder's P and B pictures
+    that take the intra tools' branches (inter_tool_counts), from each
+    picture's maps as the entropy coder gets them."""
+
+    def __init__(self, cfg):
+        self.cfg, self.counts = cfg, {"P": {}, "B": {}}
+
+    def __enter__(self):
+        from x266_tpu_torch.engine import picture
+
+        self.orig = picture.tile_entropy
+
+        def counted(td):
+            if td.inter_maps is not None:
+                pic = "B" if len(td.inter_maps) == 5 else "P"
+                maps = [torch.from_numpy(np.ascontiguousarray(m))[None]
+                        for m in (td.size_map, td.mode_map,
+                                  td.inter_maps[0], td.mts_map)]
+                for k, v in inter_tool_counts(self.cfg, maps[:3],
+                                              maps[3]).items():
+                    self.counts[pic][k] = self.counts[pic].get(k, 0) + v
+            return self.orig(td)
+
+        picture.tile_entropy = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        from x266_tpu_torch.engine import picture
+
+        picture.tile_entropy = self.orig
+
+
+def phase_main_ra_ref(stats):
+    """Config 4 at 416x240 (with and without ALF) and at 1080p (without),
+    and lossless random access at 416x240, against the recorded JAX
+    references."""
     noalf = dict(alf=False, alf_chroma=False)
-    for name, refs, (w, h), tools in (
-            ("cfg4noalf", ("cfg4noalf_416x240",), (416, 240), noalf),
-            ("cfg4noalf 1080p", ("cfg4noalf_1080p",), (1920, 1080), noalf),
-            ("cfg4", ("cfg4_416x240",), (416, 240), {})):
-        frames = synthetic_clip(w, h, 17, "mixed")
-        inter.F10_BLOCKS.clear()
-        res, t_enc = timed(Encoder(cfg4(w, h).replace(**tools)).encode,
-                           frames)
-        md5 = hashlib.md5(res.bitstream).hexdigest()
-        rec = [frame_md5(r) for r in res.recon]
-        _, dec = Decoder().decode(res.bitstream)
-        if [frame_md5(d) for d in dec] != rec:
-            raise AssertionError(f"[main-ra-ref] {name}: decoded pictures "
-                                 "differ from the encoder's recon")
-        log(f"[main-ra-ref] {name}: encode {t_enc / 1e3:.2f} s; stream md5 "
-            f"{md5}; bits {res.frame_bits}; {f10_line()}")
-        for file in refs:
-            with open(os.path.join(DATA, f"{file}_ref.json")) as f:
-                ref = json.load(f)
-            _, jdec = Decoder().decode(base64.b64decode(ref["stream_b64"]))
-            if [frame_md5(d) for d in jdec] != [
-                    r["decode_md5"] for r in ref["frames"]]:
-                raise AssertionError(f"[main-ra-ref] {file}: the JAX stream "
-                                     "does not decode to JAX's MD5s")
-            same = (md5 == ref["stream_md5"]
-                    and _slice_md5s(res.bitstream) == ref[
-                        "nal_md5_coding_order"]
-                    and rec == [r["recon_md5"] for r in ref["frames"]])
-            dbits = [100.0 * (b - r["bits"]) / r["bits"]
-                     for b, r in zip(res.frame_bits, ref["frames"])]
-            dpsnr = [p - r["psnr_y"]
-                     for p, r in zip(res.psnr_y(w, h), ref["frames"])]
-            log(f"[main-ra-ref] {name} vs {file} ({ref['source']}): "
-                f"byte-identical {same}; per frame bits % "
-                f"{[round(d, 3) for d in dbits]}, PSNR-Y dB "
-                f"{[round(d, 4) for d in dpsnr]}; the JAX stream decodes to "
-                "JAX's md5s")
-            if not same:
-                raise AssertionError(f"[main-ra-ref] {name} differs from "
-                                     f"{file}")
+    for name, file, cfg in (
+            ("cfg4noalf", "cfg4noalf_416x240_ref.json",
+             cfg4(416, 240).replace(**noalf)),
+            ("cfg4noalf 1080p", "cfg4noalf_1080p_ref.json",
+             cfg4(1920, 1080).replace(**noalf)),
+            ("cfg4", "cfg4_416x240_ref.json", cfg4(416, 240))):
+        run_ra_ref("main-ra-ref", name, file, cfg, "mixed")
+    # lossless B candidates and K3-B's lossless branch on the card
+    run_ra_ref("main-ra-ref", "lossless_ra", "lossless_ra_416x240_ref.json",
+               lossless_ra_cfg(), "mixed", stats,
+               ("K1", "K2", "K3", "K3d", "K3B", "K3Bd", "K4", "K5"),
+               need=(("B", "lossless_inter"),))
 
 
 def run_main_ra(stats, card):
@@ -1110,6 +1388,7 @@ def run_main_ra(stats, card):
     log(f"[main-ra] bits/frame {res.frame_bits} (stream "
         f"{res.total_bits / n:.0f} bits/frame, as bench.py counts); PSNR-Y "
         f"{[round(p, 4) for p in psnrs]} (mean {np.mean(psnrs):.4f} dB)")
+    check_4k_reference(res, psnrs)
     for k, want in (("K3B", 15), ("K3Bd", 15), ("ALF", 3 * n),
                     ("ALFSSE", 3 * n)):
         if launches[k] != want:
@@ -1122,6 +1401,45 @@ def run_main_ra(stats, card):
     _, t_warm = timed(enc.encode, frames)
     log(f"[main-ra] warm encode of {n} {w}x{h} frames: {t_warm / 1e3:.3f} "
         f"s = {n / (t_warm / 1e3):.3f} fps on {card}")
+
+
+def check_4k_reference(res, psnrs):
+    """[main-ra]'s stream against the JAX reference recorded for it,
+    data/cfg4_4k_ref.json: every slice NAL in coding order, the stream,
+    each recon, PSNR-Y and float32 SSE equal; where only the pictures a
+    cut recording reached exist (cfg4_4k_ref.partial.json), their slice
+    NALs."""
+    from x266_tpu_torch.core.hashing import frame_md5
+
+    nal = _slice_md5s(res.bitstream)
+    path = os.path.join(DATA, "cfg4_4k_ref.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            ref = json.load(f)
+        fr = ref["frames"]
+        same = (nal == ref["nal_md5_coding_order"]
+                and hashlib.md5(res.bitstream).hexdigest()
+                == ref["stream_md5"]
+                and [frame_md5(r) for r in res.recon]
+                == [r["recon_md5"] for r in fr])
+        equal = all(p == r["psnr_y"] and [float(v) for v in e] == r["sse"]
+                    for p, e, r in zip(psnrs, res.sse, fr))
+        log(f"[main-ra] vs cfg4_4k_ref.json ({ref['source']}, "
+            f"{ref['seconds']:.0f} s on its CPU): {len(nal)} slice NALs, "
+            f"stream and recon byte-identical {same}; PSNR-Y and SSE equal "
+            f"{equal}")
+        if not (same and equal):
+            raise AssertionError("[main-ra] the 4K stream differs from "
+                                 "data/cfg4_4k_ref.json")
+        return
+    with open(path.replace(".json", ".partial.json")) as f:
+        done = json.load(f)["slice_nals_coding_order"]
+    same = nal[:len(done)] == [d["nal_md5"] for d in done]
+    log(f"[main-ra] vs cfg4_4k_ref.partial.json: the {len(done)} slice "
+        f"NALs the recording reached byte-identical {same}")
+    if not same:
+        raise AssertionError("[main-ra] the 4K stream differs from the "
+                             "recorded pictures")
 
 
 def f10_line() -> str:
@@ -1317,7 +1635,16 @@ def main() -> int:
     phase_kernels_b(stats)
     phase_kernels_alf(stats)
     phase_golden_filters()
-    phase_main_ra_ref()
+    phase_kernels_inter_tools(stats)
+    run_main("main-p-lossless", lossless_p_cfg(), "motion",
+             "lossless_p_1080p_ref.json", ("K1", "K2", "K3", "K3d", "K4",
+                                           "K5"), stats, card, tools=True)
+    run_ra_ref("main-ra-tools", "tools_ra", "tools_ra_1080p_ref.json",
+               tools_ra_cfg(), "motion", stats,
+               ("K1", "K2", "K3", "K3d", "K3B", "K3Bd", "K4", "K5", "ALF",
+                "ALFSSE", "SSE"), card,
+               need=(("B", "mip"), ("B", "pdpc")))
+    phase_main_ra_ref(stats)
     run_main_ra(stats, card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": [

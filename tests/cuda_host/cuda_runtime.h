@@ -1,17 +1,18 @@
 // Host stand-in for the CUDA runtime, for compiling the port's kernel
 // sources with g++ on a machine without a GPU (tests only).
 //
-// A launch runs each thread block as blockDim.x std::threads that meet at
-// a std::barrier for __syncthreads().  X266_HOST_BLOCKS (an environment
-// variable, default 1) blocks run at once, so a kernel whose blocks wait
-// on each other (the recon kernels' row wavefront) runs its tickets,
-// progress waits and fences concurrently under g++; the threads of one
-// slot run its blocks one after another.  Shared memory (X266_SHARED,
-// X266_DYNAMIC_SHARED) is a per-block arena.  Warp shuffles and ballots
-// meet at a barrier of the warp's threads.
-// Float intrinsics round as their CUDA namesakes do (build with
-// -ffp-contract=off).  This checks a kernel's logic and arithmetic; it
-// says nothing about speed or occupancy.
+// A launch runs each thread block as blockDim.x fibers (ucontext) on one
+// OS thread; __syncthreads() and the warp primitives are barriers between
+// the fibers, so a fiber that reaches one hands the thread to the next
+// fiber that can run, and the last to arrive releases the others.
+// X266_HOST_BLOCKS (an environment variable, default 1) slots, each an OS
+// thread, run blocks at once, so a kernel whose blocks wait on each other
+// (the recon kernels' row wavefront) runs its tickets, progress waits and
+// fences concurrently under g++; a slot runs its blocks one after
+// another.  Shared memory (X266_SHARED, X266_DYNAMIC_SHARED) is a
+// per-block arena.  Float intrinsics round as their CUDA namesakes do
+// (build with -ffp-contract=off).  This checks a kernel's logic and
+// arithmetic; it says nothing about speed or occupancy.
 //
 // X266_ASSERT(cond), a no-op in the card build, records a failed check
 // here (an out-of-range read, say); the launch then returns an error.
@@ -20,9 +21,10 @@
 
 #include <math.h>
 
+#include <ucontext.h>
+
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -49,7 +51,20 @@ inline thread_local dim3 threadIdx{0, 0, 0};
 inline thread_local dim3 blockIdx{0, 0, 0};
 inline thread_local dim3 blockDim{1, 1, 1};
 inline thread_local dim3 gridDim{1, 1, 1};
-inline thread_local std::barrier<>* host_block_barrier = nullptr;
+
+// A slot's fibers and their scheduler.  A barrier counts arrivals; a
+// fiber that arrives before the last waits on it, and the scheduler
+// resumes the next fiber in round-robin order that is not waiting.
+struct HostBarrier {
+  unsigned expected, arrived = 0, generation = 0;
+};
+struct HostFiber;
+struct HostSlot {
+  std::vector<HostFiber>* fibers;
+  unsigned current;
+  ucontext_t main;
+};
+inline thread_local HostSlot* host_slot = nullptr;
 
 // The block's shared-memory arena: static variables first, in the order
 // each thread declares them, then the dynamic array.
@@ -82,27 +97,79 @@ inline std::atomic<bool> host_check_failed{false};
     if (!(cond)) host_check_failed = true;         \
   } while (0)
 
-inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
-
 // Warp primitives (whole warps only: every lane of the warp calls them, as
 // the kernels here do): the lanes meet at their warp's barrier around an
 // exchange of 8-byte slots.
 struct HostWarp {
-  std::barrier<>* bar;
+  HostBarrier* bar;
   unsigned long long* slot;   // [32]
   unsigned size;              // lanes in this warp
 };
 inline thread_local HostWarp host_warp{nullptr, nullptr, 0};
 
+struct HostFiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  dim3 tid;
+  HostWarp warp;
+  size_t cursor;                // its X266_SHARED declarations so far
+  HostBarrier* waiting = nullptr;
+  unsigned generation = 0;
+  bool done = false;
+};
+inline thread_local HostBarrier* host_block_barrier = nullptr;
+
+// Switch from the current fiber to the next one that can run (round
+// robin), saving and restoring the per-thread state.
+inline void host_switch() {
+  HostSlot& sl = *host_slot;
+  std::vector<HostFiber>& fs = *sl.fibers;
+  HostFiber& me = fs[sl.current];
+  me.cursor = host_block_cursor;
+  unsigned n = (unsigned)fs.size(), next = sl.current;
+  for (unsigned k = 1; k <= n; ++k) {
+    HostFiber& f = fs[(sl.current + k) % n];
+    if (!f.done && (f.waiting == nullptr ||
+                    f.waiting->generation != f.generation)) {
+      next = (sl.current + k) % n;
+      break;
+    }
+  }
+  HostFiber& nx = fs[next];
+  if (nx.done || (nx.waiting != nullptr &&
+                  nx.waiting->generation == nx.generation))
+    std::abort();   // every fiber waits: a barrier not all threads reach
+  nx.waiting = nullptr;
+  sl.current = next;
+  threadIdx = nx.tid;
+  host_warp = nx.warp;
+  host_block_cursor = nx.cursor;
+  if (&nx != &me) swapcontext(&me.ctx, &nx.ctx);
+}
+
+inline void host_arrive(HostBarrier* b) {
+  HostFiber& me = (*host_slot->fibers)[host_slot->current];
+  if (++b->arrived == b->expected) {
+    b->arrived = 0;
+    ++b->generation;
+    return;
+  }
+  me.waiting = b;
+  me.generation = b->generation;
+  host_switch();
+}
+
+inline void __syncthreads() { host_arrive(host_block_barrier); }
+
 template <class V>
 V host_shuffle(V v, int from) {
   const unsigned lane = threadIdx.x % 32;
   std::memcpy(&host_warp.slot[lane], &v, sizeof(V));
-  host_warp.bar->arrive_and_wait();
+  host_arrive(host_warp.bar);
   V r = v;
   if (from >= 0 && (unsigned)from < host_warp.size)
     std::memcpy(&r, &host_warp.slot[from], sizeof(V));
-  host_warp.bar->arrive_and_wait();
+  host_arrive(host_warp.bar);
   return r;
 }
 template <class V>
@@ -116,11 +183,11 @@ V __shfl_up_sync(unsigned, V v, int d) {
 inline unsigned __ballot_sync(unsigned, int pred) {
   const unsigned lane = threadIdx.x % 32;
   host_warp.slot[lane] = pred ? 1 : 0;
-  host_warp.bar->arrive_and_wait();
+  host_arrive(host_warp.bar);
   unsigned m = 0;
   for (unsigned l = 0; l < host_warp.size; ++l)
     if (host_warp.slot[l]) m |= 1u << l;
-  host_warp.bar->arrive_and_wait();
+  host_arrive(host_warp.bar);
   return m;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
@@ -210,48 +277,82 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
 }
 
 // Runs the grid's blocks (x only) on X266_HOST_BLOCKS slots at once, each
-// slot's blockDim.x threads running block after block (slot i: blocks i,
-// i + slots, ...), each block's threads concurrently; a slot starts its
-// next block when all its threads have left the last one.
+// an OS thread (slot i: blocks i, i + slots, ...), each block's
+// blockDim.x threads as fibers of its slot's thread.
+constexpr size_t kHostStack = 1 << 18;
+
+template <class P>
+struct HostLaunch {
+  void (*kernel)(P);
+  P params;
+  static void entry(unsigned lo, unsigned hi) {
+    auto* self = reinterpret_cast<HostLaunch*>(
+        ((uintptr_t)hi << 32) | (uintptr_t)lo);
+    self->kernel(self->params);
+    HostSlot& sl = *host_slot;
+    (*sl.fibers)[sl.current].done = true;
+    // the last fiber of the block returns to the slot's thread
+    bool all = true;
+    for (auto& f : *sl.fibers) all = all && f.done;
+    if (all) {
+      setcontext(&sl.main);
+    }
+    host_switch();
+  }
+};
+
 template <class P>
 cudaError_t cudaLaunchKernel(void (*kernel)(P), dim3 grid, dim3 block,
                              void** args, size_t dynamic_shared,
                              cudaStream_t) {
-  P params = *static_cast<P*>(args[0]);
+  HostLaunch<P> launch{kernel, *static_cast<P*>(args[0])};
   const char* env = std::getenv("X266_HOST_BLOCKS");
   const unsigned slots =
       std::min(grid.x, env ? (unsigned)std::max(1, std::atoi(env)) : 1u);
-  std::vector<std::unique_ptr<std::barrier<>>> bars, warp_bars;
-  std::vector<std::vector<unsigned char>> arenas;
   const unsigned warps = (block.x + 31) / 32;
-  std::vector<unsigned long long> slots_mem(slots * warps * 32);
-  for (unsigned i = 0; i < slots; ++i) {
-    bars.emplace_back(new std::barrier<>(block.x));
-    arenas.emplace_back(kHostStaticShared + dynamic_shared);
-    for (unsigned wi = 0; wi < warps; ++wi)
-      warp_bars.emplace_back(
-          new std::barrier<>(std::min(32u, block.x - 32 * wi)));
-  }
   std::vector<std::thread> threads;
   for (unsigned i = 0; i < slots; ++i)
-    for (unsigned t = 0; t < block.x; ++t)
-      threads.emplace_back([=, &bars, &arenas, &warp_bars, &slots_mem] {
-        threadIdx = dim3(t, 0, 0);
-        blockDim = block;
-        gridDim = grid;
-        host_block_barrier = bars[i].get();
-        host_block_arena = arenas[i].data();
-        const unsigned wi = t / 32;
-        host_warp = {warp_bars[i * warps + wi].get(),
-                     &slots_mem[(i * warps + wi) * 32],
-                     std::min(32u, block.x - 32 * wi)};
-        for (unsigned b = i; b < grid.x; b += slots) {
-          blockIdx = dim3(b, 0, 0);
-          host_block_cursor = 0;
-          kernel(params);
-          host_block_barrier->arrive_and_wait();
+    threads.emplace_back([=, &launch] {
+      std::vector<unsigned char> arena(kHostStaticShared + dynamic_shared);
+      std::vector<unsigned long long> warp_mem(warps * 32);
+      std::vector<HostBarrier> warp_bars;
+      for (unsigned wi = 0; wi < warps; ++wi)
+        warp_bars.push_back({std::min(32u, block.x - 32 * wi)});
+      HostBarrier bar{block.x};
+      std::vector<HostFiber> fibers(block.x);
+      HostSlot sl{&fibers, 0, {}};
+      host_slot = &sl;
+      host_block_barrier = &bar;
+      host_block_arena = arena.data();
+      blockDim = block;
+      gridDim = grid;
+      for (auto& f : fibers) f.stack.reset(new char[kHostStack]);
+      const uintptr_t self = (uintptr_t)&launch;
+      for (unsigned b = i; b < grid.x; b += slots) {
+        blockIdx = dim3(b, 0, 0);
+        for (unsigned t = 0; t < block.x; ++t) {
+          HostFiber& f = fibers[t];
+          const unsigned wi = t / 32;
+          f.tid = dim3(t, 0, 0);
+          f.warp = {&warp_bars[wi], &warp_mem[wi * 32],
+                    std::min(32u, block.x - 32 * wi)};
+          f.cursor = 0;
+          f.waiting = nullptr;
+          f.done = false;
+          getcontext(&f.ctx);
+          f.ctx.uc_stack.ss_sp = f.stack.get();
+          f.ctx.uc_stack.ss_size = kHostStack;
+          f.ctx.uc_link = nullptr;
+          makecontext(&f.ctx, (void (*)())HostLaunch<P>::entry, 2,
+                      (unsigned)(self & 0xffffffffu), (unsigned)(self >> 32));
         }
-      });
+        sl.current = 0;
+        threadIdx = fibers[0].tid;
+        host_warp = fibers[0].warp;
+        host_block_cursor = 0;
+        swapcontext(&sl.main, &fibers[0].ctx);
+      }
+    });
   for (auto& th : threads) th.join();
   return host_check_failed.exchange(false) ? cudaErrorHostCheck
                                            : cudaSuccess;

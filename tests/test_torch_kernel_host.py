@@ -6,13 +6,15 @@ ALF kernels against kernels/alf.py's normal_solve_plain (the normal
 equations from the recon and the source, and their float32 solve) and
 _ctb_flags (the per-CTB decision), on data that takes their exact int32
 path, their ordered float32 path, and both in one launch; the intra
-tools' branches of K1/K2 (lossless, transform skip, PDPC, MIP) against
-the plain scan; kernel SSE against cost.plane_sse_f32_plain.
+tools' branches (lossless, transform skip, PDPC, MIP) of K1/K2 and of
+K3-P/K3-B against the plain scan; kernel SSE against
+cost.plane_sse_f32_plain.
 
 csrc/*.cu launch through cudaLaunchKernel, so g++ compiles them as C++
 against tests/cuda_host/cuda_runtime.h, a host stand-in that runs each
-thread block as its threads meeting at a barrier and turns the kernels'
-range checks (X266_ASSERT) into a launch error.  The recon kernels run
+thread block as its threads (fibers of one OS thread) meeting at
+barriers and turns the kernels' range checks (X266_ASSERT) into a launch
+error.  The recon kernels run
 one block per CTU row that waits on the row above: with X266_HOST_BLOCKS
 set, the stand-in runs that many blocks at once, so the row tickets,
 progress waits and fences run concurrently on pictures of 3x3 CTUs.
@@ -30,7 +32,7 @@ import pytest
 import torch
 
 from x266_tpu_torch import _build, tables
-from x266_tpu_torch.config import CodecConfig, preset_cfg2
+from x266_tpu_torch.config import CodecConfig, Profile, preset_cfg2
 from x266_tpu_torch.core.yuv import synthetic_clip
 from x266_tpu_torch.engine import fused, inter, recon, recon_cuda
 from x266_tpu_torch.kernels import alf, alf_cuda, interp, me, me_cuda
@@ -56,18 +58,46 @@ NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
+    """The kernels built for the host, once per test session: parallel
+    workers share the session's base directory, and the first to take
+    its lock builds the library the others load."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
     import ctypes
+    import fcntl
+    import hashlib
 
-    so = str(tmp_path_factory.mktemp("kernel_host") / "libx266k_host.so")
-    cmd = [gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
-           "-ffp-contract=off", "-I", os.path.join(HERE, "cuda_host"),
-           "-x", "c++", *_build.SOURCES, "-o", so]
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    return _build.declare(ctypes.CDLL(so))
+    shim = os.path.join(HERE, "cuda_host", "cuda_runtime.h")
+    csrc = os.path.dirname(_build.SOURCES[0])
+    key = hashlib.sha256()
+    for path in (*sorted(os.path.join(csrc, n) for n in os.listdir(csrc)),
+                 shim):
+        with open(path, "rb") as f:
+            key.update(f.read())
+    root = tmp_path_factory.getbasetemp().parent
+    so = root / f"libx266k_host_{key.hexdigest()[:16]}.so"
+    with open(root / "kernel_host.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            # one g++ per source, all at once, then the link
+            flags = ["-std=c++20", "-O1", "-pthread", "-fPIC",
+                     "-ffp-contract=off", "-I", os.path.dirname(shim)]
+            objs = [str(so) + f".{i}.o" for i in range(len(_build.SOURCES))]
+            jobs = [subprocess.Popen(
+                [gxx, *flags, "-c", "-x", "c++", src, "-o", obj],
+                stderr=subprocess.PIPE, text=True)
+                for src, obj in zip(_build.SOURCES, objs)]
+            for job in jobs:
+                _, err = job.communicate(timeout=300)
+                assert job.returncode == 0, err
+            part = str(so) + ".part"
+            out = subprocess.run([gxx, "-shared", "-pthread", *objs, "-o",
+                                  part], capture_output=True, text=True,
+                                 timeout=300)
+            assert out.returncode == 0, out.stderr
+            os.replace(part, so)
+    return _build.declare(ctypes.CDLL(str(so)))
 
 
 def _planes(frame):
@@ -457,3 +487,82 @@ def test_sse_kernel_source_matches_plain(wh, host_lib):
         assert float(want[0]) == float(exact[0])
         rounded.append(float(want[1]) != float(exact[1]))
     assert any(rounded)
+
+
+# the intra tools on P and B pictures: 3x3 CTUs of 'motion' against
+# references with +-40 noise on two thirds of their width, so the pictures
+# mix inter, skip and intra CUs, MIP and PDPC-class modes among them
+INTER_TOOLS = {
+    "lossless": dict(lossless=True),
+    "ts": dict(transform_skip=True, rdoq=True),
+    "pdpc": dict(profile=Profile.VVC, pdpc=True),
+    "mip": dict(profile=Profile.VVC, mip=True),
+}
+
+
+def _inter_tool_inputs(tool, b):
+    """(cfg, tab, src, args) of a P or B picture under tool on the port's
+    own Pass-A maps.  Lossless forces one CU to skip (Pass A never picks
+    it there); transform skip writes map value 5 on the intra CUs (Pass A
+    leaves a P/B picture's mts map 0) so that K3 walks that branch too."""
+    cfg = CodecConfig(width=136, height=136, qp=30, intra_period=8,
+                      gop_size=4 if b else 1, **INTER_TOOLS[tool])
+    tab = tables.from_reference(cfg, "cpu")
+    planes = _planes(synthetic_clip(136, 136, 1, "motion", seed=9)[0])
+    p0, p1 = b_references(planes, amp=40)
+    src = fused._unpack_padded(cfg, *planes)
+    if b:
+        maps = [m[None] for m in inter.make_mode_decision_b_raw(cfg, tab)(
+            src[0][0], p0[0], p1[0])]
+    else:
+        maps = [m[None] for m in inter.make_mode_decision_p_raw(cfg, tab)(
+            src[0][0], p0[0])]
+    size, mode, pred = maps[:3]
+    intra = pred == inter.PRED_INTRA
+    mts = torch.zeros_like(size)
+    if tool == "lossless":
+        assert (pred == inter.PRED_SKIP).sum() == 0
+        _, uy, ux = torch.nonzero((pred > 0) & (size == 16))[0].tolist()
+        uy, ux = uy & ~1, ux & ~1
+        pred[0, uy:uy + 2, ux:ux + 2] = inter.PRED_SKIP
+        assert (pred > 0).sum() > 1
+    elif tool == "ts":
+        mts = torch.where(intra, 5, mts)
+    elif tool == "pdpc":
+        assert (intra & torch.isin(mode, torch.tensor([0, 1, 18, 50]))).any()
+    else:
+        assert (intra & (mode >= cfg.n_intra_modes)).any()
+    assert intra.any() and (pred > 0).any()
+    args = (size, mode, mts, *maps[2:5], *p0)
+    if b:
+        args += (*p1, maps[5], maps[6])
+    return cfg, tab, src, planes, args
+
+
+@pytest.mark.parametrize("pic", ["P", "B"])
+@pytest.mark.parametrize("tool", list(INTER_TOOLS))
+def test_inter_tools_kernel_source_matches_plain_scan(tool, pic, host_lib):
+    """K3-P and K3-B, encode and decode, with lossless (one forced skip
+    CU among them), transform skip, PDPC and MIP on a 3x3-CTU picture:
+    the result is the plain scan's, and lossless recon is the source
+    wherever a CU is not skipped.  The rows run one after another, as in
+    test_intra_tools_kernel_source_matches_plain_scan."""
+    cfg, tab, src, planes, args = _inter_tool_inputs(tool, pic == "B")
+    err, got = recon_cuda._launch_inter(host_lib, 0, cfg, tab, True, *src,
+                                        *args)
+    assert err == 0
+    want = inter.make_recon_inter_raw(cfg, tab, True, b_mode=pic == "B")(
+        *src, *args)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    if cfg.lossless:
+        skip = (args[3] == inter.PRED_SKIP)[0]
+        unit = skip.repeat_interleave(8, 0).repeat_interleave(8, 1)
+        assert torch.equal(want[0][0][~unit], planes[0][0][~unit])
+        assert (want[3][0][unit] == 0).all()
+    dargs = (*args[:4], got[6].int(), got[7].int(), *args[6:])
+    err, dec = recon_cuda._launch_inter(host_lib, 0, cfg, tab, False,
+                                        *got[3:6], *dargs)
+    assert err == 0
+    for n, w, g in zip(NAMES, want, dec):
+        assert torch.equal(w, g), n

@@ -12,8 +12,9 @@ PSNR, which the port sums in float32 in the reference's order (F4).
   decodes that stream to that recon, and the JAX decoder decodes the
   port's stream to the port's recon (live);
 - a 3-frame 128x64 config-2 shaped clip gives the JAX encoder's bytes,
-  the port decodes the JAX stream to JAX's recon, and the JAX decoder
-  decodes the port's stream to the port's recon;
+  SSE and recon (recorded in data/c128x64_ref.json), the port decodes
+  the JAX stream to JAX's recon, and the JAX decoder decodes the port's
+  stream to the port's recon (live);
 - a 5-frame 128x64 low-delay clip (config-3 shaped, IDR every 4 frames:
   I P P P I), plain and with merge candidates, AMVP and signalled
   reference lists, gives the JAX encoder's bytes and recon, and the
@@ -31,8 +32,14 @@ PSNR, which the port sums in float32 in the reference's order (F4).
   data/ra128x64_ref.json): with luma and chroma ALF, with luma ALF only
   and without ALF, the JAX encoder's bytes and recon (the ALF
   estimators in the reference's float32 order, ROADMAP queue 3, F9);
-  the port decodes the JAX streams to JAX's recon, and the JAX decoder
-  decodes the port's ALF stream to the port's recon (live);
+  the port decodes the JAX streams to JAX's recon, which the JAX
+  decoder's recorded MD5s equal;
+- the intra tools on P and B pictures: 5-frame 128x64 lossless
+  low-delay P, lossless random-access and VVC-tools random-access clips
+  give the JAX encoder's bytes, SSE and recon (data/tools128x64_ref.json;
+  lossless decodes to its input), the JAX decoder decodes the port's
+  tools stream, loop filters included (live), and a P slice under each
+  tool decodes in both decoders to the same pictures;
 - the golden fixtures lowdelay_p_filters and ra_alf decode to their
   manifest MD5s;
 - the one-frame device step gives what the batched step gives per frame;
@@ -48,8 +55,7 @@ import numpy as np
 import pytest
 
 from x266_tpu.api import Decoder as JaxDecoder
-from x266_tpu.api import Encoder as JaxEncoder
-from x266_tpu.config import CodecConfig, preset_cfg2
+from x266_tpu.config import CodecConfig, Profile, preset_cfg2
 from x266_tpu.core.hashing import frame_md5
 from x266_tpu.core.yuv import synthetic_clip
 from x266_tpu_torch import config as tconfig
@@ -133,15 +139,21 @@ def t128():
     return ref, Encoder(cfg, device="cpu", batch_frames=2).encode(frames)
 
 
-def test_cfg2t_clip_matches_recorded_jax(t128):
-    """cfg2t at 128x64: the JAX encoder's bytes, SSE, PSNR and recon, and
-    the port decodes the JAX stream to the JAX recon."""
-    ref, port = t128
+def _refs_tool():
+    """tools/make_torch_refs.py, which records the JAX references."""
     spec = importlib.util.spec_from_file_location(
         "make_torch_refs", os.path.join(os.path.dirname(__file__), "..",
                                         "tools", "make_torch_refs.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def test_cfg2t_clip_matches_recorded_jax(t128):
+    """cfg2t at 128x64: the JAX encoder's bytes, SSE, PSNR and recon, and
+    the port decodes the JAX stream to the JAX recon."""
+    ref, port = t128
+    tool = _refs_tool()
     assert (ref["config"], ref["clip"]) == (tool.T128_CONFIG, tool.T128_CLIP)
     stream = base64.b64decode(ref["stream_b64"])
     assert port.bitstream == stream
@@ -164,19 +176,29 @@ def test_jax_decodes_port_cfg2t_stream(t128):
 
 
 def test_cfg2_clip_matches_jax_both_ways():
+    """Config 2 at 128x64, 3 frames in batches of 2: the recorded JAX
+    encoder's bytes, bits, SSE, PSNR and recon
+    (data/c128x64_ref.json), the port decodes the JAX stream to the JAX
+    recon, and the live JAX decoder decodes the port's stream to it."""
+    tool = _refs_tool()
+    with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
+                           "c128x64_ref.json")) as f:
+        ref = json.load(f)
+    assert (ref["config"], ref["clip"]) == (tool.C128_CONFIG,
+                                            tool.C128_CLIP)
     cfg = preset_cfg2(128, 64).replace(rows_per_segment=1,
                                        ctx_inherit=True)
     frames = synthetic_clip(128, 64, 3, "mixed", seed=5)
     port = Encoder(cfg, device="cpu", batch_frames=2).encode(frames)
-    ref = JaxEncoder(cfg, with_recon=True).encode(frames)
-    assert port.bitstream == ref.bitstream
-    assert port.frame_bits == ref.frame_bits
-    assert port.total_bits == ref.total_bits
+    stream = base64.b64decode(ref["stream_b64"])
+    assert port.bitstream == stream
+    assert port.frame_bits == ref["frame_bits"]
+    assert port.total_bits == 8 * len(stream)
     port_md5 = [frame_md5(r) for r in port.recon]
-    assert port_md5 == [frame_md5(r) for r in ref.recon]
-    assert np.array_equal(np.array(port.sse), np.array(ref.sse))
-    assert port.psnr_y(128, 64) == ref.psnr_y(128, 64)
-    _, dec = Decoder(device="cpu").decode(ref.bitstream)
+    assert port_md5 == ref["recon_md5"]
+    assert [[float(v) for v in s] for s in port.sse] == ref["sse"]
+    assert port.psnr_y(128, 64) == ref["psnr_y"]
+    _, dec = Decoder(device="cpu").decode(stream)
     assert [frame_md5(d) for d in dec] == port_md5
     _, jdec = JaxDecoder().decode(port.bitstream)
     assert [frame_md5(d) for d in jdec] == port_md5
@@ -213,11 +235,7 @@ def test_recorded_lowdelay_streams_match_live_jax():
     its plain stream (the port's bytes, by the test above) to the
     recorded recon MD5s.  The merge-amvp-rpl stream is decoded by the
     tool only: here it would compile a second JAX GOP path."""
-    spec = importlib.util.spec_from_file_location(
-        "make_torch_refs", os.path.join(os.path.dirname(__file__), "..",
-                                        "tools", "make_torch_refs.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = _refs_tool()
     with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
                            "p128x64_ref.json")) as f:
         data = json.load(f)
@@ -322,12 +340,23 @@ def test_ra_clip_matches_recorded_jax(variant, port_ra):
 
 
 def test_jax_decodes_port_ra_alf_stream(port_ra):
-    """The live anchor: the JAX decoder decodes the port's random-access
-    stream with deblock, SAO and ALF to the port's recon."""
+    """The JAX decoder's MD5s of the port's random-access stream with
+    deblock, SAO and ALF: the stream is the recorded JAX stream byte for
+    byte, so its JAX decode is the one tools/make_torch_refs.py recorded
+    (the tool's configs and clip are the file's); the live JAX decoder
+    runs the same machinery, loop filters included, on the tools_ra
+    stream (test_jax_decodes_port_tools_ra_stream)."""
+    data, _ = _ra128()
+    tool = _refs_tool()
+    assert data["gop"] == tool.RA128_GOP
+    assert {v: r["tools"] for v, r in data["variants"].items()} == \
+        tool.RA128_VARIANTS
+    assert data["clip"] == "synthetic_clip(128, 64, 5, 'mixed', seed=4)"
+    ref = data["variants"]["full"]
     port = port_ra("full")
-    _, jdec = JaxDecoder().decode(port.bitstream)
-    assert [frame_md5(d) for d in jdec] == [frame_md5(r)
-                                            for r in port.recon]
+    assert port.bitstream == base64.b64decode(ref["stream_b64"])
+    assert [frame_md5(r) for r in port.recon] == [
+        f["decode_md5"] for f in ref["frames"]]
 
 
 @pytest.mark.parametrize("name", ["lowdelay_p_filters", "ra_alf"])
@@ -350,8 +379,8 @@ def test_single_frame_step_equals_batched():
 
 @pytest.mark.parametrize("kw", [
     dict(multi_ref=True, intra_period=8), dict(alf=True, ccalf=True),
-    dict(tile_rows=1), dict(lossless=True, intra_period=8),
-    dict(transform_skip=True, intra_period=8),
+    dict(tile_rows=1), dict(profile=Profile.VVC, dep_quant=True),
+    dict(profile=Profile.VVC, mtt=True),
     dict(sign_data_hiding=True), dict(bit_depth=10),
     dict(weighted_pred=True, intra_period=8),
     dict(alf=True, alf_nonlinear=True)])
@@ -370,21 +399,106 @@ def test_out_of_slice_streams_raise():
 @pytest.mark.parametrize("tool", ["lossless", "transform_skip", "pdpc",
                                   "mip"])
 def test_intra_tools_on_p_slices_raise(tool):
-    """A stream whose P slices use an intra-only tool: the decoder codes
-    its IDR and refuses the first P slice."""
+    """A stream whose P slice follows an IDR under an intra tool, which
+    the port refused before it coded the tools on P pictures (the name
+    is kept): the port decodes both pictures, the P slice to the JAX
+    decoder's MD5.
+    Transform skip comes with MTS here: the reference decodes P slices
+    under transform skip only beside it (x266_tpu/engine/inter.py:805-807
+    hands chroma TUs no transform index without MTS)."""
     from x266_tpu_torch.core.nal import write_nal
 
+    tools = {tool: True, "mts": tool == "transform_skip"}
     cfg = tconfig.CodecConfig(width=64, height=64, intra_period=4,
-                              profile=tconfig.Profile.VVC, **{tool: True})
+                              profile=tconfig.Profile.VVC, **tools)
     good = Encoder(cfg.replace(intra_period=1), device="cpu").encode(
         synthetic_clip(64, 64, 1, "motion", seed=1)).bitstream
-    # the same IDR under an SPS that announces P pictures
+    # the same IDR under an SPS that announces P pictures, then a P slice
     nals = [write_nal(t, rbsp) for t, rbsp in split_nals(good)]
     from x266_tpu_torch.core import headers
     nals[1] = write_nal(NalType.SPS, headers.write_sps(cfg))
-    stream = b"".join(nals)
+    stream = b"".join(nals) + write_nal(NalType.TRAIL,
+                                        _p_slice(cfg, 1, 0, 0))
     _, dec = Decoder(device="cpu").decode(stream)
-    assert len(dec) == 1
-    with pytest.raises(NotImplementedError, match="P/B"):
-        Decoder(device="cpu").decode(stream + write_nal(
-            NalType.TRAIL, _p_slice(cfg, 1, 0, 0)))
+    _, jdec = JaxDecoder().decode(stream)
+    assert len(dec) == 2
+    assert [frame_md5(d) for d in dec] == [frame_md5(d) for d in jdec]
+
+
+def _tools128():
+    """The recorded JAX clips of the intra tools on P and B pictures, and
+    tools/make_torch_refs.py, which recorded them."""
+    tool = _refs_tool()
+    with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
+                           "tools128x64_ref.json")) as f:
+        return json.load(f), tool
+
+
+def _tools128_config(name, ref):
+    if name == "lossless_p":
+        return tconfig.preset_cfg3(128, 64).replace(intra_period=4,
+                                                    lossless=True,
+                                                    rdoq=False)
+    tools = {k: tconfig.Profile(v) if k == "profile" else bool(v)
+             for k, v in ref["tools"].items()}
+    return tconfig.preset_cfg4(128, 64).replace(**RA128_GOP, **tools)
+
+
+RA128_GOP = dict(gop_size=4, intra_period=8)
+
+
+@pytest.fixture(scope="module")
+def port_tools():
+    """name -> (the recorded variant, the clip, the port's CPU encode),
+    made once for this module's tests."""
+    data, tool = _tools128()
+    assert data["gop"] == tool.RA128_GOP == RA128_GOP
+    done = {}
+
+    def get(name):
+        if name not in done:
+            ref = data["variants"][name]
+            text, tools, kind, seed = tool.TOOLS128[name]
+            assert ref["config"] == text
+            assert ref["clip"] == (f"synthetic_clip(128, 64, 5, '{kind}', "
+                                   f"seed={seed})")
+            assert ref["tools"] == {k: int(v) for k, v in
+                                    (tools or {}).items()}
+            frames = synthetic_clip(128, 64, 5, kind, seed=seed)
+            done[name] = (ref, frames, Encoder(_tools128_config(name, ref),
+                                               device="cpu").encode(frames))
+        return done[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", ["lossless_p", "lossless_ra", "tools_ra"])
+def test_tools_clip_matches_recorded_jax(name, port_tools):
+    """Lossless low-delay P, lossless random access and VVC's intra
+    tools under random access at 128x64: the JAX encoder's bytes, bits,
+    SSE, PSNR and recon; the port decodes the JAX stream to the JAX
+    recon, and a lossless stream to its input."""
+    ref, frames, port = port_tools(name)
+    stream = base64.b64decode(ref["stream_b64"])
+    assert port.bitstream == stream
+    fr = ref["frames"]
+    assert port.frame_bits == [f["bits"] for f in fr]
+    assert [[float(v) for v in s] for s in port.sse] == [f["sse"] for f in fr]
+    assert port.psnr_y(128, 64) == [f["psnr_y"] for f in fr]
+    port_md5 = [frame_md5(r) for r in port.recon]
+    assert port_md5 == [f["recon_md5"] for f in fr] == [
+        f["decode_md5"] for f in fr]
+    _, dec = Decoder(device="cpu").decode(stream)
+    assert [frame_md5(d) for d in dec] == port_md5
+    if "lossless" in name:
+        assert port_md5 == [frame_md5(f) for f in frames]
+
+
+def test_jax_decodes_port_tools_ra_stream(port_tools):
+    """The live anchor: the JAX decoder decodes the port's stream of the
+    intra tools on P and B pictures (config 4: deblock, SAO and ALF
+    too) to the port's recon."""
+    _, _, port = port_tools("tools_ra")
+    _, jdec = JaxDecoder().decode(port.bitstream)
+    assert [frame_md5(d) for d in jdec] == [frame_md5(r)
+                                            for r in port.recon]

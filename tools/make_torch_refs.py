@@ -30,21 +30,37 @@ these files.
   data/cfg4noalf_416x240_ref.json, per frame in display order, with the
   whole stream; cfg4noalf_1080p the same at 1920x1080 (frames 0-3 would
   not hold a B picture; it is recorded only on request);
-- t128x64: the JAX encoder's whole stream, recon MD5s, SSE and PSNR of
-  a 2-frame 128x64 cfg2t clip ('text') -> data/t128x64_ref.json, which
-  tests/test_torch_pipeline.py holds the port to (the JAX encode would
-  compile for ~20 s in the test; the test decodes the port's stream with
-  the JAX decoder live);
+- t128x64 / c128x64: the JAX encoder's whole stream, recon MD5s, SSE
+  and PSNR of a 2-frame 128x64 cfg2t clip ('text') and a 3-frame config
+  2 clip ('mixed') -> data/t128x64_ref.json, data/c128x64_ref.json,
+  which tests/test_torch_pipeline.py holds the port to (the JAX encodes
+  would compile in the test; it decodes the port's streams with the JAX
+  decoder live);
 - ra128x64: the same for a 5-frame 128x64 random-access clip (GOP 4:
   I, P, then B pictures at POC 2, 1, 3) with ALF ("full"), without it
   ("noalf") and with luma ALF only ("lumaalf") -> data/ra128x64_ref.json,
-  for the CPU tests.
+  for the CPU tests;
+- the intra tools on P and B pictures: lossless_p (config 3 with
+  lossless, frames 0-3 of 'motion' at 1080p) ->
+  data/lossless_p_1080p_ref.json; tools_ra (config 4 at 1080p with
+  MTS, PDPC, MIP and transform skip, 17 frames of 'motion') ->
+  data/tools_ra_1080p_ref.json; lossless_ra (config 4 at 416x240,
+  lossless, no loop filters, 17 frames of 'mixed') ->
+  data/lossless_ra_416x240_ref.json; tools128x64: the three at 128x64
+  for the CPU tests (5 frames, GOP 4) -> data/tools128x64_ref.json;
+- cfg4_4k: config 4 at 3840x2160, 17 frames of 'mixed' (chip_smoke.py
+  [main-ra]) -> data/cfg4_4k_ref.json.  Every RA recording writes each
+  slice NAL's MD5 to <file>.partial.json as it is coded (about 70 s a
+  4K picture on an 8-core CPU), so a cut run leaves the pictures it
+  reached; a finished one removes it.
 
     python tools/make_torch_refs.py [cfg2] [cfg3] [cfg2t] [lossless]
-        [p128x64] [t128x64] [cfg4] [cfg4noalf] [ra128x64]
-        [cfg4noalf_1080p]
-    # default: all but cfg4noalf_1080p; minutes per 1080p frame, about
-    # two minutes for each 416x240 RA clip and for ra128x64
+        [p128x64] [t128x64] [c128x64] [cfg4] [cfg4noalf] [ra128x64]
+        [cfg4noalf_1080p] [lossless_p] [tools_ra] [lossless_ra]
+        [tools128x64] [cfg4_4k]
+    # default: cfg2 to ra128x64; minutes per 1080p frame, about two
+    # minutes for each 416x240 RA clip and for ra128x64, half an hour
+    # for cfg4_4k
 """
 import base64
 import hashlib
@@ -63,8 +79,8 @@ import numpy as np  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 from x266_tpu.api import Decoder, Encoder  # noqa: E402
-from x266_tpu.config import (CodecConfig, preset_cfg2, preset_cfg3,  # noqa
-                             preset_cfg4)
+from x266_tpu.config import (CodecConfig, Profile, preset_cfg2,  # noqa
+                             preset_cfg3, preset_cfg4)
 from x266_tpu.core.hashing import frame_md5  # noqa: E402
 from x266_tpu.core.nal import NalType, split_nals, write_nal  # noqa: E402
 from x266_tpu.core.yuv import synthetic_clip  # noqa: E402
@@ -88,6 +104,10 @@ REFS = {
                                      lossless=True, rdoq=False),
                  "CodecConfig(width=1920, height=1080, qp=32, "
                  "lossless=True, rdoq=False)", "mixed"),
+    "lossless_p": (lambda: preset_cfg3(W, H).replace(lossless=True,
+                                                     rdoq=False),
+                   "preset_cfg3(1920, 1080).replace(lossless=True, "
+                   "rdoq=False)", "motion"),
 }
 
 
@@ -157,26 +177,36 @@ def make_p128() -> None:
     print(f"wrote {path}")
 
 
-# the small all-intra clip with VVC's intra tools (cfg2t at 128x64)
+# the small all-intra clips: cfg2t's tools on 'text' (t128x64) and
+# config 2 on 'mixed' (c128x64) at 128x64
 T128_CONFIG = ("preset_cfg2(128, 64).replace(pdpc=True, mip=True, "
                "transform_skip=True, rows_per_segment=1, ctx_inherit=True)")
 T128_CLIP = "synthetic_clip(128, 64, 2, 'text', seed=5)"
+C128_CONFIG = ("preset_cfg2(128, 64).replace(rows_per_segment=1, "
+               "ctx_inherit=True)")
+C128_CLIP = "synthetic_clip(128, 64, 3, 'mixed', seed=5)"
+AI128 = {   # name -> (config, its text, clip kind, frames, its text)
+    "t128x64": (lambda: preset_cfg2(128, 64).replace(
+        pdpc=True, mip=True, transform_skip=True, rows_per_segment=1,
+        ctx_inherit=True), T128_CONFIG, "text", 2, T128_CLIP),
+    "c128x64": (lambda: preset_cfg2(128, 64).replace(
+        rows_per_segment=1, ctx_inherit=True), C128_CONFIG, "mixed", 3,
+                C128_CLIP),
+}
 
 
-def make_t128() -> None:
-    cfg = preset_cfg2(128, 64).replace(pdpc=True, mip=True,
-                                       transform_skip=True,
-                                       rows_per_segment=1, ctx_inherit=True)
-    res = Encoder(cfg, with_recon=True).encode(
-        synthetic_clip(128, 64, 2, "text", seed=5))
+def make_ai128(name: str) -> None:
+    make_cfg, cfg_text, kind, n, clip_text = AI128[name]
+    res = Encoder(make_cfg(), with_recon=True).encode(
+        synthetic_clip(128, 64, n, kind, seed=5))
     out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
-           "config": T128_CONFIG, "clip": T128_CLIP,
+           "config": cfg_text, "clip": clip_text,
            "stream_b64": base64.b64encode(res.bitstream).decode(),
            "frame_bits": [int(b) for b in res.frame_bits],
            "sse": [[float(v) for v in np.asarray(e)[:3]] for e in res.sse],
            "psnr_y": [float(p) for p in res.psnr_y(128, 64)],
            "recon_md5": [frame_md5(r) for r in res.recon]}
-    path = os.path.join(DATA, "t128x64_ref.json")
+    path = os.path.join(DATA, f"{name}_ref.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(f"wrote {path}")
@@ -185,20 +215,63 @@ def make_t128() -> None:
 # random access with the loop filters: the JAX encoder's whole stream and
 # per-frame results in display order, and the JAX decoder's MD5s
 NOALF = dict(alf=False, alf_chroma=False)
-RA_REFS = {   # name -> ((w, h, frames), tools)
-    "cfg4": ((416, 240, 17), {}),
-    "cfg4noalf": ((416, 240, 17), NOALF),
-    "cfg4noalf_1080p": ((1920, 1080, 17), NOALF),
+# with MTS: the reference's plain inter scan codes transform skip only
+# beside MTS (x266_tpu/engine/inter.py:805-807 hands its chroma TUs no
+# transform index without MTS, which fails under transform skip)
+TOOLS_RA = dict(profile=Profile.VVC, mts=True, pdpc=True, mip=True,
+                transform_skip=True)
+LOSSLESS_RA = dict(lossless=True, rdoq=False, deblock=False, sao=False,
+                   sao_chroma=False, **NOALF)
+RA_REFS = {   # name -> ((w, h, frames), tools, clip, file)
+    "cfg4": ((416, 240, 17), {}, "mixed", "cfg4_416x240_ref.json"),
+    "cfg4noalf": ((416, 240, 17), NOALF, "mixed",
+                  "cfg4noalf_416x240_ref.json"),
+    "cfg4noalf_1080p": ((1920, 1080, 17), NOALF, "mixed",
+                        "cfg4noalf_1080p_ref.json"),
+    "cfg4_4k": ((3840, 2160, 17), {}, "mixed", "cfg4_4k_ref.json"),
+    # VVC's intra tools on P and B pictures: 'motion', whose B pictures
+    # pick MIP and PDPC-class intra CUs ('mixed' B pictures pick no MIP)
+    "tools_ra": ((1920, 1080, 17), TOOLS_RA, "motion",
+                 "tools_ra_1080p_ref.json"),
+    # a lossless user runs no loop filter
+    "lossless_ra": ((416, 240, 17), LOSSLESS_RA, "mixed",
+                    "lossless_ra_416x240_ref.json"),
 }
 RA128_VARIANTS = {"full": {}, "noalf": NOALF,
                   "lumaalf": dict(alf_chroma=False)}
 RA128_GOP = dict(gop_size=4, intra_period=8)
 
 
-def _ra_record(cfg, frames) -> dict:
+def _log_slice_nals(partial: str):
+    """Wrap the JAX encoder's NAL writer so that each slice NAL's MD5
+    and the seconds since the start reach ``partial`` as it is written
+    (coding order): a long encode that is cut still leaves the pictures
+    it reached."""
+    import x266_tpu.api.encoder as enc_mod
+    write, t0, done = enc_mod.write_nal, time.time(), []
+
+    def logged(t, rbsp):
+        nal = write(t, rbsp)
+        if t in (NalType.IDR, NalType.TRAIL):
+            done.append({"nal_md5": hashlib.md5(nal).hexdigest(),
+                         "bytes": len(nal),
+                         "seconds": round(time.time() - t0, 1)})
+            with open(partial, "w") as f:
+                json.dump({"slice_nals_coding_order": done}, f, indent=1)
+            print(f"slice NAL {len(done)}: {done[-1]}", flush=True)
+        return nal
+    enc_mod.write_nal = logged
+    return lambda: setattr(enc_mod, "write_nal", write)
+
+
+def _ra_record(cfg, frames, partial: str | None = None) -> dict:
     w, h = cfg.width, cfg.height
+    restore = _log_slice_nals(partial) if partial else (lambda: None)
     t0 = time.time()
-    res = Encoder(cfg, with_recon=True).encode(frames)
+    try:
+        res = Encoder(cfg, with_recon=True).encode(frames)
+    finally:
+        restore()
     secs = time.time() - t0
     _, dec = Decoder().decode(res.bitstream)
     return {"seconds": secs,
@@ -206,23 +279,25 @@ def _ra_record(cfg, frames) -> dict:
             "stream_md5": hashlib.md5(res.bitstream).hexdigest(),
             "nal_md5_coding_order": slice_nal_md5s(res.bitstream),
             "frames": [{"poc": i, "bits": int(b), "psnr_y": float(p),
+                        "sse": [float(v) for v in np.asarray(e)[:3]],
                         "recon_md5": frame_md5(r), "decode_md5": frame_md5(d)}
-                       for i, (b, p, r, d) in enumerate(zip(
-                           res.frame_bits, res.psnr_y(w, h), res.recon,
-                           dec))]}
+                       for i, (b, p, e, r, d) in enumerate(zip(
+                           res.frame_bits, res.psnr_y(w, h), res.sse,
+                           res.recon, dec))]}
 
 
 def make_ra(name: str) -> None:
-    (w, h, n), tools = RA_REFS[name]
+    (w, h, n), tools, kind, fname = RA_REFS[name]
     cfg = preset_cfg4(w, h).replace(**tools)
+    path = os.path.join(DATA, fname)
+    partial = path.replace(".json", ".partial.json")
     out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
            "config": f"preset_cfg4({w}, {h}).replace(**{tools})",
-           "clip": f"synthetic_clip({w}, {h}, {n}, 'mixed')",
-           **_ra_record(cfg, synthetic_clip(w, h, n, "mixed"))}
-    path = os.path.join(DATA, f"{name}_{w}x{h}_ref.json".replace(
-        "_1080p_1920x1080", "_1080p"))
+           "clip": f"synthetic_clip({w}, {h}, {n}, '{kind}')",
+           **_ra_record(cfg, synthetic_clip(w, h, n, kind), partial)}
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
+    os.remove(partial)
     print(json.dumps(out["frames"]))
     print(f"wrote {path} ({out['seconds']:.0f} s to encode)")
 
@@ -243,9 +318,47 @@ def make_ra128() -> None:
     print(f"wrote {path}")
 
 
+# the four intra tools on P and B pictures at 128x64, for the CPU tests:
+# lossless low-delay P (I P P P I), lossless random access (GOP 4) and
+# VVC's PDPC, MIP and transform skip under random access
+TOOLS128 = {   # name -> (config text, tools, clip kind, seed)
+    "lossless_p": ("preset_cfg3(128, 64).replace(intra_period=4, "
+                   "lossless=True, rdoq=False)", None, "motion", 3),
+    "lossless_ra": ("preset_cfg4(128, 64).replace(**gop, **tools)",
+                    LOSSLESS_RA, "mixed", 4),
+    "tools_ra": ("preset_cfg4(128, 64).replace(**gop, **tools)",
+                 TOOLS_RA, "motion", 3),
+}
+
+
+def tools128_config(name: str):
+    _, tools, _, _ = TOOLS128[name]
+    if tools is None:
+        return preset_cfg3(128, 64).replace(intra_period=4, lossless=True,
+                                            rdoq=False)
+    return preset_cfg4(128, 64).replace(**RA128_GOP, **tools)
+
+
+def make_tools128() -> None:
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "gop": RA128_GOP, "variants": {}}
+    for name, (text, tools, kind, seed) in TOOLS128.items():
+        out["variants"][name] = {
+            "config": text, "tools": {k: int(v) for k, v in
+                                      (tools or {}).items()},
+            "clip": f"synthetic_clip(128, 64, 5, '{kind}', seed={seed})",
+            **_ra_record(tools128_config(name),
+                         synthetic_clip(128, 64, 5, kind, seed=seed))}
+    path = os.path.join(DATA, "tools128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
 def main() -> None:
-    makers = {"p128x64": make_p128, "t128x64": make_t128,
-              "ra128x64": make_ra128,
+    makers = {"p128x64": make_p128,
+              **{k: (lambda k=k: make_ai128(k)) for k in AI128},
+              "ra128x64": make_ra128, "tools128x64": make_tools128,
               **{k: (lambda k=k: make(k)) for k in REFS},
               **{k: (lambda k=k: make_ra(k)) for k in RA_REFS}}
     for name in sys.argv[1:] or [*REFS, "p128x64", "t128x64", "cfg4",

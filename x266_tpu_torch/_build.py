@@ -78,7 +78,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         [i] * 9 + [fl] + [i] * 7 + [p] * 22 + [p])   # ..., sync, stream
     lib.x266_recon_intra.restype = i
     lib.x266_recon_inter.argtypes = (
-        [i] * 8 + [fl] + [i] * 9 + [p] * 34 + [p])  # ..., sync, stream
+        [i] * 8 + [fl] + [i] * 12 + [p] * 35 + [p])  # ..., sync, stream
     lib.x266_recon_inter.restype = i
     lib.x266_warp_frames.argtypes = [i] * 5 + [p] * 4
     lib.x266_warp_frames.restype = i

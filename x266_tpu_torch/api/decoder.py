@@ -9,9 +9,8 @@ takes L0 = the nearest POC below and L1 = the nearest above, or the
 slice header's reference lists when signalled.  Leaf B pictures (odd
 POC) are never referenced and build no pyramids, and each anchor evicts
 the pyramids older than the previous anchor.  Pictures come out in POC
-order.  GPB (multi_ref), weighted prediction, tiles, lossless,
-transform skip, PDPC or MIP on a P/B slice, and any other SPS flag
-outside the slices raise NotImplementedError.
+order.  GPB (multi_ref), weighted prediction, tiles and any other SPS
+flag outside the slices raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from x266_tpu_torch.core.yuv import Frame
 
 from x266_tpu_torch import device as devmod
 from x266_tpu_torch import tables
-from x266_tpu_torch.api.encoder import check_config, check_inter_tools
+from x266_tpu_torch.api.encoder import check_config
 from x266_tpu_torch.engine import fused
 from x266_tpu_torch.engine.inter import recon_inter_pass
 from x266_tpu_torch.engine.picture import decode_picture_gop
@@ -105,8 +104,6 @@ class Decoder:
                                     recon_inter_pass(use, tab, encode=False),
                                     recon_inter_pass(use, tab, encode=False,
                                                      b_mode=True))
-                if sh.slice_type != SliceType.I:
-                    check_inter_tools(cfg)
                 ref, is_ref = ((None, True) if sh.slice_type == SliceType.I
                                else _references(dpb, sh))
                 # pyramids only where an inter picture can follow

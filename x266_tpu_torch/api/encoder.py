@@ -12,9 +12,9 @@ between are P pictures; frame i+1 is dispatched before frame i is
 finalized, its only dependency being frame i's pyramids on the device.
 A random-access stream (gop_size > 1) codes anchors every gop_size
 pictures and hierarchical B pictures between them, in coding order.
-The stream is identical to the reference's for the same frames and
-config, except with ALF, whose estimator sums its normal equations
-exactly where the reference sums them in float32 (ROADMAP queue 3, F9).
+The intra tools (lossless, transform skip, PDPC, MIP) code on every
+picture type.  The stream is identical to the reference's for the same
+frames and config.
 """
 
 from __future__ import annotations
@@ -64,33 +64,16 @@ class EncodeResult:
         return 8 * len(self.bitstream)
 
 
-# the intra tools the port codes on all-intra streams only: the inter
-# Pass A and K3's lossless skip CU are not ported
-INTRA_ONLY_TOOLS = ("lossless", "transform_skip", "pdpc", "mip")
-
-
-def check_inter_tools(cfg: CodecConfig) -> None:
-    """Raise NotImplementedError for P/B pictures under an intra-only
-    tool (INTRA_ONLY_TOOLS)."""
-    for flag in INTRA_ONLY_TOOLS:
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} on P/B pictures is not in "
-                                      "the port's slices")
-
-
 def check_config(cfg: CodecConfig, encode: bool = True) -> None:
     """Raise NotImplementedError for anything outside the port's slices:
     all-intra, low-delay P or random access (gop_size > 1), one tile,
     8-bit, CU <= 32, tools limited to MTS, RDOQ, reference substitution,
-    merge candidates, AMVP, signalled reference lists, deblock, SAO and
-    ALF, and on all-intra streams lossless, transform skip, PDPC and
-    MIP.  The decoder (encode=False) also takes nonlinear ALF and
-    CC-ALF, whose estimators are not ported, and refuses the intra-only
-    tools at the first P/B slice instead."""
+    merge candidates, AMVP, signalled reference lists, deblock, SAO,
+    ALF, lossless, transform skip, PDPC and MIP.  The decoder
+    (encode=False) also takes nonlinear ALF and CC-ALF, whose estimators
+    are not ported."""
     if cfg.num_tiles != 1:
         raise NotImplementedError("tiles are not in the port's slices")
-    if encode and (cfg.intra_period != 1 or cfg.gop_size > 1):
-        check_inter_tools(cfg)
     flags = ["weighted_pred", "multi_ref"]
     if encode:
         flags += ["alf_nonlinear", "ccalf"]

@@ -762,15 +762,20 @@ int x266_recon_intra(
 
 // Launches K3-P on one P picture, or K3-B on one B picture when pyr1_y is
 // not null (encode != 0: the encoder's form), on `stream`; returns
-// cudaGetLastError().  Arguments as x266_recon_intra, plus the inter maps,
-// the reference's three pyramids (16, Hp, Wp), the final-MV planes (int16,
-// H/8 x W/8), for K3-B the L1 pyramids (the shapes of L0's) and the
-// mvx1/mvy1 maps (int32, H/8 x W/8), and the scratch `sync` of 1 + CTU
-// rows int32.
+// cudaGetLastError().  Arguments as x266_recon_intra (the intra tools'
+// lossless, ts, pdpc and the MIP table `mip` included), plus the inter
+// maps, the reference's three pyramids (16, Hp, Wp), the final-MV planes
+// (int16, H/8 x W/8), for K3-B the L1 pyramids (the shapes of L0's) and
+// the mvx1/mvy1 maps (int32, H/8 x W/8), and the scratch `sync` of 1 +
+// CTU rows int32.  Under lossless an inter CU's level is the source minus
+// its MC prediction and a skip CU's is 0 (recon = clip(prediction)); the
+// intra CUs of a P or B picture take K1's PDPC and MIP branches; their
+// mts map is 0, so no TU of a P or B picture takes transform skip.
 int x266_recon_inter(
     int encode, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
-    int n_modes, int merge, int pyr_hy, int pyr_wy, int pyr_hc, int pyr_wc,
+    int n_modes, int lossless, int ts, int pdpc, int merge, int pyr_hy,
+    int pyr_wy, int pyr_hc, int pyr_wc,
     const void* src_y, const void* src_cb, const void* src_cr,
     const void* cin_y, const void* cin_cb, const void* cin_cr,
     const void* size_map, const void* mode_map, const void* mts_map,
@@ -779,7 +784,7 @@ int x266_recon_inter(
     void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
     void* cout_cr, void* mv_x, void* mv_y, const void* taps,
     const void* smooth, const void* tx, const void* shift, const void* rate,
-    const void* pyr1_y, const void* pyr1_cb, const void* pyr1_cr,
+    const void* mip, const void* pyr1_y, const void* pyr1_cb, const void* pyr1_cr,
     const void* mvx1_map, const void* mvy1_map, void* sync, void* stream) {
   const void* src[3] = {src_y, src_cb, src_cr};
   const void* cin[3] = {cin_y, cin_cb, cin_cr};
@@ -792,6 +797,8 @@ int x266_recon_inter(
              mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
   set_inter(p, merge, pyr_hy, pyr_wy, pyr_hc, pyr_wc, pred_map, mvx_map,
             mvy_map, pyr, mv_x, mv_y);
+  p.lossless = lossless; p.ts = ts; p.pdpc = pdpc;
+  p.mip = (const int32_t*)mip;
   p.sync = (int*)sync;
   if (pyr1_y == nullptr) return launch<true>(p, encode, stream);
   p.pyr[3] = (const uint8_t*)pyr1_y; p.pyr[4] = (const uint8_t*)pyr1_cb;

@@ -1,5 +1,6 @@
 """The inter engine (C7/C8/C16): P and B Pass A and the P/B recon scan,
-as x266_tpu/engine/inter.py:42-573 and 596-877.
+as x266_tpu/engine/inter.py:42-573 and 596-877, with the intra tools
+(lossless, transform skip, PDPC, MIP) on P and B pictures.
 
 Low-delay P: one reference (the previous decoded picture, on the device
 as three interpolation pyramids), one MV per CU, skip (derived MV, no
@@ -129,7 +130,8 @@ def _inter_cost(cfg: CodecConfig, tab: Tables, mvbits: torch.Tensor,
     """Explicit-inter and skip costs of all size-s blocks:
     (cost_inter, mvx, mvy, cost_skip, merge_idx), each (gy, gx).
     warped: the (explicit, skip-left, skip-above) MC frames of this
-    size's MV fields."""
+    size's MV fields.  Lossless: the explicit cost is lam times the rate
+    of the residual and the MV bits, skip costs +inf."""
     w, h, s = cfg.width, cfg.height, size
     dev = plane.device
     lam = float(np.float32(cfg.lambda_mode))    # a multiplier: no upload
@@ -162,16 +164,27 @@ def _inter_cost(cfg: CodecConfig, tab: Tables, mvbits: torch.Tensor,
     else:
         midx = torch.zeros(sse_l.shape, dtype=torch.int32, device=dev)
         dist_s = d_c0
-    bd = cfg.bit_depth
-    coefs = ktx.forward_transform(tab, res.reshape(nb, s, s), s,
-                                  bit_depth=bd)
-    levels = kquant.quantize(tab, coefs, cfg.qp, s, bd)
-    rate = kcost.rate_estimate_levels(tab, levels)
-    deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
-    rres = ktx.inverse_transform(tab, deq, s, bit_depth=bd)
-    rec = (pred + rres).clamp(0, cfg.max_val)
-    cost_i = kcost.sse(rec, orig) + lam * ((rate + mv_bits) + 3.0)
-    cost_s = dist_s + lam * 2.0
+    if cfg.lossless:
+        # the residual is coded as it is: its rate is the cost; skip has
+        # no residual and its MV is derived only in Pass B, so it cannot
+        # be shown lossless here and is never chosen
+        rate = kcost.rate_inter_residual(tab, res)
+        cost_i = lam * ((rate + mv_bits) + 3.0)
+        cost_s = torch.full_like(dist_s, float("inf"))
+    else:
+        bd = cfg.bit_depth
+        coefs = ktx.forward_transform(tab, res.reshape(nb, s, s), s,
+                                      bit_depth=bd)
+        levels = kquant.quantize(tab, coefs, cfg.qp, s, bd)
+        # XLA nests the rate sum in the cost's loop fusion and contracts
+        # D + lam * R into a fused multiply-add, as in intra Pass A (F12)
+        rate = kcost.rate_nested(tab, levels)
+        deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
+        rres = ktx.inverse_transform(tab, deq, s, bit_depth=bd)
+        rec = (pred + rres).clamp(0, cfg.max_val)
+        cost_i = kcost.rd_cost(kcost.sse(rec, orig), lam,
+                               (rate + mv_bits) + 3.0)
+        cost_s = dist_s + lam * 2.0
     g = lambda v: v.reshape(gy, gx)              # noqa: E731
     return g(cost_i), g(mv[:, 0]), g(mv[:, 1]), g(cost_s), g(midx)
 
@@ -281,6 +294,9 @@ def _b_candidates(cfg: CodecConfig, tab: Tables, mvbits: torch.Tensor,
     reciprocal of the size's _fwd_gain2, on the device (XLA multiplies
     by it where the reference divides by the constant).
 
+    Lossless ranks the candidates by lam times the rate of their
+    residuals and the MV bits, which is also their cost; skip costs +inf.
+
     Returns (cost_expl, kind_expl, pmx, pmy, smx, smy, cost_skip, midx),
     each (gy, gx): kind_expl in {PRED_INTER, PRED_L1, PRED_BI}; the
     primary MV (L1's for PRED_L1, else L0's) and, for PRED_BI, the L1
@@ -321,37 +337,49 @@ def _b_candidates(cfg: CodecConfig, tab: Tables, mvbits: torch.Tensor,
         midx = torch.zeros(sse_l.shape, dtype=torch.int32, device=dev)
         dist_s = d_c0
 
-    bd = cfg.bit_depth
-    coefs, deqs, rbs = [], [], []
-    for p, b in zip((p0, p1, pbi), bits):
-        coefs.append(ktx.forward_transform(
-            tab, (orig - p).reshape(nb, s, s), s, bit_depth=bd))
-        levels = kquant.quantize(tab, coefs[-1], cfg.qp, s, bd)
-        deqs.append(kquant.dequantize(tab, levels, cfg.qp, s, bd))
-        rbs.append(kcost.rate_estimate_levels(tab, levels) + b)
-    # the reference's float32 block sums, in the order XLA CPU gives a
-    # reduction fused into the candidates' argmin (F10), then its
-    # division by g2, which XLA makes a product with the reciprocal
-    err = kcost.row_vector_sum(
-        (torch.stack(coefs) - torch.stack(deqs)).to(torch.float32) ** 2)
-    key = (s, str(dev))
-    F10_BLOCKS[key] = F10_BLOCKS.get(key, 0) + (
-        err >= 2.0 ** 24).any(0).sum()
-    dt = err * g2_inv
-    cands = [(deq, dt[k] + lam * rb, rb)
-             for k, (deq, rb) in enumerate(zip(deqs, rbs))]
-    kind_pre = torch.argmin(torch.stack([c[1] for c in cands], dim=1),
-                            dim=1)
-    sel3 = kind_pre[:, None, None]
-    deq = torch.where(sel3 == 0, cands[0][0],
-                      torch.where(sel3 == 1, cands[1][0], cands[2][0]))
-    rb = torch.where(kind_pre == 0, cands[0][2],
-                     torch.where(kind_pre == 1, cands[1][2], cands[2][2]))
-    pred = torch.where(sel3 == 0, p0, torch.where(sel3 == 1, p1, pbi))
-    rres = ktx.inverse_transform(tab, deq, s, bit_depth=bd)
-    rec = (pred + rres).clamp(0, cfg.max_val)
-    cost = kcost.sse(rec, orig) + lam * rb
-    cost_s = dist_s + lam * 2.0
+    if cfg.lossless:
+        # each candidate's residual is coded as it is: its rate is the
+        # cost, so the ranking is exact; skip is never chosen (as in
+        # _inter_cost)
+        pre = torch.stack([
+            lam * (kcost.rate_inter_residual(tab, orig - p, bi=k == 2) + b)
+            for k, (p, b) in enumerate(zip((p0, p1, pbi), bits))], dim=1)
+        kind_pre = torch.argmin(pre, dim=1)
+        cost = torch.gather(pre, 1, kind_pre[:, None])[:, 0]
+        cost_s = torch.full_like(dist_s, float("inf"))
+    else:
+        bd = cfg.bit_depth
+        coefs, deqs, rbs = [], [], []
+        for p, b in zip((p0, p1, pbi), bits):
+            coefs.append(ktx.forward_transform(
+                tab, (orig - p).reshape(nb, s, s), s, bit_depth=bd))
+            levels = kquant.quantize(tab, coefs[-1], cfg.qp, s, bd)
+            deqs.append(kquant.dequantize(tab, levels, cfg.qp, s, bd))
+            rbs.append(kcost.rate_nested(tab, levels) + b)
+        # the reference's float32 block sums, in the order XLA CPU gives a
+        # reduction fused into the candidates' argmin (F10, and the rate
+        # sums with them), then its division by g2, which XLA makes a
+        # product with the reciprocal, contracted with the sum into a
+        # fused multiply-add: err * (1 / g2) + fl(lam * rb)
+        err = kcost.row_vector_sum(
+            (torch.stack(coefs) - torch.stack(deqs)).to(torch.float32) ** 2)
+        key = (s, str(dev))
+        F10_BLOCKS[key] = F10_BLOCKS.get(key, 0) + (
+            err >= 2.0 ** 24).any(0).sum()
+        cands = [(deq, kcost.fma_f32(err[k], g2_inv, lam * rb), rb)
+                 for k, (deq, rb) in enumerate(zip(deqs, rbs))]
+        kind_pre = torch.argmin(torch.stack([c[1] for c in cands], dim=1),
+                                dim=1)
+        sel3 = kind_pre[:, None, None]
+        deq = torch.where(sel3 == 0, cands[0][0],
+                          torch.where(sel3 == 1, cands[1][0], cands[2][0]))
+        rb = torch.where(kind_pre == 0, cands[0][2],
+                         torch.where(kind_pre == 1, cands[1][2], cands[2][2]))
+        pred = torch.where(sel3 == 0, p0, torch.where(sel3 == 1, p1, pbi))
+        rres = ktx.inverse_transform(tab, deq, s, bit_depth=bd)
+        rec = (pred + rres).clamp(0, cfg.max_val)
+        cost = kcost.rd_cost(kcost.sse(rec, orig), lam, rb)
+        cost_s = dist_s + lam * 2.0
 
     kind_expl = torch.where(kind_pre == 0, PRED_INTER,
                             torch.where(kind_pre == 1, PRED_L1, PRED_BI))
@@ -442,7 +470,11 @@ class InterScan:
     hands recon._scan_frame each inter CU's MC predictions and keeps the
     unit MV-state plane the skip derivation reads, which is also the
     final-MV output.  Maps are host numpy; pyramids are on the scan's
-    device.  A B picture adds the L1 pyramids and the mv1 maps."""
+    device.  A B picture adds the L1 pyramids and the mv1 maps.  Intra
+    CUs take recon._tu as in an I picture (PDPC on luma, MIP with planar
+    chroma); every CU's residual goes through recon.residual_path, so
+    lossless holds for inter CUs too (a skip CU: level 0, recon =
+    clip(prediction))."""
 
     def __init__(self, cfg, encode, pred_map, mvx_map, mvy_map, pyrs,
                  pyrs1=None, mvx1_map=None, mvy1_map=None):
@@ -518,7 +550,12 @@ def make_recon_inter_raw(cfg: CodecConfig, tab: Tables, encode: bool,
     pyramids are (16, Hp, Wp) uint8.  Returns (reconY, reconCb, reconCr)
     uint8, (coefY, coefCb, coefCr) int16 and the final (primary) MV maps
     (mvx, mvy) int16 (H/8, W/8) with the frame dim, derived skip MVs
-    included."""
+    included.
+
+    It carries the intra tools as K3 does: lossless (inter and intra
+    CUs; a skip CU codes level 0), PDPC and MIP on intra CUs, and
+    transform skip wherever the mts map holds it, which on P and B
+    pictures it never does (their mts map is 0, as the reference's)."""
     recon.check_slice(cfg)
     masks = {}
 

@@ -205,7 +205,9 @@ def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
                   pyr_cb, pyr_cr, *l1):
     """Allocate K3-P's outputs and call its entry point on checked
     tensors -- K3-B when l1 holds the L1 pyramids and the mv1 maps;
-    returns (error code, outputs)."""
+    returns (error code, outputs).  The intra tools reach the kernel as
+    K1's do: cfg's lossless, transform_skip and pdpc flags and the MIP
+    table tab.k_mip (checked by _check_tables)."""
     h, w = cfg.height, cfg.width
     ch, cw = h // 2, w // 2
     dev = a.device
@@ -233,7 +235,8 @@ def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
         int(encode), w, h, py[1], pc[1], py[0] * py[1], pc[0] * pc[1],
         cfg.qp, float(np.float32(cfg.lambda_mode)),
         int(cfg.rdoq and encode), int(cfg.mts), int(cfg.ref_substitute),
-        cfg.n_pred_modes, int(cfg.merge_cands), pyr_y.shape[1],
+        cfg.n_pred_modes, int(cfg.lossless), int(cfg.transform_skip),
+        int(cfg.pdpc), int(cfg.merge_cands), pyr_y.shape[1],
         pyr_y.shape[2], pyr_cb.shape[1], pyr_cb.shape[2],
         *map(ptr, src), *map(ptr, cin), size_map.data_ptr(),
         mode_map.data_ptr(), mts_map.data_ptr(), pred_map.data_ptr(),
@@ -241,6 +244,6 @@ def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
         pyr_cb.data_ptr(), pyr_cr.data_ptr(), *map(ptr, rec),
         *map(ptr, cout), mvs[0].data_ptr(), mvs[1].data_ptr(),
         tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
-        tab.k_shift.data_ptr(), tab.rate.data_ptr(),
+        tab.k_shift.data_ptr(), tab.rate.data_ptr(), tab.k_mip.data_ptr(),
         *(map(ptr, l1) if l1 else (None,) * 5), sync.data_ptr(), stream)
     return err, (*rec, *coef, *mvs)

@@ -37,6 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from x266_tpu_torch.kernels.cost import fma_f32 as _fma
+
 DIAMOND = np.array([
     (0, 1), (0, 2), (0, 3),
     (1, -2), (1, -1), (1, 0), (1, 1), (1, 2),
@@ -290,29 +292,6 @@ def normal_sums(feats, err, cls_px=None, n_classes: int = 1):
     gram = ordered_sums(pg, cls, n_classes, kind + "_gram")
     rhs = ordered_sums(pr, cls, n_classes, kind + "_rhs")
     return gram.reshape(n_classes, t, t), rhs
-
-
-_INF = float("inf")
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a * b + c rounded once (an FMA), from float64 ops: the
-    product is exact in float64; where the float64 sum lies exactly
-    halfway between two float32 values its rounding error (TwoSum)
-    decides, as the unrounded sum would."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    z = s - p
-    t = (p - (s - z)) + (cd - z)
-    r = s.float()
-    rd = r.double()
-    other = torch.where(s > rd, torch.nextafter(r, torch.full_like(r, _INF)),
-                        torch.nextafter(r, torch.full_like(r, -_INF)))
-    tie = (s != rd) & ((rd + other.double()) * 0.5 == s) & (t != 0)
-    fix = torch.where(t > 0, torch.maximum(r, other),
-                      torch.minimum(r, other))
-    return torch.where(tie, fix, r)
 
 
 def _fma_chain(a: torch.Tensor, x: torch.Tensor, cols) -> torch.Tensor:

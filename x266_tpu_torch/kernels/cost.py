@@ -11,7 +11,11 @@ exactly as the reference does:
   (s, s) block, so the sums equal the reference's bit for bit
   (``xla_cpu_sum``).
 - ``row_vector_sum`` is XLA CPU's order for a reduction that it fuses
-  into a loop (B Pass A's transform-domain error sums, ROADMAP F10).
+  into a loop (B Pass A's transform-domain error sums, ROADMAP F10);
+  ``rate_nested`` and ``rd_cost`` the rate sums and the fused D + lam * R
+  of the argmin fusions (intra Pass A, F12; P and B Pass A, F13),
+  ``fma_f32`` any float32 fused multiply-add, and
+  ``rate_inter_residual`` the lossless inter rates (F13).
 - ``plane_sse_f32`` is the reference's float32 SSE of a whole picture
   plane (x266_tpu/engine/fused.py:483-486) in XLA CPU's order, reported
   beside the exact int64 sum (ROADMAP F4).
@@ -62,29 +66,47 @@ def _lane_sum(v: torch.Tensor) -> torch.Tensor:
     return _fold(acc)
 
 
-def row_vector_sum(v: torch.Tensor) -> torch.Tensor:
-    """float32 sum over the trailing (s, s) dims, s a multiple of 8, in
-    the order LLVM gives XLA CPU's row loop of a reduction it emits
-    element by element: row by row, the row's s/8 8-wide vectors are
-    added in order into an 8-lane vector whose lane 0 starts at the
-    running sum, which then folds in halves into the new running sum.
-    Lanes 1-7 do not depend on the running sum, so they are added for
-    all rows at once.  XLA CPU emits a reduction so when it is nested in
-    a loop fusion (B Pass A's error sums, F10) or for 32x32 sums (the
-    rate sums, F2; the CTB SSE of 32-wide planes, F9)."""
+def row_lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the trailing (s, s) dims, s <= 16: each row is a
+    lane that adds its samples in order from 0, then the s lanes fold in
+    halves (_lane_sum's order at 8x8, with all 16 rows as lanes at
+    16x16)."""
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+    for x in range(v.shape[-1]):
+        acc = acc + v[..., x]
+    return _fold(acc)
+
+
+def row_vector_sum(v: torch.Tensor, width: int = 8) -> torch.Tensor:
+    """float32 sum over the trailing (s, s) dims, s a multiple of width,
+    in the order LLVM gives XLA CPU's row loop of a reduction it emits
+    element by element: row by row, the row's s/width width-wide vectors
+    are added in order into a width-lane vector whose lane 0 starts at
+    the running sum, which then folds in halves into the new running
+    sum.  The other lanes do not depend on the running sum, so their
+    partial sums that join lane 0 in the fold are formed for all rows at
+    once.  XLA CPU emits a reduction so when it is nested in a loop
+    fusion (B Pass A's error sums, F10; the rate sums of the argmin
+    fusions, F12, F13) or for 32x32 sums (the rate sums, F2; the CTB SSE
+    of 32-wide planes, F9): 8-wide vectors there, 16-wide in the lossless
+    inter rates (F13)."""
     s = v.shape[-1]
-    rows = v[..., 0:8]
-    for j in range(8, s, 8):
-        rows = rows + v[..., j:j + 8]
-    l4 = rows[..., 4]
-    l26 = rows[..., 2] + rows[..., 6]
-    odd = (rows[..., 1] + rows[..., 5]) + (rows[..., 3] + rows[..., 7])
+    t = v[..., 0:width]
+    for j in range(width, s, width):
+        t = t + v[..., j:j + width]
+    parts = []                     # what joins lane 0 at each fold step
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        parts.append(t[..., h])
+        t = t[..., :h] + t[..., h:]
     acc = torch.zeros(v.shape[:-2], dtype=torch.float32, device=v.device)
     for r in range(v.shape[-2]):
         t0 = acc + v[..., r, 0]
-        for j in range(8, s, 8):
+        for j in range(width, s, width):
             t0 = t0 + v[..., r, j]
-        acc = ((t0 + l4[..., r]) + l26[..., r]) + odd[..., r]
+        for part in parts:
+            t0 = t0 + part[..., r]
+        acc = t0
     return acc
 
 
@@ -103,9 +125,10 @@ def rate_estimate_levels(tab: Tables, levels: torch.Tensor) -> torch.Tensor:
 
 def rate_nested(tab: Tables, levels: torch.Tensor) -> torch.Tensor:
     """rate_estimate_levels where XLA nests the sum in the loop fusion of
-    the candidates' argmin -- intra Pass A's and the transform select's
-    costs (x266_tpu/engine/mode_decision.py:198-205, 495-508): added in
-    row_vector_sum's order at every size.  Transposed residuals (modes
+    the candidates' argmin or cost -- intra Pass A's and the transform
+    select's costs (x266_tpu/engine/mode_decision.py:198-205, 495-508)
+    and P and B Pass A's (x266_tpu/engine/inter.py:150-156, 377-383):
+    added in row_vector_sum's order at every size.  Transposed residuals (modes
     17 and 51 of a symmetric block) tie in the standalone order and not
     in this one."""
     return row_vector_sum(tab.rate[levels.abs().long()])
@@ -120,6 +143,27 @@ def rd_cost(sse: torch.Tensor, lam: float, bits: torch.Tensor) -> torch.Tensor:
     lam64 = float(np.float32(lam))
     return (sse.to(torch.float64) + lam64 * bits.to(torch.float64)).to(
         torch.float32)
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once (a fused multiply-add), from float64
+    ops: the product is exact in float64; where the float64 sum lies
+    exactly halfway between two float32 values its rounding error
+    (TwoSum) decides, as the unrounded sum would."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    z = s - p
+    t = (p - (s - z)) + (cd - z)
+    r = s.float()
+    rd = r.double()
+    inf = torch.full_like(r, float("inf"))
+    other = torch.where(s > rd, torch.nextafter(r, inf),
+                        torch.nextafter(r, -inf))
+    tie = (s != rd) & ((rd + other.double()) * 0.5 == s) & (t != 0)
+    fix = torch.where(t > 0, torch.maximum(r, other),
+                      torch.minimum(r, other))
+    return torch.where(tie, fix, r)
 
 
 def window_then_sum(v: torch.Tensor) -> torch.Tensor:
@@ -139,6 +183,22 @@ def window_then_sum(v: torch.Tensor) -> torch.Tensor:
     for k in range(acc.shape[-1]):
         tot = tot + acc[..., k]
     return tot
+
+
+def rate_inter_residual(tab: Tables, res: torch.Tensor,
+                        bi: bool = False) -> torch.Tensor:
+    """rate_estimate_levels of a lossless inter residual (P and B Pass A,
+    x266_tpu/engine/inter.py:143, 360), summed in the order of the loop
+    fusion XLA CPU makes of the MC gather, the surrogate and the sum
+    (read from its optimized LLVM IR): for 8x8 and 16x16 blocks each row
+    is a lane (row_lane_sum); for 32x32, and for the 16x16
+    bi-prediction candidate (the average of two gathers), a fold of
+    16-wide vectors per row (row_vector_sum with width 16)."""
+    bits = tab.rate[res.abs().long()]
+    s = res.shape[-1]
+    if s == 8 or (s == 16 and not bi):
+        return row_lane_sum(bits)
+    return row_vector_sum(bits, 16)
 
 
 def rate_estimate_residual(tab: Tables, res: torch.Tensor) -> torch.Tensor:
