@@ -10,7 +10,10 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     torch scan on the card, bit for bit, at 128x64 and 416x240 for a
     config-2 shaped VVC config and an HEVC config, and on the main
     path's frames and shapes (1920x1080, K1 on a batch of 4 frames, K2
-    on one at a time); [kernels-sse] kernel SSE (each plane's float32
+    on one at a time), with the TUs each launch walks by plane and size
+    (from the size map) and its time per CTU and per luma TU on the
+    wavefront's chain (tu_walk; so for K3-P, K3-B and the tools'
+    variants below); [kernels-sse] kernel SSE (each plane's float32
     SSE in XLA's reduction tree, F4) against its plain version, bit for
     bit, on 1080p and 4K luma and chroma planes near and far from their
     source;
@@ -35,8 +38,10 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     [kernels-tools] K1 and K2's lossless, transform-skip, PDPC and MIP
     branches against the plain scan, bit for bit, each tool alone at
     416x240 and cfg2t (config 2 with PDPC, MIP and transform skip) and
-    lossless at 1080p, with the counts of the tools' TUs (a tool the
-    config enables with no TU fails);
+    lossless at 1080p (K1 on a batch of 4, frame 0 against the plain
+    encode scan on the CPU; K2 on its levels against K1's recon), with
+    the counts of the tools' TUs (a tool the config enables with no TU
+    fails), both timed;
     [main-tools] cfg2t frames 0-3 of the 'text' clip at 1080p against
     data/cfg2t_1080p_ref.json, and [main-lossless] ai_hevc_lossless's
     configuration at 1080p against data/lossless_1080p_ref.json, each as
@@ -93,6 +98,10 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     reference's sum (F10, which the port follows); lossless random
     access at 416x240 without loop filters against
     data/lossless_ra_416x240_ref.json, decoding to its input;
+    [main-cfg5] config 5's single-device form (low-delay P, intra
+    period 16, deblock and SAO, WPP segments) at 112x80 (two CTU rows),
+    17 frames of 'motion', against data/cfg5_112x80_ref.json as
+    [main-ra-ref];
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
@@ -112,6 +121,7 @@ Exits non-zero, printing no result, when no CUDA device is visible.
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -291,6 +301,49 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
     return ops
 
 
+def tu_walk(size_map, width: int, height: int) -> dict:
+    """The TUs a recon launch walks, derived from its size maps ((F,
+    H/8, W/8), numpy; the kernel does not count them): per plane, the
+    TUs of each size (a CU of side s has one luma TU of s and a Cb and a
+    Cr TU of s/2); the CTUs on the wavefront's chain, ctus_x + 2 (ctus_y
+    - 1) (a batch's rows run at once, so its chain is one frame's); and
+    the luma TUs on that chain, a frame's mean luma TUs per CTU times the
+    chain.  The chain counts luma TUs only because the kernel runs the
+    three planes at once, where its parent (d418144) ran them one after
+    another: a CTU's step is divided by the same count for both."""
+    u = size_map // 8
+    uy, ux = np.mgrid[0:size_map.shape[1], 0:size_map.shape[2]]
+    origin = ((ux % u) == 0) & ((uy % u) == 0)
+    sizes = size_map[origin]
+    walk = {"Y": {str(s): int((sizes == s).sum()) for s in (8, 16, 32)}}
+    for c in ("Cb", "Cr"):
+        walk[c] = {str(s // 2): n for s, n in zip((8, 16, 32),
+                                                   walk["Y"].values())}
+    ctus_x, ctus_y = -(-width // 64), -(-height // 64)
+    chain = ctus_x + 2 * (ctus_y - 1)
+    luma_per_ctu = sizes.size / size_map.shape[0] / (ctus_x * ctus_y)
+    return {"tus_by_size_map": walk, "chain_ctus": chain,
+            "chain_luma_tus": luma_per_ctu * chain}
+
+
+def per_chain(walk: dict, ms: float) -> dict:
+    """A launch's ms per CTU and us per luma TU on its chain (tu_walk)."""
+    return {"tus_by_size_map": walk["tus_by_size_map"],
+            "ms_per_chain_ctu": ms / walk["chain_ctus"],
+            "us_per_chain_luma_tu": 1e3 * ms / walk["chain_luma_tus"]}
+
+
+def chain_text(walk: dict, **ms) -> str:
+    """tu_walk's counts and, for each kernel=ms, its per_chain rates."""
+    rates = ", ".join(
+        f"{k} {r['ms_per_chain_ctu']:.4f} ms per CTU, "
+        f"{r['us_per_chain_luma_tu']:.3f} us per luma TU"
+        for k, r in ((k, per_chain(walk, t)) for k, t in ms.items()))
+    return (f"TUs by the size map {walk['tus_by_size_map']}; chain "
+            f"{walk['chain_ctus']} CTUs, {walk['chain_luma_tus']:.0f} luma "
+            f"TUs: {rates}")
+
+
 def tool_counts(cfg, maps) -> dict:
     """The intra tools' TUs on Pass-A maps (size, mode, mts; each (F,
     H/8, W/8)): MIP CUs, transform-skip luma TUs, PDPC-class luma TUs
@@ -337,9 +390,35 @@ def phase_build():
     _build.LIBRARY.build()
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
-    for line in _build.LIBRARY.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
+    for line in build_lines(_build.LIBRARY.build_log):
+        log(f"[build] {line}")
+
+
+def kernel_name(mangled: str) -> str:
+    """recon_kernel<encode,inter,b> for a recon instance, else the first
+    length-prefixed name in the mangled symbol that holds "kernel"."""
+    t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)", mangled)
+    if t:
+        return "recon_kernel<%s,%s,%s>" % t.groups()
+    for m in re.finditer(r"(\d+)([A-Za-z_]\w*)", mangled):
+        name = m.group(2)[:int(m.group(1))]
+        if "kernel" in name:
+            return name
+    return mangled
+
+
+def build_lines(build_log: str):
+    """nvcc's warnings, and ptxas's registers, stack, spills and shared
+    memory of each kernel (-Xptxas -v), each line with its kernel."""
+    name = "?"
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "warning" in line:
+            yield line.strip()
+        elif "stack frame" in line or "Used" in line:
+            yield f"{name}: {line.split(':')[-1].strip()}"
 
 
 def _upload(frames):
@@ -409,9 +488,14 @@ def compare_kernels(cfg, n, seed, stats, kind="mixed", tools=None,
     k1_ms = event_ms(recon_cuda.recon_intra, cfg, tab, True, *src, *maps)
     k2_ms = event_ms(recon_cuda.recon_intra, cfg, tab, False, *one)
     counts = tool_counts(cfg, maps)
+    sm = maps[0].cpu().numpy()
+    walk1 = tu_walk(sm, cfg.width, cfg.height)
+    walk2 = tu_walk(sm[:1], cfg.width, cfg.height)
     log(f"[{phase}] {tag}: K1 {k1_ms:.3f} ms for {n} frames (plain "
         f"{p1_ms:.0f} ms) max_abs_err {err1}; K2 {k2_ms:.3f} ms per frame "
         f"(plain {p2_ms / n:.0f} ms) max_abs_err {err2}; tool TUs {counts}")
+    log(f"[{phase}] {tag}: K1 {chain_text(walk1, K1=k1_ms)}")
+    log(f"[{phase}] {tag}: K2 {chain_text(walk2, K2=k2_ms)}")
     _require_equal("K1", tag, names, got, ref)
     if err2:
         raise AssertionError(f"K2 {tag} differs from the plain scan")
@@ -432,19 +516,20 @@ def compare_kernels(cfg, n, seed, stats, kind="mixed", tools=None,
     b2 = bound(nbytes(*one, *(d[:1] for d in dec[:3]), *tabs),
                recon_ops(hm[0][:1], False, None, hm[1][:1], hm[2][:1], cfg))
     if tools:
-        for k, ms, pms, b in (("K1", k1_ms, p1_ms, b1),
-                              ("K2", k2_ms, p2_ms / n, b2)):
+        for k, ms, pms, b, walk in (("K1", k1_ms, p1_ms, b1, walk1),
+                                    ("K2", k2_ms, p2_ms / n, b2, walk2)):
             stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"],
                                           err1 if k == "K1" else err2)
             stats[k].setdefault("tools", {})[tools] = {
                 "ms": ms, "plain_ms": pms, "bound_ms": b[0],
                 "bound_by": b[1], "shape": f"{shape}x{n if k == 'K1' else 1}",
-                "tool_tus": counts}
+                "tool_tus": counts, **per_chain(walk, ms)}
         return
     _record(stats, "K1", err1, ms=k1_ms, plain_ms=p1_ms, bound_ms=b1[0],
-            bound_by=b1[1], shape=f"{shape}x{n}")
+            bound_by=b1[1], shape=f"{shape}x{n}", **per_chain(walk1, k1_ms))
     _record(stats, "K2", err2, ms=k2_ms, plain_ms=p2_ms / n,
-            bound_ms=b2[0], bound_by=b2[1], shape=f"{shape}x1")
+            bound_ms=b2[0], bound_by=b2[1], shape=f"{shape}x1",
+            **per_chain(walk2, k2_ms))
 
 
 def main_cfg():
@@ -509,10 +594,14 @@ def phase_kernels_tools(stats):
     against the plain scan on Pass-A maps: each tool alone at 416x240
     (transform skip on text content, which it targets; PDPC and MIP on
     the motion clip, where Pass A picks MIP in some 10 % of the CUs),
-    then cfg2t and lossless at 1080p on one frame (the plain scan's time
-    bounds the frame count), with K1 timed on the encoder's batch of 4."""
+    then cfg2t and lossless at 1080p: K1 on the encoder's batch of 4,
+    frame 0's recon and levels against the plain encode scan (on the
+    CPU, where it walks the CUs about twice as fast as on the card), and
+    K2 on frame 0's levels against K1's recon, which equals the plain
+    scan's; both timed."""
+    from x266_tpu_torch import tables
     from x266_tpu_torch.config import CodecConfig, preset_cfg2
-    from x266_tpu_torch.engine import recon_cuda
+    from x266_tpu_torch.engine import recon, recon_cuda
 
     w, h = 416, 240
     for name, cfg, kind in (
@@ -523,24 +612,57 @@ def phase_kernels_tools(stats):
             ("mip", preset_cfg2(w, h).replace(mip=True), "motion")):
         compare_kernels(cfg, 1, 13, stats, kind, f"{name} {w}x{h}",
                         "kernels-tools")
-    for name, cfg, kind in (("cfg2t", cfg2t(), "text"),
-                            ("lossless", lossless_cfg(), "mixed")):
-        compare_kernels(cfg, 1, 0, stats, kind, f"{name} 1080p",
-                        "kernels-tools")
+    names = ("reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr")
+    for name, make, kind in (("cfg2t", cfg2t, "text"),
+                             ("lossless", lossless_cfg, "mixed")):
+        cfg = make()
+        tag = f"{name} 1080p"
         tab, src, maps = _inputs(cfg, 4, 0, kind)
         got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+        plain = recon.make_recon_pass_raw(
+            cfg, tables.from_reference(cfg, "cpu"), encode=True)
+        ref, p1_ms = timed(plain, *(t[:1].cpu() for t in (*src, *maps)))
+        _require_equal("K1", tag, names, [g[:1] for g in got],
+                       [r.cuda() for r in ref])
+        one = [t[:1].contiguous() for t in (*got[3:], *maps)]
+        dec = recon_cuda.recon_intra(cfg, tab, False, *one)
+        _require_equal("K2", tag, names[:3], dec[:3],
+                       [g[:1] for g in got[:3]])
+        if cfg.lossless:
+            _require_equal("K1", tag + " lossless recon", names[:3], got[:3],
+                           [p[:, 1:1 + q.shape[1], 1:1 + q.shape[2]]
+                            for p, q in zip(src, got[:3])])
+        counts = tool_counts(cfg, maps)
+        for flag, key in (("mip", "mip"), ("transform_skip", "ts"),
+                          ("pdpc", "pdpc"), ("lossless", "lossless")):
+            if getattr(cfg, flag) and counts[key] == 0:
+                raise AssertionError(f"[kernels-tools] {tag}: {flag} is on "
+                                     "but no TU took its branch")
         k1_ms = event_ms(recon_cuda.recon_intra, cfg, tab, True, *src,
                          *maps)
+        k2_ms = event_ms(recon_cuda.recon_intra, cfg, tab, False, *one)
         hm = [m.cpu().numpy() for m in maps]
-        b1 = bound(nbytes(*src, *maps, *got, tab.k_taps, tab.k_smooth,
-                          tab.k_tx, tab.k_shift, tab.k_mip, tab.rate),
+        tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift, tab.k_mip)
+        b1 = bound(nbytes(*src, *maps, *got, *tabs, tab.rate),
                    recon_ops(hm[0], True, None, hm[1], hm[2], cfg))
-        stats["K1"]["tools"][f"{name} 1080p x4"] = {
-            "ms": k1_ms, "bound_ms": b1[0], "bound_by": b1[1],
-            "shape": "1920x1080x4", "tool_tus": tool_counts(cfg, maps)}
-        log(f"[kernels-tools] {name} 1080p x4: K1 {k1_ms:.3f} ms for 4 "
-            f"frames (bound {b1[0]:.4f} ms, {b1[1]}); tool TUs "
-            f"{tool_counts(cfg, maps)}")
+        b2 = bound(nbytes(*one, *(d[:1] for d in dec[:3]), *tabs),
+                   recon_ops(hm[0][:1], False, None, hm[1][:1], hm[2][:1],
+                             cfg))
+        log(f"[kernels-tools] {tag}: K1 frame 0 of 4 equals the plain scan "
+            f"(plain {p1_ms:.0f} ms on the cpu for one frame), K2 on its "
+            f"levels equals K1's recon; max_abs_err 0")
+        for k, key, ms, b, sm, shape in (
+                ("K1", f"{tag} x4", k1_ms, b1, hm[0], "1920x1080x4"),
+                ("K2", tag, k2_ms, b2, hm[0][:1], "1920x1080x1")):
+            walk = tu_walk(sm, cfg.width, cfg.height)
+            tus = tool_counts(cfg, [m[:sm.shape[0]] for m in maps])
+            stats[k]["tools"][key] = {
+                "ms": ms, "plain_ms_cpu_frame": p1_ms if k == "K1" else None,
+                "bound_ms": b[0], "bound_by": b[1], "shape": shape,
+                "tool_tus": tus, **per_chain(walk, ms)}
+            log(f"[kernels-tools] {key}: {k} {ms:.3f} ms (bound "
+                f"{b[0]:.4f} ms, {b[1]}); {chain_text(walk, **{k: ms})}; "
+                f"tool TUs {tus}")
 
 
 def phase_kernels(stats):
@@ -647,10 +769,13 @@ def compare_p_kernels(cfg, seed, stats):
         f"({b3d[1]}), K4 {b4[0]:.4f} ms ({b4[1]}), K5 {b5[0]:.4f} ms "
         f"({b5[1]})")
     shape = f"{cfg.width}x{cfg.height}"
+    walk = tu_walk(hm[0], cfg.width, cfg.height)
+    log(f"[kernels-p] {tag}: {chain_text(walk, K3=k3_ms, K3d=k3d_ms)}")
     _record(stats, "K3", err3, ms=k3_ms, plain_ms=p3_ms, bound_ms=b3[0],
-            bound_by=b3[1], shape=shape)
+            bound_by=b3[1], shape=shape, **per_chain(walk, k3_ms))
     _record(stats, "K3d", err3d, ms=k3d_ms, plain_ms=p3d_ms,
-            bound_ms=b3d[0], bound_by=b3d[1], shape=shape)
+            bound_ms=b3d[0], bound_by=b3d[1], shape=shape,
+            **per_chain(walk, k3d_ms))
     _record(stats, "K4", err4, ms=k4_ms, plain_ms=p4_ms, bound_ms=b4[0],
             bound_by=b4[1], library_ms=lib4_ms,
             shape=f"{shape} T={mvs.shape[0]} ({n4} samples)")
@@ -771,13 +896,17 @@ def compare_b_kernels(cfg, seed, stats, record=False):
         f"{bbd[0]:.4f} ms ({bbd[1]})")
     _record(stats, "K3B", errb)
     _record(stats, "K3Bd", errbd)
+    walk = tu_walk(hm[0], cfg.width, cfg.height)
+    log(f"[kernels-b] {tag}: {chain_text(walk, K3B=kb_ms, K3Bd=kbd_ms)}")
     if record:
         check_filters(cfg, tab, tag, planes, p0, p1, got, maps)
         shape = f"{cfg.width}x{cfg.height}"
         _record(stats, "K3B", errb, ms=kb_ms, plain_ms=pb_ms,
-                bound_ms=bb[0], bound_by=bb[1], shape=shape)
+                bound_ms=bb[0], bound_by=bb[1], shape=shape,
+                **per_chain(walk, kb_ms))
         _record(stats, "K3Bd", errbd, ms=kbd_ms, plain_ms=pbd_ms,
-                bound_ms=bbd[0], bound_by=bbd[1], shape=shape)
+                bound_ms=bbd[0], bound_by=bbd[1], shape=shape,
+                **per_chain(walk, kbd_ms))
 
 
 def read_union(pyrs, parts) -> int:
@@ -985,10 +1114,13 @@ def compare_inter_tool_kernels(tag, cfg, b, stats, seed, force=None,
     log(f"[{phase}] {tag}: bounds {k} {be[0]:.4f} ms ({be[1]}), {kd} "
         f"{bd[0]:.4f} ms ({bd[1]})")
     shape = f"{cfg.width}x{cfg.height}"
+    walk = tu_walk(hm[0], cfg.width, cfg.height)
+    log(f"[{phase}] {tag}: {chain_text(walk, **{k: k_ms, kd: kd_ms})}")
     for key, ms, pms, bb in ((k, k_ms, p_ms, be), (kd, kd_ms, pd_ms, bd)):
         stats[key].setdefault("tools", {})[record] = {
             "ms": ms, "plain_ms": pms, "bound_ms": bb[0],
-            "bound_by": bb[1], "shape": shape, "tool_cus": counts}
+            "bound_by": bb[1], "shape": shape, "tool_cus": counts,
+            **per_chain(walk, ms)}
 
 
 def phase_kernels_inter_tools(stats):
@@ -1222,8 +1354,8 @@ def phase_golden_filters():
 
 
 def run_ra_ref(tag, name, file, cfg, kind, stats=None, kernels=(),
-               card=None, need=()):
-    """17 frames of the clip under a random-access cfg through Encoder
+               card=None, need=(), seed=0):
+    """17 frames of the clip (seed) under cfg through Encoder
     and Decoder, held against the recorded JAX reference data/file: the
     whole stream, each slice NAL (coding order) and recon byte-identical,
     PSNR-Y and the float32 SSE equal (where the file records the SSE);
@@ -1240,7 +1372,7 @@ def run_ra_ref(tag, name, file, cfg, kind, stats=None, kernels=(),
     from x266_tpu_torch.engine import inter
 
     w, h = cfg.width, cfg.height
-    frames = synthetic_clip(w, h, 17, kind)
+    frames = synthetic_clip(w, h, 17, kind, seed=seed)
     enc, dec = Encoder(cfg), Decoder()
     inter.F10_BLOCKS.clear()
     _reset_launches()
@@ -1352,6 +1484,21 @@ def phase_main_ra_ref(stats):
                lossless_ra_cfg(), "mixed", stats,
                ("K1", "K2", "K3", "K3d", "K3B", "K3Bd", "K4", "K5"),
                need=(("B", "lossless_inter"),))
+
+
+def phase_main_cfg5(stats):
+    """Config 5's single-device form (low-delay P, intra period 16,
+    deblock and SAO, one entropy segment per CTU row with WPP context
+    inheritance) at 112x80 (two CTU rows, so the second segment inherits
+    the first's contexts and the filters cross a CTU-row edge), 17 frames
+    of 'motion' (I, 15 P, I), against data/cfg5_112x80_ref.json: the clip
+    of tests/test_torch_pipeline.py test_cfg5_clip_matches_recorded_jax,
+    on the card."""
+    from x266_tpu_torch.config import preset_cfg5
+
+    run_ra_ref("main-cfg5", "cfg5", "cfg5_112x80_ref.json",
+               preset_cfg5(112, 80), "motion", stats,
+               ("K1", "K2", "K3", "K3d", "K4", "K5", "SSE"), seed=3)
 
 
 def run_main_ra(stats, card):
@@ -1645,6 +1792,7 @@ def main() -> int:
                 "ALFSSE", "SSE"), card,
                need=(("B", "mip"), ("B", "pdpc")))
     phase_main_ra_ref(stats)
+    phase_main_cfg5(stats)
     run_main_ra(stats, card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": [
@@ -1652,7 +1800,9 @@ def main() -> int:
          "source": KERNELS[k][1], "replaces": KERNELS[k][2],
          **{key: stats[k].get(key) for key in REQUIRED_KEYS},
          **{key: stats[k][key] for key in (
-             "shape", "launches_cfg4", "launches_tools", "tools")
+             "shape", "tus_by_size_map", "ms_per_chain_ctu",
+             "us_per_chain_luma_tu", "launches_cfg4",
+             "launches_tools", "tools")
             if key in stats[k]}}
         for k in KERNELS]}))
     log(card)

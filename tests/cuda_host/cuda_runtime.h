@@ -2,9 +2,13 @@
 // sources with g++ on a machine without a GPU (tests only).
 //
 // A launch runs each thread block as blockDim.x fibers (ucontext) on one
-// OS thread; __syncthreads() and the warp primitives are barriers between
-// the fibers, so a fiber that reaches one hands the thread to the next
-// fiber that can run, and the last to arrive releases the others.
+// OS thread; __syncthreads(), the named barriers (x266_bar_sync,
+// x266_bar_red_or) and the warp primitives are barriers between the
+// fibers, so a fiber that reaches one hands the thread to the next fiber
+// that can run, and the last to arrive releases the others.  A named
+// barrier id (1-15) takes, in each block, the thread count of its first
+// arrival and the fibers that completed its first round: a later arrival
+// with another count, or by a fiber outside that set, is a launch error.
 // X266_HOST_BLOCKS (an environment variable, default 1) slots, each an OS
 // thread, run blocks at once, so a kernel whose blocks wait on each other
 // (the recon kernels' row wavefront) runs its tickets, progress waits and
@@ -36,6 +40,9 @@
 
 struct alignas(16) int4 {
   int x, y, z, w;
+};
+struct alignas(8) int2 {
+  int x, y;
 };
 struct alignas(16) float4 {
   float x, y, z, w;
@@ -91,7 +98,6 @@ T& host_block_shared() {
 #define __constant__
 #define __launch_bounds__(n)
 
-inline std::atomic<bool> host_check_failed{false};
 #define X266_ASSERT(cond)                          \
   do {                                             \
     if (!(cond)) host_check_failed = true;         \
@@ -161,6 +167,59 @@ inline void host_arrive(HostBarrier* b) {
 
 inline void __syncthreads() { host_arrive(host_block_barrier); }
 
+// Named barriers 1-15 of the running block (per slot): the count and the
+// member fibers fixed by the first round, the OR of a bar.red round.
+struct HostNamed {
+  HostBarrier bar{0};
+  std::vector<char> member;
+  bool fixed = false;
+  int acc = 0, result[2] = {0, 0};
+};
+inline thread_local HostNamed* host_named = nullptr;   // [16]
+inline std::atomic<bool> host_check_failed{false};
+
+inline HostNamed& host_named_arrive(int id, int n) {
+  static HostNamed bad;
+  if (id <= 0 || id >= 16 || n <= 0 || n % 32 != 0 ||
+      (unsigned)n > blockDim.x) {
+    host_check_failed = true;
+    return bad;
+  }
+  HostNamed& nb = host_named[id];
+  const unsigned t = threadIdx.x;
+  if (nb.bar.expected == 0) nb.bar.expected = (unsigned)n;
+  if (nb.bar.expected != (unsigned)n) host_check_failed = true;
+  if (nb.fixed && !nb.member[t]) host_check_failed = true;
+  if (!nb.fixed) nb.member[t] = 1;
+  return nb;
+}
+
+inline void host_named_done(HostNamed& nb, unsigned generation) {
+  if (nb.bar.generation != generation) nb.fixed = true;
+}
+
+inline void x266_bar_sync(int id, int n) {
+  HostNamed& nb = host_named_arrive(id, n);
+  if (nb.bar.expected == 0) return;
+  const unsigned g = nb.bar.generation;
+  host_arrive(&nb.bar);
+  host_named_done(nb, g);
+}
+
+inline int x266_bar_red_or(int id, int n, int pred) {
+  HostNamed& nb = host_named_arrive(id, n);
+  if (nb.bar.expected == 0) return pred != 0;
+  const unsigned g = nb.bar.generation;
+  nb.acc |= pred != 0;
+  if (nb.bar.arrived + 1 == nb.bar.expected) {
+    nb.result[g & 1] = nb.acc;
+    nb.acc = 0;
+  }
+  host_arrive(&nb.bar);
+  host_named_done(nb, g);
+  return nb.result[g & 1];
+}
+
 template <class V>
 V host_shuffle(V v, int from) {
   const unsigned lane = threadIdx.x % 32;
@@ -171,6 +230,15 @@ V host_shuffle(V v, int from) {
     std::memcpy(&r, &host_warp.slot[from], sizeof(V));
   host_arrive(host_warp.bar);
   return r;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) { host_arrive(host_warp.bar); }
+template <class V>
+V __shfl_sync(unsigned, V v, int from) {
+  return host_shuffle(v, from);
+}
+template <class V>
+V __shfl_xor_sync(unsigned, V v, int m) {
+  return host_shuffle(v, (int)(threadIdx.x % 32) ^ m);
 }
 template <class V>
 V __shfl_down_sync(unsigned, V v, int d) {
@@ -190,9 +258,16 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   host_arrive(host_warp.bar);
   return m;
 }
+inline int __any_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) != 0;
+}
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline int atomicOr(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_or(v);
 }
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
@@ -215,6 +290,7 @@ template <class T>
 inline T __ldg(const T* p) { return *p; }
 template <class T>
 inline T __ldcg(const T* p) { return *p; }
+inline int4 x266_ldg_early(const int4* p) { return *p; }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline float __fmul_rn(float a, float b) {
   volatile float r = a * b;
@@ -319,10 +395,12 @@ cudaError_t cudaLaunchKernel(void (*kernel)(P), dim3 grid, dim3 block,
       for (unsigned wi = 0; wi < warps; ++wi)
         warp_bars.push_back({std::min(32u, block.x - 32 * wi)});
       HostBarrier bar{block.x};
+      std::vector<HostNamed> named(16);
       std::vector<HostFiber> fibers(block.x);
       HostSlot sl{&fibers, 0, {}};
       host_slot = &sl;
       host_block_barrier = &bar;
+      host_named = named.data();
       host_block_arena = arena.data();
       blockDim = block;
       gridDim = grid;
@@ -330,6 +408,10 @@ cudaError_t cudaLaunchKernel(void (*kernel)(P), dim3 grid, dim3 block,
       const uintptr_t self = (uintptr_t)&launch;
       for (unsigned b = i; b < grid.x; b += slots) {
         blockIdx = dim3(b, 0, 0);
+        for (auto& nb : named) {
+          nb = HostNamed{};
+          nb.member.assign(block.x, 0);
+        }
         for (unsigned t = 0; t < block.x; ++t) {
           HostFiber& f = fibers[t];
           const unsigned wi = t / 32;

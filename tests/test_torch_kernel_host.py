@@ -8,7 +8,10 @@ _ctb_flags (the per-CTB decision), on data that takes their exact int32
 path, their ordered float32 path, and both in one launch; the intra
 tools' branches (lossless, transform skip, PDPC, MIP) of K1/K2 and of
 K3-P/K3-B against the plain scan; kernel SSE against
-cost.plane_sse_f32_plain.
+cost.plane_sse_f32_plain; the recon kernel's warp-scan substitution
+against the serial scan and kernels.intra.substitute_refs; and a build
+of the recon kernel whose luma, Cb or Cr warp group skips its named
+barriers, which the concurrent wavefront case must catch.
 
 csrc/*.cu launch through cudaLaunchKernel, so g++ compiles them as C++
 against tests/cuda_host/cuda_runtime.h, a host stand-in that runs each
@@ -56,21 +59,19 @@ NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
          "mvx_fin", "mvy_fin"]
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The kernels built for the host, once per test session: parallel
-    workers share the session's base directory, and the first to take
-    its lock builds the library the others load."""
+def _host_build(tmp_path_factory, sources, defines=()):
+    """Path of sources built for the host into one library, once per
+    test session: parallel workers share the session's base directory,
+    and the first to take its lock builds the library the others load."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
-    import ctypes
     import fcntl
     import hashlib
 
     shim = os.path.join(HERE, "cuda_host", "cuda_runtime.h")
     csrc = os.path.dirname(_build.SOURCES[0])
-    key = hashlib.sha256()
+    key = hashlib.sha256(" ".join((*sources, *defines)).encode())
     for path in (*sorted(os.path.join(csrc, n) for n in os.listdir(csrc)),
                  shim):
         with open(path, "rb") as f:
@@ -82,12 +83,13 @@ def host_lib(tmp_path_factory):
         if not so.exists():
             # one g++ per source, all at once, then the link
             flags = ["-std=c++20", "-O1", "-pthread", "-fPIC",
-                     "-ffp-contract=off", "-I", os.path.dirname(shim)]
-            objs = [str(so) + f".{i}.o" for i in range(len(_build.SOURCES))]
+                     "-ffp-contract=off", "-I", os.path.dirname(shim),
+                     *(f"-D{d}" for d in defines)]
+            objs = [str(so) + f".{i}.o" for i in range(len(sources))]
             jobs = [subprocess.Popen(
                 [gxx, *flags, "-c", "-x", "c++", src, "-o", obj],
                 stderr=subprocess.PIPE, text=True)
-                for src, obj in zip(_build.SOURCES, objs)]
+                for src, obj in zip(sources, objs)]
             for job in jobs:
                 _, err = job.communicate(timeout=300)
                 assert job.returncode == 0, err
@@ -97,7 +99,16 @@ def host_lib(tmp_path_factory):
                                  timeout=300)
             assert out.returncode == 0, out.stderr
             os.replace(part, so)
-    return _build.declare(ctypes.CDLL(str(so)))
+    return str(so)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The kernels built for the host, once per test session."""
+    import ctypes
+
+    return _build.declare(ctypes.CDLL(_host_build(tmp_path_factory,
+                                                  _build.SOURCES)))
 
 
 def _planes(frame):
@@ -566,3 +577,105 @@ def test_inter_tools_kernel_source_matches_plain_scan(tool, pic, host_lib):
     assert err == 0
     for n, w, g in zip(NAMES, want, dec):
         assert torch.equal(w, g), n
+
+
+def _serial_substitution(ref, avail, s):
+    """The recon kernel's substitution as one thread scanned it: left
+    bottom->top, corner, top left->right; a gap takes the last available
+    entry before it, leading gaps the first available one, an empty
+    vector mid-gray."""
+    def idx(k):
+        return 4 * s - k if k < 2 * s else (0 if k == 2 * s else k - 2 * s)
+
+    out = [int(v) for v in ref]
+    scan = [idx(k) for k in range(4 * s + 1)]
+    first = next((i for i in scan if avail[i]), None)
+    last = 128 if first is None else out[first]
+    for i in scan:
+        if avail[i]:
+            last = out[i]
+        else:
+            out[i] = last
+    return out
+
+
+def _availability_patterns(s, rng):
+    """Availability vectors ([corner, top 2s, left 2s]) of side s: all,
+    none, leading gaps of 1 to 4s scan positions, random ones at four
+    densities, and every distinct pattern of the luma (scale 1) and
+    chroma (scale 2) blocks of side s of a 256x192 picture."""
+    from x266_tpu_torch.engine import availability
+
+    r_len = 4 * s + 1
+    scan = [4 * s - k for k in range(2 * s)] + [0] + list(
+        range(1, 2 * s + 1))
+    pats = {"all": np.ones(r_len, bool), "none": np.zeros(r_len, bool)}
+    for g in (1, s, 2 * s, 2 * s + 1, 4 * s):
+        m = np.ones(r_len, bool)
+        m[scan[:g]] = False
+        pats[f"leading gap {g}"] = m
+    for i, d in enumerate((0.1, 0.4, 0.7, 0.95)):
+        pats[f"random {d}"] = rng.random(r_len) < d
+    for plane, scale in (("luma", 1), ("chroma", 2)):
+        masks = availability.ref_masks(256, 192, s, scale).reshape(-1, r_len)
+        for j, m in enumerate(np.unique(masks, axis=0)):
+            pats[f"{plane} {j}"] = m
+    return pats
+
+
+@pytest.mark.parametrize("s", [4, 8, 16, 32])
+def test_warp_scan_substitution_matches_serial_scan(s, host_lib):
+    """The recon kernel's warp-scan substitution (ballots over the scan
+    order, the last available entry by __clz) on one warp gives the
+    serial scan's vector and kernels.intra.substitute_refs's (the plain
+    version the port holds to JAX), on all, none, leading-gap, random
+    and picture-geometry (luma and chroma) availability."""
+    from x266_tpu_torch.kernels import intra as kintra
+
+    rng = np.random.default_rng(s)
+    r_len = 4 * s + 1
+    pats = _availability_patterns(s, rng)
+    assert len(pats) > 11
+    for name, avail in pats.items():
+        ref = rng.integers(0, 256, r_len).astype(np.int32)
+        av = avail.astype(np.uint8)
+        out = np.full(r_len, -1, np.int32)
+        assert host_lib.x266_subst_scan(s, ref.ctypes.data, av.ctypes.data,
+                                        out.ctypes.data) == 0
+        want = _serial_substitution(ref, avail, s)
+        assert out.tolist() == want, name
+        plain = kintra.substitute_refs(torch.from_numpy(ref)[None],
+                                       torch.from_numpy(avail)[None], 128)
+        assert plain[0].tolist() == want, name
+
+
+@pytest.mark.parametrize("plane", ["Y", "Cb", "Cr"])
+def test_group_barrier_mutation_is_caught(plane, tmp_path_factory,
+                                          monkeypatch):
+    """A build of the recon kernel whose luma, Cb or Cr warp group skips
+    its named barrier (X266_MUTATE_GROUP_BARRIER = 1 + plane) fails the
+    concurrent wavefront case of test_wavefront_rows_run_concurrently
+    ("intra": every row of 3x3 CTUs at once): its TUs of more than 64
+    samples read coefficients its other warps have not written."""
+    import ctypes
+
+    bar = 1 + ["Y", "Cb", "Cr"].index(plane)
+    recon_src = [s for s in _build.SOURCES if s.endswith("recon_intra.cu")]
+    lib = _build.declare_recon(ctypes.CDLL(_host_build(
+        tmp_path_factory, recon_src,
+        (f"X266_MUTATE_GROUP_BARRIER={bar}",))))
+    monkeypatch.setenv("X266_HOST_BLOCKS", "8")
+    cfg = WAVE["intra"]
+    tab = tables.from_reference(cfg, "cpu")
+    frames = synthetic_clip(cfg.width, cfg.height, 2, "mixed", seed=5)
+    planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+              for p in ("y", "cb", "cr")]
+    src = fused._unpack_padded(cfg, *planes)
+    maps = fused.make_pass_a(cfg, tab)(src[0])
+    # the plane has TUs of more than 64 samples (luma 16x16 and 32x32
+    # CUs, chroma only 32x32 ones)
+    assert (maps[0] >= (16 if bar == 1 else 32)).any()
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    err, got = recon_cuda._launch(lib, 0, cfg, tab, True, *src, *maps)
+    same = err == 0 and all(torch.equal(w, g) for w, g in zip(want, got))
+    assert not same

@@ -40,6 +40,13 @@ PSNR, which the port sums in float32 in the reference's order (F4).
   lossless decodes to its input), the JAX decoder decodes the port's
   tools stream, loop filters included (live), and a P slice under each
   tool decodes in both decoders to the same pictures;
+- config 5's single-device form (low-delay P, intra period 16, deblock
+  and SAO, one entropy segment per CTU row with WPP context
+  inheritance) on 17 frames at 112x80 (I, 15 P, I; two CTU rows, so
+  the second segment inherits and the filters cross a CTU-row edge)
+  gives the JAX encoder's bytes, slice NALs, bits, SSE, PSNR and recon
+  (data/cfg5_112x80_ref.json), the port decodes the JAX stream to the
+  JAX recon, and the JAX decoder decodes the port's stream (live);
 - the golden fixtures lowdelay_p_filters and ra_alf decode to their
   manifest MD5s;
 - the one-frame device step gives what the batched step gives per frame;
@@ -499,6 +506,49 @@ def test_jax_decodes_port_tools_ra_stream(port_tools):
     intra tools on P and B pictures (config 4: deblock, SAO and ALF
     too) to the port's recon."""
     _, _, port = port_tools("tools_ra")
+    _, jdec = JaxDecoder().decode(port.bitstream)
+    assert [frame_md5(d) for d in jdec] == [frame_md5(r)
+                                            for r in port.recon]
+
+
+@pytest.fixture(scope="module")
+def port_cfg5():
+    """The recorded JAX config-5 clip, and the port's CPU encode of it."""
+    tool = _refs_tool()
+    with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
+                           "cfg5_112x80_ref.json")) as f:
+        ref = json.load(f)
+    assert (ref["config"], ref["clip"]) == (tool.CFG5_CONFIG, tool.CFG5_CLIP)
+    frames = synthetic_clip(112, 80, 17, "motion", seed=3)
+    return ref, Encoder(tconfig.preset_cfg5(112, 80),
+                        device="cpu").encode(frames)
+
+
+def test_cfg5_clip_matches_recorded_jax(port_cfg5):
+    """preset_cfg5 at 112x80 across its intra period: the JAX encoder's
+    stream, slice NALs, bits, SSE, PSNR and recon; the port decodes the
+    JAX stream to the JAX recon."""
+    ref, port = port_cfg5
+    stream = base64.b64decode(ref["stream_b64"])
+    assert port.bitstream == stream
+    nals = [t for t, _ in split_nals(port.bitstream)
+            if t in (NalType.IDR, NalType.TRAIL)]
+    assert nals.count(NalType.IDR) == 2 and len(nals) == 17
+    fr = ref["frames"]
+    assert port.frame_bits == [f["bits"] for f in fr]
+    assert [[float(v) for v in s] for s in port.sse] == [f["sse"] for f in fr]
+    assert port.psnr_y(112, 80) == [f["psnr_y"] for f in fr]
+    port_md5 = [frame_md5(r) for r in port.recon]
+    assert port_md5 == [f["recon_md5"] for f in fr] == [
+        f["decode_md5"] for f in fr]
+    _, dec = Decoder(device="cpu").decode(stream)
+    assert [frame_md5(d) for d in dec] == port_md5
+
+
+def test_jax_decodes_port_cfg5_stream(port_cfg5):
+    """The live anchor: the JAX decoder decodes the port's config-5
+    stream (deblock and SAO, WPP segments) to the port's recon."""
+    _, port = port_cfg5
     _, jdec = JaxDecoder().decode(port.bitstream)
     assert [frame_md5(d) for d in jdec] == [frame_md5(r)
                                             for r in port.recon]

@@ -52,12 +52,19 @@ these files.
   [main-ra]) -> data/cfg4_4k_ref.json.  Every RA recording writes each
   slice NAL's MD5 to <file>.partial.json as it is coded (about 70 s a
   4K picture on an 8-core CPU), so a cut run leaves the pictures it
-  reached; a finished one removes it.
+  reached; a finished one removes it;
+- cfg5: config 5's single-device form (``preset_cfg5``: low-delay P,
+  intra period 16, deblock and SAO, one entropy segment per CTU row with
+  WPP context inheritance) at 112x80, two CTU rows so that the second
+  segment inherits the first's contexts and the loop filters cross a
+  CTU-row edge, 17 frames of 'motion' (I, 15 P, I: across the intra
+  period), for the CPU tests and chip_smoke.py [main-cfg5] ->
+  data/cfg5_112x80_ref.json.
 
     python tools/make_torch_refs.py [cfg2] [cfg3] [cfg2t] [lossless]
         [p128x64] [t128x64] [c128x64] [cfg4] [cfg4noalf] [ra128x64]
         [cfg4noalf_1080p] [lossless_p] [tools_ra] [lossless_ra]
-        [tools128x64] [cfg4_4k]
+        [tools128x64] [cfg4_4k] [cfg5]
     # default: cfg2 to ra128x64; minutes per 1080p frame, about two
     # minutes for each 416x240 RA clip and for ra128x64, half an hour
     # for cfg4_4k
@@ -80,7 +87,7 @@ jax.config.update("jax_platforms", "cpu")
 
 from x266_tpu.api import Decoder, Encoder  # noqa: E402
 from x266_tpu.config import (CodecConfig, Profile, preset_cfg2,  # noqa
-                             preset_cfg3, preset_cfg4)
+                             preset_cfg3, preset_cfg4, preset_cfg5)
 from x266_tpu.core.hashing import frame_md5  # noqa: E402
 from x266_tpu.core.nal import NalType, split_nals, write_nal  # noqa: E402
 from x266_tpu.core.yuv import synthetic_clip  # noqa: E402
@@ -355,8 +362,26 @@ def make_tools128() -> None:
     print(f"wrote {path}")
 
 
+# config 5's single-device form at a small size of two CTU rows: 17
+# frames cross its intra period of 16 (I, 15 P, I)
+CFG5_CONFIG = "preset_cfg5(112, 80)"
+CFG5_CLIP = "synthetic_clip(112, 80, 17, 'motion', seed=3)"
+
+
+def make_cfg5() -> None:
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "config": CFG5_CONFIG, "clip": CFG5_CLIP,
+           **_ra_record(preset_cfg5(112, 80),
+                        synthetic_clip(112, 80, 17, "motion", seed=3))}
+    path = os.path.join(DATA, "cfg5_112x80_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out["frames"]))
+    print(f"wrote {path} ({out['seconds']:.0f} s to encode)")
+
+
 def main() -> None:
-    makers = {"p128x64": make_p128,
+    makers = {"p128x64": make_p128, "cfg5": make_cfg5,
               **{k: (lambda k=k: make_ai128(k)) for k in AI128},
               "ra128x64": make_ra128, "tools128x64": make_tools128,
               **{k: (lambda k=k: make(k)) for k in REFS},

@@ -1,0 +1,346 @@
+"""Where the recon kernels' time goes on one NVIDIA GPU, phase by phase,
+and the recon kernel against another version of its source on the same
+card.
+
+    python3 tools/profile_recon.py --split [FILE ...] [--only NAME ...]
+    python3 tools/profile_recon.py --split-parent FILE [--only NAME ...]
+    python3 tools/profile_recon.py --parent FILE [--reps 5] [--out DIR]
+
+The workloads are chip_smoke.py's main-path shapes, on its inputs: K1 on
+config 2's, cfg2t's and lossless's batches of four 1080p frames; K2 on
+frame 0 of each; K3-P encode and decode on config 3's and lossless_p's
+1080p P picture; K3-B encode and decode on config 4's 3840x2160 and
+tools_ra's 1080p B picture.
+
+--split builds the kernel library with X266_RECON_PHASES (the clock64()
+phase split of csrc/recon_intra.cu, which the main path's build never
+sets), from each FILE in place of csrc/recon_intra.cu (default: the
+package's own), and prints, for each workload after a warm launch, the
+share of the blocks' cycles in each block-level phase and, per plane and
+TU size, the TUs walked and the cycles per TU of each TU phase.  The
+phases' slots are the Phase enum of csrc/recon_intra.cu; a source with
+another TU pipeline may leave some empty or stamp others.  A FILE without
+the split (no x266_recon_phases) is refused.
+
+--split-parent FILE takes the parent commit's recon_intra.cu as ``git
+show d418144:x266_tpu_torch/csrc/recon_intra.cu`` gives it, adds the
+phase split of tools/recon_intra_d418144_phases.patch (the same Phase
+slots around that source's one-thread-per-step pipeline), writes it
+beside FILE as <name>_phases.cu and splits it first.
+
+--parent FILE builds FILE in place of csrc/recon_intra.cu (e.g. the
+parent commit's, from ``git show REV:x266_tpu_torch/csrc/recon_intra.cu``
+into a directory .gitignore lists) and the package's own source, both
+without the phase split, checks that both give the same outputs on
+every workload, and times each workload with both libraries in turns
+(parent, new, new, parent; CUDA events, --reps launches each), with the
+TUs each launch walks (from the size map) and both times per CTU and per
+luma TU on the wavefront's chain (chip_smoke.tu_walk).
+
+Libraries go to build/x266_tpu_torch/profile-<hash>/ (ignored by git);
+JSON results to DIR (default build/profile).  Fails when no CUDA device
+is visible.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from x266_tpu_torch import _build, tables  # noqa: E402
+from x266_tpu_torch.core.yuv import synthetic_clip  # noqa: E402
+from x266_tpu_torch.engine import fused, inter, recon_cuda  # noqa: E402
+
+RECON = os.path.join(_build.PKG, "csrc", "recon_intra.cu")
+# the phase split added to the parent commit's recon_intra.cu (d418144),
+# at the same Phase slots as the package's
+PARENT_PATCH = os.path.join(ROOT, "tools", "recon_intra_d418144_phases.patch")
+# csrc/recon_intra.cu's Phase enum and its slots
+BLOCK_PHASES = {2: "MV state / staging", 0: "row wait", 1: "window load",
+                13: "CU set-up", 12: "the CUs' TUs", 3: "window store"}
+TU_PHASES = ["ref load", "substitution", "extension", "prediction",
+             "forward transform", "quant / level load", "dequant",
+             "inverse vertical", "inverse horizontal + write"]
+N_PHASES, SLOTS = 16, 14 * 16
+PLANES = ("Y", "Cb", "Cr")
+SIZES = (4, 8, 16, 32)                      # csrc size_index order
+
+
+def build(recon_src: str, phases: bool) -> ctypes.CDLL:
+    """A library of recon_src alone, a version of csrc/recon_intra.cu (the
+    phase split on when phases), built by _build.Library into
+    build/x266_tpu_torch/profile-<hash>/."""
+    lib = _build.Library([recon_src], ["X266_RECON_PHASES"] if phases
+                         else [], "profile-", _build.declare_recon)
+    so = lib.build()
+    for line in cs.build_lines(lib.build_log):   # none if built before
+        print(f"[build] {line}", flush=True)
+    if phases:
+        if not hasattr(so, "x266_recon_phases"):
+            raise SystemExit(
+                f"profile_recon: {os.path.relpath(recon_src, ROOT)} has no "
+                "phase split (no x266_recon_phases under X266_RECON_PHASES); "
+                "for the parent commit's source use --split-parent")
+        so.x266_recon_phases.argtypes = [ctypes.c_void_p]
+        so.x266_recon_phases.restype = ctypes.c_int
+    return so
+
+
+def apply_patch(text: str, patch: str) -> str:
+    """text with a unified diff's hunks applied in order; raises where a
+    hunk's context or removed lines are not text's at that place."""
+    lines = text.splitlines(keepends=True)
+    out, pos = [], 0
+    parts = re.split(r"^@@ -(\d+)(?:,\d+)? \+\d+(?:,\d+)? @@.*\n", patch,
+                     flags=re.M)
+    for start, body in zip(parts[1::2], parts[2::2]):
+        start = int(start) - 1
+        if start < pos:
+            raise ValueError(f"patch hunk at line {start + 1} overlaps")
+        out += lines[pos:start]
+        pos = start
+        for line in body.splitlines(keepends=True):
+            tag, rest = line[0], line[1:]
+            if tag in " -":
+                if pos >= len(lines) or lines[pos] != rest:
+                    raise ValueError(f"patch does not apply at line {pos + 1}")
+                if tag == " ":
+                    out.append(rest)
+                pos += 1
+            elif tag == "+":
+                out.append(rest)
+    return "".join(out + lines[pos:])
+
+
+def parent_phases(src: str) -> str:
+    """The parent commit's recon_intra.cu (src, as ``git show`` gives it)
+    with PARENT_PATCH's phase split, written beside src as
+    <name>_phases.cu; its path."""
+    with open(src) as f, open(PARENT_PATCH) as g:
+        text = apply_patch(f.read(), g.read())
+    out = os.path.splitext(src)[0] + "_phases.cu"
+    with open(out, "w") as f:
+        f.write(text)
+    return out
+
+
+class Workload:
+    """One recon launch at a main-path shape: name, kernel, its config,
+    its size map (numpy) and run(lib) -> outputs on the current stream."""
+
+    def __init__(self, name, kernel, cfg, size_map, run):
+        self.name, self.kernel, self.cfg = name, kernel, cfg
+        self.size_map, self.run = size_map, run
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _checked(out):
+    err, res = out
+    if err != 0:
+        raise RuntimeError(f"launch failed ({err})")
+    return res
+
+
+def intra_workloads(lib, tag, cfg, kind):
+    """K1 on a batch of four frames, K2 on frame 0 of its levels."""
+    tab, src, maps = cs._inputs(cfg, 4, 0, kind)
+    got = _checked(recon_cuda._launch(lib, _stream(), cfg, tab, True, *src,
+                                      *maps))
+    one = [t[:1].contiguous() for t in (*got[3:], *maps)]
+    sm = maps[0].cpu().numpy()
+    return [
+        Workload(f"K1 {tag} x4", "K1", cfg, sm,
+                 lambda lib: _checked(recon_cuda._launch(
+                     lib, _stream(), cfg, tab, True, *src, *maps))),
+        Workload(f"K2 {tag}", "K2", cfg, sm[:1],
+                 lambda lib: _checked(recon_cuda._launch(
+                     lib, _stream(), cfg, tab, False, *one)))]
+
+
+def inter_workloads(lib, tag, cfg, b, planes, p0, p1=None):
+    """K3-P (or K3-B with p1) encode and decode on one picture."""
+    tab = tables.from_reference(cfg, "cuda")
+    src = fused._unpack_padded(cfg, *planes)
+    if b:
+        maps = inter.make_mode_decision_b_raw(cfg, tab)(src[0][0], p0[0],
+                                                       p1[0])
+    else:
+        maps = inter.make_mode_decision_p_raw(cfg, tab)(src[0][0], p0[0])
+    maps = [m[None].contiguous() for m in maps]
+    mts = torch.zeros_like(maps[0])
+    args = (maps[0], maps[1], mts, *maps[2:5], *p0)
+    if b:
+        args += (*p1, maps[5], maps[6])
+    got = _checked(recon_cuda._launch_inter(lib, _stream(), cfg, tab, True,
+                                            *src, *args))
+    dargs = (*got[3:6], *args[:4], got[6].int(), got[7].int(), *args[6:])
+    k = "K3B" if b else "K3"
+    sm = maps[0].cpu().numpy()
+    return [
+        Workload(f"{k} {tag}", k, cfg, sm,
+                 lambda lib: _checked(recon_cuda._launch_inter(
+                     lib, _stream(), cfg, tab, True, *src, *args))),
+        Workload(f"{k}d {tag}", k + "d", cfg, sm,
+                 lambda lib: _checked(recon_cuda._launch_inter(
+                     lib, _stream(), cfg, tab, False, *dargs)))]
+
+
+def workloads(lib, only=()):
+    """chip_smoke.py's main-path recon shapes (see the module doc)."""
+    out = []
+    want = (lambda tag: not only or any(o in tag for o in only))
+    for tag, cfg, kind in (("config2", cs.main_cfg(), "mixed"),
+                           ("cfg2t", cs.cfg2t(), "text"),
+                           ("lossless", cs.lossless_cfg(), "mixed")):
+        if want(tag):
+            out += intra_workloads(lib, tag, cfg, kind)
+    if want("config3"):
+        cfg = cs.cfg3()
+        planes = cs._upload(synthetic_clip(1920, 1080, 1, "mixed", seed=3))
+        refs = [torch.roll(p[0], sh, (0, 1))
+                for p, sh in zip(planes, ((2, -3), (1, -1), (1, -1)))]
+        out += inter_workloads(lib, "config3", cfg, False, planes,
+                               fused.build_pyramids_device(*refs))
+    if want("lossless_p"):
+        planes = cs._upload(synthetic_clip(1920, 1080, 1, "motion", seed=9))
+        out += inter_workloads(lib, "lossless_p", cs.lossless_p_cfg(), False,
+                               planes, cs.b_references(planes, amp=40)[0])
+    if want("4K"):
+        planes = cs._upload(synthetic_clip(3840, 2160, 1, "mixed", seed=21))
+        out += inter_workloads(lib, "4K", cs.cfg4(), True, planes,
+                               *cs.b_references(planes))
+    if want("tools_ra"):
+        planes = cs._upload(synthetic_clip(1920, 1080, 1, "motion", seed=9))
+        out += inter_workloads(lib, "tools_ra", cs.tools_ra_cfg(), True,
+                               planes, *cs.b_references(planes, amp=40))
+    return out
+
+
+def split(lib, wl) -> dict:
+    """One launch's phase split (after a warm launch)."""
+    buf = np.zeros(SLOTS, dtype=np.uint64)
+    wl.run(lib)
+    if lib.x266_recon_phases(buf.ctypes.data) != 0:
+        raise RuntimeError("reading the phase split failed")
+    wl.run(lib)
+    if lib.x266_recon_phases(buf.ctypes.data) != 0:
+        raise RuntimeError("reading the phase split failed")
+    ph = buf.astype(np.float64).reshape(14, N_PHASES)
+    block = ph[12]
+    total = block[14]
+    res = {"workload": wl.name, "block_cycles": total,
+           "block": {name: block[i] / total for i, name in
+                     BLOCK_PHASES.items()},
+           "tus": {}}
+    for p, plane in enumerate(PLANES):
+        for si, s in enumerate(SIZES):
+            n = ph[13][p * 4 + si]
+            if n == 0:
+                continue
+            cyc = ph[p * 4 + si][4:13]
+            res["tus"][f"{plane} {s}x{s}"] = {
+                "count": int(n), "cycles_per_tu": float(cyc.sum() / n),
+                "phases": {name: float(c / n)
+                           for name, c in zip(TU_PHASES, cyc)}}
+    return res
+
+
+def print_split(r):
+    blk = ", ".join(f"{k} {100 * v:.1f} %" for k, v in r["block"].items())
+    print(f"[split] {r['workload']}: {r['block_cycles']:.4g} block cycles; "
+          f"{blk}", flush=True)
+    for key, t in r["tus"].items():
+        ph = ", ".join(f"{k} {v:.0f}" for k, v in t["phases"].items())
+        print(f"[split] {r['workload']} {key}: {t['count']} TUs, "
+              f"{t['cycles_per_tu']:.0f} cycles per TU: {ph}", flush=True)
+
+
+def event_ms(lib, wl, reps):
+    wl.run(lib)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        wl.run(lib)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(parent, new, wl, reps) -> dict:
+    """Both libraries on one workload: equal outputs, then the times in
+    turns, the TUs walked and the microseconds per chain TU."""
+    a, b = wl.run(parent), wl.run(new)
+    same = [torch.equal(x, y) for x, y in zip(a, b)]
+    if not all(same):
+        print(f"[compare] {wl.name}: outputs differ: {same}", flush=True)
+        return {"workload": wl.name, "equal": False}
+    times = [event_ms(lib, wl, reps) for lib in (parent, new, new, parent)]
+    ms_parent = (times[0] + times[3]) / 2
+    ms_new = (times[1] + times[2]) / 2
+    walk = cs.tu_walk(wl.size_map, wl.cfg.width, wl.cfg.height)
+    r = {"workload": wl.name, "equal": True, "kernel": wl.kernel,
+         "ms_parent": ms_parent,
+         "ms_new": ms_new, "turns_ms": times,
+         "speedup": ms_parent / ms_new, **walk,
+         "parent": cs.per_chain(walk, ms_parent),
+         "new": cs.per_chain(walk, ms_new)}
+    print(f"[compare] {wl.name}: parent {ms_parent:.3f} ms, new "
+          f"{ms_new:.3f} ms ({r['speedup']:.2f}x; turns "
+          f"{[round(t, 3) for t in times]}); outputs equal; "
+          f"{cs.chain_text(walk, parent=ms_parent, new=ms_new)}",
+          flush=True)
+    return r
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--split", nargs="*")
+    ap.add_argument("--split-parent")
+    ap.add_argument("--parent")
+    ap.add_argument("--only", nargs="*", default=())
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_recon: no CUDA device", file=sys.stderr)
+        return 2
+    card = cs.card_line()
+    print(f"[env] {card}; torch {torch.__version__}", flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    result = {"card": card}
+    result["split"] = {}
+    sources = [RECON] if args.split == [] else list(args.split or [])
+    if args.split_parent:
+        sources.insert(0, parent_phases(args.split_parent))
+    for src in sources:
+        print(f"[split] source {os.path.relpath(src, ROOT)}", flush=True)
+        lib = build(src, True)
+        rows = result["split"][os.path.relpath(src, ROOT)] = []
+        for wl in workloads(lib, args.only):
+            rows.append(split(lib, wl))
+            print_split(rows[-1])
+    if args.parent:
+        parent, new = build(args.parent, False), build(RECON, False)
+        result["compare"] = [compare(parent, new, wl, args.reps)
+                             for wl in workloads(new, args.only)]
+    with open(os.path.join(args.out, "profile_recon.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"[done] {card}", flush=True)
+    return int(not all(r["equal"] for r in result.get("compare", [])))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

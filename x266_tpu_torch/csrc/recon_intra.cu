@@ -15,41 +15,81 @@
 // reads the reconstruction of the TUs before it, so a CTU row is one chain
 // of dependent steps of a few hundred integer MACs each; neither bytes (a
 // 1080p frame moves ~10 MB) nor operations come near the card's limits.
-// The design shortens the chain and keeps each step's latency short:
-// - Schedule: a CTU-row wavefront.  The grid is frames x CTU rows, one
-//   thread block per row.  A block takes its row from an atomic ticket
-//   (so rows start in order whatever order the hardware runs blocks in,
-//   and a block only ever waits on a row that started before it); before
-//   CTU cx, thread 0 waits (acquire) until the row above has published
-//   progress >= min(cx + 2, CTUs per row); after the CTU's stores every
-//   thread fences, the block meets at a barrier and thread 0 publishes
-//   progress cx + 1 (release).  So CTU (cx, cy) runs after (cx + 1,
-//   cy - 1), the order d = cx + 2*cy that engine/recon_wave.py proves
-//   bit-identical to the raster order; the longest chain is ctus_x +
-//   2*(ctus_y - 1) CTUs (126 at 3840x2160 against 2,040 in raster order).
-//   The ticket and the progress counters are an int32 buffer the launcher
-//   zeroes on the stream; the launcher also zeroes the MV-state planes
-//   and refuses a grid that does not fit the card's resident blocks.
-// - Why it stays exact: load_window's `coded` predicate depends on
-//   positions only, so samples of CTUs not yet coded read as mid-gray
-//   whatever memory holds; store_window writes only the CTU itself;
-//   above_mv reads only inside the CTU row and derive_mv only the left
-//   unit.  No CTU of a diagonal touches another's window: (cx +- 2,
-//   cy -+ 1) lie outside x0 - 1 .. x0 + 95.  Rows above are read through
-//   the L2 (__ldcg), after the acquire.
-// - Inside a block: its threads share out each TU's pixels and dot
-//   products, and the current CTU's reconstruction window -- the CTU, the
-//   row above and the column to the left, including the top-right and
-//   bottom-left overhang -- sits in shared memory, loaded when the CTU
-//   starts and written back to the output planes when it ends.  Samples
-//   not yet coded (or outside the picture) hold mid-gray, which is the
-//   reference's availability rule.
-
+// The design shortens the chain and each step's latency.
+//
+// Between CTUs, a CTU-row wavefront.  The grid is frames x CTU rows, one
+// thread block per row.  A block takes its row from an atomic ticket (so
+// rows start in order whatever order the hardware runs blocks in, and a
+// block only ever waits on a row that started before it); before CTU cx's
+// window load, thread 0 waits (acquire) until the row above has published
+// progress >= min(cx + 2, CTUs per row); after the CTU's stores every
+// thread fences, the block meets at a barrier and thread 0 publishes
+// progress cx + 1 (release).  So CTU (cx, cy) runs after (cx + 1, cy - 1),
+// the order d = cx + 2*cy that engine/recon_wave.py proves bit-identical
+// to the raster order; the longest chain is ctus_x + 2*(ctus_y - 1) CTUs
+// (126 at 3840x2160 against 2,040 in raster order).  The ticket and the
+// progress counters are an int32 buffer the launcher zeroes on the stream;
+// the launcher also zeroes the final-MV planes and refuses a grid that
+// does not fit the card's resident blocks.  It stays exact: the window
+// load's `coded` predicate depends on positions only, so samples of CTUs
+// not yet coded read as mid-gray whatever memory holds; the window store
+// writes only the CTU itself; the MV derivation reads only inside the CTU
+// row.  No CTU of a diagonal touches another's window: (cx +- 2, cy -+ 1)
+// lie outside x0 - 1 .. x0 + 95.  Rows above are read through the L2
+// (__ldcg), after the acquire.
+//
+// Inside a CTU, the TU pipeline.  On the chain a TU's latency counts, not
+// its work (X266_RECON_PHASES splits it by phase; with every step a
+// barrier of all 256 threads and a one-thread substitution scan, that scan
+// was 30-50 % of a TU).  The design:
+// - Off the chain.  Before the row wait the block stages in shared memory
+//   what does not depend on the reconstruction: the CTU's maps and its CU
+//   list in z-order (warp 1); encode: the source samples; decode: the
+//   levels and, per unit and plane, whether any is non-zero; each CU's
+//   substitution sources (warps 2-7; below); K3: every CU's final MV,
+//   derived in z-order by one thread of warp 1 from the maps, the left
+//   CTU's last unit column and the CTU's earlier MVs -- all that
+//   derive_mv / above_mv read.  After the wait each inter CU's MC
+//   prediction (a bi CU's two blocks averaged) is staged beside the window
+//   load, all loads issued before their stores.  The transform matrices
+//   (int8, |c| <= 90, with a transposed copy so that lanes walk
+//   consecutive bytes), the smoothing taps, the prediction shifts and the
+//   rate of levels 0-255 are staged once per launch.  A TU's angular taps
+//   are loaded into registers as it starts, in flight while its reference
+//   vector is built.
+// - Substitution as a warp scan, off the chain: a warp ballots the
+//   availability of a CU's <= 129 reference entries (<= 5 words in the
+//   scan order) and gives each unavailable entry the last available one
+//   before it in that order (__clz on the masked words), a leading gap
+//   the first available one, an empty vector mid-gray -- the serial
+//   scan's integers by construction -- as a source index per entry; on
+//   the chain each entry reads its source's sample from the window.
+// - Plane-parallel warp groups.  The luma chain and the two chroma chains
+//   share no data (chroma uses the luma position only in the
+//   position-only decoded_before): warps 0-3 walk the CTU's luma TUs,
+//   warps 4-5 its Cb TUs and warps 6-7 its Cr TUs at once, each group on
+//   its own named barrier (bar.sync 1 + plane, its thread count); the
+//   groups meet only at barrier 0: the staging, the window load and store
+//   and the row-progress publish.
+// - Fewer steps per TU.  A TU of at most 64 samples (luma 8x8, chroma 4x4
+//   and 8x8) is warp 0's of its group alone, with __syncwarp between
+//   steps; a larger one is the group's.  Each warp builds the reference
+//   vector itself, so no barrier follows it.  The TU's size and thread
+//   count are template parameters (tu<kEncode, S, G>), so its index
+//   arithmetic folds and its loops unroll.  A thread owns samples i = t +
+//   G k, which lie in one column, so it loads the matrix entry of a
+//   column step once for all its samples, and it keeps its prediction in
+//   registers from the prediction to the write-back.  Dequantization is
+//   fused into the quantizer (encode) and into the inverse vertical
+//   transform's level reads (decode); a TU whose levels are all zero
+//   writes clip(prediction) with no inverse transform (exact: each step
+//   maps 0 to 0); transform skip and lossless are per sample, with no
+//   barrier.
+//
 // The intra tools of _build_pallas (recon_pallas.py :248, :391-393,
 // :503-534, :603-644, :688-689) are runtime fields of Params, like qp and
-// lambda (the registers do not call for template parameters: the branches
-// are uniform per TU and add no live state across the TU's steps):
-// - lossless: steps 5-9 are skipped; encode writes level = source -
+// lambda (the branches are uniform per TU):
+// - lossless: no transform or quantizer; encode writes level = source -
 //   prediction and recon = source, decode clip(prediction + level);
 // - ts (transform skip, luma TUs whose mts map value is 5): coefficients
 //   = residual << (7 - log2 s) in place of the forward transform, and
@@ -73,35 +113,33 @@
 // K3-P replaces the same Pallas kernel with inter=True, b_mode=False
 // (make_recon_inter_pallas_raw, recon_pallas.py:1075-1152).  Its plain
 // version is engine/inter.py (make_recon_inter_raw).  A P picture's CU is
-// intra (K1's TU pipeline unchanged), inter (MC from the previous
-// picture's 16-plane pyramids at the CU's MV, then the residual) or skip
-// (MC at a derived MV, zero levels).  The skip MV comes from a unit
-// MV-state plane -- the final-MV output planes themselves, in global
-// memory: the left unit's MV if its CU is a coded-MV inter CU, else the
-// above unit's while inside the CTU row's 8 unit rows, else (0, 0); skip
-// CUs' own MVs are never predictors (one hop).  Under merge candidates
-// the encoder takes the above rule when the mvx map holds 1 and the
-// decoder the MV the entropy walker resolved.  MC reads the pyramid plane
+// intra (K1's TU pipeline), inter (MC from the previous picture's
+// 16-plane pyramids at the CU's MV, then the residual) or skip (MC at a
+// derived MV, zero levels).  The skip MV comes from the unit MV state:
+// the left unit's MV if its CU is a coded-MV inter CU, else the above
+// unit's while inside the CTU row's 8 unit rows, else (0, 0); skip CUs'
+// own MVs are never predictors (one hop).  Under merge candidates the
+// encoder takes the above rule when the mvx map holds 1 and the decoder
+// the MV the entropy walker resolved.  MC reads the pyramid plane
 // (mvy&3)*4 + (mvx&3) at x + REF_PAD + (mvx>>2); chroma uses mv >> 1 on
-// the chroma pyramids.  Each CU writes its final MV over its units.  What
-// bounds it is the same serial chain as K1, and P pictures depend on each
-// other, so a launch holds one frame: one block walks the picture.
+// the chroma pyramids.  Each CU's final MV covers its units in the
+// final-MV output planes.  P pictures depend on each other, so a launch
+// holds one frame.
 //
 // K3-B replaces the same Pallas kernel with b_mode=True (recon_pallas.py
 // :280-291, 587-592, 758-770, 858-868); its plain version is
 // make_recon_inter_raw(..., b_mode=True).  It is K3-P's instantiation with
 // a second reference: the L1 pyramids and the mvx1/mvy1 maps.  Kind
-// PRED_L1 takes the pointer path from the L1 pyramid at the primary MV;
-// PRED_BI hands tu() a second MC origin (L0 at the primary MV, L1 at mv1;
-// chroma mv >> 1) and the prediction load forms (p0 + p1 + 1) >> 1.  L1
-// and bi CUs are coded-MV CUs for the skip derivation, and the MV state
-// holds their primary MV.  B pictures depend on their references, so one
-// launch still holds one picture.
+// PRED_L1 takes the L1 pyramid at the primary MV; a PRED_BI CU predicts
+// (p0 + p1 + 1) >> 1 of L0 at the primary MV and L1 at mv1 (chroma
+// mv >> 1).  L1 and bi CUs are coded-MV CUs for the skip derivation, and
+// the MV state holds their primary MV.  One launch holds one picture.
 //
 // The launch goes through cudaLaunchKernel rather than <<<...>>>, so this
 // file is plain C++ apart from CUDA's built-ins: tests/test_torch_kernel_host.py
 // compiles it with g++ against a host stand-in of the runtime
-// (tests/cuda_host/cuda_runtime.h) and holds it against the plain scan.
+// (tests/cuda_host/cuda_runtime.h, which has the named barriers) and holds
+// it against the plain scan.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -110,19 +148,66 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // luma group 128, Cb 64, Cr 64
 constexpr int kCtu = 64;
 constexpr int kMaxSpins = 1 << 24;   // row wait cap, ~10 s at 64 ns a spin
 constexpr int kWinY = 1 + 96;     // luma window: CTU origin -1 .. +95
 constexpr int kWinC = 1 + 48;     // chroma window
-constexpr int kMaxS = 32;
-constexpr int kMaxR = 4 * kMaxS + 1;
+constexpr int kPitchY = 100, kPitchC = 52;   // their row pitches (words)
+constexpr int kMaxR = 4 * 32 + 1; // reference vector of a 32x32 TU
+constexpr int kMaxModes = 128;    // shift table entries per size
+constexpr int kRateShared = 256;  // rate table entries kept in shared memory
 constexpr int kRefPad = 80;       // kernels/interp.py REF_PAD
 constexpr int kIntra = 0, kSkip = 2, kL1 = 3, kBi = 4;  // inter.PRED_*
+constexpr unsigned kFull = 0xffffffffu;
 
 // specmodel.quant QUANT_SCALES / DEQUANT_SCALES
 __constant__ int kQuantScale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
 __constant__ int kDequantScale[6] = {40, 45, 51, 57, 64, 72};
+
+// The phase split (X266_RECON_PHASES, set only by tools/profile_recon.py,
+// never by the main path's build): the first thread of each plane's
+// group stamps clock64() at the end of each phase of a TU and adds the
+// cycles since its last stamp to g_recon_phases, by plane and TU size,
+// with the count of TUs of each; thread 0 does the same for the
+// block-level phases (staging, row wait, window load and MC staging, the
+// CUs' TUs, window store, the whole block).
+enum Phase {
+  kPhWait, kPhLoad, kPhMv, kPhStore, kPhRef, kPhSubst, kPhExt, kPhPred,
+  kPhFwd, kPhQuant, kPhDeq, kPhInvV, kPhInvH, kPhCu, kPhBlock, kPhases = 16
+};
+#ifdef X266_RECON_PHASES
+constexpr int kPhaseSlots = 14 * kPhases;   // 3 planes x 4 sizes, block, counts
+__device__ unsigned long long g_recon_phases[kPhaseSlots];
+struct PhaseClock {
+  long long t;
+  int base;                       // slot of phase 0, -1: not this thread
+};
+__device__ __forceinline__ void phase_start(PhaseClock& c, int base) {
+  c.base = base;
+  c.t = clock64();
+}
+__device__ __forceinline__ void phase_mark(PhaseClock& c, int ph) {
+  if (c.base < 0) return;
+  const long long now = clock64();
+  atomicAdd(&g_recon_phases[c.base + ph], (unsigned long long)(now - c.t));
+  c.t = now;
+}
+#define X266_PH_START(c, base, on) \
+  PhaseClock c;                    \
+  phase_start(c, (on) ? (base) : -1)
+#define X266_PH(c, ph) phase_mark(c, ph)
+#define X266_PH_COUNT(slot, on) \
+  if (on) atomicAdd(&g_recon_phases[13 * kPhases + (slot)], 1ull)
+#define X266_PH_PARAM , PhaseClock& pc
+#define X266_PH_PASS , pc
+#else
+#define X266_PH_START(c, base, on) ((void)0)
+#define X266_PH(c, ph) ((void)0)
+#define X266_PH_COUNT(slot, on) ((void)0)
+#define X266_PH_PARAM
+#define X266_PH_PASS
+#endif
 
 struct Params {
   int frames, width, height;      // luma picture size
@@ -145,33 +230,22 @@ struct Params {
   const int32_t *pred_map, *mvx_map, *mvy_map;   // (H/8, W/8)
   const uint8_t* pyr[6];          // (16, Hp, Wp) L0 Y, Cb, Cr; L1 (K3-B)
   int pyr_h[2], pyr_w[2];         // luma, chroma pyramid plane sizes
-  int16_t* mv_out[2];             // final MVs (H/8, W/8); the MV state
+  int16_t* mv_out[2];             // final MVs (H/8, W/8)
   const int32_t* mv1_map[2];      // K3-B: a bi CU's L1 MV (H/8, W/8)
   int* sync;                      // row ticket, then progress per row
 };
 
-struct Shared {
-  uint8_t win_y[kWinY * kWinY];
-  uint8_t win_c[2][kWinC * kWinC];
-  int ref[kMaxR];
-  int ext[2 * kMaxR];
-  uint8_t avail[kMaxR];
-  int dc;
-  int grp[16];                    // MIP boundary group sums
-  int pred[kMaxS * kMaxS];
-  int a[kMaxS * kMaxS];
-  int b[kMaxS * kMaxS];
-};
+// Offsets of size s in the flat tables (sizes 4, 8, 16, 32 in order).
+constexpr int kTxPerType = 16 + 64 + 256 + 1024;
+constexpr int kSmooth = (17 + 33 + 65 + 129) * 3;
 
 __device__ __forceinline__ int size_index(int s) {
   return s == 4 ? 0 : s == 8 ? 1 : s == 16 ? 2 : 3;
 }
 
-// Offsets of size s in the flat tables (sizes 4, 8, 16, 32 in order).
 __device__ __forceinline__ int tx_offset(int s) {
   return s == 4 ? 0 : s == 8 ? 16 : s == 16 ? 80 : 336;
 }
-constexpr int kTxPerType = 16 + 64 + 256 + 1024;
 
 __device__ __forceinline__ int smooth_offset(int s) {
   return s == 4 ? 0 : s == 8 ? 17 * 3 : s == 16 ? (17 + 33) * 3
@@ -190,25 +264,64 @@ __device__ __forceinline__ int mip_offset(int s) {
   return s == 8 ? 0 : s == 16 ? kMipK * 64 * 16 : kMipK * (64 + 256) * 16;
 }
 
-__device__ __forceinline__ int z_index(int ux, int uy) {
-  int z = 0;
-  for (int b = 0; b < 3; ++b) {
-    z |= ((ux >> b) & 1) << (2 * b);
-    z |= ((uy >> b) & 1) << (2 * b + 1);
-  }
-  return z;
-}
+// One warp's reference scratch: [substituted refs, smoothed refs] and the
+// MIP group sums.
+struct Refs {
+  int ext[2 * kMaxR];
+  int grp[16];
+};
 
-// engine.availability.decoded_before on luma coordinates.
-__device__ __forceinline__ bool decoded_before(int px, int py, int bx,
-                                               int by, int w, int h) {
-  if (px < 0 || py < 0 || px >= w || py >= h) return false;
-  int cp = (py / kCtu) * (1 << 20) + px / kCtu;
-  int cb = (by / kCtu) * (1 << 20) + bx / kCtu;
-  if (cp != cb) return cp < cb;
-  return z_index((px % kCtu) / 8, (py % kCtu) / 8) <
-         z_index((bx % kCtu) / 8, (by % kCtu) / 8);
-}
+// A CU of the CTU being coded, in z-order (staged before the row wait).
+struct alignas(16) Cu {
+  uint8_t ux, uy;                 // unit within the CTU
+  uint8_t s;                      // luma side
+  uint8_t kind;                   // inter.PRED_* (kIntra in K1/K2)
+  uint8_t tv, th, ts;             // luma transform types; transform skip
+  uint8_t nz;                     // decode: bit p, plane p has a level != 0
+  int16_t mode, mode_c;
+  int16_t shift_y, shift_c;       // prediction shifts, luma and chroma
+};
+
+// Staged samples of the CTU: luma at 0 (64 a row), Cb at 4096 and Cr at
+// 5120 (32 a row).
+constexpr int kStage = 64 * 64 + 2 * 32 * 32;
+
+struct Shared {
+  // the windows: the CTU, the row above and the column to the left
+  alignas(16) uint8_t win_y[kWinY * kPitchY];
+  alignas(16) uint8_t win_c[2][kWinC * kPitchC];
+  // tables, once per launch: the transform matrices [k][n], transposed
+  int8_t tx[2][3 * kTxPerType];
+  int smooth[kSmooth];
+  int shift[4 * kMaxModes];
+  float rate[kRateShared];        // RDOQ's rate of levels 0-255
+  // the CTU's staged inputs
+  union alignas(16) {
+    uint8_t src[kStage];          // encode: source samples
+    int16_t lev[kStage];          // decode: levels
+  } in;
+  uint8_t mcp[kStage];            // K3: MC prediction
+  // the CTU's units (raster) and CUs; unit columns 1-8 of ukind / umv are
+  // the CTU's, column 0 the left CTU's last (the MV state it leaves)
+  int16_t size[64], mode[64], mts[64];
+  int16_t mvx[64], mvy[64], mv1x[64], mv1y[64];
+  int16_t ukind[8][9];            // pred_map at the unit
+  int16_t umv[2][8][9];           // final MV of the unit's CU
+  int8_t cu_kind[64];             // the kind of the unit's CU (MC staging)
+  int16_t cu_mv1[2][64];          // the mv1 of the unit's CU (bi)
+  int unz[64];                    // decode: bit p, plane p non-zero
+  // each CU's substitution sources (subst_sources), by its first unit
+  uint8_t rsrc_y[64][kMaxR];
+  uint8_t rsrc_c[64][2 * 32 + 1];
+  Cu cus[64];
+  int n_cus;
+  // per group: the TU's coefficients; per warp: its reference vector
+  alignas(16) int a_y[32 * 32];
+  alignas(16) int b_y[32 * 32];
+  alignas(16) int a_c[2][16 * 16];
+  alignas(16) int b_c[2][16 * 16];
+  Refs refs[8];
+};
 
 __device__ __forceinline__ int rshift_round(int x, int sh) {
   return (x + (1 << (sh - 1))) >> sh;
@@ -220,441 +333,1031 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// One plane's view for a TU: the shared window and where it sits.
+// z-order index of unit (ux, uy) within a CTU, and its inverse.
+__device__ __forceinline__ int z_index(int ux, int uy) {
+  int z = 0;
+  for (int b = 0; b < 3; ++b) {
+    z |= ((ux >> b) & 1) << (2 * b);
+    z |= ((uy >> b) & 1) << (2 * b + 1);
+  }
+  return z;
+}
+
+__device__ __forceinline__ void z_unit(int z, int& ux, int& uy) {
+  ux = (z & 1) | (((z >> 2) & 1) << 1) | (((z >> 4) & 1) << 2);
+  uy = ((z >> 1) & 1) | (((z >> 3) & 1) << 1) | (((z >> 5) & 1) << 2);
+}
+
+// engine.availability.decoded_before on luma coordinates (kCtu = 64).
+__device__ __forceinline__ bool decoded_before(int px, int py, int bx,
+                                               int by, int w, int h) {
+  if (px < 0 || py < 0 || px >= w || py >= h) return false;
+  const int cp = ((py >> 6) << 20) + (px >> 6);
+  const int cb = ((by >> 6) << 20) + (bx >> 6);
+  if (cp != cb) return cp < cb;
+  return z_index((px & 63) >> 3, (py & 63) >> 3) <
+         z_index((bx & 63) >> 3, (by & 63) >> 3);
+}
+
+// One plane's view: the shared window and where it sits.
 struct View {
   uint8_t* win;
   int wdim;            // window side
+  int pitch;           // window row pitch, a multiple of 4
   int ox, oy;          // plane coords of window element (0, 0)
   int pw, ph;          // plane size
   int scale;           // 1 luma, 2 chroma
+  int plane;           // 0 Y, 1 Cb, 2 Cr
 };
 
 __device__ __forceinline__ uint8_t& at(const View& v, int x, int y) {
-  return v.win[(y - v.oy) * v.wdim + (x - v.ox)];
+  return v.win[(y - v.oy) * v.pitch + (x - v.ox)];
 }
 
-// One TU at plane coords (x, y), size s.  All threads of the block call
-// it with the same arguments.  mc: the top-left sample of an inter CU's
-// MC block in its pyramid plane (row pitch mc_pitch), nullptr for intra;
-// skip: an inter CU coded without residual (encode writes zero levels);
-// mc1: a bi CU's second MC block (same pitch), averaged with mc's; ts: a
-// luma TU coded with transform skip.
-template <bool kEncode>
-__device__ void tu(const Params& p, Shared& sh, const View& v, int x, int y,
-                   int s, int mode, int tv, int th, const uint8_t* src,
-                   int pitch, const int16_t* cin, int16_t* cout, int f,
-                   const uint8_t* mc = nullptr, int mc_pitch = 0,
-                   bool skip = false, const uint8_t* mc1 = nullptr,
-                   bool ts = false) {
-  const int tid = threadIdx.x;
+// A plane's group of warps: its named barrier (1 + plane), its thread
+// count and the calling thread's index in it.
+struct Group {
+  int bar, size, lt;
+};
+
+#ifdef X266_MUTATE_GROUP_BARRIER
+// tests only: the group on barrier X266_MUTATE_GROUP_BARRIER skips its
+// named barriers, which the host tests must catch
+#define X266_GROUP_BARRIER_ON(id) ((id) != X266_MUTATE_GROUP_BARRIER)
+#else
+#define X266_GROUP_BARRIER_ON(id) true
+#endif
+
+// The barrier of a TU's threads: warp 0 of the group for a small TU,
+// else the group's named barrier; group_any also ORs pred over them.
+__device__ __forceinline__ void group_sync(const Group& g, bool small) {
+  if (small) __syncwarp();
+  else if (X266_GROUP_BARRIER_ON(g.bar)) x266_bar_sync(g.bar, g.size);
+}
+
+__device__ __forceinline__ bool group_any(const Group& g, bool small,
+                                          bool pred) {
+  if (small) return __any_sync(kFull, pred);
+  if (!X266_GROUP_BARRIER_ON(g.bar)) return pred;
+  return x266_bar_red_or(g.bar, g.size, pred) != 0;
+}
+
+// Scan position k of a reference vector of side s -> its index in
+// [corner, top 2s, left 2s]: left bottom->top, corner, top left->right.
+__device__ __forceinline__ int scan_index(int k, int s) {
+  return k < 2 * s ? 4 * s - k : (k == 2 * s ? 0 : k - 2 * s);
+}
+
+// The position of entry i of the reference vector [corner, top 2s, left
+// 2s] of the TU at (x, y), side s.
+__device__ __forceinline__ void ref_pos(int i, int x, int y, int s, int& px,
+                                        int& py) {
+  if (i == 0) { px = x - 1; py = y - 1; }
+  else if (i <= 2 * s) { px = x + i - 1; py = y - 1; }
+  else { px = x - 1; py = y + i - 1 - 2 * s; }
+}
+
+// Substitution as a warp scan: m[w] bit l is the availability of scan
+// position 32 w + l (left bottom->top, corner, top left->right).  Writes,
+// for each entry i of [corner, top 2s, left 2s], the entry whose sample it
+// takes: itself when available; else the last available one before it in
+// the scan (__clz on the masked word, or the last word before it with one),
+// for a leading gap the first available one; 255 (mid-gray) for an empty
+// vector.  The serial scan's integers by construction.
+__device__ void subst_sources(int s, const unsigned (&m)[5], uint8_t* src) {
+  const int lane = threadIdx.x & 31;
   const int r_len = 4 * s + 1;
-  const int mid = 128;
-  const bool luma = v.scale == 1;
-  const bool mip = mc == nullptr && mode >= p.n_std;   // luma only
-
-  if (mc == nullptr) {
-  // 1. reference vector [corner, top 2s, left 2s] and its availability
-  for (int i = tid; i < r_len; i += kThreads) {
-    int px, py;
-    if (i == 0) { px = x - 1; py = y - 1; }
-    else if (i <= 2 * s) { px = x + i - 1; py = y - 1; }
-    else { px = x - 1; py = y + i - 1 - 2 * s; }
-    sh.ref[i] = at(v, px, py);
-    if (p.subst)
-      sh.avail[i] = decoded_before(px * v.scale, py * v.scale, x * v.scale,
-                                   y * v.scale, p.width, p.height);
+  int before[5], last = -1, first = -1;
+#pragma unroll
+  for (int w = 0; w < 5; ++w) {
+    before[w] = last;
+    if (m[w]) last = 32 * w + 31 - __clz((int)m[w]);
   }
-  __syncthreads();
-
-  // 2. substitution: scan left bottom->top, corner, top left->right;
-  //    a gap takes the nearest available sample before it in the scan,
-  //    leading gaps the first available one, an empty vector mid-gray
-  if (p.subst && tid == 0) {
-    auto idx = [&](int k) { return k < 2 * s ? 4 * s - k
-                                              : (k == 2 * s ? 0 : k - 2 * s); };
-    int first = -1;
-    for (int k = 0; k < r_len; ++k)
-      if (sh.avail[idx(k)]) { first = k; break; }
-    int last = first < 0 ? mid : sh.ref[idx(first)];
-    for (int k = 0; k < r_len; ++k) {
-      int i = idx(k);
-      if (sh.avail[i]) last = sh.ref[i];
-      else sh.ref[i] = last;
+#pragma unroll
+  for (int w = 4; w >= 0; --w)
+    if (m[w]) first = 32 * w + __ffs((int)m[w]) - 1;
+#pragma unroll
+  for (int w = 0; w < 5; ++w) {
+    const int k = lane + 32 * w;
+    if (k >= r_len) continue;
+    int from = k;
+    if (!((m[w] >> lane) & 1)) {
+      const unsigned below = m[w] & ((1u << lane) - 1);
+      from = below ? 32 * w + 31 - __clz((int)below) : before[w];
+      if (from < 0) from = first;
     }
+    src[scan_index(k, s)] = from < 0 ? 255 : scan_index(from, s);
   }
-  __syncthreads();
+}
 
-  // 3. [raw, smoothed] extension; the DC sum
-  const int* smt = p.smooth + smooth_offset(s);
-  for (int i = tid; i < r_len; i += kThreads) {
+// One warp: the substitution sources of the TU at plane coords (x, y),
+// side s, on a plane of scale 1 (luma) or 2 (chroma), from
+// decoded_before's availability of each entry.
+__device__ void ref_sources(const Params& p, int x, int y, int s, int scale,
+                            uint8_t* src) {
+  const int lane = threadIdx.x & 31;
+  unsigned m[5];
+#pragma unroll
+  for (int w = 0; w < 5; ++w) {
+    const int k = lane + 32 * w;
+    bool avail = false;
+    if (k < 4 * s + 1) {
+      int px, py;
+      ref_pos(scan_index(k, s), x, y, s, px, py);
+      avail = decoded_before(px * scale, py * scale, x * scale, y * scale,
+                             p.width, p.height);
+    }
+    m[w] = __ballot_sync(kFull, avail);
+  }
+  subst_sources(s, m, src);
+}
+
+// The reference vector of the TU at plane coords (x, y), side S, built by
+// the calling warp into r.ext: [corner, top 2S, left 2S] from the window
+// (entry i reads entry src[i]'s sample, mid-gray for 255, when src is
+// given: substitution), the smoothed copy from 4S + 1, MIP's 16 group
+// sums into r.grp; returns the DC sum (mode 1).
+template <int S>
+__device__ int build_refs(const Shared& sh, const View& v, Refs& r, int x,
+                          int y, int mode, bool mip,
+                          const uint8_t* src X266_PH_PARAM) {
+  constexpr int r_len = 4 * S + 1;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int w = 0; w * 32 < r_len; ++w) {
+    const int i = lane + 32 * w;
+    if (i >= r_len) continue;
+    const int j = src ? src[i] : i;
+    int val = 128, px, py;
+    if (j != 255) {
+      ref_pos(j, x, y, S, px, py);
+      val = at(v, px, py);
+    }
+    r.ext[i] = val;
+  }
+  __syncwarp();
+  X266_PH(pc, kPhRef);
+  // [raw, smoothed] extension; the DC sum; MIP's group sums
+  const int* smt = sh.smooth + smooth_offset(S);
+#pragma unroll
+  for (int w = 0; w * 32 < r_len; ++w) {
+    const int i = lane + 32 * w;
+    if (i >= r_len) continue;
     int acc = 0;
+#pragma unroll
     for (int t = 0; t < 3; ++t) {
-      int e = __ldg(smt + i * 3 + t);
-      acc += (e & 255) * sh.ref[e >> 8];
+      const int e = smt[i * 3 + t];
+      acc += (e & 255) * r.ext[e >> 8];
     }
-    sh.ext[i] = sh.ref[i];
-    sh.ext[r_len + i] = (acc + 2) >> 2;
+    r.ext[r_len + i] = (acc + 2) >> 2;
   }
-  if (tid == 0 && mode == 1) {
+  int dc = 0;
+  if (mode == 1) {
+    if (lane < S) dc = r.ext[1 + lane] + r.ext[1 + 2 * S + lane];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dc += __shfl_xor_sync(kFull, dc, o);
+  }
+  if (mip && lane < 16) {
+    // group lane: S/4 raw references of [top 2S, left 2S]
     int acc = 0;
-    for (int i = 0; i < s; ++i) acc += sh.ref[1 + i] + sh.ref[1 + 2 * s + i];
-    sh.dc = acc;
+#pragma unroll
+    for (int j = 0; j < S / 4; ++j) acc += r.ext[1 + lane * (S / 4) + j];
+    r.grp[lane] = acc;
   }
-  if (mip && tid < 16) {
-    // group tid: s/4 raw references of [top 2s, left 2s]
-    const int g = s >> 2;
-    int acc = 0;
-    for (int j = 0; j < g; ++j) acc += sh.ref[1 + tid * g + j];
-    sh.grp[tid] = acc;
-  }
-  __syncthreads();
-  }
+  __syncwarp();
+  X266_PH(pc, kPhExt);
+  return dc;
+}
 
-  // 4. prediction (intra, or the MC block); encode: residual into a
-  const int n = s * s;
-  const int log2s = 31 - __clz(s);
-  const int shift = __ldg(p.shift + size_index(s) * p.n_modes + mode);
-  // PDPC's mode class (specmodel.intra.pdpc_mode_class) and gates
-  const bool pdpc = p.pdpc && luma && mc == nullptr;
-  const int hm = p.n_std == 35 ? 10 : 18, vm = p.n_std == 35 ? 26 : 50;
-  const int lok = x > 0, tok = y > 0;
-  const int pscale = (2 * log2s - 2) >> 2;
-  for (int i = tid; i < n; i += kThreads) {
-    int pr;
-    if (mc != nullptr) {
-      const size_t o = (size_t)(i / s) * mc_pitch + i % s;
-      pr = __ldg(mc + o);
-      if (mc1 != nullptr) pr = (pr + __ldg(mc1 + o) + 1) >> 1;
-    } else {
-      int acc = 0;
-      if (mip) {
-        const int* m = p.mip + mip_offset(s) + ((mode - p.n_std) * n + i) * 16;
-        for (int k = 0; k < 16; ++k) acc += __ldg(m + k) * sh.grp[k];
-      } else if (mode == 1) {
-        acc = sh.dc;
-      } else {
-        const int* tp = p.taps + taps_offset(s, p.n_std) + (mode * n + i) * 4;
-        for (int t = 0; t < 4; ++t) {
-          int e = __ldg(tp + t);
-          acc += (e & 255) * sh.ext[e >> 8];
-        }
-      }
-      pr = rshift_round(acc, shift);
-      if (pdpc && (mode <= 1 || mode == hm || mode == vm)) {
-        const int xx = i % s, yy = i / s;
-        const int wl = (32 >> mini(31, (2 * xx) >> pscale)) * lok;
-        const int wt = (32 >> mini(31, (2 * yy) >> pscale)) * tok;
-        const int left = sh.ref[2 * s + 1 + yy], top = sh.ref[1 + xx];
-        const int corner = sh.ref[0];
-        if (mode <= 1)
-          pr = (wl * left + wt * top + (64 - wl - wt) * pr + 32) >> 6;
-        else if (lok && tok && mode == vm)
-          pr = (64 * pr + wl * (left - corner) + 32) >> 6;
-        else if (lok && tok)
-          pr = (64 * pr + wt * (top - corner) + 32) >> 6;
-      }
+// The TU's sample map on G threads for side S: thread lt owns samples
+// (row0 + k * kStep, col), k < kK, with col = lt mod S and row0 = lt / S,
+// all in one column, so a pass over the TU's columns loads each matrix
+// entry once for all of them.
+template <int S, int G>
+struct Map {
+  static constexpr int kK = S * S >= G ? S * S / G : 1;
+  static constexpr int kStep = G / S;
+  static constexpr int kLog2 = S == 4 ? 2 : S == 8 ? 3 : S == 16 ? 4 : 5;
+};
+
+// A column pass, out[k] = sum_j W(row_k, j) * in[j][col], W(r, j) =
+// t[r * S + j] (forward vertical) or t[j * S + r] (inverse vertical,
+// kTrans); in from `in` (int, pitch S) or, kLev, the dequantized staged
+// levels lev (pitch sp).
+template <int S, int K, int kStep, bool kTrans, bool kLev>
+__device__ __forceinline__ void column_pass(int row0, int col,
+                                            const int8_t* t, const int* in,
+                                            const int16_t* lev, int sp,
+                                            int dscale, int ishift,
+                                            int (&out)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k] = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int v =
+        kLev ? clampi((lev[j * sp + col] * dscale + (1 << (ishift - 1))) >>
+                          ishift, -32768, 32767)
+             : in[j * S + col];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = row0 + k * kStep;
+      out[k] += t[kTrans ? j * S + r : r * S + j] * v;
     }
-    sh.pred[i] = pr;
-    if (kEncode) sh.a[i] = src[(y + 1 + i / s) * pitch + x + 1 + i % s] - pr;
   }
-  __syncthreads();
+}
+
+// A row pass, out[k] = sum_j in[row_k][j] * t[j * S + col], the row's
+// entries four at a time in 16-byte loads.
+template <int S, int K, int kStep>
+__device__ __forceinline__ void row_pass(int row0, int col, const int8_t* t,
+                                         const int* in, int (&out)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k] = 0;
+#pragma unroll
+  for (int j = 0; j < S; j += 4) {
+    const int t0 = t[j * S + col], t1 = t[(j + 1) * S + col];
+    const int t2 = t[(j + 2) * S + col], t3 = t[(j + 3) * S + col];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int4 v = *reinterpret_cast<const int4*>(
+          in + (row0 + k * kStep) * S + j);
+      out[k] += v.x * t0 + v.y * t1 + v.z * t2 + v.w * t3;
+    }
+  }
+}
+
+// The arguments of one TU: plane coords (x, y) of a CU of the CTU at plane
+// origin (x0, y0) (its inputs are staged at (x - x0, y - y0), row pitch 64
+// luma, 32 chroma), its mode, prediction shift, transform types,
+// transform skip, kind, whether its staged levels are non-zero (decode),
+// whether the group meets first (a small TU came just before) and its
+// substitution sources (nullptr without substitution).
+struct TuArgs {
+  int x, y, x0, y0, mode, shift, tv, th;
+  bool ts;
+  int kind;
+  bool nz, sync_first;
+  const uint8_t* src;
+  int f;
+};
+
+// One TU of side S of plane v.plane, on G threads: the group (a TU of more
+// than 64 samples) or the group's warp 0 (G = 32; the caller keeps the
+// other warps out).
+template <bool kEncode, int S, int G>
+__device__ void tu(const Params& p, Shared& sh, const View& v,
+                   const Group& g, const TuArgs& a) {
+  using M = Map<S, G>;
+  constexpr int K = M::kK, kStep = M::kStep, kLog2 = M::kLog2;
+  constexpr bool kSmall = S * S <= 64;
+  static_assert(!kSmall || G == 32, "a TU of <= 64 samples is one warp's");
+  const int x = a.x, y = a.y, mode = a.mode;
+  const int lt = kSmall ? (threadIdx.x & 31) : g.lt;
+  const int col = lt & (S - 1), row0 = lt >> kLog2;
+  // every thread owns samples but on a 4x4 TU (lanes 16-31 own none)
+  const bool active = G <= S * S || row0 < S;
+  const bool luma = v.plane == 0;
+  const bool is_mc = a.kind != kIntra;
+  const bool skip = a.kind == kSkip;
+  const bool mip = !is_mc && mode >= p.n_std;   // luma only
+  const int sp = luma ? 64 : 32;
+  const int st = (luma ? 0 : v.plane == 1 ? 4096 : 5120) + (y - a.y0) * sp +
+                 (x - a.x0);                  // staged (0, 0)
+  int* sa = luma ? sh.a_y : sh.a_c[v.plane - 1];
+  int* sb = luma ? sh.b_y : sh.b_c[v.plane - 1];
+  Refs& r = sh.refs[threadIdx.x >> 5];
+  X266_PH_START(pc, (v.plane * 4 + size_index(S)) * kPhases, g.lt == 0);
+  X266_PH_COUNT(v.plane * 4 + size_index(S), g.lt == 0);
+
+  // the angular taps of this thread's samples, in flight while the
+  // reference vector is built
+  const bool taps = !is_mc && !mip && mode != 1;
+  int4 tp[K];
+  if (taps && active) {
+    const int4* t4 = reinterpret_cast<const int4*>(
+        p.taps + taps_offset(S, p.n_std)) + mode * S * S;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      tp[k] = x266_ldg_early(t4 + (row0 + k * kStep) * S + col);
+  }
+  if (a.sync_first) group_sync(g, false);
+  int dc = 0;
+  if (!is_mc)
+    dc = build_refs<S>(sh, v, r, x, y, mode, mip, a.src X266_PH_PASS);
+
+  // the prediction, in registers until the write-back: one branch-free
+  // loop over the thread's samples for each kind of prediction
+  const int hm = p.n_std == 35 ? 10 : 18, vm = p.n_std == 35 ? 26 : 50;
+  int pr[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) pr[k] = 0;
+  if (!active) {
+  } else if (is_mc) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      pr[k] = sh.mcp[st + (row0 + k * kStep) * sp + col];
+  } else if (mip) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int4* m4 = reinterpret_cast<const int4*>(
+          p.mip + mip_offset(S) +
+          ((mode - p.n_std) * S * S + (row0 + k * kStep) * S + col) * 16);
+      int acc = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int4 wq = __ldg(m4 + q);
+        acc += wq.x * r.grp[4 * q] + wq.y * r.grp[4 * q + 1] +
+               wq.z * r.grp[4 * q + 2] + wq.w * r.grp[4 * q + 3];
+      }
+      pr[k] = rshift_round(acc, a.shift);
+    }
+  } else if (mode == 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) pr[k] = rshift_round(dc, a.shift);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int4 e = tp[k];
+      pr[k] = rshift_round(
+          (e.x & 255) * r.ext[e.x >> 8] + (e.y & 255) * r.ext[e.y >> 8] +
+              (e.z & 255) * r.ext[e.z >> 8] + (e.w & 255) * r.ext[e.w >> 8],
+          a.shift);
+    }
+  }
+  // PDPC's blend with the raw references, after the shift
+  if (active && p.pdpc && luma && !is_mc &&
+      (mode <= 1 || mode == hm || mode == vm)) {
+    constexpr int pscale = (2 * kLog2 - 2) >> 2;
+    const int lok = x > 0, tok = y > 0;
+    const int wl = (32 >> mini(31, (2 * col) >> pscale)) * lok;
+    const int top = r.ext[1 + col], corner = r.ext[0];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int rr = row0 + k * kStep;
+      const int wt = (32 >> mini(31, (2 * rr) >> pscale)) * tok;
+      const int left = r.ext[2 * S + 1 + rr];
+      int q = pr[k];
+      if (mode <= 1)
+        q = (wl * left + wt * top + (64 - wl - wt) * q + 32) >> 6;
+      else if (lok && tok && mode == vm)
+        q = (64 * q + wl * (left - corner) + 32) >> 6;
+      else if (lok && tok)
+        q = (64 * q + wt * (top - corner) + 32) >> 6;
+      pr[k] = q;
+    }
+  }
+  X266_PH(pc, kPhPred);
 
   const int cpitch = p.width / v.scale;
-  const size_t cbase = (size_t)f * cpitch * (p.height / v.scale);
+  int16_t* co = kEncode ? p.coef_out[v.plane] +
+                              (size_t)a.f * cpitch * (p.height / v.scale) +
+                              (size_t)y * cpitch + x
+                        : nullptr;
+  constexpr int tsh = 7 - kLog2;               // 8-bit
+  constexpr int ishift = 6 - tsh;
+  const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
+  const int8_t* tvm = sh.tx[0] + a.tv * kTxPerType + tx_offset(S);
+  const int8_t* thm = sh.tx[0] + a.th * kTxPerType + tx_offset(S);
+  int res[K], acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) res[k] = 0;
+  bool inverse = false;
+  const int16_t* lev = nullptr;
+
   if (p.lossless) {
     // no transform, no quantizer: the level is the residual
-    for (int i = tid; i < n; i += kThreads) {
-      const size_t o = cbase + (size_t)(y + i / s) * cpitch + x + i % s;
-      int lv;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!active) continue;
+      const int rr = row0 + k * kStep;
       if (kEncode) {
-        lv = skip ? 0 : sh.a[i];
-        cout[o] = (int16_t)lv;
+        res[k] = skip ? 0 : sh.in.src[st + rr * sp + col] - pr[k];
+        co[(size_t)rr * cpitch + col] = (int16_t)res[k];
       } else {
-        lv = cin[o];
+        res[k] = sh.in.lev[st + rr * sp + col];
       }
-      at(v, x + i % s, y + i / s) = (uint8_t)clampi(sh.pred[i] + lv, 0, 255);
     }
-    __syncthreads();
-    return;
-  }
-
-  const int* mv = p.tx + tv * kTxPerType + tx_offset(s);   // (s, s) [k][n]
-  const int* mh = p.tx + th * kTxPerType + tx_offset(s);
-  const int tsh = 7 - log2s;                               // 8-bit
-
-  if (kEncode && skip) {
-    for (int i = tid; i < n; i += kThreads) {
-      sh.a[i] = 0;
-      cout[cbase + (size_t)(y + i / s) * cpitch + x + i % s] = 0;
-    }
+  } else if (kEncode && skip) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (active) co[(size_t)(row0 + k * kStep) * cpitch + col] = 0;
   } else if (kEncode) {
-    // 5. forward vertical: b[k][m] = sum_n Tv[k][n] a[n][m]
-    for (int i = tid; i < n && !ts; i += kThreads) {
-      int k = i / s, m = i % s, acc = 0;
-      for (int j = 0; j < s; ++j) acc += __ldg(mv + k * s + j) * sh.a[j * s + m];
-      sh.b[i] = rshift_round(acc, log2s - 1);
+    int c[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      c[k] = 0;
+      if (!active) continue;
+      const int rr = row0 + k * kStep;
+      const int res0 = sh.in.src[st + rr * sp + col] - pr[k];
+      if (a.ts) c[k] = res0 << tsh;
+      else sa[rr * S + col] = res0;
     }
-    __syncthreads();
-    // 6. forward horizontal (transform skip: the residual << tsh) +
-    //    quantization: level into a, out to global
+    if (!a.ts) {
+      group_sync(g, kSmall);
+      // forward vertical: b[k][m] = sum_j Tv[k][j] a[j][m]
+      if (active) {
+        column_pass<S, K, kStep, false, false>(row0, col, tvm, sa, nullptr,
+                                               0, 0, 1, acc);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          sb[(row0 + k * kStep) * S + col] = rshift_round(acc[k], kLog2 - 1);
+      }
+      group_sync(g, kSmall);
+      X266_PH(pc, kPhFwd);
+      // forward horizontal: c[k][l] = sum_j b[k][j] Th[l][j]
+      if (active) {
+        row_pass<S, K, kStep>(row0, col,
+                              sh.tx[1] + a.th * kTxPerType + tx_offset(S), sb,
+                              acc);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          c[k] = clampi(rshift_round(acc[k], kLog2 + 6), -32768, 32767);
+      }
+    }
+    // quantization: the level out to global, dequantized into a (or, for
+    // transform skip, into the residual's registers)
     const int qbits = 14 + p.qp / 6 + tsh;
     const int qscale = kQuantScale[p.qp % 6];
-    const int ishift = 6 - tsh;
-    const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
-    for (int i = tid; i < n; i += kThreads) {
-      int k = i / s, l = i % s, c;
-      if (ts) {
-        c = sh.a[i] << tsh;
-      } else {
-        int acc = 0;
-        for (int j = 0; j < s; ++j)
-          acc += sh.b[k * s + j] * __ldg(mh + l * s + j);
-        c = clampi(rshift_round(acc, log2s + 6), -32768, 32767);
-      }
-      int a = c < 0 ? -c : c;
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!active) continue;
+      const int cc = c[k];
+      const int aa = cc < 0 ? -cc : cc;
       int lv;
       if (p.rdoq) {
-        int lup = clampi((a * qscale + (1 << (qbits - 1))) >> qbits, 0, 32767);
-        int ldn = lup > 0 ? lup - 1 : 0;
-        float err_scale = ldexpf(1.0f, -2 * tsh);
+        const int lup = clampi((aa * qscale + (1 << (qbits - 1))) >> qbits,
+                               0, 32767);
+        const int ldn = lup > 0 ? lup - 1 : 0;
+        const float err_scale = ldexpf(1.0f, -2 * tsh);
         auto cost = [&](int l) {
-          int dq = clampi((l * dscale + (1 << (ishift - 1))) >> ishift,
-                          -32768, 32767);
-          float e = (float)(a - dq);
+          const int d = clampi((l * dscale + (1 << (ishift - 1))) >> ishift,
+                               -32768, 32767);
+          const float e = (float)(aa - d);
+          const float rl = l < kRateShared ? sh.rate[l] : __ldg(p.rate + l);
           return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
-                           __fmul_rn(p.lam, __ldg(p.rate + l)));
+                           __fmul_rn(p.lam, rl));
         };
-        float c0 = cost(0), cd = cost(ldn), cu = cost(lup);
-        int lev = cu <= cd ? lup : ldn;
-        lv = fminf(cu, cd) <= c0 ? lev : 0;
+        const float c0 = cost(0), cd = cost(ldn), cu = cost(lup);
+        const int lbest = cu <= cd ? lup : ldn;
+        lv = fminf(cu, cd) <= c0 ? lbest : 0;
       } else {
-        int add = 171 << (qbits - 9);
-        lv = clampi((a * qscale + add) >> qbits, 0, 32767);
+        const int add = 171 << (qbits - 9);
+        lv = clampi((aa * qscale + add) >> qbits, 0, 32767);
       }
-      lv = c < 0 ? -lv : (c > 0 ? lv : 0);
-      sh.a[i] = lv;
-      cout[cbase + (size_t)(y + k) * cpitch + x + l] = (int16_t)lv;
+      lv = cc < 0 ? -lv : (cc > 0 ? lv : 0);
+      const int rr = row0 + k * kStep;
+      co[(size_t)rr * cpitch + col] = (int16_t)lv;
+      any = any || lv != 0;
+      const int dq = clampi((lv * dscale + (1 << (ishift - 1))) >> ishift,
+                            -32768, 32767);
+      if (a.ts) res[k] = (dq + (1 << (tsh - 1))) >> tsh;
+      else sa[rr * S + col] = dq;
     }
-  } else {
-    for (int i = tid; i < n; i += kThreads)
-      sh.a[i] = cin[cbase + (size_t)(y + i / s) * cpitch + x + i % s];
-  }
-  __syncthreads();
-
-  // 7. dequantization, in place
-  {
-    const int ishift = 6 - tsh;
-    const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
-    for (int i = tid; i < n; i += kThreads)
-      sh.a[i] = clampi((sh.a[i] * dscale + (1 << (ishift - 1))) >> ishift,
-                       -32768, 32767);
-  }
-  __syncthreads();
-
-  // 8. inverse vertical: b[n][m] = clip((sum_k Tv[k][n] a[k][m] + 64) >> 7)
-  for (int i = tid; i < n && !ts; i += kThreads) {
-    int nn = i / s, m = i % s, acc = 0;
-    for (int k = 0; k < s; ++k) acc += __ldg(mv + k * s + nn) * sh.a[k * s + m];
-    sh.b[i] = clampi(rshift_round(acc, 7), -32768, 32767);
-  }
-  __syncthreads();
-
-  // 9. inverse horizontal (transform skip: (dequantized + round) >> tsh),
-  //    add the prediction, clip, write the window
-  for (int i = tid; i < n; i += kThreads) {
-    int nn = i / s, l = i % s, res;
-    if (ts) {
-      res = (sh.a[i] + (1 << (tsh - 1))) >> tsh;
-    } else {
-      int acc = 0;
-      for (int m = 0; m < s; ++m)
-        acc += sh.b[nn * s + m] * __ldg(mh + m * s + l);
-      res = clampi(rshift_round(acc, 12), -32768, 32767);
+    X266_PH(pc, kPhQuant);
+    inverse = !a.ts && group_any(g, kSmall, any);
+  } else if (a.nz) {
+    // decode: the dequantization fused into the level reads
+    lev = sh.in.lev + st;
+    if (a.ts) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (active)
+          res[k] = (clampi((lev[(row0 + k * kStep) * sp + col] * dscale +
+                            (1 << (ishift - 1))) >> ishift, -32768, 32767) +
+                    (1 << (tsh - 1))) >> tsh;
     }
-    at(v, x + l, y + nn) = (uint8_t)clampi(sh.pred[i] + res, 0, 255);
+    inverse = !a.ts;
   }
-  __syncthreads();
+  if (inverse) {
+    // inverse vertical: b[n][m] = clip((sum_k Tv[k][n] a[k][m] + 64) >> 7)
+    if (active) {
+      if (lev)
+        column_pass<S, K, kStep, true, true>(row0, col, tvm, sa, lev, sp,
+                                             dscale, ishift, acc);
+      else
+        column_pass<S, K, kStep, true, false>(row0, col, tvm, sa, nullptr, 0,
+                                              0, 1, acc);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        sb[(row0 + k * kStep) * S + col] =
+            clampi(rshift_round(acc[k], 7), -32768, 32767);
+    }
+    group_sync(g, kSmall);
+    X266_PH(pc, kPhInvV);
+    // inverse horizontal
+    if (active) {
+      row_pass<S, K, kStep>(row0, col, thm, sb, acc);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        res[k] = clampi(rshift_round(acc[k], 12), -32768, 32767);
+    }
+  }
+
+  // add the prediction, clip, write the window
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (active)
+      at(v, x + col, y + row0 + k * kStep) =
+          (uint8_t)clampi(pr[k] + res[k], 0, 255);
+  group_sync(g, kSmall);
+  X266_PH(pc, kPhInvH);
 }
 
-// Fill a plane's window for the CTU at plane origin (x0, y0): samples of
-// earlier CTUs come from the output plane, everything else is mid-gray.
-__device__ void load_window(const View& v, const uint8_t* rec, int x0,
-                            int y0, int ctu) {
-  for (int i = threadIdx.x; i < v.wdim * v.wdim; i += kThreads) {
-    int px = v.ox + i % v.wdim, py = v.oy + i / v.wdim;
-    bool coded = px >= 0 && py >= 0 && px < v.pw && py < v.ph &&
-                 (py < y0 || (py < y0 + ctu && px < x0));
-    v.win[i] = coded ? __ldcg(rec + (size_t)py * v.pw + px) : 128;
+// A plane's TU of side s: the instance of tu for its size and thread
+// count (luma 8 on a warp, 16 and 32 on 128 threads; chroma 4 and 8 on a
+// warp, 16 on 64 threads).
+template <bool kEncode>
+__device__ __forceinline__ void plane_tu(const Params& p, Shared& sh,
+                                         const View& v, const Group& g,
+                                         int s, const TuArgs& a) {
+  switch (v.plane == 0 ? (s == 8 ? 1 : s == 16 ? 3 : 4)
+                       : (s == 4 ? 0 : s == 8 ? 1 : 2)) {
+    case 0: tu<kEncode, 4, 32>(p, sh, v, g, a); break;
+    case 1: tu<kEncode, 8, 32>(p, sh, v, g, a); break;
+    case 2: tu<kEncode, 16, 64>(p, sh, v, g, a); break;
+    case 3: tu<kEncode, 16, 128>(p, sh, v, g, a); break;
+    default: tu<kEncode, 32, 128>(p, sh, v, g, a); break;
   }
 }
 
+// One coded sample of a window's first row (the row above the CTU) or
+// first column (the column to its left): entry e < wdim is row 0 column e,
+// the others column 0 of rows 1 .. CTU side.  Returns its window offset,
+// and in val the sample from the plane, or mid-gray where it is outside
+// the picture.
+__device__ __forceinline__ int edge_sample(const View& v, const uint8_t* rec,
+                                           int e, int& val) {
+  const int r = e < v.wdim ? 0 : e - v.wdim + 1;
+  const int c = e < v.wdim ? e : 0;
+  const int px = v.ox + c, py = v.oy + r;
+  const bool coded = px >= 0 && py >= 0 && px < v.pw && py < v.ph;
+  val = coded ? __ldcg(rec + (size_t)py * v.pw + px) : 128;
+  return r * v.pitch + c;
+}
+
+// Fill the three windows for the CTU at luma origin (x0, y0): the samples
+// of earlier CTUs -- the row above (first row, overhang included) and the
+// column to the left (first column) -- from the output planes, everything
+// else mid-gray.  The global loads go out first, one or two a thread, so
+// that one round trip to the L2 covers them all.
+__device__ void load_windows(const View& vy, const View& vcb,
+                             const View& vcr, const uint8_t* rec_y,
+                             const uint8_t* rec_cb, const uint8_t* rec_cr) {
+  constexpr int ny = kWinY + kCtu, nc = kWinC + kCtu / 2;
+  int off[2] = {-1, -1}, val[2] = {0, 0};
+  uint8_t* win[2] = {nullptr, nullptr};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int e = threadIdx.x + kThreads * q;
+    if (e < ny) {
+      off[q] = edge_sample(vy, rec_y, e, val[q]);
+      win[q] = vy.win;
+    } else if (e < ny + nc) {
+      off[q] = edge_sample(vcb, rec_cb, e - ny, val[q]);
+      win[q] = vcb.win;
+    } else if (e < ny + 2 * nc) {
+      off[q] = edge_sample(vcr, rec_cr, e - ny - nc, val[q]);
+      win[q] = vcr.win;
+    }
+  }
+  constexpr uint32_t kMid = 0x80808080u;
+  for (int i = threadIdx.x; i < kWinY * kPitchY / 4; i += kThreads)
+    reinterpret_cast<uint32_t*>(vy.win)[i] = kMid;
+  for (int i = threadIdx.x; i < kWinC * kPitchC / 4; i += kThreads) {
+    reinterpret_cast<uint32_t*>(vcb.win)[i] = kMid;
+    reinterpret_cast<uint32_t*>(vcr.win)[i] = kMid;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    if (off[q] >= 0) win[q][off[q]] = (uint8_t)val[q];
+}
+
+// Write the CTU's samples of the window back to the plane, a word at a
+// time (plane widths and CTU origins are multiples of 4).
 __device__ void store_window(const View& v, uint8_t* rec, int x0, int y0,
                              int ctu) {
-  for (int i = threadIdx.x; i < ctu * ctu; i += kThreads) {
-    int px = x0 + i % ctu, py = y0 + i / ctu;
-    if (px < v.pw && py < v.ph)
-      rec[(size_t)py * v.pw + px] = at(v, px, py);
+  const int lane = threadIdx.x & 31;
+  if (lane >= ctu / 4) return;
+  const int px = x0 + 4 * lane;
+  for (int r = threadIdx.x >> 5; r < ctu; r += kThreads / 32) {
+    const int py = y0 + r;
+    if (py >= v.ph || px >= v.pw) continue;
+    const uint8_t* w = &at(v, px, py);
+    const uint32_t word = w[0] | (uint32_t)w[1] << 8 | (uint32_t)w[2] << 16 |
+                          (uint32_t)w[3] << 24;
+    *reinterpret_cast<uint32_t*>(rec + (size_t)py * v.pw + px) = word;
   }
 }
 
-// K3-P: the skip MV of the CU at unit (ux, uy) from the MV state.
 __device__ __forceinline__ bool coded_mv(int kind) {
   return kind != kIntra && kind != kSkip;
 }
 
-__device__ void above_mv(const Params& p, int ux, int uy, int ux_n, int* mv) {
-  if (uy > 0 && (uy & 7) != 0 && coded_mv(p.pred_map[(uy - 1) * ux_n + ux])) {
-    mv[0] = p.mv_out[0][(uy - 1) * ux_n + ux];
-    mv[1] = p.mv_out[1][(uy - 1) * ux_n + ux];
-  } else {
-    mv[0] = mv[1] = 0;
-  }
-}
-
-__device__ void derive_mv(const Params& p, int ux, int uy, int ux_n,
-                          int* mv) {
-  if (ux > 0 && coded_mv(p.pred_map[uy * ux_n + ux - 1])) {
-    mv[0] = p.mv_out[0][uy * ux_n + ux - 1];
-    mv[1] = p.mv_out[1][uy * ux_n + ux - 1];
-  } else {
-    above_mv(p, ux, uy, ux_n, mv);
-  }
-}
-
-// K3-P: an inter CU's MC block origin in pyramid plane (mvy&3)*4 + (mvx&3);
-// the s x s block read from there must lie inside the plane.
-__device__ __forceinline__ const uint8_t* mc_origin(const uint8_t* pyr, int h,
-                                                    int w, int x, int y,
-                                                    int mvx, int mvy, int s) {
+// K3: the s x s MC block of an inter CU at plane (x, y) and MV (mvx, mvy)
+// (chroma: the MV halved) must lie inside its pyramid plane.
+__device__ __forceinline__ void check_mc(int h, int w, int x, int y, int mvx,
+                                         int mvy, int s) {
   const int py = y + kRefPad + (mvy >> 2), px = x + kRefPad + (mvx >> 2);
   X266_ASSERT(py >= 0 && py + s <= h && px >= 0 && px + s <= w);
-  return pyr + ((size_t)((mvy & 3) * 4 + (mvx & 3)) * h + py) * w + px;
+}
+
+// The MC prediction of plane sample (x, y) at MV (mvx, mvy): pyramid
+// plane (mvy&3)*4 + (mvx&3) at (y + pad + (mvy>>2), x + pad + (mvx>>2)).
+__device__ __forceinline__ int mc_sample(const uint8_t* pyr, int h, int w,
+                                         int x, int y, int mvx, int mvy) {
+  const int py = y + kRefPad + (mvy >> 2), px = x + kRefPad + (mvx >> 2);
+  return __ldg(pyr + ((size_t)((mvy & 3) * 4 + (mvx & 3)) * h + py) * w + px);
+}
+
+// Staging before the row wait, by all threads: the CTU's maps (raster
+// units) and inputs (encode: the source; decode: the levels and each
+// unit's non-zero flags, into sh.unz, which the CTU before left zero).
+template <bool kEncode, bool kInter, bool kB>
+__device__ void stage_inputs(const Params& p, Shared& sh, int f, int cx,
+                             int cy) {
+  const int w = p.width, h = p.height, cw = w / 2, ch = h / 2;
+  const int ux_n = w / 8, uy_n = h / 8;
+  const int t = threadIdx.x;
+  if (t < 64) {
+    const int ux = cx * 8 + (t & 7), uy = cy * 8 + (t >> 3);
+    const bool in = ux < ux_n && uy < uy_n;
+    const size_t mi = (size_t)f * ux_n * uy_n + (size_t)uy * ux_n + ux;
+    sh.size[t] = in ? p.size_map[mi] : 0;
+    sh.mode[t] = in ? p.mode_map[mi] : 0;
+    sh.mts[t] = in && (p.mts || p.ts) ? p.mts_map[mi] : 0;
+    if (kInter) {
+      sh.ukind[t >> 3][1 + (t & 7)] = in ? p.pred_map[mi] : kIntra;
+      sh.mvx[t] = in ? p.mvx_map[mi] : 0;
+      sh.mvy[t] = in ? p.mvy_map[mi] : 0;
+      sh.mv1x[t] = kB && in ? p.mv1_map[0][mi] : 0;
+      sh.mv1y[t] = kB && in ? p.mv1_map[1][mi] : 0;
+      sh.umv[0][t >> 3][1 + (t & 7)] = 0;
+      sh.umv[1][t >> 3][1 + (t & 7)] = 0;
+      sh.cu_kind[t] = -1;
+    }
+  }
+  // 4 threads a unit: luma 2 rows of 8 each, chroma 1 row of 4 a plane
+  const int unit = t >> 2, q = t & 3;
+  const int ulx = unit & 7, uly = unit >> 3;
+  if (cx * 8 + ulx >= ux_n || cy * 8 + uly >= uy_n) return;
+  if (kEncode) {
+    const uint8_t* srcy = p.src[0] + (size_t)f * p.plane_y;
+    for (int r = 0; r < 2; ++r) {
+      const int yy = uly * 8 + 2 * q + r;
+      const uint8_t* row = srcy + (size_t)(cy * 64 + yy + 1) * p.pitch_y +
+                           cx * 64 + ulx * 8 + 1;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        sh.in.src[yy * 64 + ulx * 8 + c] = __ldg(row + c);
+    }
+    for (int pl = 0; pl < 2; ++pl) {
+      const int yy = uly * 4 + q;
+      const uint8_t* row = p.src[1 + pl] + (size_t)f * p.plane_c +
+                           (size_t)(cy * 32 + yy + 1) * p.pitch_c +
+                           cx * 32 + ulx * 4 + 1;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        sh.in.src[4096 + pl * 1024 + yy * 32 + ulx * 4 + c] = __ldg(row + c);
+    }
+  } else {
+    // a luma row of a unit is 16 bytes, a chroma row 8 (plane widths
+    // are multiples of 8)
+    int nz = 0;
+    for (int r = 0; r < 2; ++r) {
+      const int yy = uly * 8 + 2 * q + r;
+      const int4 lv = __ldg(reinterpret_cast<const int4*>(
+          p.coef_in[0] + (size_t)f * w * h + (size_t)(cy * 64 + yy) * w +
+          cx * 64 + ulx * 8));
+      *reinterpret_cast<int4*>(sh.in.lev + yy * 64 + ulx * 8) = lv;
+      nz |= (lv.x | lv.y | lv.z | lv.w) != 0;
+    }
+    for (int pl = 0; pl < 2; ++pl) {
+      const int yy = uly * 4 + q;
+      const int2 lv = __ldg(reinterpret_cast<const int2*>(
+          p.coef_in[1 + pl] + (size_t)f * cw * ch + (size_t)(cy * 32 + yy) * cw +
+          cx * 32 + ulx * 4));
+      *reinterpret_cast<int2*>(sh.in.lev + 4096 + pl * 1024 + yy * 32 +
+                               ulx * 4) = lv;
+      nz |= ((lv.x | lv.y) != 0) << (1 + pl);
+    }
+    if (nz) atomicOr(&sh.unz[unit], nz);
+  }
+}
+
+// The CTU's CU list in z-order (warp 1, after stage_inputs), and for K3
+// each CU's final MV, derived in z-order (its lane 0) over its units:
+// the MV state derive_mv and above_mv read.
+template <bool kEncode, bool kInter, bool kB>
+__device__ void build_cus(const Params& p, Shared& sh, int cx, int cy) {
+  const int lane = threadIdx.x & 31;
+  unsigned ball[2];
+  bool org[2];
+  int unit[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    int zx, zy;
+    z_unit(lane + 32 * hf, zx, zy);
+    unit[hf] = zy * 8 + zx;
+    const int s = sh.size[unit[hf]];      // 0 outside the picture
+    const int u = s >> 3;
+    org[hf] = u > 0 && (zx & (u - 1)) == 0 && (zy & (u - 1)) == 0;
+    ball[hf] = __ballot_sync(kFull, org[hf]);
+  }
+  const unsigned below = (1u << lane) - 1;
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (!org[hf]) continue;
+    const int t = unit[hf];
+    Cu cu;
+    cu.ux = t & 7;
+    cu.uy = t >> 3;
+    cu.s = sh.size[t];
+    const int mode = sh.mode[t];
+    cu.mode = mode;
+    cu.mode_c = mode >= p.n_std ? 0 : mode;   // chroma of MIP: planar
+    // the map holds an MTS pair (0-4) or transform skip (5), read when
+    // either tool is on
+    const int mval = (p.mts || p.ts) ? (sh.mts[t] & 7) : 0;
+    cu.ts = p.ts && mval == 5;
+    const int mts = p.mts && !cu.ts ? mini(mval, 4) : 0;
+    // MTS combos (tables.MTS_COMBOS) 0-4: (vertical, horizontal) types
+    // (0, 0), (1, 1), (2, 1), (1, 2), (2, 2); 0 DCT-II, 1 DST-VII, 2
+    // DCT-VIII
+    cu.tv = mts == 0 ? 0 : 2 - (mts & 1);
+    cu.th = (mts + 1) >> 1;
+    cu.kind = kInter ? sh.ukind[cu.uy][1 + cu.ux] : kIntra;
+    cu.shift_y = sh.shift[size_index(cu.s) * p.n_modes + mode];
+    cu.shift_c = sh.shift[size_index(cu.s >> 1) * p.n_modes + cu.mode_c];
+    int nz = 0;
+    const int u = cu.s >> 3;
+    for (int dy = 0; dy < u; ++dy)
+      for (int dx = 0; dx < u; ++dx) nz |= sh.unz[t + dy * 8 + dx];
+    cu.nz = nz;
+    const int i = hf == 0 ? __popc(ball[0] & below)
+                          : __popc(ball[0]) + __popc(ball[1] & below);
+    sh.cus[i] = cu;
+  }
+  const int n = __popc(ball[0]) + __popc(ball[1]);
+  if (lane == 0) sh.n_cus = n;
+  __syncwarp();
+  for (int c = 0; kInter && lane == 0 && c < n; ++c) {
+    const Cu& cu = sh.cus[c];
+    const int t = cu.uy * 8 + cu.ux, ux = cx * 8 + cu.ux, uy = cy * 8 + cu.uy;
+    const bool skip = cu.kind == kSkip;
+    int mvx = 0, mvy = 0;
+    // the above unit's MV while inside the CTU row, else (0, 0)
+    auto above = [&]() {
+      if (cu.uy > 0 && coded_mv(sh.ukind[cu.uy - 1][1 + cu.ux])) {
+        mvx = sh.umv[0][cu.uy - 1][1 + cu.ux];
+        mvy = sh.umv[1][cu.uy - 1][1 + cu.ux];
+      }
+    };
+    if (!skip || (p.merge && !kEncode)) {
+      mvx = sh.mvx[t];
+      mvy = sh.mvy[t];
+    } else if (p.merge && sh.mvx[t] == 1) {
+      above();                          // merge candidate 1
+    } else if (ux > 0 && coded_mv(sh.ukind[cu.uy][cu.ux])) {
+      mvx = sh.umv[0][cu.uy][cu.ux];    // the left unit (column 0: the
+      mvy = sh.umv[1][cu.uy][cu.ux];    // left CTU's last)
+    } else {
+      above();
+    }
+    const int u = cu.s >> 3;
+    for (int dy = 0; dy < u; ++dy)
+      for (int dx = 0; dx < u; ++dx) {
+        sh.umv[0][cu.uy + dy][1 + cu.ux + dx] = (int16_t)mvx;
+        sh.umv[1][cu.uy + dy][1 + cu.ux + dx] = (int16_t)mvy;
+        sh.cu_kind[t + dy * 8 + dx] = (int8_t)cu.kind;
+        if (kB) {
+          sh.cu_mv1[0][t + dy * 8 + dx] = sh.mv1x[t];
+          sh.cu_mv1[1][t + dy * 8 + dx] = sh.mv1y[t];
+        }
+      }
+    if (cu.kind != kIntra) {
+      const int x = ux * 8, y = uy * 8, s = cu.s;
+      check_mc(p.pyr_h[0], p.pyr_w[0], x, y, mvx, mvy, s);
+      check_mc(p.pyr_h[1], p.pyr_w[1], x / 2, y / 2, mvx >> 1, mvy >> 1,
+               s / 2);
+      if (kB && cu.kind == kBi) {
+        check_mc(p.pyr_h[0], p.pyr_w[0], x, y, sh.mv1x[t], sh.mv1y[t], s);
+        check_mc(p.pyr_h[1], p.pyr_w[1], x / 2, y / 2, sh.mv1x[t] >> 1,
+                 sh.mv1y[t] >> 1, s / 2);
+      }
+    }
+  }
+}
+
+// K3, after the row wait, beside the window load: each inter CU's MC
+// prediction into sh.mcp (a bi CU's two blocks averaged); eight samples'
+// loads go out before their stores.
+template <bool kB>
+__device__ void stage_mc(const Params& p, Shared& sh, int cx, int cy) {
+  constexpr int kPer = kStage / kThreads, kBatch = 8;
+  static_assert(kPer % kBatch == 0, "whole batches");
+  for (int b = 0; b < kPer; b += kBatch) {
+    int val[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = threadIdx.x + kThreads * (b + q);
+      int pl, sx, sy, unit;
+      if (i < 4096) {
+        pl = 0; sx = i & 63; sy = i >> 6;
+        unit = (sy >> 3) * 8 + (sx >> 3);
+      } else {
+        const int j = i - 4096;
+        pl = 1 + (j >> 10); sx = j & 31; sy = (j & 1023) >> 5;
+        unit = (sy >> 2) * 8 + (sx >> 2);
+      }
+      const int kind = sh.cu_kind[unit];
+      val[q] = -1;
+      if (kind <= kIntra) continue;     // intra, or outside the picture
+      const int c = pl > 0;
+      int mvx = sh.umv[0][unit >> 3][1 + (unit & 7)];
+      int mvy = sh.umv[1][unit >> 3][1 + (unit & 7)];
+      if (c) { mvx >>= 1; mvy >>= 1; }
+      const int x = (c ? cx * 32 : cx * 64) + sx;
+      const int y = (c ? cy * 32 : cy * 64) + sy;
+      const int l1 = kB && kind == kL1 ? 3 : 0;
+      val[q] = mc_sample(p.pyr[l1 + pl], p.pyr_h[c], p.pyr_w[c], x, y, mvx,
+                         mvy);
+      if (kB && kind == kBi) {
+        int m1x = sh.cu_mv1[0][unit], m1y = sh.cu_mv1[1][unit];
+        if (c) { m1x >>= 1; m1y >>= 1; }
+        val[q] = (val[q] + mc_sample(p.pyr[3 + pl], p.pyr_h[c], p.pyr_w[c],
+                                     x, y, m1x, m1y) + 1) >> 1;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      if (val[q] >= 0) sh.mcp[threadIdx.x + kThreads * (b + q)] = val[q];
+  }
 }
 
 template <bool kEncode, bool kInter, bool kB = false>
 __global__ void __launch_bounds__(kThreads)
 recon_kernel(Params p) {
-  X266_SHARED(Shared, sh);
+  X266_DYNAMIC_SHARED(int4, smem);
+  Shared& sh = *reinterpret_cast<Shared*>(smem);
   X266_SHARED(int, ticket);
+  X266_PH_START(bc, 12 * kPhases, threadIdx.x == 0);
+  X266_PH_START(blk, 12 * kPhases, threadIdx.x == 0);
   const int w = p.width, h = p.height, cw = w / 2, ch = h / 2;
   const int ux_n = w / 8, uy_n = h / 8;
   const int ctus_x = (w + kCtu - 1) / kCtu, ctus_y = (h + kCtu - 1) / kCtu;
-  if (threadIdx.x == 0) ticket = atomicAdd(p.sync, 1);
+  const int tid = threadIdx.x;
+  // the tables, once per launch: the transform matrices as given and
+  // transposed within each (type, size) matrix
+  for (int i = tid; i < 3 * kTxPerType; i += kThreads) {
+    const int v = __ldg(p.tx + i);
+    const int type = i / kTxPerType, o = i - type * kTxPerType;
+    const int s = o < 16 ? 4 : o < 80 ? 8 : o < 336 ? 16 : 32;
+    const int e = o - tx_offset(s), log2s = 31 - __clz(s);
+    sh.tx[0][i] = (int8_t)v;
+    sh.tx[1][type * kTxPerType + tx_offset(s) + (e & (s - 1)) * s +
+             (e >> log2s)] = (int8_t)v;
+  }
+  for (int i = tid; i < kSmooth; i += kThreads) sh.smooth[i] = __ldg(p.smooth + i);
+  for (int i = tid; i < 4 * p.n_modes; i += kThreads)
+    sh.shift[i] = __ldg(p.shift + i);
+  for (int i = tid; i < kRateShared; i += kThreads) sh.rate[i] = __ldg(p.rate + i);
+  if (tid < 64) sh.unz[tid] = 0;
+  if (tid == 0) ticket = atomicAdd(p.sync, 1);
   __syncthreads();
   const int f = ticket / ctus_y, cy = ticket % ctus_y;
   int* progress = p.sync + 1 + (size_t)f * ctus_y;
-  const size_t map_base = (size_t)f * ux_n * uy_n;
   uint8_t* rec_y = p.rec[0] + (size_t)f * w * h;
   uint8_t* rec_c[2] = {p.rec[1] + (size_t)f * cw * ch,
                        p.rec[2] + (size_t)f * cw * ch};
-  const uint8_t* src_y = kEncode ? p.src[0] + (size_t)f * p.plane_y : nullptr;
-  const uint8_t* src_c[2] = {
-      kEncode ? p.src[1] + (size_t)f * p.plane_c : nullptr,
-      kEncode ? p.src[2] + (size_t)f * p.plane_c : nullptr};
+  // this thread's plane group
+  const int plane = tid < 128 ? 0 : (tid < 192 ? 1 : 2);
+  const Group grp{1 + plane, plane == 0 ? 128 : 64,
+                  tid - (plane == 0 ? 0 : plane == 1 ? 128 : 192)};
 
   for (int cx = 0; cx < ctus_x; ++cx) {
-    if (cy > 0) {
-      if (threadIdx.x == 0) {
-        // tickets make the row above a running block, so the wait ends;
-        // the cap (seconds) only keeps a fault from hanging the card
-        const int need = cx + 2 < ctus_x ? cx + 2 : ctus_x;
-        for (int spins = 0;
-             x266_ld_acquire(progress + cy - 1) < need && spins < kMaxSpins;
-             ++spins)
-          __nanosleep(64);
-      }
-      __syncthreads();
-    }
-    const int x0 = cx * kCtu, y0 = cy * kCtu;
-    View vy{sh.win_y, kWinY, x0 - 1, y0 - 1, w, h, 1};
-    View vc[2] = {{sh.win_c[0], kWinC, x0 / 2 - 1, y0 / 2 - 1, cw, ch, 2},
-                  {sh.win_c[1], kWinC, x0 / 2 - 1, y0 / 2 - 1, cw, ch, 2}};
-    load_window(vy, rec_y, x0, y0, kCtu);
-    for (int c = 0; c < 2; ++c)
-      load_window(vc[c], rec_c[c], x0 / 2, y0 / 2, kCtu / 2);
+    stage_inputs<kEncode, kInter, kB>(p, sh, f, cx, cy);
     __syncthreads();
-    for (int z = 0; z < 64; ++z) {
-      int zx = (z & 1) | (((z >> 2) & 1) << 1) | (((z >> 4) & 1) << 2);
-      int zy = ((z >> 1) & 1) | (((z >> 3) & 1) << 1) | (((z >> 5) & 1) << 2);
-      int ux = cx * 8 + zx, uy = cy * 8 + zy;
-      if (ux >= ux_n || uy >= uy_n) continue;
-      size_t mi = map_base + (size_t)uy * ux_n + ux;
-      int s = p.size_map[mi];
-      int u = s >> 3;
-      if ((ux & (u - 1)) || (uy & (u - 1))) continue;
-      int mode = p.mode_map[mi];
-      // chroma of a MIP CU predicts planar
-      const int mode_c = mode >= p.n_std ? 0 : mode;
-      // the map holds an MTS pair (0-4) or transform skip (5), read when
-      // either tool is on
-      const int mval = (p.mts || p.ts) ? (p.mts_map[mi] & 7) : 0;
-      const bool ts = p.ts && mval == 5;
-      const int mts = p.mts && !ts ? mini(mval, 4) : 0;
-      // MTS combos (tables.MTS_COMBOS): (vertical, horizontal) types,
-      // 0 DCT-II, 1 DST-VII, 2 DCT-VIII
-      const int tvs[5] = {0, 1, 2, 1, 2}, ths[5] = {0, 1, 1, 2, 2};
-      int x = ux * 8, y = uy * 8;
-      const int kind = kInter ? p.pred_map[mi] : kIntra;
-      const bool skip = kind == kSkip;
-      int mv[2] = {0, 0};
-      if (kInter) {
-        if (!skip || (p.merge && !kEncode)) {
-          mv[0] = p.mvx_map[mi];
-          mv[1] = p.mvy_map[mi];
-        } else if (p.merge && p.mvx_map[mi] == 1) {
-          above_mv(p, ux, uy, ux_n, mv);     // merge candidate 1
-        } else {
-          derive_mv(p, ux, uy, ux_n, mv);
-        }
-      }
-      const bool is_mc = kind != kIntra;
-      // K3-B: an L1 CU predicts from the L1 pyramids (pyr[3..5]); a bi
-      // CU adds the L1 block at its mv1 to the L0 block at its MV
-      const uint8_t* const* pyr = p.pyr + (kB && kind == kL1 ? 3 : 0);
-      const bool bi = kB && kind == kBi;
-      int mv1[2] = {0, 0};
-      if (bi) {
-        mv1[0] = p.mv1_map[0][mi];
-        mv1[1] = p.mv1_map[1][mi];
-      }
-      tu<kEncode>(p, sh, vy, x, y, s, mode, tvs[mts], ths[mts], src_y,
-                  p.pitch_y, p.coef_in[0], p.coef_out[0], f,
-                  is_mc ? mc_origin(pyr[0], p.pyr_h[0], p.pyr_w[0], x,
-                                    y, mv[0], mv[1], s) : nullptr,
-                  p.pyr_w[0], skip,
-                  bi ? mc_origin(p.pyr[3], p.pyr_h[0], p.pyr_w[0], x, y,
-                                 mv1[0], mv1[1], s) : nullptr, ts);
-      for (int c = 0; c < 2; ++c)
-        tu<kEncode>(p, sh, vc[c], x / 2, y / 2, s / 2, mode_c, 0, 0,
-                    src_c[c], p.pitch_c, p.coef_in[1 + c],
-                    p.coef_out[1 + c], f,
-                    is_mc ? mc_origin(pyr[1 + c], p.pyr_h[1], p.pyr_w[1],
-                                      x / 2, y / 2, mv[0] >> 1, mv[1] >> 1,
-                                      s / 2)
-                          : nullptr,
-                    p.pyr_w[1], skip,
-                    bi ? mc_origin(p.pyr[4 + c], p.pyr_h[1], p.pyr_w[1],
-                                   x / 2, y / 2, mv1[0] >> 1, mv1[1] >> 1,
-                                   s / 2) : nullptr);
-      if (kInter) {
-        // the CU's final MV over its units: the MV state of later CUs
-        for (int i = threadIdx.x; i < u * u; i += kThreads) {
-          int mux = ux + i % u, muy = uy + i / u;
-          if (mux < ux_n && muy < uy_n) {
-            p.mv_out[0][muy * ux_n + mux] = (int16_t)mv[0];
-            p.mv_out[1][muy * ux_n + mux] = (int16_t)mv[1];
-          }
-        }
-        __syncthreads();
+    X266_PH(bc, kPhMv);
+    // the CU list (and K3's MVs) on warp 1 while thread 0 waits for the
+    // row above: tickets make that row a running block, so the wait ends;
+    // the cap (seconds) only keeps a fault from hanging the card
+    if (tid >> 5 == 1) build_cus<kEncode, kInter, kB>(p, sh, cx, cy);
+    if (tid >> 5 >= 2 && p.subst) {
+      // each CU's substitution sources, luma and chroma
+      for (int t = (tid >> 5) - 2; t < 64; t += 6) {
+        const int ux = t & 7, uy = t >> 3, s = sh.size[t], u = s >> 3;
+        if (u == 0 || (ux & (u - 1)) || (uy & (u - 1))) continue;
+        const int x = cx * kCtu + ux * 8, y = cy * kCtu + uy * 8;
+        ref_sources(p, x, y, s, 1, sh.rsrc_y[t]);
+        ref_sources(p, x / 2, y / 2, s / 2, 2, sh.rsrc_c[t]);
       }
     }
+    if (cy > 0 && tid == 0) {
+      const int need = cx + 2 < ctus_x ? cx + 2 : ctus_x;
+      for (int spins = 0;
+           x266_ld_acquire(progress + cy - 1) < need && spins < kMaxSpins;
+           ++spins)
+        __nanosleep(64);
+    }
+    __syncthreads();
+    X266_PH(bc, kPhWait);
+    const int x0 = cx * kCtu, y0 = cy * kCtu;
+    // the planes' views (built in registers: an array of them indexed by
+    // the plane would sit in local memory and make every window access a
+    // generic one)
+    const View vy{sh.win_y, kWinY, kPitchY, x0 - 1, y0 - 1, w, h, 1, 0};
+    const View vcb{sh.win_c[0], kWinC, kPitchC, x0 / 2 - 1, y0 / 2 - 1, cw,
+                   ch, 2, 1};
+    const View vcr{sh.win_c[1], kWinC, kPitchC, x0 / 2 - 1, y0 / 2 - 1, cw,
+                   ch, 2, 2};
+    load_windows(vy, vcb, vcr, rec_y, rec_c[0], rec_c[1]);
+    if (kInter) stage_mc<kB>(p, sh, cx, cy);
+    __syncthreads();
+    X266_PH(bc, kPhLoad);
+
+    // the walk: each group its plane's TUs in z-order
+    {
+      const View v = plane == 0 ? vy : plane == 1 ? vcb : vcr;
+      const int px0 = plane ? x0 / 2 : x0, py0 = plane ? y0 / 2 : y0;
+      const int n_cus = sh.n_cus;
+      bool synced = true;
+      for (int c = 0; c < n_cus; ++c) {
+        const Cu cu = sh.cus[c];
+        const int s = plane ? cu.s >> 1 : cu.s;
+        const bool small = s * s <= 64;
+        const int unit = plane ? 4 : 8;
+        const int t = cu.uy * 8 + cu.ux;
+        if (!small || grp.lt < 32)
+          plane_tu<kEncode>(
+              p, sh, v, grp, s,
+              TuArgs{px0 + cu.ux * unit, py0 + cu.uy * unit, px0, py0,
+                     plane ? cu.mode_c : cu.mode,
+                     plane ? cu.shift_c : cu.shift_y, plane ? 0 : cu.tv,
+                     plane ? 0 : cu.th, !plane && cu.ts, cu.kind,
+                     ((cu.nz >> plane) & 1) != 0, !small && !synced,
+                     !p.subst ? nullptr : plane ? sh.rsrc_c[t]
+                                                : sh.rsrc_y[t], f});
+        synced = !small;
+      }
+    }
+    __syncthreads();
+    X266_PH(bc, kPhInvH);
+
     store_window(vy, rec_y, x0, y0, kCtu);
-    for (int c = 0; c < 2; ++c)
-      store_window(vc[c], rec_c[c], x0 / 2, y0 / 2, kCtu / 2);
+    store_window(vcb, rec_c[0], x0 / 2, y0 / 2, kCtu / 2);
+    store_window(vcr, rec_c[1], x0 / 2, y0 / 2, kCtu / 2);
+    if (tid < 64) {
+      sh.unz[tid] = 0;
+      const int ux = cx * 8 + (tid & 7), uy = cy * 8 + (tid >> 3);
+      if (kInter && ux < ux_n && uy < uy_n) {
+        // the final MVs; the MV state of the CTU to the right
+        p.mv_out[0][uy * ux_n + ux] = sh.umv[0][tid >> 3][1 + (tid & 7)];
+        p.mv_out[1][uy * ux_n + ux] = sh.umv[1][tid >> 3][1 + (tid & 7)];
+      }
+    }
+    __syncthreads();
+    if (kInter && tid < 8) {
+      sh.ukind[tid][0] = sh.ukind[tid][8];
+      sh.umv[0][tid][0] = sh.umv[0][tid][8];
+      sh.umv[1][tid][0] = sh.umv[1][tid][8];
+    }
     __threadfence();
     __syncthreads();
-    if (threadIdx.x == 0) x266_st_release(progress + cy, cx + 1);
+    if (tid == 0) x266_st_release(progress + cy, cx + 1);
+    X266_PH(bc, kPhStore);
   }
+  X266_PH(blk, kPhBlock);
+}
+
+// A test entry: the warp-scan substitution on one reference vector of
+// side s (host stand-in only: ref, avail and out are host arrays).
+struct SubstTest {
+  int s;
+  const int* ref;
+  const uint8_t* avail;
+  int* out;
+};
+
+struct Sources {
+  uint8_t i[kMaxR];
+};
+
+__global__ void subst_test_kernel(SubstTest a) {
+  X266_SHARED(Sources, src);
+  const int lane = threadIdx.x & 31;
+  const int r_len = 4 * a.s + 1;
+  unsigned m[5];
+  for (int w = 0; w < 5; ++w) {
+    const int k = lane + 32 * w;
+    m[w] = __ballot_sync(kFull, k < r_len && a.avail[scan_index(k, a.s)]);
+  }
+  subst_sources(a.s, m, src.i);
+  __syncwarp();
+  for (int i = lane; i < r_len; i += 32)
+    a.out[i] = src.i[i] == 255 ? 128 : a.ref[src.i[i]];
 }
 
 void set_common(Params& p, int frames, int width, int height,
@@ -686,9 +1389,10 @@ void set_common(Params& p, int frames, int width, int height,
 }
 
 // Launch one block per CTU row of each frame, after zeroing the row
-// ticket and progress counters (and, for K3, the MV state) on the
+// ticket and progress counters (and, for K3, the final-MV planes) on the
 // stream.  Every row must be resident at once on the card, or the launch
-// is refused (cudaErrorInvalidConfiguration).
+// is refused (cudaErrorInvalidConfiguration); so is a mode alphabet
+// larger than the kernel's shift table (cudaErrorInvalidValue).
 template <bool kInter, bool kB = false>
 int launch(Params& p, int encode, void* stream) {
   void* args[] = {&p};
@@ -696,13 +1400,19 @@ int launch(Params& p, int encode, void* stream) {
   void (*kernel)(Params) = encode ? recon_kernel<true, kInter, kB>
                                   : recon_kernel<false, kInter, kB>;
   const int rows = p.frames * ((p.height + kCtu - 1) / kCtu);
+  const size_t smem = sizeof(Shared);
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = p.n_modes > kMaxModes ? cudaErrorInvalidValue
+                                          : cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+                                                        kThreads, smem);
   if (err == cudaSuccess && rows > per_sm * sms)
     err = cudaErrorInvalidConfiguration;
   if (err == cudaSuccess)
@@ -711,7 +1421,7 @@ int launch(Params& p, int encode, void* stream) {
   for (int i = 0; kInter && i < 2 && err == cudaSuccess; ++i)
     err = cudaMemsetAsync(p.mv_out[i], 0, mv_bytes, st);
   if (err == cudaSuccess)
-    err = cudaLaunchKernel(kernel, dim3(rows), dim3(kThreads), args, 0, st);
+    err = cudaLaunchKernel(kernel, dim3(rows), dim3(kThreads), args, smem, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -806,6 +1516,31 @@ int x266_recon_inter(
   p.mv1_map[0] = (const int32_t*)mvx1_map;
   p.mv1_map[1] = (const int32_t*)mvy1_map;
   return launch<true, true>(p, encode, stream);
+}
+
+#ifdef X266_RECON_PHASES
+// The phase split's sums since the last call (kPhaseSlots uint64: see
+// Phase), copied to host memory `out`, then zeroed.
+int x266_recon_phases(void* out) {
+  static const unsigned long long zero[kPhaseSlots] = {};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, g_recon_phases, sizeof(zero));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_recon_phases, zero, sizeof(zero));
+  return (int)err;
+}
+#endif
+
+// The warp-scan substitution of one reference vector of side s (4, 8,
+// 16, 32): ref and avail in [corner, top 2s, left 2s] order, out the
+// substituted vector (4s + 1 int32).  A test entry for the host stand-in,
+// where the pointers are host memory; returns the launch's error.
+int x266_subst_scan(int s, const void* ref, const void* avail, void* out) {
+  SubstTest a{s, (const int*)ref, (const uint8_t*)avail, (int*)out};
+  void* args[] = {&a};
+  void (*kernel)(SubstTest) = subst_test_kernel;
+  return (int)cudaLaunchKernel(kernel, dim3(1), dim3(32), args, 0, nullptr);
 }
 
 const char* x266_error_string(int err) {

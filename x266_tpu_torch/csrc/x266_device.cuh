@@ -5,8 +5,8 @@
 
 #ifndef X266_HOST_SHIM
 
-// A range check, recorded by the host stand-in only.
-#define X266_ASSERT(cond) ((void)0)
+// A range check, recorded by the host stand-in only (unevaluated here).
+#define X266_ASSERT(cond) ((void)sizeof(cond))
 
 // A block's shared variable and its dynamic shared array.
 #define X266_SHARED(T, name) __shared__ T name
@@ -23,6 +23,32 @@ __device__ __forceinline__ int x266_ld_acquire(const int* p) {
 __device__ __forceinline__ void x266_st_release(int* p, int v) {
   asm volatile("st.release.gpu.s32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
+}
+
+// A read-only 16-byte load issued where it stands (the compiler may not
+// sink it to its first use): its latency runs under the work after it.
+__device__ __forceinline__ int4 x266_ldg_early(const int4* p) {
+  int4 v;
+  asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+// A named barrier (bar.sync id, n: the n threads that use barrier id,
+// a multiple of 32; 0 is __syncthreads's), and the same barrier ORing a
+// predicate over those threads (bar.red.or.pred).
+__device__ __forceinline__ void x266_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ int x266_bar_red_or(int id, int n, int pred) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.s32 p, %3, 0;\n\t"
+      "bar.red.or.pred q, %1, %2, p;\n\t"
+      "selp.s32 %0, 1, 0, q;\n\t}"
+      : "=r"(r) : "r"(id), "r"(n), "r"(pred) : "memory");
+  return r;
 }
 
 #endif

@@ -145,6 +145,8 @@ def kernel_tables(n_modes: int):
     smooth = np.concatenate([smooth_taps(s).ravel() for s in TU_SIZES])
     tx = np.concatenate([spec_tx.matrix_for(t, s).astype(np.int32).ravel()
                          for t in TX_TYPES for s in TU_SIZES])
+    # the recon kernel keeps the matrices in shared memory as int8
+    assert np.abs(tx).max() <= 127
     shift = np.concatenate([spec_intra.stacked_weights(s, n_modes)[1]
                             for s in TU_SIZES]).astype(np.int32)
     mip = np.concatenate([mip_matrices(s).ravel() for s in MIP_SIZES])
