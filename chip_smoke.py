@@ -22,7 +22,11 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     versions, bit for bit, at 112x80 / 128x64 on four P configs, at
     416x240 and at the config-3 main path's 1080p shapes (K4 with T=6
     fields, K5 and K3 on one P picture whose reference is the frame
-    shifted);
+    shifted); [kernels-me-4k] K5, and K4 on B Pass A's L0 (T=6) and L1
+    (T=2) fields, at config 4's 3840x2160 on the same kind of picture,
+    each against its plain version bit for bit and timed beside its
+    bound, the plain version and the indexing gather (the kernels line's
+    "at_4k");
  5. [golden] decode tests/fixtures/ai_hevc.266t and ai_hevc_lossless.266t
     to their manifest MD5s and re-encode their sources to the identical
     bytes;
@@ -109,6 +113,10 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     F10 count, each kernel's launches in this run (launches_cfg4),
     bits/frame, PSNR-Y, one warm encode's frame rate; the stream, slice
     NALs, recon, PSNR-Y and SSE equal to data/cfg4_4k_ref.json.
+Plain versions that run on the CPU (K1's 1080p tools frame in
+[kernels-tools], the chroma normal equations in [kernels-alf]) run in two
+spawned worker processes while the card's phases go on; their checks
+finish before the kernels line ([time] cpu-checks).
 The third line from the end is a JSON object with each kernel's
 launches on its main path, its error and its times (CUDA events at the
 main path's shapes, against the plain version's on the same inputs and
@@ -189,10 +197,14 @@ def timed(fn, *args):
 
 
 def event_ms(fn, *args, reps=3):
-    """Mean ms per call over reps calls after a warm one, CUDA events."""
+    """Mean ms per call over reps calls after a warm one, CUDA events.
+    The card first spins for ~20 ms (torch.cuda._sleep) while the host
+    enqueues the calls, so a kernel shorter than its wrapper's host time
+    is timed back to back on the card, not at the host's launch rate."""
     fn(*args)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(reps):
         fn(*args)
@@ -203,6 +215,68 @@ def event_ms(fn, *args, reps=3):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+# Plain versions that run on the CPU go to worker processes (spawned, no
+# CUDA), so that the card's phases go on while they run: on_cpu submits
+# one, finish_cpu_checks reads each result and runs its check, before
+# the kernels line.  Inputs and outputs travel as numpy arrays.
+CPU_WORKERS = 2
+CPU_POOL = []
+CPU_CHECKS = []
+
+
+def on_cpu(phase, check, fn, *args):
+    """fn(*args) -> (outputs, ms) in a worker; then check(outputs, ms)."""
+    if not CPU_POOL:
+        import multiprocessing
+
+        CPU_POOL.append(multiprocessing.get_context("spawn").Pool(
+            CPU_WORKERS, initializer=torch.set_num_threads, initargs=(2,)))
+    CPU_CHECKS.append((phase, CPU_POOL[0].apply_async(fn, args), check))
+
+
+def finish_cpu_checks():
+    for phase, res, check in CPU_CHECKS:
+        try:
+            check(*res.get())
+        except Exception:
+            log(f"[{phase}] its check of a plain version on the CPU failed")
+            raise
+    CPU_CHECKS.clear()
+
+
+def stop_cpu_workers():
+    for pool in CPU_POOL:
+        pool.terminate()
+        pool.join()
+    CPU_POOL.clear()
+
+
+def _plain_intra_encode_cpu(cfg, inputs):
+    """The plain encode scan on the CPU (a worker's): (outputs, ms)."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.engine import recon
+
+    plain = recon.make_recon_pass_raw(cfg, tables.from_reference(cfg, "cpu"),
+                                      encode=True)
+    t0 = time.perf_counter()
+    out = plain(*(torch.from_numpy(x) for x in inputs))
+    ms = (time.perf_counter() - t0) * 1e3
+    return [t.numpy() for t in out], ms
+
+
+def _plain_alf_cpu(recon, orig):
+    """The chroma normal equations' plain version on the CPU (a
+    worker's): ((coef, gram, rhs), ms)."""
+    from x266_tpu_torch.kernels import alf as kalf
+
+    t0 = time.perf_counter()
+    out = kalf.normal_solve_plain(torch.from_numpy(recon),
+                                  torch.from_numpy(orig), None,
+                                  with_sums=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    return [t.numpy() for t in out], ms
 
 
 def read_bytes(t, *indices) -> int:
@@ -396,14 +470,17 @@ def phase_build():
 
 def kernel_name(mangled: str) -> str:
     """recon_kernel<encode,inter,b> for a recon instance, else the first
-    length-prefixed name in the mangled symbol that holds "kernel"."""
+    name of the mangled symbol's (nested) name that holds "kernel"."""
     t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)", mangled)
     if t:
         return "recon_kernel<%s,%s,%s>" % t.groups()
-    for m in re.finditer(r"(\d+)([A-Za-z_]\w*)", mangled):
-        name = m.group(2)[:int(m.group(1))]
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        name = mangled[start:start + int(m.group())]
         if "kernel" in name:
             return name
+        pos = start + len(name)
     return mangled
 
 
@@ -596,12 +673,12 @@ def phase_kernels_tools(stats):
     the motion clip, where Pass A picks MIP in some 10 % of the CUs),
     then cfg2t and lossless at 1080p: K1 on the encoder's batch of 4,
     frame 0's recon and levels against the plain encode scan (on the
-    CPU, where it walks the CUs about twice as fast as on the card), and
-    K2 on frame 0's levels against K1's recon, which equals the plain
-    scan's; both timed."""
-    from x266_tpu_torch import tables
+    CPU, where it walks the CUs about twice as fast as on the card, in a
+    worker process while the later phases run), and K2 on frame 0's
+    levels against K1's recon, which equals the plain scan's; both
+    timed."""
     from x266_tpu_torch.config import CodecConfig, preset_cfg2
-    from x266_tpu_torch.engine import recon, recon_cuda
+    from x266_tpu_torch.engine import recon_cuda
 
     w, h = 416, 240
     for name, cfg, kind in (
@@ -619,11 +696,11 @@ def phase_kernels_tools(stats):
         tag = f"{name} 1080p"
         tab, src, maps = _inputs(cfg, 4, 0, kind)
         got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
-        plain = recon.make_recon_pass_raw(
-            cfg, tables.from_reference(cfg, "cpu"), encode=True)
-        ref, p1_ms = timed(plain, *(t[:1].cpu() for t in (*src, *maps)))
-        _require_equal("K1", tag, names, [g[:1] for g in got],
-                       [r.cuda() for r in ref])
+        entry = stats["K1"].setdefault("tools", {}).setdefault(
+            f"{tag} x4", {})
+        on_cpu("kernels-tools", k1_frame0_check(tag, names, got, entry),
+               _plain_intra_encode_cpu, cfg,
+               [t[:1].cpu().numpy() for t in (*src, *maps)])
         one = [t[:1].contiguous() for t in (*got[3:], *maps)]
         dec = recon_cuda.recon_intra(cfg, tab, False, *one)
         _require_equal("K2", tag, names[:3], dec[:3],
@@ -648,21 +725,35 @@ def phase_kernels_tools(stats):
         b2 = bound(nbytes(*one, *(d[:1] for d in dec[:3]), *tabs),
                    recon_ops(hm[0][:1], False, None, hm[1][:1], hm[2][:1],
                              cfg))
-        log(f"[kernels-tools] {tag}: K1 frame 0 of 4 equals the plain scan "
-            f"(plain {p1_ms:.0f} ms on the cpu for one frame), K2 on its "
-            f"levels equals K1's recon; max_abs_err 0")
+        log(f"[kernels-tools] {tag}: K2 on frame 0's levels equals K1's "
+            f"recon; K1's frame 0 is held to the plain encode scan on the "
+            f"cpu in a worker process (checked before the kernels line)")
         for k, key, ms, b, sm, shape in (
                 ("K1", f"{tag} x4", k1_ms, b1, hm[0], "1920x1080x4"),
                 ("K2", tag, k2_ms, b2, hm[0][:1], "1920x1080x1")):
             walk = tu_walk(sm, cfg.width, cfg.height)
             tus = tool_counts(cfg, [m[:sm.shape[0]] for m in maps])
-            stats[k]["tools"][key] = {
-                "ms": ms, "plain_ms_cpu_frame": p1_ms if k == "K1" else None,
-                "bound_ms": b[0], "bound_by": b[1], "shape": shape,
-                "tool_tus": tus, **per_chain(walk, ms)}
+            stats[k]["tools"].setdefault(key, {}).update({
+                "ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                "shape": shape, "tool_tus": tus, **per_chain(walk, ms)})
             log(f"[kernels-tools] {key}: {k} {ms:.3f} ms (bound "
                 f"{b[0]:.4f} ms, {b[1]}); {chain_text(walk, **{k: ms})}; "
                 f"tool TUs {tus}")
+
+
+def k1_frame0_check(tag, names, got, entry):
+    """The check of K1's frame 0 (got) against the plain encode scan's
+    outputs from a worker; its CPU time goes into entry."""
+    got0 = [g[:1].cpu() for g in got]
+
+    def check(ref, ms):
+        _require_equal("K1", tag, names, got0,
+                       [torch.from_numpy(r) for r in ref])
+        entry["plain_ms_cpu_frame"] = ms
+        log(f"[kernels-tools] {tag}: K1 frame 0 of 4 equals the plain scan "
+            f"(plain {ms:.0f} ms on the cpu for one frame, in a worker "
+            f"process); max_abs_err 0")
+    return check
 
 
 def phase_kernels(stats):
@@ -677,47 +768,108 @@ def phase_kernels(stats):
     compare_kernels(main_cfg(), 4, 0, stats)
 
 
-def compare_p_kernels(cfg, seed, stats):
-    """K3-P (encode, decode), K4 and K5 against their plain versions on
-    one P picture whose reference is the frame shifted (2, -3) in luma
-    and (1, -1) in chroma; bit-exact or raise."""
-    from x266_tpu_torch import tables
+def me_inputs(cfg, seed):
+    """The motion kernels' inputs on the card: a 'mixed' picture's
+    planes, the pyramids of its reference (the picture shifted (2, -3) in
+    luma and (1, -1) in chroma), the ME block grid's current luma and the
+    coarse search's base MVs: (planes, pyramids, cur, base)."""
     from x266_tpu_torch.core.yuv import synthetic_clip
-    from x266_tpu_torch.engine import fused, inter, recon_cuda
-    from x266_tpu_torch.kernels import interp, me, me_cuda
+    from x266_tpu_torch.engine import fused
+    from x266_tpu_torch.kernels import me
 
-    tab = tables.from_reference(cfg, "cuda")
     planes = _upload(synthetic_clip(cfg.width, cfg.height, 1, "mixed",
                                     seed=seed))
     refs = [torch.roll(p[0], sh, (0, 1))
             for p, sh in zip(planes, ((2, -3), (1, -1), (1, -1)))]
     pyrs = fused.build_pyramids_device(*refs)
+    cur = me._ceil_pad(planes[0][0].to(torch.int32))
+    base = me.coarse_search(cur, pyrs[0], float(cfg.lambda_mode))
+    return planes, pyrs, cur, base
+
+
+def me_fields(grid, max_cu_size):
+    """The MV fields B Pass A warps for an ME grid: L0's (T = 6 with 32x32
+    CUs) and L1's (T = 2), as engine/inter.py builds them."""
+    from x266_tpu_torch.engine import inter
+
+    l1 = [grid] + ([inter._rep2(grid, *grid.shape[:2])]
+                   if max_cu_size >= 32 else [])
+    return (inter.warp_fields(grid, max_cu_size),
+            torch.stack(l1).contiguous())
+
+
+def check_k5(tag, cur, pyr, base):
+    """K5 against its plain version on the card, bit for bit or raise,
+    timed (CUDA events), with its bound: (the plain version's MVs, the
+    pyramid bytes its candidates address, the kernel's record)."""
+    from x266_tpu_torch.kernels import me, me_cuda
+
+    mv = me_cuda.refine_search(cur, pyr, base)
+    ref, p_ms = timed(me.refine_search_ref, cur, pyr, base)
+    err = _max_err([mv], [ref])
+    _require_equal("K5", tag, ["mv"], [mv], [ref])
+    ms = event_ms(me_cuda.refine_search, cur, pyr, base, reps=20)
+    reads = k5_read_bytes(pyr, cur, base)
+    b = bound(nbytes(cur, base, mv) + reads,
+              3.0 * 43 * 256 * base.numel() // 2)
+    return ref, reads, dict(err=err, ms=ms, plain_ms=p_ms, bound_ms=b[0],
+                            bound_by=b[1], shape=tag)
+
+
+def check_k4(tag, pyr, mvs):
+    """K4 against its plain version on the card, bit for bit or raise,
+    timed, with its bound and the time of one advanced-indexing gather on
+    precomputed indices (the library call: timed here, used nowhere in
+    the port): (the pyramid bytes the MVs address, the kernel's record)."""
+    from x266_tpu_torch.kernels import me_cuda
+
+    got = me_cuda.warp_frames_cuda(pyr, mvs)
+    ref, p_ms = timed(me_cuda.warp_frames_ref, pyr, mvs)
+    err = _max_err([got], [ref])
+    _require_equal("K4", tag, ["frames"], [got], [ref])
+    ms = event_ms(me_cuda.warp_frames_cuda, pyr, mvs, reps=20)
+    idx = me_cuda.warp_index(mvs)
+    lib_ms = event_ms(lambda: pyr[idx], reps=20)
+    reads = read_bytes(pyr, idx)
+    b = bound(nbytes(mvs, got) + reads, 0)
+    n = mvs.numel() // 2 * 256
+    return reads, dict(err=err, ms=ms, plain_ms=p_ms, bound_ms=b[0],
+                       bound_by=b[1], library_ms=lib_ms,
+                       shape=f"{tag} T={mvs.shape[0]} ({n} samples)")
+
+
+def me_text(*records) -> str:
+    """K4's and K5's records as one log line's text."""
+    return "; ".join(
+        f"{'K4' if 'library_ms' in r else 'K5'} {r['shape']}: "
+        f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']}, plain {r['plain_ms']:.2f} ms"
+        + (f", one indexing gather {r['library_ms']:.4f} ms"
+           if 'library_ms' in r else "") + f") err {r['err']}"
+        for r in records)
+
+
+def compare_p_kernels(cfg, seed, stats):
+    """K3-P (encode, decode), K4 and K5 against their plain versions on
+    one P picture whose reference is the frame shifted (2, -3) in luma
+    and (1, -1) in chroma; bit-exact or raise."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.engine import fused, inter, recon_cuda
+    from x266_tpu_torch.kernels import interp
+
+    tab = tables.from_reference(cfg, "cuda")
+    planes, pyrs, cur, base = me_inputs(cfg, seed)
     src = fused._unpack_padded(cfg, *planes)
     tag = f"{cfg.width}x{cfg.height} cu{cfg.max_cu_size}" + (
         " merge" if cfg.merge_cands else "") + (
         " subst" if cfg.ref_substitute else "")
 
-    # K5 on the main path's ME inputs
-    cur = me._ceil_pad(planes[0][0].to(torch.int32))
-    base = me.coarse_search(cur, pyrs[0], float(cfg.lambda_mode))
-    mv5 = me_cuda.refine_search(cur, pyrs[0], base)
-    ref5, p5_ms = timed(me.refine_search_ref, cur, pyrs[0], base)
-    err5 = _max_err([mv5], [ref5])
-    k5_ms = event_ms(me_cuda.refine_search, cur, pyrs[0], base, reps=20)
-    _require_equal("K5", tag, ["mv"], [mv5], [ref5])
-
-    # K4 on Pass A's fields (T = 6 with 32x32 CUs)
+    # K5 on the main path's ME inputs, K4 on Pass A's fields (T = 6 with
+    # 32x32 CUs)
+    ref5, reads5, r5 = check_k5(tag, cur, pyrs[0], base)
     bd = interp.mv_bounds(cfg, 16) - 8
     mvs = inter.warp_fields(ref5.clamp(-bd, bd), cfg.max_cu_size)
-    w4 = me_cuda.warp_frames_cuda(pyrs[0], mvs)
-    ref4, p4_ms = timed(me_cuda.warp_frames_ref, pyrs[0], mvs)
-    err4 = _max_err([w4], [ref4])
-    k4_ms = event_ms(me_cuda.warp_frames_cuda, pyrs[0], mvs, reps=20)
-    _require_equal("K4", tag, ["frames"], [w4], [ref4])
-    # the library call: one advanced-indexing gather on precomputed
-    # indices (timed here, used nowhere in the port)
-    idx = me_cuda.warp_index(mvs)
-    lib4_ms = event_ms(lambda: pyrs[0][idx], reps=20)
+    reads4, r4 = check_k4(tag, pyrs[0], mvs)
 
     # K3-P on Pass A's maps, encode then decode of its levels
     maps = [mp[None] for mp in inter.make_mode_decision_p_raw(cfg, tab)(
@@ -743,10 +895,8 @@ def compare_p_kernels(cfg, seed, stats):
     kinds = np.bincount(maps[2].cpu().numpy().ravel(), minlength=3)
     log(f"[kernels-p] {tag}: units intra/inter/skip {kinds.tolist()}; "
         f"K3 {k3_ms:.3f} ms (plain {p3_ms:.0f} ms) err {err3}; K3d "
-        f"{k3d_ms:.3f} ms (plain {p3d_ms:.0f} ms) err {err3d}; K4 "
-        f"T={mvs.shape[0]} {k4_ms:.4f} ms (plain {p4_ms:.2f} ms, one "
-        f"indexing gather {lib4_ms:.4f} ms) err {err4}; K5 {k5_ms:.4f} ms "
-        f"(plain {p5_ms:.2f} ms) err {err5}")
+        f"{k3d_ms:.3f} ms (plain {p3d_ms:.0f} ms) err {err3d}; "
+        f"{me_text(r4, r5)}")
 
     # bounds: every input and output whole, except the pyramids, of
     # which only the bytes this run's MVs address count
@@ -757,17 +907,11 @@ def compare_p_kernels(cfg, seed, stats):
                recon_ops(hm[0], True, hm[2]))
     b3d = bound(nbytes(*dargs[:9], *dec[:3], *tabs) + reads3,
                 recon_ops(hm[0], False, hm[2]))
-    n4 = mvs.numel() // 2 * 256
-    reads4 = read_bytes(pyrs[0], idx)
-    b4 = bound(nbytes(mvs, w4) + reads4, 0)
-    reads5 = k5_read_bytes(pyrs[0], cur, base)
-    b5 = bound(nbytes(cur, base, mv5) + reads5,
-               3.0 * 43 * 256 * base.numel() // 2)
     log(f"[kernels-p] {tag}: pyramid bytes read (of "
         f"{nbytes(pyrs[0])} luma): K3 {reads3}, K4 {reads4}, K5 {reads5}; "
         f"bounds K3 {b3[0]:.4f} ms ({b3[1]}), K3d {b3d[0]:.4f} ms "
-        f"({b3d[1]}), K4 {b4[0]:.4f} ms ({b4[1]}), K5 {b5[0]:.4f} ms "
-        f"({b5[1]})")
+        f"({b3d[1]}), K4 {r4['bound_ms']:.4f} ms ({r4['bound_by']}), K5 "
+        f"{r5['bound_ms']:.4f} ms ({r5['bound_by']})")
     shape = f"{cfg.width}x{cfg.height}"
     walk = tu_walk(hm[0], cfg.width, cfg.height)
     log(f"[kernels-p] {tag}: {chain_text(walk, K3=k3_ms, K3d=k3d_ms)}")
@@ -776,11 +920,8 @@ def compare_p_kernels(cfg, seed, stats):
     _record(stats, "K3d", err3d, ms=k3d_ms, plain_ms=p3d_ms,
             bound_ms=b3d[0], bound_by=b3d[1], shape=shape,
             **per_chain(walk, k3d_ms))
-    _record(stats, "K4", err4, ms=k4_ms, plain_ms=p4_ms, bound_ms=b4[0],
-            bound_by=b4[1], library_ms=lib4_ms,
-            shape=f"{shape} T={mvs.shape[0]} ({n4} samples)")
-    _record(stats, "K5", err5, ms=k5_ms, plain_ms=p5_ms, bound_ms=b5[0],
-            bound_by=b5[1], shape=shape)
+    _record(stats, "K4", **r4)
+    _record(stats, "K5", **r5)
 
 
 def cfg3():
@@ -804,6 +945,31 @@ def phase_kernels_p(stats):
                         ref_substitute=True),
             preset_cfg3(416, 240), cfg3()):
         compare_p_kernels(cfg, 3, stats)
+
+
+def phase_kernels_me_4k(stats):
+    """[kernels-me-4k]: K5 and K4 at config 4's 3840x2160, on inputs built
+    as [kernels-p] builds them: K5 on the coarse search's base, K4 on the
+    fields B Pass A warps (L0 T = 6, L1 T = 2) of K5's grid."""
+    from x266_tpu_torch.kernels import interp
+
+    cfg = cfg4()
+    _, pyrs, cur, base = me_inputs(cfg, 3)
+    tag = f"{cfg.width}x{cfg.height}"
+    ref5, reads5, r5 = check_k5(tag, cur, pyrs[0], base)
+    bd = interp.mv_bounds(cfg, 16) - 8
+    recs = [r5]
+    for mvs in me_fields(ref5.clamp(-bd, bd), cfg.max_cu_size):
+        reads4, r4 = check_k4(tag, pyrs[0], mvs)
+        recs.append(r4)
+        log(f"[kernels-me-4k] {tag}: K4 T={mvs.shape[0]} reads {reads4} "
+            "pyramid bytes")
+    log(f"[kernels-me-4k] {tag}: K5 reads {reads5} pyramid bytes (of "
+        f"{nbytes(pyrs[0])} luma); {me_text(*recs)}")
+    for k, r in zip(("K5", "K4", "K4"), recs):
+        stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], r["err"])
+        stats[k].setdefault("at_4k", []).append(
+            {key: v for key, v in r.items() if key != "err"})
 
 
 def b_references(planes, amp=8, seed=5):
@@ -1208,8 +1374,9 @@ def compare_alf_kernel(w, h, seed, stats):
     """The ALF kernels against their plain versions on the card, luma and
     chroma, on the three data sets of _alf_data; bit-exact or raise.  The
     normal equations' plain version runs on the card for luma and on the
-    CPU for chroma (its plane-long lane chains are a Python loop); the
-    CTB decision's on the card.  The shares of chains summed exactly and
+    CPU for chroma (its plane-long lane chains are a Python loop; in a
+    worker process while the later phases run); the CTB decision's on
+    the card.  The shares of chains summed exactly and
     in order are printed; at 4K the times on the noise and the encoder's
     planes, the encoder's luma ones going into the kernels line."""
     from x266_tpu_torch.kernels import alf as kalf
@@ -1221,17 +1388,20 @@ def compare_alf_kernel(w, h, seed, stats):
             cls = kalf.classify(r) if luma else None
             *got, st = alf_cuda.normal_solve(r, o, cls, with_sums=True,
                                              with_stats=True)
-            dev = "cuda" if luma else "cpu"
-            want, pc_ms = timed(lambda: kalf.normal_solve_plain(
-                r.to(dev), o.to(dev), None if cls is None else cls.to(dev),
-                with_sums=True))
             tag = f"{w}x{h} {kind} {plane}"
-            _require_equal("ALF", tag, ("coef", "gram", "rhs"),
-                           [g.to(dev) for g in got], want)
+            if luma:
+                want, pc_ms = timed(kalf.normal_solve_plain, r, o, cls, True)
+                _require_equal("ALF", tag, ("coef", "gram", "rhs"), got,
+                               want)
+                held = "ALF == plain (on the cuda)"
+            else:
+                on_cpu("kernels-alf", alf_chroma_check(tag, got),
+                       _plain_alf_cpu, r.cpu().numpy(), o.cpu().numpy())
+                held = "ALF: plain on the cpu in a worker process"
             ex, od, tex, tod = st.tolist()
             ALF_SHARES["exact"] += ex
             ALF_SHARES["ordered"] += od
-            line = (f"[kernels-alf] {tag}: ALF == plain (on the {dev}); "
+            line = (f"[kernels-alf] {tag}: {held}; "
                     f"chains exact {ex / max(ex + od, 1):.4f}, ordered "
                     f"{od / max(ex + od, 1):.4f} of {ex + od}; totals over "
                     f"blocks exact {tex}, ordered {tod}")
@@ -1276,8 +1446,10 @@ def compare_alf_kernel(w, h, seed, stats):
             # three planes read, the flags written; per sample and plane a
             # subtraction, a square and an add
             bs = bound(nbytes(filt, r, o, flags), 6.0 * n)
-            log(f"[kernels-alf] {tag}: ALF kernel {k_ms:.4f} ms (plain "
-                f"{pc_ms:.0f} ms on the {dev}); bound {b[0]:.4f} ms "
+            plain = (f"plain {pc_ms:.0f} ms on the cuda" if luma else
+                     "plain: in its check on the cpu")
+            log(f"[kernels-alf] {tag}: ALF kernel {k_ms:.4f} ms ({plain}); "
+                f"bound {b[0]:.4f} ms "
                 f"({b[1]}); ALFSSE kernel (order "
                 f"{alf_cuda.sse_mode(ctb, o.shape[1])}) {ks_ms:.4f} ms "
                 f"(plain {pf_ms:.0f} ms); bound {bs[0]:.4f} ms ({bs[1]})")
@@ -1288,6 +1460,19 @@ def compare_alf_kernel(w, h, seed, stats):
                 _record(stats, "ALFSSE", 0, ms=ks_ms, plain_ms=pf_ms,
                         bound_ms=bs[0], bound_by=bs[1],
                         shape=f"{w}x{h} luma, the encoder's planes")
+
+
+def alf_chroma_check(tag, got):
+    """The check of the chroma normal equations (got) against the plain
+    version's outputs from a worker."""
+    got = [g.cpu() for g in got]
+
+    def check(want, ms):
+        _require_equal("ALF", tag, ("coef", "gram", "rhs"), got,
+                       [torch.from_numpy(x) for x in want])
+        log(f"[kernels-alf] {tag}: ALF == plain (on the cpu, in a worker "
+            f"process, plain {ms:.0f} ms)")
+    return check
 
 
 def phase_kernels_alf(stats):
@@ -1764,36 +1949,44 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_environment()
     card = card_line()
-    phase_build()
-    phase_kernels(stats)
-    phase_kernels_sse(stats)
-    phase_kernels_p(stats)
-    phase_golden()
-    run_main("main", main_cfg(), "mixed", "cfg2_1080p_ref.json",
-             ("K1", "K2", "SSE"), stats, card, batch_frames=4)
-    run_main("main-p", cfg3(), "motion", "cfg3_1080p_ref.json",
-             ("K3", "K3d", "K4", "K5"), stats, card)
-    phase_kernels_tools(stats)
-    run_main("main-tools", cfg2t(), "text", "cfg2t_1080p_ref.json",
-             ("K1", "K2"), stats, card, tools=True, batch_frames=4)
-    run_main("main-lossless", lossless_cfg(), "mixed",
-             "lossless_1080p_ref.json", ("K1", "K2"), stats, card,
-             tools=True, batch_frames=4)
-    phase_kernels_b(stats)
-    phase_kernels_alf(stats)
-    phase_golden_filters()
-    phase_kernels_inter_tools(stats)
-    run_main("main-p-lossless", lossless_p_cfg(), "motion",
-             "lossless_p_1080p_ref.json", ("K1", "K2", "K3", "K3d", "K4",
-                                           "K5"), stats, card, tools=True)
-    run_ra_ref("main-ra-tools", "tools_ra", "tools_ra_1080p_ref.json",
-               tools_ra_cfg(), "motion", stats,
-               ("K1", "K2", "K3", "K3d", "K3B", "K3Bd", "K4", "K5", "ALF",
-                "ALFSSE", "SSE"), card,
-               need=(("B", "mip"), ("B", "pdpc")))
-    phase_main_ra_ref(stats)
-    phase_main_cfg5(stats)
-    run_main_ra(stats, card)
+
+    def run(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+
+    run("build", phase_build)
+    run("kernels", phase_kernels, stats)
+    run("kernels-sse", phase_kernels_sse, stats)
+    run("kernels-p", phase_kernels_p, stats)
+    run("kernels-me-4k", phase_kernels_me_4k, stats)
+    run("golden", phase_golden)
+    run("main", run_main, "main", main_cfg(), "mixed", "cfg2_1080p_ref.json",
+        ("K1", "K2", "SSE"), stats, card, batch_frames=4)
+    run("main-p", run_main, "main-p", cfg3(), "motion", "cfg3_1080p_ref.json",
+        ("K3", "K3d", "K4", "K5"), stats, card)
+    run("kernels-tools", phase_kernels_tools, stats)
+    run("main-tools", run_main, "main-tools", cfg2t(), "text",
+        "cfg2t_1080p_ref.json", ("K1", "K2"), stats, card, tools=True,
+        batch_frames=4)
+    run("main-lossless", run_main, "main-lossless", lossless_cfg(), "mixed",
+        "lossless_1080p_ref.json", ("K1", "K2"), stats, card, tools=True,
+        batch_frames=4)
+    run("kernels-b", phase_kernels_b, stats)
+    run("kernels-alf", phase_kernels_alf, stats)
+    run("golden-filters", phase_golden_filters)
+    run("kernels-inter-tools", phase_kernels_inter_tools, stats)
+    run("main-p-lossless", run_main, "main-p-lossless", lossless_p_cfg(),
+        "motion", "lossless_p_1080p_ref.json",
+        ("K1", "K2", "K3", "K3d", "K4", "K5"), stats, card, tools=True)
+    run("main-ra-tools", run_ra_ref, "main-ra-tools", "tools_ra",
+        "tools_ra_1080p_ref.json", tools_ra_cfg(), "motion", stats,
+        ("K1", "K2", "K3", "K3d", "K3B", "K3Bd", "K4", "K5", "ALF",
+         "ALFSSE", "SSE"), card, need=(("B", "mip"), ("B", "pdpc")))
+    run("main-ra-ref", phase_main_ra_ref, stats)
+    run("main-cfg5", phase_main_cfg5, stats)
+    run("main-ra", run_main_ra, stats, card)
+    run("cpu-checks", finish_cpu_checks)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")
     log(json.dumps({"kernels": [
         {"name": f"{k} {KERNELS[k][0]}", "route": "cuda",
@@ -1801,7 +1994,7 @@ def main() -> int:
          **{key: stats[k].get(key) for key in REQUIRED_KEYS},
          **{key: stats[k][key] for key in (
              "shape", "tus_by_size_map", "ms_per_chain_ctu",
-             "us_per_chain_luma_tu", "launches_cfg4",
+             "us_per_chain_luma_tu", "launches_cfg4", "at_4k",
              "launches_tools", "tools")
             if key in stats[k]}}
         for k in KERNELS]}))
@@ -1813,4 +2006,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_cpu_workers()
+    sys.exit(code)

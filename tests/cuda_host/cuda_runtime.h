@@ -18,6 +18,11 @@
 // (build with -ffp-contract=off).  This checks a kernel's logic and
 // arithmetic; it says nothing about speed or occupancy.
 //
+// The warp reductions (__reduce_add_sync, __reduce_min_sync) meet at the
+// warp's barrier like the shuffles; byte SIMD (__vsadu4), funnel shifts
+// and __byte_perm compute what the CUDA math API defines; cp.async
+// (x266_cp_async4) copies at once.
+//
 // X266_ASSERT(cond), a no-op in the card build, records a failed check
 // here (an out-of-range read, say); the launch then returns an error.
 
@@ -261,6 +266,48 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 inline int __any_sync(unsigned mask, int pred) {
   return __ballot_sync(mask, pred) != 0;
 }
+// __reduce_add_sync / __reduce_min_sync (sm_80 redux.sync): every lane
+// gets the sum (wrapping) or the minimum of the warp's values.
+template <class V, class Op>
+V host_reduce(V v, Op op) {
+  const unsigned lane = threadIdx.x % 32;
+  std::memcpy(&host_warp.slot[lane], &v, sizeof(V));
+  host_arrive(host_warp.bar);
+  V r;
+  std::memcpy(&r, &host_warp.slot[0], sizeof(V));
+  for (unsigned l = 1; l < host_warp.size; ++l) {
+    V x;
+    std::memcpy(&x, &host_warp.slot[l], sizeof(V));
+    r = op(r, x);
+  }
+  host_arrive(host_warp.bar);
+  return r;
+}
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  return host_reduce(v, [](unsigned a, unsigned b) { return a + b; });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return host_reduce(v, [](unsigned a, unsigned b) { return b < a ? b : a; });
+}
+// Byte SIMD and funnel shifts, as the CUDA math API defines them.
+inline unsigned __vsadu4(unsigned a, unsigned b) {
+  unsigned s = 0;
+  for (int i = 0; i < 32; i += 8) {
+    const int x = (int)((a >> i) & 255u), y = (int)((b >> i) & 255u);
+    s += (unsigned)(x > y ? x - y : y - x);
+  }
+  return s;
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  return (unsigned)((((unsigned long long)hi << 32) | lo) >> (shift & 31));
+}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long in = ((unsigned long long)y << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((in >> (8 * ((s >> (4 * n)) & 7))) & 255u) << (8 * n);
+  return r;
+}
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __threadfence() {
@@ -291,6 +338,11 @@ inline T __ldg(const T* p) { return *p; }
 template <class T>
 inline T __ldcg(const T* p) { return *p; }
 inline int4 x266_ldg_early(const int4* p) { return *p; }
+// cp.async lands at once here; the wait has nothing to wait for.
+inline void x266_cp_async4(void* dst, const void* src) {
+  std::memcpy(dst, src, 4);
+}
+inline void x266_cp_async_wait_all() {}
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline float __fmul_rn(float a, float b) {
   volatile float r = a * b;
@@ -327,6 +379,7 @@ constexpr cudaError_t cudaErrorInvalidConfiguration = 9;
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaDeviceSynchronize() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;

@@ -208,6 +208,28 @@ def test_alf_estimators_on_card_equal_cpu(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["vsadu4", "funnelshift_r", "byte_perm",
+                                "reduce_add", "reduce_min", "cp_async4"])
+def test_device_primitives_on_card_match_definitions(op, cuda):
+    """The card's __vsadu4, __funnelshift_r, __byte_perm, the warp
+    reductions and x266_cp_async4 give what
+    tests/test_torch_kernel_host.py holds the host stand-in's to."""
+    from test_torch_kernel_host import (PRIMITIVES, PRIMITIVES_SRC,
+                                        declare_primitives, primitive_case)
+    from x266_tpu_torch import _build
+
+    lib = _build.Library([PRIMITIVES_SRC], prefix="test-",
+                         signatures=declare_primitives).build()
+    k = PRIMITIVES.index(op)
+    a, b, c, want = primitive_case(k)
+    dev = [torch.from_numpy(x.view(np.int32)).to(cuda) for x in (a, b, c)]
+    out = torch.zeros_like(dev[0])
+    assert lib.x266_primitives(k, a.size, *(t.data_ptr() for t in dev),
+                               out.data_ptr()) == 0
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32), want)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     cfg = CFGS[0]
     tab, src, maps = _inputs(cfg, "cpu", n=1)

@@ -19,7 +19,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(x266_tpu_torch.__file__)
 SCRIPTS = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "tools", "profile_torch.py"),
-           os.path.join(ROOT, "tools", "profile_recon.py")]
+           os.path.join(ROOT, "tools", "profile_recon.py"),
+           os.path.join(ROOT, "tools", "profile_me.py"),
+           os.path.join(ROOT, "tools", "profile_common.py")]
 
 
 def _modules():
@@ -48,6 +50,7 @@ def test_port_imports_with_jax_blocked():
             "sys.path.insert(0, 'tools')\n"
             "import profile_torch\n"
             "import profile_recon\n"
+            "import profile_me\n"
             "bad = [k for k, v in sys.modules.items() if v and (\n"
             "       k.split('.')[0] in ('jax', 'x266_tpu'))]\n"
             "assert not bad, bad\n"

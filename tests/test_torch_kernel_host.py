@@ -26,6 +26,7 @@ arithmetic on any machine with g++; the card itself is tested by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import ctypes
 import os
 import shutil
 import subprocess
@@ -84,7 +85,7 @@ def _host_build(tmp_path_factory, sources, defines=()):
             # one g++ per source, all at once, then the link
             flags = ["-std=c++20", "-O1", "-pthread", "-fPIC",
                      "-ffp-contract=off", "-I", os.path.dirname(shim),
-                     *(f"-D{d}" for d in defines)]
+                     "-I", csrc, *(f"-D{d}" for d in defines)]
             objs = [str(so) + f".{i}.o" for i in range(len(sources))]
             jobs = [subprocess.Popen(
                 [gxx, *flags, "-c", "-x", "c++", src, "-o", obj],
@@ -105,8 +106,6 @@ def _host_build(tmp_path_factory, sources, defines=()):
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """The kernels built for the host, once per test session."""
-    import ctypes
-
     return _build.declare(ctypes.CDLL(_host_build(tmp_path_factory,
                                                   _build.SOURCES)))
 
@@ -225,15 +224,125 @@ def test_b_kernel_source_matches_plain_scan(cfg, host_lib):
         assert torch.equal(w, g), n
 
 
+# the device functions csrc/me.cu builds on, in the op order of
+# tests/cuda_host/device_primitives.cu
+PRIMITIVES = ["vsadu4", "funnelshift_r", "byte_perm", "reduce_add",
+              "reduce_min", "cp_async4"]
+PRIMITIVES_SRC = os.path.join(HERE, "cuda_host", "device_primitives.cu")
+
+
+def declare_primitives(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.x266_primitives.argtypes = [i, i, p, p, p, p]
+    lib.x266_primitives.restype = i
+    return lib
+
+
+def primitive_case(op, n=4096, seed=0):
+    """Random words a, b, c (uint32, n of them) for PRIMITIVES[op] and
+    what the function's definition gives for them.  reduce_min's second
+    half of warps holds (sad << 6) | k for the first 25 lanes, with many
+    tied SADs, and ~0 in the others, as K5 packs its candidates."""
+    rng = np.random.default_rng(seed)
+    a, b, c = (rng.integers(0, 2**32, n, dtype=np.uint64)
+               .astype(np.uint32) for _ in range(3))
+    u64 = np.uint64
+
+    def byte(x, i):
+        return ((x.astype(u64) >> u64(8 * i)) & u64(255)).astype(np.int64)
+
+    name = PRIMITIVES[op]
+    if name == "vsadu4":
+        b[::3] = a[::3] ^ (a[::3] & 0x01010101)        # near-equal bytes
+        want = sum(np.abs(byte(a, i) - byte(b, i)) for i in range(4))
+    elif name == "funnelshift_r":
+        want = ((b.astype(u64) << u64(32)) | a) >> (c & 31).astype(u64)
+    elif name == "byte_perm":
+        c &= 0x7777                # 3-bit selectors; the upper half unused
+        both = (b.astype(u64) << u64(32)) | a
+        want = sum((((both >> (u64(8) * ((c.astype(u64) >> u64(4 * i))
+                                          & u64(7)))) & u64(255))
+                    << u64(8 * i)) for i in range(4))
+    elif name == "reduce_add":
+        want = np.repeat(a.reshape(-1, 32).astype(u64).sum(1), 32)
+    elif name == "reduce_min":
+        w = a.reshape(-1, 32)
+        half = len(w) // 2
+        sad = rng.integers(0, 4, (len(w) - half, 25)).astype(np.uint32)
+        w[half:, :25] = (sad * (256 * 255 // 3)) << 6 | np.arange(25)
+        w[half:, 25:] = 0xffffffff
+        want = np.repeat(w.min(1), 32)
+    else:
+        want = a.reshape(-1, 32)[:, (np.arange(32) + 7) % 32]
+    return a, b, c, (np.asarray(want).astype(u64) & u64(0xffffffff)
+                     ).astype(np.uint32).ravel()
+
+
+@pytest.fixture(scope="module")
+def prim_lib(tmp_path_factory):
+    """tests/cuda_host/device_primitives.cu built for the host."""
+    return declare_primitives(ctypes.CDLL(_host_build(tmp_path_factory,
+                                                      [PRIMITIVES_SRC])))
+
+
+@pytest.mark.parametrize("op", PRIMITIVES)
+def test_device_primitives_match_definitions(op, prim_lib):
+    """The host stand-in's __vsadu4, __funnelshift_r, __byte_perm,
+    __reduce_add_sync, __reduce_min_sync and x266_cp_async4 against
+    their definitions on random words (tests/test_torch_gpu.py holds the
+    card's to the same); the packed minimum is the first minimum."""
+    k = PRIMITIVES.index(op)
+    a, b, c, want = primitive_case(k)
+    out = np.zeros_like(a)
+    assert prim_lib.x266_primitives(k, a.size, a.ctypes.data, b.ctypes.data,
+                                    c.ctypes.data, out.ctypes.data) == 0
+    np.testing.assert_array_equal(out, want)
+    if op == "reduce_min":
+        w = a.reshape(-1, 32)[len(a) // 64:, :25]
+        first = (w >> 6).argmin(1)
+        assert (out.reshape(-1, 32)[len(a) // 64:, 0] & 63 == first).all()
+
+
 def _pyramid(w, h, seed):
     y = np.random.default_rng(seed).integers(0, 256, (h, w)).astype(np.uint8)
     return interp.build_pyramid(interp.pad_ref(torch.from_numpy(y))), y
 
 
-def test_warp_kernel_source_matches_plain(host_lib):
-    pyr, _ = _pyramid(112, 72, 1)
-    mvs = torch.from_numpy(np.random.default_rng(2).integers(
-        -288, 289, (3, 5, 7, 2)).astype(np.int32))
+def _reach(pyr, by, bx, reach):
+    """The least and the greatest full-pel MV component (x, then y) whose
+    16x16 reads, +-reach full-pel, the plain versions accept."""
+    hi_x = pyr.shape[2] - 1 - interp.REF_PAD - 16 * bx - reach
+    hi_y = pyr.shape[1] - 1 - interp.REF_PAD - 16 * by - reach
+    return reach - interp.REF_PAD, hi_x, hi_y
+
+
+# K4 cases: (width, height, T, MVs); "edge" MVs reach the pyramid's
+# bounds in every direction (quarter-pel fractions 0 and 3 there)
+WARP_CASES = {
+    "random-T3": (112, 72, 3, "random"),
+    "edge-T1": (112, 72, 1, "edge"),
+    "edge-T2": (128, 64, 2, "edge"),
+    "ragged-416x240-T6": (416, 240, 6, "random"),
+}
+
+
+@pytest.mark.parametrize("case", list(WARP_CASES))
+def test_warp_kernel_source_matches_plain(case, host_lib):
+    w, h, t, kind = WARP_CASES[case]
+    pyr, _ = _pyramid(w, h, 1)
+    by, bx = -(-h // 16), -(-w // 16)
+    rng = np.random.default_rng(2)
+    if kind == "random":
+        mvs = rng.integers(-288, 289, (t, by, bx, 2))
+    else:
+        lo, hi_x, hi_y = _reach(pyr, by, bx, 0)
+        mvs = np.stack([rng.integers(4 * lo, 4 * hi_x + 4, (t, by, bx)),
+                        rng.integers(4 * lo, 4 * hi_y + 4, (t, by, bx))], -1)
+        mvs[:, :, 0, 0] = 4 * lo
+        mvs[:, 0, :, 1] = 4 * lo
+        mvs[:, :, -1, 0] = 4 * hi_x + 3
+        mvs[:, -1, :, 1] = 4 * hi_y + 3
+    mvs = torch.from_numpy(mvs.astype(np.int32))
     err, got = me_cuda._launch_warp(host_lib, 0, pyr, mvs)
     assert err == 0
     assert torch.equal(got, me_cuda.warp_frames_ref(pyr, mvs))
@@ -242,18 +351,59 @@ def test_warp_kernel_source_matches_plain(host_lib):
     assert err != 0
 
 
-def test_refine_kernel_source_matches_plain(host_lib):
-    pyr, y = _pyramid(112, 72, 3)
-    rng = np.random.default_rng(4)
-    cur = me._ceil_pad(torch.from_numpy(np.clip(
-        np.roll(y.astype(np.int32), (1, -2), (0, 1))
-        + rng.integers(-9, 10, y.shape), 0, 255).astype(np.int32)))
-    base = torch.from_numpy(rng.integers(-10, 11, (5, 7, 2)).astype(
-        np.int32))
-    err, got = me_cuda._launch_refine(host_lib, 0, cur.contiguous(), pyr,
-                                      base)
+def _refine_inputs(kind, w, h, seed):
+    """cur, the pyramid and base MVs for K5: 'noise' (a shifted noisy
+    copy of the reference), 'flat' (every candidate of every search
+    ties), 'periodic' (a 2x2 checker: the stride-2 candidates tie, and
+    so do mirrored ones), 'edge' (bases whose reach ends at the
+    pyramid's bounds on every side)."""
+    rng = np.random.default_rng(seed)
+    if kind == "flat":
+        y = np.full((h, w), 117, np.uint8)
+        cur = np.full((h, w), 121, np.int32)
+    elif kind == "periodic":
+        i, j = np.indices((h, w))
+        y = (60 + 90 * ((i + j) % 2)).astype(np.uint8)
+        cur = np.roll(y.astype(np.int32), 1, 1)
+    else:
+        y = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        cur = np.clip(np.roll(y.astype(np.int32), (1, -2), (0, 1))
+                      + rng.integers(-9, 10, y.shape), 0, 255)
+    pyr = interp.build_pyramid(interp.pad_ref(torch.from_numpy(y)))
+    by, bx = -(-h // 16), -(-w // 16)
+    base = rng.integers(-10, 11, (by, bx, 2))
+    if kind == "edge":
+        # the searches read base -4 .. +3 full-pel: the reach of the
+        # outer blocks ends at the pyramid's first and last column and row
+        # (the plain version's per-block check is one wider than _reach's)
+        lo, hi_x, hi_y = _reach(pyr, by, bx, 3)
+        base[:, 0, 0], base[0, :, 1] = lo + 1, lo + 1
+        base[:, -1, 0], base[-1, :, 1] = hi_x + 1, hi_y + 1
+    cur = me._ceil_pad(torch.from_numpy(cur.astype(np.int32)))
+    return cur.contiguous(), pyr, torch.from_numpy(base.astype(np.int32))
+
+
+REFINE_CASES = {
+    "noise": (112, 72, 3),
+    "flat": (112, 72, 5),
+    "periodic": (128, 64, 6),
+    "edge": (112, 72, 7),
+    "ragged-416x240": (416, 240, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(REFINE_CASES))
+def test_refine_kernel_source_matches_plain(case, host_lib):
+    w, h, seed = REFINE_CASES[case]
+    cur, pyr, base = _refine_inputs(case.split("-")[0], w, h, seed)
+    err, got = me_cuda._launch_refine(host_lib, 0, cur, pyr, base)
     assert err == 0
     assert torch.equal(got, me.refine_search_ref(cur, pyr, base))
+    if case == "flat":      # every search keeps its first candidate
+        assert (got == 4 * base - 14).all()
+    # a read past the pyramid is caught by the kernel's range check
+    err, _ = me_cuda._launch_refine(host_lib, 0, cur, pyr, base + 90)
+    assert err != 0
 
 
 WAVE = {

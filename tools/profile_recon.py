@@ -33,13 +33,14 @@ parent commit's, from ``git show REV:x266_tpu_torch/csrc/recon_intra.cu``
 into a directory .gitignore lists) and the package's own source, both
 without the phase split, checks that both give the same outputs on
 every workload, and times each workload with both libraries in turns
-(parent, new, new, parent; CUDA events, --reps launches each), with the
-TUs each launch walks (from the size map) and both times per CTU and per
-luma TU on the wavefront's chain (chip_smoke.tu_walk).
+(parent, new, new, parent; chip_smoke.event_ms, --reps launches each),
+with the TUs each launch walks (from the size map) and both times per
+CTU and per luma TU on the wavefront's chain (chip_smoke.tu_walk).
 
-Libraries go to build/x266_tpu_torch/profile-<hash>/ (ignored by git);
-JSON results to DIR (default build/profile).  Fails when no CUDA device
-is visible.
+Libraries go to build/x266_tpu_torch/profile-<hash>/ (ignored by git),
+each through _build.Library with the package's flags
+(profile_common.build); JSON results to DIR (default build/profile).
+Fails when no CUDA device is visible.
 """
 
 import argparse
@@ -56,6 +57,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+import profile_common as pc  # noqa: E402
 from x266_tpu_torch import _build, tables  # noqa: E402
 from x266_tpu_torch.core.yuv import synthetic_clip  # noqa: E402
 from x266_tpu_torch.engine import fused, inter, recon_cuda  # noqa: E402
@@ -79,11 +81,8 @@ def build(recon_src: str, phases: bool) -> ctypes.CDLL:
     """A library of recon_src alone, a version of csrc/recon_intra.cu (the
     phase split on when phases), built by _build.Library into
     build/x266_tpu_torch/profile-<hash>/."""
-    lib = _build.Library([recon_src], ["X266_RECON_PHASES"] if phases
-                         else [], "profile-", _build.declare_recon)
-    so = lib.build()
-    for line in cs.build_lines(lib.build_log):   # none if built before
-        print(f"[build] {line}", flush=True)
+    so = pc.build([recon_src], ["X266_RECON_PHASES"] if phases else [],
+                  _build.declare_recon).lib
     if phases:
         if not hasattr(so, "x266_recon_phases"):
             raise SystemExit(
@@ -142,31 +141,20 @@ class Workload:
         self.size_map, self.run = size_map, run
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _checked(out):
-    err, res = out
-    if err != 0:
-        raise RuntimeError(f"launch failed ({err})")
-    return res
-
-
 def intra_workloads(lib, tag, cfg, kind):
     """K1 on a batch of four frames, K2 on frame 0 of its levels."""
     tab, src, maps = cs._inputs(cfg, 4, 0, kind)
-    got = _checked(recon_cuda._launch(lib, _stream(), cfg, tab, True, *src,
-                                      *maps))
+    got = pc.checked(recon_cuda._launch(lib, pc.stream(), cfg, tab, True,
+                                        *src, *maps))
     one = [t[:1].contiguous() for t in (*got[3:], *maps)]
     sm = maps[0].cpu().numpy()
     return [
         Workload(f"K1 {tag} x4", "K1", cfg, sm,
-                 lambda lib: _checked(recon_cuda._launch(
-                     lib, _stream(), cfg, tab, True, *src, *maps))),
+                 lambda lib: pc.checked(recon_cuda._launch(
+                     lib, pc.stream(), cfg, tab, True, *src, *maps))),
         Workload(f"K2 {tag}", "K2", cfg, sm[:1],
-                 lambda lib: _checked(recon_cuda._launch(
-                     lib, _stream(), cfg, tab, False, *one)))]
+                 lambda lib: pc.checked(recon_cuda._launch(
+                     lib, pc.stream(), cfg, tab, False, *one)))]
 
 
 def inter_workloads(lib, tag, cfg, b, planes, p0, p1=None):
@@ -183,18 +171,18 @@ def inter_workloads(lib, tag, cfg, b, planes, p0, p1=None):
     args = (maps[0], maps[1], mts, *maps[2:5], *p0)
     if b:
         args += (*p1, maps[5], maps[6])
-    got = _checked(recon_cuda._launch_inter(lib, _stream(), cfg, tab, True,
-                                            *src, *args))
+    got = pc.checked(recon_cuda._launch_inter(lib, pc.stream(), cfg, tab,
+                                              True, *src, *args))
     dargs = (*got[3:6], *args[:4], got[6].int(), got[7].int(), *args[6:])
     k = "K3B" if b else "K3"
     sm = maps[0].cpu().numpy()
     return [
         Workload(f"{k} {tag}", k, cfg, sm,
-                 lambda lib: _checked(recon_cuda._launch_inter(
-                     lib, _stream(), cfg, tab, True, *src, *args))),
+                 lambda lib: pc.checked(recon_cuda._launch_inter(
+                     lib, pc.stream(), cfg, tab, True, *src, *args))),
         Workload(f"{k}d {tag}", k + "d", cfg, sm,
-                 lambda lib: _checked(recon_cuda._launch_inter(
-                     lib, _stream(), cfg, tab, False, *dargs)))]
+                 lambda lib: pc.checked(recon_cuda._launch_inter(
+                     lib, pc.stream(), cfg, tab, False, *dargs)))]
 
 
 def workloads(lib, only=()):
@@ -267,18 +255,6 @@ def print_split(r):
               f"{t['cycles_per_tu']:.0f} cycles per TU: {ph}", flush=True)
 
 
-def event_ms(lib, wl, reps):
-    wl.run(lib)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        wl.run(lib)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def compare(parent, new, wl, reps) -> dict:
     """Both libraries on one workload: equal outputs, then the times in
     turns, the TUs walked and the microseconds per chain TU."""
@@ -287,19 +263,15 @@ def compare(parent, new, wl, reps) -> dict:
     if not all(same):
         print(f"[compare] {wl.name}: outputs differ: {same}", flush=True)
         return {"workload": wl.name, "equal": False}
-    times = [event_ms(lib, wl, reps) for lib in (parent, new, new, parent)]
-    ms_parent = (times[0] + times[3]) / 2
-    ms_new = (times[1] + times[2]) / 2
+    t = pc.in_turns(parent, new, wl.run, reps)
+    ms_parent, ms_new = t["ms_parent"], t["ms_new"]
     walk = cs.tu_walk(wl.size_map, wl.cfg.width, wl.cfg.height)
-    r = {"workload": wl.name, "equal": True, "kernel": wl.kernel,
-         "ms_parent": ms_parent,
-         "ms_new": ms_new, "turns_ms": times,
-         "speedup": ms_parent / ms_new, **walk,
-         "parent": cs.per_chain(walk, ms_parent),
+    r = {"workload": wl.name, "equal": True, "kernel": wl.kernel, **t,
+         **walk, "parent": cs.per_chain(walk, ms_parent),
          "new": cs.per_chain(walk, ms_new)}
     print(f"[compare] {wl.name}: parent {ms_parent:.3f} ms, new "
           f"{ms_new:.3f} ms ({r['speedup']:.2f}x; turns "
-          f"{[round(t, 3) for t in times]}); outputs equal; "
+          f"{[round(x, 3) for x in t['turns_ms']]}); outputs equal; "
           f"{cs.chain_text(walk, parent=ms_parent, new=ms_new)}",
           flush=True)
     return r

@@ -57,7 +57,8 @@ class Library:
     defines and prefix make another library from other versions of the
     sources (with csrc/ on the include path), built the same way into
     build/x266_tpu_torch/<prefix><hash>/; signatures sets the C
-    signatures of the entry points it has (default: declare)."""
+    signatures of the entry points it has (default: declare).  path is
+    the shared library's file."""
 
     def __init__(self, sources=None, defines=(), prefix="", signatures=None):
         self.sources = SOURCES if sources is None else list(sources)
@@ -68,14 +69,18 @@ class Library:
         self.lib = None
         self.build_log = ""
 
+    @property
+    def path(self) -> str:
+        return os.path.join(ROOT, "build", "x266_tpu_torch", self.prefix
+                            + source_hash(self.sources, self.flags),
+                            "libx266k.so")
+
     def build(self) -> ctypes.CDLL:
         if self.lib is not None:
             return self.lib
-        out_dir = os.path.join(ROOT, "build", "x266_tpu_torch", self.prefix
-                               + source_hash(self.sources, self.flags))
-        so = os.path.join(out_dir, "libx266k.so")
+        so = self.path
         if not os.path.exists(so):
-            os.makedirs(out_dir, exist_ok=True)
+            os.makedirs(os.path.dirname(so), exist_ok=True)
             tmp = f"{so}.tmp{os.getpid()}"
             objs = [f"{tmp}.{i}.o" for i in range(len(self.sources))]
             jobs = [subprocess.Popen([nvcc_path(), *self.flags, "-c", src,
@@ -113,14 +118,21 @@ def declare_recon(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C signatures of the library's entry points."""
+def declare_me(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of csrc/me.cu's launch entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    declare_recon(lib)
     lib.x266_warp_frames.argtypes = [i] * 5 + [p] * 4
     lib.x266_warp_frames.restype = i
     lib.x266_refine_search.argtypes = [i] * 4 + [p] * 5
     lib.x266_refine_search.restype = i
+    return lib
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the library's entry points."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    declare_recon(lib)
+    declare_me(lib)
     lib.x266_alf_normal.argtypes = [i] * 4 + [p] * 3 + [i] * 6 + [p] * 11
     lib.x266_alf_normal.restype = i
     lib.x266_alf_ctb_flags.argtypes = [i] * 3 + [ctypes.c_float] + [p] * 7

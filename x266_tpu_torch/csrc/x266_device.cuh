@@ -34,6 +34,19 @@ __device__ __forceinline__ int4 x266_ldg_early(const int4* p) {
   return v;
 }
 
+// An asynchronous 4-byte copy from global to shared memory (cp.async;
+// both addresses 4-byte aligned), and the wait until every copy this
+// thread has issued has landed (__syncwarp() after it makes a warp's
+// copies visible to all its lanes).
+__device__ __forceinline__ void x266_cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void x266_cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 // A named barrier (bar.sync id, n: the n threads that use barrier id,
 // a multiple of 32; 0 is __syncthreads's), and the same barrier ORing a
 // predicate over those threads (bar.red.or.pred).

@@ -42,6 +42,15 @@ def _check_reads(pyramid: torch.Tensor, mvs: torch.Tensor, by: int,
         hi_y, hi_x, tuple(pyramid.shape))
 
 
+def _check_words(pyramid: torch.Tensor) -> None:
+    """K4 and K5 read the pyramid as aligned 32-bit words: its rows must
+    be a multiple of 4 bytes wide (every pyramid the port builds is:
+    widths are multiples of 8) and its data 4-byte aligned."""
+    if pyramid.shape[2] % 4 or pyramid.data_ptr() % 4:
+        raise ValueError("pyramid: rows must be a multiple of 4 bytes wide "
+                         f"and 4-byte aligned, got {tuple(pyramid.shape)}")
+
+
 def warp_index(mvs: torch.Tensor):
     """The pyramid (plane, row, column) that each output sample of K4
     reads for (T, By, Bx, 2) int32 quarter-pel MVs: three int64
@@ -89,6 +98,7 @@ def warp_frames_cuda(pyramid: torch.Tensor, mvs: torch.Tensor
     -> (T, 16By, 16Bx) int32 frames."""
     check_tensor(pyramid, "pyramid", torch.uint8, (16, *pyramid.shape[1:]))
     check_tensor(mvs, "mvs", torch.int32, (*mvs.shape[:3], 2))
+    _check_words(pyramid)
     lib = _build.LIBRARY.build()
     with torch.cuda.device(pyramid.device):
         stream = torch.cuda.current_stream(pyramid.device).cuda_stream
@@ -109,13 +119,17 @@ def _launch_refine(lib, stream, cur, pyramid, base):
 
 def refine_search(cur: torch.Tensor, pyramid: torch.Tensor,
                   base: torch.Tensor) -> torch.Tensor:
-    """Launch K5: cur (16By, 16Bx) int32, pyramid (16, Hp, Wp) uint8,
-    base (By, Bx, 2) int32 full-pel -> (By, Bx, 2) int32 quarter-pel
-    MVs, as kernels.me.refine_search_ref."""
+    """Launch K5: cur (16By, 16Bx) int32 holding 8-bit samples (the
+    kernel packs them into bytes), pyramid (16, Hp, Wp) uint8, base (By,
+    Bx, 2) int32 full-pel -> (By, Bx, 2) int32 quarter-pel MVs, as
+    kernels.me.refine_search_ref."""
     by, bx = cur.shape[0] // ME_BLOCK, cur.shape[1] // ME_BLOCK
     check_tensor(cur, "cur", torch.int32, (by * ME_BLOCK, bx * ME_BLOCK))
     check_tensor(pyramid, "pyramid", torch.uint8, (16, *pyramid.shape[1:]))
     check_tensor(base, "base", torch.int32, (by, bx, 2))
+    _check_words(pyramid)
+    if cur.data_ptr() % 16:
+        raise ValueError("cur: expected 16-byte aligned data")
     lib = _build.LIBRARY.build()
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream(cur.device).cuda_stream
