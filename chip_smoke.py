@@ -13,10 +13,11 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     on one at a time), with the TUs each launch walks by plane and size
     (from the size map) and its time per CTU and per luma TU on the
     wavefront's chain (tu_walk; so for K3-P, K3-B and the tools'
-    variants below); [kernels-sse] kernel SSE (each plane's float32
-    SSE in XLA's reduction tree, F4) against its plain version, bit for
-    bit, on 1080p and 4K luma and chroma planes near and far from their
-    source;
+    variants below); [kernels-sse] kernel SSE (one launch for the three
+    planes of F frames: each plane's float32 SSE in XLA's reduction
+    tree, F4, and its int64 SSE) against its plain versions, bit for
+    bit, at config 2's step (four 1080p frames), a 4K picture, 112x80 and
+    416x240, near and far from their source;
  4. [kernels-p] K3-P (P recon, encode and decode, final-MV planes
     included), K4 (MC warp) and K5 (ME refine) against their plain
     versions, bit for bit, at 112x80 / 128x64 on four P configs, at
@@ -34,8 +35,8 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     Encoder/Decoder (on the card by default), held against the JAX
     reference in x266_tpu_torch/data/cfg2_1080p_ref.json: every slice
     NAL and recon byte-identical, PSNR-Y equal to the reference's float32
-    value; K1/K2/SSE launch counts of that run; one warm encode's frame
-    rate;
+    value; K1/K2/SSE launch counts of that run (SSE once a step); one
+    warm encode's frame rate;
  7. [main-p] low-delay P 1080p (config 3) frames 0-3 (IDR + 3 P) the
     same way, against data/cfg3_1080p_ref.json; K3/K4/K5 launch counts
     of that run; one warm encode's frame rate;
@@ -109,7 +110,8 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
-    (normal equations and CTB decisions three per picture each), the
+    (normal equations and CTB decisions three per picture each), SSE's
+    (17: one a picture), the
     F10 count, each kernel's launches in this run (launches_cfg4),
     bits/frame, PSNR-Y, one warm encode's frame rate; the stream, slice
     NALs, recon, PSNR-Y and SSE equal to data/cfg4_4k_ref.json.
@@ -617,11 +619,16 @@ def main_cfg():
 
 
 def phase_kernels_sse(stats):
-    """Kernel SSE against its plain version, bit for bit, on planes of
-    the main paths' shapes: config 2's batch of four 1080p frames (luma
-    and chroma), one 4K picture's, and 32x32 (one window): each near its
-    source (a coded picture's error, exact sums) and far from it (sums
-    past 2^24 that round, so only XLA's order gives the same bits)."""
+    """Kernel SSE against its plain versions, bit for bit, both outputs
+    (the float32 SSE in XLA's order, cost.plane_sse_f32_plain, and the
+    int64 SSE, fused.frame_sse), on the three planes of the main paths'
+    calls: config 2's step (four 1080p frames), one 4K picture, cfg5's
+    112x80 and lossless_ra's 416x240 (widths that are not multiples of
+    32): each near its source (a coded picture's error, exact sums) and
+    far from it (sums past 2^24 that round, so only XLA's order gives the
+    same bits); one launch a call; timed at the first two beside the
+    bound and the plain versions."""
+    from x266_tpu_torch.engine import fused
     from x266_tpu_torch.kernels import cost, sse_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -629,25 +636,46 @@ def phase_kernels_sse(stats):
     def rand(shape, lo, hi):
         return torch.randint(lo, hi, shape, device="cuda", generator=gen)
 
-    for n, h, w in ((4, 1080, 1920), (4, 540, 960), (1, 2160, 3840),
-                    (1, 1080, 1920), (2, 32, 32)):
-        orig = rand((n, h, w), 0, 256).to(torch.uint8)
-        near = (orig.int() + rand((n, h, w), -6, 7)).clamp(0, 255).to(
-            torch.uint8)
-        far = (torch.where(orig < 128, 255, 0)
-               ^ rand((n, h, w), 0, 64)).to(torch.uint8)
+    def plain(recs, origs):
+        return (torch.stack([cost.plane_sse_f32_plain(r, o)
+                             for r, o in zip(recs, origs)], dim=1),
+                torch.stack([fused.frame_sse(r, o)
+                             for r, o in zip(recs, origs)], dim=1))
+
+    for n, h, w, timed_here in ((4, 1080, 1920, True),
+                                (1, 2160, 3840, True),
+                                (1, 80, 112, False), (1, 240, 416, False)):
+        shapes = ((n, h, w), (n, h // 2, w // 2), (n, h // 2, w // 2))
+        origs = [rand(s, 0, 256).to(torch.uint8) for s in shapes]
+        near = [(o.int() + rand(o.shape, -6, 7)).clamp(0, 255).to(
+            torch.uint8) for o in origs]
+        far = [(torch.where(o < 128, 255, 0) ^ rand(o.shape, 0, 64)).to(
+            torch.uint8) for o in origs]
         tag = f"{n}x{h}x{w}"
-        for kind, rec in (("near", near), ("far", far)):
-            got = sse_cuda.plane_sse(rec, orig)
-            ref, p_ms = timed(cost.plane_sse_f32_plain, rec, orig)
-            _require_equal("SSE", f"{tag} {kind}", ("sse",), [got], [ref])
-        ms = event_ms(sse_cuda.plane_sse, near, orig, reps=20)
-        b = bound(nbytes(near, orig, got), 3.0 * near.numel())
-        log(f"[kernels-sse] {tag}: SSE {ms:.4f} ms (plain {p_ms:.0f} ms, "
-            f"bound {b[0]:.4f} ms, {b[1]}), near and far bit-exact")
-        if (n, h, w) == (4, 1080, 1920):
+        for kind, recs in (("near", near), ("far", far)):
+            before = sse_cuda.LAUNCHES["SSE"]
+            got = sse_cuda.picture_sse(recs, origs)
+            if sse_cuda.LAUNCHES["SSE"] != before + 1:
+                raise AssertionError("[kernels-sse] not one launch a call")
+            ref, p_ms = timed(plain, recs, origs)
+            _require_equal("SSE", f"{tag} {kind}", ("sse", "sse_exact"),
+                           got, ref)
+        if not timed_here:
+            log(f"[kernels-sse] {tag}: sse and sse_exact near and far "
+                "bit-exact")
+            continue
+        ms = event_ms(sse_cuda.picture_sse, near, origs, reps=20)
+        b = bound(nbytes(*near, *origs, *got), 3.0 * sum(
+            o.numel() for o in origs))
+        log(f"[kernels-sse] {tag} and its chroma: SSE {ms:.4f} ms a call "
+            f"(plain {p_ms:.0f} ms, bound {b[0]:.4f} ms, {b[1]}), sse and "
+            "sse_exact near and far bit-exact")
+        if n == 4:
             _record(stats, "SSE", 0, ms=ms, plain_ms=p_ms, bound_ms=b[0],
-                    bound_by=b[1], shape=f"{tag} luma")
+                    bound_by=b[1], shape=f"{tag} + 2x{n}x{h // 2}x{w // 2}")
+        else:
+            stats["SSE"]["at_4k"] = {"ms": ms, "plain_ms": p_ms,
+                                     "bound_ms": b[0], "bound_by": b[1]}
 
 
 def cfg2t(w=1920, h=1080):
@@ -1722,12 +1750,12 @@ def run_main_ra(stats, card):
         f"{[round(p, 4) for p in psnrs]} (mean {np.mean(psnrs):.4f} dB)")
     check_4k_reference(res, psnrs)
     for k, want in (("K3B", 15), ("K3Bd", 15), ("ALF", 3 * n),
-                    ("ALFSSE", 3 * n)):
+                    ("ALFSSE", 3 * n), ("SSE", n)):
         if launches[k] != want:
             raise AssertionError(f"[main-ra] {k} launched {launches[k]} "
                                  f"times, not {want}")
         stats[k]["launches"] = launches[k]
-    for k in ("K1", "K2", "K3", "K3d", "K4", "K5", "SSE"):
+    for k in ("K1", "K2", "K3", "K3d", "K4", "K5"):
         if launches[k] < 1:
             raise AssertionError(f"[main-ra] {k} was not launched")
     _, t_warm = timed(enc.encode, frames)
@@ -1861,14 +1889,15 @@ def _launches():
 
 
 def run_main(tag, cfg, kind, ref_name, kernels, stats, card,
-             tools=False, **enc_kw):
+             tools=False, sse_steps=None, **enc_kw):
     """Frames 0-3 of the clip through Encoder() and Decoder() (on the
     card by default), held against the JAX reference file: each slice
     NAL and recon byte-identical, the PSNR-Y equal (and the float32 SSE,
     where the file records it; F4); lossless: the decoded pictures equal
     the input; the launch counts of the run; one warm encode's frame
     rate.  tools: the launches go to stats[k]["launches_tools"][tag],
-    not to the kernel's main-path count."""
+    not to the kernel's main-path count; sse_steps: the encode's steps,
+    each of which must launch kernel SSE once."""
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.core.hashing import frame_md5
     from x266_tpu_torch.core.yuv import synthetic_clip
@@ -1923,6 +1952,9 @@ def run_main(tag, cfg, kind, ref_name, kernels, stats, card,
         if psnrs[i] != r["psnr_y"] or sse != r.get("sse", sse):
             raise AssertionError(f"{tag}: frame {i} PSNR-Y or SSE differs "
                                  "from the reference's float32 sum")
+    if sse_steps is not None and launches["SSE"] != sse_steps:
+        raise AssertionError(f"{tag}: SSE launched {launches['SSE']} times, "
+                             f"not once in each of {sse_steps} steps")
     for k in kernels:
         if launches[k] < 1:
             raise AssertionError(f"{k} was not launched on the main path")
@@ -1962,7 +1994,7 @@ def main() -> int:
     run("kernels-me-4k", phase_kernels_me_4k, stats)
     run("golden", phase_golden)
     run("main", run_main, "main", main_cfg(), "mixed", "cfg2_1080p_ref.json",
-        ("K1", "K2", "SSE"), stats, card, batch_frames=4)
+        ("K1", "K2", "SSE"), stats, card, sse_steps=1, batch_frames=4)
     run("main-p", run_main, "main-p", cfg3(), "motion", "cfg3_1080p_ref.json",
         ("K3", "K3d", "K4", "K5"), stats, card)
     run("kernels-tools", phase_kernels_tools, stats)

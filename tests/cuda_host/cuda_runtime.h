@@ -19,9 +19,10 @@
 // arithmetic; it says nothing about speed or occupancy.
 //
 // The warp reductions (__reduce_add_sync, __reduce_min_sync) meet at the
-// warp's barrier like the shuffles; byte SIMD (__vsadu4), funnel shifts
-// and __byte_perm compute what the CUDA math API defines; cp.async
-// (x266_cp_async4) copies at once.
+// warp's barrier like the shuffles; byte SIMD (__vsadu4, __vabsdiffu4,
+// __dp4a), funnel shifts and __byte_perm compute what the CUDA math API
+// defines; cp.async (x266_cp_async4) and the bulk copy (x266_bulk_copy)
+// copy at once, and an mbarrier wait yields until its phase completes.
 //
 // X266_ASSERT(cond), a no-op in the card build, records a failed check
 // here (an out-of-range read, say); the launch then returns an error.
@@ -45,6 +46,9 @@
 
 struct alignas(16) int4 {
   int x, y, z, w;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
 };
 struct alignas(8) int2 {
   int x, y;
@@ -308,6 +312,29 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
     r |= (unsigned)((in >> (8 * ((s >> (4 * n)) & 7))) & 255u) << (8 * n);
   return r;
 }
+inline unsigned __vabsdiffu4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; i += 8) {
+    const int x = (int)((a >> i) & 255u), y = (int)((b >> i) & 255u);
+    r |= (unsigned)(x > y ? x - y : y - x) << i;
+  }
+  return r;
+}
+// the unsigned overload: four byte products added to c (wrapping)
+inline unsigned __dp4a(unsigned a, unsigned b, unsigned c) {
+  for (int i = 0; i < 32; i += 8) c += ((a >> i) & 255u) * ((b >> i) & 255u);
+  return c;
+}
+inline float __int_as_float(int x) {
+  float f;
+  std::memcpy(&f, &x, 4);
+  return f;
+}
+inline float __uint_as_float(unsigned x) {
+  float f;
+  std::memcpy(&f, &x, 4);
+  return f;
+}
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __threadfence() {
@@ -322,6 +349,11 @@ inline int atomicAdd(int* p, int v) {
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline unsigned long long x266_atom_add_acq_rel(unsigned long long* p,
+                                                unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(
+      v, std::memory_order_acq_rel);
 }
 inline int x266_ld_acquire(const int* p) {
   int v = std::atomic_ref<int>(*const_cast<int*>(p)).load(
@@ -343,6 +375,32 @@ inline void x266_cp_async4(void* dst, const void* src) {
   std::memcpy(dst, src, 4);
 }
 inline void x266_cp_async_wait_all() {}
+// An mbarrier counts its completed phases; the bulk copy lands at once,
+// so a phase completes at its arrival (one arrival a phase, as the
+// kernels use it), and a wait yields to the block's other fibers until
+// the phase of its parity has completed: a read that does not wait for
+// its copy sees what was there before.  A wait that never ends is a
+// launch error.
+inline void x266_mbar_init(uint64_t* bar, int) { *bar = 0; }
+inline void x266_mbar_init_fence() {}
+inline void x266_fence_proxy_async() {}
+inline void x266_mbar_arrive(uint64_t* bar) { ++*bar; }
+inline void x266_mbar_expect_tx(uint64_t* bar, int) { ++*bar; }
+inline void x266_bulk_copy(void* dst, const void* src, int bytes,
+                           uint64_t*) {
+  std::memcpy(dst, src, bytes);
+}
+inline void x266_mbar_wait(uint64_t* bar, int parity) {
+  // a phase that never completes (a lost arrival, a parity two phases
+  // behind) is a launch error, not a hang
+  for (long spins = 0; (int)(*bar & 1) == parity; ++spins) {
+    if (spins == (1L << 16) || host_check_failed) {
+      host_check_failed = true;
+      return;
+    }
+    host_switch();
+  }
+}
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline float __fmul_rn(float a, float b) {
   volatile float r = a * b;

@@ -1,8 +1,8 @@
-// The device functions the motion kernels (x266_tpu_torch/csrc/me.cu)
-// build on, one launch per function over arrays of words, so a test can
-// hold each to its definition: under g++ the host stand-in's versions
-// (tests/test_torch_kernel_host.py), on the card the hardware's
-// (tests/test_torch_gpu.py).
+// The device functions the motion and SSE kernels
+// (x266_tpu_torch/csrc/me.cu, sse.cu) build on, one launch per function
+// over arrays of words, so a test can hold each to its definition: under
+// g++ the host stand-in's versions (tests/test_torch_kernel_host.py), on
+// the card the hardware's (tests/test_torch_gpu.py).
 //
 //   op 0  out = __vsadu4(a, b)
 //   op 1  out = __funnelshift_r(a, b, c)
@@ -12,6 +12,12 @@
 //   op 5  out = a, copied through shared memory with x266_cp_async4 and
 //         read back, after x266_cp_async_wait_all and __syncwarp, by the
 //         lane 7 places on in the warp
+//   op 6  out = __vabsdiffu4(a, b)
+//   op 7  out = __dp4a(a, b, c), unsigned
+//   op 8  out = a, copied through shared memory by one x266_bulk_copy
+//         (lane 0, the warp's 32 words, on an mbarrier it initialized
+//         and armed with x266_mbar_expect_tx) and read back after
+//         x266_mbar_wait by the lane 7 places on
 //
 // n is a multiple of 32: one warp per 32 words.
 
@@ -32,7 +38,10 @@ struct PrimParams {
 
 __global__ void primitives_kernel(PrimParams p) {
   using Buf = uint32_t[32];
+  using VecBuf = uint4[8];
   X266_SHARED(Buf, buf);
+  X266_SHARED(VecBuf, vbuf);
+  X266_SHARED(uint64_t, bar);
   const int lane = threadIdx.x % 32;
   const int i = blockIdx.x * 32 + lane;
   const uint32_t a = p.a[i], b = p.b[i], c = p.c[i];
@@ -48,6 +57,22 @@ __global__ void primitives_kernel(PrimParams p) {
       x266_cp_async_wait_all();
       __syncwarp();
       r = buf[(lane + 7) % 32];
+      break;
+    case 6: r = __vabsdiffu4(a, b); break;
+    case 7: r = __dp4a(a, b, c); break;
+    case 8:
+      // lane 0 copies the warp's 32 words in one bulk copy
+      if (lane == 0) {
+        x266_mbar_init(&bar, 1);
+        x266_mbar_init_fence();
+      }
+      __syncwarp();
+      if (lane == 0) {
+        x266_mbar_expect_tx(&bar, 128);
+        x266_bulk_copy(vbuf, p.a + blockIdx.x * 32, 128, &bar);
+      }
+      x266_mbar_wait(&bar, 0);
+      r = reinterpret_cast<const uint32_t*>(vbuf)[(lane + 7) % 32];
       break;
   }
   p.out[i] = r;

@@ -210,11 +210,13 @@ def test_alf_estimators_on_card_equal_cpu(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["vsadu4", "funnelshift_r", "byte_perm",
-                                "reduce_add", "reduce_min", "cp_async4"])
+                                "reduce_add", "reduce_min", "cp_async4",
+                                "vabsdiffu4", "dp4a", "bulk_copy"])
 def test_device_primitives_on_card_match_definitions(op, cuda):
     """The card's __vsadu4, __funnelshift_r, __byte_perm, the warp
-    reductions and x266_cp_async4 give what
-    tests/test_torch_kernel_host.py holds the host stand-in's to."""
+    reductions, x266_cp_async4, __vabsdiffu4, __dp4a and x266_bulk_copy
+    on an mbarrier give what tests/test_torch_kernel_host.py holds the host stand-in's
+    to."""
     from test_torch_kernel_host import (PRIMITIVES, PRIMITIVES_SRC,
                                         declare_primitives, primitive_case)
     from x266_tpu_torch import _build
@@ -228,6 +230,36 @@ def test_device_primitives_on_card_match_definitions(op, cuda):
     assert lib.x266_primitives(k, a.size, *(t.data_ptr() for t in dev),
                                out.data_ptr()) == 0
     np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 1080, 1920), (1, 80, 112),
+                                   (2, 64, 64)],
+                         ids=["1080p-F4", "112x80", "64x64-F2"])
+def test_picture_sse_on_card_matches_plain(shape, cuda):
+    """Kernel SSE's one launch for the three planes of F frames against
+    the plain versions (the float32 SSE in XLA's order and fused.frame_sse),
+    near and far from the source, twice on the stream's buffers."""
+    from x266_tpu_torch.kernels import cost, sse_cuda
+
+    rng = np.random.default_rng(shape[1])
+    n, h, w = shape
+    src = [rng.integers(0, 256, s).astype(np.uint8)
+           for s in ((n, h, w), (n, h // 2, w // 2), (n, h // 2, w // 2))]
+    for rec in ([np.clip(o + rng.integers(-3, 4, o.shape), 0, 255).astype(
+                    np.uint8) for o in src],
+                [(np.where(o < 128, 255, 0) ^ rng.integers(0, 64, o.shape))
+                 .astype(np.uint8) for o in src]):
+        r_t, o_t = ([torch.from_numpy(x) for x in xs] for xs in (rec, src))
+        want = (torch.stack([cost.plane_sse_f32_plain(r, o)
+                             for r, o in zip(r_t, o_t)], dim=1),
+                torch.stack([fused.frame_sse(r, o)
+                             for r, o in zip(r_t, o_t)], dim=1))
+        for _ in range(2):
+            got = sse_cuda.picture_sse([r.to(cuda) for r in r_t],
+                                       [o.to(cuda) for o in o_t])
+            for g, wnt in zip(got, want):
+                assert torch.equal(g.cpu(), wnt)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -247,6 +279,14 @@ def test_alf_kernel_wrapper_refuses_cpu_tensors():
         alf_cuda.ctb_flags(r, r, r, 64, 1.0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         alf_cuda.ctb_sse(r, r, 64)
+
+
+def test_sse_kernel_wrapper_refuses_cpu_tensors():
+    from x266_tpu_torch.kernels import sse_cuda
+
+    p = torch.zeros((1, 64, 64), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sse_cuda.picture_sse([p, p, p], [p, p, p])
 
 
 def test_motion_kernel_wrappers_refuse_cpu_tensors():

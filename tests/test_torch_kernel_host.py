@@ -7,8 +7,9 @@ equations from the recon and the source, and their float32 solve) and
 _ctb_flags (the per-CTB decision), on data that takes their exact int32
 path, their ordered float32 path, and both in one launch; the intra
 tools' branches (lossless, transform skip, PDPC, MIP) of K1/K2 and of
-K3-P/K3-B against the plain scan; kernel SSE against
-cost.plane_sse_f32_plain; the recon kernel's warp-scan substitution
+K3-P/K3-B against the plain scan; kernel SSE's float32 and int64
+outputs against cost.plane_sse_f32_plain and fused.frame_sse; the recon
+kernel's warp-scan substitution
 against the serial scan and kernels.intra.substitute_refs; and a build
 of the recon kernel whose luma, Cb or Cr warp group skips its named
 barriers, which the concurrent wavefront case must catch.
@@ -224,10 +225,11 @@ def test_b_kernel_source_matches_plain_scan(cfg, host_lib):
         assert torch.equal(w, g), n
 
 
-# the device functions csrc/me.cu builds on, in the op order of
-# tests/cuda_host/device_primitives.cu
+# the device functions csrc/me.cu and csrc/sse.cu build on, in the op
+# order of tests/cuda_host/device_primitives.cu
 PRIMITIVES = ["vsadu4", "funnelshift_r", "byte_perm", "reduce_add",
-              "reduce_min", "cp_async4"]
+              "reduce_min", "cp_async4", "vabsdiffu4", "dp4a",
+              "bulk_copy"]
 PRIMITIVES_SRC = os.path.join(HERE, "cuda_host", "device_primitives.cu")
 
 
@@ -272,6 +274,13 @@ def primitive_case(op, n=4096, seed=0):
         w[half:, :25] = (sad * (256 * 255 // 3)) << 6 | np.arange(25)
         w[half:, 25:] = 0xffffffff
         want = np.repeat(w.min(1), 32)
+    elif name == "vabsdiffu4":
+        b[::3] = a[::3] ^ (a[::3] & 0x01010101)        # near-equal bytes
+        want = sum(np.abs(byte(a, i) - byte(b, i)) << (8 * i)
+                   for i in range(4))
+    elif name == "dp4a":
+        want = c.astype(np.int64) + sum(byte(a, i) * byte(b, i)
+                                        for i in range(4))
     else:
         want = a.reshape(-1, 32)[:, (np.arange(32) + 7) % 32]
     return a, b, c, (np.asarray(want).astype(u64) & u64(0xffffffff)
@@ -288,9 +297,11 @@ def prim_lib(tmp_path_factory):
 @pytest.mark.parametrize("op", PRIMITIVES)
 def test_device_primitives_match_definitions(op, prim_lib):
     """The host stand-in's __vsadu4, __funnelshift_r, __byte_perm,
-    __reduce_add_sync, __reduce_min_sync and x266_cp_async4 against
-    their definitions on random words (tests/test_torch_gpu.py holds the
-    card's to the same); the packed minimum is the first minimum."""
+    __reduce_add_sync, __reduce_min_sync, x266_cp_async4, __vabsdiffu4,
+    __dp4a (unsigned, wrapping) and x266_bulk_copy on an mbarrier
+    against their definitions on random words
+    (tests/test_torch_gpu.py holds the card's to the same); the packed
+    minimum is the first minimum."""
     k = PRIMITIVES.index(op)
     a, b, c, want = primitive_case(k)
     out = np.zeros_like(a)
@@ -621,33 +632,102 @@ def test_intra_tools_kernel_source_matches_plain_scan(tool, host_lib):
         assert torch.equal(w, g), n
 
 
-@pytest.mark.parametrize("wh", [(64, 64), (104, 72), (416, 240),
-                                (1920, 1080)],
-                         ids=lambda wh: f"{wh[0]}x{wh[1]}")
-def test_sse_kernel_source_matches_plain(wh, host_lib):
-    """Kernel SSE (csrc/sse.cu) against cost.plane_sse_f32_plain, luma
-    and chroma planes of two frames: one near its source (exact sums) and
-    one far from it (the sums round, so only the order matches)."""
+def _sse_case(w, h, frames, seed):
+    """Three (frames, h, w) / (frames, h/2, w/2) uint8 source planes and
+    two reconstructions of them: near (+-3, exact float32 sums) and far
+    (sums past 2^24 that round, so only the order gives the bits)."""
+    rng = np.random.default_rng(seed)
+    src, near, far = [], [], []
+    for shape in ((frames, h, w), (frames, h // 2, w // 2),
+                  (frames, h // 2, w // 2)):
+        o = rng.integers(0, 256, shape).astype(np.uint8)
+        src.append(torch.from_numpy(o))
+        near.append(torch.from_numpy(np.clip(
+            o + rng.integers(-3, 4, shape), 0, 255).astype(np.uint8)))
+        far.append(torch.from_numpy((np.where(o < 128, 255, 0) ^ rng.integers(
+            0, 64, shape)).astype(np.uint8)))
+    return src, near, far
+
+
+def _sse_check(lib, src, recs, work):
+    """One launch of kernel SSE on the three planes against the plain
+    versions: sse per plane against cost.plane_sse_f32_plain, sse_exact
+    against fused.frame_sse; returns whether any float32 sum rounded."""
     from x266_tpu_torch.kernels import cost, sse_cuda
 
+    err, (got, exact) = sse_cuda._launch(lib, 0, recs, src, work)
+    assert err == 0
+    want = torch.stack([cost.plane_sse_f32_plain(r, o)
+                        for r, o in zip(recs, src)], dim=1)
+    want_exact = torch.stack([fused.frame_sse(r, o)
+                              for r, o in zip(recs, src)], dim=1)
+    assert torch.equal(got, want)
+    assert torch.equal(exact, want_exact)
+    assert not work[1].any()            # the tickets are left at 0
+    return bool((want.double() != want_exact.double()).any())
+
+
+SSE_SHAPES = [(64, 64), (104, 72), (112, 80), (416, 240), (1920, 1080)]
+
+
+@pytest.mark.parametrize("wh,frames", [
+    pytest.param(wh, f, id=f"{wh[0]}x{wh[1]}" + ("" if f == 2 else f"-F{f}"))
+    for wh in SSE_SHAPES for f in (2, 1, 4)])
+def test_sse_kernel_source_matches_plain(wh, frames, host_lib):
+    """Kernel SSE (csrc/sse.cu, x266_picture_sse) against the plain
+    versions, the three planes of F frames in one launch: near their
+    source (exact sums) and far from it (the sums round, so only the
+    order matches), one after the other on one scratch and ticket pair.
+    64x64's chroma is one 32x32 window (no window level); 104x72 pads
+    both ways; 112x80 (cfg5) pads luma's width by 8 and chroma's by 4 and
+    416x240's chroma by 8, which take the byte-wise path; 1920x1080 takes
+    the 16-byte copies and a level-2 tail."""
+    from x266_tpu_torch.kernels import sse_cuda
+
     w, h = wh
-    rng = np.random.default_rng(w)
-    rounded = []
-    for ph, pw in ((h, w), (h // 2, w // 2)):
-        orig = rng.integers(0, 256, (2, ph, pw)).astype(np.uint8)
-        rec = orig.copy()
-        rec[0] = np.clip(orig[0] + rng.integers(-3, 4, (ph, pw)), 0, 255)
-        rec[1] = np.where(orig[1] < 128, 255, 0) ^ rng.integers(
-            0, 64, (ph, pw))
-        rec, orig = torch.from_numpy(rec), torch.from_numpy(orig)
-        err, got = sse_cuda._launch(host_lib, 0, rec, orig)
+    src, near, far = _sse_case(w, h, frames, seed=w + frames)
+    work = sse_cuda.new_work(frames, [tuple(o.shape[1:]) for o in src],
+                             "cpu")
+    assert not _sse_check(host_lib, src, near, work)
+    assert _sse_check(host_lib, src, far, work)
+
+
+def test_sse_kernel_concurrent_blocks(host_lib, monkeypatch):
+    """The (frame, plane) tickets, their fences and the tail of the CTA
+    that takes the last one, with eight CTAs running at once (the host
+    stand-in's X266_HOST_BLOCKS), at 1920x1080 (a level-2 tail a luma
+    plane) and 416x240 (a last reduction over the level-1 sums), F = 2."""
+    from x266_tpu_torch.kernels import sse_cuda
+
+    monkeypatch.setenv("X266_HOST_BLOCKS", "8")
+    for w, h in ((1920, 1080), (416, 240)):
+        src, near, far = _sse_case(w, h, 2, seed=5)
+        work = sse_cuda.new_work(2, [tuple(o.shape[1:]) for o in src], "cpu")
+        for rec in (far, near, far):
+            _sse_check(host_lib, src, rec, work)
+
+
+def test_sse_kernel_reuses_its_tickets(host_lib):
+    """Two calls on one scratch and ticket pair give equal results: the
+    tail leaves the tickets and the int64 sums at 0 and the scratch's
+    padding is never written; one plane alone (cost.plane_sse_f32's
+    call) takes the same pair of buffers of its shape."""
+    from x266_tpu_torch.kernels import cost, sse_cuda
+
+    src, _, far = _sse_case(1920, 1080, 1, seed=11)
+    work = sse_cuda.new_work(1, [tuple(o.shape[1:]) for o in src], "cpu")
+    runs = [sse_cuda._launch(host_lib, 0, far, src, work) for _ in range(2)]
+    assert all(err == 0 for err, _ in runs)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+    assert not work[1].any()
+    one = sse_cuda.new_work(1, [tuple(src[1].shape[1:])], "cpu")
+    for _ in range(2):
+        err, (got, exact) = sse_cuda._launch(host_lib, 0, far[1:2], src[1:2],
+                                             one)
         assert err == 0
-        want = cost.plane_sse_f32_plain(rec, orig)
-        assert torch.equal(got, want)
-        exact = ((rec.long() - orig.long()) ** 2).sum((1, 2))
-        assert float(want[0]) == float(exact[0])
-        rounded.append(float(want[1]) != float(exact[1]))
-    assert any(rounded)
+        assert torch.equal(got[:, 0], cost.plane_sse_f32_plain(far[1], src[1]))
+        assert torch.equal(exact[:, 0], fused.frame_sse(far[1], src[1]))
 
 
 # the intra tools on P and B pictures: 3x3 CTUs of 'motion' against

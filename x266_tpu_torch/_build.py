@@ -128,6 +128,16 @@ def declare_me(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def declare_sse(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signature of csrc/sse.cu's launch entry point."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ll = ctypes.c_longlong
+    lib.x266_picture_sse.argtypes = (
+        [i, i] + [i, i, p, p] * 3 + [p, ll, p, ll] + [p] * 3)
+    lib.x266_picture_sse.restype = i
+    return lib
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of the library's entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -137,8 +147,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.x266_alf_normal.restype = i
     lib.x266_alf_ctb_flags.argtypes = [i] * 3 + [ctypes.c_float] + [p] * 7
     lib.x266_alf_ctb_flags.restype = i
-    lib.x266_plane_sse.argtypes = [i] * 3 + [p] * 6
-    lib.x266_plane_sse.restype = i
+    declare_sse(lib)
     lib.x266_subst_scan.argtypes = [i] + [p] * 3   # host stand-in tests
     lib.x266_subst_scan.restype = i
     return lib

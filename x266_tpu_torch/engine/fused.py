@@ -81,13 +81,18 @@ def frame_sse(rec: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
 
 def _sse_outputs(rec, src) -> dict:
     """The per-frame SSE of the three planes, (F, 3): "sse_exact" in
-    int64 and "sse" as the reference sums it (float32 in XLA CPU's order,
-    kernels.cost.plane_sse_f32, whose kernel reads dense planes), which
-    the reported PSNR reads."""
+    int64 and "sse" as the reference sums it (float32 in XLA CPU's order),
+    which the reported PSNR reads.  On the card both come from one launch
+    of kernel SSE (kernels/sse_cuda.py, which reads dense planes); on the
+    CPU from frame_sse and kernels.cost.plane_sse_f32_plain."""
+    if src[0].device.type == "cuda":
+        from x266_tpu_torch.kernels import sse_cuda
+        sse, exact = sse_cuda.picture_sse([r.contiguous() for r in rec],
+                                          [p.contiguous() for p in src])
+        return {"sse_exact": exact, "sse": sse}
     return {"sse_exact": torch.stack([frame_sse(r, p)
                                       for r, p in zip(rec, src)], dim=1),
-            "sse": torch.stack([kcost.plane_sse_f32(r.contiguous(),
-                                                    p.contiguous())
+            "sse": torch.stack([kcost.plane_sse_f32_plain(r, p)
                                 for r, p in zip(rec, src)], dim=1)}
 
 

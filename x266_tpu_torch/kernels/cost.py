@@ -256,7 +256,7 @@ def plane_sse_f32(rec: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
     plane_sse_f32_plain for CPU ones."""
     if orig.device.type == "cuda":
         from x266_tpu_torch.kernels import sse_cuda
-        return sse_cuda.plane_sse(rec, orig)
+        return sse_cuda.picture_sse([rec], [orig])[0][:, 0]
     return plane_sse_f32_plain(rec, orig)
 
 
