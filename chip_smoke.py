@@ -28,9 +28,10 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     each against its plain version bit for bit and timed beside its
     bound, the plain version and the indexing gather (the kernels line's
     "at_4k");
- 5. [golden] decode tests/fixtures/ai_hevc.266t and ai_hevc_lossless.266t
-    to their manifest MD5s and re-encode their sources to the identical
-    bytes;
+ 5. [golden] decode tests/fixtures/ai_hevc.266t, ai_hevc_lossless.266t
+    and gpb_rpl_wp.266t (GPB with signalled reference lists and weighted
+    prediction) to their manifest MD5s and re-encode their sources to
+    the identical bytes;
  6. [main] all-intra 1080p VVC (config 2) frames 0-3 through
     Encoder/Decoder (on the card by default), held against the JAX
     reference in x266_tpu_torch/data/cfg2_1080p_ref.json: every slice
@@ -107,6 +108,17 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     period 16, deblock and SAO, WPP segments) at 112x80 (two CTU rows),
     17 frames of 'motion', against data/cfg5_112x80_ref.json as
     [main-ra-ref];
+    [main-gpb] config 3 at 1080p with GPB (multi_ref), signalled
+    reference lists and weighted prediction, frames 0-4 of 'motion'
+    under a luma fade (I, P, then B pictures on two past references
+    picked from a DPB of two, three and four entries) through
+    Encoder/Decoder: the stream, slice NALs, recon, PSNR-Y and SSE equal
+    to data/gpb_wp_1080p_ref.json (whose clip text is checked), the
+    decoded pictures equal to the recon, non-identity weights in a P and
+    a B slice header, the B pictures' L1 and bi CUs counted (none
+    fails), each kernel's launches in this run (launches_gpb), the
+    reweight's ms per list (CUDA events) on the 1080p pyramids, one warm
+    encode's frame rate;
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
@@ -1191,7 +1203,8 @@ def lossless_ra_cfg(w=416, h=240):
 def inter_tool_counts(cfg, maps, mts) -> dict:
     """CUs of a P or B picture that take the intra tools' branches in K3:
     lossless inter and skip CUs, MIP and PDPC-class (planar, DC, pure H,
-    pure V) intra CUs, transform-skip intra TUs."""
+    pure V) intra CUs, transform-skip intra TUs; and the CUs predicted
+    from L1 alone and from both lists (B pictures)."""
     sm, mm, pm, tm = (m[0].cpu().numpy() for m in (*maps[:3], mts))
     uy, ux = np.mgrid[0:sm.shape[0], 0:sm.shape[1]]
     u = sm // 8
@@ -1206,7 +1219,8 @@ def inter_tool_counts(cfg, maps, mts) -> dict:
             "pdpc": int((intra & np.isin(mm, (0, 1, 18, 50))).sum())
             if cfg.pdpc else 0,
             "ts": int((intra & ((tm & 7) == 5)).sum())
-            if cfg.transform_skip else 0}
+            if cfg.transform_skip else 0,
+            "l1": int((o & (pm == 3)).sum()), "bi": int((o & (pm == 4)).sum())}
 
 
 def compare_inter_tool_kernels(tag, cfg, b, stats, seed, force=None,
@@ -1514,8 +1528,8 @@ def phase_kernels_alf(stats):
 
 
 def phase_golden():
-    """ai_hevc and ai_hevc_lossless decode to their manifest MD5s and
-    re-encode from their sources (tools/make_fixtures.py) to the
+    """ai_hevc, ai_hevc_lossless and gpb_rpl_wp decode to their manifest
+    MD5s and re-encode from their sources (tools/make_fixtures.py) to the
     fixtures' bytes."""
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.config import CodecConfig
@@ -1524,9 +1538,13 @@ def phase_golden():
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
-    for name, cfg in (
-            ("ai_hevc", CodecConfig(width=96, height=64, qp=32, rdoq=True)),
-            ("ai_hevc_lossless", lossless_cfg(96, 64))):
+    for name, cfg, n, kind in (
+            ("ai_hevc", CodecConfig(width=96, height=64, qp=32, rdoq=True),
+             1, "mixed"),
+            ("ai_hevc_lossless", lossless_cfg(96, 64), 1, "mixed"),
+            ("gpb_rpl_wp", CodecConfig(
+                width=96, height=64, qp=32, rdoq=True, intra_period=16,
+                multi_ref=True, rpl=True, weighted_pred=True), 4, "motion")):
         want = manifest[name]["md5"]
         with open(os.path.join(FIXTURES, f"{name}.266t"), "rb") as f:
             stream = f.read()
@@ -1537,7 +1555,7 @@ def phase_golden():
             raise AssertionError(f"{name} decode MD5 differs from the "
                                  "manifest")
         res = Encoder(cfg, with_recon=False).encode(
-            synthetic_clip(96, 64, 1, "mixed", seed=77))
+            synthetic_clip(96, 64, n, kind, seed=77))
         same = res.bitstream == stream
         log(f"[golden] {name} re-encode: {len(res.bitstream)} bytes, "
             f"byte-identical {same}")
@@ -1712,6 +1730,125 @@ def phase_main_cfg5(stats):
     run_ra_ref("main-cfg5", "cfg5", "cfg5_112x80_ref.json",
                preset_cfg5(112, 80), "motion", stats,
                ("K1", "K2", "K3", "K3d", "K4", "K5", "SSE"), seed=3)
+
+
+def fade(frames, g0=1.0, g1=0.5):
+    """A linear luma gain ramp over the clip, from g0 on its first frame
+    to g1 on its last; chroma is kept (tools/make_torch_refs.py fade)."""
+    from x266_tpu_torch.core.yuv import Frame
+
+    out = []
+    n = len(frames)
+    for i, f in enumerate(frames):
+        g = g0 + (g1 - g0) * i / max(n - 1, 1)
+        y = np.clip(f.y.astype(np.float64) * g, 0, 255)
+        out.append(Frame(y.astype(np.uint8), f.cb, f.cr))
+    return out
+
+
+GPB_WP_CONFIG = ("preset_cfg3(1920, 1080).replace(multi_ref=True, rpl=True, "
+                 "weighted_pred=True)")
+GPB_WP_CLIP = "fade(synthetic_clip(1920, 1080, 5, 'motion'), g0=1.0, g1=0.5)"
+GPB_KERNELS = ("K1", "K2", "K3", "K3d", "K3B", "K3Bd", "K4", "K5", "SSE")
+
+
+def phase_main_gpb(stats, card):
+    """Config 3 at 1080p with GPB, signalled reference lists and weighted
+    prediction, frames 0-4 of 'motion' under a luma fade, through
+    Encoder and Decoder on the card, against data/gpb_wp_1080p_ref.json:
+    the whole stream, each slice NAL, recon, PSNR-Y and float32 SSE
+    equal; the decoded pictures equal the recon; a P and a B slice
+    header carry weights other than identity; the B pictures hold L1
+    and bi CUs; each kernel of the path launched (launches_gpb); the
+    reweight's ms per list and one warm encode's frame rate."""
+    from x266_tpu_torch.api import Decoder, Encoder
+    from x266_tpu_torch.config import preset_cfg3
+    from x266_tpu_torch.core.hashing import frame_md5
+    from x266_tpu_torch.core.headers import parse_slice_header
+    from x266_tpu_torch.core.nal import NalType, split_nals
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import fused
+
+    tag = "main-gpb"
+    with open(os.path.join(DATA, "gpb_wp_1080p_ref.json")) as f:
+        ref = json.load(f)
+    if (ref["config"], ref["clip"]) != (GPB_WP_CONFIG, GPB_WP_CLIP):
+        raise AssertionError(f"[{tag}] gpb_wp_1080p_ref.json records "
+                             f"{ref['config']} on {ref['clip']}")
+    cfg = preset_cfg3(1920, 1080).replace(multi_ref=True, rpl=True,
+                                          weighted_pred=True)
+    w, h, n = cfg.width, cfg.height, 5
+    frames = fade(synthetic_clip(w, h, n, "motion"))
+    t0 = time.perf_counter()
+    enc, dec = Encoder(cfg, with_recon=True), Decoder()
+    log(f"[{tag}] encoder/decoder set-up {time.perf_counter() - t0:.1f} s")
+    _reset_launches()
+    with ToolCuTally(cfg) as cus:
+        res, t_enc = timed(enc.encode, frames)
+    (_, decoded), t_dec = timed(dec.decode, res.bitstream)
+    launches = _launches()
+    log(f"[{tag}] first encode {t_enc / 1e3:.2f} s, decode "
+        f"{t_dec / 1e3:.2f} s, launches {launches}")
+    rec = [frame_md5(r) for r in res.recon]
+    if [frame_md5(d) for d in decoded] != rec:
+        raise AssertionError(f"[{tag}] decoded pictures differ from the "
+                             "encoder's recon")
+    md5 = hashlib.md5(res.bitstream).hexdigest()
+    psnr = res.psnr_y(w, h)
+    sse = [[float(v) for v in e] for e in res.sse]
+    fr = ref["frames"]
+    same = (md5 == ref["stream_md5"]
+            and _slice_md5s(res.bitstream) == ref["nal_md5_coding_order"]
+            and rec == [r["recon_md5"] for r in fr])
+    equal = all(p == r["psnr_y"] and e == r["sse"]
+                for p, e, r in zip(psnr, sse, fr))
+    log(f"[{tag}] vs gpb_wp_1080p_ref.json ({ref['source']}): stream md5 "
+        f"{md5}, byte-identical {same}; PSNR-Y {psnr} and SSE equal "
+        f"{equal}; bits {res.frame_bits}")
+    if not (same and equal):
+        raise AssertionError(f"[{tag}] differs from gpb_wp_1080p_ref.json")
+    hdrs = [parse_slice_header(rbsp, cfg.alf, cfg.ctus_y * cfg.ctus_x,
+                               has_wp=True, has_rpl=True)[0]
+            for t, rbsp in split_nals(res.bitstream)
+            if t in (NalType.IDR, NalType.TRAIL)]
+    wps = [[sh.poc, sh.slice_type.name, sh.wp,
+            None if sh.rpl is None else [sh.poc - d[0] for d in sh.rpl]]
+           for sh in hdrs]
+    log(f"[{tag}] slice (POC, type, weights, reference POCs): {wps}")
+    for kind in ("P", "B"):
+        if not any(k == kind and wp is not None
+                   and any(wp[i:i + 4] != list(fused.IDENTITY_WP)
+                           for i in range(0, len(wp), 4))
+                   for _, k, wp, _ in wps):
+            raise AssertionError(f"[{tag}] no {kind} slice carries "
+                                 "weights other than identity")
+    log(f"[{tag}] CUs of the B pictures: L1 {cus['B']['l1']}, bi "
+        f"{cus['B']['bi']}")
+    if not (cus["B"]["l1"] and cus["B"]["bi"]):
+        raise AssertionError(f"[{tag}] the B pictures hold no L1 or no bi "
+                             "CU")
+    for k in GPB_KERNELS:
+        if launches[k] < 1:
+            raise AssertionError(f"[{tag}] {k} was not launched")
+        stats[k]["launches_gpb"] = launches[k]
+    if not launches["K3B"] == launches["K3Bd"] == 3 or launches["SSE"] != n:
+        raise AssertionError(f"[{tag}] K3B / K3Bd launched {launches['K3B']}"
+                             f" / {launches['K3Bd']} times for 3 B pictures,"
+                             f" SSE {launches['SSE']} for {n} steps")
+    # the reweight of one list's reference (three pyramids) at 1080p
+    pyrs = fused.build_pyramids_device(
+        *(torch.from_numpy(getattr(decoded[1], p)).cuda()
+          for p in ("y", "cb", "cr")))
+    wp = hdrs[2].wp[:4]
+    ms = event_ms(fused.apply_wp, cfg, pyrs, wp)
+    moved = 2 * nbytes(*pyrs)
+    log(f"[{tag}] reweight of one list ({wp}; pyramids "
+        f"{[tuple(p.shape) for p in pyrs]}, {nbytes(*pyrs) / 1e6:.1f} MB): "
+        f"{ms:.4f} ms a list, CUDA events; bound {moved / PEAK_BYTES * 1e3:.4f}"
+        f" ms (bytes: each read and written once) on {card}")
+    _, t_warm = timed(enc.encode, frames)
+    log(f"[{tag}] warm encode of {n} {w}x{h} frames: {t_warm / 1e3:.3f} s "
+        f"= {n / (t_warm / 1e3):.3f} fps on {card}")
 
 
 def run_main_ra(stats, card):
@@ -2017,6 +2154,7 @@ def main() -> int:
          "ALFSSE", "SSE"), card, need=(("B", "mip"), ("B", "pdpc")))
     run("main-ra-ref", phase_main_ra_ref, stats)
     run("main-cfg5", phase_main_cfg5, stats)
+    run("main-gpb", phase_main_gpb, stats, card)
     run("main-ra", run_main_ra, stats, card)
     run("cpu-checks", finish_cpu_checks)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")
@@ -2026,8 +2164,8 @@ def main() -> int:
          **{key: stats[k].get(key) for key in REQUIRED_KEYS},
          **{key: stats[k][key] for key in (
              "shape", "tus_by_size_map", "ms_per_chain_ctu",
-             "us_per_chain_luma_tu", "launches_cfg4", "at_4k",
-             "launches_tools", "tools")
+             "us_per_chain_luma_tu", "launches_cfg4", "launches_gpb",
+             "at_4k", "launches_tools", "tools")
             if key in stats[k]}}
         for k in KERNELS]}))
     log(card)

@@ -48,9 +48,11 @@ PSNR, which the port sums in float32 in the reference's order (F4).
   (data/cfg5_112x80_ref.json), the port decodes the JAX stream to the
   JAX recon, and the JAX decoder decodes the port's stream (live);
 - the golden fixtures lowdelay_p_filters and ra_alf decode to their
-  manifest MD5s;
+  manifest MD5s, and gpb_rpl_wp (GPB with signalled reference lists and
+  weighted prediction) decodes to them and re-encodes to its bytes;
 - the one-frame device step gives what the batched step gives per frame;
-- configurations outside the slices raise NotImplementedError.
+- configurations and streams outside the slices raise
+  NotImplementedError.
 """
 
 import base64
@@ -385,11 +387,11 @@ def test_single_frame_step_equals_batched():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(multi_ref=True, intra_period=8), dict(alf=True, ccalf=True),
+    dict(profile=Profile.VVC, cclm=True), dict(alf=True, ccalf=True),
     dict(tile_rows=1), dict(profile=Profile.VVC, dep_quant=True),
     dict(profile=Profile.VVC, mtt=True),
     dict(sign_data_hiding=True), dict(bit_depth=10),
-    dict(weighted_pred=True, intra_period=8),
+    dict(profile=Profile.VVC, max_cu_size=64),
     dict(alf=True, alf_nonlinear=True)])
 def test_out_of_slice_configs_raise(kw):
     cfg = CodecConfig(width=128, height=128, **kw)
@@ -398,9 +400,38 @@ def test_out_of_slice_configs_raise(kw):
 
 
 def test_out_of_slice_streams_raise():
-    """GPB with weighted prediction (multi_ref) is not in the slices."""
+    """The ai_vvc_cu64 fixture (CU 64 with the 64-point DCT) is not in
+    the slices."""
     with pytest.raises(NotImplementedError):
-        Decoder(device="cpu").decode(_fixture("gpb_rpl_wp"))
+        Decoder(device="cpu").decode(_fixture("ai_vvc_cu64"))
+
+
+GPB_RPL_WP = dict(width=96, height=64, qp=32, rdoq=True, intra_period=16,
+                  multi_ref=True, rpl=True, weighted_pred=True)
+
+
+def test_decodes_gpb_rpl_wp_fixture():
+    """GPB with signalled reference lists and weighted prediction: the
+    fixture decodes to its manifest MD5s."""
+    _, dec = Decoder(device="cpu").decode(_fixture("gpb_rpl_wp"))
+    assert [frame_md5(d) for d in dec] == _manifest("gpb_rpl_wp")["md5"]
+
+
+def test_reencodes_gpb_rpl_wp_fixture():
+    """The fixture's source and config (tools/make_fixtures.py) give its
+    bytes: a P picture after the IDR, then B pictures on two past
+    references whose slice headers carry the weights and lists."""
+    cfg = tconfig.CodecConfig(**GPB_RPL_WP)
+    frames = synthetic_clip(96, 64, 4, kind="motion", seed=77)
+    res = Encoder(cfg, device="cpu").encode(frames)
+    assert res.bitstream == _fixture("gpb_rpl_wp")
+    assert [frame_md5(r) for r in res.recon] == \
+        _manifest("gpb_rpl_wp")["md5"]
+    kinds = [parse_slice_header(rbsp, False, cfg.ctus_y * cfg.ctus_x,
+                                has_wp=True, has_rpl=True)[0].slice_type.name
+             for t, rbsp in split_nals(res.bitstream)
+             if t in (NalType.IDR, NalType.TRAIL)]
+    assert kinds == ["I", "P", "B", "B"]
 
 
 @pytest.mark.parametrize("tool", ["lossless", "transform_skip", "pdpc",

@@ -59,12 +59,23 @@ these files.
   segment inherits the first's contexts and the loop filters cross a
   CTU-row edge, 17 frames of 'motion' (I, 15 P, I: across the intra
   period), for the CPU tests and chip_smoke.py [main-cfg5] ->
-  data/cfg5_112x80_ref.json.
+  data/cfg5_112x80_ref.json;
+- weighted prediction and GPB (low-delay B on two past references):
+  gpb_wp (config 3 at 1080p with multi_ref, signalled reference lists
+  and weighted prediction, frames 0-4 of 'motion' under a luma fade: I,
+  P, then B pictures on a DPB of two, three and four entries;
+  chip_smoke.py [main-gpb]) -> data/gpb_wp_1080p_ref.json, with a
+  .partial.json as the RA recordings; wp128x64: four 6-frame 128x64
+  variants on a faded 'motion' clip for the CPU tests -- GPB without
+  reference lists (L1 derived by the decoder), GPB with lists and
+  weighted prediction, low-delay P with weighted prediction and random
+  access (GOP 4, config 4) with weighted prediction ->
+  data/wp128x64_ref.json.
 
     python tools/make_torch_refs.py [cfg2] [cfg3] [cfg2t] [lossless]
         [p128x64] [t128x64] [c128x64] [cfg4] [cfg4noalf] [ra128x64]
         [cfg4noalf_1080p] [lossless_p] [tools_ra] [lossless_ra]
-        [tools128x64] [cfg4_4k] [cfg5]
+        [tools128x64] [cfg4_4k] [cfg5] [gpb_wp] [wp128x64]
     # default: cfg2 to ra128x64; minutes per 1080p frame, about two
     # minutes for each 416x240 RA clip and for ra128x64, half an hour
     # for cfg4_4k
@@ -90,7 +101,7 @@ from x266_tpu.config import (CodecConfig, Profile, preset_cfg2,  # noqa
                              preset_cfg3, preset_cfg4, preset_cfg5)
 from x266_tpu.core.hashing import frame_md5  # noqa: E402
 from x266_tpu.core.nal import NalType, split_nals, write_nal  # noqa: E402
-from x266_tpu.core.yuv import synthetic_clip  # noqa: E402
+from x266_tpu.core.yuv import Frame, synthetic_clip  # noqa: E402
 
 W, H, N = 1920, 1080, 4
 DATA = os.path.join(ROOT, "x266_tpu_torch", "data")
@@ -380,8 +391,94 @@ def make_cfg5() -> None:
     print(f"wrote {path} ({out['seconds']:.0f} s to encode)")
 
 
+def fade(frames, g0=1.0, g1=0.5):
+    """A linear luma gain ramp over the clip, from g0 on its first frame
+    to g1 on its last (tests/test_weighted_pred.py's _fade with offset
+    0); chroma is kept."""
+    out = []
+    n = len(frames)
+    for i, f in enumerate(frames):
+        g = g0 + (g1 - g0) * i / max(n - 1, 1)
+        y = np.clip(f.y.astype(np.float64) * g, 0, 255)
+        out.append(Frame(y.astype(np.uint8), f.cb, f.cr))
+    return out
+
+
+def slice_wps(cfg, stream: bytes) -> list:
+    """Each slice header's (POC, type, weights), in coding order."""
+    from x266_tpu.core.headers import parse_slice_header
+
+    out = []
+    for t, rbsp in split_nals(stream):
+        if t in (NalType.IDR, NalType.TRAIL):
+            sh, _ = parse_slice_header(
+                rbsp, cfg.alf, cfg.ctus_y * cfg.ctus_x, cfg.alf_chroma,
+                cfg.alf_nonlinear, cfg.ccalf, has_wp=cfg.weighted_pred,
+                has_rpl=cfg.rpl)
+            out.append([sh.poc, sh.slice_type.name, sh.wp])
+    return out
+
+
+# GPB with signalled lists and weighted prediction at 1080p: five frames
+# give I, P and B pictures on a DPB of two, three and four entries
+GPB_WP_CONFIG = ("preset_cfg3(1920, 1080).replace(multi_ref=True, rpl=True, "
+                 "weighted_pred=True)")
+GPB_WP_CLIP = "fade(synthetic_clip(1920, 1080, 5, 'motion'), g0=1.0, g1=0.5)"
+
+
+def make_gpb_wp() -> None:
+    cfg = preset_cfg3(W, H).replace(multi_ref=True, rpl=True,
+                                    weighted_pred=True)
+    path = os.path.join(DATA, "gpb_wp_1080p_ref.json")
+    partial = path.replace(".json", ".partial.json")
+    rec = _ra_record(cfg, fade(synthetic_clip(W, H, 5, "motion")), partial)
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "config": GPB_WP_CONFIG, "clip": GPB_WP_CLIP,
+           "slice_wp": slice_wps(cfg, base64.b64decode(rec["stream_b64"])),
+           **rec}
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    os.remove(partial)
+    print(json.dumps(out["frames"]))
+    print(f"wrote {path} ({out['seconds']:.0f} s to encode)")
+
+
+# the 128x64 weighted-prediction and GPB variants for the CPU tests, on
+# one faded clip of 6 frames (GPB: I, P, then B pictures until the
+# 4-entry DPB has evicted its first picture)
+WP128_CLIP = "fade(synthetic_clip(128, 64, 6, 'motion', seed=3), g0=1.0, g1=0.5)"
+WP128_VARIANTS = {   # name -> (preset, its replace() arguments)
+    "gpb": ("preset_cfg3", dict(intra_period=16, multi_ref=True)),
+    "gpb_rpl_wp": ("preset_cfg3", dict(intra_period=16, multi_ref=True,
+                                       rpl=True, weighted_pred=True)),
+    "p_wp": ("preset_cfg3", dict(intra_period=4, weighted_pred=True)),
+    "ra_wp": ("preset_cfg4", dict(gop_size=4, intra_period=8,
+                                  weighted_pred=True)),
+}
+
+
+def make_wp128() -> None:
+    frames = fade(synthetic_clip(128, 64, 6, "motion", seed=3))
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "config": "<preset>(128, 64).replace(**tools)",
+           "clip": WP128_CLIP, "variants": {}}
+    presets = {"preset_cfg3": preset_cfg3, "preset_cfg4": preset_cfg4}
+    for name, (preset, tools) in WP128_VARIANTS.items():
+        cfg = presets[preset](128, 64).replace(**tools)
+        rec = _ra_record(cfg, frames)
+        out["variants"][name] = {
+            "preset": preset, "tools": tools,
+            "slice_wp": slice_wps(cfg, base64.b64decode(rec["stream_b64"])),
+            **rec}
+    path = os.path.join(DATA, "wp128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
 def main() -> None:
     makers = {"p128x64": make_p128, "cfg5": make_cfg5,
+              "gpb_wp": make_gpb_wp, "wp128x64": make_wp128,
               **{k: (lambda k=k: make_ai128(k)) for k in AI128},
               "ra128x64": make_ra128, "tools128x64": make_tools128,
               **{k: (lambda k=k: make(k)) for k in REFS},

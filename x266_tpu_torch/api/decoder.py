@@ -1,16 +1,19 @@
 """Decoder front-end: bytestream -> pictures, for I, P and B slices.
 
 Counterpart of x266_tpu/api/decoder.py restricted to the port's slices:
-VPS, SPS, PPS, I slices, P slices and random-access B slices, with
-deblock, SAO and ALF (nonlinear and CC-ALF included).  The DPB holds
-device pyramids.  A low-delay P slice references the previous picture
-(a one-entry DPB), an RA P slice the latest picture below it; a B slice
-takes L0 = the nearest POC below and L1 = the nearest above, or the
-slice header's reference lists when signalled.  Leaf B pictures (odd
-POC) are never referenced and build no pyramids, and each anchor evicts
-the pyramids older than the previous anchor.  Pictures come out in POC
-order.  GPB (multi_ref), weighted prediction, tiles and any other SPS
-flag outside the slices raise NotImplementedError.
+VPS, SPS, PPS, I slices, P slices, random-access B slices and low-delay
+GPB B slices, with deblock, SAO, ALF (nonlinear and CC-ALF included)
+and weighted prediction.  The DPB holds device pyramids.  A P slice
+references the POC its reference list names, else the latest picture
+before it; a B slice takes the slice header's reference lists when
+signalled, else L0 = the nearest POC below and L1 = the nearest above,
+or, when no picture lies above (GPB), the second-nearest below.  Leaf B
+pictures of random access (odd POC, L1 above) are never referenced and
+build no pyramids, and each anchor evicts the pyramids older than the
+previous anchor; a low-delay stream keeps the newest picture, the newest
+two with multi_ref, or four with multi_ref and signalled lists.
+Pictures come out in POC order.  Tiles and any other SPS flag outside
+the slices raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ def _references(dpb: dict, sh):
     """An inter slice's reference pyramids and whether the picture is
     itself referenced.  P: the POC its reference list names, else the
     latest picture before it.  B: the POCs its lists name, else the
-    nearest below (L0) and above (L1); a B picture with an L1 above it
-    is referenced at even POCs only (the hierarchy's leaves are odd)."""
+    nearest below (L0) and above (L1), or with no picture above (GPB)
+    the second-nearest below.  A B picture with an L1 above it is
+    referenced at even POCs only (the hierarchy's leaves are odd); a GPB
+    picture, whose references are both past, always."""
     if sh.slice_type == SliceType.P:
         poc = (sh.poc - sh.rpl[0][0] if sh.rpl is not None
                else max((p for p in dpb if p < sh.poc), default=None))
@@ -48,12 +53,13 @@ def _references(dpb: dict, sh):
     if sh.rpl is not None:
         l0, l1 = sh.poc - sh.rpl[0][0], sh.poc - sh.rpl[1][0]
     else:
-        l0 = max((p for p in dpb if p < sh.poc), default=None)
+        below = sorted(p for p in dpb if p < sh.poc)
+        l0 = below[-1] if below else None
         l1 = min((p for p in dpb if p > sh.poc), default=None)
-    if l1 is not None and l1 < sh.poc:
-        raise NotImplementedError("B slices with two past references "
-                                  "(GPB) are not in the port's slices")
-    return (_ref(dpb, sh, l0), _ref(dpb, sh, l1)), sh.poc % 2 == 0
+        if l1 is None and len(below) > 1:
+            l1 = below[-2]
+    is_ref = sh.poc % 2 == 0 if (l1 is not None and l1 > sh.poc) else True
+    return (_ref(dpb, sh, l0), _ref(dpb, sh, l1)), is_ref
 
 
 class Decoder:
@@ -122,7 +128,12 @@ class Decoder:
                                   if p < sh.poc - cfg.gop_size]:
                             del dpb[p]
                 else:
-                    dpb = {sh.poc: pyr}         # low-delay: the latest
+                    # low-delay: the newest picture stays referenceable,
+                    # GPB the newest two, with signalled lists four
+                    dpb[sh.poc] = pyr
+                    n_keep = (4 if (cfg.rpl and cfg.multi_ref)
+                              else 2 if cfg.multi_ref else 1)
+                    dpb = {p: dpb[p] for p in sorted(dpb)[-n_keep:]}
             elif nal_type == NalType.EOS:
                 break
         if cfg is None:

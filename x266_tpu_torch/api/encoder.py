@@ -1,16 +1,20 @@
 """Encoder front-end: frames -> Annex-B style bytestream.
 
-Counterpart of x266_tpu/api/encoder.py: the all-intra branch (:88-161),
-the low-delay loop ``_encode_gop`` (:163-223) and the random-access loop
-``_encode_ra`` (:304-382), without rate control, weighted prediction,
-multiple references or tiles.  All-intra frames go to the device in
+Counterpart of x266_tpu/api/encoder.py: ``fit_weight`` (:36-62), the
+all-intra branch (:88-161), the low-delay loop ``_encode_gop``
+(:163-223), the low-delay GPB loop ``_encode_gpb`` (:225-302) and the
+random-access loop ``_encode_ra`` (:304-382), with weighted prediction
+on every inter picture, and without rate control or tiles.  All-intra
+frames go to the device in
 chunks of ``batch_frames``; every chunk's step is queued before the
 first is finalized, so the device works on later chunks while the host
 entropy-codes earlier ones.  In a low-delay stream (intra_period > 1,
 gop_size 1) an IDR starts every intra_period frames and the pictures
 between are P pictures; frame i+1 is dispatched before frame i is
 finalized, its only dependency being frame i's pyramids on the device.
-A random-access stream (gop_size > 1) codes anchors every gop_size
+With cfg.multi_ref (GPB) the first picture after each IDR is a P
+picture and every later one a B slice on two past pictures.  A
+random-access stream (gop_size > 1) codes anchors every gop_size
 pictures and hierarchical B pictures between them, in coding order.
 The intra tools (lossless, transform skip, PDPC, MIP) code on every
 picture type.  The stream is identical to the reference's for the same
@@ -64,29 +68,57 @@ class EncodeResult:
         return 8 * len(self.bitstream)
 
 
+def fit_weight(cur: Frame, ref: Frame) -> list[int]:
+    """Least-squares explicit weighted-prediction fit [wy, oy, wc, oc]
+    (denominator 64), in float64 on the host.
+
+    The encoder fits against the reference's source frame as a proxy
+    for its reconstruction; the decoder applies whatever the slice
+    header says.  Falls back to identity (64, 0) when the fit is
+    degenerate or near identity."""
+    cy = cur.y.astype(np.float64)
+    ry = ref.y.astype(np.float64)
+    var = ry.var()
+    if var < 1.0:
+        wy, oy = 64, int(round(cy.mean() - ry.mean()))
+    else:
+        w = 64.0 * ((cy * ry).mean() - cy.mean() * ry.mean()) / var
+        wy = int(round(min(max(w, 16.0), 192.0)))
+        oy = int(round(cy.mean() - wy * ry.mean() / 64.0))
+    oy = min(max(oy, -128), 127)
+    mc = (cur.cb.astype(np.float64).mean()
+          + cur.cr.astype(np.float64).mean()) / 2.0
+    mr = (ref.cb.astype(np.float64).mean()
+          + ref.cr.astype(np.float64).mean()) / 2.0
+    oc = min(max(int(round(mc - mr)), -128), 127)
+    if abs(wy - 64) <= 1 and abs(oy) <= 1:
+        wy, oy = 64, 0
+    if abs(oc) <= 1:
+        oc = 0
+    return [wy, oy, 64, oc]
+
+
 def check_config(cfg: CodecConfig, encode: bool = True) -> None:
     """Raise NotImplementedError for anything outside the port's slices:
-    all-intra, low-delay P or random access (gop_size > 1), one tile,
-    8-bit, CU <= 32, tools limited to MTS, RDOQ, reference substitution,
-    merge candidates, AMVP, signalled reference lists, deblock, SAO,
-    ALF, lossless, transform skip, PDPC and MIP.  The decoder
-    (encode=False) also takes nonlinear ALF and CC-ALF, whose estimators
-    are not ported."""
+    all-intra, low-delay P, low-delay GPB (multi_ref) or random access
+    (gop_size > 1), one tile, 8-bit, CU <= 32, tools limited to MTS,
+    RDOQ, reference substitution, merge candidates, AMVP, signalled
+    reference lists, weighted prediction, deblock, SAO, ALF, lossless,
+    transform skip, PDPC and MIP.  The decoder (encode=False) also takes
+    nonlinear ALF and CC-ALF, whose estimators are not ported."""
     if cfg.num_tiles != 1:
         raise NotImplementedError("tiles are not in the port's slices")
-    flags = ["weighted_pred", "multi_ref"]
     if encode:
-        flags += ["alf_nonlinear", "ccalf"]
-    for flag in flags:
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} is not in the port's "
-                                      "slices")
+        for flag in ("alf_nonlinear", "ccalf"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(f"{flag} is not in the port's "
+                                          "slices")
     check_slice(cfg)
 
 
 class Encoder:
-    """All-intra, low-delay P or random-access encoder, on the card
-    unless the caller asks for the CPU (device="cpu").
+    """All-intra, low-delay P, low-delay GPB or random-access encoder, on
+    the card unless the caller asks for the CPU (device="cpu").
 
     >>> enc = Encoder(preset_cfg3(1920, 1080))
     >>> result = enc.encode(frames)
@@ -112,6 +144,11 @@ class Encoder:
                           fused.make_encode_step_p(cfg, self.tab,
                                                    with_recon))
         self.b_steps = {}       # (qp, is_ref) -> B step
+        if cfg.multi_ref:
+            # GPB's B pictures code at the config's QP and are all
+            # referenced
+            self.gpb_step = fused.make_encode_step_b(cfg, self.tab,
+                                                     with_recon)
 
     def encode(self, frames: list[Frame]) -> EncodeResult:
         cfg = self.cfg
@@ -124,6 +161,8 @@ class Encoder:
         if cfg.intra_period != 1:
             if cfg.gop_size > 1:
                 return self._encode_ra(frames, out)
+            if cfg.multi_ref:
+                return self._encode_gpb(frames, out)
             return self._encode_gop(frames, out)
         bf = self.batch_frames
         fins = [tiles_compute_batched_async(cfg, self.step,
@@ -145,19 +184,14 @@ class Encoder:
         res.bitstream = b"".join(out)
         return res
 
-    def _encode_gop(self, frames: list[Frame],
-                    out: list[bytes]) -> EncodeResult:
-        """Low-delay stream: IDR every intra_period frames, P pictures
-        between; frame i+1 is dispatched before frame i is finalized."""
-        res = EncodeResult(b"", [])
-        pending = []
-        pyramids = None
-
+    @staticmethod
+    def _drainer(res: EncodeResult, out: list[bytes], pending: list):
+        """drain(): finalize the oldest pending picture (fin, NAL type)
+        and append its NAL, recon, bits and SSE."""
         def drain():
-            fin, st = pending.pop(0)
+            fin, nal_type = pending.pop(0)
             rbsp, recon, sse, sse_exact = fin()
-            nal = write_nal(NalType.IDR if st == SliceType.I
-                            else NalType.TRAIL, rbsp)
+            nal = write_nal(nal_type, rbsp)
             out.append(nal)
             if recon is not None:
                 res.recon.append(recon)
@@ -165,11 +199,87 @@ class Encoder:
             res.sse.append(sse)
             res.sse_exact.append(sse_exact)
 
+        return drain
+
+    def _encode_gop(self, frames: list[Frame],
+                    out: list[bytes]) -> EncodeResult:
+        """Low-delay stream: IDR every intra_period frames, P pictures
+        between, each weighted against the previous source frame with
+        cfg.weighted_pred; frame i+1 is dispatched before frame i is
+        finalized."""
+        cfg = self.cfg
+        res = EncodeResult(b"", [])
+        pending = []
+        drain = self._drainer(res, out, pending)
+        pyramids = None
         for poc, frame in enumerate(frames):
+            wp = (fit_weight(frame, frames[poc - 1])
+                  if (cfg.weighted_pred and poc % cfg.intra_period)
+                  else None)
             fin, pyramids, st = encode_picture_gop_async(
-                self.cfg, self.steps, frame, poc, pyramids, self.device,
-                ref_poc=poc - 1)
-            pending.append((fin, st))
+                cfg, self.steps, frame, poc, pyramids, self.device,
+                ref_poc=poc - 1, wp=wp)
+            pending.append((fin, NalType.IDR if st == SliceType.I
+                            else NalType.TRAIL))
+            while len(pending) > 1:
+                drain()
+        while pending:
+            drain()
+        res.bitstream = b"".join(out)
+        return res
+
+    def _encode_gpb(self, frames: list[Frame],
+                    out: list[bytes]) -> EncodeResult:
+        """Low-delay GPB stream (cfg.multi_ref): IDR every intra_period
+        frames; the first picture after an IDR is a P picture on it, and
+        every later one a B slice on two past pictures at cfg.qp.  The
+        DPB holds the newest 2 pictures, or 4 with cfg.rpl: without
+        reference lists L0 and L1 are the previous two pictures (the
+        decoder derives them), with them the two of the DPB whose
+        sources are nearest the current frame by decimated SAD, which
+        the slice header signals.  Pipelined as _encode_gop."""
+        cfg = self.cfg
+        res = EncodeResult(b"", [])
+        pending = []
+        drain = self._drainer(res, out, pending)
+        dpb_n = 4 if cfg.rpl else 2
+        refs: list[tuple] = []          # [(poc, pyramids)], newest last
+
+        def pick_refs(frame):
+            if not cfg.rpl or len(refs) == 2:
+                return refs[-1], refs[-2]
+            cur = frame.y[::4, ::4].astype(np.int32)
+            scored = sorted(
+                refs, key=lambda e: int(np.abs(
+                    frames[e[0]].y[::4, ::4].astype(np.int32)
+                    - cur).sum()))
+            return scored[0], scored[1]
+
+        for poc, frame in enumerate(frames):
+            if poc % cfg.intra_period == 0:
+                fin, pyr, _ = encode_picture_gop_async(
+                    cfg, self.steps, frame, poc, None, self.device)
+                refs = [(poc, pyr)]
+                nal_type = NalType.IDR
+            elif len(refs) < 2:
+                wp = (fit_weight(frame, frames[poc - 1])
+                      if cfg.weighted_pred else None)
+                fin, pyr, _ = encode_picture_gop_async(
+                    cfg, self.steps, frame, poc, refs[-1][1], self.device,
+                    ref_poc=refs[-1][0], wp=wp)
+                refs.append((poc, pyr))
+                nal_type = NalType.TRAIL
+            else:
+                (p0, r0), (p1, r1) = pick_refs(frame)
+                wp = ([fit_weight(frame, frames[p0]),
+                       fit_weight(frame, frames[p1])]
+                      if cfg.weighted_pred else None)
+                fin, pyr = encode_picture_b_async(
+                    cfg, self.gpb_step, frame, poc, r0, r1, self.device,
+                    ref_pocs=[[p0], [p1]], wp=wp)
+                refs = (refs + [(poc, pyr)])[-dpb_n:]
+                nal_type = NalType.TRAIL
+            pending.append((fin, nal_type))
             while len(pending) > 1:
                 drain()
         while pending:
@@ -196,7 +306,9 @@ class Encoder:
         pictures below and above.  NALs leave in coding order; recon,
         bits and SSE come back in display order.  The DPB keeps the
         pyramids of POCs from the previous anchor on; leaf B pictures
-        are never referenced and build none.  The next picture is
+        are never referenced and build none.  With cfg.weighted_pred a
+        P anchor is weighted against its reference's source frame and a
+        B picture against L0's and L1's.  The next picture is
         dispatched before the last one is finalized."""
         cfg = self.cfg
         dpb: dict[int, tuple] = {}
@@ -216,17 +328,23 @@ class Encoder:
                 l0 = max(p for p in dpb if p < poc)
                 l1 = min(p for p in dpb if p > poc)
                 bc, step = self._b_step(poc)
+                wp = ([fit_weight(frames[poc], frames[l0]),
+                       fit_weight(frames[poc], frames[l1])]
+                      if cfg.weighted_pred else None)
                 fin, pyr = encode_picture_b_async(
                     bc, step, frames[poc], poc, dpb[l0], dpb[l1],
-                    self.device, ref_pocs=[[l0], [l1]])
+                    self.device, ref_pocs=[[l0], [l1]], wp=wp)
                 nal_type = NalType.TRAIL
             else:
                 rpoc = (None if kind == "I"
                         else max(p for p in dpb if p < poc))
+                wp = (fit_weight(frames[poc], frames[rpoc])
+                      if (cfg.weighted_pred and rpoc is not None)
+                      else None)
                 fin, pyr, st = encode_picture_gop_async(
                     cfg, self.steps, frames[poc], poc,
                     None if rpoc is None else dpb[rpoc], self.device,
-                    ref_poc=rpoc)
+                    ref_poc=rpoc, wp=wp)
                 nal_type = NalType.IDR if st == SliceType.I else \
                     NalType.TRAIL
             if pyr is not None:

@@ -3,7 +3,8 @@ P and B pictures one at a time.
 
 Counterpart of x266_tpu/engine/fused.py: ``_unpack_padded`` (:59-71),
 the I step Pass A -> MTS select -> Pass B -> loop filters -> SSE
-(:554-631), the loop filters (``_filters_and_stats`` :399-490), the P
+(:554-631), the loop filters (``_filters_and_stats`` :399-490), the weighted
+prediction reweight (``_reweight_pyr``, ``_apply_wp``, :634-648), the P
 step (``_p_body``, :651-703), the B step (``_b_body``,
 ``make_encode_step_b``, :750-782, 935-961), the reference pyramids
 (``_pyr_target``, ``_build_pyramids_device``, :493-525) and the decode
@@ -12,8 +13,8 @@ decode steps, :1074-1117, are engine.inter.recon_inter_pass with
 encode=False) and the decoder's loop filters (``decode_filters``, the
 filter half of ``_decode_inter_body`` and ``_apply_alf_decode``,
 :1003-1071).  Deblock, SAO and ALF are plain torch ops on the planes'
-device, as they are XLA ops in the reference; weighted prediction is not
-ported.
+device, as they are XLA ops in the reference; so is the weighted
+prediction reweight of a reference's pyramids.
 
 The reference vmaps its step over frames; here the frame is the leading
 dimension of the tensors and the grid dimension of the recon kernel.
@@ -261,6 +262,32 @@ def build_pyramids_device(y, cb, cr):
     return one(y, False), one(cb, True), one(cr, True)
 
 
+IDENTITY_WP = (64, 0, 64, 0)
+
+
+def reweight_pyr(pyr: torch.Tensor, w: int, o: int, max_val: int):
+    """Weighted prediction of a whole reference pyramid, elementwise:
+    p' = clip(((p * w + 32) >> 6) + o, 0, max_val), in int32 (255 * 192
+    overflows int16).  Returns a new contiguous uint8 tensor: the DPB's
+    own pyramid is never changed, as a later picture may weight it
+    otherwise."""
+    v = ((pyr.to(torch.int32) * w + 32) >> 6) + o
+    return v.clamp_(0, max_val).to(torch.uint8)
+
+
+def apply_wp(cfg: CodecConfig, pyrs, wp4) -> tuple:
+    """(pyr_y, pyr_cb, pyr_cr) reweighted by [wy, oy, wc, oc]: luma by
+    (wy, oy), chroma by (wc, oc).  The identity weights give the same
+    samples, so the pyramids come back as they are."""
+    wy, oy, wc, oc = (int(v) for v in wp4)
+    if (wy, oy, wc, oc) == IDENTITY_WP:
+        return tuple(pyrs)
+    py, pcb, pcr = pyrs
+    mv = cfg.max_val
+    return (reweight_pyr(py, wy, oy, mv), reweight_pyr(pcb, wc, oc, mv),
+            reweight_pyr(pcr, wc, oc, mv))
+
+
 def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool,
                        with_pyramids: bool = False):
     """step(y, cb, cr) over F frames -> dict of device tensors:
@@ -287,14 +314,20 @@ def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool,
 
 
 def make_encode_step_p(cfg: CodecConfig, tab: Tables, with_recon: bool):
-    """step(y, cb, cr, pyr_y, pyr_cb, pyr_cr) for one frame (F = 1) and
-    the previous picture's pyramids -> the dict of make_encode_step_i
-    with maps size/mode/mts/pred/mvx/mvy (the final MVs, derived skip
-    MVs included) and the new pyramids, which stay on the device."""
+    """step(y, cb, cr, pyr_y, pyr_cb, pyr_cr, wp=None) for one frame
+    (F = 1) and the previous picture's pyramids -> the dict of
+    make_encode_step_i with maps size/mode/mts/pred/mvx/mvy (the final
+    MVs, derived skip MVs included) and the new pyramids, which stay on
+    the device and are built from the recon, never reweighted.  wp:
+    [wy, oy, wc, oc], with which Pass A and Pass B see the reference
+    (weighted prediction)."""
     mdp = make_mode_decision_p_raw(cfg, tab)
     rp = recon_inter_pass(cfg, tab, encode=True)
 
-    def step(y, cb, cr, pyr_y, pyr_cb, pyr_cr):
+    def step(y, cb, cr, pyr_y, pyr_cb, pyr_cr, wp=None):
+        if wp is not None:
+            pyr_y, pyr_cb, pyr_cr = apply_wp(cfg, (pyr_y, pyr_cb, pyr_cr),
+                                             wp)
         yP, cbP, crP = _unpack_padded(cfg, y, cb, cr)
         size_map, mode_map, pred_map, mvx_map, mvy_map = (
             m[None] for m in mdp(yP[0], pyr_y))
@@ -315,14 +348,18 @@ def make_encode_step_p(cfg: CodecConfig, tab: Tables, with_recon: bool):
 
 def make_encode_step_b(cfg: CodecConfig, tab: Tables, with_recon: bool,
                        with_pyramids: bool = True):
-    """step(y, cb, cr, p0y, p0cb, p0cr, p1y, p1cb, p1cr) for one B picture
-    and its L0 / L1 reference pyramids -> the dict of make_encode_step_p
-    with maps size/mode/mts/pred/mvx/mvy (final)/mvx1/mvy1; no pyramids
-    without with_pyramids (a leaf B picture is never referenced)."""
+    """step(y, cb, cr, p0y, p0cb, p0cr, p1y, p1cb, p1cr, wp=None) for one
+    B picture and its L0 / L1 reference pyramids -> the dict of
+    make_encode_step_p with maps size/mode/mts/pred/mvx/mvy
+    (final)/mvx1/mvy1; no pyramids without with_pyramids (a leaf B
+    picture is never referenced).  wp: one [wy, oy, wc, oc] per list."""
     mdb = make_mode_decision_b_raw(cfg, tab)
     rp = recon_inter_pass(cfg, tab, encode=True, b_mode=True)
 
-    def step(y, cb, cr, p0y, p0cb, p0cr, p1y, p1cb, p1cr):
+    def step(y, cb, cr, p0y, p0cb, p0cr, p1y, p1cb, p1cr, wp=None):
+        if wp is not None:
+            p0y, p0cb, p0cr = apply_wp(cfg, (p0y, p0cb, p0cr), wp[0])
+            p1y, p1cb, p1cr = apply_wp(cfg, (p1y, p1cb, p1cr), wp[1])
         yP, cbP, crP = _unpack_padded(cfg, y, cb, cr)
         (size_map, mode_map, pred_map, mvx_map, mvy_map, mvx1_map,
          mvy1_map) = (m[None] for m in mdb(yP[0], p0y, p1y))

@@ -7,8 +7,10 @@ tile_entropy :204-208, assemble_slice :247-312, _parse_segments
 :332-365, _alf_maps_from_header :368-412, encode_picture_gop_async
 :563-616, b_qp_offset, gop_coding_order, encode_picture_b_async and
 decode_picture_b :633-761, decode_picture_gop :764-795, which here
-decodes every I picture too), with SAO and ALF and without weighted
-prediction.  The entropy coder is the reference's own, carried in
+decodes every I picture too), with SAO, ALF and weighted prediction
+(the slice header's weights; the references' pyramids reweighted by
+fused.apply_wp before the step, on encode and decode).  The entropy
+coder is the reference's own, carried in
 x266_tpu_torch.cabac (the native C++ range coder, or its Python mirror
 where no C++ toolchain exists), so equal maps and levels give equal
 bytes.
@@ -33,7 +35,8 @@ from x266_tpu_torch.cabac.syntax import SyntaxDecoder, SyntaxEncoder
 from x266_tpu_torch.config import CodecConfig, SliceType
 from x266_tpu_torch.core.headers import SliceHeader, write_slice_header
 from x266_tpu_torch.core.yuv import Frame
-from x266_tpu_torch.engine.fused import (build_pyramids_device,
+from x266_tpu_torch.engine.fused import (IDENTITY_WP, apply_wp,
+                                         build_pyramids_device,
                                          decode_filters, has_filters)
 from x266_tpu_torch.kernels.interp import mv_bounds
 
@@ -156,12 +159,14 @@ def _ints(a) -> list[int]:
 def assemble_slice(cfg: CodecConfig, poc: int, segments: list[bytes],
                    slice_type: SliceType = SliceType.I,
                    ref_pocs: list[list[int]] | None = None,
-                   alf: tuple | None = None) -> bytes:
+                   alf: tuple | None = None,
+                   wp: list[int] | None = None) -> bytes:
     """Slice RBSP: header with the entry points, segment payloads and
     the 0x80 stop byte.  ref_pocs: an inter slice's reference POCs
     ([[L0]] for P, [[L0], [L1]] for B), signalled as POC deltas when
     cfg.rpl; alf: the picture's ALF parameter tuple (fused.loop_filters)
-    with cfg.alf."""
+    with cfg.alf; wp: an inter slice's weights, [wy, oy, wc, oc] per
+    list (P 4 values, B 8), written with cfg.weighted_pred."""
     entry_points = [int(e) for e in np.cumsum([len(s)
                                                for s in segments[:-1]])]
     payload = b"".join(segments) + b"\x80"
@@ -184,26 +189,33 @@ def assemble_slice(cfg: CodecConfig, poc: int, segments: list[bytes],
                       ccalf_flags=_ints(cc_flag))
     sh = SliceHeader(slice_type, poc=poc, qp=cfg.qp,
                      entry_points=entry_points, rpl=rpl,
-                     rpl_expected=cfg.rpl and inter, **kw)
+                     rpl_expected=cfg.rpl and inter,
+                     wp=wp if inter else None, **kw)
     return write_slice_header(sh) + payload
 
 
 def encode_picture_gop_async(cfg: CodecConfig, steps, frame: Frame,
                              poc: int, pyramids, device: torch.device,
-                             ref_poc: int | None = None):
+                             ref_poc: int | None = None, wp=None):
     """Queue one picture of a low-delay stream without blocking.
 
     steps: (fused.make_encode_step_i(cfg, tab, with_recon, True),
     fused.make_encode_step_p(cfg, tab, with_recon)); pyramids: the
     previous picture's, or None (an IDR).  A picture codes as IDR when
-    its POC is a multiple of cfg.intra_period.  Returns (finalize,
-    new_pyramids, slice_type); the new pyramids are on the device at
-    once (the next picture's only dependency) and finalize() ->
-    (rbsp, recon | None, sse, sse_exact) downloads and entropy-codes."""
+    its POC is a multiple of cfg.intra_period.  wp: a P picture's
+    weights [wy, oy, wc, oc] with cfg.weighted_pred (None: identity).
+    Returns (finalize, new_pyramids, slice_type); the new pyramids are
+    on the device at once (the next picture's only dependency) and
+    finalize() -> (rbsp, recon | None, sse, sse_exact) downloads and
+    entropy-codes."""
     is_p = (pyramids is not None and cfg.intra_period > 1
             and poc % cfg.intra_period != 0)
     planes = _upload([frame], device)
-    out = steps[1](*planes, *pyramids) if is_p else steps[0](*planes)
+    if is_p:
+        out = steps[1](*planes, *pyramids,
+                       wp=wp if cfg.weighted_pred else None)
+    else:
+        out = steps[0](*planes)
     st = SliceType.P if is_p else SliceType.I
 
     def finalize():
@@ -211,7 +223,8 @@ def encode_picture_gop_async(cfg: CodecConfig, steps, frame: Frame,
         rbsp = assemble_slice(
             cfg, poc, tile_entropy(td), st,
             ref_pocs=[[ref_poc]] if (is_p and ref_poc is not None)
-            else None, alf=td.alf)
+            else None, alf=td.alf,
+            wp=wp if (is_p and cfg.weighted_pred) else None)
         return rbsp, td.recon, td.sse, td.sse_exact
 
     return finalize, out["pyramids"], st
@@ -257,18 +270,25 @@ def gop_coding_order(n: int, intra_period: int, gop: int
 
 def encode_picture_b_async(cfg: CodecConfig, step, frame: Frame, poc: int,
                            pyr0, pyr1, device: torch.device,
-                           ref_pocs=None):
+                           ref_pocs=None, wp=None):
     """Queue one B picture without blocking.  step:
     fused.make_encode_step_b(cfg, tab, with_recon, with_pyramids); pyr0,
-    pyr1: the L0 and L1 references' pyramids.  Returns (finalize,
-    new_pyramids or None); finalize() -> (rbsp, recon | None, sse,
-    sse_exact)."""
-    out = step(*_upload([frame], device), *pyr0, *pyr1)
+    pyr1: the L0 and L1 references' pyramids; wp: with
+    cfg.weighted_pred, the L0 and L1 weights [[wy, oy, wc, oc], [...]]
+    (None: identity), which the slice header carries as 8 values.
+    Returns (finalize, new_pyramids or None); finalize() -> (rbsp,
+    recon | None, sse, sse_exact)."""
+    if cfg.weighted_pred and wp is None:
+        wp = [IDENTITY_WP, IDENTITY_WP]
+    out = step(*_upload([frame], device), *pyr0, *pyr1,
+               wp=wp if cfg.weighted_pred else None)
 
     def finalize():
         td = _download(cfg, out, 1)[0]
         rbsp = assemble_slice(cfg, poc, tile_entropy(td), SliceType.B,
-                              ref_pocs=ref_pocs, alf=td.alf)
+                              ref_pocs=ref_pocs, alf=td.alf,
+                              wp=[*wp[0], *wp[1]] if cfg.weighted_pred
+                              else None)
         return rbsp, td.recon, td.sse, td.sse_exact
 
     return finalize, out.get("pyramids")
@@ -384,15 +404,22 @@ def decode_picture_gop(cfg: CodecConfig, steps, sh: SliceHeader,
     (incl. the stop byte); steps: (fused.make_decode_step_i(cfg, tab),
     engine.inter.recon_inter_pass(cfg, tab, encode=False), the same with
     b_mode=True); pyramids: the reference's for a P slice, (L0's, L1's)
-    for a B slice.  Returns (Frame, new_pyramids), the pyramids built
-    from this picture and left on the device, or None without
-    with_pyramids."""
+    for a B slice.  With cfg.weighted_pred each list's reference is
+    reweighted by the slice header's weights (identity where the header
+    has none) before the step.  Returns (Frame, new_pyramids), the
+    pyramids built from this picture and left on the device, or None
+    without with_pyramids."""
     kind = {SliceType.I: 0, SliceType.P: 1, SliceType.B: 2}[sh.slice_type]
     if kind and pyramids is None:
         raise ValueError(f"{sh.slice_type.name} slice before any reference "
                          "picture")
-    refs = (() if kind == 0 else tuple(pyramids) if kind == 1
-            else (*pyramids[0], *pyramids[1]))
+    lists = [] if kind == 0 else [pyramids] if kind == 1 else list(pyramids)
+    if cfg.weighted_pred and kind:
+        wp = (list(sh.wp) if sh.wp is not None
+              else list(IDENTITY_WP) * len(lists))
+        lists = [apply_wp(cfg, p, wp[4 * i:4 * i + 4])
+                 for i, p in enumerate(lists)]
+    refs = tuple(t for p in lists for t in p)
     rec = _decode_device(cfg, steps[kind], sh, _split_payload(sh, payload),
                          device, refs)
     new_pyr = (build_pyramids_device(*(r[0] for r in rec))
