@@ -28,10 +28,11 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     each against its plain version bit for bit and timed beside its
     bound, the plain version and the indexing gather (the kernels line's
     "at_4k");
- 5. [golden] decode tests/fixtures/ai_hevc.266t, ai_hevc_lossless.266t
-    and gpb_rpl_wp.266t (GPB with signalled reference lists and weighted
-    prediction) to their manifest MD5s and re-encode their sources to
-    the identical bytes;
+ 5. [golden] decode tests/fixtures/ai_hevc.266t, ai_hevc_lossless.266t,
+    gpb_rpl_wp.266t (GPB with signalled reference lists and weighted
+    prediction) and ra_alf.266t (random access, nonlinear ALF, CC-ALF)
+    to their manifest MD5s and re-encode their sources to the identical
+    bytes;
  6. [main] all-intra 1080p VVC (config 2) frames 0-3 through
     Encoder/Decoder (on the card by default), held against the JAX
     reference in x266_tpu_torch/data/cfg2_1080p_ref.json: every slice
@@ -72,7 +73,13 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     (config 4's IDR), and the two mixed so that chains cross 2^24
     partway; the shares of chains summed exactly and in order are
     printed, and both paths must occur; the 4K times on the noise and on
-    the encoder's planes;
+    the encoder's planes; on the same data the nonlinear and CC-ALF
+    paths: the luma equations of the clipped features aligned by the
+    transposes and the chroma ones of the clipped diamond at each of the
+    4 clip levels, CC-ALF's 7x7 equations and solve, the per-class SSE of
+    4x4 blocks of the 4 filtered luma planes (ALFCLS) and CC-ALF's flags
+    and whole-filter gate, each against its plain version bit for bit,
+    with their 4K times;
  9. [golden-filters] decode the fixtures lowdelay_p_filters (deblock,
     SAO) and ra_alf (random access, nonlinear ALF, CC-ALF, signalled
     reference lists) to their manifest MD5s;
@@ -119,6 +126,19 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     fails), each kernel's launches in this run (launches_gpb), the
     reweight's ms per list (CUDA events) on the 1080p pyramids, one warm
     encode's frame rate;
+    [main-ra-nl] config 4 at 1080p with nonlinear ALF and CC-ALF, 17
+    frames of 'motion' whose chroma is made from the luma
+    (utils.clips.luma_chroma: on the plain synthetic clips CC-ALF keeps
+    no CTB), against data/ra_nl_1080p_ref.json as [main-ra-ref], with
+    per slice the clipped luma classes, the chroma planes above level 0
+    and the CTBs with CC-ALF on (a total of 0 fails), the launches
+    (launches_tools["main-ra-nl"]), one warm encode's frame rate and the
+    host syncs of one picture's loop filters (none);
+    [main-rc] config 3 at 1080p under make_lambda_controller at half of
+    data/cfg3_1080p_ref.json's bits a frame (30 fps), 8 frames of
+    'motion', against data/rc_1080p_ref.json: stream, slice NALs, each
+    picture's QP (at least two QPs), recon, PSNR-Y and SSE, launches_rc
+    and one warm encode's frame rate;
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
@@ -177,6 +197,10 @@ KERNELS = {
     # port-only (F4): the reference's per-plane float32 SSE, fused.py:483
     "SSE": ("picture sse in xla's reduction tree", SSE_SRC,
             "x266_tpu/engine/fused.py:483"),
+    # port-only (F9): the nonlinear estimator's per-class SSE of 4x4
+    # blocks, the reference's XLA dot at x266_tpu/kernels/alf.py:454-456
+    "ALFCLS": ("alf per-class block sse", ALF_SRC,
+               "x266_tpu/kernels/alf.py:454"),
 }
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, and the float32 rate
 # outside the tensor cores, which the integer work of these kernels is
@@ -231,6 +255,12 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def samples(*ts) -> int:
+    """The bytes of tensors that hold 8-bit values (samples, class and
+    transpose indices, flags): one a value, whatever their storage."""
+    return sum(t.numel() for t in ts)
+
+
 # Plain versions that run on the CPU go to worker processes (spawned, no
 # CUDA), so that the card's phases go on while they run: on_cpu submits
 # one, finish_cpu_checks reads each result and runs its check, before
@@ -280,15 +310,21 @@ def _plain_intra_encode_cpu(cfg, inputs):
     return [t.numpy() for t in out], ms
 
 
-def _plain_alf_cpu(recon, orig):
+def _plain_alf_cpu(recon, orig, clip=None, luma=None):
     """The chroma normal equations' plain version on the CPU (a
-    worker's): ((coef, gram, rhs), ms)."""
+    worker's), with a clip value the nonlinear chroma estimator's, with
+    luma CC-ALF's (recon the chroma plane): ((coef, gram, rhs), ms)."""
     from x266_tpu_torch.kernels import alf as kalf
 
     t0 = time.perf_counter()
-    out = kalf.normal_solve_plain(torch.from_numpy(recon),
-                                  torch.from_numpy(orig), None,
-                                  with_sums=True)
+    if luma is not None:
+        out = kalf.cc_normal_solve_plain(torch.from_numpy(luma),
+                                         torch.from_numpy(recon),
+                                         torch.from_numpy(orig), True)
+    else:
+        out = kalf.normal_solve_plain(torch.from_numpy(recon),
+                                      torch.from_numpy(orig), None,
+                                      with_sums=True, clip=clip)
     ms = (time.perf_counter() - t0) * 1e3
     return [t.numpy() for t in out], ms
 
@@ -1412,7 +1448,117 @@ def _alf_data(w, h, seed):
 ALF_SHARES = {"exact": 0, "ordered": 0}
 
 
-def compare_alf_kernel(w, h, seed, stats):
+def alf_nl_check(tag, what, got):
+    """The check of a chroma-sized normal-equations kernel result (got:
+    nonlinear chroma or CC-ALF) against the plain version's from a
+    worker."""
+    got = [g.cpu() for g in got]
+
+    def check(want, ms):
+        _require_equal("ALF", tag, ("coef", "gram", "rhs"), got,
+                       [torch.from_numpy(x) for x in want])
+        log(f"[kernels-alf] {tag} {what}: ALF == plain (on the cpu, in a "
+            f"worker process, plain {ms:.0f} ms)")
+    return check
+
+
+def compare_alf_nl_kernels(w, h, data, stats):
+    """The ALF kernels' nonlinear and CC-ALF paths against their plain
+    versions on the card, bit for bit, on the data sets of _alf_data: the
+    luma normal equations of the clipped features aligned by the
+    transposes and the chroma ones of the clipped 5x5 diamond at each of
+    the 4 clip levels, CC-ALF's 7x7 equations and n = 7 solve (both
+    planes' plain versions on the CPU in a worker), the per-class SSE of
+    the luma planes those levels filter (ALFCLS) and CC-ALF's flags and
+    gate.  The shares of chains summed exactly and in order are printed;
+    at 4K the times, the encoder's luma going into the kernels line."""
+    from x266_tpu_torch.kernels import alf as kalf
+    from x266_tpu_torch.kernels import alf_cuda
+
+    levels = kalf.clip_levels()
+    for kind, planes in data.items():
+        tag = f"{w}x{h} {kind}"
+        o, r, lam = planes["luma"]
+        oc, rc, _ = planes["chroma"]
+        cls, tr = kalf.classify_full(r)
+        on64 = torch.ones((-(-h // 64), -(-w // 64)), dtype=torch.int32,
+                          device="cuda")
+        filts, ex, od = [], 0, 0
+        for v in levels:
+            *got, st = alf_cuda.normal_solve(r, o, cls, True, clip=v,
+                                             transpose=tr, with_stats=True)
+            want = kalf.normal_solve_plain(r, o, cls, True, v, tr)
+            _require_equal("ALF", f"{tag} luma clip {v}",
+                           ("coef", "gram", "rhs"), got, want)
+            ex, od = ex + int(st[0]), od + int(st[1])
+            filts.append(kalf.level_plane(r, cls, tr, got[0], len(filts),
+                                          on64))
+        filts = torch.stack(filts)
+        sse, cst = alf_cuda.class_sse(filts, o, cls, with_stats=True)
+        want_sse, pc_ms = timed(kalf.class_sse_plain, filts, o, cls)
+        _require_equal("ALFCLS", tag, ("class sse",), [sse], [want_sse])
+        for v in levels:
+            *got, st = alf_cuda.normal_solve(rc, oc, None, True, clip=v,
+                                             with_stats=True)
+            ex, od = ex + int(st[0]), od + int(st[1])
+            on_cpu("kernels-alf", alf_nl_check(tag, f"chroma clip {v}", got),
+                   _plain_alf_cpu, rc.cpu().numpy(), oc.cpu().numpy(), v)
+        *got, st = alf_cuda.cc_normal_solve(r, rc, oc, True, with_stats=True)
+        ex, od = ex + int(st[0]), od + int(st[1])
+        on_cpu("kernels-alf", alf_nl_check(tag, "cc-alf", got),
+               _plain_alf_cpu, rc.cpu().numpy(), oc.cpu().numpy(), None,
+               r.cpu().numpy())
+        ALF_SHARES["exact"] += ex
+        ALF_SHARES["ordered"] += od
+        all_on = torch.ones((-(-rc.shape[0] // 32), -(-rc.shape[1] // 32)),
+                            dtype=torch.int32, device="cuda")
+        cfilt = kalf.apply_ccalf(rc, r, got[0][0], all_on)
+        flags, worth = alf_cuda.ccalf_gate(cfilt, rc, oc, lam)
+        want_f, want_w = kalf._ccalf_gate(cfilt, rc, oc, lam)
+        _require_equal("ALFSSE", f"{tag} cc-alf gate", ("flags", "worth"),
+                       [flags, worth], [want_f, want_w])
+        _record(stats, "ALFCLS", 0)
+        log(f"[kernels-alf] {tag}: nonlinear luma (4 levels) and chroma (4 "
+            f"levels), CC-ALF == plain; chains exact {ex}, ordered {od}; "
+            f"ALFCLS == plain (lane chains exact {int(cst[0])}, with an "
+            f"ordered tail {int(cst[1])}; classes at level 1-3: "
+            f"{int((sse.argmin(0) > 0).sum())}); CC-ALF flags == plain "
+            f"({int(flags.sum())} of {flags.numel()} on), gate "
+            f"{bool(worth)}")
+        if (w, h) != (3840, 2160) or kind == "crossing":
+            continue
+        n = r.numel()
+        k_ms = event_ms(alf_cuda.normal_solve, r, o, cls, False, 8, False,
+                        levels[1], tr, reps=10)
+        b = bound(samples(r, o, cls, tr), 2.0 * n * (12 * 12 + 12))
+        kc_ms = event_ms(alf_cuda.normal_solve, rc, oc, None, False, 8, False,
+                         levels[1], reps=10)
+        bc = bound(samples(rc, oc), 2.0 * rc.numel() * (6 * 6 + 6))
+        kx_ms = event_ms(alf_cuda.cc_normal_solve, r, rc, oc, reps=10)
+        bx = bound(samples(r, rc, oc), 2.0 * rc.numel() * (7 * 7 + 7))
+        ks_ms = event_ms(alf_cuda.class_sse, filts, o, cls, reps=10)
+        # four filtered planes, the source and the class map read once (a
+        # byte a sample and a class), the (4, 25) sums written; per sample
+        # and level a subtraction, a square and an add
+        bs = bound(samples(filts, o, cls) + nbytes(sse),
+                   3.0 * n * len(levels))
+        log(f"[kernels-alf] {tag}: ALF kernel, luma clip {levels[1]} "
+            f"aligned {k_ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}); chroma "
+            f"clip {levels[1]} {kc_ms:.4f} ms (bound {bc[0]:.4f} ms, "
+            f"{bc[1]}); CC-ALF {kx_ms:.4f} ms (bound {bx[0]:.4f} ms, "
+            f"{bx[1]}); ALFCLS {ks_ms:.4f} ms (plain {pc_ms:.0f} ms on the "
+            f"cuda; bound {bs[0]:.4f} ms, {bs[1]})")
+        if kind == "encoder":
+            _record(stats, "ALFCLS", 0, ms=ks_ms, plain_ms=pc_ms,
+                    bound_ms=bs[0], bound_by=bs[1],
+                    shape=f"{w}x{h} luma, 4 levels, the encoder's planes")
+            stats["ALF"]["at_4k_nl"] = {
+                "luma_clip32_aligned_ms": k_ms, "luma_bound_ms": b[0],
+                "chroma_clip32_ms": kc_ms, "chroma_bound_ms": bc[0],
+                "ccalf_ms": kx_ms, "ccalf_bound_ms": bx[0]}
+
+
+def compare_alf_kernel(w, h, seed, stats, data=None):
     """The ALF kernels against their plain versions on the card, luma and
     chroma, on the three data sets of _alf_data; bit-exact or raise.  The
     normal equations' plain version runs on the card for luma and on the
@@ -1424,7 +1570,7 @@ def compare_alf_kernel(w, h, seed, stats):
     from x266_tpu_torch.kernels import alf as kalf
     from x266_tpu_torch.kernels import alf_cuda
 
-    for kind, planes in _alf_data(w, h, seed).items():
+    for kind, planes in (data or _alf_data(w, h, seed)).items():
         for plane, (o, r, lam) in planes.items():
             luma = plane == "luma"
             cls = kalf.classify(r) if luma else None
@@ -1479,15 +1625,17 @@ def compare_alf_kernel(w, h, seed, stats):
             t = kalf.DIAMOND.shape[0] if luma else \
                 kalf.CHROMA_DIAMOND.shape[0]
             nc = coef.shape[0]
-            # recon, source and class map read once, the outputs written
-            # once; a multiply and an add per product, and the solves
-            b = bound(nbytes(r, o, *([] if cls is None else [cls]), *got),
+            # recon, source and class map read once (a byte a sample and a
+            # class), the outputs written once; a multiply and an add per
+            # product, and the solves
+            b = bound(samples(r, o, *([] if cls is None else [cls]))
+                      + nbytes(*got),
                       2.0 * n * (t * t + t) + nc * 2 * t ** 3)
             ks_ms = event_ms(alf_cuda.ctb_flags, filt, r, o, ctb, lam,
                              reps=10)
-            # three planes read, the flags written; per sample and plane a
-            # subtraction, a square and an add
-            bs = bound(nbytes(filt, r, o, flags), 6.0 * n)
+            # three planes read, the flags written (a byte a sample and a
+            # flag); per sample and plane a subtraction, a square and an add
+            bs = bound(samples(filt, r, o, flags), 6.0 * n)
             plain = (f"plain {pc_ms:.0f} ms on the cuda" if luma else
                      "plain: in its check on the cpu")
             log(f"[kernels-alf] {tag}: ALF kernel {k_ms:.4f} ms ({plain}); "
@@ -1519,7 +1667,9 @@ def alf_chroma_check(tag, got):
 
 def phase_kernels_alf(stats):
     for w, h in ((416, 240), (1920, 1080), (3840, 2160)):
-        compare_alf_kernel(w, h, 31, stats)
+        data = _alf_data(w, h, 31)
+        compare_alf_kernel(w, h, 31, stats, data)
+        compare_alf_nl_kernels(w, h, data, stats)
     log(f"[kernels-alf] chains summed exactly {ALF_SHARES['exact']}, in "
         f"order {ALF_SHARES['ordered']} over all data sets")
     if not (ALF_SHARES["exact"] and ALF_SHARES["ordered"]):
@@ -1528,8 +1678,9 @@ def phase_kernels_alf(stats):
 
 
 def phase_golden():
-    """ai_hevc, ai_hevc_lossless and gpb_rpl_wp decode to their manifest
-    MD5s and re-encode from their sources (tools/make_fixtures.py) to the
+    """ai_hevc, ai_hevc_lossless, gpb_rpl_wp and ra_alf (random access
+    with nonlinear ALF and CC-ALF) decode to their manifest MD5s and
+    re-encode from their sources (tools/make_fixtures.py) to the
     fixtures' bytes."""
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.config import CodecConfig
@@ -1544,7 +1695,12 @@ def phase_golden():
             ("ai_hevc_lossless", lossless_cfg(96, 64), 1, "mixed"),
             ("gpb_rpl_wp", CodecConfig(
                 width=96, height=64, qp=32, rdoq=True, intra_period=16,
-                multi_ref=True, rpl=True, weighted_pred=True), 4, "motion")):
+                multi_ref=True, rpl=True, weighted_pred=True), 4, "motion"),
+            ("ra_alf", CodecConfig(
+                width=96, height=64, qp=32, rdoq=True, intra_period=8,
+                gop_size=4, deblock=True, sao=True, alf=True,
+                alf_chroma=True, alf_nonlinear=True, ccalf=True, rpl=True),
+             5, "mixed")):
         want = manifest[name]["md5"]
         with open(os.path.join(FIXTURES, f"{name}.266t"), "rb") as f:
             stream = f.read()
@@ -1585,16 +1741,18 @@ def phase_golden_filters():
 
 
 def run_ra_ref(tag, name, file, cfg, kind, stats=None, kernels=(),
-               card=None, need=(), seed=0):
+               card=None, need=(), seed=0, frames=None):
     """17 frames of the clip (seed) under cfg through Encoder
     and Decoder, held against the recorded JAX reference data/file: the
     whole stream, each slice NAL (coding order) and recon byte-identical,
     PSNR-Y and the float32 SSE equal (where the file records the SSE);
     the JAX stream decodes to JAX's MD5s; lossless decodes to its input.
     kernels: each must have launched in this encode and decode, and its
-    count goes to stats[k]["launches_tools"][tag]; card: one warm
-    encode's frame rate is printed too; need: (picture type, tool) pairs
-    whose count of CUs (ToolCuTally) must not be 0."""
+    count goes to stats[k]["launches_tools"][tag];
+    card: one warm encode's frame rate is printed too; need: (picture
+    type, tool) pairs whose count of CUs (ToolCuTally) must not be 0;
+    frames: the clip, when it is not the plain synthetic one.  Returns
+    the encode's result and the launches of the run."""
     import base64
 
     from x266_tpu_torch.api import Decoder, Encoder
@@ -1603,7 +1761,8 @@ def run_ra_ref(tag, name, file, cfg, kind, stats=None, kernels=(),
     from x266_tpu_torch.engine import inter
 
     w, h = cfg.width, cfg.height
-    frames = synthetic_clip(w, h, 17, kind, seed=seed)
+    if frames is None:
+        frames = synthetic_clip(w, h, 17, kind, seed=seed)
     enc, dec = Encoder(cfg), Decoder()
     inter.F10_BLOCKS.clear()
     _reset_launches()
@@ -1663,6 +1822,7 @@ def run_ra_ref(tag, name, file, cfg, kind, stats=None, kernels=(),
         log(f"[{tag}] warm encode of 17 {w}x{h} frames: "
             f"{t_warm / 1e3:.3f} s = {17 / (t_warm / 1e3):.3f} fps on "
             f"{card}")
+    return res, launches
 
 
 class ToolCuTally:
@@ -1764,8 +1924,6 @@ def phase_main_gpb(stats, card):
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.config import preset_cfg3
     from x266_tpu_torch.core.hashing import frame_md5
-    from x266_tpu_torch.core.headers import parse_slice_header
-    from x266_tpu_torch.core.nal import NalType, split_nals
     from x266_tpu_torch.core.yuv import synthetic_clip
     from x266_tpu_torch.engine import fused
 
@@ -1807,10 +1965,7 @@ def phase_main_gpb(stats, card):
         f"{equal}; bits {res.frame_bits}")
     if not (same and equal):
         raise AssertionError(f"[{tag}] differs from gpb_wp_1080p_ref.json")
-    hdrs = [parse_slice_header(rbsp, cfg.alf, cfg.ctus_y * cfg.ctus_x,
-                               has_wp=True, has_rpl=True)[0]
-            for t, rbsp in split_nals(res.bitstream)
-            if t in (NalType.IDR, NalType.TRAIL)]
+    hdrs = _slice_headers(cfg, res.bitstream)
     wps = [[sh.poc, sh.slice_type.name, sh.wp,
             None if sh.rpl is None else [sh.poc - d[0] for d in sh.rpl]]
            for sh in hdrs]
@@ -1846,6 +2001,156 @@ def phase_main_gpb(stats, card):
         f"{[tuple(p.shape) for p in pyrs]}, {nbytes(*pyrs) / 1e6:.1f} MB): "
         f"{ms:.4f} ms a list, CUDA events; bound {moved / PEAK_BYTES * 1e3:.4f}"
         f" ms (bytes: each read and written once) on {card}")
+    _, t_warm = timed(enc.encode, frames)
+    log(f"[{tag}] warm encode of {n} {w}x{h} frames: {t_warm / 1e3:.3f} s "
+        f"= {n / (t_warm / 1e3):.3f} fps on {card}")
+
+
+RA_NL_CONFIG = ("preset_cfg4(1920, 1080).replace(alf_nonlinear=True, "
+                "ccalf=True)")
+RA_NL_CLIP = "luma_chroma(synthetic_clip(1920, 1080, 17, 'motion'))"
+RA_NL_KERNELS = ("K1", "K2", "K3", "K3d", "K3B", "K3Bd", "K4", "K5", "ALF",
+                 "ALFSSE", "ALFCLS", "SSE")
+
+
+def _slice_headers(cfg, stream: bytes):
+    from x266_tpu_torch.core.headers import parse_slice_header
+    from x266_tpu_torch.core.nal import NalType, split_nals
+
+    return [parse_slice_header(
+        rbsp, cfg.alf, cfg.ctus_y * cfg.ctus_x, cfg.alf_chroma,
+        cfg.alf_nonlinear, cfg.ccalf, has_wp=cfg.weighted_pred,
+        has_rpl=cfg.rpl)[0]
+        for t, rbsp in split_nals(stream) if t in (NalType.IDR,
+                                                   NalType.TRAIL)]
+
+
+def phase_main_ra_nl(stats, card):
+    """Config 4 at 1080p with nonlinear ALF and CC-ALF, 17 frames of
+    'motion' with chroma made from the luma, through Encoder and Decoder
+    on the card, against data/ra_nl_1080p_ref.json (run_ra_ref: stream,
+    slice NALs, recon, PSNR-Y and SSE equal; decoded pictures equal the
+    recon); per slice the luma classes whose clip index is not 0, the
+    chroma planes whose level is not 0 and the CTBs with CC-ALF on, none
+    of whose totals may be 0; each kernel's launches (launches_tools
+    ["main-ra-nl"]) and
+    one warm encode's frame rate; the loop filters of one picture make no
+    host sync."""
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.utils.clips import luma_chroma
+
+    tag = "main-ra-nl"
+    with open(os.path.join(DATA, "ra_nl_1080p_ref.json")) as f:
+        ref = json.load(f)
+    if (ref["config"], ref["clip"]) != (RA_NL_CONFIG, RA_NL_CLIP):
+        raise AssertionError(f"[{tag}] ra_nl_1080p_ref.json records "
+                             f"{ref['config']} on {ref['clip']}")
+    cfg = cfg4(1920, 1080).replace(alf_nonlinear=True, ccalf=True)
+    frames = luma_chroma(synthetic_clip(1920, 1080, 17, "motion"))
+    res, launches = run_ra_ref(tag, "ra_nl", "ra_nl_1080p_ref.json", cfg,
+                               "motion", stats, RA_NL_KERNELS, card,
+                               frames=frames)
+    counts = [[sh.poc, sum(c != 0 for c in sh.alf_clips),
+               sum(c != 0 for c in sh.alf_cclips), sum(sh.ccalf_flags)]
+              for sh in _slice_headers(cfg, res.bitstream)]
+    tot = [sum(c[k] for c in counts) for k in (1, 2, 3)]
+    log(f"[{tag}] per slice (POC, luma classes with a clip index > 0, "
+        f"chroma planes with a clip level > 0, CTBs with CC-ALF on): "
+        f"{counts}; totals {tot}")
+    if counts != ref["nl_counts"] or not all(tot):
+        raise AssertionError(f"[{tag}] nonlinear / CC-ALF counts {tot} "
+                             f"(the reference's {ref['nl_counts']})")
+    stats["ALFCLS"]["launches"] = launches["ALFCLS"]
+    if launches["ALFCLS"] != 17:
+        raise AssertionError(f"[{tag}] ALFCLS launched {launches['ALFCLS']}"
+                             " times for 17 pictures")
+    # the loop filters of one picture, nonlinear estimators and CC-ALF
+    # included, queue their work without a host sync
+    from x266_tpu_torch.engine import fused
+
+    rec, src = ([torch.from_numpy(getattr(f, p)).cuda()
+                 for p in ("y", "cb", "cr")] for f in (res.recon[1],
+                                                      frames[1]))
+    sizes = torch.full((cfg.height // 8, cfg.width // 8), 8,
+                       dtype=torch.int32, device="cuda")
+    n_sync, _ = count_syncs(fused.loop_filters, cfg, *rec, sizes, src)
+    log(f"[{tag}] host syncs in the loop filters of one picture: {n_sync}")
+    if n_sync:
+        raise AssertionError(f"[{tag}] the loop filters make {n_sync} host "
+                             "syncs")
+
+
+RC_CONFIG = "preset_cfg3(1920, 1080)"
+RC_CLIP = "synthetic_clip(1920, 1080, 8, 'motion')"
+RC_KERNELS = ("K1", "K3", "K3d", "K2", "K4", "K5", "SSE")
+
+
+def phase_main_rc(stats, card):
+    """Config 3 at 1080p under make_lambda_controller at half of
+    data/cfg3_1080p_ref.json's bits per frame (30 fps), 8 frames of
+    'motion', through Encoder and Decoder on the card, against
+    data/rc_1080p_ref.json: the stream, slice NALs, each picture's QP,
+    recon, PSNR-Y and SSE equal; at least two QPs; the decoded pictures
+    equal the recon; each kernel's launches (launches_rc) and one warm
+    encode's frame rate (a fresh controller, the steps kept)."""
+    from x266_tpu_torch.api import Decoder, Encoder
+    from x266_tpu_torch.core.hashing import frame_md5
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.utils import ratecontrol
+
+    tag = "main-rc"
+    with open(os.path.join(DATA, "rc_1080p_ref.json")) as f:
+        ref = json.load(f)
+    with open(os.path.join(DATA, "cfg3_1080p_ref.json")) as f:
+        kbps = 0.5 * float(np.mean([r["bits"] for r in
+                                    json.load(f)["frames"]])) * 30.0 / 1000.0
+    c = ref["controller"]
+    if ((ref["config"], ref["clip"]) != (RC_CONFIG, RC_CLIP)
+            or c != {"kind": "lambda", "bitrate_kbps": kbps, "fps": 30.0,
+                     "n_frames": 8}):
+        raise AssertionError(f"[{tag}] rc_1080p_ref.json records "
+                             f"{ref['config']} on {ref['clip']} under {c}")
+    cfg = cfg3()
+    w, h, n = cfg.width, cfg.height, 8
+    frames = synthetic_clip(w, h, n, "motion")
+
+    def controller():
+        return ratecontrol.make_lambda_controller(cfg, kbps, 30.0,
+                                                  n_frames=n)
+
+    enc, dec = Encoder(cfg, rate_control=controller()), Decoder()
+    _reset_launches()
+    res, t_enc = timed(enc.encode, frames)
+    (_, decoded), t_dec = timed(dec.decode, res.bitstream)
+    launches = _launches()
+    qps = [sh.qp for sh in _slice_headers(cfg, res.bitstream)]
+    rec = [frame_md5(r) for r in res.recon]
+    if [frame_md5(d) for d in decoded] != rec:
+        raise AssertionError(f"[{tag}] decoded pictures differ from the "
+                             "encoder's recon")
+    md5 = hashlib.md5(res.bitstream).hexdigest()
+    psnr = res.psnr_y(w, h)
+    sse = [[float(v) for v in e] for e in res.sse]
+    fr = ref["frames"]
+    same = (md5 == ref["stream_md5"] and qps == ref["qp"]
+            and _slice_md5s(res.bitstream) == ref["nal_md5_coding_order"]
+            and rec == [r["recon_md5"] for r in fr])
+    equal = all(p == r["psnr_y"] and e == r["sse"]
+                for p, e, r in zip(psnr, sse, fr))
+    log(f"[{tag}] encode {t_enc / 1e3:.2f} s, decode {t_dec / 1e3:.2f} s; "
+        f"target {kbps:.3f} kbps at 30 fps ({kbps * 1000 / 30:.0f} bits a "
+        f"frame); QP per picture {qps} (ref {ref['qp']}); bits "
+        f"{res.frame_bits}; vs rc_1080p_ref.json ({ref['source']}): stream "
+        f"md5 {md5}, byte-identical {same}, PSNR-Y and SSE equal {equal}; "
+        f"launches {launches}")
+    if not (same and equal) or len(set(qps)) < 2:
+        raise AssertionError(f"[{tag}] differs from rc_1080p_ref.json, or "
+                             f"fewer than two QPs: {qps}")
+    for k in RC_KERNELS:
+        if launches[k] < 1:
+            raise AssertionError(f"[{tag}] {k} was not launched")
+        stats[k]["launches_rc"] = launches[k]
+    enc.rate_control = controller()
     _, t_warm = timed(enc.encode, frames)
     log(f"[{tag}] warm encode of {n} {w}x{h} frames: {t_warm / 1e3:.3f} s "
         f"= {n / (t_warm / 1e3):.3f} fps on {card}")
@@ -2155,6 +2460,8 @@ def main() -> int:
     run("main-ra-ref", phase_main_ra_ref, stats)
     run("main-cfg5", phase_main_cfg5, stats)
     run("main-gpb", phase_main_gpb, stats, card)
+    run("main-ra-nl", phase_main_ra_nl, stats, card)
+    run("main-rc", phase_main_rc, stats, card)
     run("main-ra", run_main_ra, stats, card)
     run("cpu-checks", finish_cpu_checks)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")
@@ -2165,7 +2472,8 @@ def main() -> int:
          **{key: stats[k][key] for key in (
              "shape", "tus_by_size_map", "ms_per_chain_ctu",
              "us_per_chain_luma_tu", "launches_cfg4", "launches_gpb",
-             "at_4k", "launches_tools", "tools")
+             "launches_rc", "at_4k", "at_4k_nl",
+             "launches_tools", "tools")
             if key in stats[k]}}
         for k in KERNELS]}))
     log(card)

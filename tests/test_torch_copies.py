@@ -19,6 +19,7 @@ COPIES = [
     "specmodel/__init__.py", "specmodel/intra.py",
     "specmodel/transforms.py", "specmodel/quant.py",
     "specmodel/mip_tables.py",
+    "utils/ratecontrol.py",
 ]
 IMPORT = re.compile(r"^(\s*)(from|import) x266_tpu([. ])", re.M)
 

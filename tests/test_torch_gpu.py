@@ -262,6 +262,75 @@ def test_picture_sse_on_card_matches_plain(shape, cuda):
                 assert torch.equal(g.cpu(), wnt)
 
 
+@pytest.mark.gpu
+def test_nonlinear_alf_estimators_on_card_equal_cpu(cuda):
+    """The nonlinear luma and chroma estimators and CC-ALF (the ALF
+    kernel's clipped, aligned and CC-ALF features, the class-SSE kernel,
+    kernel SSE for the chroma levels and the CTB kernel's gate on the
+    card; the plain torch ops on the CPU) give the same bits on both,
+    per-class and per-level SSEs included, far from the source and near
+    it."""
+    from x266_tpu_torch.kernels import alf
+
+    rng = np.random.default_rng(12)
+    out = []
+    for amp in (6, 255):
+        orig = torch.from_numpy(rng.integers(0, 256, (128, 192))
+                                .astype(np.int32))
+        rec = (orig + torch.from_numpy(rng.integers(-amp, amp + 1,
+                                                    (128, 192)))).clamp(
+            0, 255).to(torch.int32)
+        for dev in ("cpu", cuda):
+            o, r = orig.to(dev), rec.to(dev)
+            oc, rc = o[:64, :96].contiguous(), r[64:, 96:].contiguous()
+            res = (*alf.estimate_alf_nonlinear(o, r, 57.0, with_sse=True),
+                   *alf.estimate_alf_chroma_nl(oc, rc, 57.0, with_sse=True),
+                   *alf.estimate_ccalf(oc, rc, r, 57.0),
+                   *alf.estimate_ccalf(oc, rc, r, 2.0))
+            out.append([t.cpu() for t in res])
+    for cpu, card in (out[:2], out[2:]):
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_ra_nl_and_rc_streams_on_card_equal_recorded_jax(cuda):
+    """On the card: the 128x64 random-access clip with nonlinear ALF and
+    CC-ALF gives data/ra_nl128x64_ref.json's stream, and the
+    rate-controlled low-delay clip (make_lambda_controller)
+    data/rc128x64_ref.json's stream and QPs; ALFCLS runs once a
+    picture."""
+    import base64
+    import json
+    import os
+
+    from x266_tpu_torch.config import preset_cfg3, preset_cfg4
+    from x266_tpu_torch.kernels import alf_cuda
+    from x266_tpu_torch.utils import ratecontrol
+    from x266_tpu_torch.utils.clips import luma_chroma
+
+    data = os.path.join(os.path.dirname(__file__), "..", "x266_tpu_torch",
+                        "data")
+    with open(os.path.join(data, "ra_nl128x64_ref.json")) as f:
+        ref = json.load(f)
+    cfg = preset_cfg4(128, 64).replace(gop_size=4, intra_period=8,
+                                       alf_nonlinear=True, ccalf=True)
+    alf_cuda.reset_launches()
+    res = Encoder(cfg).encode(luma_chroma(
+        synthetic_clip(128, 64, 5, "motion", seed=3)))
+    assert res.bitstream == base64.b64decode(ref["stream_b64"])
+    assert alf_cuda.LAUNCHES["ALFCLS"] == 5
+    with open(os.path.join(data, "rc128x64_ref.json")) as f:
+        ref = json.load(f)["variants"]["p_lambda"]
+    cfg = preset_cfg3(128, 64).replace(intra_period=4)
+    c = ref["controller"]
+    rc = ratecontrol.make_lambda_controller(cfg, c["bitrate_kbps"], c["fps"],
+                                            n_frames=c["n_frames"])
+    res = Encoder(cfg, rate_control=rc).encode(
+        synthetic_clip(128, 64, c["n_frames"], "motion", seed=3))
+    assert res.bitstream == base64.b64decode(ref["stream_b64"])
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     cfg = CFGS[0]
     tab, src, maps = _inputs(cfg, "cpu", n=1)
@@ -279,6 +348,23 @@ def test_alf_kernel_wrapper_refuses_cpu_tensors():
         alf_cuda.ctb_flags(r, r, r, 64, 1.0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         alf_cuda.ctb_sse(r, r, 64)
+
+
+def test_nonlinear_alf_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers of the nonlinear and CC-ALF paths launch their kernel
+    or raise; on CPU tensors they raise."""
+    from x266_tpu_torch.kernels import alf, alf_cuda
+
+    r = torch.zeros((16, 16), dtype=torch.int32)
+    cls, tr = alf.classify_full(r)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        alf_cuda.normal_solve(r, r, cls, clip=32, transpose=tr)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        alf_cuda.cc_normal_solve(r, r[:8, :8], r[:8, :8])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        alf_cuda.class_sse(r[None], r, cls)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        alf_cuda.ccalf_gate(r, r, r, 1.0)
 
 
 def test_sse_kernel_wrapper_refuses_cpu_tensors():

@@ -41,6 +41,7 @@ def test_port_imports_with_jax_blocked():
     mods = _modules()
     assert "x266_tpu_torch.engine.recon_cuda" in mods
     assert "x266_tpu_torch.kernels.me_cuda" in mods
+    assert "x266_tpu_torch.utils.ratecontrol" in mods
     code = ("import sys; sys.modules['jax'] = None\n"
             "sys.modules['x266_tpu'] = None\n"
             "import importlib\n"

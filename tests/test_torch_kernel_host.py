@@ -585,6 +585,104 @@ def test_alf_sse_kernel_source_matches_plain(shape, ctb, kind, host_lib):
     assert 0 < flags.sum() < flags.numel() or kind == "crafted"
 
 
+@pytest.mark.parametrize("feats", ["luma-clip32", "luma-clip2",
+                                   "luma-clip256", "chroma-clip8", "cc"])
+@pytest.mark.parametrize("case", ["realistic", "noise", "crossing"])
+def test_alf_kernel_feature_kinds_match_plain(feats, case, host_lib):
+    """The ALF kernel's other feature kinds against their plain versions,
+    bit for bit: the nonlinear luma estimator's clipped features aligned
+    by the transposes (clip values 32, 2 and 256, level 0, which is the
+    linear filter), the nonlinear chroma estimator's clipped 5x5 diamond,
+    and CC-ALF's 7 luma differences against a chroma plane; on realistic
+    planes (every chain exact), noise (the ordered path) and planes whose
+    chains cross 2^24 partway (both; the CC-ALF and chroma planes of
+    208x120 span four of the rhs's segments)."""
+    w, h = (416, 240) if case == "crossing" else (112, 80)
+    o, r = _alf_planes(case, w, h, w + h)
+    if feats == "cc":
+        co, cr = _alf_planes(case, w // 2, h // 2, w)
+        code, got = alf_cuda._launch(host_lib, 0, cr, co, None, luma=r)
+        want = alf.cc_normal_solve_plain(r, cr, co, with_sums=True)
+    elif feats.startswith("luma"):
+        clip = int(feats[9:])
+        if case == "crossing":
+            o, r = _alf_planes(case, 112, 80, 192)
+        cls, tr = (x.contiguous() for x in alf.classify_full(r))
+        code, got = alf_cuda._launch(host_lib, 0, r, o, cls, tr, clip)
+        want = alf.normal_solve_plain(r, o, cls, True, clip, tr)
+    else:
+        co, cr = _alf_planes(case, w // 2, h // 2, w)
+        code, got = alf_cuda._launch(host_lib, 0, cr, co, None, None, 8)
+        want = alf.normal_solve_plain(cr, co, None, True, 8)
+    assert code == 0
+    for n, a, b in zip(("coef", "gram", "rhs"), want, got):
+        assert torch.equal(a, b), n
+    exact, ordered = got[3][:2].tolist()
+    assert exact > 0
+    # a feature clipped to +-32 or less is |f| <= 64: its chains stay exact
+    assert (ordered > 0) == (case != "realistic"
+                             and feats in ("luma-clip256", "cc"))
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (80, 112), (256, 256)],
+                         ids=["512-fused", "560-fused", "4096-gemv"])
+@pytest.mark.parametrize("case", ["realistic", "noise"])
+def test_alf_class_kernel_matches_plain(shape, case, host_lib):
+    """The class-SSE kernel's (4, 25) per-class SSEs of 4x4 blocks equal
+    class_sse_plain's bit for bit in both of XLA's orders (16 lanes below
+    4,096 blocks, 8 from there with class 24 folded otherwise), on
+    filtered planes near their source (every lane chain exact) and far
+    from it (chains past 2^24, the ordered tail)."""
+    h, w = shape
+    o, r = _alf_planes("realistic", w, h, w)
+    rng = np.random.default_rng(h)
+    if case == "realistic":
+        filt = (o[None] + torch.from_numpy(rng.integers(-3, 4, (4, h, w)))
+                ).clamp(0, 255)
+    else:
+        # a source of 0s and 255s, the filtered planes mostly its
+        # opposite, and the top three quarters of the recon flat: one
+        # class, whose lane chains pass 2^24
+        o = torch.from_numpy(np.where(rng.random((h, w)) < 0.5, 0, 255)
+                             .astype(np.int32))
+        filt = torch.where(torch.from_numpy(rng.random((4, h, w)) < 0.9),
+                           255 - o[None], o[None])
+        r[: 3 * h // 4] = 128
+    filt = filt.int().contiguous()
+    cls = alf.classify(r).contiguous()
+    code, (got, stats) = alf_cuda._launch_class(host_lib, 0, filt, o, cls)
+    assert code == 0
+    assert torch.equal(alf.class_sse_plain(filt, o, cls), got)
+    assert (stats[1] > 0) == (case == "noise")
+    assert stats.sum() == 4 * alf.NUM_CLASSES * (16 if h * w < 65536 else 8)
+
+
+@pytest.mark.parametrize("shape", [(32, 64), (64, 64), (128, 224),
+                                   (544, 64)], ids=["1x2", "2x2", "4x7",
+                                                    "17x2"])
+@pytest.mark.parametrize("lam", [2.0, 4.0e3])
+def test_ccalf_gate_kernel_matches_plain(shape, lam, host_lib):
+    """CC-ALF's flags and whole-filter gate from the CTB kernel equal
+    _ccalf_gate's on CTB grids of each of XLA's orders for the kept
+    gains' sum (1, 2, 4 and 17 rows), with a lambda that keeps the filter
+    and one that drops it; the CTBs' SSEs pass 2^24, so the order counts."""
+    h, w = shape
+    rng = np.random.default_rng(h + w)
+    o = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32))
+    c = torch.from_numpy(np.where(rng.random((h, w)) < 0.5, 0, 255)
+                         .astype(np.int32))
+    filt = torch.where(torch.from_numpy(rng.random((h, w)) < 0.6), o,
+                       c).int().contiguous()
+    worth = torch.empty(1, dtype=torch.int32)
+    code, (flags, _, _) = alf_cuda._launch_flags(host_lib, 0, filt, c, o, 32,
+                                                 lam, False, worth)
+    assert code == 0
+    want_f, want_w = alf._ccalf_gate(filt, c, o, lam)
+    assert torch.equal(want_f, flags)
+    assert bool(want_w) == bool(worth[0])
+    assert flags.any()
+
+
 # 3x3 CTUs, the last row and column 8 samples wide; tool -> (config,
 # content on which Pass A picks the tool)
 TOOLS = {

@@ -48,8 +48,13 @@ PSNR, which the port sums in float32 in the reference's order (F4).
   (data/cfg5_112x80_ref.json), the port decodes the JAX stream to the
   JAX recon, and the JAX decoder decodes the port's stream (live);
 - the golden fixtures lowdelay_p_filters and ra_alf decode to their
-  manifest MD5s, and gpb_rpl_wp (GPB with signalled reference lists and
-  weighted prediction) decodes to them and re-encodes to its bytes;
+  manifest MD5s, ra_alf (random access with nonlinear ALF and CC-ALF)
+  and gpb_rpl_wp (GPB with signalled reference lists and weighted
+  prediction) re-encode to their bytes;
+- a 5-frame 128x64 random-access clip with nonlinear luma and chroma ALF
+  and CC-ALF gives the JAX encoder's bytes, bits, SSE and recon
+  (data/ra_nl128x64_ref.json), and the live JAX decoder decodes the
+  port's stream to the port's recon;
 - the one-frame device step gives what the batched step gives per frame;
 - configurations and streams outside the slices raise
   NotImplementedError.
@@ -73,6 +78,7 @@ from x266_tpu_torch.core.headers import parse_slice_header
 from x266_tpu_torch.core.nal import NalType, split_nals
 from x266_tpu_torch.engine.picture import (tile_compute_async, tile_entropy,
                                            tiles_compute_batched_async)
+from x266_tpu_torch.utils.clips import luma_chroma
 import torch  # noqa: E402
 
 # The tests' tensors are small: intra-op threads gain nothing, and the
@@ -368,6 +374,70 @@ def test_jax_decodes_port_ra_alf_stream(port_ra):
         f["decode_md5"] for f in ref["frames"]]
 
 
+def test_reencodes_ra_alf_fixture():
+    """Random access with deblock, SAO, nonlinear luma and chroma ALF,
+    CC-ALF and signalled reference lists: the fixture's source and config
+    (tools/make_fixtures.py) give its bytes and its manifest MD5s."""
+    cfg = CodecConfig(width=96, height=64, qp=32, rdoq=True, intra_period=8,
+                      gop_size=4, deblock=True, sao=True, alf=True,
+                      alf_chroma=True, alf_nonlinear=True, ccalf=True,
+                      rpl=True)
+    frames = synthetic_clip(96, 64, 5, kind="mixed", seed=77)
+    res = Encoder(cfg, device="cpu").encode(frames)
+    assert res.bitstream == _fixture("ra_alf")
+    assert [frame_md5(r) for r in res.recon] == _manifest("ra_alf")["md5"]
+
+
+def _ra_nl128():
+    with open(os.path.join(os.path.dirname(tconfig.__file__), "data",
+                           "ra_nl128x64_ref.json")) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def port_ra_nl():
+    """The port's CPU encode of the ra_nl128x64 clip (nonlinear ALF and
+    CC-ALF under random access), made once for this module's tests."""
+    tool = _refs_tool()
+    cfg = tconfig.preset_cfg4(128, 64).replace(**tool.RA128_GOP,
+                                               **tool.NL_TOOLS)
+    frames = luma_chroma(synthetic_clip(128, 64, 5, "motion", seed=3))
+    return cfg, Encoder(cfg, device="cpu").encode(frames)
+
+
+def test_ra_nl_clip_matches_recorded_jax(port_ra_nl):
+    """Nonlinear luma ALF (clip indices, transposes), nonlinear chroma ALF
+    (clip levels) and CC-ALF on a 5-frame 128x64 random-access clip whose
+    chroma follows its luma (utils.clips.luma_chroma, on
+    which CC-ALF turns on): the JAX encoder's stream, slice NALs, bits,
+    SSE and recon (data/ra_nl128x64_ref.json), with classes clipped,
+    chroma levels above 0 and CTBs under CC-ALF in its slice headers; the
+    port decodes its stream to its recon."""
+    ref = _ra_nl128()
+    tool = _refs_tool()
+    assert (ref["config"], ref["clip"]) == (tool.RA_NL128_CONFIG,
+                                            tool.RA_NL128_CLIP)
+    cfg, port = port_ra_nl
+    assert port.bitstream == base64.b64decode(ref["stream_b64"])
+    rec = [frame_md5(r) for r in port.recon]
+    assert rec == [f["recon_md5"] for f in ref["frames"]]
+    assert port.frame_bits == [f["bits"] for f in ref["frames"]]
+    assert [[float(v) for v in s] for s in port.sse] == [
+        f["sse"] for f in ref["frames"]]
+    _, dec = Decoder(device="cpu").decode(port.bitstream)
+    assert [frame_md5(d) for d in dec] == rec
+    counts = ref["nl_counts"]
+    assert all(sum(c[k] for c in counts) for k in (1, 2, 3))
+
+
+def test_jax_decodes_port_ra_nl_stream(port_ra_nl):
+    """The live JAX decoder decodes the port's nonlinear-ALF and CC-ALF
+    stream to the port's recon."""
+    _, port = port_ra_nl
+    _, dec = JaxDecoder().decode(port.bitstream)
+    assert [frame_md5(d) for d in dec] == [frame_md5(r) for r in port.recon]
+
+
 @pytest.mark.parametrize("name", ["lowdelay_p_filters", "ra_alf"])
 def test_decodes_filter_fixtures(name):
     _, dec = Decoder(device="cpu").decode(_fixture(name))
@@ -378,21 +448,23 @@ def test_single_frame_step_equals_batched():
     cfg = preset_cfg2(64, 64)
     enc = Encoder(cfg, device="cpu")
     frames = synthetic_clip(64, 64, 2, "mixed", seed=2)
-    batched = tiles_compute_batched_async(cfg, enc.step, frames, enc.device)()
+    step = enc.steps_at(cfg.qp)[1][0]
+    batched = tiles_compute_batched_async(cfg, step, frames, enc.device)()
     for frame, want in zip(frames, batched):
-        got = tile_compute_async(cfg, enc.step, frame, enc.device)()
+        got = tile_compute_async(cfg, step, frame, enc.device)()
         assert tile_entropy(got) == tile_entropy(want)
         assert frame_md5(got.recon) == frame_md5(want.recon)
         assert np.array_equal(got.sse, want.sse)
 
 
 @pytest.mark.parametrize("kw", [
-    dict(profile=Profile.VVC, cclm=True), dict(alf=True, ccalf=True),
+    dict(profile=Profile.VVC, cclm=True), dict(profile=Profile.VVC,
+                                               lfnst=True),
     dict(tile_rows=1), dict(profile=Profile.VVC, dep_quant=True),
     dict(profile=Profile.VVC, mtt=True),
     dict(sign_data_hiding=True), dict(bit_depth=10),
     dict(profile=Profile.VVC, max_cu_size=64),
-    dict(alf=True, alf_nonlinear=True)])
+    dict(alf=True, alf_nonlinear=True, bit_depth=10)])
 def test_out_of_slice_configs_raise(kw):
     cfg = CodecConfig(width=128, height=128, **kw)
     with pytest.raises(NotImplementedError):

@@ -70,12 +70,30 @@ these files.
   reference lists (L1 derived by the decoder), GPB with lists and
   weighted prediction, low-delay P with weighted prediction and random
   access (GOP 4, config 4) with weighted prediction ->
-  data/wp128x64_ref.json.
+  data/wp128x64_ref.json;
+- nonlinear ALF and CC-ALF: ra_nl_1080p (config 4 at 1080p with
+  alf_nonlinear and ccalf, 17 frames of 'motion' with chroma made from
+  the luma (luma_chroma): I, P, 15 B;
+  chip_smoke.py [main-ra-nl]) -> data/ra_nl_1080p_ref.json, with a
+  .partial.json as the RA recordings; ra_nl128x64: the same at 128x64
+  (5 frames, GOP 4) for the CPU tests -> data/ra_nl128x64_ref.json; both
+  record per slice (coding order) the luma classes whose clip index is
+  not 0, the chroma planes whose clip level is not 0 and the CTBs with
+  CC-ALF on;
+- rate control on low-delay streams: rc_1080p (config 3 at 1080p, 8
+  frames of 'motion', ``make_lambda_controller`` at half of
+  data/cfg3_1080p_ref.json's bits per frame at 30 fps; chip_smoke.py
+  [main-rc]) -> data/rc_1080p_ref.json; rc128x64: both controllers
+  (``make_controller``, ``make_lambda_controller``) on a 128x64
+  low-delay P clip and an all-intra clip, for the CPU tests ->
+  data/rc128x64_ref.json; each records the controller's arguments and
+  the QP of every slice.
 
     python tools/make_torch_refs.py [cfg2] [cfg3] [cfg2t] [lossless]
         [p128x64] [t128x64] [c128x64] [cfg4] [cfg4noalf] [ra128x64]
         [cfg4noalf_1080p] [lossless_p] [tools_ra] [lossless_ra]
         [tools128x64] [cfg4_4k] [cfg5] [gpb_wp] [wp128x64]
+        [ra_nl_1080p] [ra_nl128x64] [rc_1080p] [rc128x64]
     # default: cfg2 to ra128x64; minutes per 1080p frame, about two
     # minutes for each 416x240 RA clip and for ra128x64, half an hour
     # for cfg4_4k
@@ -102,6 +120,7 @@ from x266_tpu.config import (CodecConfig, Profile, preset_cfg2,  # noqa
 from x266_tpu.core.hashing import frame_md5  # noqa: E402
 from x266_tpu.core.nal import NalType, split_nals, write_nal  # noqa: E402
 from x266_tpu.core.yuv import Frame, synthetic_clip  # noqa: E402
+from x266_tpu_torch.utils.clips import luma_chroma  # noqa: E402
 
 W, H, N = 1920, 1080, 4
 DATA = os.path.join(ROOT, "x266_tpu_torch", "data")
@@ -404,19 +423,22 @@ def fade(frames, g0=1.0, g1=0.5):
     return out
 
 
-def slice_wps(cfg, stream: bytes) -> list:
-    """Each slice header's (POC, type, weights), in coding order."""
+def slice_headers(cfg, stream: bytes) -> list:
+    """Each slice header of the stream, in coding order."""
     from x266_tpu.core.headers import parse_slice_header
 
-    out = []
-    for t, rbsp in split_nals(stream):
-        if t in (NalType.IDR, NalType.TRAIL):
-            sh, _ = parse_slice_header(
-                rbsp, cfg.alf, cfg.ctus_y * cfg.ctus_x, cfg.alf_chroma,
-                cfg.alf_nonlinear, cfg.ccalf, has_wp=cfg.weighted_pred,
-                has_rpl=cfg.rpl)
-            out.append([sh.poc, sh.slice_type.name, sh.wp])
-    return out
+    return [parse_slice_header(
+        rbsp, cfg.alf, cfg.ctus_y * cfg.ctus_x, cfg.alf_chroma,
+        cfg.alf_nonlinear, cfg.ccalf, has_wp=cfg.weighted_pred,
+        has_rpl=cfg.rpl)[0]
+        for t, rbsp in split_nals(stream) if t in (NalType.IDR,
+                                                   NalType.TRAIL)]
+
+
+def slice_wps(cfg, stream: bytes) -> list:
+    """Each slice header's (POC, type, weights), in coding order."""
+    return [[sh.poc, sh.slice_type.name, sh.wp]
+            for sh in slice_headers(cfg, stream)]
 
 
 # GPB with signalled lists and weighted prediction at 1080p: five frames
@@ -476,9 +498,151 @@ def make_wp128() -> None:
     print(f"wrote {path}")
 
 
+# nonlinear ALF (per-class clip levels, transposes, chroma clip levels)
+# and CC-ALF under random access.  The synthetic clips' chroma is a
+# gradient that owes nothing to the luma, so CC-ALF's whole-filter gate
+# (x266_tpu/kernels/alf.py:558-561) keeps no CTB on ('mixed' and 'motion'
+# at 1080p, every kind at 128x64); luma_chroma (x266_tpu_torch/utils/
+# clips.py) derives the chroma from the luma, as camera content's is, and
+# CC-ALF turns on.
+NL_TOOLS = dict(alf_nonlinear=True, ccalf=True)
+RA_NL_CONFIG = ("preset_cfg4(1920, 1080).replace(alf_nonlinear=True, "
+                "ccalf=True)")
+RA_NL_CLIP = "luma_chroma(synthetic_clip(1920, 1080, 17, 'motion'))"
+RA_NL128_CONFIG = ("preset_cfg4(128, 64).replace(gop_size=4, intra_period=8, "
+                   "alf_nonlinear=True, ccalf=True)")
+RA_NL128_CLIP = "luma_chroma(synthetic_clip(128, 64, 5, 'motion', seed=3))"
+
+
+def nl_counts(cfg, stream: bytes) -> list:
+    """Per slice (coding order): [POC, luma classes whose clip index is
+    not 0, chroma planes whose clip level is not 0, CTBs with CC-ALF on
+    (both planes)]."""
+    return [[sh.poc, sum(c != 0 for c in sh.alf_clips),
+             sum(c != 0 for c in sh.alf_cclips), sum(sh.ccalf_flags)]
+            for sh in slice_headers(cfg, stream)]
+
+
+def make_ra_nl() -> None:
+    cfg = preset_cfg4(W, H).replace(**NL_TOOLS)
+    path = os.path.join(DATA, "ra_nl_1080p_ref.json")
+    partial = path.replace(".json", ".partial.json")
+    rec = _ra_record(cfg, luma_chroma(synthetic_clip(W, H, 17, "motion")),
+                     partial)
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "config": RA_NL_CONFIG, "clip": RA_NL_CLIP,
+           "nl_counts": nl_counts(cfg, base64.b64decode(rec["stream_b64"])),
+           **rec}
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    os.remove(partial)
+    print(json.dumps(out["nl_counts"]))
+    print(f"wrote {path} ({out['seconds']:.0f} s to encode)")
+
+
+def make_ra_nl128() -> None:
+    cfg = preset_cfg4(128, 64).replace(**RA128_GOP, **NL_TOOLS)
+    rec = _ra_record(cfg, luma_chroma(synthetic_clip(128, 64, 5, "motion",
+                                                     seed=3)))
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "config": RA_NL128_CONFIG, "clip": RA_NL128_CLIP,
+           "nl_counts": nl_counts(cfg, base64.b64decode(rec["stream_b64"])),
+           **rec}
+    path = os.path.join(DATA, "ra_nl128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out["nl_counts"]))
+    print(f"wrote {path} ({out['seconds']:.0f} s to encode)")
+
+
+# rate control: the target is half of the fixed-QP run's bits per frame
+RC_CONFIG = "preset_cfg3(1920, 1080)"
+RC_CLIP = "synthetic_clip(1920, 1080, 8, 'motion')"
+RC128_CLIPS = {   # name -> (config text, clip kind, frames)
+    "p": ("preset_cfg3(128, 64).replace(intra_period=4)", "motion", 6),
+    "ai": ("preset_cfg2(128, 64)", "mixed", 4),
+}
+RC128_KBPS = {"p": 43.0, "ai": 22.0}    # at 30 fps: half the fixed-QP rate
+
+
+def rc128_config(name: str):
+    return (preset_cfg3(128, 64).replace(intra_period=4) if name == "p"
+            else preset_cfg2(128, 64))
+
+
+def rc_controller(kind: str, cfg, kbps: float, fps: float, n: int):
+    """make_controller (kind "pi") or make_lambda_controller ("lambda",
+    over a window of the clip's n frames)."""
+    from x266_tpu.utils import ratecontrol
+
+    if kind == "pi":
+        return ratecontrol.make_controller(cfg, kbps, fps)
+    return ratecontrol.make_lambda_controller(cfg, kbps, fps, n_frames=n)
+
+
+def _rc_record(cfg, frames, kind: str, kbps: float) -> dict:
+    w, h = cfg.width, cfg.height
+    rc = rc_controller(kind, cfg, kbps, 30.0, len(frames))
+    t0 = time.time()
+    res = Encoder(cfg, with_recon=True, rate_control=rc).encode(frames)
+    secs = time.time() - t0
+    _, dec = Decoder().decode(res.bitstream)
+    qps = [sh.qp for sh in slice_headers(cfg, res.bitstream)]
+    assert len(set(qps)) >= 2, qps
+    return {"controller": {"kind": kind, "bitrate_kbps": kbps, "fps": 30.0,
+                           "n_frames": len(frames)},
+            "seconds": secs, "qp": qps,
+            "stream_b64": base64.b64encode(res.bitstream).decode(),
+            "stream_md5": hashlib.md5(res.bitstream).hexdigest(),
+            "nal_md5_coding_order": slice_nal_md5s(res.bitstream),
+            "frames": [{"poc": i, "bits": int(b), "psnr_y": float(p),
+                        "sse": [float(v) for v in np.asarray(e)[:3]],
+                        "recon_md5": frame_md5(r), "decode_md5": frame_md5(d)}
+                       for i, (b, p, e, r, d) in enumerate(zip(
+                           res.frame_bits, res.psnr_y(w, h), res.sse,
+                           res.recon, dec))]}
+
+
+def make_rc() -> None:
+    with open(os.path.join(DATA, "cfg3_1080p_ref.json")) as f:
+        bits = [r["bits"] for r in json.load(f)["frames"]]
+    kbps = 0.5 * float(np.mean(bits)) * 30.0 / 1000.0
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "config": RC_CONFIG, "clip": RC_CLIP,
+           "target": "half of data/cfg3_1080p_ref.json's bits per frame, "
+                     "at 30 fps",
+           **_rc_record(preset_cfg3(W, H), synthetic_clip(W, H, 8, "motion"),
+                        "lambda", kbps)}
+    path = os.path.join(DATA, "rc_1080p_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(out["qp"], json.dumps(out["frames"]))
+    print(f"wrote {path} ({out['seconds']:.0f} s to encode)")
+
+
+def make_rc128() -> None:
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "variants": {}}
+    for name, (text, kind, n) in RC128_CLIPS.items():
+        for ctl in ("pi", "lambda"):
+            out["variants"][f"{name}_{ctl}"] = {
+                "config": text,
+                "clip": f"synthetic_clip(128, 64, {n}, '{kind}', seed=3)",
+                **_rc_record(rc128_config(name),
+                             synthetic_clip(128, 64, n, kind, seed=3), ctl,
+                             RC128_KBPS[name])}
+            print(name, ctl, out["variants"][f"{name}_{ctl}"]["qp"])
+    path = os.path.join(DATA, "rc128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
 def main() -> None:
     makers = {"p128x64": make_p128, "cfg5": make_cfg5,
               "gpb_wp": make_gpb_wp, "wp128x64": make_wp128,
+              "ra_nl_1080p": make_ra_nl, "ra_nl128x64": make_ra_nl128,
+              "rc_1080p": make_rc, "rc128x64": make_rc128,
               **{k: (lambda k=k: make_ai128(k)) for k in AI128},
               "ra128x64": make_ra128, "tools128x64": make_tools128,
               **{k: (lambda k=k: make(k)) for k in REFS},

@@ -2,6 +2,7 @@
 its float32 sums is exact in integers.
 
     python3 tools/profile_alf.py [--frames 3] [--reps 10] [--out DIR]
+    python3 tools/profile_alf.py --parent FILE [--reps 20] [--out DIR]
 
 Two data sets at 3840x2160 (luma) and 1920x1080 (chroma):
 - "encoder": the planes the encoder's ALF estimators get in a short
@@ -24,10 +25,21 @@ and the same share of whole blocks (the lanes and their combine) and of
 whole (class, entry) totals.  Prints a summary and writes
 profile_alf.json to DIR (default build/profile).  Fails when no CUDA
 device is visible.
+
+--parent FILE builds FILE, an earlier csrc/alf.cu whose x266_alf_normal
+takes no feature kind (e.g. ``git show 476f66d:x266_tpu_torch/csrc/
+alf.cu > parent_src/alf.cu``), beside the package's library, and times
+the linear normal equations (kernels only, alf_cuda._launch) of both on
+the IDR's 4K luma and chroma of the encode above and on the noise planes
+in turns (parent, new, new, parent; chip_smoke.event_ms, --reps calls
+each), after checking that both give the same coefficients, gram and
+rhs; writes profile_alf_<FILE's name>.json.  With --parent-kinds FILE's
+x266_alf_normal takes the feature kinds, as the package's does.
 """
 
 import argparse
 import collections
+import ctypes
 import json
 import os
 import re
@@ -179,10 +191,83 @@ def measure(orig, recon, lam, luma: bool, reps: int):
     return res
 
 
+def declare_parent(lib):
+    """The entry point of an alf.cu without feature kinds."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.x266_alf_normal.argtypes = [i] * 4 + [p] * 3 + [i] * 6 + [p] * 11
+    lib.x266_alf_normal.restype = i
+    return lib
+
+
+class Linear:
+    """A library without feature kinds, called as alf_cuda._launch calls
+    the package's: the kind's arguments (tmap, clip, luma, base, lh, lw)
+    must be the linear kind's and are dropped."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def x266_alf_normal(self, h, w, t, nc, recon, orig, cls, tmap, clip,
+                        luma, base, lh, lw, *rest):
+        assert tmap is None and clip == 0 and luma is None
+        return self.lib.x266_alf_normal(h, w, t, nc, recon, orig, cls,
+                                        *rest)
+
+
+def declare_kinds(lib):
+    """The entry point of an alf.cu with feature kinds."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.x266_alf_normal.argtypes = ([i] * 4 + [p] * 4 + [i] + [p] * 2
+                                    + [i] * 8 + [p] * 11)
+    lib.x266_alf_normal.restype = i
+    return lib
+
+
+def compare_parent(path, kinds, reps, card) -> dict:
+    """The linear normal equations of FILE's kernels against the
+    package's, in turns, on the 4K planes of capture_encoder_planes(1)
+    and noise_planes()."""
+    import profile_common as pc
+
+    from x266_tpu_torch import _build
+    from x266_tpu_torch.kernels import alf_cuda
+
+    parent = (pc.build([path], (), declare_kinds).lib if kinds else
+              Linear(pc.build([path], (), declare_parent).lib))
+    new = _build.LIBRARY.build()
+    luma, chroma = capture_encoder_planes(1)
+    (ny, nc) = noise_planes()
+    sets = {"encoder IDR luma": (*luma[0][:2], True),
+            "encoder IDR chroma": (*chroma[0][:2], False),
+            "noise luma": (*ny[:2], True), "noise chroma": (*nc[:2], False)}
+    out = {"card": card, "parent": os.path.relpath(path, ROOT)}
+    for name, (o, r, is_luma) in sets.items():
+        o, r = o.int().contiguous(), r.int().contiguous()
+        cls = kalf.classify(r).int().contiguous() if is_luma else None
+
+        def run(lib):
+            return pc.checked(alf_cuda._launch(lib, pc.stream(), r, o, cls))
+
+        a, b = run(parent), run(new)
+        for x, y, what in zip(a[:3], b[:3], ("coef", "gram", "rhs")):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: {what} differs from the "
+                                     "parent's")
+        res = pc.in_turns(parent, new, run, reps)
+        out[name] = res
+        print(f"[parent] {name}: parent {res['ms_parent']:.4f} ms, new "
+              f"{res['ms_new']:.4f} ms (turns {res['turns_ms']}); outputs "
+              "equal", flush=True)
+    print(card)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--parent")
+    ap.add_argument("--parent-kinds", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -192,6 +277,15 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    if args.parent:
+        out = compare_parent(os.path.abspath(args.parent),
+                             args.parent_kinds, args.reps, card)
+        os.makedirs(args.out, exist_ok=True)
+        name = os.path.splitext(os.path.basename(args.parent))[0]
+        with open(os.path.join(args.out, f"profile_alf_{name}.json"),
+                  "w") as f:
+            json.dump(out, f, indent=1)
+        return
     out = {"card": card}
     luma, chroma = capture_encoder_planes(args.frames)
     sets = {f"encoder coding-order call {i} luma": (*p, True)

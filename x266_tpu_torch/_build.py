@@ -143,10 +143,14 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     declare_recon(lib)
     declare_me(lib)
-    lib.x266_alf_normal.argtypes = [i] * 4 + [p] * 3 + [i] * 6 + [p] * 11
+    lib.x266_alf_normal.argtypes = ([i] * 4 + [p] * 4 + [i] + [p] * 2
+                                    + [i] * 8 + [p] * 11)
     lib.x266_alf_normal.restype = i
-    lib.x266_alf_ctb_flags.argtypes = [i] * 3 + [ctypes.c_float] + [p] * 7
+    lib.x266_alf_ctb_flags.argtypes = ([i] * 3 + [ctypes.c_float] + [p] * 6
+                                       + [ctypes.c_float, p, p])
     lib.x266_alf_ctb_flags.restype = i
+    lib.x266_alf_class_sse.argtypes = [i] * 3 + [p] * 8
+    lib.x266_alf_class_sse.restype = i
     declare_sse(lib)
     lib.x266_subst_scan.argtypes = [i] + [p] * 3   # host stand-in tests
     lib.x266_subst_scan.restype = i

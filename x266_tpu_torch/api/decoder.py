@@ -81,7 +81,7 @@ class Decoder:
                 vps = headers.parse_vps(rbsp)
             elif nal_type == NalType.SPS:
                 cfg = headers.parse_sps(rbsp)
-                check_config(cfg, encode=False)
+                check_config(cfg)
                 if vps is not None:
                     want = headers.PROFILE_IDS[cfg.profile]
                     if vps["profile_idc"] != want:

@@ -4,7 +4,10 @@ Counterpart of x266_tpu/api/encoder.py: ``fit_weight`` (:36-62), the
 all-intra branch (:88-161), the low-delay loop ``_encode_gop``
 (:163-223), the low-delay GPB loop ``_encode_gpb`` (:225-302) and the
 random-access loop ``_encode_ra`` (:304-382), with weighted prediction
-on every inter picture, and without rate control or tiles.  All-intra
+on every inter picture, and without tiles.  Rate control
+(utils/ratecontrol.py) codes a low-delay or all-intra stream picture by
+picture through the low-delay loop (:186-210), each picture at the
+controller's QP with steps made once per QP.  All-intra
 frames go to the device in
 chunks of ``batch_frames``; every chunk's step is queued before the
 first is finalized, so the device works on later chunks while the host
@@ -98,21 +101,16 @@ def fit_weight(cur: Frame, ref: Frame) -> list[int]:
     return [wy, oy, 64, oc]
 
 
-def check_config(cfg: CodecConfig, encode: bool = True) -> None:
+def check_config(cfg: CodecConfig) -> None:
     """Raise NotImplementedError for anything outside the port's slices:
     all-intra, low-delay P, low-delay GPB (multi_ref) or random access
     (gop_size > 1), one tile, 8-bit, CU <= 32, tools limited to MTS,
     RDOQ, reference substitution, merge candidates, AMVP, signalled
-    reference lists, weighted prediction, deblock, SAO, ALF, lossless,
-    transform skip, PDPC and MIP.  The decoder (encode=False) also takes
-    nonlinear ALF and CC-ALF, whose estimators are not ported."""
+    reference lists, weighted prediction, deblock, SAO, ALF (linear or
+    nonlinear, chroma, CC-ALF), lossless, transform skip, PDPC and MIP;
+    the encoder and the decoder take the same configs."""
     if cfg.num_tiles != 1:
         raise NotImplementedError("tiles are not in the port's slices")
-    if encode:
-        for flag in ("alf_nonlinear", "ccalf"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} is not in the port's "
-                                          "slices")
     check_slice(cfg)
 
 
@@ -127,22 +125,19 @@ class Encoder:
     def __init__(self, cfg: CodecConfig, device="cuda",
                  with_recon: bool = True, batch_frames: int = 1,
                  rate_control=None):
-        if rate_control is not None:
-            raise NotImplementedError("rate control is not in the port's "
-                                      "slices")
+        """rate_control: a controller of utils.ratecontrol
+        (make_controller or make_lambda_controller; its qp attribute and
+        update(bits)), for a low-delay or all-intra stream coded picture
+        by picture, each at the controller's QP; None: cfg.qp."""
         check_config(cfg)
         self.cfg = cfg
         self.device = devmod.resolve(device)
         self.with_recon = with_recon
         self.batch_frames = max(1, batch_frames)
+        self.rate_control = rate_control
         self.tab = tables.from_reference(cfg, self.device)
-        if cfg.intra_period == 1:
-            self.step = fused.make_encode_step_i(cfg, self.tab, with_recon)
-        else:
-            self.steps = (fused.make_encode_step_i(cfg, self.tab,
-                                                   with_recon, True),
-                          fused.make_encode_step_p(cfg, self.tab,
-                                                   with_recon))
+        self.qp_steps = {}      # qp -> (config, (I step, P step))
+        self.steps_at(cfg.qp)
         self.b_steps = {}       # (qp, is_ref) -> B step
         if cfg.multi_ref:
             # GPB's B pictures code at the config's QP and are all
@@ -158,14 +153,23 @@ class Encoder:
         out = [write_nal(NalType.VPS, headers.write_vps(cfg)),
                write_nal(NalType.SPS, headers.write_sps(cfg)),
                write_nal(NalType.PPS, headers.write_pps(cfg))]
-        if cfg.intra_period != 1:
+        if self.rate_control is not None:
+            # the reference's own limits (x266_tpu/api/encoder.py:179-181,
+            # 319-320)
+            if cfg.gop_size > 1:
+                raise ValueError("rate control supports low-delay in v1")
+            if cfg.multi_ref:
+                raise ValueError("rate control + multi_ref is not "
+                                 "supported in v1")
+        if cfg.intra_period != 1 or self.rate_control is not None:
             if cfg.gop_size > 1:
                 return self._encode_ra(frames, out)
             if cfg.multi_ref:
                 return self._encode_gpb(frames, out)
             return self._encode_gop(frames, out)
         bf = self.batch_frames
-        fins = [tiles_compute_batched_async(cfg, self.step,
+        step = self.steps_at(cfg.qp)[1][0]
+        fins = [tiles_compute_batched_async(cfg, step,
                                             frames[i:i + bf], self.device)
                 for i in range(0, len(frames), bf)]
         res = EncodeResult(b"", [])
@@ -205,28 +209,48 @@ class Encoder:
                     out: list[bytes]) -> EncodeResult:
         """Low-delay stream: IDR every intra_period frames, P pictures
         between, each weighted against the previous source frame with
-        cfg.weighted_pred; frame i+1 is dispatched before frame i is
-        finalized."""
-        cfg = self.cfg
+        cfg.weighted_pred.  Without rate control frame i+1 is dispatched
+        before frame i is finalized; with it (an all-intra stream
+        included) each picture codes at the controller's QP, which the
+        slice header carries and lambda follows, and its NAL's bits
+        update the controller before the next picture is dispatched."""
+        cfg, rc = self.cfg, self.rate_control
         res = EncodeResult(b"", [])
         pending = []
         drain = self._drainer(res, out, pending)
         pyramids = None
         for poc, frame in enumerate(frames):
+            qc, steps = self.steps_at(cfg.qp if rc is None else rc.qp)
             wp = (fit_weight(frame, frames[poc - 1])
                   if (cfg.weighted_pred and poc % cfg.intra_period)
                   else None)
             fin, pyramids, st = encode_picture_gop_async(
-                cfg, self.steps, frame, poc, pyramids, self.device,
+                qc, steps, frame, poc, pyramids, self.device,
                 ref_poc=poc - 1, wp=wp)
             pending.append((fin, NalType.IDR if st == SliceType.I
                             else NalType.TRAIL))
-            while len(pending) > 1:
+            while len(pending) > (1 if rc is None else 0):
                 drain()
+                if rc is not None:
+                    rc.update(res.frame_bits[-1])
         while pending:
             drain()
         res.bitstream = b"".join(out)
         return res
+
+    def steps_at(self, qp: int):
+        """(config, (I step, P step)) at QP qp: made once per QP and
+        reused, the kernels built once for all of them.  An all-intra
+        stream's I step builds no pyramids and it has no P step."""
+        if qp not in self.qp_steps:
+            qc = self.cfg.replace(qp=qp)
+            lowdelay = qc.intra_period != 1
+            self.qp_steps[qp] = (qc, (
+                fused.make_encode_step_i(qc, self.tab, self.with_recon,
+                                         lowdelay),
+                fused.make_encode_step_p(qc, self.tab, self.with_recon)
+                if lowdelay else None))
+        return self.qp_steps[qp]
 
     def _encode_gpb(self, frames: list[Frame],
                     out: list[bytes]) -> EncodeResult:
@@ -239,6 +263,7 @@ class Encoder:
         sources are nearest the current frame by decimated SAD, which
         the slice header signals.  Pipelined as _encode_gop."""
         cfg = self.cfg
+        _, steps = self.steps_at(cfg.qp)
         res = EncodeResult(b"", [])
         pending = []
         drain = self._drainer(res, out, pending)
@@ -258,14 +283,14 @@ class Encoder:
         for poc, frame in enumerate(frames):
             if poc % cfg.intra_period == 0:
                 fin, pyr, _ = encode_picture_gop_async(
-                    cfg, self.steps, frame, poc, None, self.device)
+                    cfg, steps, frame, poc, None, self.device)
                 refs = [(poc, pyr)]
                 nal_type = NalType.IDR
             elif len(refs) < 2:
                 wp = (fit_weight(frame, frames[poc - 1])
                       if cfg.weighted_pred else None)
                 fin, pyr, _ = encode_picture_gop_async(
-                    cfg, self.steps, frame, poc, refs[-1][1], self.device,
+                    cfg, steps, frame, poc, refs[-1][1], self.device,
                     ref_poc=refs[-1][0], wp=wp)
                 refs.append((poc, pyr))
                 nal_type = NalType.TRAIL
@@ -311,6 +336,7 @@ class Encoder:
         B picture against L0's and L1's.  The next picture is
         dispatched before the last one is finalized."""
         cfg = self.cfg
+        _, steps = self.steps_at(cfg.qp)
         dpb: dict[int, tuple] = {}
         per_poc: dict[int, tuple] = {}
         pending = []
@@ -342,7 +368,7 @@ class Encoder:
                       if (cfg.weighted_pred and rpoc is not None)
                       else None)
                 fin, pyr, st = encode_picture_gop_async(
-                    cfg, self.steps, frames[poc], poc,
+                    cfg, steps, frames[poc], poc,
                     None if rpoc is None else dpb[rpoc], self.device,
                     ref_poc=rpoc, wp=wp)
                 nal_type = NalType.IDR if st == SliceType.I else \

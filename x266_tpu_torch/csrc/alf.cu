@@ -1,14 +1,28 @@
 // ALF estimator: the per-class normal equations of the encoder's Wiener
-// filters and their float32 solve, and the per-CTB on/off decision, as the
-// reference computes them on XLA's CPU backend (port-only kernels; ROADMAP
-// queue 3, F9).
+// filters and their float32 solve, the per-CTB on/off decision with
+// CC-ALF's whole-filter gate, and the nonlinear estimator's per-class SSE
+// of 4x4 blocks, as the reference computes them on XLA's CPU backend
+// (port-only kernels; ROADMAP queue 3, F9).
 //
 // Replaces no Pallas kernel: the reference runs the sums as XLA dots
-// (x266_tpu/kernels/alf.py:367-370 luma, :278-280 chroma), the solve as
-// jnp.linalg.solve and the decision's per-CTB SSE as an XLA reduction
-// (:335-338, :379-382).  The plain PyTorch versions are kernels/alf.py
-// (normal_solve_plain: _diff_planes, normal_sums, coefficients;
-// _ctb_flags: ctb_sse_plain); the kernels agree with them bit for bit.
+// (x266_tpu/kernels/alf.py:367-370 luma, :278-280 chroma, :436-438
+// nonlinear luma, :318-319 nonlinear chroma, :538-539 CC-ALF), the solve
+// as jnp.linalg.solve, the decision's per-CTB SSE as an XLA reduction
+// (:335-338, :379-382, :467-470, :547-550), CC-ALF's gate as a fused
+// reduction (:558-559) and the per-class block SSE as a dot (:454-456).
+// The plain PyTorch versions are kernels/alf.py (normal_solve_plain and
+// cc_normal_solve_plain: features, _cc_feats, normal_sums, coefficients;
+// _ctb_flags and _ccalf_gate: ctb_sse_plain, gain_total;
+// class_sse_plain); the kernels agree with them bit for bit.
+//
+// The features: kind 12, the 7x7 diamond's, and kind 6, the 5x5's, from
+// the post-SAO recon, each difference clipped to +-v when a clip value is
+// given (the nonlinear estimators) and the 12 permuted by the 4x4 block's
+// transpose when a transpose map is given; kind 7, CC-ALF's, the
+// full-resolution luma's differences at each chroma sample's collocated
+// luma sample, the error taken against the chroma plane.  A clipped
+// feature is |f| <= 2v <= 510 and a CC-ALF one |f| <= 255, so every bound
+// below holds for every kind.
 //
 // What fixes the result: float32 rounding in XLA's order.  Per (class,
 // entry) the samples run in blocks of `block` in raster order; inside a
@@ -105,10 +119,16 @@ constexpr int kChainSamples = 4096;  // samples a plane-chain step adds
 
 // The estimator's inputs and one order of its sums.
 struct Plane {
-  const int32_t* recon;   // (h, w) post-SAO
+  const int32_t* recon;   // (fh, fw) the features' plane: the post-SAO
+                          // recon, or CC-ALF's post-SAO luma
+  const int32_t* base;    // (h, w) the error's base: the recon, or CC-ALF's
+                          // chroma plane
   const int32_t* orig;    // (h, w) source
   const int32_t* cls;     // (h/4, w/4) classes, or null: one class
-  int h, w, t;            // t: the diamond's taps, 12 (luma) or 6 (chroma)
+  const int32_t* tmap;    // (h/4, w/4) transposes (t = 12), or null
+  int h, w, t;            // t: the features, 12 (luma), 6 (chroma), 7 (CC)
+  int clip;               // the clip value v, or 0: unclipped
+  int fh, fw;             // the features' plane
 };
 
 struct Order {
@@ -140,8 +160,10 @@ __device__ void factors(int e, int t, int gram, int* i, int* j) {
   *j = r + e;
 }
 
+// Folds `lanes` (a power of two, <= 16) lane sums into one, in pairs or
+// in halves.
 __device__ float combine(const float* v, int lanes, int halves) {
-  float t[kMaxLanes];
+  float t[16];
   for (int l = 0; l < lanes; ++l) t[l] = v[l];
   for (int m = lanes; m > 1; m >>= 1)
     for (int q = 0; q < m / 2; ++q)
@@ -179,27 +201,95 @@ __host__ __device__ inline int diag(int i, int t) {
 
 __host__ __device__ inline int part_stride(int ea) { return ea | 1; }
 
-// Sample (y, x)'s T features and its error, with the plane's wrap.
-template <int T>
-__device__ void features(const Plane& p, int y, int x, int* f) {
-  const int32_t* r = p.recon;
-  const int ctr = __ldg(r + y * p.w + x);
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : v > hi ? hi : v;
+}
+
+// The symmetric pair's feature of samples s0 and s1 around centre ctr:
+// s0 + s1 - 2 ctr; in the nonlinear kinds (NL) with a clip value v,
+// clip(s0 - ctr, +-v) + clip(s1 - ctr, +-v) (alf.py _clipped_diff_planes).
+// The kind is a template parameter, so the linear kernels carry no clip
+// branch.
+template <bool NL>
+__device__ __forceinline__ int pair(int s0, int s1, int ctr, int v) {
+  if constexpr (NL)
+    return v ? clampi(s0 - ctr, -v, v) + clampi(s1 - ctr, -v, v)
+             : s0 + s1 - 2 * ctr;
+  else
+    return s0 + s1 - 2 * ctr;
+}
+
+// TRANSPOSE_PERMS (alf.py), each row packed 4 bits an entry.
+__host__ __device__ constexpr unsigned long long perm_row(int t) {
+  return t == 0 ? 0xba9876543210ull : t == 1 ? 0x2713a6048b95ull
+       : t == 2 ? 0xb89a34567210ull : 0x23178406ab95ull;
+}
+
+// Permutes the 12 features by transpose t: fa[i] = f[PERMS[t][i]].
+__device__ __forceinline__ void align12(int* f, int t) {
+  int g[12];
 #pragma unroll
-  for (int i = 0; i < T; ++i) {
-    const int dy = tap_dy<T>(i), dx = tap_dx<T>(i);
-    const int y0 = wrap(y + dy, p.h), x0 = wrap(x + dx, p.w);
-    const int y1 = wrap(y - dy, p.h), x1 = wrap(x - dx, p.w);
-    f[i] = __ldg(r + y0 * p.w + x0) + __ldg(r + y1 * p.w + x1) - 2 * ctr;
+  for (int i = 0; i < 12; ++i) g[i] = f[i];
+  const unsigned long long row = perm_row(t);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) f[i] = g[(row >> (4 * i)) & 15];
+}
+
+// CC_OFFSETS (alf.py).
+__host__ __device__ constexpr int cc_dy(int i) {
+  return i == 0 ? -1 : i < 3 ? 0 : i < 6 ? 1 : 2;
+}
+__host__ __device__ constexpr int cc_dx(int i) {
+  return i == 1 || i == 3 ? -1 : i == 2 || i == 5 ? 1 : 0;
+}
+
+// CC-ALF's 7 features of chroma sample (y, x) and its error: the luma's
+// differences at (2y + dy, 2x + dx), wrapped like jnp.roll, from (2y, 2x).
+__device__ void cc_features(const Plane& p, int y, int x, int* f) {
+  const int32_t* l = p.recon;
+  const int ly = 2 * y, lx = 2 * x;
+  const int ctr = __ldg(l + ly * p.fw + lx);
+#pragma unroll
+  for (int i = 0; i < 7; ++i)
+    f[i] = __ldg(l + wrap(ly + cc_dy(i), p.fh) * p.fw +
+                 wrap(lx + cc_dx(i), p.fw)) - ctr;
+  f[7] = __ldg(p.orig + y * p.w + x) - __ldg(p.base + y * p.w + x);
+}
+
+// Sample (y, x)'s T features and its error, with the plane's wrap; NL:
+// clipped, and for T = 12 aligned by the transpose map.
+template <int T, bool NL>
+__device__ void features(const Plane& p, int y, int x, int* f) {
+  if constexpr (T == 7) {
+    cc_features(p, y, x, f);
+  } else {
+    const int32_t* r = p.recon;
+    const int ctr = __ldg(r + y * p.w + x);
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      const int dy = tap_dy<T>(i), dx = tap_dx<T>(i);
+      const int y0 = wrap(y + dy, p.h), x0 = wrap(x + dx, p.w);
+      const int y1 = wrap(y - dy, p.h), x1 = wrap(x - dx, p.w);
+      f[i] = pair<NL>(__ldg(r + y0 * p.w + x0), __ldg(r + y1 * p.w + x1),
+                      ctr, p.clip);
+    }
+    if constexpr (NL && T == 12)
+      if (p.tmap) align12(f, p.tmap[(y >> 2) * (p.w >> 2) + (x >> 2)]);
+    f[T] = __ldg(p.orig + y * p.w + x) - ctr;
   }
-  f[T] = __ldg(p.orig + y * p.w + x) - ctr;
 }
 
 // The T features and the error of the 4 samples of the cell at (y, x) (x
 // a multiple of 4): each of the diamond's rows read as three 16-byte words
 // (columns x - 4 .. x + 7), wrapped like jnp.roll at the plane's edges.
-template <int T>
+template <int T, bool NL>
 __device__ __forceinline__ void cell_features(const Plane& p, int y, int x,
                                               int (*f)[T + 1]) {
+  if constexpr (T == 7) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) cc_features(p, y, x + u, f[u]);
+    return;
+  } else {
   constexpr int R = tap_dy<T>(T - 1);
   int row[2 * R + 1][12];
   const bool inside = x >= 4 && x + 8 <= p.w;
@@ -223,15 +313,22 @@ __device__ __forceinline__ void cell_features(const Plane& p, int y, int x,
   }
   const int4 o = __ldg((const int4*)(p.orig + y * p.w + x));
   const int ov[4] = {o.x, o.y, o.z, o.w};
+  int tr = -1;
+  if constexpr (NL && T == 12)
+    if (p.tmap) tr = p.tmap[(y >> 2) * (p.w >> 2) + (x >> 2)];
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int ctr = row[R][u + 4];
 #pragma unroll
     for (int i = 0; i < T; ++i) {
       const int dy = tap_dy<T>(i), dx = tap_dx<T>(i);
-      f[u][i] = row[R + dy][u + 4 + dx] + row[R - dy][u + 4 - dx] - 2 * ctr;
+      f[u][i] = pair<NL>(row[R + dy][u + 4 + dx], row[R - dy][u + 4 - dx],
+                         ctr, p.clip);
     }
+    if constexpr (NL && T == 12)
+      if (tr >= 0) align12(f[u], tr);
     f[u][T] = ov[u] - ctr;
+  }
   }
 }
 
@@ -246,7 +343,7 @@ __device__ __forceinline__ void cell_features(const Plane& p, int y, int x,
 // product of its two factors' sums of squares is <= 2^48.  Its block sum
 // is then its int32 sum, added into its chunk; else NaN, for
 // alf_block_ordered.
-template <int T, bool GRAM>
+template <int T, bool GRAM, bool NL>
 __global__ void __launch_bounds__(kBlockThreads) alf_block_exact(Order o) {
   constexpr int E = GRAM ? T * (T + 1) / 2 : T;      // entries written
   constexpr int EA = GRAM ? E : 2 * T + 1;           // entries summed
@@ -284,7 +381,7 @@ __global__ void __launch_bounds__(kBlockThreads) alf_block_exact(Order o) {
       cc = p.cls ? p.cls[(y >> 2) * (p.w >> 2) + (x >> 2)] : 0;
       X266_ASSERT(cc >= 0 && cc < C);
       int f[4][T + 1];
-      cell_features<T>(p, y, x, f);
+      cell_features<T, NL>(p, y, x, f);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         if (GRAM) {
@@ -353,7 +450,7 @@ __global__ void __launch_bounds__(kBlockThreads) alf_block_exact(Order o) {
 // class (raster inside a class) in shared memory; each such (class,
 // entry), lane by lane, adds its class's samples of the lane in raster
 // order; the lanes combine into its block sum.
-template <int T, bool GRAM, int L>
+template <int T, bool GRAM, int L, bool NL>
 __device__ void ordered_block(const Order& o, int b) {
   constexpr int E = GRAM ? T * (T + 1) / 2 : T;
   constexpr int RP = T + 1;
@@ -380,7 +477,7 @@ __device__ void ordered_block(const Order& o, int b) {
   for (int g = tid; g < cells; g += kBlockThreads) {
     const int k = k0 + 4 * g, y = k / p.w, x = k - y * p.w;
     int f[4][T + 1];
-    cell_features<T>(p, y, x, f);
+    cell_features<T, NL>(p, y, x, f);
     for (int u = 0; u < 4; ++u)
       for (int i = 0; i <= T; ++i) rec[(4 * g + u) * RP + i] = (int16_t)f[u][i];
     const int c = p.cls ? p.cls[(y >> 2) * (p.w >> 2) + (x >> 2)] : 0;
@@ -450,10 +547,10 @@ __device__ void ordered_block(const Order& o, int b) {
 }
 
 // The blocks of samples, grid-stride; most need nothing.
-template <int T, bool GRAM, int L>
+template <int T, bool GRAM, int L, bool NL>
 __global__ void __launch_bounds__(kBlockThreads) alf_block_ordered(Order o) {
   for (int b = blockIdx.x; b < o.blocks; b += gridDim.x)
-    if (o.block_ordered[b]) ordered_block<T, GRAM, L>(o, b);
+    if (o.block_ordered[b]) ordered_block<T, GRAM, L, NL>(o, b);
 }
 
 __host__ __device__ inline size_t ordered_smem_bytes(int t, int e, int c,
@@ -568,7 +665,7 @@ struct PlaneChains {
   int n, lanes, halves, segments;
 };
 
-template <int T>
+template <int T, bool NL>
 __global__ void __launch_bounds__(kThreads) alf_plane_segments(PlaneChains q) {
   using Red = int[2][T][kThreads];
   X266_SHARED(Red, red);
@@ -581,7 +678,7 @@ __global__ void __launch_bounds__(kThreads) alf_plane_segments(PlaneChains q) {
   // all lie in lane tid % lanes
   for (int k = k0 + tid; k < q.n && k < k0 + kSegment; k += kThreads) {
     int f[T + 1];
-    features<T>(q.p, k / q.p.w, k % q.p.w, f);
+    features<T, NL>(q.p, k / q.p.w, k % q.p.w, f);
 #pragma unroll
     for (int i = 0; i < T; ++i) {
       const int v = f[i] * f[T];
@@ -912,23 +1009,187 @@ __global__ void __launch_bounds__(kThreads) alf_ctb_flags(FlagParams p) {
   }
 }
 
-template <int T, bool GRAM>
+// CC-ALF's whole-filter gate (alf.py _ccalf_gate, gain_total): the sum of
+// the gains of the CTBs whose flag is on, in the order of XLA CPU's fused
+// reduction -- with 8 rows or more lane l adds rows l, l + 8, ... below
+// the last whole group of 8, each row in order, the lanes fold in halves
+// and the remaining rows follow in raster order; with 4 rows each row is a
+// lane, folded in halves; otherwise raster order -- then worth = total +
+// lam_gate < 0.  One thread: a plane has a few hundred CTBs.
+struct GateParams {
+  const float* sse;       // (2, cy, cx) filtered, unfiltered
+  const int32_t* flags;   // (cy, cx)
+  int* worth;             // (1)
+  float lam_gate;
+  int cy, cx;
+};
+
+__device__ float kept_gain(const GateParams& p, int r, int c) {
+  const int k = r * p.cx + c;
+  return p.flags[k] ? __fsub_rn(p.sse[k], p.sse[p.cy * p.cx + k]) : 0.f;
+}
+
+__global__ void alf_ccalf_gate(GateParams p) {
+  if (threadIdx.x != 0) return;
+  float lanes[8], tot = 0.f;
+  int r0 = 0;
+  if (p.cy == 4 || p.cy >= 8) {
+    const int n = p.cy == 4 ? 4 : 8;
+    r0 = p.cy == 4 ? 4 : p.cy - p.cy % 8;
+    for (int l = 0; l < n; ++l) lanes[l] = 0.f;
+    for (int g = 0; g < r0; g += n)
+      for (int c = 0; c < p.cx; ++c)
+        for (int l = 0; l < n; ++l)
+          lanes[l] = __fadd_rn(lanes[l], kept_gain(p, g + l, c));
+    tot = combine(lanes, n, 1);
+  }
+  for (int r = r0; r < p.cy; ++r)
+    for (int c = 0; c < p.cx; ++c) tot = __fadd_rn(tot, kept_gain(p, r, c));
+  p.worth[0] = __fadd_rn(tot, p.lam_gate) < 0.f ? 1 : 0;
+}
+
+// The nonlinear luma estimator's per-class SSE of 4x4 blocks at each clip
+// level (alf.py class_sse_plain; reference :451-456): per level the SSE of
+// each 4x4 block of the filtered plane against the source (an integer <=
+// 16 * 255^2, exact in float32 in any order), then per (level, class) the
+// dot over the blocks in raster order in XLA's order: below kFusedBlocks
+// blocks 16 lanes folded in halves, from there 8 lanes folded in pairs
+// (halves for class 24).  A lane's chain adds nonnegative integers, so it
+// is exact while its sum stays <= 2^24: alf_class_blocks sums every
+// (level, class, lane) chain in integers as it forms the blocks' SSEs,
+// and alf_class_chains walks only the chains whose total passes 2^24 --
+// their prefix up to 2^24 as an int32 sum, the rest by float32 adds in
+// order.
+constexpr int kFusedBlocks = 4096;
+constexpr int kClsLanes = 16;
+constexpr int kClsPerThread = 4;   // blocks a thread of alf_class_blocks forms
+
+struct ClassParams {
+  const int32_t* filt;    // (levels, h, w)
+  const int32_t* orig;    // (h, w)
+  const int32_t* cls;     // (h/4, w/4)
+  int32_t* dblk;          // (levels, n) scratch: the blocks' SSEs
+  unsigned long long* tot;  // (levels, 25, kClsLanes) chain totals, zeroed
+  float* out;             // (levels, 25)
+  int* stats;             // [exact, ordered] lane chains
+  int levels, h, w, n;
+};
+
+__device__ __forceinline__ int class_lanes(int n) {
+  return n < kFusedBlocks ? 16 : 8;
+}
+
+// One thread block per level and run of kThreads * kClsPerThread blocks:
+// each thread forms kClsPerThread blocks' SSEs, and the thread block's
+// (class, lane) sums (int32: at most 1,024 blocks of <= 1,040,400) go to
+// the chain totals.
+__global__ void __launch_bounds__(kThreads) alf_class_blocks(ClassParams p) {
+  using Sums = int[kMaxClasses][kClsLanes];
+  X266_SHARED(Sums, sums);
+  constexpr int per = kThreads * kClsPerThread;
+  const int runs = (p.n + per - 1) / per;
+  const int lv = blockIdx.x / runs, run = blockIdx.x % runs;
+  const int tid = threadIdx.x, L = class_lanes(p.n);
+  for (int i = tid; i < kMaxClasses * kClsLanes; i += kThreads)
+    sums[i / kClsLanes][i % kClsLanes] = 0;
+  __syncthreads();
+  const int bw = p.w >> 2;
+  const int32_t* f = p.filt + (size_t)lv * p.h * p.w;
+  const int b0 = run * per;
+  for (int u = 0; u < kClsPerThread; ++u) {
+    const int b = b0 + u * kThreads + tid;
+    if (b >= p.n) break;
+    const int y0 = (b / bw) * 4, x0 = (b % bw) * 4;
+    int acc = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int4 a = *(const int4*)(f + (size_t)(y0 + r) * p.w + x0);
+      const int4 o = *(const int4*)(p.orig + (size_t)(y0 + r) * p.w + x0);
+      acc += (a.x - o.x) * (a.x - o.x) + (a.y - o.y) * (a.y - o.y) +
+             (a.z - o.z) * (a.z - o.z) + (a.w - o.w) * (a.w - o.w);
+    }
+    p.dblk[(size_t)lv * p.n + b] = acc;
+    const int c = p.cls[b];
+    X266_ASSERT(c >= 0 && c < kMaxClasses);
+    if (acc) atomicAdd(&sums[c][b % L], acc);
+  }
+  __syncthreads();
+  for (int i = tid; i < kMaxClasses * L; i += kThreads) {
+    const int v = sums[i / L][i % L];
+    if (v)
+      atomicAdd(p.tot + ((size_t)lv * kMaxClasses + i / L) * kClsLanes +
+                    i % L,
+                (unsigned long long)v);
+  }
+}
+
+// One thread block per (level, class), one thread per lane: a chain whose
+// total is <= 2^24 is that total; another adds the class's blocks l, l +
+// L, ... in order, 8 loads ahead of the adds.  Then thread 0 folds the
+// lanes.
+__global__ void alf_class_chains(ClassParams p) {
+  using Lanes = float[kClsLanes];
+  X266_SHARED(Lanes, lane);
+  const int lv = blockIdx.x / kMaxClasses, c = blockIdx.x % kMaxClasses;
+  const int L = class_lanes(p.n), l = threadIdx.x;
+  const int32_t* d = p.dblk + (size_t)lv * p.n;
+  if (l < L) {
+    const unsigned long long total =
+        p.tot[((size_t)lv * kMaxClasses + c) * kClsLanes + l];
+    const bool ordered = total > (unsigned long long)kExact;
+    float acc = (float)total;    // exact when the chain is
+    if (ordered) {
+      int exact = 0;
+      bool past = false;
+      for (int k0 = l; k0 < p.n; k0 += 8 * L) {
+        int v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int k = k0 + j * L;
+          v[j] = k < p.n && __ldg(p.cls + k) == c ? __ldg(d + k) : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (v[j] < 0) continue;
+          if (!past && exact + v[j] <= kExact) {
+            exact += v[j];
+          } else {
+            if (!past) acc = (float)exact;   // an integer <= 2^24
+            past = true;
+            acc = __fadd_rn(acc, (float)v[j]);
+          }
+        }
+      }
+    }
+    lane[l] = acc;
+    if (p.stats) atomicAdd(&p.stats[ordered ? 1 : 0], 1);
+  }
+  __syncthreads();
+  if (l == 0) {
+    float v[kClsLanes];
+    for (int q = 0; q < L; ++q) v[q] = lane[q];
+    const bool pairs = L == 8 && c < kMaxClasses - 1;
+    p.out[lv * kMaxClasses + c] = combine(v, L, !pairs);
+  }
+}
+
+template <int T, bool GRAM, bool NL>
 int launch_block_sums(Order& o, cudaStream_t st) {
   constexpr int E = GRAM ? T * (T + 1) / 2 : T;
   void* args[] = {&o};
   constexpr int EA = GRAM ? E : 2 * T + 1;
   const size_t part_bytes = sizeof(int) * kBlockThreads * (EA | 1);
   cudaError_t err = cudaFuncSetAttribute(
-      alf_block_exact<T, GRAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)part_bytes);
+      alf_block_exact<T, GRAM, NL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)part_bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernel(alf_block_exact<T, GRAM>, dim3(o.blocks),
+  err = cudaLaunchKernel(alf_block_exact<T, GRAM, NL>, dim3(o.blocks),
                          dim3(kBlockThreads), args, part_bytes, st);
   if (err != cudaSuccess) return (int)err;
   const int len = o.block < o.n ? o.block : o.n;
   const size_t bytes = ordered_smem_bytes(T, E, o.n_classes, o.lanes, len);
-  auto kernel = o.lanes == 2 ? alf_block_ordered<T, GRAM, 2>
-                             : alf_block_ordered<T, GRAM, 4>;
+  auto kernel = o.lanes == 2 ? alf_block_ordered<T, GRAM, 2, NL>
+                             : alf_block_ordered<T, GRAM, 4, NL>;
   if (o.lanes != 2 && o.lanes != 4) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -945,10 +1206,20 @@ int launch_blocks(Order& o, cudaStream_t st) {
       o.chunk, 0, sizeof(unsigned long long) * 2 * chunks * o.n_classes *
                       o.entries, st);
   if (z != cudaSuccess) return (int)z;
-  int e = o.p.t == 12 ? (o.gram ? launch_block_sums<12, true>(o, st)
-                                : launch_block_sums<12, false>(o, st))
-        : o.p.t == 6 ? (o.gram ? launch_block_sums<6, true>(o, st)
-                               : launch_block_sums<6, false>(o, st))
+  // the nonlinear kinds: clipped, or aligned by transposes
+  const bool nl = o.p.clip || o.p.tmap;
+  int e = o.p.t == 12
+              ? (nl ? (o.gram ? launch_block_sums<12, true, true>(o, st)
+                              : launch_block_sums<12, false, true>(o, st))
+                    : (o.gram ? launch_block_sums<12, true, false>(o, st)
+                              : launch_block_sums<12, false, false>(o, st)))
+        : o.p.t == 6
+              ? (nl ? (o.gram ? launch_block_sums<6, true, true>(o, st)
+                              : launch_block_sums<6, false, true>(o, st))
+                    : (o.gram ? launch_block_sums<6, true, false>(o, st)
+                              : launch_block_sums<6, false, false>(o, st)))
+        : o.p.t == 7 ? (o.gram ? launch_block_sums<7, true, false>(o, st)
+                               : launch_block_sums<7, false, false>(o, st))
                      : (int)cudaErrorInvalidValue;
   if (e) return e;
   void* args[] = {&o};
@@ -964,9 +1235,13 @@ extern "C" {
 // The estimator's normal equations and coefficients on `stream`, from the
 // post-SAO recon and the source (h x w int32) and the class map (h/4 x w/4
 // int32, or null: one class) with the diamond of t taps (12: alf.py
-// DIAMOND, 6: CHROMA_DIAMOND).  The gram sums run in the order
+// DIAMOND, 6: CHROMA_DIAMOND), each difference clipped to +-clip when clip
+// > 0 and, for t = 12, the features permuted by the transpose map tmap
+// (h/4 x w/4 int32) when it is not null; or t = 7, CC-ALF's features from
+// the luma (lh x lw int32, 2h x 2w) with the error orig - base (base: the
+// chroma plane, h x w).  The gram sums run in the order
 // (gram_block, gram_lanes, gram_halves) and the rhs sums in (rhs_*); a
-// block of 0 is the whole plane (one class, 8 lanes, t = 6 only).
+// block of 0 is the whole plane (one class, 8 lanes, t = 6 or 7 only).
 // Scratch: partial_g (blocks x C x t(t+1)/2), partial_r (blocks x C x t) float, block_ordered (the
 // larger count of blocks) int32, chunk (ceil(blocks / 128) x C x
 // t(t+1)/2 x 2 for the gram's blocks) int64, and for a whole-plane
@@ -975,20 +1250,26 @@ extern "C" {
 // stats (4 int32, zeroed by the caller: chains exact, chains ordered,
 // totals exact, totals ordered).  Returns cudaGetLastError().
 int x266_alf_normal(int h, int w, int t, int n_classes, const void* recon,
-                    const void* orig, const void* cls, int gram_block,
+                    const void* orig, const void* cls, const void* tmap,
+                    int clip, const void* luma, const void* base, int lh,
+                    int lw, int gram_block,
                     int gram_lanes, int gram_halves, int rhs_block,
                     int rhs_lanes, int rhs_halves,
                     void* partial_g, void* partial_r, void* block_ordered,
                     void* chunk, void* segments, void* terms, void* gram,
                     void* rhs, void* coef, void* stats, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if ((t != 12 && t != 6) || n_classes > kMaxClasses ||
+  const bool cc = t == 7;
+  if ((t != 12 && t != 6 && t != 7) || n_classes > kMaxClasses ||
       gram_lanes > kMaxLanes ||
       rhs_lanes > kMaxLanes || (w & 3) || (h & 3) || (h * w) % 8 ||
-      gram_block <= 0)
+      gram_block <= 0 || clip < 0 || clip > 256 || (tmap && t != 12) ||
+      (cc && (!luma || !base || lh != 2 * h || lw != 2 * w || cls || clip)))
     return (int)cudaErrorInvalidValue;
-  Plane pl{(const int32_t*)recon, (const int32_t*)orig, (const int32_t*)cls,
-           h, w, t};
+  Plane pl{cc ? (const int32_t*)luma : (const int32_t*)recon,
+           cc ? (const int32_t*)base : (const int32_t*)recon,
+           (const int32_t*)orig, (const int32_t*)cls, (const int32_t*)tmap,
+           h, w, t, clip, cc ? lh : h, cc ? lw : w};
   const int n = h * w;
   Order o{};
   o.p = pl;
@@ -1024,12 +1305,15 @@ int x266_alf_normal(int h, int w, int t, int n_classes, const void* recon,
     PlaneChains q{pl, (int*)segments, (float*)terms, (float*)rhs,
                   (int*)stats, n, rhs_lanes, rhs_halves,
                   (n + kSegment - 1) / kSegment};
-    if (n_classes != 1 || rhs_lanes != kMaxLanes || t != 6 ||
+    if (n_classes != 1 || rhs_lanes != kMaxLanes || t == 12 ||
         q.segments > kMaxSegments)
       return (int)cudaErrorInvalidValue;
     void* args[] = {&q};
-    cudaError_t r = cudaLaunchKernel(alf_plane_segments<6>, dim3(q.segments),
-                                     dim3(kThreads), args, 0, st);
+    auto segs = t == 7 ? alf_plane_segments<7, false>
+                : clip ? alf_plane_segments<6, true>
+                       : alf_plane_segments<6, false>;
+    cudaError_t r = cudaLaunchKernel(segs, dim3(q.segments), dim3(kThreads),
+                                     args, 0, st);
     if (r != cudaSuccess) return (int)r;
     r = cudaLaunchKernel(alf_plane_chains, dim3(t), dim3(kThreads), args, 0,
                          st);
@@ -1046,11 +1330,15 @@ int x266_alf_normal(int h, int w, int t, int n_classes, const void* recon,
 // The per-CTB ALF flags of filt against recon, both against orig (int32,
 // h x w), into flags (cy x cx int32) on `stream`, in the order `mode` (see
 // alf_ctb_flags); sse (2 x cy x cx float, the two SSEs) and stats (2
-// int32: windows exact, ordered) may be null.  Returns cudaGetLastError().
+// int32: windows exact, ordered) may be null.  With worth (1 int32; sse
+// not null) CC-ALF's whole-filter gate too (alf_ccalf_gate, lam_gate the
+// float32 of lam * (112 + cy * cx)).  Returns cudaGetLastError().
 int x266_alf_ctb_flags(int h, int w, int mode, float lam15, const void* filt,
                        const void* recon, const void* orig, void* flags,
-                       void* sse, void* stats, void* stream) {
+                       void* sse, void* stats, float lam_gate, void* worth,
+                       void* stream) {
   const int ctb = mode == 0 ? 64 : 32;
+  if (worth && (!sse || mode == 0)) return (int)cudaErrorInvalidValue;
   FlagParams p{(const int32_t*)filt, (const int32_t*)recon,
                (const int32_t*)orig, (int32_t*)flags, (float*)sse,
                (int*)stats, lam15, h, w, (h + ctb - 1) / ctb,
@@ -1059,6 +1347,46 @@ int x266_alf_ctb_flags(int h, int w, int mode, float lam15, const void* filt,
   cudaError_t err = cudaLaunchKernel(alf_ctb_flags, dim3(p.cy * p.cx),
                                      dim3(ctb * ctb / 16), args, 0,
                                      (cudaStream_t)stream);
+  if (err != cudaSuccess || !worth) return (int)(err != cudaSuccess ? err
+                                                     : cudaGetLastError());
+  GateParams g{(const float*)sse, (const int32_t*)flags, (int*)worth,
+               lam_gate, p.cy, p.cx};
+  void* gargs[] = {&g};
+  err = cudaLaunchKernel(alf_ccalf_gate, dim3(1), dim3(32), gargs, 0,
+                         (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The per-class SSE of 4x4 blocks of `levels` filtered planes (levels x h
+// x w int32) against orig (h x w) by the class map cls (h/4 x w/4) into
+// out (levels x 25 float) on `stream`, in XLA's order (alf_class_chains);
+// scratch: dblk, levels x (h/4)(w/4) int32, and tot, levels x 25 x 16
+// int64 (zeroed here); stats (2 int32: lane chains exact, with an ordered
+// tail) may be null.  Returns cudaGetLastError().
+int x266_alf_class_sse(int levels, int h, int w, const void* filt,
+                       const void* orig, const void* cls, void* dblk,
+                       void* tot, void* out, void* stats, void* stream) {
+  const int n = (h / 4) * (w / 4);
+  if ((h & 3) || (w & 3) || levels < 1 ||
+      (n < kFusedBlocks ? n % 16 : n % 8))
+    return (int)cudaErrorInvalidValue;
+  ClassParams p{(const int32_t*)filt, (const int32_t*)orig,
+                (const int32_t*)cls, (int32_t*)dblk,
+                (unsigned long long*)tot, (float*)out, (int*)stats, levels,
+                h, w, n};
+  void* args[] = {&p};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(
+      tot, 0, sizeof(unsigned long long) * levels * kMaxClasses * kClsLanes,
+      st);
+  if (err != cudaSuccess) return (int)err;
+  const int per = kThreads * kClsPerThread;
+  err = cudaLaunchKernel(alf_class_blocks,
+                         dim3((n + per - 1) / per * levels), dim3(kThreads),
+                         args, 0, st);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernel(alf_class_chains, dim3(levels * kMaxClasses),
+                         dim3(32), args, 0, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -118,7 +118,9 @@ def loop_filters(cfg: CodecConfig, y8, cb8, cr8, size_map, src,
                  db_info=None):
     """The encoder's filter chain of one picture: deblock, SAO (estimate
     and apply, luma and with cfg.sao_chroma chroma), ALF (luma and with
-    cfg.alf_chroma chroma).  y8, cb8, cr8: the (H, W) / (H/2, W/2) uint8
+    cfg.alf_chroma chroma; with cfg.alf_nonlinear their nonlinear
+    estimators, clip levels and transposes) and with cfg.ccalf CC-ALF on
+    the chroma planes chroma ALF produced, from the luma before ALF.  y8, cb8, cr8: the (H, W) / (H/2, W/2) uint8
     reconstruction; src the source planes; size_map (H/8, W/8); db_info:
     an inter picture's (pred_map, mvx, mvy, coef_y) for the boundary
     strengths.  Returns ((y, cb, cr) uint8, sao (type, band, off) each
@@ -150,19 +152,31 @@ def loop_filters(cfg: CodecConfig, y8, cb8, cr8, size_map, src,
         if cfg.sao_chroma:
             cb, cr = out[1], out[2]
     sao = tuple(torch.stack(p) for p in params)
-    alf = _zero_alf(cfg, dev)
+    alf = list(_zero_alf(cfg, dev))
     if cfg.alf:
-        if cfg.alf_nonlinear or cfg.ccalf:
-            raise NotImplementedError("the nonlinear and CC-ALF estimators "
-                                      "are not ported")
-        coef, flag, y = kalf.estimate_alf(orig_y, y, lam, bdv)
-        alf = (flag, coef) + alf[2:]
+        y_sao = y                    # CC-ALF's luma input (pre-ALF)
+        if cfg.alf_nonlinear:
+            alf[1], alf[4], alf[0], y = kalf.estimate_alf_nonlinear(
+                orig_y, y, lam, bdv)
+        else:
+            alf[1], alf[0], y = kalf.estimate_alf(orig_y, y, lam, bdv)
         if cfg.alf_chroma:
-            ccb, fcb, cb = kalf.estimate_alf_chroma(orig_cb, cb, lam, bdv)
-            ccr, fcr, cr = kalf.estimate_alf_chroma(orig_cr, cr, lam, bdv)
-            alf = (flag, coef, torch.stack([fcb, fcr]),
-                   torch.stack([ccb, ccr])) + alf[4:]
-    return tuple(p.to(torch.uint8) for p in (y, cb, cr)), sao, alf
+            if cfg.alf_nonlinear:
+                ccb, lcb, fcb, cb = kalf.estimate_alf_chroma_nl(
+                    orig_cb, cb, lam, bdv)
+                ccr, lcr, fcr, cr = kalf.estimate_alf_chroma_nl(
+                    orig_cr, cr, lam, bdv)
+                alf[5] = torch.stack([lcb, lcr])
+            else:
+                ccb, fcb, cb = kalf.estimate_alf_chroma(orig_cb, cb, lam, bdv)
+                ccr, fcr, cr = kalf.estimate_alf_chroma(orig_cr, cr, lam, bdv)
+            alf[2], alf[3] = torch.stack([fcb, fcr]), torch.stack([ccb, ccr])
+        if cfg.ccalf:
+            kcb, gcb, cb = kalf.estimate_ccalf(orig_cb, cb, y_sao, lam, bdv)
+            kcr, gcr, cr = kalf.estimate_ccalf(orig_cr, cr, y_sao, lam, bdv)
+            alf[6], alf[7] = torch.stack([kcb, kcr]), torch.stack([gcb, gcr])
+    return (tuple(p.to(torch.uint8) for p in (y, cb, cr)), sao,
+            tuple(alf))
 
 
 def decode_filters(cfg: CodecConfig, y8, cb8, cr8, size_map, sao, alf,

@@ -200,8 +200,9 @@ def encode_picture_gop_async(cfg: CodecConfig, steps, frame: Frame,
     """Queue one picture of a low-delay stream without blocking.
 
     steps: (fused.make_encode_step_i(cfg, tab, with_recon, True),
-    fused.make_encode_step_p(cfg, tab, with_recon)); pyramids: the
-    previous picture's, or None (an IDR).  A picture codes as IDR when
+    fused.make_encode_step_p(cfg, tab, with_recon)), or for an all-intra
+    stream (cfg.intra_period 1) an I step without pyramids and None;
+    pyramids: the previous picture's, or None (an IDR).  A picture codes as IDR when
     its POC is a multiple of cfg.intra_period.  wp: a P picture's
     weights [wy, oy, wc, oc] with cfg.weighted_pred (None: identity).
     Returns (finalize, new_pyramids, slice_type); the new pyramids are
@@ -227,7 +228,7 @@ def encode_picture_gop_async(cfg: CodecConfig, steps, frame: Frame,
             wp=wp if (is_p and cfg.weighted_pred) else None)
         return rbsp, td.recon, td.sse, td.sse_exact
 
-    return finalize, out["pyramids"], st
+    return finalize, out.get("pyramids"), st
 
 
 def b_qp_offset(cfg: CodecConfig, poc: int) -> int:

@@ -8,28 +8,36 @@ per-class clip levels and the transposes), the 5x5-diamond chroma filter
 The reference looks the per-block coefficients up through a one-hot
 matmul (a gather is slow on the TPU); here it is a gather.
 
-The encoder's estimators of config 4, ``estimate_alf`` and
-``estimate_alf_chroma``, compute what the reference computes in float32
-on XLA's CPU backend, bit for bit (ROADMAP queue 3, F9):
+The encoder's estimators -- linear luma and chroma (``estimate_alf``,
+``estimate_alf_chroma``), nonlinear luma with clip levels and transposes
+(``estimate_alf_nonlinear``), nonlinear chroma (``estimate_alf_chroma_nl``)
+and CC-ALF (``estimate_ccalf``) -- compute what the reference computes in
+float32 on XLA's CPU backend, bit for bit (ROADMAP queue 3, F9):
 
 - the per-class normal equations (x266_tpu/kernels/alf.py:367-368,
-  278-279) are XLA dots whose float32 sums run in blocks of samples,
-  each block in a few interleaved sequential lanes (``SUM_ORDERS``,
-  measured by cancellation probes on XLA's dots and checked against
-  them on random data of full magnitude);
-- the solve (``jnp.linalg.solve``, :370 and :280) is LAPACK's sgetrf and
-  two strsm calls of the OpenBLAS that jaxlib calls; ``solve_f32``
-  repeats their float32 operations in their order (``_fma`` gives the
-  fused multiply-adds from float64 ops);
-- the per-CTB SSE (:335-338, :379-382) follows XLA's reduction order
-  (``ctb_sse``).
+  436-437, 278-279, 318-319, 538-539) are XLA dots whose float32 sums run
+  in blocks of samples, each block in a few interleaved sequential lanes
+  (``SUM_ORDERS``, measured by cancellation probes on XLA's dots and
+  checked against them on random data of full magnitude);
+- the solve (``jnp.linalg.solve``, :370, :438, :280, :318, :538) is
+  LAPACK's sgetrf and two strsm calls of the OpenBLAS that jaxlib calls;
+  ``solve_f32`` repeats their float32 operations in their order (``_fma``
+  gives the fused multiply-adds from float64 ops);
+- the per-CTB SSE (:335-338, :379-382, :467-470, :547-550) follows XLA's
+  reduction order (``ctb_sse``);
+- the nonlinear estimators' choices of clip level read the per-class SSE
+  of 4x4 blocks (:454-456, ``class_sse``) and the chroma plane's SSE
+  (:326, kernels.cost.plane_sse_f32), each in the order XLA CPU emits it;
+  CC-ALF's whole-filter gate sums the gains of the CTBs it keeps on
+  (:558, ``gain_total``) in its order.
 
 The plain versions here are torch ops on any device
-(``normal_solve_plain``, ``_ctb_flags``); on CUDA tensors ``normal_solve``
-and ``ctb_flags`` run the hand-written kernels of kernels/alf_cuda.py
-(csrc/alf.cu) instead, which form the features from the recon
-themselves and sum exactly in integers wherever float32's order cannot
-change a bit.
+(``normal_solve_plain``, ``_ctb_flags``, ``class_sse_plain``,
+``_ccalf_gate``); on CUDA tensors ``normal_solve``, ``ctb_flags``,
+``class_sse`` and ``ccalf_gate`` run the hand-written kernels of
+kernels/alf_cuda.py (csrc/alf.cu) instead, which form the features from
+the recon themselves and sum exactly in integers wherever float32's order
+cannot change a bit.
 """
 
 from __future__ import annotations
@@ -70,6 +78,18 @@ CC_OFFSETS = np.array([
     (1, -1), (1, 0), (1, 1),
     (2, 0),
 ], dtype=np.int32)
+
+
+_PERMS: dict = {}
+
+
+def _perms(device) -> torch.Tensor:
+    """TRANSPOSE_PERMS as an int64 tensor on device, copied there once: a
+    copy from host memory is a host sync on the card."""
+    key = str(device)
+    if key not in _PERMS:
+        _PERMS[key] = torch.from_numpy(TRANSPOSE_PERMS).long().to(device)
+    return _PERMS[key]
 
 
 def clip_levels(bit_depth: int = 8) -> tuple[int, int, int, int]:
@@ -152,8 +172,7 @@ def apply_alf(y, class_map, coeffs, ctb_flags, bit_depth: int = 8,
         for i, v in enumerate(clip_levels(bit_depth)):
             vblk = vblk + (lv == i).to(torch.int32) * v
         feats = _clipped_diff_planes(y, _up4(vblk))
-        perms = torch.from_numpy(TRANSPOSE_PERMS).to(y.device).long()
-        table = coeffs[:, perms].reshape(NUM_CLASSES * 4, 12)
+        table = coeffs[:, _perms(y.device)].reshape(NUM_CLASSES * 4, 12)
         group = class_map * 4 + transpose_map
     else:
         feats = _diff_planes(y)
@@ -171,12 +190,16 @@ def apply_alf_chroma(c, coeffs, ctb_flags, bit_depth: int = 8,
                      clip_lvl=None) -> torch.Tensor:
     """Normative chroma ALF: c (H, W) int32 (post-SAO), coeffs (6,),
     ctb_flags on the luma CTU grid (32x32 chroma samples each); clip_lvl
-    (0-3) the plane's clip level in nonlinear mode."""
+    (0-3, an int or a scalar tensor) the plane's clip level in nonlinear
+    mode."""
     c = c.to(torch.int32)
     h, w = c.shape
     if clip_lvl is not None:
-        feats = _clipped_diff_planes(c, clip_levels(bit_depth)[int(clip_lvl)],
-                                     CHROMA_DIAMOND)
+        # picked as the reference picks it (:255): a device scalar level
+        # needs no host sync
+        v = sum((clip_lvl == i) * v_
+                for i, v_ in enumerate(clip_levels(bit_depth)))
+        feats = _clipped_diff_planes(c, v, CHROMA_DIAMOND)
     else:
         feats = _diff_planes(c, CHROMA_DIAMOND)
     coeffs = coeffs.to(torch.int32)
@@ -217,12 +240,28 @@ def apply_ccalf(c, luma, coeffs, ctb_flags, bit_depth: int = 8):
 # order from 0.  A sample outside the class adds 0, which changes no
 # float32 sum, so each class keeps only its own samples.  Checked for
 # sample counts that are multiples of 8, which every picture here gives.
+# The nonlinear estimators' dots (:436-437, :318-319) have the linear
+# ones' shapes and take their orders; CC-ALF's (:538-539, seven taps) were
+# probed the same way and take chroma's.  The per-class SSE of the 4x4
+# blocks (:454-456) is a dot f32[25, N] . f32[N] over the N blocks, which
+# XLA CPU emits two ways (read from its optimized LLVM IR at N = 384 to
+# 518,400 and held to the live op): below 16 KiB of blocks (N < 4,096) it
+# fuses the dot into a loop that LLVM vectorizes 8 wide, two vectors an
+# iteration -- 16 lanes folded in halves; from there a tiled gemv, whose
+# rows in tiles of 8 fold their 8 lanes in pairs and whose last row (the
+# 25th) folds them in halves.
 SUM_ORDERS = {
     "luma_gram": (1024, 2, "pairs"),    # f32[144, N] . f32[25, N]
     "luma_rhs": (2728, 4, "pairs"),     # f32[25, N] . f32[12, N]
     "chroma_gram": (4096, 4, "pairs"),  # f32[6, N] . f32[6, N]
     "chroma_rhs": (0, 8, "halves"),     # f32[6, N] . f32[N]
+    "cc_gram": (4096, 4, "pairs"),      # f32[7, N] . f32[7, N]
+    "cc_rhs": (0, 8, "halves"),         # f32[7, N] . f32[N]
+    "class_sse_fused": (0, 16, "halves"),   # f32[25, N] . f32[N], N < 4096
+    "class_sse_gemv": (0, 8, "pairs"),      # classes 0-23, N >= 4096
+    "class_sse_gemv_last": (0, 8, "halves"),    # class 24, N >= 4096
 }
+CLASS_SSE_FUSED = 4096      # blocks below which XLA fuses the dot (16 KiB)
 
 
 def _combine(lanes: torch.Tensor, how: str) -> torch.Tensor:
@@ -240,9 +279,26 @@ def ordered_sums(x: torch.Tensor, cls: torch.Tensor | None, n_classes: int,
                  order: str) -> torch.Tensor:
     """Per-class float32 sums of x (E, N), exact products, in XLA's order
     SUM_ORDERS[order]: (n_classes, E).  cls (N,) int64 gives each
-    sample's class (all class 0 when None).  An explicit loop over a
-    block's lane steps on (classes, entries, blocks, lanes) tensors."""
+    sample's class (all class 0 when None)."""
     block, lanes, how = SUM_ORDERS[order]
+    return _block_totals(_combine(_lane_sums(x, cls, n_classes, block,
+                                             lanes), how))
+
+
+def _block_totals(blocks: torch.Tensor) -> torch.Tensor:
+    """(C, E, nb) block sums added in order from block 0: (C, E)."""
+    tot = torch.zeros(blocks.shape[:2], dtype=torch.float32,
+                      device=blocks.device)
+    for b in range(blocks.shape[2]):
+        tot = tot + blocks[..., b]
+    return tot
+
+
+def _lane_sums(x: torch.Tensor, cls: torch.Tensor | None, n_classes: int,
+               block: int, lanes: int) -> torch.Tensor:
+    """The lanes of XLA's order before they combine: (n_classes, E,
+    blocks, lanes) float32.  An explicit loop over a block's lane steps
+    on (classes, entries, blocks, lanes) tensors."""
     e, n = x.shape
     if n % 8:
         raise ValueError(f"XLA's sum order is pinned for sample counts "
@@ -264,11 +320,7 @@ def ordered_sums(x: torch.Tensor, cls: torch.Tensor | None, n_classes: int,
     for q in range(steps):
         c = cs[:, q]                                   # (nb, lanes)
         acc[c, :, bi, li] = acc[c, :, bi, li] + xs[:, :, q].permute(1, 2, 0)
-    blocks = _combine(acc[:n_classes], how)            # (C, E, nb)
-    tot = torch.zeros((n_classes, e), dtype=torch.float32, device=x.device)
-    for b in range(nb):
-        tot = tot + blocks[..., b]
-    return tot
+    return acc[:n_classes]
 
 
 def _products(feats: torch.Tensor, err: torch.Tensor):
@@ -280,15 +332,17 @@ def _products(feats: torch.Tensor, err: torch.Tensor):
     return gram.to(torch.float32), (f * e).to(torch.float32)
 
 
-def normal_sums(feats, err, cls_px=None, n_classes: int = 1):
+def normal_sums(feats, err, cls_px=None, n_classes: int = 1,
+                kind: str | None = None):
     """The reference's float32 normal equations of feats (T, H, W) and
     err (H, W): gram (C, T, T) and rhs (C, T) (the rhs before the
     reference's exact scaling by 128), per class of cls_px (H, W) when
-    given (luma), else one class (chroma)."""
+    given (luma), else one class (chroma, CC-ALF); kind names the
+    SUM_ORDERS pair ("luma" with cls_px, else "chroma" by default)."""
     t = feats.shape[0]
     pg, pr = _products(feats, err)
     cls = None if cls_px is None else cls_px.reshape(-1).long()
-    kind = "luma" if cls_px is not None else "chroma"
+    kind = kind or ("luma" if cls_px is not None else "chroma")
     gram = ordered_sums(pg, cls, n_classes, kind + "_gram")
     rhs = ordered_sums(pr, cls, n_classes, kind + "_rhs")
     return gram.reshape(n_classes, t, t), rhs
@@ -419,29 +473,77 @@ def coefficients(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.round(sol).clamp(-COEF_MAX, COEF_MAX).to(torch.int32)
 
 
+def _aligned_feats(feats: torch.Tensor, tr_px: torch.Tensor) -> torch.Tensor:
+    """fa[i] = feats[PERMS[t, i]] at each sample, t its block's transpose
+    (tr_px (H, W)): the reference's four selects per tap (:390-402) as a
+    gather, exact."""
+    idx = _perms(feats.device)[tr_px.long()].permute(2, 0, 1)  # (12, H, W)
+    return torch.gather(feats, 0, idx)
+
+
+def features(recon, cls=None, clip=None, transpose=None) -> torch.Tensor:
+    """The estimator's feature planes of the post-SAO recon: the 12 of
+    the 7x7 diamond with the class map cls, else the 6 of the 5x5; with
+    clip (a clip value v) each difference clipped to +-v, and with
+    transpose (H/4, W/4, luma only) aligned to the block's orientation
+    (:433-434, :316)."""
+    r = recon.to(torch.int32)
+    diamond = DIAMOND if cls is not None else CHROMA_DIAMOND
+    if clip is None:
+        return _diff_planes(r, diamond)
+    feats = _clipped_diff_planes(r, int(clip), diamond)
+    return feats if transpose is None else _aligned_feats(feats,
+                                                          _up4(transpose))
+
+
 def normal_solve(recon, orig, cls=None, with_sums: bool = False,
-                 bit_depth: int = 8):
+                 bit_depth: int = 8, clip=None, transpose=None):
     """The estimator's coefficients (C, T) int32 (with_sums: and the
     float32 gram (C, T, T) and rhs (C, T)) from the post-SAO recon and
     the source (H, W): with the class map cls (H/4, W/4) the 25 luma
     systems of the 7x7 diamond, without it the one chroma system of the
-    5x5 diamond.  The CUDA kernel (kernels/alf_cuda.py) for CUDA tensors,
-    normal_solve_plain for CPU ones."""
+    5x5 diamond; clip and transpose as features'.  The CUDA kernel
+    (kernels/alf_cuda.py) for CUDA tensors, normal_solve_plain for CPU
+    ones."""
     if recon.device.type == "cuda":
         from x266_tpu_torch.kernels import alf_cuda
-        return alf_cuda.normal_solve(recon, orig, cls, with_sums, bit_depth)
-    return normal_solve_plain(recon, orig, cls, with_sums)
+        return alf_cuda.normal_solve(recon, orig, cls, with_sums, bit_depth,
+                                     clip=clip, transpose=transpose)
+    return normal_solve_plain(recon, orig, cls, with_sums, clip, transpose)
 
 
-def normal_solve_plain(recon, orig, cls=None, with_sums: bool = False):
+def normal_solve_plain(recon, orig, cls=None, with_sums: bool = False,
+                       clip=None, transpose=None):
     """normal_solve in torch ops: the features, the normal equations in
     XLA's order and their float32 solve."""
     r = recon.to(torch.int32)
     luma = cls is not None
-    feats = _diff_planes(r, DIAMOND if luma else CHROMA_DIAMOND)
+    feats = features(r, cls, clip, transpose)
     nc = NUM_CLASSES if luma else 1
     gram, rhs = normal_sums(feats, orig.to(torch.int32) - r,
                             _up4(cls) if luma else None, nc)
+    coef = coefficients(gram, rhs)
+    return (coef, gram, rhs) if with_sums else coef
+
+
+def cc_normal_solve(luma, c, orig_c, with_sums: bool = False):
+    """CC-ALF's coefficients (1, 7) int32 (with_sums: and the float32 gram
+    (1, 7, 7) and rhs (1, 7)) of one chroma plane c (post chroma ALF)
+    against its source orig_c, from the post-SAO, pre-ALF luma (H, W)
+    (:534-541).  The CUDA kernel for CUDA tensors, cc_normal_solve_plain
+    for CPU ones."""
+    if c.device.type == "cuda":
+        from x266_tpu_torch.kernels import alf_cuda
+        return alf_cuda.cc_normal_solve(luma, c, orig_c, with_sums)
+    return cc_normal_solve_plain(luma, c, orig_c, with_sums)
+
+
+def cc_normal_solve_plain(luma, c, orig_c, with_sums: bool = False):
+    """cc_normal_solve in torch ops."""
+    c = c.to(torch.int32)
+    ch, cw = c.shape
+    feats = _cc_feats(luma.to(torch.int32), ch, cw)
+    gram, rhs = normal_sums(feats, orig_c.to(torch.int32) - c, kind="cc")
     coef = coefficients(gram, rhs)
     return (coef, gram, rhs) if with_sums else coef
 
@@ -537,3 +639,183 @@ def estimate_alf_chroma(orig, recon, lam: float, bit_depth: int = 8):
     filt = apply_alf_chroma(recon, coeffs, all_on, bit_depth)
     flags = ctb_flags(filt, recon, orig, 32, lam)
     return coeffs, flags, apply_alf_chroma(recon, coeffs, flags, bit_depth)
+
+
+# ---- nonlinear ALF and CC-ALF ----------------------------------------------
+
+def block_sse(filt, orig) -> torch.Tensor:
+    """(L, H, W) filtered planes against the source (H, W) -> (L, H/4,
+    W/4) int32 SSE of each 4x4 block (:451-452; exact in float32 in any
+    order: 16 * 255^2 < 2^24)."""
+    d = filt.to(torch.int32) - orig.to(torch.int32)
+    lv, h, w = d.shape
+    return (d * d).reshape(lv, h // 4, 4, w // 4, 4).sum((2, 4),
+                                                         dtype=torch.int32)
+
+
+def class_sse(filt, orig, cls) -> torch.Tensor:
+    """The per-class float32 SSE of the 4x4 blocks of each filtered plane
+    filt (L, H, W) against orig (H, W) by the class map cls (H/4, W/4):
+    (L, 25), in XLA CPU's order (:454-456, SUM_ORDERS "class_sse_*").  The
+    class kernel of kernels/alf_cuda.py for CUDA tensors, class_sse_plain
+    for CPU ones."""
+    if orig.device.type == "cuda":
+        from x266_tpu_torch.kernels import alf_cuda
+        return alf_cuda.class_sse(filt, orig, cls)
+    return class_sse_plain(filt, orig, cls)
+
+
+def class_sse_plain(filt, orig, cls) -> torch.Tensor:
+    """class_sse in torch ops."""
+    x = block_sse(filt, orig).reshape(filt.shape[0], -1).to(torch.float32)
+    n = x.shape[1]
+    c = cls.reshape(-1).long()
+    if n < CLASS_SSE_FUSED:
+        if n % 16:
+            raise ValueError(f"XLA's fused class-SSE order is pinned for "
+                             f"block counts that are multiples of 16, got {n}")
+        return ordered_sums(x, c, NUM_CLASSES, "class_sse_fused").T
+    _, lanes, how = SUM_ORDERS["class_sse_gemv"]
+    acc = _lane_sums(x, c, NUM_CLASSES, 0, lanes)      # (25, L, 1, lanes)
+    out = _combine(acc, how)
+    out[-1] = _combine(acc[-1], SUM_ORDERS["class_sse_gemv_last"][2])
+    return out[..., 0].T.contiguous()
+
+
+def gain_total(v: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of CC-ALF's per-CTB gains v (Cy, Cx) (:558) in the
+    order of the loop fusion XLA CPU makes of the gain, the flag and the
+    sum (read from its optimized LLVM IR at Cy = 1, 2, 4 and 17): with 8
+    rows or more, lane l adds rows l, l + 8, ... (each in order, below
+    the last whole group of 8), the lanes fold in halves and the
+    remaining rows follow in raster order; with 4 rows each row is a
+    lane, folded in halves; otherwise raster order."""
+    r, c = v.shape
+    if r != 4 and r < 8:
+        return _seq(v)
+    m = 4 if r == 4 else r - r % 8
+    lanes = _seq(v[:m].reshape(-1, min(m, 8), c).permute(1, 0, 2))
+    tot = _combine(lanes, "halves")
+    for x in v[m:].reshape(-1):
+        tot = tot + x
+    return tot
+
+
+def ccalf_gate(filt, c, orig_c, lam: float):
+    """CC-ALF's per-CTB flags and whole-filter gate (:546-561): flags
+    (Cy, Cx) int32 (gain + lam * 1.5 < 0 on 32x32 CTBs) and worth, a
+    bool scalar tensor (the sum of the kept CTBs' gains + lam * (112 +
+    Cy * Cx) < 0, the constant rounded to float32 as JAX's weak typing
+    does).  One launch of the CTB kernel for CUDA tensors, _ccalf_gate
+    for CPU ones."""
+    if orig_c.device.type == "cuda":
+        from x266_tpu_torch.kernels import alf_cuda
+        return alf_cuda.ccalf_gate(filt, c, orig_c, lam)
+    return _ccalf_gate(filt, c, orig_c, lam)
+
+
+def _gate_constant(lam: float, cy: int, cx: int) -> float:
+    return float(np.float32(lam * (112.0 + cy * cx)))
+
+
+def _ccalf_gate(filt, c, orig_c, lam: float):
+    """ccalf_gate in torch ops."""
+    gain = ctb_sse_plain(filt, orig_c, 32) - ctb_sse_plain(c, orig_c, 32)
+    flags = ((gain + float(np.float32(lam * 1.5))) < 0).to(torch.int32)
+    total = gain_total(torch.where(flags > 0, gain, 0.0))
+    cy, cx = flags.shape
+    return flags, (total + _gate_constant(lam, cy, cx)) < 0
+
+
+def level_plane(recon, cls, tr, coef, lvl: int, flags, bit_depth: int = 8):
+    """The luma plane filtered by one clip level's coefficients coef (25,
+    12), every class at level lvl.  The reference filters it in the
+    aligned-feature form (:443-450); that equals apply_alf's transposed
+    coefficient table, as every transpose permutation is an involution."""
+    idx = torch.full((NUM_CLASSES,), lvl, dtype=torch.int32,
+                     device=recon.device)
+    return apply_alf(recon, cls, coef, flags, bit_depth, tr, idx)
+
+
+def estimate_alf_nonlinear(orig, recon, lam: float, bit_depth: int = 8,
+                           with_sse: bool = False):
+    """Nonlinear, transposed luma estimation (:405-476): per clip level
+    the clipped, aligned per-class Wiener filters and the plane they
+    filter; each class keeps the level whose blocks' SSE is least (the
+    first on a tie).  Returns (coeffs (25, 12), clip_idx (25,), ctb_flags
+    (Cy, Cx), filtered (H, W)) int32, with_sse also the (4, 25) float32
+    per-class SSEs."""
+    orig = orig.to(torch.int32)
+    recon = recon.to(torch.int32)
+    h, w = orig.shape
+    cls, tr = classify_full(recon)
+    all_on = torch.ones((-(-h // 64), -(-w // 64)), dtype=torch.int32,
+                        device=orig.device)
+    coefs, filts = [], []
+    for lvl, v in enumerate(clip_levels(bit_depth)):
+        coef = normal_solve(recon, orig, cls, bit_depth=bit_depth, clip=v,
+                            transpose=tr)
+        filts.append(level_plane(recon, cls, tr, coef, lvl, all_on,
+                                 bit_depth))
+        coefs.append(coef)
+    sse = class_sse(torch.stack(filts), orig, cls)
+    clip_idx = torch.argmin(sse, 0).to(torch.int32)
+    coeffs = torch.stack(coefs)[clip_idx.long(),
+                                torch.arange(NUM_CLASSES, device=orig.device)]
+    filt = apply_alf(recon, cls, coeffs, all_on, bit_depth, tr, clip_idx)
+    flags = ctb_flags(filt, recon, orig, 64, lam)
+    out = (coeffs, clip_idx, flags,
+           apply_alf(recon, cls, coeffs, flags, bit_depth, tr, clip_idx))
+    return out + (sse,) if with_sse else out
+
+
+def estimate_alf_chroma_nl(orig, recon, lam: float, bit_depth: int = 8,
+                           with_sse: bool = False):
+    """Nonlinear chroma estimation (:302-344): the Wiener filter at each
+    clip level; the plane keeps the level whose filtered plane's float32
+    SSE (kernels.cost.plane_sse_f32, F4's order) is least.  Returns
+    (coeffs (6,), clip_lvl () int32, flags (Cy, Cx), filtered), with_sse
+    also the (4,) SSEs."""
+    from x266_tpu_torch.kernels.cost import plane_sse_f32
+
+    orig = orig.to(torch.int32)
+    recon = recon.to(torch.int32)
+    h, w = orig.shape
+    all_on = torch.ones((-(-h // 32), -(-w // 32)), dtype=torch.int32,
+                        device=orig.device)
+    coefs, filts = [], []
+    for lvl, v in enumerate(clip_levels(bit_depth)):
+        coef = normal_solve(recon, orig, bit_depth=bit_depth, clip=v)[0]
+        filts.append(apply_alf_chroma(recon, coef, all_on, bit_depth, lvl))
+        coefs.append(coef)
+    planes = torch.stack(filts).to(torch.uint8)
+    sse = plane_sse_f32(planes, orig.to(torch.uint8).expand_as(planes)
+                        .contiguous())
+    lvl = torch.argmin(sse).to(torch.int32)
+    # index_select: indexing by a 0-dim tensor reads it on the host
+    coeffs = torch.stack(coefs).index_select(0, lvl.long().reshape(1))[0]
+    filt = apply_alf_chroma(recon, coeffs, all_on, bit_depth, lvl)
+    flags = ctb_flags(filt, recon, orig, 32, lam)
+    out = (coeffs, lvl, flags,
+           apply_alf_chroma(recon, coeffs, flags, bit_depth, lvl))
+    return out + (sse,) if with_sse else out
+
+
+def estimate_ccalf(orig_c, c, luma, lam: float, bit_depth: int = 8):
+    """CC-ALF of one chroma plane (:526-563): the 7-tap Wiener filter from
+    the post-SAO, pre-ALF luma, its per-CTB flags and the whole-filter
+    gate, which zeroes coefficients and flags unless the kept CTBs' gain
+    pays for them.  Returns (coeffs (7,), flags (Cy, Cx), filtered)
+    int32."""
+    orig_c = orig_c.to(torch.int32)
+    c = c.to(torch.int32)
+    luma = luma.to(torch.int32)
+    ch, cw = orig_c.shape
+    coeffs = cc_normal_solve(luma, c, orig_c)[0]
+    all_on = torch.ones((-(-ch // 32), -(-cw // 32)), dtype=torch.int32,
+                        device=c.device)
+    filt = apply_ccalf(c, luma, coeffs, all_on, bit_depth)
+    flags, worth = ccalf_gate(filt, c, orig_c, lam)
+    coeffs = torch.where(worth, coeffs, 0)
+    flags = torch.where(worth, flags, 0)
+    return coeffs, flags, apply_ccalf(c, luma, coeffs, flags, bit_depth)

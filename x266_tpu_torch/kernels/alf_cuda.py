@@ -1,22 +1,28 @@
 """Wrappers of the ALF estimator's CUDA kernels, csrc/alf.cu: the
 per-class normal equations in XLA CPU's float32 order and their float32
-solve, from the post-SAO recon and the source (``normal_solve``), and
-the per-CTB on/off decision from the per-CTB SSEs in XLA's reduction
-order (``ctb_flags``) -- port-only, ROADMAP queue 3, F9; no Pallas
-kernel computes them.  The kernels form the diamond features themselves
+solve, from the post-SAO recon and the source, for every kind of feature
+-- the linear and the clipped (nonlinear) diamonds, the 12 aligned by the
+transposes, and CC-ALF's from the luma (``normal_solve``,
+``cc_normal_solve``) -- the per-CTB on/off decision from the per-CTB SSEs
+in XLA's reduction order, with CC-ALF's whole-filter gate
+(``ctb_flags``, ``ccalf_gate``), and the nonlinear estimator's per-class
+SSE of 4x4 blocks (``class_sse``) -- port-only, ROADMAP queue 3, F9; no
+Pallas kernel computes them.  The kernels form the features themselves
 and sum in int32 wherever the terms' magnitudes add up to at most 2^24
 (float32 is exact there in any order); only the rest runs the fixed
 float32 order, inside the kernels.
 
 The plain versions are kernels/alf.py (``normal_solve_plain``,
-``_ctb_flags``, ``ctb_sse_plain``), which route CUDA tensors here and
-keep CPU ones.  These wrappers launch their kernel or raise -- they
+``cc_normal_solve_plain``, ``_ctb_flags``, ``_ccalf_gate``,
+``ctb_sse_plain``, ``class_sse_plain``), which route CUDA tensors here
+and keep CPU ones.  These wrappers launch their kernel or raise -- they
 never fall back.
 
 LAUNCHES counts each wrapper's calls ("ALF": one call of the normal
 equations' kernels -- the block sums, totals and solve; "ALFSSE": one
-launch of the CTB decision kernel), so a run can show that its main path
-went through them.
+launch of the CTB decision kernel, with CC-ALF's gate behind it;
+"ALFCLS": one call of the class-SSE kernels), so a run can show that its
+main path went through them.
 """
 
 from __future__ import annotations
@@ -27,9 +33,10 @@ import torch
 from x266_tpu_torch import _build
 from x266_tpu_torch.kernels import alf
 
-LAUNCHES = {"ALF": 0, "ALFSSE": 0}
+LAUNCHES = {"ALF": 0, "ALFSSE": 0, "ALFCLS": 0}
 SEGMENT = 8192          # samples per plane segment (csrc/alf.cu kSegment)
 CHUNK_BLOCKS = 128      # blocks per chunk of the totals (kChunkBlocks)
+CLASS_LANES = 16        # lanes of a class-SSE chain total (kClsLanes)
 
 
 def reset_launches() -> None:
@@ -37,8 +44,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _orders(luma: bool):
-    kind = "luma" if luma else "chroma"
+def _orders(kind: str):
     out = []
     for q in ("gram", "rhs"):
         block, lanes, how = alf.SUM_ORDERS[f"{kind}_{q}"]
@@ -51,15 +57,18 @@ def _check(name, x):
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
 
 
-def _launch(lib, stream, recon, orig, cls):
+def _launch(lib, stream, recon, orig, cls, tmap=None, clip=0, luma=None):
     """Allocate the scratch and outputs and call the entry point on int32
-    contiguous planes; returns (error code, (coef, gram, rhs, stats))."""
-    h, w = recon.shape
-    n, dev = h * w, recon.device
-    luma = cls is not None
-    t = len(alf.DIAMOND if luma else alf.CHROMA_DIAMOND)
-    nc = alf.NUM_CLASSES if luma else 1
-    orders = _orders(luma)
+    contiguous planes; returns (error code, (coef, gram, rhs, stats)).
+    With luma (CC-ALF), recon is the chroma plane the error is taken
+    against and the features come from luma."""
+    h, w = orig.shape
+    n, dev = h * w, orig.device
+    kind = ("cc" if luma is not None else "luma" if cls is not None
+            else "chroma")
+    t = {"cc": 7, "luma": 12, "chroma": 6}[kind]
+    nc = alf.NUM_CLASSES if cls is not None else 1
+    orders = _orders(kind)
     nb = [-(-n // min(blk, n)) if blk else 1 for blk in orders[0::3]]
 
     def scratch(size, dtype):
@@ -77,9 +86,15 @@ def _launch(lib, stream, recon, orig, cls):
     rhs = torch.empty((nc, t), dtype=torch.float32, device=dev)
     coef = torch.empty((nc, t), dtype=torch.int32, device=dev)
     stats = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    lh, lw = (0, 0) if luma is None else luma.shape
     err_code = lib.x266_alf_normal(
-        h, w, t, nc, recon.data_ptr(), orig.data_ptr(),
-        None if cls is None else cls.data_ptr(), *orders,
+        h, w, t, nc, recon.data_ptr(), orig.data_ptr(), ptr(cls), ptr(tmap),
+        int(clip or 0), ptr(luma), recon.data_ptr() if luma is not None
+        else None, lh, lw, *orders,
         part_g.data_ptr(), part_r.data_ptr(), block_ordered.data_ptr(),
         chunk.data_ptr(), segs.data_ptr(), terms.data_ptr(), gram.data_ptr(),
         rhs.data_ptr(), coef.data_ptr(), stats.data_ptr(), stream)
@@ -91,16 +106,37 @@ def _planes(*xs):
             for x in xs]
 
 
+def _run_normal(recon, orig, cls, tmap, clip, luma):
+    lib = _build.LIBRARY.build()
+    with torch.cuda.device(orig.device):
+        stream = torch.cuda.current_stream(orig.device).cuda_stream
+        code, out = _launch(lib, stream, *_planes(recon, orig, cls, tmap),
+                            clip, *_planes(luma))
+    _build.check(code)
+    LAUNCHES["ALF"] += 1
+    return out
+
+
+def _results(out, with_sums, with_stats):
+    if with_stats:
+        return out
+    return out[:3] if with_sums else out[0]
+
+
 def normal_solve(recon, orig, cls=None, with_sums: bool = False,
-                 bit_depth: int = 8, with_stats: bool = False):
+                 bit_depth: int = 8, with_stats: bool = False, clip=None,
+                 transpose=None):
     """alf.normal_solve on the card: recon and orig (H, W), cls (H/4,
-    W/4) or None (chroma), integer CUDA tensors of 8-bit samples.
+    W/4) or None (chroma), integer CUDA tensors of 8-bit samples; clip, a
+    clip value (the nonlinear estimators), and transpose (H/4, W/4, luma
+    only), the block transposes the features are aligned by.
     Returns the coefficients (C, T) int32; with_sums also the float32
     gram (C, T, T) and rhs (C, T); with_stats then also the (4,) int32
     counts of (class, entry) chains of blocks (or of the whole plane's
     lanes) summed exactly and in order, and of (class, entry) totals
     over blocks summed exactly and in order."""
-    for name, x in (("recon", recon), ("orig", orig), ("cls", cls)):
+    for name, x in (("recon", recon), ("orig", orig), ("cls", cls),
+                    ("transpose", transpose)):
         _check(name, x)
     if bit_depth != 8:
         raise ValueError("the ALF kernel's int32 sums hold 8-bit samples")
@@ -109,18 +145,32 @@ def normal_solve(recon, orig, cls=None, with_sums: bool = False,
         raise ValueError(f"expected two planes of one shape, sides multiples "
                          f"of 4, got {tuple(recon.shape)} and "
                          f"{tuple(orig.shape)}")
-    if cls is not None and tuple(cls.shape) != (h // 4, w // 4):
-        raise ValueError(f"cls: expected ({h // 4}, {w // 4}), got "
-                         f"{tuple(cls.shape)}")
-    lib = _build.LIBRARY.build()
-    with torch.cuda.device(recon.device):
-        stream = torch.cuda.current_stream(recon.device).cuda_stream
-        code, out = _launch(lib, stream, *_planes(recon, orig, cls))
-    _build.check(code)
-    LAUNCHES["ALF"] += 1
-    if with_stats:
-        return out
-    return out[:3] if with_sums else out[0]
+    for name, x in (("cls", cls), ("transpose", transpose)):
+        if x is not None and tuple(x.shape) != (h // 4, w // 4):
+            raise ValueError(f"{name}: expected ({h // 4}, {w // 4}), got "
+                             f"{tuple(x.shape)}")
+    if transpose is not None and cls is None:
+        raise ValueError("transposes align the luma features only")
+    out = _run_normal(recon, orig, cls, transpose, clip, None)
+    return _results(out, with_sums, with_stats)
+
+
+def cc_normal_solve(luma, c, orig_c, with_sums: bool = False,
+                    with_stats: bool = False):
+    """alf.cc_normal_solve on the card: luma (H, W), c and orig_c (H/2,
+    W/2) integer CUDA tensors of 8-bit samples.  Returns the coefficients
+    (1, 7) int32, with_sums and with_stats as normal_solve's."""
+    for name, x in (("luma", luma), ("c", c), ("orig_c", orig_c)):
+        _check(name, x)
+    h, w = c.shape
+    if (orig_c.shape != c.shape or tuple(luma.shape) != (2 * h, 2 * w)
+            or h % 4 or w % 4 or (h * w) % 8):
+        raise ValueError(f"expected a chroma plane and its source of one "
+                         f"shape, sides multiples of 4, and a luma plane of "
+                         f"twice their sides, got {tuple(c.shape)}, "
+                         f"{tuple(orig_c.shape)} and {tuple(luma.shape)}")
+    out = _run_normal(c, orig_c, None, None, 0, luma)
+    return _results(out, with_sums, with_stats)
 
 
 def sse_mode(ctb: int, width: int) -> int:
@@ -133,28 +183,33 @@ def sse_mode(ctb: int, width: int) -> int:
     return 1 if width % 32 == 0 else 2
 
 
-def _launch_flags(lib, stream, filt, recon, orig, ctb, lam, extras=True):
+def _launch_flags(lib, stream, filt, recon, orig, ctb, lam, extras=True,
+                  worth=None):
     """Call the CTB entry point on int32 contiguous planes; returns (error
     code, (flags (Cy, Cx) int32, and with extras the SSEs (2, Cy, Cx)
     float32 and the (2,) int32 counts of windows summed exactly and in
-    order, else None, None))."""
+    order, else None, None)).  worth, a (1,) int32 tensor: CC-ALF's gate
+    writes its decision there."""
     h, w = orig.shape
     dev = orig.device
     cy, cx = -(-h // ctb), -(-w // ctb)
     flags = torch.empty((cy, cx), dtype=torch.int32, device=dev)
     sse = stats = None
-    if extras:
+    if extras or worth is not None:
         sse = torch.empty((2, cy, cx), dtype=torch.float32, device=dev)
+    if extras:
         stats = torch.zeros(2, dtype=torch.int32, device=dev)
     code = lib.x266_alf_ctb_flags(
         h, w, sse_mode(ctb, w), float(np.float32(lam * 1.5)),
         filt.data_ptr(), recon.data_ptr(), orig.data_ptr(), flags.data_ptr(),
         None if sse is None else sse.data_ptr(),
-        None if stats is None else stats.data_ptr(), stream)
-    return code, (flags, sse, stats)
+        None if stats is None else stats.data_ptr(),
+        alf._gate_constant(lam, cy, cx),
+        None if worth is None else worth.data_ptr(), stream)
+    return code, (flags, sse if extras else None, stats)
 
 
-def _flags(filt, recon, orig, ctb, lam, extras):
+def _flags(filt, recon, orig, ctb, lam, extras, worth=None):
     for name, x in (("filt", filt), ("recon", recon), ("orig", orig)):
         _check(name, x)
     if (not (filt.shape == recon.shape == orig.shape) or orig.dim() != 2
@@ -167,7 +222,7 @@ def _flags(filt, recon, orig, ctb, lam, extras):
     with torch.cuda.device(orig.device):
         stream = torch.cuda.current_stream(orig.device).cuda_stream
         code, out = _launch_flags(lib, stream, *_planes(filt, recon, orig),
-                                  ctb, lam, extras)
+                                  ctb, lam, extras, worth)
     _build.check(code)
     LAUNCHES["ALFSSE"] += 1
     return out
@@ -186,3 +241,53 @@ def ctb_sse(a, orig, ctb: int) -> torch.Tensor:
     """alf.ctb_sse on the card (the CTB kernel's SSE of a against orig):
     (Cy, Cx) float32."""
     return _flags(a, a, orig, ctb, 0.0, True)[1][0]
+
+
+def ccalf_gate(filt, c, orig_c, lam: float):
+    """alf.ccalf_gate on the card: filt, c and orig_c (H, W) integer CUDA
+    tensors (32x32 CTBs); (flags (Cy, Cx) int32, worth () bool), in one
+    launch of the CTB kernel and its gate, without a host sync."""
+    worth = torch.empty(1, dtype=torch.int32, device=orig_c.device)
+    flags = _flags(filt, c, orig_c, 32, lam, False, worth)[0]
+    return flags, worth[0] > 0
+
+
+def _launch_class(lib, stream, filt, orig, cls):
+    """Call the class-SSE entry point on int32 contiguous planes; returns
+    (error code, (sse (L, 25) float32, stats (2,) int32: lane chains
+    exact, with an ordered tail))."""
+    lv, h, w = filt.shape
+    dblk = torch.empty(lv * (h // 4) * (w // 4), dtype=torch.int32,
+                       device=orig.device)
+    tot = torch.empty(lv * alf.NUM_CLASSES * CLASS_LANES, dtype=torch.int64,
+                      device=orig.device)
+    out = torch.empty((lv, alf.NUM_CLASSES), dtype=torch.float32,
+                      device=orig.device)
+    stats = torch.zeros(2, dtype=torch.int32, device=orig.device)
+    code = lib.x266_alf_class_sse(lv, h, w, filt.data_ptr(), orig.data_ptr(),
+                                  cls.data_ptr(), dblk.data_ptr(),
+                                  tot.data_ptr(), out.data_ptr(),
+                                  stats.data_ptr(), stream)
+    return code, (out, stats)
+
+
+def class_sse(filt, orig, cls, with_stats: bool = False):
+    """alf.class_sse on the card: filt (L, H, W), orig (H, W) and cls
+    (H/4, W/4) integer CUDA tensors; (L, 25) float32, and with_stats the
+    (2,) int32 counts of lane chains summed exactly and with an ordered
+    tail."""
+    for name, x in (("filt", filt), ("orig", orig), ("cls", cls)):
+        _check(name, x)
+    lv, h, w = filt.shape
+    if (tuple(orig.shape) != (h, w) or tuple(cls.shape) != (h // 4, w // 4)
+            or h % 4 or w % 4):
+        raise ValueError(f"expected planes (L, H, W), (H, W) and (H/4, W/4) "
+                         f"with sides multiples of 4, got {tuple(filt.shape)}"
+                         f", {tuple(orig.shape)} and {tuple(cls.shape)}")
+    lib = _build.LIBRARY.build()
+    with torch.cuda.device(orig.device):
+        stream = torch.cuda.current_stream(orig.device).cuda_stream
+        code, out = _launch_class(lib, stream, *_planes(filt, orig, cls))
+    _build.check(code)
+    LAUNCHES["ALFCLS"] += 1
+    return out if with_stats else out[0]
