@@ -139,6 +139,25 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     'motion', against data/rc_1080p_ref.json: stream, slice NALs, each
     picture's QP (at least two QPs), recon, PSNR-Y and SSE, launches_rc
     and one warm encode's frame rate;
+    [kernels-sdh-dq] K1/K2, K3-P and K3-B (encode and decode) with
+    sign-data hiding and with dependent quantization against the plain
+    scans, bit for bit, at 416x240 (SDH beside transform skip on 'text'
+    as preset_cfg2s, DQ with RDOQ and beside transform skip without
+    it, the P and B pictures on noisy references; the plain scans run
+    on the CPU in the worker processes; the flag must change the
+    levels of the I and P pictures), timed beside their bounds; then
+    each kernel's time without the flags, with SDH and with DQ, in
+    turns, at config 2's (K1 a batch of 4), config 3's and config 4's
+    1080p shapes;
+    [main-sdh] preset_cfg2s (transform skip, SDH, substitution) with
+    config 2's segments, frames 0-3 of 'text' at 1080p, against
+    data/cfg2s_1080p_ref.json as [main-tools]; [main-dq] config 2 with
+    DQ, frames 0-3 of 'mixed', against data/cfg2dq_1080p_ref.json;
+    [main-p-dq] config 3 (VVC profile) with DQ, frames 0-3 of 'motion',
+    against data/cfg3dq_1080p_ref.json; [main-ra-sdh-dq] config 4 at
+    416x240 with SDH, then with DQ, 17 frames of 'motion', against
+    data/ra_sdh_416x240_ref.json and data/ra_dq_416x240_ref.json as
+    [main-ra-ref]; each with its launches (launches_tools);
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
@@ -148,7 +167,8 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     bits/frame, PSNR-Y, one warm encode's frame rate; the stream, slice
     NALs, recon, PSNR-Y and SSE equal to data/cfg4_4k_ref.json.
 Plain versions that run on the CPU (K1's 1080p tools frame in
-[kernels-tools], the chroma normal equations in [kernels-alf]) run in two
+[kernels-tools], the chroma normal equations in [kernels-alf], the SDH
+and DQ scans of [kernels-sdh-dq]) run in two
 spawned worker processes while the card's phases go on; their checks
 finish before the kernels line ([time] cpu-checks).
 The third line from the end is a JSON object with each kernel's
@@ -392,7 +412,16 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
     16 MACs a sample plus its 4s-sample group sums, a PDPC-class luma TU
     adds its blend (3 MACs a sample), a transform-skip TU shifts (1 op a
     sample each way) instead of transforming, and lossless coding has
-    neither transform nor quantizer (1 op a sample)."""
+    neither transform nor quantizer (1 op a sample).  Under dependent
+    quantization an encoded TU of n = side^2 positions adds its trellis,
+    272 ops a position: 6 level costs of ~8 ops (48), the up-sweep's
+    n - 1 (min,+) 4x4 products of 64 adds and 48 minima (112 a
+    position), the down-sweep's n - 1 nodes of 8 outputs of 4 adds and
+    3 minima (56) and level 0's two 4-entry (min,+) rows and argmins
+    (56); a decoded or reconstructed TU adds its states and
+    state-dependent dequantization (8 ops a position).  Sign-data hiding
+    adds each 4x4 group's parity and span scan (2 ops a position), not
+    the move search that only mismatched groups run."""
     ops = 0.0
     for f in range(size_map.shape[0]):
         sm = size_map[f]
@@ -420,7 +449,13 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
                 if cfg is not None and cfg.lossless:
                     tx = side * side
                 coded = not (encode and kind == 2)
-                ops += n * (pred + (tx if encode and coded else 0)
+                quant = 0
+                if cfg is not None and cfg.dep_quant:
+                    quant = side * side * (280 if encode and coded else
+                                           0 if encode else 8)
+                elif cfg is not None and cfg.sign_data_hiding and encode:
+                    quant = 2 * side * side * coded
+                ops += n * (pred + quant + (tx if encode and coded else 0)
                             + (tx if coded or not encode else 0))
     return ops
 
@@ -519,11 +554,12 @@ def phase_build():
 
 
 def kernel_name(mangled: str) -> str:
-    """recon_kernel<encode,inter,b> for a recon instance, else the first
-    name of the mangled symbol's (nested) name that holds "kernel"."""
-    t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)", mangled)
+    """recon_kernel<encode,inter,b,quantizer> for a recon instance, else
+    the first name of the mangled symbol's (nested) name that holds
+    "kernel"."""
+    t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)E", mangled)
     if t:
-        return "recon_kernel<%s,%s,%s>" % t.groups()
+        return "recon_kernel<%s,%s,%s,%s>" % t.groups()
     pos = 3 if mangled.startswith("_ZN") else 2
     while m := re.match(r"\d+", mangled[pos:]):
         start = pos + m.end()
@@ -1387,6 +1423,275 @@ def phase_kernels_inter_tools(stats):
                                stats, 9, record="tools_ra 1080p")
 
 
+# sign-data hiding and dependent quantization ([kernels-sdh-dq], [main-sdh],
+# [main-dq], [main-p-dq], [main-ra-sdh-dq])
+def cfg2s(w=1920, h=1080):
+    """preset_cfg2s (screen content: transform skip, SDH, substitution)
+    with config 2's segments and context inheritance."""
+    from x266_tpu_torch.config import preset_cfg2s
+
+    return preset_cfg2s(w, h).replace(rows_per_segment=1, ctx_inherit=True)
+
+
+def cfg3dq(w=1920, h=1080):
+    """Config 3 with dependent quantization (which needs the VVC
+    profile)."""
+    from x266_tpu_torch.config import Profile, preset_cfg3
+
+    return preset_cfg3(w, h).replace(profile=Profile.VVC, dep_quant=True)
+
+
+def _plain_quant_cpu(cfg, pic, enc_in, dec_in):
+    """The plain encode and decode scans of one picture on the CPU (a
+    worker's): pic "I" (make_recon_pass_raw), "P" or "B"
+    (make_recon_inter_raw); ((encode outputs, decode outputs), ms of
+    each)."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.engine import inter, recon
+
+    tab = tables.from_reference(cfg, "cpu")
+
+    def plain(encode):
+        if pic == "I":
+            return recon.make_recon_pass_raw(cfg, tab, encode)
+        return inter.make_recon_inter_raw(cfg, tab, encode, pic == "B")
+
+    outs, ms = [], []
+    for encode, inputs in ((True, enc_in), (False, dec_in)):
+        t0 = time.perf_counter()
+        out = plain(encode)(*(torch.from_numpy(x) for x in inputs))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append([t.numpy() for t in out])
+    return outs, ms
+
+
+def _quant_inputs(cfg, pic, seed, kind):
+    """(tab, encode inputs, decoder-side inputs but the levels, maps) of
+    one picture on the card: an intra picture's padded planes and Pass-A
+    maps, or a P or B picture's on b_references (+-40 noise) with its
+    inter maps."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import fused, inter
+
+    if pic == "I":
+        tab, src, maps = _inputs(cfg, 1, seed, kind)
+        return tab, (*src, *maps), tuple(maps), maps
+    tab = tables.from_reference(cfg, "cuda")
+    planes = _upload(synthetic_clip(cfg.width, cfg.height, 1, kind,
+                                    seed=seed))
+    p0, p1 = b_references(planes, amp=40)
+    src = fused._unpack_padded(cfg, *planes)
+    if pic == "B":
+        maps = inter.make_mode_decision_b_raw(cfg, tab)(src[0][0], p0[0],
+                                                       p1[0])
+    else:
+        maps = inter.make_mode_decision_p_raw(cfg, tab)(src[0][0], p0[0])
+    maps = [m[None].contiguous() for m in maps]
+    args = (maps[0], maps[1], torch.zeros_like(maps[0]), *maps[2:5], *p0)
+    if pic == "B":
+        args += (*p1, maps[5], maps[6])
+    return tab, (*src, *args), args, maps
+
+
+def _run_quant(cfg, tab, pic, encode, *inputs):
+    """K1/K2 (pic "I"), K3-P or K3-B on inputs, encode or decode."""
+    from x266_tpu_torch.engine import recon_cuda
+
+    if pic == "I":
+        return recon_cuda.recon_intra(cfg, tab, encode, *inputs)
+    return recon_cuda.recon_inter(cfg, tab, encode, *inputs)
+
+
+def _dec_inputs(pic, got, args):
+    """The decode call's inputs: the levels, then the maps (inter: the
+    final MVs in place of the mv maps)."""
+    if pic == "I":
+        return (*got[3:6], *args)
+    return (*got[3:6], *args[:4], got[6].int(), got[7].int(), *args[6:])
+
+
+QUANT_KERNELS = {"I": ("K1", "K2"), "P": ("K3", "K3d"), "B": ("K3B", "K3Bd")}
+
+
+def quant_bounds(cfg, tab, pic, src, args, got, dec, maps):
+    """The bounds of one picture's encode and decode launch: the bytes
+    (planes, maps, levels, recon and tables once; of the pyramids the
+    MC blocks' samples, as [kernels-p-tools] counts them) and recon_ops
+    with cfg's quantizers."""
+    hm = [m.cpu().numpy() for m in maps]
+    if pic == "I":
+        pred, mts, maps_in, extra, reads = None, hm[2], args, (), 0
+    else:
+        pred, mts, maps_in = hm[2], np.zeros_like(hm[0]), args[:6]
+        if pic == "P":
+            extra = ()
+            reads = k3_read_bytes(args[6:9], maps[0], maps[2], got[6],
+                                  got[7])
+        else:
+            extra = (args[12], args[13])
+            reads = (read_union(args[6:9], [(maps[0], maps[2], got[6], got[7],
+                                             (1, 2, 4))])
+                     + read_union(args[9:12], [
+                         (maps[0], maps[2], got[6], got[7], (3,)),
+                         (maps[0], maps[2], maps[5], maps[6], (4,))]))
+    tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift, tab.k_mip)
+    be = bound(nbytes(*src, *maps_in, *extra, *got, *tabs, tab.rate) + reads,
+               recon_ops(hm[0], True, pred, hm[1], mts, cfg))
+    bd = bound(nbytes(*maps_in, *extra, *got[3:6], *dec[:3], *tabs) + reads,
+               recon_ops(hm[0], False, pred, hm[1], mts, cfg))
+    return be, bd
+
+
+def compare_quant_kernels(tag, cfg, pic, stats, seed=13, kind="mixed"):
+    """K1/K2, K3-P or K3-B (encode and decode) under cfg's SDH or DQ on
+    one picture, on the card; the plain scans of the same inputs run on
+    the CPU in a worker process, whose check (bit for bit, before the
+    kernels line) also records their times.  On an I or P picture the
+    flag must change levels: the kernel without it gives others."""
+    k, kd = QUANT_KERNELS[pic]
+    tab, enc_in, args, maps = _quant_inputs(cfg, pic, seed, kind)
+    got = _run_quant(cfg, tab, pic, True, *enc_in)
+    dec_in = _dec_inputs(pic, got, args)
+    dec = _run_quant(cfg, tab, pic, False, *dec_in)
+    names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
+             "mvx_fin", "mvy_fin"]
+    _require_equal(kd, tag + " (its own encode's recon)", names[:3],
+                   dec[:3], got[:3])
+    off = cfg.replace(sign_data_hiding=False, dep_quant=False)
+    base = _run_quant(off, tab, pic, True, *enc_in)
+    changed = sum(int((a != b).sum()) for a, b in zip(base[3:6], got[3:6]))
+    if changed == 0 and pic != "B":
+        raise AssertionError(f"[kernels-sdh-dq] {tag}: the flag changed no "
+                             "level")
+    k_ms = event_ms(_run_quant, cfg, tab, pic, True, *enc_in)
+    kd_ms = event_ms(_run_quant, cfg, tab, pic, False, *dec_in)
+    be, bd = quant_bounds(cfg, tab, pic, enc_in[:3], args, got, dec, maps)
+    entry = {}
+    for key, ms, b in ((k, k_ms, be), (kd, kd_ms, bd)):
+        entry[key] = stats[key].setdefault("tools", {}).setdefault(tag, {})
+        entry[key].update({"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                           "shape": f"{cfg.width}x{cfg.height}"})
+    got_h = [g.cpu() for g in got]
+    dec_h = [d.cpu() for d in dec]
+
+    def check(outs, ms):
+        _require_equal(k, tag, names, got_h, [torch.from_numpy(r)
+                                              for r in outs[0]])
+        _require_equal(kd, tag, names, dec_h, [torch.from_numpy(r)
+                                               for r in outs[1]])
+        entry[k]["plain_ms_cpu"], entry[kd]["plain_ms_cpu"] = ms
+        log(f"[kernels-sdh-dq] {tag}: {k} and {kd} equal the plain scans "
+            f"(on the cpu in a worker: {ms[0]:.0f} / {ms[1]:.0f} ms); "
+            "max_abs_err 0")
+
+    on_cpu("kernels-sdh-dq", check, _plain_quant_cpu, cfg, pic,
+           [t.cpu().numpy() for t in enc_in],
+           [t.cpu().numpy() for t in dec_in])
+    log(f"[kernels-sdh-dq] {tag}: {k} {k_ms:.3f} ms (bound {be[0]:.4f} ms, "
+        f"{be[1]}), {kd} {kd_ms:.3f} ms (bound {bd[0]:.4f} ms, {bd[1]}); "
+        f"{kd} equals {k}'s recon; {changed} levels differ from the "
+        "kernel without the flag; the plain scans run on the cpu")
+
+
+def time_quant_flags(tag, cfg, pic, stats, n=1, kind="mixed", seed=0):
+    """One main-path shape's recon launches without the flags, with SDH
+    and with DQ, on the same inputs and maps (Pass A does not read the
+    flags), timed in turns (off, SDH, DQ, DQ, SDH, off)."""
+    k, kd = QUANT_KERNELS[pic]
+    if pic == "I":
+        tab, src, maps = _inputs(cfg, n, seed, kind)
+        enc_in, args = (*src, *maps), tuple(maps)
+    else:
+        tab, enc_in, args, maps = _quant_inputs(cfg, pic, 9, kind)
+    cfgs = {"off": cfg.replace(sign_data_hiding=False, dep_quant=False),
+            "sdh": cfg.replace(sign_data_hiding=True, dep_quant=False),
+            "dq": cfg.replace(sign_data_hiding=False, dep_quant=True)}
+    dec_in, bounds = {}, {}
+    for name, c in cfgs.items():
+        got = _run_quant(c, tab, pic, True, *enc_in)
+        one = (got[3:6] if pic != "I" else
+               [g[:1].contiguous() for g in got[3:6]])
+        a1 = args if pic != "I" else [m[:1].contiguous() for m in args]
+        dec_in[name] = _dec_inputs(pic, (*got[:3], *one, *got[6:]), a1)
+        dec = _run_quant(c, tab, pic, False, *dec_in[name])
+        # the decode's bound on its one frame
+        m1 = maps if pic != "I" else [m[:1] for m in maps]
+        got1 = got if pic != "I" else [g[:1] for g in got]
+        bounds[name] = (
+            quant_bounds(c, tab, pic, enc_in[:3], args, got, dec, maps)[0],
+            quant_bounds(c, tab, pic, [t[:1] for t in enc_in[:3]], a1, got1,
+                         dec, m1)[1])
+    times = {key: {name: [] for name in cfgs} for key in (k, kd)}
+    for name in ("off", "sdh", "dq", "dq", "sdh", "off"):
+        c = cfgs[name]
+        times[k][name].append(event_ms(_run_quant, c, tab, pic, True,
+                                       *enc_in))
+        times[kd][name].append(event_ms(_run_quant, c, tab, pic, False,
+                                        *dec_in[name]))
+    for i, key in enumerate((k, kd)):
+        ms = {name: float(np.mean(v)) for name, v in times[key].items()}
+        bd = {name: bounds[name][i] for name in cfgs}
+        stats[key].setdefault("tools", {})[f"{tag} flags"] = {
+            "ms_off": ms["off"], "ms_sdh": ms["sdh"], "ms_dq": ms["dq"],
+            "bound_ms": {name: b[0] for name, b in bd.items()},
+            "bound_by": {name: b[1] for name, b in bd.items()},
+            "shape": f"{cfg.width}x{cfg.height}x{n if key == 'K1' else 1}"}
+        log(f"[kernels-sdh-dq] {tag}: {key} off {ms['off']:.3f} ms, SDH "
+            f"{ms['sdh']:.3f} ms, DQ {ms['dq']:.3f} ms (in turns); bounds "
+            + ", ".join(f"{name} {b[0]:.4f} ms ({b[1]})"
+                        for name, b in bd.items()))
+
+
+def phase_kernels_sdh_dq(stats):
+    """K1/K2, K3-P and K3-B with SDH and with DQ against the plain scans
+    at 416x240 (SDH beside transform skip on 'text' as preset_cfg2s; DQ
+    with RDOQ, and beside transform skip without it; the P and B pictures
+    on noisy references); then each kernel's time without the flags,
+    with SDH and with DQ at config 2's (K1 a batch of 4, K2 a frame),
+    config 3's and config 4's 1080p shapes, on the VVC profile that DQ
+    needs."""
+    from x266_tpu_torch.config import Profile, preset_cfg2, preset_cfg3
+
+    w, h = 416, 240
+    vvc = dict(profile=Profile.VVC)
+    for tag, cfg, pic, kind in (
+            ("sdh I 416x240", cfg2s(w, h), "I", "text"),
+            ("dq I 416x240", preset_cfg2(w, h).replace(dep_quant=True), "I",
+             "mixed"),
+            ("dq-ts I 416x240", preset_cfg2(w, h).replace(
+                dep_quant=True, transform_skip=True, rdoq=False), "I",
+             "text"),
+            ("sdh P 416x240", preset_cfg3(w, h).replace(
+                sign_data_hiding=True), "P", "motion"),
+            ("dq P 416x240", cfg3dq(w, h), "P", "motion"),
+            ("sdh B 416x240", cfg4(w, h).replace(sign_data_hiding=True),
+             "B", "motion"),
+            ("dq B 416x240", cfg4(w, h).replace(dep_quant=True, **vvc), "B",
+             "motion")):
+        compare_quant_kernels(tag, cfg, pic, stats, kind=kind)
+    time_quant_flags("config2 1080p", main_cfg(), "I", stats, n=4)
+    time_quant_flags("config3 1080p", cfg3().replace(**vvc), "P", stats,
+                     kind="motion")
+    time_quant_flags("config4 1080p", cfg4(1920, 1080).replace(**vvc), "B",
+                     stats, kind="motion")
+
+
+def phase_main_ra_sdh_dq(stats):
+    """Config 4 at 416x240 with SDH, then with DQ, 17 frames of 'motion'
+    (I, P, 15 B), against the recorded JAX references."""
+    from x266_tpu_torch.config import Profile
+
+    kernels = ("K1", "K2", "K3", "K3d", "K3B", "K3Bd", "K4", "K5")
+    for name, file, cfg in (
+            ("ra_sdh", "ra_sdh_416x240_ref.json",
+             cfg4(416, 240).replace(sign_data_hiding=True)),
+            ("ra_dq", "ra_dq_416x240_ref.json",
+             cfg4(416, 240).replace(profile=Profile.VVC, dep_quant=True))):
+        run_ra_ref(f"main-ra-sdh-dq {name}", name, file, cfg, "motion", stats,
+                   kernels)
+
+
 def _encoder_planes(w, h):
     """The (orig, recon, lam) luma and chroma planes the encoder's ALF
     estimators get for the IDR of config 4's clip at w x h (its post-SAO
@@ -1542,6 +1847,21 @@ def compare_alf_nl_kernels(w, h, data, stats):
         # and level a subtraction, a square and an add
         bs = bound(samples(filts, o, cls) + nbytes(sse),
                    3.0 * n * len(levels))
+        # CC-ALF's gate (alf_ccalf_gate, one thread behind the CTB
+        # kernel): the CTB call with the gate less the same call without
+        # it; it reads each CTB's two SSEs and flag and writes one word,
+        # a subtraction, a select and an add a CTB
+        g_ms = event_ms(alf_cuda.ccalf_gate, cfilt, rc, oc, lam, reps=10)
+        f_ms = event_ms(alf_cuda.ctb_flags, cfilt, rc, oc, 32, lam, reps=10)
+        n_ctb = flags.numel()
+        bg = bound(n_ctb * (2 * 4 + 4) + 4, 3.0 * n_ctb)
+        stats["ALFSSE"].setdefault("ccalf_gate", {})[kind] = {
+            "ms": g_ms - f_ms, "with_ctb_kernel_ms": g_ms,
+            "ctb_kernel_ms": f_ms, "bound_ms": bg[0], "bound_by": bg[1],
+            "ctbs": n_ctb}
+        log(f"[kernels-alf] {tag}: CC-ALF gate {g_ms - f_ms:.4f} ms (the CTB "
+            f"call with it {g_ms:.4f} ms, without {f_ms:.4f} ms; {n_ctb} "
+            f"CTBs; bound {bg[0]:.6f} ms, {bg[1]})")
         log(f"[kernels-alf] {tag}: ALF kernel, luma clip {levels[1]} "
             f"aligned {k_ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}); chroma "
             f"clip {levels[1]} {kc_ms:.4f} ms (bound {bc[0]:.4f} ms, "
@@ -2462,6 +2782,17 @@ def main() -> int:
     run("main-gpb", phase_main_gpb, stats, card)
     run("main-ra-nl", phase_main_ra_nl, stats, card)
     run("main-rc", phase_main_rc, stats, card)
+    run("kernels-sdh-dq", phase_kernels_sdh_dq, stats)
+    run("main-sdh", run_main, "main-sdh", cfg2s(), "text",
+        "cfg2s_1080p_ref.json", ("K1", "K2"), stats, card, tools=True,
+        batch_frames=4)
+    run("main-dq", run_main, "main-dq", main_cfg().replace(dep_quant=True),
+        "mixed", "cfg2dq_1080p_ref.json", ("K1", "K2"), stats, card,
+        tools=True, batch_frames=4)
+    run("main-p-dq", run_main, "main-p-dq", cfg3dq(), "motion",
+        "cfg3dq_1080p_ref.json", ("K1", "K2", "K3", "K3d", "K4", "K5"),
+        stats, card, tools=True)
+    run("main-ra-sdh-dq", phase_main_ra_sdh_dq, stats)
     run("main-ra", run_main_ra, stats, card)
     run("cpu-checks", finish_cpu_checks)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")
@@ -2472,7 +2803,7 @@ def main() -> int:
          **{key: stats[k][key] for key in (
              "shape", "tus_by_size_map", "ms_per_chain_ctu",
              "us_per_chain_luma_tu", "launches_cfg4", "launches_gpb",
-             "launches_rc", "at_4k", "at_4k_nl",
+             "launches_rc", "at_4k", "at_4k_nl", "ccalf_gate",
              "launches_tools", "tools")
             if key in stats[k]}}
         for k in KERNELS]}))

@@ -105,6 +105,7 @@ T& host_block_shared() {
 #define __host__
 #define __forceinline__ inline
 #define __constant__
+#define X266_NOINLINE __attribute__((noinline))
 #define __launch_bounds__(n)
 
 #define X266_ASSERT(cond)                          \

@@ -1,7 +1,9 @@
 """The port on a CUDA device: kernels K1/K2 against the plain scan, K3-P,
 K4 and K5 against their plain versions, and Encoder/Decoder on the card
 against the CPU path (exact equality), all-intra, low-delay P and random
-access with deblock, SAO and ALF (K3-B).
+access with deblock, SAO and ALF (K3-B); K1/K2 and K3-P under sign-data
+hiding and dependent quantization, and the 128x64 SDH / DQ clips against
+their recorded JAX streams.
 
 This file imports no JAX, so it runs on a host without it; there, skip
 tests/conftest.py (which imports jax):
@@ -329,6 +331,102 @@ def test_ra_nl_and_rc_streams_on_card_equal_recorded_jax(cuda):
     res = Encoder(cfg, rate_control=rc).encode(
         synthetic_clip(128, 64, c["n_frames"], "motion", seed=3))
     assert res.bitstream == base64.b64decode(ref["stream_b64"])
+
+
+# sign-data hiding and dependent quantization: K1/K2 (VVC with MTS and
+# transform skip; DQ with and without RDOQ), K3-P and K3-B
+QCFGS = [
+    preset_cfg2(128, 64).replace(transform_skip=True, sign_data_hiding=True),
+    preset_cfg2(128, 64).replace(dep_quant=True),
+    preset_cfg2(128, 64).replace(dep_quant=True, transform_skip=True,
+                                 rdoq=False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", QCFGS, ids=["sdh-ts", "dq", "dq-ts"])
+def test_sdh_dq_intra_kernels_match_plain_scan_on_card(cfg, cuda):
+    """K1 and K2 under SDH or DQ on the card: the plain scan's levels and
+    recon."""
+    tab, src, maps = _inputs(cfg, cuda)
+    got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    dec = recon_cuda.recon_intra(cfg, tab, False, *got[3:], *maps)
+    for n, w, g in zip(NAMES, want, dec):
+        assert torch.equal(w, g), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flag", ["sdh", "dq"])
+def test_sdh_dq_inter_kernels_match_plain_on_card(flag, cuda):
+    """K3-P under SDH or DQ on the card, encode and decode: the plain
+    scan's levels, recon and final MVs."""
+    cfg = PCFGS[0].replace(**({"sign_data_hiding": True} if flag == "sdh"
+                              else {"profile": Profile.VVC,
+                                    "dep_quant": True}))
+    tab, src, pyrs, cur, base, args = _p_inputs(cfg, cuda)
+    got = recon_cuda.recon_inter(cfg, tab, True, *src, *args)
+    want = inter.make_recon_inter_raw(cfg, tab, True)(*src, *args)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    dargs = (*args[:4], got[6].int(), got[7].int(), *args[6:])
+    dec = recon_cuda.recon_inter(cfg, tab, False, *got[3:6], *dargs)
+    for n, w, g in zip(NAMES, want, dec):
+        assert torch.equal(w, g), n
+
+
+@pytest.mark.gpu
+def test_sdhdq_streams_on_card_equal_recorded_jax(cuda):
+    """On the card: the 128x64 SDH and DQ clips (all-intra, low-delay P,
+    random access) give data/sdhdq128x64_ref.json's streams and recon,
+    through the recon kernels."""
+    import base64
+    import json
+    import os
+
+    from x266_tpu_torch.config import (preset_cfg2s, preset_cfg3,
+                                       preset_cfg4)
+
+    data = os.path.join(os.path.dirname(__file__), "..", "x266_tpu_torch",
+                        "data")
+    with open(os.path.join(data, "sdhdq128x64_ref.json")) as f:
+        ref = json.load(f)["variants"]
+    gop = dict(gop_size=4, intra_period=8)
+    cfgs = {"ai_sdh": (preset_cfg2s(128, 64), "text", 2),
+            "ai_dq_ts": (preset_cfg2(128, 64).replace(
+                dep_quant=True, transform_skip=True, rdoq=False), "text", 2),
+            "p_sdh": (preset_cfg3(128, 64).replace(
+                intra_period=4, sign_data_hiding=True, rdoq=False),
+                "motion", 5),
+            "ra_sdh": (preset_cfg4(128, 64).replace(
+                **gop, sign_data_hiding=True), "motion", 5),
+            "ra_dq": (preset_cfg4(128, 64).replace(
+                **gop, profile=Profile.VVC, dep_quant=True), "motion", 5)}
+    for name, (cfg, kind, n) in cfgs.items():
+        recon_cuda.reset_launches()
+        res = Encoder(cfg).encode(synthetic_clip(128, 64, n, kind, seed=3))
+        assert res.bitstream == base64.b64decode(ref[name]["stream_b64"])
+        assert [frame_md5(r) for r in res.recon] == [
+            f["recon_md5"] for f in ref[name]["frames"]]
+        assert recon_cuda.LAUNCHES["K1"] > 0
+
+
+def test_sdh_dq_entry_points_default_to_the_card():
+    """Encoder and Decoder of a configuration with SDH or DQ default to
+    the card and raise on a host without one (no fall back to the CPU);
+    the recon kernels' wrappers refuse CPU tensors under either flag."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a host without a card")
+    for cfg in QCFGS:
+        with pytest.raises(RuntimeError, match="is_available"):
+            Encoder(cfg)
+        tab, src, maps = _inputs(cfg, "cpu", n=1)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+    with pytest.raises(RuntimeError, match="is_available"):
+        Decoder()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

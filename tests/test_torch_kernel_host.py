@@ -423,6 +423,8 @@ WAVE = {
                      rdoq=True, ref_substitute=True, merge_cands=True),
     "b": CodecConfig(width=192, height=160, qp=30, intra_period=8,
                      gop_size=4),
+    # dependent quantization's scratch in each block's shared memory
+    "intra-dq": preset_cfg2(192, 160).replace(dep_quant=True),
 }
 
 
@@ -435,7 +437,7 @@ def test_wavefront_rows_run_concurrently(kind, host_lib, monkeypatch):
     monkeypatch.setenv("X266_HOST_BLOCKS", "8")
     cfg = WAVE[kind]
     tab = tables.from_reference(cfg, "cpu")
-    if kind == "intra":
+    if kind.startswith("intra"):
         frames = synthetic_clip(cfg.width, cfg.height, 2, "mixed", seed=5)
         planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
                   for p in ("y", "cb", "cr")]
@@ -692,13 +694,30 @@ TOOLS = {
                        transform_skip=True), "text"),
     "pdpc": (preset_cfg2(136, 136).replace(pdpc=True), "text"),
     "mip": (preset_cfg2(136, 136).replace(mip=True), "motion"),
+    # sign-data hiding and dependent quantization: with RDOQ, and beside
+    # transform skip (SDH as preset_cfg2s; DQ without RDOQ, at its
+    # default lambda)
+    "sdh": (CodecConfig(width=136, height=136, qp=30, rdoq=True,
+                        sign_data_hiding=True), "mixed"),
+    "sdh-ts": (preset_cfg2(136, 136).replace(transform_skip=True,
+                                             sign_data_hiding=True), "text"),
+    "dq": (preset_cfg2(136, 136).replace(dep_quant=True), "mixed"),
+    "dq-ts": (preset_cfg2(136, 136).replace(dep_quant=True,
+                                            transform_skip=True, rdoq=False),
+              "text"),
 }
+
+
+def _quant_off(cfg):
+    """cfg without sign-data hiding and dependent quantization."""
+    return cfg.replace(sign_data_hiding=False, dep_quant=False)
 
 
 @pytest.mark.parametrize("tool", list(TOOLS))
 def test_intra_tools_kernel_source_matches_plain_scan(tool, host_lib):
-    """K1/K2's lossless, transform-skip, PDPC and MIP branches on a
-    3x3-CTU picture, on the port's own Pass-A maps, which use the tool:
+    """K1/K2's lossless, transform-skip, PDPC, MIP, sign-data-hiding and
+    dependent-quantization branches on a 3x3-CTU picture, on the port's
+    own Pass-A maps, which use the tool (SDH and DQ change levels):
     the result is the plain scan's.  The CTU rows run one after another here (the wavefront's
     concurrency is test_wavefront_rows_run_concurrently's: under a
     loaded host a row's capped wait can run out before the row above
@@ -720,6 +739,10 @@ def test_intra_tools_kernel_source_matches_plain_scan(tool, host_lib):
     want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
     for n, w, g in zip(NAMES, want, got):
         assert torch.equal(w, g), n
+    if cfg.sign_data_hiding or cfg.dep_quant:
+        off = recon.make_recon_pass_raw(_quant_off(cfg), tab, True)(*src,
+                                                                   *maps)
+        assert any(not torch.equal(w, o) for w, o in zip(want[3:], off[3:]))
     if cfg.lossless:
         for n, w, p in zip(NAMES, want, planes):
             assert torch.equal(w, p), n
@@ -836,6 +859,8 @@ INTER_TOOLS = {
     "ts": dict(transform_skip=True, rdoq=True),
     "pdpc": dict(profile=Profile.VVC, pdpc=True),
     "mip": dict(profile=Profile.VVC, mip=True),
+    "sdh": dict(sign_data_hiding=True, rdoq=True),
+    "dq": dict(profile=Profile.VVC, dep_quant=True, rdoq=True),
 }
 
 
@@ -869,7 +894,7 @@ def _inter_tool_inputs(tool, b):
         mts = torch.where(intra, 5, mts)
     elif tool == "pdpc":
         assert (intra & torch.isin(mode, torch.tensor([0, 1, 18, 50]))).any()
-    else:
+    elif tool == "mip":
         assert (intra & (mode >= cfg.n_intra_modes)).any()
     assert intra.any() and (pred > 0).any()
     args = (size, mode, mts, *maps[2:5], *p0)
@@ -882,9 +907,10 @@ def _inter_tool_inputs(tool, b):
 @pytest.mark.parametrize("tool", list(INTER_TOOLS))
 def test_inter_tools_kernel_source_matches_plain_scan(tool, pic, host_lib):
     """K3-P and K3-B, encode and decode, with lossless (one forced skip
-    CU among them), transform skip, PDPC and MIP on a 3x3-CTU picture:
-    the result is the plain scan's, and lossless recon is the source
-    wherever a CU is not skipped.  The rows run one after another, as in
+    CU among them), transform skip, PDPC, MIP, sign-data hiding and
+    dependent quantization on a 3x3-CTU picture: the result is the plain
+    scan's, and lossless recon is the source wherever a CU is not
+    skipped.  The rows run one after another, as in
     test_intra_tools_kernel_source_matches_plain_scan."""
     cfg, tab, src, planes, args = _inter_tool_inputs(tool, pic == "B")
     err, got = recon_cuda._launch_inter(host_lib, 0, cfg, tab, True, *src,
@@ -894,6 +920,10 @@ def test_inter_tools_kernel_source_matches_plain_scan(tool, pic, host_lib):
         *src, *args)
     for n, w, g in zip(NAMES, want, got):
         assert torch.equal(w, g), n
+    if cfg.sign_data_hiding or cfg.dep_quant:
+        off = inter.make_recon_inter_raw(_quant_off(cfg), tab, True,
+                                         b_mode=pic == "B")(*src, *args)
+        assert not torch.equal(want[3], off[3])
     if cfg.lossless:
         skip = (args[3] == inter.PRED_SKIP)[0]
         unit = skip.repeat_interleave(8, 0).repeat_interleave(8, 1)
@@ -988,7 +1018,8 @@ def test_group_barrier_mutation_is_caught(plane, tmp_path_factory,
     import ctypes
 
     bar = 1 + ["Y", "Cb", "Cr"].index(plane)
-    recon_src = [s for s in _build.SOURCES if s.endswith("recon_intra.cu")]
+    recon_src = [s for s in _build.SOURCES
+                 if s.endswith(("recon_intra.cu", "recon_quant.cu"))]
     lib = _build.declare_recon(ctypes.CDLL(_host_build(
         tmp_path_factory, recon_src,
         (f"X266_MUTATE_GROUP_BARRIER={bar}",))))

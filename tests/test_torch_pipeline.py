@@ -47,6 +47,8 @@ PSNR, which the port sums in float32 in the reference's order (F4).
   gives the JAX encoder's bytes, slice NALs, bits, SSE, PSNR and recon
   (data/cfg5_112x80_ref.json), the port decodes the JAX stream to the
   JAX recon, and the JAX decoder decodes the port's stream (live);
+- the ai_vvc_tools golden fixture (sign-data hiding beside transform
+  skip and MTS) re-encodes to its bytes and decodes to its manifest MD5s;
 - the golden fixtures lowdelay_p_filters and ra_alf decode to their
   manifest MD5s, ra_alf (random access with nonlinear ALF and CC-ALF)
   and gpb_rpl_wp (GPB with signalled reference lists and weighted
@@ -137,6 +139,23 @@ def test_ai_hevc_lossless_fixture_both_ways():
     assert [frame_md5(f) for f in frames] == want
     assert [frame_md5(r) for r in res.recon] == want
     assert all(float(s[0]) == 0.0 for s in res.sse)
+
+
+def test_ai_vvc_tools_fixture_both_ways():
+    """Sign-data hiding beside transform skip and MTS (VVC, WPP segments):
+    the fixture's source and config (tools/make_fixtures.py) re-encode to
+    its bytes, and the fixture decodes to its manifest MD5s."""
+    cfg = CodecConfig(width=96, height=64, qp=32, rdoq=True,
+                      profile=Profile.VVC, mts=True, transform_skip=True,
+                      ref_substitute=True, sign_data_hiding=True,
+                      rows_per_segment=1)
+    frames = synthetic_clip(96, 64, 1, kind="text", seed=77)
+    res = Encoder(cfg, device="cpu").encode(frames)
+    assert res.bitstream == _fixture("ai_vvc_tools")
+    want = _manifest("ai_vvc_tools")["md5"]
+    assert [frame_md5(r) for r in res.recon] == want
+    _, dec = Decoder(device="cpu").decode(_fixture("ai_vvc_tools"))
+    assert [frame_md5(d) for d in dec] == want
 
 
 @pytest.fixture(scope="module")
@@ -460,9 +479,11 @@ def test_single_frame_step_equals_batched():
 @pytest.mark.parametrize("kw", [
     dict(profile=Profile.VVC, cclm=True), dict(profile=Profile.VVC,
                                                lfnst=True),
-    dict(tile_rows=1), dict(profile=Profile.VVC, dep_quant=True),
+    dict(tile_rows=1), dict(profile=Profile.VVC, dep_quant=True,
+                            bit_depth=10),
     dict(profile=Profile.VVC, mtt=True),
-    dict(sign_data_hiding=True), dict(bit_depth=10),
+    dict(profile=Profile.VVC, mtt=True, sign_data_hiding=True),
+    dict(bit_depth=10),
     dict(profile=Profile.VVC, max_cu_size=64),
     dict(alf=True, alf_nonlinear=True, bit_depth=10)])
 def test_out_of_slice_configs_raise(kw):

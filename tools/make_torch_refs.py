@@ -116,7 +116,8 @@ jax.config.update("jax_platforms", "cpu")
 
 from x266_tpu.api import Decoder, Encoder  # noqa: E402
 from x266_tpu.config import (CodecConfig, Profile, preset_cfg2,  # noqa
-                             preset_cfg3, preset_cfg4, preset_cfg5)
+                             preset_cfg2s, preset_cfg3, preset_cfg4,
+                             preset_cfg5)
 from x266_tpu.core.hashing import frame_md5  # noqa: E402
 from x266_tpu.core.nal import NalType, split_nals, write_nal  # noqa: E402
 from x266_tpu.core.yuv import Frame, synthetic_clip  # noqa: E402
@@ -145,6 +146,19 @@ REFS = {
                                                      rdoq=False),
                    "preset_cfg3(1920, 1080).replace(lossless=True, "
                    "rdoq=False)", "motion"),
+    # sign-data hiding and dependent quantization
+    "cfg2s": (lambda: preset_cfg2s(W, H).replace(rows_per_segment=1,
+                                                  ctx_inherit=True),
+              "preset_cfg2s(1920, 1080).replace(rows_per_segment=1, "
+              "ctx_inherit=True)", "text"),
+    "cfg2dq": (lambda: preset_cfg2(W, H).replace(
+        rows_per_segment=1, ctx_inherit=True, dep_quant=True),
+               "preset_cfg2(1920, 1080).replace(rows_per_segment=1, "
+               "ctx_inherit=True, dep_quant=True)", "mixed"),
+    "cfg3dq": (lambda: preset_cfg3(W, H).replace(profile=Profile.VVC,
+                                                  dep_quant=True),
+               "preset_cfg3(1920, 1080).replace(profile=Profile.VVC, "
+               "dep_quant=True)", "motion"),
 }
 
 
@@ -273,6 +287,12 @@ RA_REFS = {   # name -> ((w, h, frames), tools, clip, file)
     # a lossless user runs no loop filter
     "lossless_ra": ((416, 240, 17), LOSSLESS_RA, "mixed",
                     "lossless_ra_416x240_ref.json"),
+    # sign-data hiding, then dependent quantization (they exclude each
+    # other) on I, P and B pictures
+    "ra_sdh": ((416, 240, 17), dict(sign_data_hiding=True), "motion",
+               "ra_sdh_416x240_ref.json"),
+    "ra_dq": ((416, 240, 17), dict(profile=Profile.VVC, dep_quant=True),
+              "motion", "ra_dq_416x240_ref.json"),
 }
 RA128_VARIANTS = {"full": {}, "noalf": NOALF,
                   "lumaalf": dict(alf_chroma=False)}
@@ -638,11 +658,63 @@ def make_rc128() -> None:
     print(f"wrote {path}")
 
 
+# sign-data hiding and dependent quantization at 128x64 for the CPU
+# tests: all-intra (screen content with transform skip; DQ under
+# transform skip without RDOQ, so at the default lambda), low-delay P
+# without RDOQ and random access (GOP 4: I, P, B) with each flag
+SDHDQ128 = {   # name -> (config text, clip kind, frames)
+    "ai_sdh": ("preset_cfg2s(128, 64)", "text", 2),
+    "ai_dq_ts": ("preset_cfg2(128, 64).replace(dep_quant=True, "
+                 "transform_skip=True, rdoq=False)", "text", 2),
+    "p_sdh": ("preset_cfg3(128, 64).replace(intra_period=4, "
+              "sign_data_hiding=True, rdoq=False)", "motion", 5),
+    "ra_sdh": ("preset_cfg4(128, 64).replace(**gop, sign_data_hiding=True)",
+               "motion", 5),
+    "ra_dq": ("preset_cfg4(128, 64).replace(**gop, profile=Profile.VVC, "
+              "dep_quant=True)", "motion", 5),
+}
+
+
+def sdhdq128_config(name: str):
+    if name == "ai_sdh":
+        return preset_cfg2s(128, 64)
+    if name == "ai_dq_ts":
+        return preset_cfg2(128, 64).replace(dep_quant=True,
+                                            transform_skip=True, rdoq=False)
+    if name == "p_sdh":
+        return preset_cfg3(128, 64).replace(intra_period=4,
+                                            sign_data_hiding=True,
+                                            rdoq=False)
+    if name == "ra_sdh":
+        return preset_cfg4(128, 64).replace(**RA128_GOP,
+                                            sign_data_hiding=True)
+    return preset_cfg4(128, 64).replace(**RA128_GOP, profile=Profile.VVC,
+                                        dep_quant=True)
+
+
+def make_sdhdq128() -> None:
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "gop": RA128_GOP, "variants": {}}
+    for name, (text, kind, n) in SDHDQ128.items():
+        out["variants"][name] = {
+            "config": text,
+            "clip": f"synthetic_clip(128, 64, {n}, '{kind}', seed=3)",
+            **_ra_record(sdhdq128_config(name),
+                         synthetic_clip(128, 64, n, kind, seed=3))}
+        print(name, out["variants"][name]["nal_md5_coding_order"],
+              flush=True)
+    path = os.path.join(DATA, "sdhdq128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
 def main() -> None:
     makers = {"p128x64": make_p128, "cfg5": make_cfg5,
               "gpb_wp": make_gpb_wp, "wp128x64": make_wp128,
               "ra_nl_1080p": make_ra_nl, "ra_nl128x64": make_ra_nl128,
               "rc_1080p": make_rc, "rc128x64": make_rc128,
+              "sdhdq128x64": make_sdhdq128,
               **{k: (lambda k=k: make_ai128(k)) for k in AI128},
               "ra128x64": make_ra128, "tools128x64": make_tools128,
               **{k: (lambda k=k: make(k)) for k in REFS},

@@ -63,6 +63,8 @@ from x266_tpu_torch.core.yuv import synthetic_clip  # noqa: E402
 from x266_tpu_torch.engine import fused, inter, recon_cuda  # noqa: E402
 
 RECON = os.path.join(_build.PKG, "csrc", "recon_intra.cu")
+# the recon kernels' SDH and DQ instances, compiled beside RECON
+RECON_QUANT = os.path.join(_build.PKG, "csrc", "recon_quant.cu")
 # the phase split added to the parent commit's recon_intra.cu (d418144),
 # at the same Phase slots as the package's
 PARENT_PATCH = os.path.join(ROOT, "tools", "recon_intra_d418144_phases.patch")
@@ -77,12 +79,54 @@ PLANES = ("Y", "Cb", "Cr")
 SIZES = (4, 8, 16, 32)                      # csrc size_index order
 
 
-def build(recon_src: str, phases: bool) -> ctypes.CDLL:
-    """A library of recon_src alone, a version of csrc/recon_intra.cu (the
-    phase split on when phases), built by _build.Library into
-    build/x266_tpu_torch/profile-<hash>/."""
-    so = pc.build([recon_src], ["X266_RECON_PHASES"] if phases else [],
-                  _build.declare_recon).lib
+class NoQuantFlags:
+    """A library built from a recon_intra.cu older than the sdh and dq
+    arguments of x266_recon_intra / x266_recon_inter: the wrappers' calls
+    with those arguments, which must be 0, reach it without them."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def x266_recon_intra(self, *a):
+        assert a[17] == 0 and a[18] == 0, "this source has no SDH or DQ"
+        return self.lib.x266_recon_intra(*a[:17], *a[19:])
+
+    def x266_recon_inter(self, *a):
+        assert a[16] == 0 and a[17] == 0, "this source has no SDH or DQ"
+        return self.lib.x266_recon_inter(*a[:16], *a[18:])
+
+
+def declare_no_quant_flags(lib):
+    """The C signatures of NoQuantFlags's library."""
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.x266_recon_intra.argtypes = (
+        [i] * 9 + [fl] + [i] * 7 + [p] * 22 + [p])
+    lib.x266_recon_intra.restype = i
+    lib.x266_recon_inter.argtypes = (
+        [i] * 8 + [fl] + [i] * 12 + [p] * 35 + [p])
+    lib.x266_recon_inter.restype = i
+    lib.x266_error_string.argtypes = [i]
+    lib.x266_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build(recon_src: str, phases: bool):
+    """A library of recon_src, a version of csrc/recon_intra.cu (the
+    phase split on when phases; the package's own with
+    csrc/recon_quant.cu), built by _build.Library into
+    build/x266_tpu_torch/profile-<hash>/; a source without the sdh and
+    dq arguments comes wrapped in NoQuantFlags."""
+    with open(recon_src) as f:
+        old = "int sdh, int dq" not in f.read()
+    srcs = [recon_src, RECON_QUANT] if recon_src == RECON else [recon_src]
+    so = pc.build(srcs, ["X266_RECON_PHASES"] if phases else [],
+                  declare_no_quant_flags if old
+                  else _build.declare_recon).lib
+    if old:
+        so = NoQuantFlags(so)
     if phases:
         if not hasattr(so, "x266_recon_phases"):
             raise SystemExit(

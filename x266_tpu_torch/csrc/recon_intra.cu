@@ -104,6 +104,23 @@
 //   as the reference's dense row, so bit-exact by construction.  A chroma
 //   TU of a MIP CU predicts planar.
 //
+// Sign-data hiding and dependent quantization (x266_tpu/kernels/quant.py
+// sdh_adjust, dq_quantize_trellis, dq_dequantize; the reference runs them
+// on its XLA scan, not in the Pallas kernel) work over a TU in scan order,
+// so they are a template parameter of the kernel (kQSdh, kQDq), whose
+// instances csrc/recon_quant.cu compiles; the element-wise instances
+// (kQPlain) are the code above unchanged.  Both stage the TU's
+// coefficients in shared memory.  SDH: a lane a 4x4 group quantizes its
+// 16 coefficients and makes the parity move.  DQ: the 4-state trellis's
+// (4, 4) (min,+) matrices are combined in the tree of
+// jax.lax.associative_scan (every prefix and suffix entry a float32 sum
+// grouped as the reference groups it), going up as matrices and coming
+// down as the two rows the trellis reads (the prefix's row 0 and the
+// suffix's row minima); the states and the state-dependent dequantized
+// values come from the emitted levels' parities by a warp scan of 4-state
+// maps (also the decode's).  DQ's scratch is dynamic shared memory after
+// Shared.
+//
 // Integer math is int32 multiply-accumulate (|residual x matrix| sums stay
 // below 2^31).  RDOQ compares float32 costs e*e*err_scale + lam*rate with
 // explicitly rounded __fmul_rn/__fadd_rn (and the library is built with
@@ -216,6 +233,7 @@ struct Params {
   int qp, rdoq, mts, subst, n_modes;
   int n_std;                      // analytic modes (taps); MIP above
   int lossless, ts, pdpc;         // intra tools, see the header
+  int dq;                         // dependent quantization (its instance)
   float lam;
   const uint8_t* src[3];          // encode: padded planes (F, Hp, Wp)
   const int16_t* coef_in[3];      // decode: levels (F, H, W)
@@ -322,6 +340,23 @@ struct Shared {
   alignas(16) int b_c[2][16 * 16];
   Refs refs[8];
 };
+
+// The quantizer of a recon kernel instance (a template parameter, so the
+// instances without SDH or DQ compile to the code they had before them):
+// element-wise (deadzone or RDOQ), sign-data hiding (encode only) or
+// dependent quantization.
+constexpr int kQPlain = 0, kQSdh = 1, kQDq = 2;
+
+// Dependent quantization's scratch, after Shared in dynamic shared memory
+// in the DQ instances: per group, the trellis's (min,+) matrices of tree
+// levels 2 and up (n/2 - 1 of 16 floats for n = S*S positions) and each
+// tree node's prefix row and suffix row minima of levels 1 and up (n - 1
+// of 8 floats), luma n <= 1024, chroma n <= 256; then each group's warp
+// totals of the state scan (4 words a group).
+constexpr int dq_floats(int n) { return (n / 2 - 1) * 16 + (n - 1) * 8; }
+constexpr int kDqLuma = dq_floats(1024), kDqChroma = dq_floats(256);
+constexpr int kDqTot = kDqLuma + 2 * kDqChroma;
+constexpr size_t kDqBytes = sizeof(float) * kDqTot + sizeof(uint32_t) * 12;
 
 __device__ __forceinline__ int rshift_round(int x, int sh) {
   return (x + (1 << (sh - 1))) >> sh;
@@ -586,6 +621,461 @@ __device__ __forceinline__ void row_pass(int row0, int col, const int8_t* t,
   }
 }
 
+// ---- the TU-wide quantizers: sign-data hiding and dependent quantization
+// (x266_tpu/kernels/quant.py:102-450; plain versions in kernels/quant.py)
+
+// tu_scan (cabac/syntax.py): scan index i of a TU of side S is position
+// kScan4[i & 15] of the 4x4 group at kScanCg[i >> 4] (diagonal orders,
+// x | y << 4), the groups of a side-S TU at offset S/4 - 1 + ...
+__constant__ uint8_t kScan4[16] = {0, 16, 1, 32, 17, 2, 48, 33,
+                                   18, 3, 49, 34, 19, 50, 35, 51};
+__constant__ uint8_t kScanCg[1 + 4 + 16 + 64] = {
+    0,                                                      // 1x1
+    0, 16, 1, 17,                                           // 2x2
+    0, 16, 1, 32, 17, 2, 48, 33, 18, 3, 49, 34, 19, 50, 35, 51,   // 4x4
+    0, 16, 1, 32, 17, 2, 48, 33, 18, 3, 64, 49, 34, 19, 4, 80,    // 8x8
+    65, 50, 35, 20, 5, 96, 81, 66, 51, 36, 21, 6, 112, 97, 82, 67,
+    52, 37, 22, 7, 113, 98, 83, 68, 53, 38, 23, 114, 99, 84, 69, 54,
+    39, 115, 100, 85, 70, 55, 116, 101, 86, 71, 117, 102, 87, 118, 103,
+    119};
+
+// The raster index (y * S + x) of scan index i.
+template <int S>
+__device__ __forceinline__ int scan_raster(int i) {
+  constexpr int base = S == 4 ? 0 : S == 8 ? 1 : S == 16 ? 5 : 21;
+  const int g = kScanCg[base + (i >> 4)], e = kScan4[i & 15];
+  return ((g >> 4) * 4 + (e >> 4)) * S + (g & 15) * 4 + (e & 15);
+}
+
+// RDOQ's rate of level l (0 <= l <= 32767).
+__device__ __forceinline__ float rate_of(const Params& p, const Shared& sh,
+                                         int l) {
+  return l < kRateShared ? sh.rate[l] : __ldg(p.rate + l);
+}
+
+// The element-wise quantizer's level of |coefficient| aa: RDOQ (the level
+// of {0, l_dn, l_up} of least e*e*err_scale + lam*rate) or the deadzone
+// one; qbits, qscale, dscale and ishift of the TU's size and QP.
+__device__ __forceinline__ int quant_mag(const Params& p, const Shared& sh,
+                                         int aa, int qbits, int qscale,
+                                         int dscale, int ishift, int tsh) {
+  if (p.rdoq) {
+    const int lup = clampi((aa * qscale + (1 << (qbits - 1))) >> qbits, 0,
+                           32767);
+    const int ldn = lup > 0 ? lup - 1 : 0;
+    const float err_scale = ldexpf(1.0f, -2 * tsh);
+    auto cost = [&](int l) {
+      const int d = clampi((l * dscale + (1 << (ishift - 1))) >> ishift,
+                           -32768, 32767);
+      const float e = (float)(aa - d);
+      return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
+                       __fmul_rn(p.lam, rate_of(p, sh, l)));
+    };
+    const float c0 = cost(0), cd = cost(ldn), cu = cost(lup);
+    const int lbest = cu <= cd ? lup : ldn;
+    return fminf(cu, cd) <= c0 ? lbest : 0;
+  }
+  const int add = 171 << (qbits - 9);
+  return clampi((aa * qscale + add) >> qbits, 0, 32767);
+}
+
+constexpr int kSdhSpan = 4;
+constexpr float kSdhBig = 3.4e38f;
+
+// Sign-data hiding on 4x4 group cg (scan order) of a side-S TU: its 16
+// levels from the coefficients `coef` (raster, pitch S) by quant_mag,
+// then, where the group's first and last significant scan positions are
+// >= 4 apart and the first one's sign disagrees with the parity of the
+// group's absolute sum, the +-1 move in [first, last] of least D + lam*R
+// increase that zeroes neither end (ties: the -1 move, then the first
+// position); the levels into `lev` (raster, pitch S).
+template <int S>
+__device__ X266_NOINLINE void sdh_group(const Params& p, const Shared& sh,
+                                        int cg, const int* coef, int* lev,
+                                        int tsh) {
+  const int qbits = 14 + p.qp / 6 + tsh;
+  const int qscale = kQuantScale[p.qp % 6];
+  const int ishift = 6 - tsh;
+  const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
+  const float err_scale = ldexpf(1.0f, -2 * tsh);
+  int v[16], c[16], r[16];
+  int first = -1, last = -1, sum = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    r[k] = scan_raster<S>(cg * 16 + k);
+    c[k] = coef[r[k]];
+    const int m = quant_mag(p, sh, c[k] < 0 ? -c[k] : c[k], qbits, qscale,
+                            dscale, ishift, tsh);
+    v[k] = c[k] < 0 ? -m : (c[k] > 0 ? m : 0);
+    if (v[k] != 0) {
+      if (first < 0) first = k;
+      last = k;
+    }
+    sum += v[k] < 0 ? -v[k] : v[k];
+  }
+  if (first >= 0 && last - first >= kSdhSpan &&
+      (v[first] < 0) != ((sum & 1) == 1)) {
+    auto rdcost = [&](int l, int cc) {
+      const int d = clampi((l * dscale + (1 << (ishift - 1))) >> ishift,
+                           -32768, 32767);
+      const float e = (float)(d - cc);
+      return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
+                       __fmul_rn(p.lam, rate_of(p, sh, l < 0 ? -l : l)));
+    };
+    float best = 0.0f;
+    int pos = 0, nv_best = 0;
+    for (int k = 0; k < 16; ++k) {
+      const float e0 = rdcost(v[k], c[k]);
+      float dl[2];
+      int nv[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        nv[q] = clampi(v[k] + (q ? 1 : -1), -32767, 32767);
+        const bool ok = k >= first && k <= last &&
+                        !(nv[q] == 0 && (k == first || k == last)) &&
+                        nv[q] != v[k];
+        dl[q] = ok ? __fsub_rn(rdcost(nv[q], c[k]), e0) : kSdhBig;
+      }
+      const int q = dl[1] < dl[0];
+      if (k == 0 || dl[q] < best) {
+        best = dl[q];
+        pos = k;
+        nv_best = nv[q];
+      }
+    }
+    v[pos] = nv_best;
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) lev[r[k]] = v[k];
+}
+
+// DQ: next state = (map >> 2 * state) & 3 for a level of parity 0 or 1
+// (DQ_TRANS = [[0, 2], [2, 0], [1, 3], [3, 1]]), maps of four 2-bit
+// images; kDqId the identity.
+constexpr uint32_t kDqP0 = 0xD8u, kDqP1 = 0x72u, kDqId = 0xE4u;
+constexpr float kDqBig = 3.0e38f;
+
+__device__ __forceinline__ int dq_next(int s, int parity) {
+  return ((parity ? kDqP1 : kDqP0) >> (2 * s)) & 3;
+}
+
+// The map of a then b.
+__device__ __forceinline__ uint32_t dq_compose(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    r |= ((b >> (2 * ((a >> (2 * s)) & 3))) & 3) << (2 * s);
+  return r;
+}
+
+// One position of the trellis: for quantizer q (states 0/1: 0, 2/3: 1)
+// and parity p, the best level k[q][p] and its cost c[q][p] of the
+// candidates {0, k_dn, k_up} (kDqBig where no candidate has the parity).
+struct DqPos {
+  float c[2][2];
+  int k[2][2];
+};
+
+__device__ __forceinline__ DqPos dq_pos(const Params& p, const Shared& sh,
+                                        int a, int tsh) {
+  const int qbits = 14 + p.qp / 6 + tsh;
+  const int qscale = kQuantScale[p.qp % 6];
+  const int ishift = 6 - tsh;
+  const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
+  const float err_scale = ldexpf(1.0f, -2 * tsh);
+  DqPos r;
+#pragma unroll
+  for (int q1 = 0; q1 < 2; ++q1) {
+    const int u = (a * qscale + (1 << (qbits - 2))) >> (qbits - 1);
+    const int kup = clampi((u + q1 + 1) >> 1, 0, 32767);
+    const int kdn = kup > 0 ? kup - 1 : 0;
+    auto cost = [&](int k) {
+      const int d = ((2 * k - (k > 0 ? q1 : 0)) * dscale + (1 << ishift)) >>
+                    (ishift + 1);
+      const float e = (float)(a - d);
+      return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
+                       __fmul_rn(p.lam, rate_of(p, sh, k)));
+    };
+    const float cu = cost(kup), cd = cost(kdn), c0 = cost(0);
+#pragma unroll
+    for (int par = 0; par < 2; ++par) {
+      const float cu_p = (kup & 1) == par ? cu : kDqBig;
+      const float cd_p = (kdn & 1) == par ? cd : kDqBig;
+      int kb = cu_p <= cd_p ? kup : kdn;
+      float cb = fminf(cu_p, cd_p);
+      if (par == 0) {
+        if (c0 <= cb) kb = 0;
+        cb = fminf(c0, cb);
+      }
+      r.c[q1][par] = cb;
+      r.k[q1][par] = kb;
+    }
+  }
+  return r;
+}
+
+// The position's (4, 4) (min,+) transition matrix: M[s][next(s, p)] =
+// c[s >= 2][p], kDqBig elsewhere.
+__device__ __forceinline__ void dq_matrix(const DqPos& d, float* m) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) m[i] = kDqBig;
+#pragma unroll
+  for (int st = 0; st < 4; ++st)
+#pragma unroll
+    for (int par = 0; par < 2; ++par)
+      m[st * 4 + dq_next(st, par)] = fminf(kDqBig, d.c[st >= 2][par]);
+}
+
+// (min,+) products: of two matrices, row vector by matrix, and the row
+// minima of a matrix times a vector of row minima (min_x min_c (A[a][x] +
+// B[x][c]) = min_x (A[a][x] + min_c B[x][c]): rounding is monotonic).
+__device__ __forceinline__ void mp_mat(const float* a, const float* b,
+                                       float* out) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float m = __fadd_rn(a[i * 4], b[c]);
+#pragma unroll
+      for (int x = 1; x < 4; ++x) m = fminf(m, __fadd_rn(a[i * 4 + x], b[x * 4 + c]));
+      out[i * 4 + c] = m;
+    }
+}
+
+__device__ __forceinline__ float mp_vec_mat(const float* v, const float* m,
+                                            int c) {
+  float r = __fadd_rn(v[0], m[c]);
+#pragma unroll
+  for (int x = 1; x < 4; ++x) r = fminf(r, __fadd_rn(v[x], m[x * 4 + c]));
+  return r;
+}
+
+__device__ __forceinline__ float mp_mat_vec(const float* m, const float* v,
+                                            int a) {
+  float r = __fadd_rn(m[a * 4], v[0]);
+#pragma unroll
+  for (int x = 1; x < 4; ++x) r = fminf(r, __fadd_rn(m[a * 4 + x], v[x]));
+  return r;
+}
+
+__device__ __forceinline__ float row_min(const float* m, int a) {
+  return fminf(fminf(m[a * 4], m[a * 4 + 1]), fminf(m[a * 4 + 2], m[a * 4 + 3]));
+}
+
+// The first index of the least of v[b] + t[b] (t null: zeros).
+__device__ __forceinline__ int argmin_sum(const float* v, const float* t) {
+  int best = 0;
+  float m = t ? __fadd_rn(v[0], t[0]) : v[0];
+#pragma unroll
+  for (int b = 1; b < 4; ++b) {
+    const float x = t ? __fadd_rn(v[b], t[b]) : v[b];
+    if (x < m) {
+      m = x;
+      best = b;
+    }
+  }
+  return best;
+}
+
+// Node b of a tree level of nl nodes (matrix m), output o: o < 4 entry o
+// of its prefix's row 0, else entry o - 4 of its suffix's row minima, from
+// the level above's rows `up` (8 floats a node: prefix row 0, suffix row
+// minima).  The grouping of jax.lax.associative_scan (the prefix of an
+// odd node is its parent's, of an even one its parent's left neighbour's
+// times the node; the suffix of an even node is its parent's, of an odd
+// one the node times its right neighbour's parent's; a level's first
+// prefix and last suffix are the node's own).
+__device__ __forceinline__ float dq_down(const float* m, const float* up,
+                                         int b, int nl, int o) {
+  if (o < 4) {
+    if (b == 0) return m[o];
+    if (b & 1) return up[8 * (b >> 1) + o];
+    return mp_vec_mat(up + 8 * (b / 2 - 1), m, o);
+  }
+  const int a = o - 4;
+  if (b == nl - 1) return row_min(m, a);
+  if (!(b & 1)) return up[8 * (b >> 1) + 4 + a];
+  return mp_mat_vec(m, up + 8 * ((b + 1) >> 1) + 4, a);
+}
+
+// Offsets (in nodes) of tree level l in the scratch: matrices of levels
+// >= 2, rows of levels >= 1.
+__device__ __forceinline__ int dq_mat_off(int n, int l) {
+  return (n >> 1) - (n >> (l - 1));
+}
+__device__ __forceinline__ int dq_vec_off(int n, int l) {
+  return n - (n >> (l - 1));
+}
+
+// Dependent quantization of a side-S TU on its G threads (lt): the exact
+// 4-state trellis of quant.py's dq_quantize_trellis over the coefficients
+// `coef` (raster, pitch S) in coding order (the reverse scan), the levels
+// into `lev` (raster).  Each position's costs are recomputed where they
+// are needed (the same integers and float32 ops each time).  The tree:
+// level 1 pairs positions, level l + 1 pairs level l's nodes; going up,
+// threads take quads (level 2) and then a matrix entry each; coming down,
+// each node's prefix row 0 and suffix row minima -- all the trellis reads
+// of a product -- from the level above; level 0 reads each position's
+// state after it (argmin of prefix row 0 + the next suffix's row minima,
+// first on ties), the state before it, and so its quantizer and parity.
+// `scratch`: the group's DQ scratch.  Ends before the caller's barrier.
+template <int S, int G>
+__device__ X266_NOINLINE void dq_trellis(const Params& p, const Shared& sh,
+                                         const Group& g, bool small, int lt,
+                                         const int* coef, int* lev,
+                                         float* scratch, int tsh) {
+  constexpr int n = S * S;
+  constexpr int L = S == 4 ? 4 : S == 8 ? 6 : S == 16 ? 8 : 10;   // log2 n
+  float* mats = scratch;
+  float* vecs = scratch + 16 * (n / 2 - 1);
+  auto pos = [&](int j) { return scan_raster<S>(n - 1 - j); };
+  auto costs = [&](int j) {
+    const int c = coef[pos(j)];
+    return dq_pos(p, sh, c < 0 ? -c : c, tsh);
+  };
+  // up: level 2 from quads of positions
+  for (int i = lt; i < n / 4; i += G) {
+    float m0[16], m1[16], la[16], lb[16];
+    dq_matrix(costs(4 * i), m0);
+    dq_matrix(costs(4 * i + 1), m1);
+    mp_mat(m0, m1, la);
+    dq_matrix(costs(4 * i + 2), m0);
+    dq_matrix(costs(4 * i + 3), m1);
+    mp_mat(m0, m1, lb);
+    mp_mat(la, lb, mats + 16 * i);
+  }
+  group_sync(g, small);
+  for (int l = 3; l <= L; ++l) {
+    const float* src = mats + 16 * dq_mat_off(n, l - 1);
+    float* dst = mats + 16 * dq_mat_off(n, l);
+    for (int e = lt; e < (n >> l) * 16; e += G) {
+      const int i = e >> 4, a = (e >> 2) & 3, c = e & 3;
+      const float* x = src + 32 * i;
+      float m = __fadd_rn(x[a * 4], x[16 + c]);
+#pragma unroll
+      for (int k = 1; k < 4; ++k)
+        m = fminf(m, __fadd_rn(x[a * 4 + k], x[16 + k * 4 + c]));
+      dst[16 * i + a * 4 + c] = m;
+    }
+    group_sync(g, small);
+  }
+  // down: the root's rows, then levels L - 1 .. 2
+  if (lt < 8) {
+    const float* t = mats + 16 * dq_mat_off(n, L);
+    vecs[8 * dq_vec_off(n, L) + lt] = lt < 4 ? t[lt] : row_min(t, lt - 4);
+  }
+  group_sync(g, small);
+  for (int l = L - 1; l >= 2; --l) {
+    const int nl = n >> l;
+    const float* m = mats + 16 * dq_mat_off(n, l);
+    const float* up = vecs + 8 * dq_vec_off(n, l + 1);
+    float* v = vecs + 8 * dq_vec_off(n, l);
+    for (int e = lt; e < nl * 8; e += G)
+      v[e] = dq_down(m + 16 * (e >> 3), up, e >> 3, nl, e & 7);
+    group_sync(g, small);
+  }
+  // level 1: each pair's product again
+  for (int b = lt; b < n / 2; b += G) {
+    float m0[16], m1[16], l1[16];
+    dq_matrix(costs(2 * b), m0);
+    dq_matrix(costs(2 * b + 1), m1);
+    mp_mat(m0, m1, l1);
+    const float* up = vecs + 8 * dq_vec_off(n, 2);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) vecs[8 * b + o] = dq_down(l1, up, b, n / 2, o);
+  }
+  group_sync(g, small);
+  // level 0: the states and the levels
+  for (int i = lt; i < n / 2; i += G) {
+    const DqPos d0 = costs(2 * i), d1 = costs(2 * i + 1);
+    float m0[16], m1[16], alpha0[4], beta1[4];
+    dq_matrix(d0, m0);
+    dq_matrix(d1, m1);
+    const float* v1 = vecs;                  // level 1's rows
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      alpha0[c] = i == 0 ? m0[c] : mp_vec_mat(v1 + 8 * (i - 1), m0, c);
+      beta1[c] = i == n / 2 - 1 ? row_min(m1, c)
+                                : mp_mat_vec(m1, v1 + 8 * (i + 1) + 4, c);
+    }
+    const int s0 = argmin_sum(alpha0, beta1);
+    const int s1 = argmin_sum(v1 + 8 * i,
+                              i + 1 < n / 2 ? v1 + 8 * (i + 1) + 4 : nullptr);
+    const int sb = i == 0 ? 0 : argmin_sum(v1 + 8 * (i - 1), v1 + 8 * i + 4);
+    const int st[3] = {sb, s0, s1};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const DqPos& d = h ? d1 : d0;
+      const int before = st[h], after = st[h + 1];
+      const int k = d.k[before >= 2][dq_next(before, 1) == after];
+      const int r = pos(2 * i + h);
+      const int c = coef[r];
+      lev[r] = c < 0 ? -k : (c > 0 ? k : 0);
+    }
+  }
+}
+
+// Dependent dequantization of a side-S TU's levels `lev` (raster, pitch
+// `pitch`) on its G threads: each position's state from the parities of
+// the levels before it in coding order (thread lt composes the maps of
+// positions lt*C .. lt*C + C - 1, a warp scan and the warps' totals give
+// its start state), then sgn(k) * min(((2|k| - q1) * dscale + 2^ishift)
+// >> (ishift + 1), 32767) with q1 = state >= 2, into `out` (raster, pitch
+// S).  Ends with the group's barrier.
+template <int S, int G, typename T>
+__device__ X266_NOINLINE void dq_dequant(Shared& sh, const Group& g,
+                                         bool small, int lt, int plane,
+                                         const T* lev, int pitch, int* out,
+                                         int dscale, int ishift) {
+  uint32_t* tot = reinterpret_cast<uint32_t*>(
+                      reinterpret_cast<float*>(&sh + 1) + kDqTot) +
+                  4 * plane;
+  constexpr int n = S * S, C = n >= G ? n / G : 1;
+  auto at = [&](int j, int& r) {
+    const int i = scan_raster<S>(n - 1 - j);
+    r = i;
+    return (int)lev[(i / S) * pitch + (i & (S - 1))];
+  };
+  uint32_t m = kDqId;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = lt * C + c;
+    int r;
+    if (j < n) m = dq_compose(m, (at(j, r) & 1) ? kDqP1 : kDqP0);
+  }
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const uint32_t o = __shfl_up_sync(kFull, m, d);
+    if (lane >= d) m = dq_compose(o, m);
+  }
+  uint32_t ex = __shfl_up_sync(kFull, m, 1);
+  if (lane == 0) ex = kDqId;
+  if (G > 32) {
+    const int w = lt >> 5;
+    if (lane == 31) tot[w] = m;
+    group_sync(g, small);
+    uint32_t pre = kDqId;
+    for (int q = 0; q < w; ++q) pre = dq_compose(pre, tot[q]);
+    ex = dq_compose(pre, ex);
+  }
+  int s = ex & 3;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = lt * C + c;
+    if (j >= n) continue;
+    int r;
+    const int k = at(j, r);
+    const int a = k < 0 ? -k : k;
+    const int mag = ((2 * a - (a > 0 && s >= 2 ? 1 : 0)) * dscale +
+                     (1 << ishift)) >> (ishift + 1);
+    const int v = mag < 32767 ? mag : 32767;
+    out[r] = k < 0 ? -v : (k > 0 ? v : 0);
+    s = dq_next(s, a & 1);
+  }
+  group_sync(g, small);
+}
+
 // The arguments of one TU: plane coords (x, y) of a CU of the CTU at plane
 // origin (x0, y0) (its inputs are staged at (x - x0, y - y0), row pitch 64
 // luma, 32 chroma), its mode, prediction shift, transform types,
@@ -604,7 +1094,13 @@ struct TuArgs {
 // One TU of side S of plane v.plane, on G threads: the group (a TU of more
 // than 64 samples) or the group's warp 0 (G = 32; the caller keeps the
 // other warps out).
-template <bool kEncode, int S, int G>
+// A plane group's DQ scratch (kDqBytes after Shared, DQ instances only).
+__device__ __forceinline__ float* dq_scratch(Shared& sh, const View& v) {
+  return reinterpret_cast<float*>(&sh + 1) +
+         (v.plane == 0 ? 0 : kDqLuma + (v.plane - 1) * kDqChroma);
+}
+
+template <bool kEncode, int S, int G, int kQ>
 __device__ void tu(const Params& p, Shared& sh, const View& v,
                    const Group& g, const TuArgs& a) {
   using M = Map<S, G>;
@@ -776,46 +1272,73 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
     }
     // quantization: the level out to global, dequantized into a (or, for
     // transform skip, into the residual's registers)
-    const int qbits = 14 + p.qp / 6 + tsh;
-    const int qscale = kQuantScale[p.qp % 6];
     bool any = false;
+    if constexpr (kQ != kQPlain) {
+      // the TU-wide quantizers: the coefficients into a, the levels into
+      // b (SDH: a lane a 4x4 group; DQ: the trellis on the TU's threads),
+      // under DQ the state-dependent dequantized values into a
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (!active) continue;
-      const int cc = c[k];
-      const int aa = cc < 0 ? -cc : cc;
-      int lv;
-      if (p.rdoq) {
-        const int lup = clampi((aa * qscale + (1 << (qbits - 1))) >> qbits,
-                               0, 32767);
-        const int ldn = lup > 0 ? lup - 1 : 0;
-        const float err_scale = ldexpf(1.0f, -2 * tsh);
-        auto cost = [&](int l) {
-          const int d = clampi((l * dscale + (1 << (ishift - 1))) >> ishift,
-                               -32768, 32767);
-          const float e = (float)(aa - d);
-          const float rl = l < kRateShared ? sh.rate[l] : __ldg(p.rate + l);
-          return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
-                           __fmul_rn(p.lam, rl));
-        };
-        const float c0 = cost(0), cd = cost(ldn), cu = cost(lup);
-        const int lbest = cu <= cd ? lup : ldn;
-        lv = fminf(cu, cd) <= c0 ? lbest : 0;
-      } else {
-        const int add = 171 << (qbits - 9);
-        lv = clampi((aa * qscale + add) >> qbits, 0, 32767);
+      for (int k = 0; k < K; ++k)
+        if (active) sa[(row0 + k * kStep) * S + col] = c[k];
+      group_sync(g, kSmall);
+      if constexpr (kQ == kQDq)
+        dq_trellis<S, G>(p, sh, g, kSmall, lt, sa, sb, dq_scratch(sh, v),
+                         tsh);
+      else
+        for (int cg = lt; cg < S * S / 16; cg += G)
+          sdh_group<S>(p, sh, cg, sa, sb, tsh);
+      group_sync(g, kSmall);
+      if constexpr (kQ == kQDq)
+        dq_dequant<S, G>(sh, g, kSmall, lt, v.plane, sb, S, sa, dscale,
+                         ishift);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (!active) continue;
+        const int rr = row0 + k * kStep;
+        const int lv = sb[rr * S + col];
+        co[(size_t)rr * cpitch + col] = (int16_t)lv;
+        any = any || lv != 0;
+        const int dq =
+            kQ == kQDq ? sa[rr * S + col]
+                       : clampi((lv * dscale + (1 << (ishift - 1))) >> ishift,
+                                -32768, 32767);
+        if (a.ts) res[k] = (dq + (1 << (tsh - 1))) >> tsh;
+        else if (kQ != kQDq) sa[rr * S + col] = dq;
       }
-      lv = cc < 0 ? -lv : (cc > 0 ? lv : 0);
-      const int rr = row0 + k * kStep;
-      co[(size_t)rr * cpitch + col] = (int16_t)lv;
-      any = any || lv != 0;
-      const int dq = clampi((lv * dscale + (1 << (ishift - 1))) >> ishift,
-                            -32768, 32767);
-      if (a.ts) res[k] = (dq + (1 << (tsh - 1))) >> tsh;
-      else sa[rr * S + col] = dq;
+    } else {
+      const int qbits = 14 + p.qp / 6 + tsh;
+      const int qscale = kQuantScale[p.qp % 6];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (!active) continue;
+        const int cc = c[k];
+        int lv = quant_mag(p, sh, cc < 0 ? -cc : cc, qbits, qscale, dscale,
+                           ishift, tsh);
+        lv = cc < 0 ? -lv : (cc > 0 ? lv : 0);
+        const int rr = row0 + k * kStep;
+        co[(size_t)rr * cpitch + col] = (int16_t)lv;
+        any = any || lv != 0;
+        const int dq = clampi((lv * dscale + (1 << (ishift - 1))) >> ishift,
+                              -32768, 32767);
+        if (a.ts) res[k] = (dq + (1 << (tsh - 1))) >> tsh;
+        else sa[rr * S + col] = dq;
+      }
     }
     X266_PH(pc, kPhQuant);
     inverse = !a.ts && group_any(g, kSmall, any);
+  } else if (kQ == kQDq && a.nz) {
+    // decode under DQ: the state-dependent dequantized levels into a
+    if constexpr (kQ == kQDq)
+      dq_dequant<S, G>(sh, g, kSmall, lt, v.plane, sh.in.lev + st, sp, sa,
+                       dscale, ishift);
+    if (a.ts) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (active)
+          res[k] = (sa[(row0 + k * kStep) * S + col] + (1 << (tsh - 1))) >>
+                   tsh;
+    }
+    inverse = !a.ts;
   } else if (a.nz) {
     // decode: the dequantization fused into the level reads
     lev = sh.in.lev + st;
@@ -867,17 +1390,17 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
 // A plane's TU of side s: the instance of tu for its size and thread
 // count (luma 8 on a warp, 16 and 32 on 128 threads; chroma 4 and 8 on a
 // warp, 16 on 64 threads).
-template <bool kEncode>
+template <bool kEncode, int kQ>
 __device__ __forceinline__ void plane_tu(const Params& p, Shared& sh,
                                          const View& v, const Group& g,
                                          int s, const TuArgs& a) {
   switch (v.plane == 0 ? (s == 8 ? 1 : s == 16 ? 3 : 4)
                        : (s == 4 ? 0 : s == 8 ? 1 : 2)) {
-    case 0: tu<kEncode, 4, 32>(p, sh, v, g, a); break;
-    case 1: tu<kEncode, 8, 32>(p, sh, v, g, a); break;
-    case 2: tu<kEncode, 16, 64>(p, sh, v, g, a); break;
-    case 3: tu<kEncode, 16, 128>(p, sh, v, g, a); break;
-    default: tu<kEncode, 32, 128>(p, sh, v, g, a); break;
+    case 0: tu<kEncode, 4, 32, kQ>(p, sh, v, g, a); break;
+    case 1: tu<kEncode, 8, 32, kQ>(p, sh, v, g, a); break;
+    case 2: tu<kEncode, 16, 64, kQ>(p, sh, v, g, a); break;
+    case 3: tu<kEncode, 16, 128, kQ>(p, sh, v, g, a); break;
+    default: tu<kEncode, 32, 128, kQ>(p, sh, v, g, a); break;
   }
 }
 
@@ -1197,7 +1720,7 @@ __device__ void stage_mc(const Params& p, Shared& sh, int cx, int cy) {
   }
 }
 
-template <bool kEncode, bool kInter, bool kB = false>
+template <bool kEncode, bool kInter, bool kB = false, int kQ = kQPlain>
 __global__ void __launch_bounds__(kThreads)
 recon_kernel(Params p) {
   X266_DYNAMIC_SHARED(int4, smem);
@@ -1291,7 +1814,7 @@ recon_kernel(Params p) {
         const int unit = plane ? 4 : 8;
         const int t = cu.uy * 8 + cu.ux;
         if (!small || grp.lt < 32)
-          plane_tu<kEncode>(
+          plane_tu<kEncode, kQ>(
               p, sh, v, grp, s,
               TuArgs{px0 + cu.ux * unit, py0 + cu.uy * unit, px0, py0,
                      plane ? cu.mode_c : cu.mode,
@@ -1332,6 +1855,7 @@ recon_kernel(Params p) {
   X266_PH(blk, kPhBlock);
 }
 
+#ifndef X266_RECON_QUANT_PART
 // A test entry: the warp-scan substitution on one reference vector of
 // side s (host stand-in only: ref, avail and out are host arrays).
 struct SubstTest {
@@ -1359,6 +1883,7 @@ __global__ void subst_test_kernel(SubstTest a) {
   for (int i = lane; i < r_len; i += 32)
     a.out[i] = src.i[i] == 255 ? 128 : a.ref[src.i[i]];
 }
+#endif
 
 void set_common(Params& p, int frames, int width, int height,
                 int pitch_y, int pitch_c, int plane_y, int plane_c, int qp,
@@ -1388,19 +1913,18 @@ void set_common(Params& p, int frames, int width, int height,
   p.rate = (const float*)rate;
 }
 
-// Launch one block per CTU row of each frame, after zeroing the row
-// ticket and progress counters (and, for K3, the final-MV planes) on the
-// stream.  Every row must be resident at once on the card, or the launch
-// is refused (cudaErrorInvalidConfiguration); so is a mode alphabet
-// larger than the kernel's shift table (cudaErrorInvalidValue).
-template <bool kInter, bool kB = false>
-int launch(Params& p, int encode, void* stream) {
+// Launch `kernel`, an instance of recon_kernel (kInter: K3's), with smem
+// bytes of dynamic shared memory, one block per CTU row of each frame,
+// after zeroing the row ticket and progress counters (and, for K3, the
+// final-MV planes) on the stream.  Every row must be resident at once on
+// the card, or the launch is refused (cudaErrorInvalidConfiguration); so
+// is a mode alphabet larger than the kernel's shift table
+// (cudaErrorInvalidValue).
+int launch_kernel(Params& p, void (*kernel)(Params), bool kInter,
+                  size_t smem, void* stream) {
   void* args[] = {&p};
   cudaStream_t st = (cudaStream_t)stream;
-  void (*kernel)(Params) = encode ? recon_kernel<true, kInter, kB>
-                                  : recon_kernel<false, kInter, kB>;
   const int rows = p.frames * ((p.height + kCtu - 1) / kCtu);
-  const size_t smem = sizeof(Shared);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = p.n_modes > kMaxModes ? cudaErrorInvalidValue
                                           : cudaGetDevice(&dev);
@@ -1425,6 +1949,28 @@ int launch(Params& p, int encode, void* stream) {
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+#ifndef X266_RECON_QUANT_PART
+// The element-wise instances (the quantizer of kQPlain).
+template <bool kInter, bool kB = false>
+int launch(Params& p, int encode, void* stream) {
+  return launch_kernel(p, encode ? recon_kernel<true, kInter, kB>
+                                 : recon_kernel<false, kInter, kB>,
+                       kInter, sizeof(Shared), stream);
+}
+#else
+// The SDH and DQ instances: an encode under SDH or DQ, a decode under DQ
+// (a decode under SDH is element-wise); DQ's with its scratch.
+template <bool kInter, bool kB>
+int launch_quant(Params& p, int encode, void* stream) {
+  void (*kernel)(Params) =
+      !encode ? recon_kernel<false, kInter, kB, kQDq>
+      : p.dq  ? recon_kernel<true, kInter, kB, kQDq>
+              : recon_kernel<true, kInter, kB, kQSdh>;
+  return launch_kernel(p, kernel, kInter,
+                       sizeof(Shared) + (p.dq ? kDqBytes : 0), stream);
+}
+#endif
+
 void set_inter(Params& p, int merge, int pyr_hy, int pyr_wy, int pyr_hc,
                int pyr_wc, const void* pred_map, const void* mvx_map,
                const void* mvy_map, const void* const* pyr, void* mv_x,
@@ -1443,13 +1989,31 @@ void set_inter(Params& p, int merge, int pyr_hy, int pyr_wy, int pyr_hc,
 
 extern "C" {
 
+#ifdef X266_RECON_QUANT_PART
+// Launches the SDH / DQ instance of K1/K2 (inter 0), K3-P (inter 1, b 0)
+// or K3-B (b 1) on `stream` with the parameters the entry point below
+// set (`params`, a Params); returns cudaGetLastError().
+int x266_recon_quant(const void* params, int inter, int b, int encode,
+                     void* stream) {
+  Params p = *static_cast<const Params*>(params);
+  if (!inter) return launch_quant<false, false>(p, encode, stream);
+  if (!b) return launch_quant<true, false>(p, encode, stream);
+  return launch_quant<true, true>(p, encode, stream);
+}
+#else
+int x266_recon_quant(const void* params, int inter, int b, int encode,
+                     void* stream);
+
 // Launches K1 (encode != 0) or K2 on `stream`; `sync` is scratch of
 // 1 + frames x CTU rows int32; lossless, ts and pdpc switch the intra
-// tools on, and `mip` holds tables.k_mip.  Returns cudaGetLastError().
+// tools on, and `mip` holds tables.k_mip; sdh (encode) and dq switch the
+// quantizer, whose instances csrc/recon_quant.cu compiles.  Returns
+// cudaGetLastError().
 int x266_recon_intra(
     int encode, int frames, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
-    int n_modes, int lossless, int ts, int pdpc, const void* src_y, const void* src_cb, const void* src_cr,
+    int n_modes, int lossless, int ts, int pdpc, int sdh, int dq,
+    const void* src_y, const void* src_cb, const void* src_cr,
     const void* cin_y, const void* cin_cb, const void* cin_cr,
     const void* size_map, const void* mode_map, const void* mts_map,
     void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
@@ -1465,8 +2029,10 @@ int x266_recon_intra(
              plane_c, qp, lam, rdoq, mts, subst, n_modes, src, cin, size_map,
              mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
   p.lossless = lossless; p.ts = ts; p.pdpc = pdpc;
+  p.dq = dq;
   p.mip = (const int32_t*)mip;
   p.sync = (int*)sync;
+  if (dq || (sdh && encode)) return x266_recon_quant(&p, 0, 0, encode, stream);
   return launch<false>(p, encode, stream);
 }
 
@@ -1484,7 +2050,8 @@ int x266_recon_intra(
 int x266_recon_inter(
     int encode, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
-    int n_modes, int lossless, int ts, int pdpc, int merge, int pyr_hy,
+    int n_modes, int lossless, int ts, int pdpc, int sdh, int dq, int merge,
+    int pyr_hy,
     int pyr_wy, int pyr_hc, int pyr_wc,
     const void* src_y, const void* src_cb, const void* src_cr,
     const void* cin_y, const void* cin_cb, const void* cin_cr,
@@ -1508,14 +2075,19 @@ int x266_recon_inter(
   set_inter(p, merge, pyr_hy, pyr_wy, pyr_hc, pyr_wc, pred_map, mvx_map,
             mvy_map, pyr, mv_x, mv_y);
   p.lossless = lossless; p.ts = ts; p.pdpc = pdpc;
+  p.dq = dq;
   p.mip = (const int32_t*)mip;
   p.sync = (int*)sync;
-  if (pyr1_y == nullptr) return launch<true>(p, encode, stream);
+  const bool quant = dq || (sdh && encode);
+  if (pyr1_y == nullptr)
+    return quant ? x266_recon_quant(&p, 1, 0, encode, stream)
+                 : launch<true>(p, encode, stream);
   p.pyr[3] = (const uint8_t*)pyr1_y; p.pyr[4] = (const uint8_t*)pyr1_cb;
   p.pyr[5] = (const uint8_t*)pyr1_cr;
   p.mv1_map[0] = (const int32_t*)mvx1_map;
   p.mv1_map[1] = (const int32_t*)mvy1_map;
-  return launch<true, true>(p, encode, stream);
+  return quant ? x266_recon_quant(&p, 1, 1, encode, stream)
+               : launch<true, true>(p, encode, stream);
 }
 
 #ifdef X266_RECON_PHASES
@@ -1546,5 +2118,6 @@ int x266_subst_scan(int s, const void* ref, const void* avail, void* out) {
 const char* x266_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+#endif  // X266_RECON_QUANT_PART
 
 }  // extern "C"

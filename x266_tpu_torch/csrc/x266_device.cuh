@@ -12,6 +12,9 @@
 #define X266_SHARED(T, name) __shared__ T name
 #define X266_DYNAMIC_SHARED(T, name) extern __shared__ T name[]
 
+// A device function kept out of line (its registers are its own).
+#define X266_NOINLINE __noinline__
+
 // Device-scope acquire load and release store (the recon kernels' row
 // progress counters).
 __device__ __forceinline__ int x266_ld_acquire(const int* p) {

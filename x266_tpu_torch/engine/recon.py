@@ -2,7 +2,7 @@
 C18) -- the plain PyTorch version of kernels K1/K2.
 
 Counterpart of x266_tpu/engine/recon.py:125-541 (intra branches, no
-CCLM/MTT/LFNST/SDH/DQ): a loop over CTUs in raster order and 8x8 units
+CCLM/MTT/LFNST): a loop over CTUs in raster order and 8x8 units
 in z-order; at each TU origin predict -> [transform -> quantize] ->
 dequantize -> inverse -> clip, written back into the padded plane that
 later TUs read their references from.  The intra tools: PDPC on luma
@@ -10,10 +10,13 @@ TUs, MIP modes (a chroma TU of a MIP CU predicts planar), transform skip
 on luma TUs whose mts_map value is TS_IDX (coefficients = residual <<
 transform_shift, inverse (dequantized + round) >> transform_shift), and
 lossless coding (levels = source - prediction, recon = source; decode
-clip(prediction + levels)).  Planes start at mid-gray and are
-written in coding order, so a reference to a sample not yet coded reads
-mid-gray; with cfg.ref_substitute the decode-order availability masks
-(engine.availability) drive the substitution fill instead.
+clip(prediction + levels)); on every plane and TU branch, dependent
+quantization (the trellis and the state-dependent dequantizer) and
+sign-data hiding (the parity move after the quantizer).  Planes start
+at mid-gray and are written in coding order, so a reference to a sample
+not yet coded reads mid-gray; with cfg.ref_substitute the decode-order
+availability masks (engine.availability) drive the substitution fill
+instead.
 
 This is the oracle the CUDA kernel (engine.recon_cuda) is held against
 and the path CPU tensors take (``recon_pass``).  Control flow reads the
@@ -79,8 +82,11 @@ def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
     minus pred (zero levels when skip), decode reads the levels; both
     dequantize, inverse-transform (or shift back) and clip.  Lossless:
     the levels are the residual and the recon is the source (a skip CU:
-    zero levels and the clipped prediction).  Returns
-    (recon (s, s), levels (s, s)) int32."""
+    zero levels and the clipped prediction).  Under cfg.dep_quant the
+    quantizer is the trellis (at the RDOQ lambda, else default_lam) and the
+    dequantizer the state-dependent one; under cfg.sign_data_hiding the
+    levels then get their parity moves (x266_tpu/engine/recon.py:90-178).
+    Returns (recon (s, s), levels (s, s)) int32."""
     bd, qp = cfg.bit_depth, cfg.qp
     if cfg.lossless:
         if encode and skip:
@@ -100,13 +106,22 @@ def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
         res = src[y + 1:y + 1 + s, x + 1:x + 1 + s] - pred
         c = (res[None] << tsh if ts
              else ktx.forward_transform(tab, res[None], s, tv, th, bd))
-        if rdoq_lam is not None:
+        if cfg.dep_quant:
+            lev = kquant.dq_quantize_trellis(
+                tab, c, qp, s,
+                rdoq_lam if rdoq_lam else kquant.default_lam(qp), bd)[0]
+        elif rdoq_lam is not None:
             lev = kquant.rd_quantize(tab, c, qp, s, rdoq_lam, bd)[0]
         else:
             lev = kquant.quantize(tab, c, qp, s, bd)[0]
+        if cfg.sign_data_hiding:
+            lev = kquant.sdh_adjust(tab, lev, s, coef=c[0], qp=qp,
+                                    bit_depth=bd,
+                                    lam=rdoq_lam if rdoq_lam else None)
     else:
         lev = coef[y:y + s, x:x + s]
-    d = kquant.dequantize(tab, lev[None], qp, s, bd)
+    deq = kquant.dq_dequantize if cfg.dep_quant else kquant.dequantize
+    d = deq(tab, lev[None], qp, s, bd)
     if ts:
         rres = (d[0] + (1 << (tsh - 1))) >> tsh
     else:
@@ -203,10 +218,6 @@ def check_slice(cfg: CodecConfig) -> None:
     _check_cfg(cfg)
     if cfg.bit_depth != 8:
         raise NotImplementedError("the port's slices are 8-bit")
-    for flag in ("sign_data_hiding", "dep_quant"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} is not in the port's "
-                                      "slices")
 
 
 def make_recon_pass_raw(cfg: CodecConfig, tab: Tables, encode: bool):

@@ -14,7 +14,10 @@ LAUNCHES counts the launches of each kernel (one per call here and
 nowhere else), so a run can show that its main path went through them.
 Each launch is one thread block per CTU row of each frame (the row
 wavefront of csrc/recon_intra.cu), with an int32 scratch of 1 + rows for
-the row ticket and the rows' progress.
+the row ticket and the rows' progress.  cfg's sign-data hiding (encode)
+and dependent quantization (encode and decode) select the kernel's SDH
+and DQ instances (csrc/recon_quant.cu); their lambda is
+cfg.lambda_mode, which is also their default without RDOQ.
 """
 
 from __future__ import annotations
@@ -124,7 +127,8 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
         cfg.qp, float(np.float32(cfg.lambda_mode)),
         int(cfg.rdoq and encode), int(cfg.mts), int(cfg.ref_substitute),
         cfg.n_pred_modes, int(cfg.lossless), int(cfg.transform_skip),
-        int(cfg.pdpc), *map(ptr, src), *map(ptr, cin),
+        int(cfg.pdpc), int(cfg.sign_data_hiding and encode),
+        int(cfg.dep_quant), *map(ptr, src), *map(ptr, cin),
         size_map.data_ptr(), mode_map.data_ptr(), mts_map.data_ptr(),
         *map(ptr, rec), *map(ptr, cout),
         tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
@@ -236,7 +240,8 @@ def _launch_inter(lib, stream, cfg, tab, encode, a, b, c, size_map,
         cfg.qp, float(np.float32(cfg.lambda_mode)),
         int(cfg.rdoq and encode), int(cfg.mts), int(cfg.ref_substitute),
         cfg.n_pred_modes, int(cfg.lossless), int(cfg.transform_skip),
-        int(cfg.pdpc), int(cfg.merge_cands), pyr_y.shape[1],
+        int(cfg.pdpc), int(cfg.sign_data_hiding and encode),
+        int(cfg.dep_quant), int(cfg.merge_cands), pyr_y.shape[1],
         pyr_y.shape[2], pyr_cb.shape[1], pyr_cb.shape[2],
         *map(ptr, src), *map(ptr, cin), size_map.data_ptr(),
         mode_map.data_ptr(), mts_map.data_ptr(), pred_map.data_ptr(),
