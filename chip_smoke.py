@@ -158,6 +158,20 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     416x240 with SDH, then with DQ, 17 frames of 'motion', against
     data/ra_sdh_416x240_ref.json and data/ra_dq_416x240_ref.json as
     [main-ra-ref]; each with its launches (launches_tools);
+    [kernels-mtt-lfnst] K1/K2 with MTT binary splits, with LFNST, with
+    both, and in the SDH and DQ instances with them (preset_cfg2q's MTT
+    + SDH; MTT + LFNST under DQ) against the plain scans run on the CPU
+    in the worker processes, bit for bit, at 416x240, with the BT-H /
+    BT-V leaves of 16 and 32 and the LFNST TUs of each kernel counted
+    (a direction or kernel with none fails), timed beside their bounds;
+    then K1 on config 2's 1080p batch and K2 on its frame 0 without the
+    flags, with MTT and with MTT + LFNST, in turns;
+    [main-mtt] preset_cfg2q (MTT, SDH, substitution) and
+    [main-mtt-lfnst] config 2 with MTT and LFNST (the ai_vvc_mtt_lfnst
+    fixture's tools), both with config 2's segments, frames 0-3 of
+    'mixed' at 1080p, against data/cfg2q_1080p_ref.json and
+    data/cfg2ml_1080p_ref.json as [main-sdh], with the BT leaves and
+    LFNST TUs of those frames;
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
@@ -167,8 +181,8 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     bits/frame, PSNR-Y, one warm encode's frame rate; the stream, slice
     NALs, recon, PSNR-Y and SSE equal to data/cfg4_4k_ref.json.
 Plain versions that run on the CPU (K1's 1080p tools frame in
-[kernels-tools], the chroma normal equations in [kernels-alf], the SDH
-and DQ scans of [kernels-sdh-dq]) run in two
+[kernels-tools], the chroma normal equations in [kernels-alf], the
+scans of [kernels-sdh-dq] and [kernels-mtt-lfnst]) run in two
 spawned worker processes while the card's phases go on; their checks
 finish before the kernels line ([time] cpu-checks).
 The third line from the end is a JSON object with each kernel's
@@ -421,13 +435,19 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
     (56); a decoded or reconstructed TU adds its states and
     state-dependent dequantization (8 ops a position).  Sign-data hiding
     adds each 4x4 group's parity and span scan (2 ops a position), not
-    the move search that only mismatched groups run."""
+    the move search that only mismatched groups run.  Under cfg.mtt a BT
+    leaf of side s counts as its four TUs of side s/2 (each with its two
+    s/4 chroma TUs), at their own transform choices (tu_sizes); a luma TU
+    with LFNST adds its 16x16 matrix-vector products, 256 MACs each: the
+    forward and the inverse when encoding, the inverse when decoding."""
     ops = 0.0
     for f in range(size_map.shape[0]):
-        sm = size_map[f]
-        kinds = pred_map[f] if pred_map is not None else np.zeros_like(sm)
-        modes = mode_map[f] if mode_map is not None else np.zeros_like(sm)
-        mts = mts_map[f] if mts_map is not None else np.zeros_like(sm)
+        kinds = (pred_map[f] if pred_map is not None
+                 else np.zeros_like(size_map[f]))
+        modes = (mode_map[f] if mode_map is not None
+                 else np.zeros_like(size_map[f]))
+        mts = mts_map[f] if mts_map is not None else np.zeros_like(kinds)
+        sm = tu_sizes(size_map[f], mts, cfg)
         uy, ux = np.mgrid[0:sm.shape[0], 0:sm.shape[1]]
         u = sm // 8
         origin = ((ux % u) == 0) & ((uy % u) == 0)
@@ -448,6 +468,9 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
                         tx = side * side
                 if cfg is not None and cfg.lossless:
                     tx = side * side
+                if (cfg is not None and cfg.lfnst and luma and kind == 0
+                        and (mv >> 6) & 3 and not mv & 7):
+                    tx += 2 * 256        # each way: one 16x16 matvec
                 coded = not (encode and kind == 2)
                 quant = 0
                 if cfg is not None and cfg.dep_quant:
@@ -460,16 +483,27 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
     return ops
 
 
-def tu_walk(size_map, width: int, height: int) -> dict:
+def tu_sizes(size_map, mts_map=None, cfg=None):
+    """Each unit's TU side: under cfg.mtt a BT leaf (bits 4-5 of the mts
+    map) tiles as TUs of half its side; else the CU's side."""
+    if cfg is None or not cfg.mtt or mts_map is None:
+        return size_map
+    return np.where(((mts_map >> 4) & 3) > 0, size_map // 2, size_map)
+
+
+def tu_walk(size_map, width: int, height: int, mts_map=None,
+            cfg=None) -> dict:
     """The TUs a recon launch walks, derived from its size maps ((F,
     H/8, W/8), numpy; the kernel does not count them): per plane, the
     TUs of each size (a CU of side s has one luma TU of s and a Cb and a
-    Cr TU of s/2); the CTUs on the wavefront's chain, ctus_x + 2 (ctus_y
+    Cr TU of s/2; under MTT a BT leaf four TUs of s/2, tu_sizes); the
+    CTUs on the wavefront's chain, ctus_x + 2 (ctus_y
     - 1) (a batch's rows run at once, so its chain is one frame's); and
     the luma TUs on that chain, a frame's mean luma TUs per CTU times the
     chain.  The chain counts luma TUs only because the kernel runs the
     three planes at once, where its parent (d418144) ran them one after
     another: a CTU's step is divided by the same count for both."""
+    size_map = tu_sizes(size_map, mts_map, cfg)
     u = size_map // 8
     uy, ux = np.mgrid[0:size_map.shape[1], 0:size_map.shape[2]]
     origin = ((ux % u) == 0) & ((uy % u) == 0)
@@ -554,12 +588,13 @@ def phase_build():
 
 
 def kernel_name(mangled: str) -> str:
-    """recon_kernel<encode,inter,b,quantizer> for a recon instance, else
-    the first name of the mangled symbol's (nested) name that holds
-    "kernel"."""
-    t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)E", mangled)
+    """recon_kernel<encode,inter,b,quantizer,mtt/lfnst> for a recon
+    instance, else the first name of the mangled symbol's (nested) name
+    that holds "kernel"."""
+    t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)E",
+                  mangled)
     if t:
-        return "recon_kernel<%s,%s,%s,%s>" % t.groups()
+        return "recon_kernel<%s,%s,%s,%s,%s>" % t.groups()
     pos = 3 if mangled.startswith("_ZN") else 2
     while m := re.match(r"\d+", mangled[pos:]):
         start = pos + m.end()
@@ -1535,7 +1570,8 @@ def quant_bounds(cfg, tab, pic, src, args, got, dec, maps):
                      + read_union(args[9:12], [
                          (maps[0], maps[2], got[6], got[7], (3,)),
                          (maps[0], maps[2], maps[5], maps[6], (4,))]))
-    tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift, tab.k_mip)
+    tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift, tab.k_mip,
+            *((tab.k_lfnst,) if cfg.lfnst else ()))
     be = bound(nbytes(*src, *maps_in, *extra, *got, *tabs, tab.rate) + reads,
                recon_ops(hm[0], True, pred, hm[1], mts, cfg))
     bd = bound(nbytes(*maps_in, *extra, *got[3:6], *dec[:3], *tabs) + reads,
@@ -1690,6 +1726,180 @@ def phase_main_ra_sdh_dq(stats):
              cfg4(416, 240).replace(profile=Profile.VVC, dep_quant=True))):
         run_ra_ref(f"main-ra-sdh-dq {name}", name, file, cfg, "motion", stats,
                    kernels)
+
+
+# MTT binary splits and LFNST on I pictures ([kernels-mtt-lfnst],
+# [main-mtt], [main-mtt-lfnst])
+def cfg2q(w=1920, h=1080):
+    """preset_cfg2q (config 2 with MTT, SDH and substitution) with config
+    2's segments and context inheritance."""
+    from x266_tpu_torch.config import preset_cfg2q
+
+    return preset_cfg2q(w, h).replace(rows_per_segment=1, ctx_inherit=True)
+
+
+def cfg2ml(w=1920, h=1080):
+    """Config 2 with MTT and LFNST: the ai_vvc_mtt_lfnst fixture's tools
+    (VVC, MTS, substitution)."""
+    from x266_tpu_torch.config import preset_cfg2
+
+    return preset_cfg2(w, h).replace(rows_per_segment=1, ctx_inherit=True,
+                                     mtt=True, lfnst=True)
+
+
+def mtt_counts(cfg, maps) -> dict:
+    """On Pass-A maps (size, mode, mts; each (F, H/8, W/8)): the BT-H and
+    BT-V leaves of 16 and 32 (bits 4-5 of the mts map) and the luma TUs
+    with LFNST kernel 1 and 2 (bits 6-7)."""
+    sm, _, tm = (m.cpu().numpy() for m in maps)
+    bt, lf = (tm >> 4) & 3, (tm >> 6) & 3
+    out = {f"{name}{s}": int(((bt == b) & (sm == s)).sum()) // (s // 8) ** 2
+           for b, name in ((1, "bt_h"), (2, "bt_v")) for s in (16, 32)}
+    eff = tu_sizes(sm, tm, cfg) // 8
+    uy, ux = np.mgrid[0:sm.shape[1], 0:sm.shape[2]]
+    origin = ((ux % eff) == 0) & ((uy % eff) == 0)
+    out.update({f"lfnst{k}": int(((lf == k) & origin).sum())
+                for k in (1, 2)})
+    return out
+
+
+def check_mtt_counts(tag, cfg, counts):
+    """A config with MTT must have BT-H and BT-V leaves, one with LFNST
+    TUs of both kernels."""
+    if cfg.mtt and not (counts["bt_h16"] + counts["bt_h32"]
+                        and counts["bt_v16"] + counts["bt_v32"]):
+        raise AssertionError(f"{tag}: MTT is on but a BT direction has no "
+                             f"leaf: {counts}")
+    if cfg.lfnst and not (counts["lfnst1"] and counts["lfnst2"]):
+        raise AssertionError(f"{tag}: LFNST is on but a kernel has no TU: "
+                             f"{counts}")
+
+
+def compare_mtt_kernels(tag, cfg, stats, kind, seed):
+    """K1 and K2 under cfg's MTT and LFNST on one picture (the port's
+    Pass-A maps, whose BT leaves and LFNST TUs are counted), on the card;
+    the plain scans of the same inputs run on the CPU in a worker
+    process, whose check (bit for bit, before the kernels line) also
+    records their times."""
+    tab, enc_in, args, maps = _quant_inputs(cfg, "I", seed, kind)
+    got = _run_quant(cfg, tab, "I", True, *enc_in)
+    dec_in = _dec_inputs("I", got, args)
+    dec = _run_quant(cfg, tab, "I", False, *dec_in)
+    names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr"]
+    _require_equal("K2", tag + " (its own encode's recon)", names[:3],
+                   dec[:3], got[:3])
+    counts = mtt_counts(cfg, maps)
+    check_mtt_counts(f"[kernels-mtt-lfnst] {tag}", cfg, counts)
+    k_ms = event_ms(_run_quant, cfg, tab, "I", True, *enc_in)
+    kd_ms = event_ms(_run_quant, cfg, tab, "I", False, *dec_in)
+    be, bd = quant_bounds(cfg, tab, "I", enc_in[:3], args, got, dec, maps)
+    hm = [m.cpu().numpy() for m in maps]
+    walk = tu_walk(hm[0], cfg.width, cfg.height, hm[2], cfg)
+    entry = {}
+    for key, ms, b in (("K1", k_ms, be), ("K2", kd_ms, bd)):
+        entry[key] = stats[key].setdefault("tools", {}).setdefault(tag, {})
+        entry[key].update({"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                           "shape": f"{cfg.width}x{cfg.height}",
+                           "mtt_lfnst_tus": counts, **per_chain(walk, ms)})
+    got_h = [g.cpu() for g in got]
+    dec_h = [d.cpu() for d in dec]
+
+    def check(outs, ms):
+        _require_equal("K1", tag, names, got_h, [torch.from_numpy(r)
+                                                 for r in outs[0]])
+        _require_equal("K2", tag, names, dec_h, [torch.from_numpy(r)
+                                                 for r in outs[1]])
+        entry["K1"]["plain_ms_cpu"], entry["K2"]["plain_ms_cpu"] = ms
+        log(f"[kernels-mtt-lfnst] {tag}: K1 and K2 equal the plain scans "
+            f"(on the cpu in a worker: {ms[0]:.0f} / {ms[1]:.0f} ms); "
+            "max_abs_err 0")
+
+    on_cpu("kernels-mtt-lfnst", check, _plain_quant_cpu, cfg, "I",
+           [t.cpu().numpy() for t in enc_in],
+           [t.cpu().numpy() for t in dec_in])
+    log(f"[kernels-mtt-lfnst] {tag}: K1 {k_ms:.3f} ms (bound {be[0]:.4f} "
+        f"ms, {be[1]}), K2 {kd_ms:.3f} ms (bound {bd[0]:.4f} ms, {bd[1]}); "
+        f"K2 equals K1's recon; BT leaves and LFNST TUs {counts}; the "
+        f"plain scans run on the cpu; {chain_text(walk, K1=k_ms, K2=kd_ms)}")
+
+
+def time_mtt_flags(stats, n=4):
+    """K1 on config 2's 1080p batch of n frames and K2 on its frame 0,
+    without the flags, with MTT and with MTT + LFNST, each on its own
+    Pass-A maps of the same frames, timed in turns (off, MTT, MTT +
+    LFNST, MTT + LFNST, MTT, off)."""
+    cfgs = {"off": main_cfg(), "mtt": main_cfg().replace(mtt=True),
+            "mtt_lfnst": main_cfg().replace(mtt=True, lfnst=True)}
+    runs, bounds, counts = {}, {}, {}
+    for name, c in cfgs.items():
+        tab, src, maps = _inputs(c, n, 0, "mixed")
+        enc_in = (*src, *maps)
+        got = _run_quant(c, tab, "I", True, *enc_in)
+        a1 = [m[:1].contiguous() for m in maps]
+        dec_in = _dec_inputs("I", (*got[:3], *[g[:1].contiguous()
+                                                for g in got[3:6]]), a1)
+        dec = _run_quant(c, tab, "I", False, *dec_in)
+        runs[name] = (c, tab, enc_in, dec_in)
+        bounds[name] = (
+            quant_bounds(c, tab, "I", src, maps, got, dec, maps)[0],
+            quant_bounds(c, tab, "I", [t[:1] for t in src], a1,
+                         [g[:1] for g in got], dec, a1)[1])
+        counts[name] = mtt_counts(c, maps)
+    times = {key: {name: [] for name in cfgs} for key in ("K1", "K2")}
+    for name in ("off", "mtt", "mtt_lfnst", "mtt_lfnst", "mtt", "off"):
+        c, tab, enc_in, dec_in = runs[name]
+        times["K1"][name].append(event_ms(_run_quant, c, tab, "I", True,
+                                          *enc_in))
+        times["K2"][name].append(event_ms(_run_quant, c, tab, "I", False,
+                                          *dec_in))
+    for i, key in enumerate(("K1", "K2")):
+        ms = {name: float(np.mean(v)) for name, v in times[key].items()}
+        bd = {name: bounds[name][i] for name in cfgs}
+        stats[key].setdefault("tools", {})["config2 1080p mtt flags"] = {
+            **{f"ms_{name}": v for name, v in ms.items()},
+            "bound_ms": {name: b[0] for name, b in bd.items()},
+            "bound_by": {name: b[1] for name, b in bd.items()},
+            "mtt_lfnst_tus": counts,
+            "shape": f"1920x1080x{n if key == 'K1' else 1}"}
+        log(f"[kernels-mtt-lfnst] config2 1080p: {key} off "
+            f"{ms['off']:.3f} ms, MTT {ms['mtt']:.3f} ms, MTT + LFNST "
+            f"{ms['mtt_lfnst']:.3f} ms (in turns); bounds "
+            + ", ".join(f"{name} {b[0]:.4f} ms ({b[1]})"
+                        for name, b in bd.items())
+            + f"; BT leaves and LFNST TUs {counts}")
+
+
+def phase_kernels_mtt_lfnst(stats):
+    """K1/K2 with MTT, with LFNST, with both, and in the SDH and DQ
+    instances with them (the quality preset's MTT + SDH; MTT + LFNST
+    under DQ) against the plain scans at 416x240; then K1 and K2 at
+    config 2's 1080p shapes without the flags, with MTT and with MTT +
+    LFNST, in turns."""
+    from x266_tpu_torch.config import preset_cfg2
+
+    w, h = 416, 240
+    for tag, cfg, kind in (
+            ("mtt I 416x240", preset_cfg2(w, h).replace(mtt=True), "text"),
+            ("lfnst I 416x240", preset_cfg2(w, h).replace(lfnst=True),
+             "mixed"),
+            ("mtt-lfnst I 416x240", cfg2ml(w, h), "text"),
+            ("mtt-sdh I 416x240", cfg2q(w, h), "text"),
+            ("mtt-lfnst-dq I 416x240", cfg2ml(w, h).replace(dep_quant=True),
+             "mixed")):
+        compare_mtt_kernels(tag, cfg, stats, kind, seed=13)
+    time_mtt_flags(stats)
+
+
+def run_main_mtt(tag, cfg, ref_name, stats, card):
+    """run_main on frames 0-3 of 'mixed' at 1080p under cfg's MTT (and
+    LFNST), then the BT leaves and LFNST TUs of those frames' Pass-A
+    maps."""
+    run_main(tag, cfg, "mixed", ref_name, ("K1", "K2"), stats, card,
+             tools=True, batch_frames=4)
+    counts = mtt_counts(cfg, _inputs(cfg, 4, 0, "mixed")[2])
+    check_mtt_counts(f"[{tag}]", cfg, counts)
+    log(f"[{tag}] BT leaves and LFNST TUs of frames 0-3: {counts}")
+    stats["K1"].setdefault("tools", {})[tag] = {"mtt_lfnst_tus": counts}
 
 
 def _encoder_planes(w, h):
@@ -2793,6 +3003,11 @@ def main() -> int:
         "cfg3dq_1080p_ref.json", ("K1", "K2", "K3", "K3d", "K4", "K5"),
         stats, card, tools=True)
     run("main-ra-sdh-dq", phase_main_ra_sdh_dq, stats)
+    run("kernels-mtt-lfnst", phase_kernels_mtt_lfnst, stats)
+    run("main-mtt", run_main_mtt, "main-mtt", cfg2q(),
+        "cfg2q_1080p_ref.json", stats, card)
+    run("main-mtt-lfnst", run_main_mtt, "main-mtt-lfnst", cfg2ml(),
+        "cfg2ml_1080p_ref.json", stats, card)
     run("main-ra", run_main_ra, stats, card)
     run("cpu-checks", finish_cpu_checks)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")

@@ -20,6 +20,7 @@ COPIES = [
     "specmodel/transforms.py", "specmodel/quant.py",
     "specmodel/mip_tables.py",
     "utils/ratecontrol.py",
+    "kernels/lfnst_tables.py",
 ]
 IMPORT = re.compile(r"^(\s*)(from|import) x266_tpu([. ])", re.M)
 

@@ -3,7 +3,8 @@ K4 and K5 against their plain versions, and Encoder/Decoder on the card
 against the CPU path (exact equality), all-intra, low-delay P and random
 access with deblock, SAO and ALF (K3-B); K1/K2 and K3-P under sign-data
 hiding and dependent quantization, and the 128x64 SDH / DQ clips against
-their recorded JAX streams.
+their recorded JAX streams; K1/K2 under MTT and LFNST, and the 128x64
+MTT / LFNST clips and the ai_vvc_mtt_lfnst fixture on the card.
 
 This file imports no JAX, so it runs on a host without it; there, skip
 tests/conftest.py (which imports jax):
@@ -411,6 +412,96 @@ def test_sdhdq_streams_on_card_equal_recorded_jax(cuda):
         assert [frame_md5(r) for r in res.recon] == [
             f["recon_md5"] for f in ref[name]["frames"]]
         assert recon_cuda.LAUNCHES["K1"] > 0
+
+
+MTT_CFGS = {
+    "mtt-lfnst": preset_cfg2(128, 64).replace(mtt=True, lfnst=True),
+    "mtt-sdh": preset_cfg2(128, 64).replace(mtt=True,
+                                            sign_data_hiding=True),
+    "mtt-lfnst-dq": preset_cfg2(128, 64).replace(mtt=True, lfnst=True,
+                                                 dep_quant=True),
+    "mtt-lfnst-nosubst": preset_cfg2(128, 64).replace(
+        mtt=True, lfnst=True, ref_substitute=False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(MTT_CFGS))
+def test_mtt_lfnst_kernels_match_plain_scan_on_card(name, cuda):
+    """K1 and K2 under MTT and LFNST on the card (the plain, SDH and DQ
+    instances): the plain scan's levels and recon, on 'text' maps with
+    BT-H and BT-V leaves of 16 and 32."""
+    cfg = MTT_CFGS[name]
+    tab = tables.from_reference(cfg, cuda)
+    frames = synthetic_clip(128, 64, 1, "text", seed=10)
+    planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+              .to(cuda) for p in ("y", "cb", "cr")]
+    src = fused._unpack_padded(cfg, *planes)
+    maps = fused.make_pass_a(cfg, tab)(src[0])
+    assert (((maps[2] >> 4) & 3) > 0).any()
+    got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    for n, w, g in zip(NAMES, want, got):
+        assert torch.equal(w, g), n
+    dec = recon_cuda.recon_intra(cfg, tab, False, *got[3:], *maps)
+    for n, w, g in zip(NAMES, want, dec):
+        assert torch.equal(w, g), n
+
+
+@pytest.mark.gpu
+def test_mtt_lfnst_streams_on_card_equal_recorded_jax(cuda):
+    """On the card: the 128x64 MTT / LFNST clips give
+    data/mttlfnst128x64_ref.json's streams and recon through the recon
+    kernels, and the ai_vvc_mtt_lfnst fixture decodes to its manifest
+    MD5s."""
+    import base64
+    import json
+    import os
+
+    from x266_tpu_torch.config import preset_cfg2q, preset_cfg3
+
+    here = os.path.dirname(__file__)
+    with open(os.path.join(here, "..", "x266_tpu_torch", "data",
+                           "mttlfnst128x64_ref.json")) as f:
+        ref = json.load(f)["variants"]
+    cfgs = {"ai_text": (preset_cfg2(128, 64).replace(mtt=True, lfnst=True),
+                        "text", 2, 10),
+            "ai_q": (preset_cfg2q(128, 64), "mixed", 1, 2),
+            "ld": (preset_cfg3(128, 64).replace(
+                profile=Profile.VVC, mtt=True, lfnst=True, deblock=True,
+                intra_period=4), "motion", 3, 4)}
+    for name, (cfg, kind, n, seed) in cfgs.items():
+        recon_cuda.reset_launches()
+        res = Encoder(cfg).encode(synthetic_clip(128, 64, n, kind,
+                                                 seed=seed))
+        assert res.bitstream == base64.b64decode(ref[name]["stream_b64"])
+        assert [frame_md5(r) for r in res.recon] == [
+            f["recon_md5"] for f in ref[name]["frames"]]
+        assert recon_cuda.LAUNCHES["K1"] > 0
+    with open(os.path.join(here, "fixtures", "ai_vvc_mtt_lfnst.266t"),
+              "rb") as f:
+        stream = f.read()
+    with open(os.path.join(here, "fixtures", "manifest.json")) as f:
+        want = json.load(f)["ai_vvc_mtt_lfnst"]["md5"]
+    recon_cuda.reset_launches()
+    _, dec = Decoder().decode(stream)
+    assert [frame_md5(d) for d in dec] == want
+    assert recon_cuda.LAUNCHES["K2"] > 0
+
+
+def test_mtt_lfnst_entry_points_default_to_the_card():
+    """Encoder and Decoder of a configuration with MTT and LFNST default
+    to the card and raise on a host without one (no fall back to the
+    CPU); the recon kernels' wrappers refuse CPU tensors under either
+    flag."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a host without a card")
+    for cfg in MTT_CFGS.values():
+        with pytest.raises(RuntimeError, match="is_available"):
+            Encoder(cfg)
+        tab, src, maps = _inputs(cfg, "cpu", n=1)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
 
 
 def test_sdh_dq_entry_points_default_to_the_card():

@@ -425,6 +425,8 @@ WAVE = {
                      gop_size=4),
     # dependent quantization's scratch in each block's shared memory
     "intra-dq": preset_cfg2(192, 160).replace(dep_quant=True),
+    # MTT's TU lists and BT-V order, LFNST's tables and group scratch
+    "intra-mtt-lfnst": preset_cfg2(192, 160).replace(mtt=True, lfnst=True),
 }
 
 
@@ -705,7 +707,29 @@ TOOLS = {
     "dq-ts": (preset_cfg2(136, 136).replace(dep_quant=True,
                                             transform_skip=True, rdoq=False),
               "text"),
+    # MTT binary splits and LFNST: each, both, the quality preset (MTT
+    # with SDH), both under DQ, and both without substitution (the
+    # window's mid-gray gives the BT-V order's availability)
+    "mtt": (preset_cfg2(136, 136).replace(mtt=True), "text"),
+    "lfnst": (preset_cfg2(136, 136).replace(lfnst=True), "text"),
+    "mtt-lfnst": (preset_cfg2(136, 136).replace(mtt=True, lfnst=True),
+                  "text"),
+    "mtt-sdh": (preset_cfg2(136, 136).replace(mtt=True,
+                                              sign_data_hiding=True), "text"),
+    "mtt-lfnst-dq": (preset_cfg2(136, 136).replace(mtt=True, lfnst=True,
+                                                   dep_quant=True), "text"),
+    "mtt-lfnst-nosubst": (preset_cfg2(136, 136).replace(
+        mtt=True, lfnst=True, ref_substitute=False), "text"),
+    "mtt-lfnst-ts": (preset_cfg2(136, 136).replace(
+        mtt=True, lfnst=True, pdpc=True, transform_skip=True), "text"),
+    "mtt-lfnst-mip": (preset_cfg2(136, 136).replace(
+        mtt=True, lfnst=True, pdpc=True, mip=True), "motion"),
 }
+# the clip's seed where it is not 9: 'text' seed 3 and 'motion' seed 6
+# give every MTT config of TOOLS BT-H and BT-V leaves of 16 and 32, and
+# every LFNST config both kernel indices (on MIP CUs too)
+TOOL_SEEDS = {t: 6 if "mip" in t else 3 for t in TOOLS
+              if "mtt" in t or "lfnst" in t}
 
 
 def _quant_off(cfg):
@@ -725,7 +749,7 @@ def test_intra_tools_kernel_source_matches_plain_scan(tool, host_lib):
     cfg, kind = TOOLS[tool]
     tab = tables.from_reference(cfg, "cpu")
     planes = _planes(synthetic_clip(cfg.width, cfg.height, 1, kind,
-                                    seed=9)[0])
+                                    seed=TOOL_SEEDS.get(tool, 9))[0])
     src = fused._unpack_padded(cfg, *planes)
     maps = fused.make_pass_a(cfg, tab)(src[0])
     if cfg.transform_skip:
@@ -734,6 +758,13 @@ def test_intra_tools_kernel_source_matches_plain_scan(tool, host_lib):
         assert (maps[1] >= cfg.n_intra_modes).any()
     if cfg.pdpc:
         assert torch.isin(maps[1], torch.tensor([0, 1, 18, 50])).any()
+    if cfg.mtt:
+        # BT-H and BT-V leaves of 16 and of 32
+        bt, size = (maps[2] >> 4) & 3, maps[0]
+        assert all(((bt == b) & (size == s)).any() for b in (1, 2)
+                   for s in (16, 32))
+    if cfg.lfnst:
+        assert all((((maps[2] >> 6) & 3) == k).any() for k in (1, 2))
     err, got = recon_cuda._launch(host_lib, 0, cfg, tab, True, *src, *maps)
     assert err == 0
     want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)

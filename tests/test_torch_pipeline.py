@@ -49,6 +49,7 @@ PSNR, which the port sums in float32 in the reference's order (F4).
   JAX recon, and the JAX decoder decodes the port's stream (live);
 - the ai_vvc_tools golden fixture (sign-data hiding beside transform
   skip and MTS) re-encodes to its bytes and decodes to its manifest MD5s;
+  so does ai_vvc_mtt_lfnst (MTT binary splits and LFNST beside MTS);
 - the golden fixtures lowdelay_p_filters and ra_alf decode to their
   manifest MD5s, ra_alf (random access with nonlinear ALF and CC-ALF)
   and gpb_rpl_wp (GPB with signalled reference lists and weighted
@@ -139,6 +140,22 @@ def test_ai_hevc_lossless_fixture_both_ways():
     assert [frame_md5(f) for f in frames] == want
     assert [frame_md5(r) for r in res.recon] == want
     assert all(float(s[0]) == 0.0 for s in res.sse)
+
+
+def test_ai_vvc_mtt_lfnst_fixture_both_ways():
+    """MTT binary splits and LFNST beside MTS (VVC): the fixture decodes
+    to its manifest MD5s, and its source and config
+    (tools/make_fixtures.py) re-encode to its bytes."""
+    want = _manifest("ai_vvc_mtt_lfnst")["md5"]
+    _, dec = Decoder(device="cpu").decode(_fixture("ai_vvc_mtt_lfnst"))
+    assert [frame_md5(d) for d in dec] == want
+    cfg = CodecConfig(width=96, height=64, qp=32, rdoq=True,
+                      profile=Profile.VVC, mts=True, mtt=True, lfnst=True,
+                      ref_substitute=True)
+    frames = synthetic_clip(96, 64, 1, kind="mixed", seed=77)
+    res = Encoder(cfg, device="cpu").encode(frames)
+    assert res.bitstream == _fixture("ai_vvc_mtt_lfnst")
+    assert [frame_md5(r) for r in res.recon] == want
 
 
 def test_ai_vvc_tools_fixture_both_ways():
@@ -477,12 +494,12 @@ def test_single_frame_step_equals_batched():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(profile=Profile.VVC, cclm=True), dict(profile=Profile.VVC,
-                                               lfnst=True),
+    dict(profile=Profile.VVC, cclm=True),
+    dict(profile=Profile.VVC, lfnst=True, max_cu_size=64),
     dict(tile_rows=1), dict(profile=Profile.VVC, dep_quant=True,
                             bit_depth=10),
-    dict(profile=Profile.VVC, mtt=True),
-    dict(profile=Profile.VVC, mtt=True, sign_data_hiding=True),
+    dict(profile=Profile.VVC, mtt=True, bit_depth=10),
+    dict(profile=Profile.VVC, mtt=True, sign_data_hiding=True, tile_rows=1),
     dict(bit_depth=10),
     dict(profile=Profile.VVC, max_cu_size=64),
     dict(alf=True, alf_nonlinear=True, bit_depth=10)])

@@ -87,13 +87,25 @@ these files.
   (``make_controller``, ``make_lambda_controller``) on a 128x64
   low-delay P clip and an all-intra clip, for the CPU tests ->
   data/rc128x64_ref.json; each records the controller's arguments and
-  the QP of every slice.
+  the QP of every slice;
+- sign-data hiding and dependent quantization: cfg2s, cfg2dq, cfg3dq
+  (1080p, frames 0-3), ra_sdh and ra_dq (config 4 at 416x240, 17
+  frames), sdhdq128x64 (five 128x64 clips for the CPU tests);
+- MTT and LFNST (I pictures): cfg2q (``preset_cfg2q``, MTT + SDH, with
+  config 2's segments) and cfg2ml (config 2 + MTT + LFNST), frames 0-3
+  of 'mixed' at 1080p (chip_smoke.py [main-mtt], [main-mtt-lfnst]) ->
+  data/cfg2q_1080p_ref.json, data/cfg2ml_1080p_ref.json; mttlfnst128x64:
+  three 128x64 clips for the CPU tests (config 2 + both on 'text', the
+  quality preset, a low-delay clip with deblock) ->
+  data/mttlfnst128x64_ref.json.
 
     python tools/make_torch_refs.py [cfg2] [cfg3] [cfg2t] [lossless]
         [p128x64] [t128x64] [c128x64] [cfg4] [cfg4noalf] [ra128x64]
         [cfg4noalf_1080p] [lossless_p] [tools_ra] [lossless_ra]
         [tools128x64] [cfg4_4k] [cfg5] [gpb_wp] [wp128x64]
-        [ra_nl_1080p] [ra_nl128x64] [rc_1080p] [rc128x64]
+        [ra_nl_1080p] [ra_nl128x64] [rc_1080p] [rc128x64] [cfg2s]
+        [cfg2dq] [cfg3dq] [ra_sdh] [ra_dq] [sdhdq128x64] [cfg2q] [cfg2ml]
+        [mttlfnst128x64]
     # default: cfg2 to ra128x64; minutes per 1080p frame, about two
     # minutes for each 416x240 RA clip and for ra128x64, half an hour
     # for cfg4_4k
@@ -116,8 +128,8 @@ jax.config.update("jax_platforms", "cpu")
 
 from x266_tpu.api import Decoder, Encoder  # noqa: E402
 from x266_tpu.config import (CodecConfig, Profile, preset_cfg2,  # noqa
-                             preset_cfg2s, preset_cfg3, preset_cfg4,
-                             preset_cfg5)
+                             preset_cfg2q, preset_cfg2s, preset_cfg3,
+                             preset_cfg4, preset_cfg5)
 from x266_tpu.core.hashing import frame_md5  # noqa: E402
 from x266_tpu.core.nal import NalType, split_nals, write_nal  # noqa: E402
 from x266_tpu.core.yuv import Frame, synthetic_clip  # noqa: E402
@@ -159,6 +171,16 @@ REFS = {
                                                   dep_quant=True),
                "preset_cfg3(1920, 1080).replace(profile=Profile.VVC, "
                "dep_quant=True)", "motion"),
+    # MTT binary splits and LFNST (I pictures): the quality preset
+    # (MTT + SDH), and config 2 with the ai_vvc_mtt_lfnst fixture's tools
+    "cfg2q": (lambda: preset_cfg2q(W, H).replace(rows_per_segment=1,
+                                                  ctx_inherit=True),
+              "preset_cfg2q(1920, 1080).replace(rows_per_segment=1, "
+              "ctx_inherit=True)", "mixed"),
+    "cfg2ml": (lambda: preset_cfg2(W, H).replace(
+        rows_per_segment=1, ctx_inherit=True, mtt=True, lfnst=True),
+               "preset_cfg2(1920, 1080).replace(rows_per_segment=1, "
+               "ctx_inherit=True, mtt=True, lfnst=True)", "mixed"),
 }
 
 
@@ -709,12 +731,53 @@ def make_sdhdq128() -> None:
     print(f"wrote {path}")
 
 
+# MTT and LFNST at 128x64 for the CPU tests: config 2 with both on 'text'
+# (BT-H and BT-V leaves of 16 and 32, both LFNST kernels), the quality
+# preset (MTT + SDH) and a low-delay clip with deblock (I then P
+# pictures: the tools act on the I picture, deblock on its TU grid)
+MTTLFNST128 = {   # name -> (config text, clip kind, frames, seed)
+    "ai_text": ("preset_cfg2(128, 64).replace(mtt=True, lfnst=True)",
+                "text", 2, 10),
+    "ai_q": ("preset_cfg2q(128, 64)", "mixed", 1, 2),
+    "ld": ("preset_cfg3(128, 64).replace(profile=Profile.VVC, mtt=True, "
+           "lfnst=True, deblock=True, intra_period=4)", "motion", 3, 4),
+}
+
+
+def mttlfnst128_config(name: str):
+    if name == "ai_text":
+        return preset_cfg2(128, 64).replace(mtt=True, lfnst=True)
+    if name == "ai_q":
+        return preset_cfg2q(128, 64)
+    return preset_cfg3(128, 64).replace(profile=Profile.VVC, mtt=True,
+                                        lfnst=True, deblock=True,
+                                        intra_period=4)
+
+
+def make_mttlfnst128() -> None:
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "variants": {}}
+    for name, (text, kind, n, seed) in MTTLFNST128.items():
+        out["variants"][name] = {
+            "config": text,
+            "clip": f"synthetic_clip(128, 64, {n}, '{kind}', seed={seed})",
+            **_ra_record(mttlfnst128_config(name),
+                         synthetic_clip(128, 64, n, kind, seed=seed))}
+        print(name, out["variants"][name]["nal_md5_coding_order"],
+              flush=True)
+    path = os.path.join(DATA, "mttlfnst128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
 def main() -> None:
     makers = {"p128x64": make_p128, "cfg5": make_cfg5,
               "gpb_wp": make_gpb_wp, "wp128x64": make_wp128,
               "ra_nl_1080p": make_ra_nl, "ra_nl128x64": make_ra_nl128,
               "rc_1080p": make_rc, "rc128x64": make_rc128,
               "sdhdq128x64": make_sdhdq128,
+              "mttlfnst128x64": make_mttlfnst128,
               **{k: (lambda k=k: make_ai128(k)) for k in AI128},
               "ra128x64": make_ra128, "tools128x64": make_tools128,
               **{k: (lambda k=k: make(k)) for k in REFS},

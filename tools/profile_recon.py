@@ -79,54 +79,88 @@ PLANES = ("Y", "Cb", "Cr")
 SIZES = (4, 8, 16, 32)                      # csrc size_index order
 
 
-class NoQuantFlags:
-    """A library built from a recon_intra.cu older than the sdh and dq
-    arguments of x266_recon_intra / x266_recon_inter: the wrappers' calls
-    with those arguments, which must be 0, reach it without them."""
+class OlderSignature:
+    """A library built from an older recon_intra.cu, whose
+    x266_recon_intra / x266_recon_inter lack arguments that the wrappers
+    pass: calls reach it without them (drop_intra / drop_inter, the
+    dropped positions), each of which must be 0 (flags) or a table the
+    older source never reads."""
 
-    def __init__(self, lib):
+    def __init__(self, lib, drop_intra, drop_inter, zero_intra,
+                 zero_inter):
         self.lib = lib
+        self.drop = {"x266_recon_intra": (drop_intra, zero_intra),
+                     "x266_recon_inter": (drop_inter, zero_inter)}
 
     def __getattr__(self, name):
-        return getattr(self.lib, name)
+        if name not in self.drop:
+            return getattr(self.lib, name)
+        drop, zero = self.drop[name]
 
-    def x266_recon_intra(self, *a):
-        assert a[17] == 0 and a[18] == 0, "this source has no SDH or DQ"
-        return self.lib.x266_recon_intra(*a[:17], *a[19:])
+        def call(*a):
+            assert all(a[i] == 0 for i in zero), (
+                f"this source's {name} has no such tool")
+            return getattr(self.lib, name)(
+                *(v for i, v in enumerate(a) if i not in drop))
 
-    def x266_recon_inter(self, *a):
-        assert a[16] == 0 and a[17] == 0, "this source has no SDH or DQ"
-        return self.lib.x266_recon_inter(*a[:16], *a[18:])
+        return call
 
 
-def declare_no_quant_flags(lib):
-    """The C signatures of NoQuantFlags's library."""
+def declare_older(lib, sdh_dq: bool):
+    """The C signatures of an older library: without the mtt and lfnst
+    arguments and the LFNST table (sdh_dq: the source has sdh and dq),
+    or without those and sdh and dq too."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    q = 2 if sdh_dq else 0
     lib.x266_recon_intra.argtypes = (
-        [i] * 9 + [fl] + [i] * 7 + [p] * 22 + [p])
+        [i] * 9 + [fl] + [i] * (7 + q) + [p] * 22 + [p])
     lib.x266_recon_intra.restype = i
     lib.x266_recon_inter.argtypes = (
-        [i] * 8 + [fl] + [i] * 12 + [p] * 35 + [p])
+        [i] * 8 + [fl] + [i] * (12 + q) + [p] * 35 + [p])
     lib.x266_recon_inter.restype = i
     lib.x266_error_string.argtypes = [i]
     lib.x266_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def quant_part(recon_src: str) -> str:
+    """The SDH / DQ instances of an older recon_intra.cu: a file beside it,
+    <name>_quant.cu, that compiles it with X266_RECON_QUANT_PART (as
+    csrc/recon_quant.cu compiles the package's); its path."""
+    out = os.path.splitext(recon_src)[0] + "_quant.cu"
+    with open(out, "w") as f:
+        f.write("#define X266_RECON_QUANT_PART\n"
+                f'#include "{os.path.basename(recon_src)}"\n')
+    return out
+
+
 def build(recon_src: str, phases: bool):
     """A library of recon_src, a version of csrc/recon_intra.cu (the
     phase split on when phases; the package's own with
-    csrc/recon_quant.cu), built by _build.Library into
-    build/x266_tpu_torch/profile-<hash>/; a source without the sdh and
-    dq arguments comes wrapped in NoQuantFlags."""
+    csrc/recon_quant.cu, an older one with its quant_part when it has
+    the SDH / DQ instances), built by _build.Library into
+    build/x266_tpu_torch/profile-<hash>/; a source without the mtt and
+    lfnst arguments (or the sdh and dq ones) comes wrapped in
+    OlderSignature."""
     with open(recon_src) as f:
-        old = "int sdh, int dq" not in f.read()
-    srcs = [recon_src, RECON_QUANT] if recon_src == RECON else [recon_src]
+        text = f.read()
+    sdh_dq, mtt = "int sdh, int dq" in text, "int mtt," in text
+    if recon_src == RECON:
+        srcs = [recon_src, RECON_QUANT]
+    elif "X266_RECON_QUANT_PART" in text:
+        srcs = [recon_src, quant_part(recon_src)]
+    else:
+        srcs = [recon_src]
     so = pc.build(srcs, ["X266_RECON_PHASES"] if phases else [],
-                  declare_no_quant_flags if old
-                  else _build.declare_recon).lib
-    if old:
-        so = NoQuantFlags(so)
+                  _build.declare_recon if mtt
+                  else (lambda lib: declare_older(lib, sdh_dq))).lib
+    if not mtt:
+        # x266_recon_intra: sdh, dq at 17, 18; mtt, lfnst at 19, 20; the
+        # LFNST table at 42; x266_recon_inter: sdh, dq at 16, 17
+        so = (OlderSignature(so, {19, 20, 42}, set(), {19, 20}, set())
+              if sdh_dq else
+              OlderSignature(so, {17, 18, 19, 20, 42}, {16, 17},
+                             {17, 18, 19, 20}, {16, 17}))
     if phases:
         if not hasattr(so, "x266_recon_phases"):
             raise SystemExit(
@@ -136,44 +170,6 @@ def build(recon_src: str, phases: bool):
         so.x266_recon_phases.argtypes = [ctypes.c_void_p]
         so.x266_recon_phases.restype = ctypes.c_int
     return so
-
-
-def apply_patch(text: str, patch: str) -> str:
-    """text with a unified diff's hunks applied in order; raises where a
-    hunk's context or removed lines are not text's at that place."""
-    lines = text.splitlines(keepends=True)
-    out, pos = [], 0
-    parts = re.split(r"^@@ -(\d+)(?:,\d+)? \+\d+(?:,\d+)? @@.*\n", patch,
-                     flags=re.M)
-    for start, body in zip(parts[1::2], parts[2::2]):
-        start = int(start) - 1
-        if start < pos:
-            raise ValueError(f"patch hunk at line {start + 1} overlaps")
-        out += lines[pos:start]
-        pos = start
-        for line in body.splitlines(keepends=True):
-            tag, rest = line[0], line[1:]
-            if tag in " -":
-                if pos >= len(lines) or lines[pos] != rest:
-                    raise ValueError(f"patch does not apply at line {pos + 1}")
-                if tag == " ":
-                    out.append(rest)
-                pos += 1
-            elif tag == "+":
-                out.append(rest)
-    return "".join(out + lines[pos:])
-
-
-def parent_phases(src: str) -> str:
-    """The parent commit's recon_intra.cu (src, as ``git show`` gives it)
-    with PARENT_PATCH's phase split, written beside src as
-    <name>_phases.cu; its path."""
-    with open(src) as f, open(PARENT_PATCH) as g:
-        text = apply_patch(f.read(), g.read())
-    out = os.path.splitext(src)[0] + "_phases.cu"
-    with open(out, "w") as f:
-        f.write(text)
-    return out
 
 
 class Workload:

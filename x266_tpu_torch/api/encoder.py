@@ -107,8 +107,9 @@ def check_config(cfg: CodecConfig) -> None:
     (gop_size > 1), one tile, 8-bit, CU <= 32, tools limited to MTS,
     RDOQ, reference substitution, merge candidates, AMVP, signalled
     reference lists, weighted prediction, deblock, SAO, ALF (linear or
-    nonlinear, chroma, CC-ALF), lossless, transform skip, PDPC and MIP;
-    the encoder and the decoder take the same configs."""
+    nonlinear, chroma, CC-ALF), lossless, transform skip, PDPC, MIP,
+    sign-data hiding, dependent quantization, MTT and LFNST (CCLM is
+    refused); the encoder and the decoder take the same configs."""
     if cfg.num_tiles != 1:
         raise NotImplementedError("tiles are not in the port's slices")
     check_slice(cfg)

@@ -121,6 +121,24 @@
 // maps (also the decode's).  DQ's scratch is dynamic shared memory after
 // Shared.
 //
+// MTT binary splits and LFNST (x266_tpu/engine/recon.py:117-161, 393-499;
+// the reference runs them on its XLA scan only) are a template parameter
+// of K1 and K2 (kMl), taken when either flag is on; the other instances
+// compile without them.  MTT: a 16 or 32 leaf whose mts map bits 4-5 say
+// BT-H (1) or BT-V (2) codes as two rectangular CUs of one mode, each two
+// square TUs of half the leaf's side, so the TU list takes the leaf's four
+// TUs (mode from the rectangular CU's origin; transform choice, LFNST,
+// levels and shifts from the TU's own units) in coding order: z-order,
+// but a BT-V leaf's left CU first (its entries 1 and 2 swap).  Without
+// substitution the window's mid-gray gives that order's availability;
+// with it ref_sources compares inside a BT-V leaf by the leaf's order.
+// LFNST (bits 6-7, luma TUs on the DCT-II pair; kernels/lfnst.py): the
+// low 4x4's 16 owners stage it in vector order (transposed past the
+// diagonal) and each computes one entry of the 16x16 integer product
+// (the kernels in shared memory as int8, with their transposes), after
+// the forward horizontal pass and, inverse, after dequantization; K2
+// dequantizes such a TU into shared memory first.
+//
 // Integer math is int32 multiply-accumulate (|residual x matrix| sums stay
 // below 2^31).  RDOQ compares float32 costs e*e*err_scale + lam*rate with
 // explicitly rounded __fmul_rn/__fadd_rn (and the library is built with
@@ -234,6 +252,7 @@ struct Params {
   int n_std;                      // analytic modes (taps); MIP above
   int lossless, ts, pdpc;         // intra tools, see the header
   int dq;                         // dependent quantization (its instance)
+  int mtt, lfnst;                 // MTT binary splits, LFNST (K1/K2)
   float lam;
   const uint8_t* src[3];          // encode: padded planes (F, Hp, Wp)
   const int16_t* coef_in[3];      // decode: levels (F, H, W)
@@ -242,6 +261,7 @@ struct Params {
   int16_t* coef_out[3];           // encode: levels
   const int32_t *taps, *smooth, *tx, *shift;
   const int32_t* mip;             // (MIP_K, s*s, 16) for s = 8, 16, 32
+  const int32_t* lfnst_tab;       // (8, 16, 16) LFNST kernels (lfnst)
   const float* rate;              // (32768,) rate surrogate
   // K3-P and K3-B only (frames == 1)
   int merge;                      // merge candidates on
@@ -289,16 +309,21 @@ struct Refs {
   int grp[16];
 };
 
-// A CU of the CTU being coded, in z-order (staged before the row wait).
+// A TU of the CTU being coded, in coding order (staged before the row
+// wait): a CU's, or under MTT one of a BT leaf's four.
 struct alignas(16) Cu {
   uint8_t ux, uy;                 // unit within the CTU
   uint8_t s;                      // luma side
   uint8_t kind;                   // inter.PRED_* (kIntra in K1/K2)
   uint8_t tv, th, ts;             // luma transform types; transform skip
   uint8_t nz;                     // decode: bit p, plane p has a level != 0
-  int16_t mode, mode_c;
+  int16_t mode;
+  uint8_t mode_c;                 // chroma's mode (< 67)
+  uint8_t lf;                     // LFNST: 0 off, else kLfOn | kernel << 1 |
+                                  // transpose
   int16_t shift_y, shift_c;       // prediction shifts, luma and chroma
 };
+constexpr int kLfOn = 0x80;
 
 // Staged samples of the CTU: luma at 0 (64 a row), Cb at 4096 and Cr at
 // 5120 (32 a row).
@@ -313,6 +338,7 @@ struct Shared {
   int smooth[kSmooth];
   int shift[4 * kMaxModes];
   float rate[kRateShared];        // RDOQ's rate of levels 0-255
+  int8_t lfnst[2][8 * 256];       // LFNST kernels [k][i][j], transposed
   // the CTU's staged inputs
   union alignas(16) {
     uint8_t src[kStage];          // encode: source samples
@@ -338,6 +364,7 @@ struct Shared {
   alignas(16) int b_y[32 * 32];
   alignas(16) int a_c[2][16 * 16];
   alignas(16) int b_c[2][16 * 16];
+  int lf_vec[3][16];              // per group: an LFNST input vector
   Refs refs[8];
 };
 
@@ -485,11 +512,18 @@ __device__ void subst_sources(int s, const unsigned (&m)[5], uint8_t* src) {
   }
 }
 
+// A BT-V MTT leaf of side lf at plane coords (lx, ly) (lf 0: none),
+// whose t-blocks (t = lf / 2) code left half first, top to bottom.
+struct BtvLeaf {
+  int lx, ly, lf;
+};
+
 // One warp: the substitution sources of the TU at plane coords (x, y),
 // side s, on a plane of scale 1 (luma) or 2 (chroma), from
-// decoded_before's availability of each entry.
+// decoded_before's availability of each entry; inside a BT-V leaf the
+// leaf's order decides (engine.availability.ref_masks with btv_leaf).
 __device__ void ref_sources(const Params& p, int x, int y, int s, int scale,
-                            uint8_t* src) {
+                            const BtvLeaf& leaf, uint8_t* src) {
   const int lane = threadIdx.x & 31;
   unsigned m[5];
 #pragma unroll
@@ -501,6 +535,13 @@ __device__ void ref_sources(const Params& p, int x, int y, int s, int scale,
       ref_pos(scan_index(k, s), x, y, s, px, py);
       avail = decoded_before(px * scale, py * scale, x * scale, y * scale,
                              p.width, p.height);
+      const int lx = leaf.lx, ly = leaf.ly, lf = leaf.lf;
+      if (lf && px >= lx && px < lx + lf && py >= ly && py < ly + lf &&
+          px >= 0 && py >= 0) {
+        const int t = lf >> 1;
+        avail = 2 * ((px - lx) / t) + (py - ly) / t <
+                2 * ((x - lx) / t) + (y - ly) / t;
+      }
     }
     m[w] = __ballot_sync(kFull, avail);
   }
@@ -1080,16 +1121,58 @@ __device__ X266_NOINLINE void dq_dequant(Shared& sh, const Group& g,
 // origin (x0, y0) (its inputs are staged at (x - x0, y - y0), row pitch 64
 // luma, 32 chroma), its mode, prediction shift, transform types,
 // transform skip, kind, whether its staged levels are non-zero (decode),
-// whether the group meets first (a small TU came just before) and its
-// substitution sources (nullptr without substitution).
+// whether the group meets first (a small TU came just before), its
+// substitution sources (nullptr without substitution) and its LFNST (Cu::lf).
 struct TuArgs {
-  int x, y, x0, y0, mode, shift, tv, th;
+  int x, y, x0, y0, mode, shift, tv, th, lf;
   bool ts;
   int kind;
   bool nz, sync_first;
   const uint8_t* src;
   int f;
 };
+
+// LFNST (x266_tpu/kernels/lfnst.py:81-105) on the low 4x4 of a TU: entry
+// vi of the 16x16 kernel of lf (Cu::lf) times the vector vec, or of its
+// transpose for the inverse, rounded at 1 << 7 and clipped: exact int32
+// (|m| <= 127, |v| <= 2^15).  The thread owning coefficient (r, c) of the
+// low 4x4 computes entry vi = r * 4 + c, or c * 4 + r where the mode
+// transposes the region.
+__device__ __forceinline__ int lfnst_index(int lf, int r, int c) {
+  return (lf & 1) ? c * 4 + r : r * 4 + c;
+}
+
+__device__ __forceinline__ int lfnst_entry(const Shared& sh, int lf,
+                                           bool inverse, const int* vec,
+                                           int vi) {
+  const int8_t* m = sh.lfnst[inverse] + ((lf >> 1) & 7) * 256 + vi * 16;
+  int acc = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) acc += m[j] * vec[j];
+  return clampi((acc + 64) >> 7, -32768, 32767);
+}
+
+// The inverse LFNST in place on the dequantized coefficients a (raster,
+// pitch S) of a TU's threads; thread (row0, col) of the first sample row
+// block owns entry (row0, col).  Starts after a barrier over a's writes
+// and ends with one.
+template <int S>
+__device__ X266_NOINLINE void lfnst_inverse(const Shared& sh, const Group& g,
+                                            bool small, int lf, int row0,
+                                            int col, int* a) {
+  const bool low = row0 < 4 && col < 4;
+  int out = 0;
+  if (low) {
+    int vec[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      vec[j] = (lf & 1) ? a[(j & 3) * S + (j >> 2)] : a[(j >> 2) * S + (j & 3)];
+    out = lfnst_entry(sh, lf, true, vec, lfnst_index(lf, row0, col));
+  }
+  group_sync(g, small);
+  if (low) a[row0 * S + col] = out;
+  group_sync(g, small);
+}
 
 // One TU of side S of plane v.plane, on G threads: the group (a TU of more
 // than 64 samples) or the group's warp 0 (G = 32; the caller keeps the
@@ -1100,7 +1183,7 @@ __device__ __forceinline__ float* dq_scratch(Shared& sh, const View& v) {
          (v.plane == 0 ? 0 : kDqLuma + (v.plane - 1) * kDqChroma);
 }
 
-template <bool kEncode, int S, int G, int kQ>
+template <bool kEncode, int S, int G, int kQ, bool kMl>
 __device__ void tu(const Params& p, Shared& sh, const View& v,
                    const Group& g, const TuArgs& a) {
   using M = Map<S, G>;
@@ -1269,6 +1352,16 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
         for (int k = 0; k < K; ++k)
           c[k] = clampi(rshift_round(acc[k], kLog2 + 6), -32768, 32767);
       }
+      if (kMl && a.lf) {
+        // the forward LFNST on the low 4x4 (k = 0: kStep >= 4), from its
+        // entries in vector order
+        int* vec = sh.lf_vec[v.plane];
+        const bool low = active && row0 < 4 && col < 4;
+        const int vi = lfnst_index(a.lf, row0, col);
+        if (low) vec[vi] = c[0];
+        group_sync(g, kSmall);
+        if (low) c[0] = lfnst_entry(sh, a.lf, false, vec, vi);
+      }
     }
     // quantization: the level out to global, dequantized into a (or, for
     // transform skip, into the residual's registers)
@@ -1349,9 +1442,25 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
           res[k] = (clampi((lev[(row0 + k * kStep) * sp + col] * dscale +
                             (1 << (ishift - 1))) >> ishift, -32768, 32767) +
                     (1 << (tsh - 1))) >> tsh;
+    } else if (kMl && a.lf) {
+      // under LFNST the dequantized levels go to a first
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int rr = row0 + k * kStep;
+        if (active)
+          sa[rr * S + col] = clampi((lev[rr * sp + col] * dscale +
+                                     (1 << (ishift - 1))) >> ishift,
+                                    -32768, 32767);
+      }
+      group_sync(g, kSmall);
+      lev = nullptr;
     }
     inverse = !a.ts;
   }
+  // the inverse LFNST between the dequantizer and the primary inverse (a
+  // TU whose levels are all 0 has none: it maps 0 to 0)
+  if (kMl && inverse && a.lf)
+    lfnst_inverse<S>(sh, g, kSmall, a.lf, row0, col, sa);
   if (inverse) {
     // inverse vertical: b[n][m] = clip((sum_k Tv[k][n] a[k][m] + 64) >> 7)
     if (active) {
@@ -1390,17 +1499,17 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
 // A plane's TU of side s: the instance of tu for its size and thread
 // count (luma 8 on a warp, 16 and 32 on 128 threads; chroma 4 and 8 on a
 // warp, 16 on 64 threads).
-template <bool kEncode, int kQ>
+template <bool kEncode, int kQ, bool kMl>
 __device__ __forceinline__ void plane_tu(const Params& p, Shared& sh,
                                          const View& v, const Group& g,
                                          int s, const TuArgs& a) {
   switch (v.plane == 0 ? (s == 8 ? 1 : s == 16 ? 3 : 4)
                        : (s == 4 ? 0 : s == 8 ? 1 : 2)) {
-    case 0: tu<kEncode, 4, 32, kQ>(p, sh, v, g, a); break;
-    case 1: tu<kEncode, 8, 32, kQ>(p, sh, v, g, a); break;
-    case 2: tu<kEncode, 16, 64, kQ>(p, sh, v, g, a); break;
-    case 3: tu<kEncode, 16, 128, kQ>(p, sh, v, g, a); break;
-    default: tu<kEncode, 32, 128, kQ>(p, sh, v, g, a); break;
+    case 0: tu<kEncode, 4, 32, kQ, kMl>(p, sh, v, g, a); break;
+    case 1: tu<kEncode, 8, 32, kQ, kMl>(p, sh, v, g, a); break;
+    case 2: tu<kEncode, 16, 64, kQ, kMl>(p, sh, v, g, a); break;
+    case 3: tu<kEncode, 16, 128, kQ, kMl>(p, sh, v, g, a); break;
+    default: tu<kEncode, 32, 128, kQ, kMl>(p, sh, v, g, a); break;
   }
 }
 
@@ -1497,7 +1606,7 @@ __device__ __forceinline__ int mc_sample(const uint8_t* pyr, int h, int w,
 // Staging before the row wait, by all threads: the CTU's maps (raster
 // units) and inputs (encode: the source; decode: the levels and each
 // unit's non-zero flags, into sh.unz, which the CTU before left zero).
-template <bool kEncode, bool kInter, bool kB>
+template <bool kEncode, bool kInter, bool kB, bool kMl>
 __device__ void stage_inputs(const Params& p, Shared& sh, int f, int cx,
                              int cy) {
   const int w = p.width, h = p.height, cw = w / 2, ch = h / 2;
@@ -1509,7 +1618,8 @@ __device__ void stage_inputs(const Params& p, Shared& sh, int f, int cx,
     const size_t mi = (size_t)f * ux_n * uy_n + (size_t)uy * ux_n + ux;
     sh.size[t] = in ? p.size_map[mi] : 0;
     sh.mode[t] = in ? p.mode_map[mi] : 0;
-    sh.mts[t] = in && (p.mts || p.ts) ? p.mts_map[mi] : 0;
+    sh.mts[t] = in && (p.mts || p.ts || (kMl && (p.mtt || p.lfnst)))
+                    ? p.mts_map[mi] : 0;
     if (kInter) {
       sh.ukind[t >> 3][1 + (t & 7)] = in ? p.pred_map[mi] : kIntra;
       sh.mvx[t] = in ? p.mvx_map[mi] : 0;
@@ -1569,10 +1679,26 @@ __device__ void stage_inputs(const Params& p, Shared& sh, int f, int cx,
   }
 }
 
-// The CTU's CU list in z-order (warp 1, after stage_inputs), and for K3
-// each CU's final MV, derived in z-order (its lane 0) over its units:
-// the MV state derive_mv and above_mv read.
-template <bool kEncode, bool kInter, bool kB>
+// A unit's TU under MTT (bits 4-5 of the mts map: 1 BT-H, 2 BT-V): a BT
+// leaf of side s tiles as four TUs of side s / 2, else the CU is one TU.
+// Returns the TU's side in units (0 outside the picture) and bt.
+template <bool kMl>
+__device__ __forceinline__ int tu_units(const Params& p, const Shared& sh,
+                                        int t, int& bt) {
+  const int u = sh.size[t] >> 3;
+  bt = kMl && p.mtt ? (sh.mts[t] >> 4) & 3 : 0;
+  return bt ? u >> 1 : u;
+}
+
+// The CTU's TU list in coding order (warp 1, after stage_inputs), and for
+// K3 each CU's final MV, derived in z-order (its lane 0) over its units:
+// the MV state derive_mv and above_mv read.  A TU is a CU, or under MTT
+// one of a BT leaf's four t-TUs (x266_tpu/engine/recon.py:393-499): its
+// mode is its rectangular CU's (the CU origin's unit), its transform
+// choice, LFNST, levels and prediction shifts its own; z-order but for a
+// BT-V leaf, whose left CU's two TUs come first (entries 1 and 2 of the
+// leaf swap).
+template <bool kEncode, bool kInter, bool kB, bool kMl>
 __device__ void build_cus(const Params& p, Shared& sh, int cx, int cy) {
   const int lane = threadIdx.x & 31;
   unsigned ball[2];
@@ -1580,11 +1706,10 @@ __device__ void build_cus(const Params& p, Shared& sh, int cx, int cy) {
   int unit[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    int zx, zy;
+    int zx, zy, bt;
     z_unit(lane + 32 * hf, zx, zy);
     unit[hf] = zy * 8 + zx;
-    const int s = sh.size[unit[hf]];      // 0 outside the picture
-    const int u = s >> 3;
+    const int u = tu_units<kMl>(p, sh, unit[hf], bt);   // 0 outside
     org[hf] = u > 0 && (zx & (u - 1)) == 0 && (zy & (u - 1)) == 0;
     ball[hf] = __ballot_sync(kFull, org[hf]);
   }
@@ -1594,11 +1719,18 @@ __device__ void build_cus(const Params& p, Shared& sh, int cx, int cy) {
   for (int hf = 0; hf < 2; ++hf) {
     if (!org[hf]) continue;
     const int t = unit[hf];
+    int bt;
+    const int u = tu_units<kMl>(p, sh, t, bt);
     Cu cu;
     cu.ux = t & 7;
     cu.uy = t >> 3;
-    cu.s = sh.size[t];
-    const int mode = sh.mode[t];
+    cu.s = u * 8;
+    // a BT TU's mode is its rectangular CU's, at the CU's origin: the
+    // leaf's column (BT-H) or row (BT-V) of units
+    const int lu = 2 * u - 1;                   // leaf side in units - 1
+    const int cu_t = bt == 1 ? cu.uy * 8 + (cu.ux & ~lu)
+                   : bt == 2 ? (cu.uy & ~lu) * 8 + cu.ux : t;
+    const int mode = sh.mode[cu_t];
     cu.mode = mode;
     cu.mode_c = mode >= p.n_std ? 0 : mode;   // chroma of MIP: planar
     // the map holds an MTS pair (0-4) or transform skip (5), read when
@@ -1611,16 +1743,34 @@ __device__ void build_cus(const Params& p, Shared& sh, int cx, int cy) {
     // DCT-VIII
     cu.tv = mts == 0 ? 0 : 2 - (mts & 1);
     cu.th = (mts + 1) >> 1;
+    // LFNST (bits 6-7) on the DCT-II pair: its kernel set * 2 + idx - 1
+    // by the mode's class (kernels/lfnst.py mode_class), transposed past
+    // the diagonal
+    const int li = kMl && p.lfnst ? (sh.mts[t] >> 6) & 3 : 0;
+    cu.lf = 0;
+    if (li && !cu.ts && mts == 0) {
+      const int diag = p.n_modes == 35 ? 18 : 34;
+      const int m = p.n_modes > 67 && mode >= 67 ? 0 : mode;
+      const bool tr = m > diag;
+      const int a = clampi(tr ? 2 * diag - m : m, 2, diag);
+      const int set = m <= 1 ? 0 : 1 + mini(2, (3 * (a - 2)) / (diag - 1));
+      cu.lf = kLfOn | (set * 2 + li - 1) << 1 | (m > 1 && tr);
+    }
     cu.kind = kInter ? sh.ukind[cu.uy][1 + cu.ux] : kIntra;
     cu.shift_y = sh.shift[size_index(cu.s) * p.n_modes + mode];
     cu.shift_c = sh.shift[size_index(cu.s >> 1) * p.n_modes + cu.mode_c];
     int nz = 0;
-    const int u = cu.s >> 3;
     for (int dy = 0; dy < u; ++dy)
       for (int dx = 0; dx < u; ++dx) nz |= sh.unz[t + dy * 8 + dx];
     cu.nz = nz;
-    const int i = hf == 0 ? __popc(ball[0] & below)
-                          : __popc(ball[0]) + __popc(ball[1] & below);
+    int i = hf == 0 ? __popc(ball[0] & below)
+                    : __popc(ball[0]) + __popc(ball[1] & below);
+    if (bt == 2) {
+      // the TU's place in its leaf in z-order, 1 (top right) and 2
+      // (bottom left) swapped
+      const int k = ((cu.uy / u) & 1) * 2 + ((cu.ux / u) & 1);
+      i += k == 1 ? 1 : k == 2 ? -1 : 0;
+    }
     sh.cus[i] = cu;
   }
   const int n = __popc(ball[0]) + __popc(ball[1]);
@@ -1720,7 +1870,8 @@ __device__ void stage_mc(const Params& p, Shared& sh, int cx, int cy) {
   }
 }
 
-template <bool kEncode, bool kInter, bool kB = false, int kQ = kQPlain>
+template <bool kEncode, bool kInter, bool kB = false, int kQ = kQPlain,
+          bool kMl = false>
 __global__ void __launch_bounds__(kThreads)
 recon_kernel(Params p) {
   X266_DYNAMIC_SHARED(int4, smem);
@@ -1747,6 +1898,11 @@ recon_kernel(Params p) {
   for (int i = tid; i < 4 * p.n_modes; i += kThreads)
     sh.shift[i] = __ldg(p.shift + i);
   for (int i = tid; i < kRateShared; i += kThreads) sh.rate[i] = __ldg(p.rate + i);
+  for (int i = tid; kMl && p.lfnst && i < 8 * 256; i += kThreads) {
+    const int v = __ldg(p.lfnst_tab + i);
+    sh.lfnst[0][i] = (int8_t)v;
+    sh.lfnst[1][(i & ~255) + (i & 15) * 16 + ((i >> 4) & 15)] = (int8_t)v;
+  }
   if (tid < 64) sh.unz[tid] = 0;
   if (tid == 0) ticket = atomicAdd(p.sync, 1);
   __syncthreads();
@@ -1761,21 +1917,26 @@ recon_kernel(Params p) {
                   tid - (plane == 0 ? 0 : plane == 1 ? 128 : 192)};
 
   for (int cx = 0; cx < ctus_x; ++cx) {
-    stage_inputs<kEncode, kInter, kB>(p, sh, f, cx, cy);
+    stage_inputs<kEncode, kInter, kB, kMl>(p, sh, f, cx, cy);
     __syncthreads();
     X266_PH(bc, kPhMv);
     // the CU list (and K3's MVs) on warp 1 while thread 0 waits for the
     // row above: tickets make that row a running block, so the wait ends;
     // the cap (seconds) only keeps a fault from hanging the card
-    if (tid >> 5 == 1) build_cus<kEncode, kInter, kB>(p, sh, cx, cy);
+    if (tid >> 5 == 1) build_cus<kEncode, kInter, kB, kMl>(p, sh, cx, cy);
     if (tid >> 5 >= 2 && p.subst) {
-      // each CU's substitution sources, luma and chroma
+      // each TU's substitution sources, luma and chroma
       for (int t = (tid >> 5) - 2; t < 64; t += 6) {
-        const int ux = t & 7, uy = t >> 3, s = sh.size[t], u = s >> 3;
+        int bt;
+        const int ux = t & 7, uy = t >> 3, u = tu_units<kMl>(p, sh, t, bt);
         if (u == 0 || (ux & (u - 1)) || (uy & (u - 1))) continue;
-        const int x = cx * kCtu + ux * 8, y = cy * kCtu + uy * 8;
-        ref_sources(p, x, y, s, 1, sh.rsrc_y[t]);
-        ref_sources(p, x / 2, y / 2, s / 2, 2, sh.rsrc_c[t]);
+        const int x = cx * kCtu + ux * 8, y = cy * kCtu + uy * 8, s = u * 8;
+        // a BT-V leaf's TUs compare by its order inside it
+        const int lf = bt == 2 ? 2 * s : 0;
+        const int lx = x & ~(lf - 1), ly = y & ~(lf - 1);
+        ref_sources(p, x, y, s, 1, BtvLeaf{lx, ly, lf}, sh.rsrc_y[t]);
+        ref_sources(p, x / 2, y / 2, s / 2, 2,
+                    BtvLeaf{lx / 2, ly / 2, lf / 2}, sh.rsrc_c[t]);
       }
     }
     if (cy > 0 && tid == 0) {
@@ -1814,12 +1975,13 @@ recon_kernel(Params p) {
         const int unit = plane ? 4 : 8;
         const int t = cu.uy * 8 + cu.ux;
         if (!small || grp.lt < 32)
-          plane_tu<kEncode, kQ>(
+          plane_tu<kEncode, kQ, kMl>(
               p, sh, v, grp, s,
               TuArgs{px0 + cu.ux * unit, py0 + cu.uy * unit, px0, py0,
                      plane ? cu.mode_c : cu.mode,
                      plane ? cu.shift_c : cu.shift_y, plane ? 0 : cu.tv,
-                     plane ? 0 : cu.th, !plane && cu.ts, cu.kind,
+                     plane ? 0 : cu.th, plane ? 0 : cu.lf, !plane && cu.ts,
+                     cu.kind,
                      ((cu.nz >> plane) & 1) != 0, !small && !synced,
                      !p.subst ? nullptr : plane ? sh.rsrc_c[t]
                                                 : sh.rsrc_y[t], f});
@@ -1949,12 +2111,24 @@ int launch_kernel(Params& p, void (*kernel)(Params), bool kInter,
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// An intra launch under MTT or LFNST takes the instances with their code
+// (kMl, a template parameter like the quantizer, so the others compile
+// without it); K3's never do (kMl = !kInter is then the default).
+using KernelFn = void (*)(Params);
+
+template <bool kEncode, bool kInter, bool kB, int kQ>
+KernelFn instance(const Params& p) {
+  return !kInter && (p.mtt || p.lfnst)
+             ? recon_kernel<kEncode, kInter, kB, kQ, !kInter>
+             : recon_kernel<kEncode, kInter, kB, kQ>;
+}
+
 #ifndef X266_RECON_QUANT_PART
 // The element-wise instances (the quantizer of kQPlain).
 template <bool kInter, bool kB = false>
 int launch(Params& p, int encode, void* stream) {
-  return launch_kernel(p, encode ? recon_kernel<true, kInter, kB>
-                                 : recon_kernel<false, kInter, kB>,
+  return launch_kernel(p, encode ? instance<true, kInter, kB, kQPlain>(p)
+                                 : instance<false, kInter, kB, kQPlain>(p),
                        kInter, sizeof(Shared), stream);
 }
 #else
@@ -1962,10 +2136,10 @@ int launch(Params& p, int encode, void* stream) {
 // (a decode under SDH is element-wise); DQ's with its scratch.
 template <bool kInter, bool kB>
 int launch_quant(Params& p, int encode, void* stream) {
-  void (*kernel)(Params) =
-      !encode ? recon_kernel<false, kInter, kB, kQDq>
-      : p.dq  ? recon_kernel<true, kInter, kB, kQDq>
-              : recon_kernel<true, kInter, kB, kQSdh>;
+  const KernelFn kernel =
+      !encode ? instance<false, kInter, kB, kQDq>(p)
+      : p.dq  ? instance<true, kInter, kB, kQDq>(p)
+              : instance<true, kInter, kB, kQSdh>(p);
   return launch_kernel(p, kernel, kInter,
                        sizeof(Shared) + (p.dq ? kDqBytes : 0), stream);
 }
@@ -2007,19 +2181,21 @@ int x266_recon_quant(const void* params, int inter, int b, int encode,
 // Launches K1 (encode != 0) or K2 on `stream`; `sync` is scratch of
 // 1 + frames x CTU rows int32; lossless, ts and pdpc switch the intra
 // tools on, and `mip` holds tables.k_mip; sdh (encode) and dq switch the
-// quantizer, whose instances csrc/recon_quant.cu compiles.  Returns
-// cudaGetLastError().
+// quantizer, whose instances csrc/recon_quant.cu compiles; mtt takes the
+// BT leaves of bits 4-5 of the mts map, lfnst the LFNST of bits 6-7 with
+// the kernels `lfnst_tab` (tables.k_lfnst).  Returns cudaGetLastError().
 int x266_recon_intra(
     int encode, int frames, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
-    int n_modes, int lossless, int ts, int pdpc, int sdh, int dq,
+    int n_modes, int lossless, int ts, int pdpc, int sdh, int dq, int mtt,
+    int lfnst,
     const void* src_y, const void* src_cb, const void* src_cr,
     const void* cin_y, const void* cin_cb, const void* cin_cr,
     const void* size_map, const void* mode_map, const void* mts_map,
     void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
     void* cout_cr, const void* taps, const void* smooth, const void* tx,
-    const void* shift, const void* rate, const void* mip, void* sync,
-    void* stream) {
+    const void* shift, const void* rate, const void* mip,
+    const void* lfnst_tab, void* sync, void* stream) {
   const void* src[3] = {src_y, src_cb, src_cr};
   const void* cin[3] = {cin_y, cin_cb, cin_cr};
   void* rec[3] = {rec_y, rec_cb, rec_cr};
@@ -2030,7 +2206,9 @@ int x266_recon_intra(
              mode_map, mts_map, rec, cout, taps, smooth, tx, shift, rate);
   p.lossless = lossless; p.ts = ts; p.pdpc = pdpc;
   p.dq = dq;
+  p.mtt = mtt; p.lfnst = lfnst;
   p.mip = (const int32_t*)mip;
+  p.lfnst_tab = (const int32_t*)lfnst_tab;
   p.sync = (int*)sync;
   if (dq || (sdh && encode)) return x266_recon_quant(&p, 0, 0, encode, stream);
   return launch<false>(p, encode, stream);

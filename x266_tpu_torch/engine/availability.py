@@ -5,8 +5,8 @@
 availability.py:22-52, 124-130), carried over unchanged.  ``ref_masks``
 gives the same tables as the reference's ref_masks (which builds them
 block by block in Python, ~20 s for the luma and chroma sizes of a
-1080p picture) in one broadcast call of ``decoded_before``.  Masks with
-the MTT BT-V order are not in this slice.
+1080p picture) in one broadcast call of ``decoded_before``, the MTT
+BT-V order of ``_decoded_before_gen`` (:55-84) included.
 """
 
 from __future__ import annotations
@@ -61,11 +61,16 @@ def valid_block_grid(width: int, height: int, size: int) -> np.ndarray:
     return ((ix + 1) * size <= width) & ((iy + 1) * size <= height)
 
 
-def ref_masks(width: int, height: int, size: int,
-              scale: int = 1) -> np.ndarray:
+def ref_masks(width: int, height: int, size: int, scale: int = 1,
+              btv_leaf: int = 0) -> np.ndarray:
     """(grid_y, grid_x, 4s+1) bool: is each entry of each size-aligned
     block's [corner, top 2s, left 2s] reference vector reconstructed
-    before the block, on the (width/scale, height/scale) plane."""
+    before the block, on the (width/scale, height/scale) plane.  Chroma
+    (scale 2) samples compare by the luma coding order.  btv_leaf > 0:
+    each block lies in a BT-V MTT leaf of that side (plane coords), whose
+    t-blocks (t = btv_leaf / 2) code left half first, top to bottom;
+    samples inside the leaf compare by that order, samples outside by
+    the z predicate."""
     s = size
     gy = -(-(height // scale) // s)
     gx = -(-(width // scale) // s)
@@ -77,6 +82,16 @@ def ref_masks(width: int, height: int, size: int,
     px[..., :1], py[..., :1] = x - 1, y - 1                  # corner
     px[..., 1:2 * s + 1], py[..., 1:2 * s + 1] = x + k, y - 1  # top
     px[..., 2 * s + 1:], py[..., 2 * s + 1:] = x - 1, y + k    # left
-    bx = np.broadcast_to(x * scale, px.shape)
-    by = np.broadcast_to(y * scale, px.shape)
-    return decoded_before(px * scale, py * scale, bx, by, width, height)
+    bx = np.broadcast_to(x, px.shape)
+    by = np.broadcast_to(y, px.shape)
+    base = decoded_before(px * scale, py * scale, bx * scale, by * scale,
+                          width, height)
+    if not btv_leaf:
+        return base
+    lf, t = btv_leaf, btv_leaf // 2
+    lx, ly = (bx // lf) * lf, (by // lf) * lf
+    inside = ((px >= lx) & (px < lx + lf) & (py >= ly) & (py < ly + lf)
+              & (px >= 0) & (py >= 0))
+    oid = 2 * ((px - lx) // t) + (py - ly) // t
+    bid = 2 * ((bx - lx) // t) + (by - ly) // t
+    return np.where(inside, oid < bid, base)

@@ -53,24 +53,39 @@ def make_pass_a(cfg: CodecConfig, tab: Tables):
     """Pass A and the MTS select over F frames: padded luma planes
     (F, Hp, Wp) -> [size_map, mode_map, mts_map], each (F, H/8, W/8)
     int32.  Frames go one at a time (Pass A's working set at 1080p is
-    ~2 GB); mts_map is 0 without cfg.mts or cfg.transform_skip
-    (x266_tpu/engine/fused.py:558)."""
+    ~2 GB); mts_map is 0 without cfg.mts, cfg.transform_skip or
+    cfg.lfnst (x266_tpu/engine/fused.py:558-587).  With cfg.mtt the MTS
+    select predicts anew at the effective TU sizes, and the bt map
+    rides bits 4-5 of the mts map."""
     md = make_mode_decision_raw(cfg, tab, want_res=True)
-    want_mts = cfg.mts or cfg.transform_skip
+    want_mts = cfg.mts or cfg.transform_skip or cfg.lfnst
     mts_sel = make_mts_select_raw(cfg, tab) if want_mts else None
 
     def run(yP):
         maps = ([], [], [])
         for f in range(yP.shape[0]):
-            size_map, mode_map, res = md(yP[f])
-            mts_map = (mts_sel(yP[f], size_map, mode_map, res)
+            size_map, mode_map, third = md(yP[f])
+            res, bt = (None, third) if cfg.mtt else (third, None)
+            mts_map = (mts_sel(yP[f], size_map, mode_map, res, bt)
                        if mts_sel is not None
                        else torch.zeros_like(size_map))
+            if bt is not None:
+                mts_map = mts_map | (bt << 4)
             for lst, m in zip(maps, (size_map, mode_map, mts_map)):
                 lst.append(m)
         return [torch.stack(m) for m in maps]
 
     return run
+
+
+def tu_size_map(cfg: CodecConfig, size_map: torch.Tensor,
+                mts_map: torch.Tensor) -> torch.Tensor:
+    """The TU grid the loop filters take: under MTT a BT leaf (bt, bits
+    4-5 of the mts map, > 0) tiles as TUs of half its side
+    (x266_tpu/engine/fused.py:593-594, 1207-1211); else the CU sizes."""
+    if not cfg.mtt:
+        return size_map
+    return torch.where(((mts_map >> 4) & 3) > 0, size_map >> 1, size_map)
 
 
 def frame_sse(rec: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
@@ -321,8 +336,9 @@ def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool,
         y8, cb8, cr8, cY, cCb, cCr = rp(yP, cbP, crP, *maps)
         out = {"coef": (cY, cCb, cCr),
                "maps": tuple(m.to(torch.int16) for m in maps)}
-        return _finish(cfg, out, (y8, cb8, cr8), (y, cb, cr), maps[0],
-                       with_recon, with_pyramids)
+        return _finish(cfg, out, (y8, cb8, cr8), (y, cb, cr),
+                       tu_size_map(cfg, maps[0], maps[2]), with_recon,
+                       with_pyramids)
 
     return step
 

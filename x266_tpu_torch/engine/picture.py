@@ -37,7 +37,8 @@ from x266_tpu_torch.core.headers import SliceHeader, write_slice_header
 from x266_tpu_torch.core.yuv import Frame
 from x266_tpu_torch.engine.fused import (IDENTITY_WP, apply_wp,
                                          build_pyramids_device,
-                                         decode_filters, has_filters)
+                                         decode_filters, has_filters,
+                                         tu_size_map)
 from x266_tpu_torch.kernels.interp import mv_bounds
 
 
@@ -388,7 +389,8 @@ def _decode_device(cfg: CodecConfig, decode_step, sh: SliceHeader,
                    out[7][0].to(torch.int32), args[0][0].to(torch.int32))
     sao = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
            for a in dec.sao]
-    rec = decode_filters(cfg, *rec, args[3][0], sao,
+    rec = decode_filters(cfg, *rec, tu_size_map(cfg, args[3][0],
+                                                 args[5][0]), sao,
                          alf_maps_from_header(cfg, sh, device), db_info)
     return tuple(r[None] for r in rec)
 

@@ -2,7 +2,7 @@
 C18) -- the plain PyTorch version of kernels K1/K2.
 
 Counterpart of x266_tpu/engine/recon.py:125-541 (intra branches, no
-CCLM/MTT/LFNST): a loop over CTUs in raster order and 8x8 units
+CCLM): a loop over CTUs in raster order and 8x8 units
 in z-order; at each TU origin predict -> [transform -> quantize] ->
 dequantize -> inverse -> clip, written back into the padded plane that
 later TUs read their references from.  The intra tools: PDPC on luma
@@ -12,7 +12,13 @@ transform_shift, inverse (dequantized + round) >> transform_shift), and
 lossless coding (levels = source - prediction, recon = source; decode
 clip(prediction + levels)); on every plane and TU branch, dependent
 quantization (the trellis and the state-dependent dequantizer) and
-sign-data hiding (the parity move after the quantizer).  Planes start
+sign-data hiding (the parity move after the quantizer).  MTT: a BT leaf
+(bits 4-5 of the mts map) codes as two rectangular CUs of one mode each,
+each tiled as two square TUs of half the leaf's side, coded in turn
+(BT-V: the left CU's two, top to bottom, then the right CU's), each
+with the mts value at its own origin; LFNST (bits 6-7, on luma TUs of
+the DCT-II pair) sits between the primary transform and the quantizer
+and between the dequantizer and the primary inverse.  Planes start
 at mid-gray and are written in coding order, so a reference to a sample
 not yet coded reads mid-gray; with cfg.ref_substitute the decode-order
 availability masks (engine.availability) drive the substitution fill
@@ -35,6 +41,7 @@ from x266_tpu_torch.engine import recon_cuda
 from x266_tpu_torch.engine.availability import ref_masks
 from x266_tpu_torch.engine.mode_decision import PAD, TS_IDX, _check_cfg
 from x266_tpu_torch.kernels import intra as kintra
+from x266_tpu_torch.kernels import lfnst as klfnst
 from x266_tpu_torch.kernels import quant as kquant
 from x266_tpu_torch.kernels import transforms as ktx
 from x266_tpu_torch.specmodel.quant import transform_shift
@@ -47,9 +54,11 @@ def _gather_ref(plane: torch.Tensor, x: int, y: int, s: int):
 
 
 def _subst_tables(cfg: CodecConfig, device: torch.device):
-    """{s: (gy, gx, 4s+1) bool} luma and {s/2: ...} chroma masks."""
+    """{s: (gy, gx, 4s+1) bool} luma and {s/2: ...} chroma masks, and
+    under MTT the BT-V-order masks of the leaves' t-TUs, luma {t: ...}
+    and chroma {t/2: ...} (x266_tpu/engine/recon.py:278-295)."""
     if not cfg.ref_substitute:
-        return None, None
+        return None, None, None, None
     w, h = cfg.width, cfg.height
     sizes = [s for s in (8, 16, 32) if s <= cfg.max_cu_size]
 
@@ -59,11 +68,19 @@ def _subst_tables(cfg: CodecConfig, device: torch.device):
     lum = {s: dev(ref_masks(w, h, s)) for s in sizes}
     chro = {s // 2: dev(ref_masks(w, h, s // 2, scale=2))
             for s in sizes}
-    return lum, chro
+    lum_v = chro_v = None
+    if cfg.mtt:
+        leaves = [s for s in (16, 32) if s <= cfg.max_cu_size]
+        lum_v = {s // 2: dev(ref_masks(w, h, s // 2, btv_leaf=s))
+                 for s in leaves}
+        chro_v = {s // 4: dev(ref_masks(w, h, s // 4, scale=2,
+                                        btv_leaf=s // 2))
+                  for s in leaves}
+    return lum, chro, lum_v, chro_v
 
 
 def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
-        mask, rdoq_lam, luma):
+        mask, rdoq_lam, luma, lfnst_idx=0):
     """One intra TU: (recon (s, s), levels (s, s)) int32.  PDPC blends
     luma TUs only (its gates: the TU's plane x > 0 and y > 0)."""
     ref = _gather_ref(plane, x, y, s)
@@ -72,11 +89,12 @@ def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
     pred = kintra.predict_mode(tab, ref, mode, s, pdpc=cfg.pdpc and luma,
                                left_ok=x > 0, top_ok=y > 0)
     return residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx,
-                         encode, rdoq_lam)
+                         encode, rdoq_lam,
+                         lfnst=(lfnst_idx, mode) if lfnst_idx else None)
 
 
 def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
-                  rdoq_lam, skip=False):
+                  rdoq_lam, skip=False, lfnst=None):
     """A TU's residual around its prediction pred (s, s) int32: encode
     transforms (or with mts_idx TS_IDX shifts) and quantizes the source
     minus pred (zero levels when skip), decode reads the levels; both
@@ -86,7 +104,10 @@ def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
     quantizer is the trellis (at the RDOQ lambda, else default_lam) and the
     dequantizer the state-dependent one; under cfg.sign_data_hiding the
     levels then get their parity moves (x266_tpu/engine/recon.py:90-178).
-    Returns (recon (s, s), levels (s, s)) int32."""
+    lfnst: (lfnst_idx > 0, the CU's mode) of a luma TU on the DCT-II
+    pair: LFNST forward between the primary transform and the quantizer,
+    inverse between the dequantizer and the primary inverse.  Returns
+    (recon (s, s), levels (s, s)) int32."""
     bd, qp = cfg.bit_depth, cfg.qp
     if cfg.lossless:
         if encode and skip:
@@ -100,12 +121,16 @@ def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
     ts = mts_idx == TS_IDX
     tv, th = MTS_COMBOS[0 if ts else mts_idx]
     tsh = transform_shift(s, bd)
+    if ts or mts_idx:
+        lfnst = None
     if encode and skip:
         lev = torch.zeros((s, s), dtype=torch.int32, device=pred.device)
     elif encode:
         res = src[y + 1:y + 1 + s, x + 1:x + 1 + s] - pred
         c = (res[None] << tsh if ts
              else ktx.forward_transform(tab, res[None], s, tv, th, bd))
+        if lfnst is not None:
+            c = klfnst.lfnst_fwd(c, [lfnst[1]], [lfnst[0]], cfg.n_pred_modes)
         if cfg.dep_quant:
             lev = kquant.dq_quantize_trellis(
                 tab, c, qp, s,
@@ -122,6 +147,8 @@ def residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx, encode,
         lev = coef[y:y + s, x:x + s]
     deq = kquant.dq_dequantize if cfg.dep_quant else kquant.dequantize
     d = deq(tab, lev[None], qp, s, bd)
+    if lfnst is not None:
+        d = klfnst.lfnst_inv(d, [lfnst[1]], [lfnst[0]], cfg.n_pred_modes)
     if ts:
         rres = (d[0] + (1 << (tsh - 1))) >> tsh
     else:
@@ -143,7 +170,7 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
     cw, ch = w // 2, h // 2
     dev = a.device
     mid = cfg.mid_val
-    lum_masks, chro_masks = masks
+    lum_masks, chro_masks, lum_v, chro_v = masks
     rdoq_lam = cfg.lambda_mode if (cfg.rdoq and encode) else None
     yP = torch.full((1 + h + PAD, 1 + w + PAD), mid, dtype=torch.int32,
                     device=dev)
@@ -167,33 +194,49 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
                     continue
                 s = int(size_map[uy, ux])
                 u = s // 8
-                if ux & (u - 1) or uy & (u - 1):
+                # MTT: bits 4-5 of the mts map, 1 BT-H / 2 BT-V; a BT leaf
+                # codes as two rectangular CUs, here at their origins
+                bt = (int(mts_map[uy, ux]) >> 4) & 3 if cfg.mtt else 0
+                if ux & ((u >> (bt == 2)) - 1) or uy & ((u >> (bt == 1)) - 1):
                     continue
                 mode = int(mode_map[uy, ux])
                 # chroma of a MIP CU predicts planar (the MIP matrices
                 # are luma-trained)
                 mode_c = 0 if mode >= cfg.n_intra_modes else mode
-                mts_idx = _transform_index(cfg, int(mts_map[uy, ux]))
-                x, y = ux * 8, uy * 8
-                xc, yc, cs = x // 2, y // 2, s // 2
                 mcp = inter.predict(ux, uy, s) if inter is not None else None
-                planes = ((yP, 0, x, y, s, mts_idx, mode),
-                          (cbP, 1, xc, yc, cs, 0, mode_c),
-                          (crP, 2, xc, yc, cs, 0, mode_c))
-                for plane, k, px, py, ps, m, pm in planes:
-                    if mcp is not None:
-                        rec, lev = residual_path(
-                            tab, cfg, mcp[0][k], src[k], coefs[k], px, py,
-                            ps, m, encode, rdoq_lam, skip=mcp[1])
-                    else:
-                        lm = lum_masks if k == 0 else chro_masks
-                        msk = (lm[ps][py // ps, px // ps]
-                               if lm is not None else None)
-                        rec, lev = _tu(tab, cfg, plane, src[k], coefs[k],
-                                       px, py, pm, ps, m, encode, msk,
-                                       rdoq_lam, k == 0)
-                    plane[py + 1:py + 1 + ps, px + 1:px + 1 + ps] = rec
-                    coefs[k][py:py + ps, px:px + ps] = lev
+                x, y = ux * 8, uy * 8
+                if bt == 0:
+                    tus = [(x, y, s)]
+                else:
+                    # the rect CU's two t-TUs, coded in turn
+                    # (x266_tpu/engine/recon.py:393-458)
+                    t = s // 2
+                    tus = [(x, y, t), (x, y + t, t) if bt == 2
+                           else (x + t, y, t)]
+                for xt, yt, st in tus:
+                    mval = int(mts_map[yt // 8, xt // 8])
+                    mts_idx = _transform_index(cfg, mval)
+                    lf = (mval >> 6) & 3 if cfg.lfnst else 0
+                    xc, yc, cs = xt // 2, yt // 2, st // 2
+                    planes = ((yP, 0, xt, yt, st, mts_idx, mode),
+                              (cbP, 1, xc, yc, cs, 0, mode_c),
+                              (crP, 2, xc, yc, cs, 0, mode_c))
+                    for plane, k, px, py, ps, m, pm in planes:
+                        if mcp is not None:
+                            rec, lev = residual_path(
+                                tab, cfg, mcp[0][k], src[k], coefs[k], px,
+                                py, ps, m, encode, rdoq_lam, skip=mcp[1])
+                        else:
+                            lm = ((lum_v if bt == 2 else lum_masks) if k == 0
+                                  else (chro_v if bt == 2 else chro_masks))
+                            msk = (lm[ps][py // ps, px // ps]
+                                   if lm is not None else None)
+                            rec, lev = _tu(tab, cfg, plane, src[k], coefs[k],
+                                           px, py, pm, ps, m, encode, msk,
+                                           rdoq_lam, k == 0,
+                                           lf if k == 0 else 0)
+                        plane[py + 1:py + 1 + ps, px + 1:px + 1 + ps] = rec
+                        coefs[k][py:py + ps, px:px + ps] = lev
     out = (yP[1:1 + h, 1:1 + w].to(torch.uint8),
            cbP[1:1 + ch, 1:1 + cw].to(torch.uint8),
            crP[1:1 + ch, 1:1 + cw].to(torch.uint8),

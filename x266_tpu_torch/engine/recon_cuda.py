@@ -17,7 +17,10 @@ wavefront of csrc/recon_intra.cu), with an int32 scratch of 1 + rows for
 the row ticket and the rows' progress.  cfg's sign-data hiding (encode)
 and dependent quantization (encode and decode) select the kernel's SDH
 and DQ instances (csrc/recon_quant.cu); their lambda is
-cfg.lambda_mode, which is also their default without RDOQ.
+cfg.lambda_mode, which is also their default without RDOQ.  cfg's mtt
+and lfnst select K1 and K2's MTT / LFNST instances: the BT leaves of the
+mts map's bits 4-5 and LFNST's index in bits 6-7, with the kernels
+tab.k_lfnst.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ def _check_tables(tab: Tables) -> None:
                     ("tx", tab.k_tx), ("shift", tab.k_shift),
                     ("mip", tab.k_mip)):
         check_tensor(t, name, torch.int32, t.shape)
+    check_tensor(tab.k_lfnst, "lfnst", torch.int32, (8, 16, 16))
     check_tensor(tab.rate, "rate", torch.float32, (32768,))
 
 
@@ -128,12 +132,12 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
         int(cfg.rdoq and encode), int(cfg.mts), int(cfg.ref_substitute),
         cfg.n_pred_modes, int(cfg.lossless), int(cfg.transform_skip),
         int(cfg.pdpc), int(cfg.sign_data_hiding and encode),
-        int(cfg.dep_quant), *map(ptr, src), *map(ptr, cin),
-        size_map.data_ptr(), mode_map.data_ptr(), mts_map.data_ptr(),
-        *map(ptr, rec), *map(ptr, cout),
+        int(cfg.dep_quant), int(cfg.mtt), int(cfg.lfnst), *map(ptr, src),
+        *map(ptr, cin), size_map.data_ptr(), mode_map.data_ptr(),
+        mts_map.data_ptr(), *map(ptr, rec), *map(ptr, cout),
         tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
         tab.k_shift.data_ptr(), tab.rate.data_ptr(), tab.k_mip.data_ptr(),
-        sync.data_ptr(), stream)
+        tab.k_lfnst.data_ptr(), sync.data_ptr(), stream)
     return err, (*rec, *coef)
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from x266_tpu_torch.config import CodecConfig
+from x266_tpu_torch.kernels.lfnst_tables import TABLES as LFNST_TABLES
 from x266_tpu_torch.specmodel import intra as spec_intra
 from x266_tpu_torch.specmodel import transforms as spec_tx
 from x266_tpu_torch.specmodel.mip_tables import TABLES as MIP_TABLES
@@ -114,7 +115,8 @@ class Tables:
     per-TU lookup needs no device read); smooth[s]: (R, R) float32;
     tx[(type, s)]: (s, s) float64 transform matrices; rate: (32768,)
     float32.  k_taps / k_smooth / k_tx / k_shift / k_mip: the flat int32
-    tables of the CUDA kernel (kernel_tables)."""
+    tables of the CUDA kernel (kernel_tables); k_lfnst: LFNST's (8, 16,
+    16) int32 kernels (kernels/lfnst_tables.py, |m| <= 127)."""
     device: torch.device
     n_modes: int
     intra_w: dict
@@ -130,6 +132,7 @@ class Tables:
     k_tx: torch.Tensor
     k_shift: torch.Tensor
     k_mip: torch.Tensor
+    k_lfnst: torch.Tensor
 
 
 def kernel_tables(n_modes: int):
@@ -173,7 +176,11 @@ def from_reference(cfg: CodecConfig, device) -> Tables:
             tx[(t, s)] = torch.from_numpy(m).to(device)
     rate = torch.from_numpy(np.load(RATE_PATH)).to(device)
     k = [torch.from_numpy(a).to(device) for a in kernel_tables(n_modes)]
+    # the recon kernel keeps the LFNST kernels in shared memory as int8
+    assert np.abs(LFNST_TABLES).max() <= 127
+    lfnst = torch.from_numpy(np.ascontiguousarray(LFNST_TABLES,
+                                                  np.int32)).to(device)
     return Tables(device, n_modes, intra_w, intra_shift, shift_host, smooth,
                   tx, rate,
                   tuple(int(v) for v in QUANT_SCALES),
-                  tuple(int(v) for v in DEQUANT_SCALES), *k)
+                  tuple(int(v) for v in DEQUANT_SCALES), *k, lfnst)
