@@ -172,6 +172,24 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     'mixed' at 1080p, against data/cfg2q_1080p_ref.json and
     data/cfg2ml_1080p_ref.json as [main-sdh], with the BT leaves and
     LFNST TUs of those frames;
+    [kernels-cclm] K1/K2's CCLM instances against the plain scans run on
+    the CPU in the worker processes, bit for bit (K1's mts map out with
+    the choices in bit 3 included), at 416x240 on clips whose chroma is
+    made from the luma (utils.clips.luma_chroma): CCLM alone; with MTS,
+    transform skip, PDPC, MIP and substitution; with LFNST and DQ; with
+    SDH beside transform skip; lossless; with the CUs of each size
+    taking CCLM and DM counted (a choice never taken fails), timed
+    beside their bounds (recon_ops with CCLM's operations); then K1 on
+    config 2's 1080p batch and K2 on its frame 0 without and with CCLM,
+    in turns; [main-cclm] config 2 with CCLM, frames 0-3 of 'mixed' with
+    chroma made from the luma, against data/cfg2c_1080p_ref.json as
+    [main-mtt], with the CUs of each size taking each choice; [cli]
+    ``python3 -m x266_tpu_torch.cli encode`` and ``decode`` as
+    subprocesses on a 416x240 raw clip with CCLM (low-delay, deblock,
+    SAO): the stream equals data/cli416x240_ref.json's (the JAX
+    package's CLI on the same file and flags), the decoded MD5 lines the
+    reference's, which are the recon's of Encoder() on the CLI's
+    configuration;
 11. [main-ra] config 4 at 3840x2160, 17 frames (bench.py's 4K leg: 1
     IDR, 1 P, 15 B) through Encoder/Decoder: decoded pictures equal the
     encoder's recon; K3B/K3Bd launch counts (15 each), the ALF kernels'
@@ -439,7 +457,12 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
     leaf of side s counts as its four TUs of side s/2 (each with its two
     s/4 chroma TUs), at their own transform choices (tu_sizes); a luma TU
     with LFNST adds its 16x16 matrix-vector products, 256 MACs each: the
-    forward and the inverse when encoding, the inverse when decoding."""
+    forward and the inverse when encoding, the inverse when decoding.
+    Under cfg.cclm an I picture's chroma TU adds the linear model, 10
+    ops a sample (its 2x2 luma mean 5, the model's multiply, add, shift,
+    add and clip 5), when encoding for every CU with both predictions'
+    SSE against the source (3 ops a sample each), 16 in all, when
+    decoding only for the CUs whose mts value has bit 3 set."""
     ops = 0.0
     for f in range(size_map.shape[0]):
         kinds = (pred_map[f] if pred_map is not None
@@ -468,6 +491,10 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
                         tx = side * side
                 if cfg is not None and cfg.lossless:
                     tx = side * side
+                if (cfg is not None and cfg.cclm and pred_map is None
+                        and not luma):
+                    pred += (16 if encode else 10 * ((mv >> 3) & 1)) * (
+                        side * side)
                 if (cfg is not None and cfg.lfnst and luma and kind == 0
                         and (mv >> 6) & 3 and not mv & 7):
                     tx += 2 * 256        # each way: one 16x16 matvec
@@ -567,9 +594,7 @@ def phase_environment():
     log(f"[env] device: {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()})")
     log(f"[env] nvidia-smi: {card_line()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    device.exact_float32()
     device.check_precision()
     if not native_bind.available():
         raise RuntimeError("native entropy coder did not build or load")
@@ -588,13 +613,13 @@ def phase_build():
 
 
 def kernel_name(mangled: str) -> str:
-    """recon_kernel<encode,inter,b,quantizer,mtt/lfnst> for a recon
+    """recon_kernel<encode,inter,b,quantizer,mtt/lfnst,cclm> for a recon
     instance, else the first name of the mangled symbol's (nested) name
     that holds "kernel"."""
-    t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)E",
-                  mangled)
+    t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)E"
+                  r"Lb(\d)E", mangled)
     if t:
-        return "recon_kernel<%s,%s,%s,%s,%s>" % t.groups()
+        return "recon_kernel<%s,%s,%s,%s,%s,%s>" % t.groups()
     pos = 3 if mangled.startswith("_ZN") else 2
     while m := re.match(r"\d+", mangled[pos:]):
         start = pos + m.end()
@@ -1902,6 +1927,281 @@ def run_main_mtt(tag, cfg, ref_name, stats, card):
     stats["K1"].setdefault("tools", {})[tag] = {"mtt_lfnst_tus": counts}
 
 
+def cfg2c():
+    """Config 2 (1080p, its segments) with CCLM."""
+    return main_cfg().replace(cclm=True)
+
+
+def _cclm_inputs(cfg, n, seed, kind):
+    """Padded planes and Pass-A maps of n synthetic frames whose chroma
+    is made from the luma (luma_chroma), on the card."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import fused
+    from x266_tpu_torch.utils.clips import luma_chroma
+
+    tab = tables.from_reference(cfg, "cuda")
+    frames = luma_chroma(synthetic_clip(cfg.width, cfg.height, n, kind,
+                                        seed=seed))
+    src = fused._unpack_padded(cfg, *_upload(frames))
+    return tab, src, fused.make_pass_a(cfg, tab)(src[0])
+
+
+def cclm_counts(size_map, mts_out) -> dict:
+    """The CUs of each size whose chroma takes CCLM and those that take
+    DM, from K1's mts map out (bit 3) at the CUs' origins."""
+    sm, mm = size_map.cpu().numpy(), mts_out.cpu().numpy()
+    uy, ux = np.mgrid[0:sm.shape[1], 0:sm.shape[2]]
+    u = sm // 8
+    origin = ((ux % u) == 0) & ((uy % u) == 0)
+    cc = (mm >> 3) & 1
+    out = {}
+    for s in (8, 16, 32):
+        at = origin & (sm == s)
+        out[f"cclm{s}"] = int((at & (cc == 1)).sum())
+        out[f"dm{s}"] = int((at & (cc == 0)).sum())
+    return out
+
+
+def check_cclm_counts(tag, counts):
+    """Both choices must occur."""
+    if not (sum(v for k, v in counts.items() if k.startswith("cclm"))
+            and sum(v for k, v in counts.items() if k.startswith("dm"))):
+        raise AssertionError(f"{tag}: CCLM or DM was never chosen: {counts}")
+
+
+def cclm_bounds(cfg, tab, src, maps, got, dec):
+    """The bounds of one CCLM encode launch (planes, maps, levels, recon,
+    the mts map out and the tables once; recon_ops with the CCLM model
+    on every CU) and of its decode (the model where bit 3 of K1's map is
+    set)."""
+    hm = [m.cpu().numpy() for m in maps]
+    out = got[6].cpu().numpy()
+    tabs = (tab.k_taps, tab.k_smooth, tab.k_tx, tab.k_shift, tab.k_mip,
+            *((tab.k_lfnst,) if cfg.lfnst else ()))
+    be = bound(nbytes(*src, *maps, *got, *tabs, tab.rate),
+               recon_ops(hm[0], True, None, hm[1], hm[2] | (out & 8), cfg))
+    bd = bound(nbytes(maps[0], maps[1], got[6], *got[3:6], *dec[:3], *tabs),
+               recon_ops(hm[0], False, None, hm[1], out, cfg))
+    return be, bd
+
+
+def compare_cclm_kernels(tag, cfg, stats, kind, seed):
+    """K1 and K2's CCLM instances on one picture whose chroma is made
+    from the luma (the port's Pass-A maps), on the card: K2 on K1's
+    levels and mts map out gives K1's recon (under LFNST, whose index
+    that map does not keep, as the reference's, only the plain decode's);
+    the CUs taking each choice are counted (one never taken fails); the
+    plain scans of the same inputs run on the CPU in a worker process,
+    whose check (bit for bit, K1's map included, before the kernels
+    line) also records their times."""
+    tab, src, maps = _cclm_inputs(cfg, 1, seed, kind)
+    enc_in = (*src, *maps)
+    got = _run_quant(cfg, tab, "I", True, *enc_in)
+    dec_in = (*got[3:6], maps[0], maps[1], got[6])
+    dec = _run_quant(cfg, tab, "I", False, *dec_in)
+    names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
+             "mts_out"]
+    if not cfg.lfnst:
+        _require_equal("K2", tag + " (its own encode's recon)", names[:3],
+                       dec[:3], got[:3])
+    counts = cclm_counts(maps[0], got[6])
+    check_cclm_counts(f"[kernels-cclm] {tag}", counts)
+    k_ms = event_ms(_run_quant, cfg, tab, "I", True, *enc_in)
+    kd_ms = event_ms(_run_quant, cfg, tab, "I", False, *dec_in)
+    be, bd = cclm_bounds(cfg, tab, src, maps, got, dec)
+    hm = [m.cpu().numpy() for m in maps]
+    walk = tu_walk(hm[0], cfg.width, cfg.height)
+    entry = {}
+    for key, ms, b in (("K1", k_ms, be), ("K2", kd_ms, bd)):
+        entry[key] = stats[key].setdefault("tools", {}).setdefault(tag, {})
+        entry[key].update({"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                           "shape": f"{cfg.width}x{cfg.height}",
+                           "cclm_cus": counts, **per_chain(walk, ms)})
+    got_h = [g.cpu() for g in got]
+    dec_h = [d.cpu() for d in dec]
+
+    def check(outs, ms):
+        _require_equal("K1", tag, names, got_h, [torch.from_numpy(r)
+                                                 for r in outs[0]])
+        _require_equal("K2", tag, names, dec_h, [torch.from_numpy(r)
+                                                 for r in outs[1]])
+        entry["K1"]["plain_ms_cpu"], entry["K2"]["plain_ms_cpu"] = ms
+        log(f"[kernels-cclm] {tag}: K1 (with its mts map) and K2 equal the "
+            f"plain scans (on the cpu in a worker: {ms[0]:.0f} / "
+            f"{ms[1]:.0f} ms); max_abs_err 0")
+
+    on_cpu("kernels-cclm", check, _plain_quant_cpu, cfg, "I",
+           [t.cpu().numpy() for t in enc_in],
+           [t.cpu().numpy() for t in dec_in])
+    log(f"[kernels-cclm] {tag}: K1 {k_ms:.3f} ms (bound {be[0]:.4f} ms, "
+        f"{be[1]}), K2 {kd_ms:.3f} ms (bound {bd[0]:.4f} ms, {bd[1]}); "
+        f"CUs by choice {counts}; the plain scans run on the cpu; "
+        f"{chain_text(walk, K1=k_ms, K2=kd_ms)}")
+
+
+def time_cclm_flags(stats, n=4):
+    """K1 on config 2's 1080p batch of n frames whose chroma is made from
+    the luma, and K2 on its frame 0, without and with CCLM, on the same
+    Pass-A maps (Pass A does not read the flag), timed in turns (off,
+    CCLM, CCLM, off), each beside its bound."""
+    cfgs = {"off": main_cfg(), "cclm": cfg2c()}
+    tab, src, maps = _cclm_inputs(cfgs["off"], n, 0, "mixed")
+    a1 = [m[:1].contiguous() for m in maps]
+    runs, bounds, counts = {}, {}, {}
+    for name, c in cfgs.items():
+        got = _run_quant(c, tab, "I", True, *src, *maps)
+        lev1 = [g[:1].contiguous() for g in got[3:6]]
+        if c.cclm:
+            dec_in = (*lev1, a1[0], a1[1], got[6][:1].contiguous())
+            be, _ = cclm_bounds(c, tab, src, maps, got, got)
+            dec = _run_quant(c, tab, "I", False, *dec_in)
+            _, bd = cclm_bounds(c, tab, [t[:1] for t in src], a1,
+                                [g[:1] for g in got], dec)
+            counts = cclm_counts(maps[0], got[6])
+        else:
+            dec_in = (*lev1, *a1)
+            dec = _run_quant(c, tab, "I", False, *dec_in)
+            be = quant_bounds(c, tab, "I", src, maps, got, dec, maps)[0]
+            bd = quant_bounds(c, tab, "I", [t[:1] for t in src], a1,
+                              [g[:1] for g in got], dec, a1)[1]
+        runs[name] = (c, (*src, *maps), dec_in)
+        bounds[name] = (be, bd)
+    check_cclm_counts("[kernels-cclm] config2 1080p", counts)
+    times = {key: {name: [] for name in cfgs} for key in ("K1", "K2")}
+    for name in ("off", "cclm", "cclm", "off"):
+        c, enc_in, dec_in = runs[name]
+        times["K1"][name].append(event_ms(_run_quant, c, tab, "I", True,
+                                          *enc_in))
+        times["K2"][name].append(event_ms(_run_quant, c, tab, "I", False,
+                                          *dec_in))
+    for i, key in enumerate(("K1", "K2")):
+        ms = {name: float(np.mean(v)) for name, v in times[key].items()}
+        bd = {name: bounds[name][i] for name in cfgs}
+        stats[key].setdefault("tools", {})["config2 1080p cclm"] = {
+            **{f"ms_{name}": v for name, v in ms.items()},
+            "bound_ms": {name: b[0] for name, b in bd.items()},
+            "bound_by": {name: b[1] for name, b in bd.items()},
+            "cclm_cus": counts,
+            "shape": f"1920x1080x{n if key == 'K1' else 1}"}
+        log(f"[kernels-cclm] config2 1080p: {key} off {ms['off']:.3f} ms, "
+            f"CCLM {ms['cclm']:.3f} ms (in turns); bounds "
+            + ", ".join(f"{name} {b[0]:.4f} ms ({b[1]})"
+                        for name, b in bd.items())
+            + f"; CUs by choice {counts}")
+
+
+def phase_kernels_cclm(stats):
+    """K1/K2's CCLM instances against the plain scans at 416x240: CCLM
+    alone; with MTS, transform skip, PDPC, MIP and substitution; with
+    LFNST and DQ; with SDH beside transform skip; lossless; then K1 and
+    K2 at config 2's 1080p shapes without and with CCLM, in turns."""
+    from x266_tpu_torch.config import CodecConfig, Profile, preset_cfg2
+
+    w, h = 416, 240
+    for tag, cfg, kind in (
+            ("cclm I 416x240", preset_cfg2(w, h).replace(cclm=True),
+             "mixed"),
+            ("cclm-tools I 416x240", preset_cfg2(w, h).replace(
+                cclm=True, pdpc=True, mip=True, transform_skip=True),
+             "text"),
+            ("cclm-lfnst-dq I 416x240", preset_cfg2(w, h).replace(
+                cclm=True, lfnst=True, dep_quant=True), "mixed"),
+            ("cclm-sdh I 416x240", preset_cfg2(w, h).replace(
+                cclm=True, sign_data_hiding=True, transform_skip=True),
+             "text"),
+            ("cclm-lossless I 416x240", CodecConfig(
+                width=w, height=h, qp=32, profile=Profile.VVC,
+                lossless=True, rdoq=False, cclm=True), "mixed")):
+        compare_cclm_kernels(tag, cfg, stats, kind, seed=13)
+    time_cclm_flags(stats)
+
+
+def run_main_cclm(stats, card):
+    """run_main on frames 0-3 of 'mixed' with chroma made from the luma
+    under config 2 + CCLM, against data/cfg2c_1080p_ref.json; then the
+    CUs of each size taking each choice on those frames (K1 on their
+    Pass-A maps)."""
+    tag = "main-cclm"
+    cfg = cfg2c()
+    run_main(tag, cfg, "mixed", "cfg2c_1080p_ref.json", ("K1", "K2"), stats,
+             card, tools=True, batch_frames=4, lc=True)
+    from x266_tpu_torch.engine import recon_cuda
+
+    tab, src, maps = _cclm_inputs(cfg, 4, 0, "mixed")
+    counts = cclm_counts(maps[0], recon_cuda.recon_intra(
+        cfg, tab, True, *src, *maps)[6])
+    check_cclm_counts(f"[{tag}]", counts)
+    log(f"[{tag}] CUs by chroma choice in frames 0-3: {counts}")
+    stats["K1"].setdefault("tools", {})[tag] = {"cclm_cus": counts}
+
+
+def phase_cli(stats, card):
+    """The command line on the card, as a user runs it: ``python3 -m
+    x266_tpu_torch.cli encode`` of a 416x240 raw clip with CCLM (chroma
+    made from the luma; low-delay, IDR then P pictures, deblock and SAO)
+    and ``decode`` of its stream, each a subprocess; the stream equals
+    data/cli416x240_ref.json's (the JAX package's CLI on the same file
+    and flags), the decoded MD5 lines equal the reference's, and they
+    are the MD5s of the recon of Encoder() on the CLI's configuration,
+    whose stream is the CLI's."""
+    import tempfile
+
+    from x266_tpu_torch.api import Encoder
+    from x266_tpu_torch.cli.main import encode_config, parser
+    from x266_tpu_torch.core.hashing import frame_md5
+    from x266_tpu_torch.core.yuv import synthetic_clip, write_yuv420
+    from x266_tpu_torch.utils.clips import luma_chroma
+
+    with open(os.path.join(DATA, "cli416x240_ref.json")) as f:
+        ref = json.load(f)
+    frames = luma_chroma(synthetic_clip(416, 240, 4, "mixed", seed=7))
+    clip = "luma_chroma(synthetic_clip(416, 240, 4, 'mixed', seed=7))"
+    if ref["clip"] != clip:
+        raise AssertionError(f"[cli] the reference's clip is {ref['clip']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        yuv, bit = os.path.join(tmp, "in.yuv"), os.path.join(tmp, "out.266t")
+        write_yuv420(yuv, frames)
+        cli = [sys.executable, "-m", "x266_tpu_torch.cli"]
+        outs = {}
+        for name, argv in (
+                ("encode", ["encode", "-i", yuv, "-o", bit, *ref["flags"],
+                            "--device", "cuda"]),
+                ("decode", ["decode", "-i", bit, "-o",
+                            os.path.join(tmp, "dec.yuv")])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cli + argv, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=300)
+            ms = (time.perf_counter() - t0) * 1e3
+            if proc.returncode != 0:
+                raise AssertionError(f"[cli] {name} exited {proc.returncode}:"
+                                     f" {proc.stderr[-2000:]}")
+            outs[name] = proc.stdout.splitlines()
+            log(f"[cli] {name}: {ms:.0f} ms as a process; "
+                + " | ".join(outs[name]))
+        with open(bit, "rb") as f:
+            stream = f.read()
+    md5 = hashlib.md5(stream).hexdigest()
+    if md5 != ref["stream_md5"]:
+        raise AssertionError(f"[cli] stream md5 {md5} != the reference's "
+                             f"{ref['stream_md5']}")
+    lines = [ln for ln in outs["decode"] if ln.startswith("POC")]
+    if lines != ref["decode_lines"]:
+        raise AssertionError(f"[cli] decode printed {lines}, the reference "
+                             f"{ref['decode_lines']}")
+    cfg = encode_config(parser().parse_args(["encode", "-i", "x", "-o", "y",
+                                             *ref["flags"]]), 416, 240)
+    res = Encoder(cfg).encode(frames)
+    rec = [f"POC {i:4d}  md5 {frame_md5(r)}" for i, r in
+           enumerate(res.recon)]
+    if res.bitstream != stream or rec != lines:
+        raise AssertionError("[cli] Encoder() on the CLI's configuration "
+                             "gives another stream or recon")
+    log(f"[cli] stream {len(stream)} bytes, md5 {md5} == the JAX CLI's; the "
+        f"decoded MD5s equal the reference's and the encoder's recon on "
+        f"{card}")
+
+
 def _encoder_planes(w, h):
     """The (orig, recon, lam) luma and chroma planes the encoder's ALF
     estimators get for the IDR of config 4's clip at w x h (its post-SAO
@@ -2861,7 +3161,7 @@ def _launches():
 
 
 def run_main(tag, cfg, kind, ref_name, kernels, stats, card,
-             tools=False, sse_steps=None, **enc_kw):
+             tools=False, sse_steps=None, lc=False, **enc_kw):
     """Frames 0-3 of the clip through Encoder() and Decoder() (on the
     card by default), held against the JAX reference file: each slice
     NAL and recon byte-identical, the PSNR-Y equal (and the float32 SSE,
@@ -2869,15 +3169,19 @@ def run_main(tag, cfg, kind, ref_name, kernels, stats, card,
     the input; the launch counts of the run; one warm encode's frame
     rate.  tools: the launches go to stats[k]["launches_tools"][tag],
     not to the kernel's main-path count; sse_steps: the encode's steps,
-    each of which must launch kernel SSE once."""
+    each of which must launch kernel SSE once; lc: the clip's chroma is
+    made from its luma (utils.clips.luma_chroma)."""
     from x266_tpu_torch.api import Decoder, Encoder
     from x266_tpu_torch.core.hashing import frame_md5
     from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.utils.clips import luma_chroma
 
     with open(os.path.join(DATA, ref_name)) as f:
         ref = json.load(f)["frames"]
     w, h, n = cfg.width, cfg.height, 4
     frames = synthetic_clip(w, h, n, kind)
+    if lc:
+        frames = luma_chroma(frames)
     t0 = time.perf_counter()
     enc = Encoder(cfg, with_recon=True, **enc_kw)
     dec = Decoder()
@@ -3008,6 +3312,9 @@ def main() -> int:
         "cfg2q_1080p_ref.json", stats, card)
     run("main-mtt-lfnst", run_main_mtt, "main-mtt-lfnst", cfg2ml(),
         "cfg2ml_1080p_ref.json", stats, card)
+    run("kernels-cclm", phase_kernels_cclm, stats)
+    run("main-cclm", run_main_cclm, stats, card)
+    run("cli", phase_cli, stats, card)
     run("main-ra", run_main_ra, stats, card)
     run("cpu-checks", finish_cpu_checks)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.0f} s")

@@ -463,6 +463,12 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n);
   return cudaSuccess;
 }
+enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
+inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t n,
+                                   cudaMemcpyKind, cudaStream_t) {
+  std::memcpy(dst, src, n);
+  return cudaSuccess;
+}
 
 // Runs the grid's blocks (x only) on X266_HOST_BLOCKS slots at once, each
 // an OS thread (slot i: blocks i, i + slots, ...), each block's

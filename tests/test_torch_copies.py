@@ -19,7 +19,7 @@ COPIES = [
     "specmodel/__init__.py", "specmodel/intra.py",
     "specmodel/transforms.py", "specmodel/quant.py",
     "specmodel/mip_tables.py",
-    "utils/ratecontrol.py",
+    "utils/ratecontrol.py", "utils/metrics.py",
     "kernels/lfnst_tables.py",
 ]
 IMPORT = re.compile(r"^(\s*)(from|import) x266_tpu([. ])", re.M)
@@ -48,3 +48,20 @@ def test_rewrite_touches_only_import_lines():
         "    from x266_tpu_torch.specmodel.intra import B\n"
         "import x266_tpu_torch.core\n"
         "doc mentioning x266_tpu.cabac stays\n")
+
+
+def _cli_flags(rel: str) -> set:
+    """The option strings a command-line source declares (the quoted
+    leading arguments of its add_argument calls)."""
+    with open(os.path.join(ROOT, rel)) as f:
+        calls = re.findall(r"add_argument\(([^)]*)\)", f.read())
+    return set(re.findall(r'"(-{1,2}[a-z][a-z0-9-]*)"', " ".join(calls)))
+
+
+def test_cli_takes_the_references_flags():
+    """The port's command line (not a copy: it codes through the port's
+    Encoder and Decoder) declares every flag of the reference's, and
+    --device besides."""
+    want = _cli_flags("x266_tpu/cli/main.py")
+    assert len(want) > 40
+    assert _cli_flags("x266_tpu_torch/cli/main.py") == want | {"--device"}

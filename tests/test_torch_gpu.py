@@ -4,7 +4,8 @@ against the CPU path (exact equality), all-intra, low-delay P and random
 access with deblock, SAO and ALF (K3-B); K1/K2 and K3-P under sign-data
 hiding and dependent quantization, and the 128x64 SDH / DQ clips against
 their recorded JAX streams; K1/K2 under MTT and LFNST, and the 128x64
-MTT / LFNST clips and the ai_vvc_mtt_lfnst fixture on the card.
+MTT / LFNST clips and the ai_vvc_mtt_lfnst fixture on the card; K1/K2's
+CCLM instances and the 128x64 CCLM clips on the card.
 
 This file imports no JAX, so it runs on a host without it; there, skip
 tests/conftest.py (which imports jax):
@@ -487,6 +488,101 @@ def test_mtt_lfnst_streams_on_card_equal_recorded_jax(cuda):
     _, dec = Decoder().decode(stream)
     assert [frame_md5(d) for d in dec] == want
     assert recon_cuda.LAUNCHES["K2"] > 0
+
+
+CCLM_CFGS = {
+    "cclm": preset_cfg2(128, 64).replace(cclm=True),
+    "cclm-tools": preset_cfg2(128, 64).replace(
+        cclm=True, pdpc=True, mip=True, transform_skip=True),
+    "cclm-lfnst-dq": preset_cfg2(128, 64).replace(cclm=True, lfnst=True,
+                                                  dep_quant=True),
+    "cclm-sdh": preset_cfg2(128, 64).replace(cclm=True,
+                                             sign_data_hiding=True),
+}
+
+
+def _cclm_inputs(cfg, dev):
+    from x266_tpu_torch.utils.clips import luma_chroma
+
+    tab = tables.from_reference(cfg, dev)
+    frames = luma_chroma(synthetic_clip(128, 64, 1, "mixed", seed=7))
+    planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+              .to(dev) for p in ("y", "cb", "cr")]
+    src = fused._unpack_padded(cfg, *planes)
+    return tab, src, fused.make_pass_a(cfg, tab)(src[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CCLM_CFGS))
+def test_cclm_kernels_match_plain_scan_on_card(name, cuda):
+    """K1 and K2's CCLM instances on the card (the plain, SDH and DQ
+    quantizers'): the plain scan's levels, recon and mts map with the
+    CCLM choices in bit 3, and K2 on those levels and that map the plain
+    decode's recon; both choices occur."""
+    cfg = CCLM_CFGS[name]
+    tab, src, maps = _cclm_inputs(cfg, cuda)
+    got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    assert len(got) == len(want) == 7
+    for n, w, g in zip(NAMES[:6] + ["mts_out"], want, got):
+        assert torch.equal(w, g), n
+    cc = (got[6] >> 3) & 1
+    assert cc.any() and not cc.all()
+    dargs = (*got[3:6], maps[0], maps[1], got[6])
+    dec = recon_cuda.recon_intra(cfg, tab, False, *dargs)
+    dwant = recon.make_recon_pass_raw(cfg, tab, False)(*dargs)
+    for n, w, g in zip(NAMES, dwant, dec):
+        assert torch.equal(w, g), n
+
+
+@pytest.mark.gpu
+def test_cclm_streams_on_card_equal_recorded_jax(cuda):
+    """On the card: the 128x64 CCLM clips give data/cclm128x64_ref.json's
+    streams and recon through the recon kernels, and the Decoder gives
+    the JAX decoder's pictures of each."""
+    import base64
+    import json
+    import os
+
+    from x266_tpu_torch import config as tconfig
+    from x266_tpu_torch.utils.clips import luma_chroma
+
+    here = os.path.dirname(__file__)
+    with open(os.path.join(here, "..", "x266_tpu_torch", "data",
+                           "cclm128x64_ref.json")) as f:
+        ref = json.load(f)["variants"]
+    names = {k: getattr(tconfig, k) for k in (
+        "preset_cfg2", "preset_cfg2s", "preset_cfg3", "preset_cfg4",
+        "CodecConfig", "Profile")}
+    for name, v in ref.items():
+        cfg = eval(v["config"], names)
+        frames = eval(v["clip"], {"luma_chroma": luma_chroma,
+                                  "synthetic_clip": synthetic_clip})
+        recon_cuda.reset_launches()
+        res = Encoder(cfg).encode(frames)
+        assert res.bitstream == base64.b64decode(v["stream_b64"]), name
+        assert [frame_md5(r) for r in res.recon] == [
+            f["recon_md5"] for f in v["frames"]], name
+        assert recon_cuda.LAUNCHES["K1"] > 0
+        _, dec = Decoder().decode(res.bitstream)
+        assert [frame_md5(d) for d in dec] == [
+            f["decode_md5"] for f in v["frames"]], name
+        assert recon_cuda.LAUNCHES["K2"] > 0
+
+
+def test_cclm_entry_points_default_to_the_card():
+    """Encoder and Decoder of a configuration with CCLM default to the
+    card and raise on a host without one (no fall back to the CPU); the
+    recon kernels' wrappers refuse CPU tensors under CCLM."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a host without a card")
+    for cfg in CCLM_CFGS.values():
+        with pytest.raises(RuntimeError, match="is_available"):
+            Encoder(cfg)
+        tab, src, maps = _cclm_inputs(cfg, "cpu")
+        for encode in (True, False):
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                recon_cuda.recon_intra(cfg, tab, encode, *src, *maps)
 
 
 def test_mtt_lfnst_entry_points_default_to_the_card():

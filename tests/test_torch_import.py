@@ -25,8 +25,11 @@ SCRIPTS = [os.path.join(ROOT, "chip_smoke.py"),
 
 
 def _modules():
+    # cli.__main__ runs the command line when imported; its source is
+    # checked by the line tests below
     return sorted(m.name for m in pkgutil.walk_packages(
-        [PKG], prefix="x266_tpu_torch."))
+        [PKG], prefix="x266_tpu_torch.")
+        if m.name != "x266_tpu_torch.cli.__main__")
 
 
 def _sources():
@@ -42,6 +45,8 @@ def test_port_imports_with_jax_blocked():
     assert "x266_tpu_torch.engine.recon_cuda" in mods
     assert "x266_tpu_torch.kernels.me_cuda" in mods
     assert "x266_tpu_torch.utils.ratecontrol" in mods
+    assert {"x266_tpu_torch.cli", "x266_tpu_torch.cli.main",
+            "x266_tpu_torch.utils.metrics"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None\n"
             "sys.modules['x266_tpu'] = None\n"
             "import importlib\n"

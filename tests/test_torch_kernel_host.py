@@ -41,6 +41,7 @@ from x266_tpu_torch.config import CodecConfig, Profile, preset_cfg2
 from x266_tpu_torch.core.yuv import synthetic_clip
 from x266_tpu_torch.engine import fused, inter, recon, recon_cuda
 from x266_tpu_torch.kernels import alf, alf_cuda, interp, me, me_cuda
+from x266_tpu_torch.utils.clips import luma_chroma
 
 # The tests' tensors are small: intra-op threads gain nothing, and the
 # suite's parallel workers would oversubscribe the cores with them.
@@ -59,6 +60,14 @@ PCFGS = [
 ]
 NAMES = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
          "mvx_fin", "mvy_fin"]
+# K1/K2's: under CCLM K1's seventh output is the mts map with its choices
+INAMES = NAMES[:6] + ["mts_out"]
+
+
+def _dec_args(cfg, got, maps):
+    """K2's inputs after K1's outputs got: the levels and the maps, under
+    CCLM the mts map K1 wrote."""
+    return (*got[3:6], maps[0], maps[1], got[6] if cfg.cclm else maps[2])
 
 
 def _host_build(tmp_path_factory, sources, defines=()):
@@ -427,6 +436,8 @@ WAVE = {
     "intra-dq": preset_cfg2(192, 160).replace(dep_quant=True),
     # MTT's TU lists and BT-V order, LFNST's tables and group scratch
     "intra-mtt-lfnst": preset_cfg2(192, 160).replace(mtt=True, lfnst=True),
+    # CCLM: the chroma groups' waits on the luma group, the SSE exchange
+    "intra-cclm": preset_cfg2(192, 160).replace(cclm=True),
 }
 
 
@@ -441,6 +452,8 @@ def test_wavefront_rows_run_concurrently(kind, host_lib, monkeypatch):
     tab = tables.from_reference(cfg, "cpu")
     if kind.startswith("intra"):
         frames = synthetic_clip(cfg.width, cfg.height, 2, "mixed", seed=5)
+        if cfg.cclm:
+            frames = luma_chroma(frames)
         planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
                   for p in ("y", "cb", "cr")]
         src = fused._unpack_padded(cfg, *planes)
@@ -449,10 +462,10 @@ def test_wavefront_rows_run_concurrently(kind, host_lib, monkeypatch):
                                       *maps)
         want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
         assert err == 0
-        for n, w, g in zip(NAMES, want, got):
+        for n, w, g in zip(INAMES, want, got):
             assert torch.equal(w, g), n
         err, dec = recon_cuda._launch(host_lib, 0, cfg, tab, False,
-                                      *got[3:], *maps)
+                                      *_dec_args(cfg, got, maps))
         assert err == 0
         for n, w, g in zip(NAMES, want, dec):
             assert torch.equal(w, g), n
@@ -1049,8 +1062,8 @@ def test_group_barrier_mutation_is_caught(plane, tmp_path_factory,
     import ctypes
 
     bar = 1 + ["Y", "Cb", "Cr"].index(plane)
-    recon_src = [s for s in _build.SOURCES
-                 if s.endswith(("recon_intra.cu", "recon_quant.cu"))]
+    recon_src = [s for s in _build.SOURCES if s.endswith(
+        ("recon_intra.cu", "recon_quant.cu", "recon_cclm.cu"))]
     lib = _build.declare_recon(ctypes.CDLL(_host_build(
         tmp_path_factory, recon_src,
         (f"X266_MUTATE_GROUP_BARRIER={bar}",))))
@@ -1065,6 +1078,87 @@ def test_group_barrier_mutation_is_caught(plane, tmp_path_factory,
     # the plane has TUs of more than 64 samples (luma 16x16 and 32x32
     # CUs, chroma only 32x32 ones)
     assert (maps[0] >= (16 if bar == 1 else 32)).any()
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    err, got = recon_cuda._launch(lib, 0, cfg, tab, True, *src, *maps)
+    same = err == 0 and all(torch.equal(w, g) for w, g in zip(want, got))
+    assert not same
+
+
+# CCLM on 3x3-CTU pictures whose chroma is made from the luma: alone, with
+# the intra tools and substitution, with LFNST and DQ, with SDH beside
+# transform skip, lossless, and without substitution
+CCLM = {
+    "cclm": (preset_cfg2(136, 136).replace(cclm=True), "mixed"),
+    "cclm-tools": (preset_cfg2(136, 136).replace(
+        cclm=True, pdpc=True, mip=True, transform_skip=True), "text"),
+    "cclm-lfnst-dq": (preset_cfg2(136, 136).replace(
+        cclm=True, lfnst=True, dep_quant=True), "mixed"),
+    "cclm-sdh-ts": (preset_cfg2(136, 136).replace(
+        cclm=True, sign_data_hiding=True, transform_skip=True), "text"),
+    "cclm-lossless": (CodecConfig(width=136, height=136, qp=30,
+                                  profile=Profile.VVC, lossless=True,
+                                  cclm=True), "mixed"),
+    "cclm-nosubst": (preset_cfg2(136, 136).replace(
+        cclm=True, ref_substitute=False), "mixed"),
+}
+
+
+def _cclm_case(cfg, kind):
+    tab = tables.from_reference(cfg, "cpu")
+    planes = _planes(luma_chroma(synthetic_clip(cfg.width, cfg.height, 1,
+                                                kind, seed=5))[0])
+    src = fused._unpack_padded(cfg, *planes)
+    return tab, src, fused.make_pass_a(cfg, tab)(src[0])
+
+
+@pytest.mark.parametrize("name", list(CCLM))
+def test_cclm_kernel_source_matches_plain_scan(name, host_lib):
+    """K1's and K2's CCLM instances (each quantizer's) against the plain
+    scans: K1's outputs with the mts map it writes, K2 on those levels
+    and that map against the plain decode; both choices occur.  Under
+    LFNST the map keeps no LFNST index (as the reference's), so K2's
+    recon is held to the plain decode's, not to K1's."""
+    cfg, kind = CCLM[name]
+    tab, src, maps = _cclm_case(cfg, kind)
+    err, got = recon_cuda._launch(host_lib, 0, cfg, tab, True, *src, *maps)
+    assert err == 0
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    assert len(got) == len(want) == 7
+    for n, w, g in zip(INAMES, want, got):
+        assert torch.equal(w, g), n
+    cc = (got[6] >> 3) & 1
+    assert cc.any() and not cc.all()
+    dargs = _dec_args(cfg, got, maps)
+    err, dec = recon_cuda._launch(host_lib, 0, cfg, tab, False, *dargs)
+    assert err == 0
+    dwant = recon.make_recon_pass_raw(cfg, tab, False)(*dargs)
+    for n, w, g in zip(INAMES, dwant, dec):
+        assert torch.equal(w, g), n
+    if not cfg.lfnst:
+        for n, w, g in zip(INAMES, want[:3], dec[:3]):
+            assert torch.equal(w, g), n
+
+
+def test_cclm_wait_mutation_is_caught(tmp_path_factory, monkeypatch):
+    """A build of the recon kernel whose chroma groups skip their wait on
+    the luma group (X266_MUTATE_CCLM_WAIT) fails the concurrent wavefront
+    case ("intra-cclm"): its chroma TUs read luma the luma group has not
+    written yet."""
+    import ctypes
+
+    recon_src = [s for s in _build.SOURCES if s.endswith(
+        ("recon_intra.cu", "recon_quant.cu", "recon_cclm.cu"))]
+    lib = _build.declare_recon(ctypes.CDLL(_host_build(
+        tmp_path_factory, recon_src, ("X266_MUTATE_CCLM_WAIT",))))
+    monkeypatch.setenv("X266_HOST_BLOCKS", "8")
+    cfg = WAVE["intra-cclm"]
+    tab = tables.from_reference(cfg, "cpu")
+    frames = luma_chroma(synthetic_clip(cfg.width, cfg.height, 2, "mixed",
+                                        seed=5))
+    planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+              for p in ("y", "cb", "cr")]
+    src = fused._unpack_padded(cfg, *planes)
+    maps = fused.make_pass_a(cfg, tab)(src[0])
     want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
     err, got = recon_cuda._launch(lib, 0, cfg, tab, True, *src, *maps)
     same = err == 0 and all(torch.equal(w, g) for w, g in zip(want, got))

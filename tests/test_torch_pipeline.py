@@ -494,7 +494,8 @@ def test_single_frame_step_equals_batched():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(profile=Profile.VVC, cclm=True),
+    # CCLM alone codes; with CU 64 (ROADMAP item 20) it is refused
+    dict(profile=Profile.VVC, cclm=True, max_cu_size=64),
     dict(profile=Profile.VVC, lfnst=True, max_cu_size=64),
     dict(tile_rows=1), dict(profile=Profile.VVC, dep_quant=True,
                             bit_depth=10),

@@ -181,6 +181,12 @@ REFS = {
         rows_per_segment=1, ctx_inherit=True, mtt=True, lfnst=True),
                "preset_cfg2(1920, 1080).replace(rows_per_segment=1, "
                "ctx_inherit=True, mtt=True, lfnst=True)", "mixed"),
+    # CCLM (I pictures): config 2 + CCLM on 'mixed' with its chroma made
+    # from the luma (luma_chroma), so that both chroma models win CUs
+    "cfg2c": (lambda: preset_cfg2(W, H).replace(
+        rows_per_segment=1, ctx_inherit=True, cclm=True),
+              "preset_cfg2(1920, 1080).replace(rows_per_segment=1, "
+              "ctx_inherit=True, cclm=True)", "mixed", True),
 }
 
 
@@ -191,9 +197,13 @@ def slice_nal_md5s(stream: bytes) -> list[str]:
 
 
 def make(name: str) -> None:
-    make_cfg, cfg_text, kind = REFS[name]
+    make_cfg, cfg_text, kind, *lc = REFS[name]
     cfg = make_cfg()
     frames = synthetic_clip(W, H, N, kind)
+    clip = f"synthetic_clip(1920, 1080, 4, '{kind}')"
+    if lc and lc[0]:
+        frames = luma_chroma(frames)
+        clip = f"luma_chroma({clip})"
     t0 = time.time()
     res = Encoder(cfg, with_recon=True).encode(frames)
     secs = time.time() - t0
@@ -203,7 +213,7 @@ def make(name: str) -> None:
     out = {
         "source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
         "config": cfg_text,
-        "clip": f"synthetic_clip(1920, 1080, 4, '{kind}')",
+        "clip": clip,
         "stream_md5": hashlib.md5(res.bitstream).hexdigest(),
         "frames": [
             {"poc": i, "bits": int(b), "psnr_y": float(p),
@@ -771,6 +781,95 @@ def make_mttlfnst128() -> None:
     print(f"wrote {path}")
 
 
+# CCLM at 128x64 for the CPU tests, each clip's chroma made from its luma
+# (luma_chroma): CCLM alone; with MTS, transform skip, PDPC, MIP and
+# substitution; with LFNST and DQ; with SDH; lossless; a low-delay I + P
+# clip with deblock; random access with GOP 4.  Under LFNST the
+# reference's encoder drops the LFNST index (mts bits 6-7) from the map
+# it codes (x266_tpu/engine/recon.py:382-391), so that stream's decode
+# differs from the encoder's recon; both are recorded.
+CCLM128 = {   # name -> (config text, clip kind, frames, seed)
+    "ai": ("preset_cfg2(128, 64).replace(cclm=True)", "mixed", 2, 5),
+    "tools": ("preset_cfg2(128, 64).replace(cclm=True, transform_skip=True, "
+              "pdpc=True, mip=True)", "text", 2, 3),
+    "lfnst_dq": ("preset_cfg2(128, 64).replace(cclm=True, lfnst=True, "
+                 "dep_quant=True)", "mixed", 1, 4),
+    "sdh": ("preset_cfg2s(128, 64).replace(cclm=True)", "text", 1, 2),
+    "lossless": ("CodecConfig(width=128, height=64, qp=32, "
+                 "profile=Profile.VVC, lossless=True, rdoq=False, "
+                 "cclm=True)", "mixed", 1, 6),
+    "ld": ("preset_cfg3(128, 64).replace(profile=Profile.VVC, cclm=True, "
+           "deblock=True, intra_period=4)", "motion", 3, 4),
+    "ra": ("preset_cfg4(128, 64).replace(profile=Profile.VVC, cclm=True, "
+           "gop_size=4, intra_period=8)", "mixed", 5, 4),
+}
+
+
+def cclm128_config(name: str):
+    return eval(CCLM128[name][0])
+
+
+def make_cclm128() -> None:
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "variants": {}}
+    for name, (text, kind, n, seed) in CCLM128.items():
+        out["variants"][name] = {
+            "config": text,
+            "clip": f"luma_chroma(synthetic_clip(128, 64, {n}, '{kind}', "
+                    f"seed={seed}))",
+            **_ra_record(cclm128_config(name), luma_chroma(
+                synthetic_clip(128, 64, n, kind, seed=seed)))}
+        print(name, out["variants"][name]["nal_md5_coding_order"],
+              flush=True)
+    path = os.path.join(DATA, "cclm128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
+# the command line on the card (chip_smoke.py [cli]): the JAX package's
+# own CLI on a 416x240 raw clip with CCLM, low-delay with the loop filters
+CLI416_FLAGS = ["-s", "416x240", "--profile", "vvc", "--cclm", "--mts",
+                "--rdoq", "--ref-subst", "--deblock", "--sao", "--gop", "4"]
+CLI416_CLIP = "luma_chroma(synthetic_clip(416, 240, 4, 'mixed', seed=7))"
+
+
+def make_cli416() -> None:
+    import contextlib
+    import io
+    import tempfile
+
+    from x266_tpu.cli.main import main as cli_main
+    from x266_tpu.core.yuv import write_yuv420
+
+    frames = luma_chroma(synthetic_clip(416, 240, 4, "mixed", seed=7))
+    with tempfile.TemporaryDirectory() as tmp:
+        yuv, bit = os.path.join(tmp, "in.yuv"), os.path.join(tmp, "out.266t")
+        write_yuv420(yuv, frames)
+        t0 = time.time()
+        assert cli_main(["encode", "-i", yuv, "-o", bit,
+                         *CLI416_FLAGS]) == 0
+        secs = time.time() - t0
+        with open(bit, "rb") as f:
+            stream = f.read()
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            assert cli_main(["decode", "-i", bit, "-o",
+                             os.path.join(tmp, "dec.yuv")]) == 0
+        md5_lines = [ln for ln in lines.getvalue().splitlines()
+                     if ln.startswith("POC")]
+    out = {"source": "x266_tpu.cli (JAX, CPU backend), "
+                     "tools/make_torch_refs.py",
+           "flags": CLI416_FLAGS, "clip": CLI416_CLIP, "seconds": secs,
+           "stream_md5": hashlib.md5(stream).hexdigest(),
+           "bytes": len(stream), "decode_lines": md5_lines}
+    path = os.path.join(DATA, "cli416x240_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    print(f"wrote {path}")
+
+
 def main() -> None:
     makers = {"p128x64": make_p128, "cfg5": make_cfg5,
               "gpb_wp": make_gpb_wp, "wp128x64": make_wp128,
@@ -778,6 +877,7 @@ def main() -> None:
               "rc_1080p": make_rc, "rc128x64": make_rc128,
               "sdhdq128x64": make_sdhdq128,
               "mttlfnst128x64": make_mttlfnst128,
+              "cclm128x64": make_cclm128, "cli416x240": make_cli416,
               **{k: (lambda k=k: make_ai128(k)) for k in AI128},
               "ra128x64": make_ra128, "tools128x64": make_tools128,
               **{k: (lambda k=k: make(k)) for k in REFS},

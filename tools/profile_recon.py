@@ -63,8 +63,10 @@ from x266_tpu_torch.core.yuv import synthetic_clip  # noqa: E402
 from x266_tpu_torch.engine import fused, inter, recon_cuda  # noqa: E402
 
 RECON = os.path.join(_build.PKG, "csrc", "recon_intra.cu")
-# the recon kernels' SDH and DQ instances, compiled beside RECON
+# the recon kernels' SDH and DQ instances and their CCLM ones, compiled
+# beside RECON
 RECON_QUANT = os.path.join(_build.PKG, "csrc", "recon_quant.cu")
+RECON_CCLM = os.path.join(_build.PKG, "csrc", "recon_cclm.cu")
 # the phase split added to the parent commit's recon_intra.cu (d418144),
 # at the same Phase slots as the package's
 PARENT_PATCH = os.path.join(ROOT, "tools", "recon_intra_d418144_phases.patch")
@@ -106,14 +108,16 @@ class OlderSignature:
         return call
 
 
-def declare_older(lib, sdh_dq: bool):
-    """The C signatures of an older library: without the mtt and lfnst
-    arguments and the LFNST table (sdh_dq: the source has sdh and dq),
-    or without those and sdh and dq too."""
+def declare_older(lib, sdh_dq: bool, mtt: bool = False):
+    """The C signatures of an older library: without the cclm argument
+    and the mts map out (mtt: the source has mtt and lfnst and the LFNST
+    table), without those and mtt, lfnst and the LFNST table (sdh_dq: the
+    source has sdh and dq), or without those and sdh and dq too."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q = 2 if sdh_dq else 0
+    m = 2 if mtt else 0
     lib.x266_recon_intra.argtypes = (
-        [i] * 9 + [fl] + [i] * (7 + q) + [p] * 22 + [p])
+        [i] * 9 + [fl] + [i] * (7 + q + m) + [p] * (22 + (mtt)) + [p])
     lib.x266_recon_intra.restype = i
     lib.x266_recon_inter.argtypes = (
         [i] * 8 + [fl] + [i] * (12 + q) + [p] * 35 + [p])
@@ -145,22 +149,25 @@ def build(recon_src: str, phases: bool):
     with open(recon_src) as f:
         text = f.read()
     sdh_dq, mtt = "int sdh, int dq" in text, "int mtt," in text
+    cclm = "int cclm," in text
     if recon_src == RECON:
-        srcs = [recon_src, RECON_QUANT]
+        srcs = [recon_src, RECON_QUANT, RECON_CCLM]
     elif "X266_RECON_QUANT_PART" in text:
         srcs = [recon_src, quant_part(recon_src)]
     else:
         srcs = [recon_src]
     so = pc.build(srcs, ["X266_RECON_PHASES"] if phases else [],
-                  _build.declare_recon if mtt
-                  else (lambda lib: declare_older(lib, sdh_dq))).lib
-    if not mtt:
-        # x266_recon_intra: sdh, dq at 17, 18; mtt, lfnst at 19, 20; the
-        # LFNST table at 42; x266_recon_inter: sdh, dq at 16, 17
-        so = (OlderSignature(so, {19, 20, 42}, set(), {19, 20}, set())
-              if sdh_dq else
-              OlderSignature(so, {17, 18, 19, 20, 42}, {16, 17},
-                             {17, 18, 19, 20}, {16, 17}))
+                  _build.declare_recon if cclm
+                  else (lambda lib: declare_older(lib, sdh_dq, mtt))).lib
+    if not cclm:
+        # x266_recon_intra: sdh, dq at 17, 18; mtt, lfnst at 19, 20; cclm
+        # at 21; the LFNST table at 43 and the mts map out at 44;
+        # x266_recon_inter: sdh, dq at 16, 17
+        so = (OlderSignature(so, {21, 44}, set(), {21}, set()) if mtt else
+              OlderSignature(so, {19, 20, 21, 43, 44}, set(), {19, 20, 21},
+                             set()) if sdh_dq else
+              OlderSignature(so, {17, 18, 19, 20, 21, 43, 44}, {16, 17},
+                             {17, 18, 19, 20, 21}, {16, 17}))
     if phases:
         if not hasattr(so, "x266_recon_phases"):
             raise SystemExit(

@@ -20,7 +20,8 @@ picture and every later one a B slice on two past pictures.  A
 random-access stream (gop_size > 1) codes anchors every gop_size
 pictures and hierarchical B pictures between them, in coding order.
 The intra tools (lossless, transform skip, PDPC, MIP) code on every
-picture type.  The stream is identical to the reference's for the same
+picture type; CCLM on I pictures (the I step's mts map carries the
+scan's choices).  The stream is identical to the reference's for the same
 frames and config.
 """
 
@@ -108,8 +109,9 @@ def check_config(cfg: CodecConfig) -> None:
     RDOQ, reference substitution, merge candidates, AMVP, signalled
     reference lists, weighted prediction, deblock, SAO, ALF (linear or
     nonlinear, chroma, CC-ALF), lossless, transform skip, PDPC, MIP,
-    sign-data hiding, dependent quantization, MTT and LFNST (CCLM is
-    refused); the encoder and the decoder take the same configs."""
+    sign-data hiding, dependent quantization, MTT, LFNST and CCLM (on I
+    pictures; CodecConfig refuses it with MTT); the encoder and the
+    decoder take the same configs."""
     if cfg.num_tiles != 1:
         raise NotImplementedError("tiles are not in the port's slices")
     check_slice(cfg)

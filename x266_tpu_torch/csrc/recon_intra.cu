@@ -35,8 +35,10 @@
 // not yet coded read as mid-gray whatever memory holds; the window store
 // writes only the CTU itself; the MV derivation reads only inside the CTU
 // row.  No CTU of a diagonal touches another's window: (cx +- 2, cy -+ 1)
-// lie outside x0 - 1 .. x0 + 95.  Rows above are read through the L2
-// (__ldcg), after the acquire.
+// lie outside x0 - 1 .. x0 + 95; nor CCLM's luma row two above the CTU
+// (x0 .. x0 + 63, CTU (cx, cy - 1)'s) or column two to its left (y0 ..
+// y0 + 63, CTU (cx - 1, cy)'s), both finished before the wait ends.  Rows
+// above are read through the L2 (__ldcg), after the acquire.
 //
 // Inside a CTU, the TU pipeline.  On the chain a TU's latency counts, not
 // its work (X266_RECON_PHASES splits it by phase; with every step a
@@ -139,6 +141,33 @@
 // the forward horizontal pass and, inverse, after dequantization; K2
 // dequantizes such a TU into shared memory first.
 //
+// CCLM (x266_tpu/engine/recon.py:43-87, 332-391; the reference runs it on
+// its XLA scan only) is a template parameter of K1 and K2 (kCc), taken by
+// intra launches with cfg.cclm; the other instances compile without it, in
+// csrc/recon_cclm.cu.  A CU's chroma TUs predict by the chroma mode (DM)
+// or by the linear model from the CU's reconstructed luma: the 2x2 means
+// of the luma, and alpha, beta from four boundary pairs (the 2x2 luma
+// mean two rows above or two columns left, the chroma sample one above or
+// one left, at 1/4 and 3/4 of the side), alpha's division floored; above
+// or left of the picture the luma reads mid-gray (the reference's
+// dynamic_slice counts the start -1 from the plane's end: its padding).
+// The luma two rows above the CTU and two columns left of it join the
+// window (Shared::cc_row, cc_col).  The chroma groups now depend on the
+// luma group: one mbarrier per CU of the CTU (Shared::cc_bar), on which
+// the luma group's thread 0 arrives once the CU's luma is in the window
+// (after the TU's closing barrier) and which the chroma TU's threads wait
+// on before reading it; the slots past the CTU's CUs get their arrival
+// after the walk, so each completes one phase per CTU and the wait's
+// parity is the CTU's.  K1 decides per CU by the joint SSE of both chroma
+// planes against the source (CCLM where strictly below DM's): each chroma
+// group sums its plane's two SSEs by warp reductions, the groups exchange
+// them in shared memory (double-buffered by the CU's parity) across named
+// barrier 4 (warp 0 of each group, a TU of <= 64 samples) or 5 (both
+// groups), and Cb's thread 0 writes (mts & 7) | choice << 3 over the CU's
+// units of the mts map out, which the launcher first copies from the map
+// in.  K2 reads the choice from bit 3 and waits on the luma only for a CU
+// that takes the model.
+//
 // Integer math is int32 multiply-accumulate (|residual x matrix| sums stay
 // below 2^31).  RDOQ compares float32 costs e*e*err_scale + lam*rate with
 // explicitly rounded __fmul_rn/__fadd_rn (and the library is built with
@@ -180,6 +209,13 @@
 #include <cuda_runtime.h>
 
 #include "x266_device.cuh"
+
+// csrc/recon_quant.cu and csrc/recon_cclm.cu compile this file again for
+// the SDH / DQ instances and the CCLM ones; the entry points and the test
+// kernel are this file's own.
+#if !defined(X266_RECON_QUANT_PART) && !defined(X266_RECON_CCLM_PART)
+#define X266_RECON_MAIN_PART
+#endif
 
 namespace {
 
@@ -253,6 +289,7 @@ struct Params {
   int lossless, ts, pdpc;         // intra tools, see the header
   int dq;                         // dependent quantization (its instance)
   int mtt, lfnst;                 // MTT binary splits, LFNST (K1/K2)
+  int cclm, sdh;                  // CCLM (K1/K2), sign-data hiding (encode)
   float lam;
   const uint8_t* src[3];          // encode: padded planes (F, Hp, Wp)
   const int16_t* coef_in[3];      // decode: levels (F, H, W)
@@ -263,6 +300,7 @@ struct Params {
   const int32_t* mip;             // (MIP_K, s*s, 16) for s = 8, 16, 32
   const int32_t* lfnst_tab;       // (8, 16, 16) LFNST kernels (lfnst)
   const float* rate;              // (32768,) rate surrogate
+  int32_t* mts_out;               // K1 under CCLM: the mts map out
   // K3-P and K3-B only (frames == 1)
   int merge;                      // merge candidates on
   const int32_t *pred_map, *mvx_map, *mvy_map;   // (H/8, W/8)
@@ -366,6 +404,13 @@ struct Shared {
   alignas(16) int b_c[2][16 * 16];
   int lf_vec[3][16];              // per group: an LFNST input vector
   Refs refs[8];
+  // CCLM (its instances): the luma two rows above the CTU (x0 .. x0 + 63)
+  // and two columns to its left (y0 .. y0 + 63), one mbarrier per CU (the
+  // CU's luma is in the window), and K1's SSE exchange [CU parity][Cb,
+  // Cr][warp of the group][CCLM, DM]
+  uint8_t cc_row[kCtu], cc_col[kCtu];
+  alignas(8) uint64_t cc_bar[64];
+  int cc_sse[2][2][2][2];
 };
 
 // The quantizer of a recon kernel instance (a template parameter, so the
@@ -1122,7 +1167,9 @@ __device__ X266_NOINLINE void dq_dequant(Shared& sh, const Group& g,
 // luma, 32 chroma), its mode, prediction shift, transform types,
 // transform skip, kind, whether its staged levels are non-zero (decode),
 // whether the group meets first (a small TU came just before), its
-// substitution sources (nullptr without substitution) and its LFNST (Cu::lf).
+// substitution sources (nullptr without substitution), its LFNST (Cu::lf),
+// its frame, and under CCLM its CU's index in the CTU's list, the CTU's
+// mbarrier parity and the CU's mts map value.
 struct TuArgs {
   int x, y, x0, y0, mode, shift, tv, th, lf;
   bool ts;
@@ -1130,7 +1177,117 @@ struct TuArgs {
   bool nz, sync_first;
   const uint8_t* src;
   int f;
+  int cu, par, mval;
 };
+
+#ifdef X266_MUTATE_CCLM_WAIT
+// tests only: the chroma groups skip their wait on the luma group, which
+// the host tests must catch
+#define X266_CCLM_WAIT_ON false
+#else
+#define X266_CCLM_WAIT_ON true
+#endif
+
+// CCLM on a chroma TU of side S (plane v.plane, on G threads), after its
+// DM prediction pr: K2 takes the model where the stream's bit 3 says so;
+// K1 where the joint Cb + Cr SSE of the model against the source is
+// strictly below DM's, writing the choice over the CU's units of the mts
+// map out.  The luma view is the CTU's window, with the row two above it
+// and the column two to its left beside it.
+template <bool kEncode, int S, int G>
+__device__ __forceinline__ void cclm(const Params& p, Shared& sh,
+                                     const View& v, const TuArgs& a,
+                                     bool active, int lt, int row0, int col,
+                                     int st, int (&pr)[Map<S, G>::kK]) {
+  using M = Map<S, G>;
+  constexpr int K = M::kK, kStep = M::kStep;
+  constexpr bool kSmall = S * S <= 64;
+  bool use = ((a.mval >> 3) & 1) != 0;
+  if (!kEncode && !use) return;
+  if (X266_CCLM_WAIT_ON) x266_mbar_wait(&sh.cc_bar[a.cu], a.par);
+  const int lx0 = 2 * a.x0, ly0 = 2 * a.y0;   // the CTU's luma origin
+  const View vy{sh.win_y, kWinY, kPitchY, lx0 - 1, ly0 - 1, p.width,
+                p.height, 1, 0};
+  auto lum = [&](int px, int py) -> int {
+    if (py == ly0 - 2) return sh.cc_row[px - lx0];
+    if (px == lx0 - 2) return sh.cc_col[py - ly0];
+    return at(vy, px, py);
+  };
+  auto pair = [&](int px, int py) {
+    return (lum(px, py) + lum(px + 1, py) + lum(px, py + 1) +
+            lum(px + 1, py + 1) + 2) >> 2;
+  };
+  const int xc = a.x, yc = a.y;
+  constexpr int d0 = S / 4, d1 = (3 * S) / 4;
+  const int cl[4] = {pair(2 * (xc + d0), 2 * yc - 2),
+                     pair(2 * (xc + d1), 2 * yc - 2),
+                     pair(2 * xc - 2, 2 * (yc + d0)),
+                     pair(2 * xc - 2, 2 * (yc + d1))};
+  const int cc[4] = {at(v, xc + d0, yc - 1), at(v, xc + d1, yc - 1),
+                     at(v, xc - 1, yc + d0), at(v, xc - 1, yc + d1)};
+  int imin = 0, imax = 0;
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    if (cl[i] < cl[imin]) imin = i;
+    if (cl[i] > cl[imax]) imax = i;
+  }
+  const int num = (cc[imax] - cc[imin]) * 64;
+  const int den = cl[imax] - cl[imin] > 1 ? cl[imax] - cl[imin] : 1;
+  const int quo = num / den - (num % den != 0 && num < 0);   // floored
+  const int alpha = clampi(quo, -512, 511);
+  const int beta = cc[imin] - ((alpha * cl[imin] + 32) >> 6);
+  int cp[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int rr = row0 + k * kStep;
+    const int px = 2 * (xc + col), py = 2 * (yc + rr);
+    const int ds = active ? (at(vy, px, py) + at(vy, px + 1, py) +
+                             at(vy, px, py + 1) + at(vy, px + 1, py + 1) +
+                             2) >> 2
+                          : 0;
+    cp[k] = clampi(((alpha * ds + 32) >> 6) + beta, 0, 255);
+  }
+  if constexpr (kEncode) {
+    int ecc = 0, edm = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!active) continue;
+      const int o = sh.in.src[st + (row0 + k * kStep) * 32 + col];
+      ecc += (cp[k] - o) * (cp[k] - o);
+      edm += (pr[k] - o) * (pr[k] - o);
+    }
+    ecc = (int)__reduce_add_sync(kFull, (unsigned)ecc);
+    edm = (int)__reduce_add_sync(kFull, (unsigned)edm);
+    int(*x)[2][2] = sh.cc_sse[a.cu & 1];
+    if ((lt & 31) == 0) {
+      x[v.plane - 1][lt >> 5][0] = ecc;
+      x[v.plane - 1][lt >> 5][1] = edm;
+    }
+    // Cb and Cr meet: warp 0 of each group, or both groups
+    x266_bar_sync(kSmall ? 4 : 5, kSmall ? 64 : 128);
+    int tcc = 0, tdm = 0;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+      for (int w = 0; w < G / 32; ++w) {
+        tcc += x[pl][w][0];
+        tdm += x[pl][w][1];
+      }
+    use = tcc < tdm;
+    if (v.plane == 1 && lt == 0) {
+      const int ux_n = p.width / 8, uy_n = p.height / 8, u = S / 4;
+      const int ux = mini(xc / 4, ux_n - u), uy = mini(yc / 4, uy_n - u);
+      int32_t* m = p.mts_out + (size_t)a.f * ux_n * uy_n;
+      for (int dy = 0; dy < u; ++dy)
+        for (int dx = 0; dx < u; ++dx)
+          m[(uy + dy) * ux_n + ux + dx] = (a.mval & 7) | (use << 3);
+    }
+  }
+  if (use) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) pr[k] = cp[k];
+  }
+}
 
 // LFNST (x266_tpu/kernels/lfnst.py:81-105) on the low 4x4 of a TU: entry
 // vi of the 16x16 kernel of lf (Cu::lf) times the vector vec, or of its
@@ -1183,7 +1340,7 @@ __device__ __forceinline__ float* dq_scratch(Shared& sh, const View& v) {
          (v.plane == 0 ? 0 : kDqLuma + (v.plane - 1) * kDqChroma);
 }
 
-template <bool kEncode, int S, int G, int kQ, bool kMl>
+template <bool kEncode, int S, int G, int kQ, bool kMl, bool kCc>
 __device__ void tu(const Params& p, Shared& sh, const View& v,
                    const Group& g, const TuArgs& a) {
   using M = Map<S, G>;
@@ -1285,6 +1442,8 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
       pr[k] = q;
     }
   }
+  if constexpr (kCc)
+    if (!luma) cclm<kEncode, S, G>(p, sh, v, a, active, lt, row0, col, st, pr);
   X266_PH(pc, kPhPred);
 
   const int cpitch = p.width / v.scale;
@@ -1499,17 +1658,17 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
 // A plane's TU of side s: the instance of tu for its size and thread
 // count (luma 8 on a warp, 16 and 32 on 128 threads; chroma 4 and 8 on a
 // warp, 16 on 64 threads).
-template <bool kEncode, int kQ, bool kMl>
+template <bool kEncode, int kQ, bool kMl, bool kCc>
 __device__ __forceinline__ void plane_tu(const Params& p, Shared& sh,
                                          const View& v, const Group& g,
                                          int s, const TuArgs& a) {
   switch (v.plane == 0 ? (s == 8 ? 1 : s == 16 ? 3 : 4)
                        : (s == 4 ? 0 : s == 8 ? 1 : 2)) {
-    case 0: tu<kEncode, 4, 32, kQ, kMl>(p, sh, v, g, a); break;
-    case 1: tu<kEncode, 8, 32, kQ, kMl>(p, sh, v, g, a); break;
-    case 2: tu<kEncode, 16, 64, kQ, kMl>(p, sh, v, g, a); break;
-    case 3: tu<kEncode, 16, 128, kQ, kMl>(p, sh, v, g, a); break;
-    default: tu<kEncode, 32, 128, kQ, kMl>(p, sh, v, g, a); break;
+    case 0: tu<kEncode, 4, 32, kQ, kMl, kCc>(p, sh, v, g, a); break;
+    case 1: tu<kEncode, 8, 32, kQ, kMl, kCc>(p, sh, v, g, a); break;
+    case 2: tu<kEncode, 16, 64, kQ, kMl, kCc>(p, sh, v, g, a); break;
+    case 3: tu<kEncode, 16, 128, kQ, kMl, kCc>(p, sh, v, g, a); break;
+    default: tu<kEncode, 32, 128, kQ, kMl, kCc>(p, sh, v, g, a); break;
   }
 }
 
@@ -1531,11 +1690,15 @@ __device__ __forceinline__ int edge_sample(const View& v, const uint8_t* rec,
 // Fill the three windows for the CTU at luma origin (x0, y0): the samples
 // of earlier CTUs -- the row above (first row, overhang included) and the
 // column to the left (first column) -- from the output planes, everything
-// else mid-gray.  The global loads go out first, one or two a thread, so
-// that one round trip to the L2 covers them all.
+// else mid-gray; kCc: also the luma two rows above the CTU and two columns
+// to its left into cc_row and cc_col (mid-gray outside the picture).  The
+// global loads go out first, one or two a thread, so that one round trip
+// to the L2 covers them all.
+template <bool kCc>
 __device__ void load_windows(const View& vy, const View& vcb,
                              const View& vcr, const uint8_t* rec_y,
-                             const uint8_t* rec_cb, const uint8_t* rec_cr) {
+                             const uint8_t* rec_cb, const uint8_t* rec_cr,
+                             uint8_t* cc_row, uint8_t* cc_col) {
   constexpr int ny = kWinY + kCtu, nc = kWinC + kCtu / 2;
   int off[2] = {-1, -1}, val[2] = {0, 0};
   uint8_t* win[2] = {nullptr, nullptr};
@@ -1551,6 +1714,16 @@ __device__ void load_windows(const View& vy, const View& vcb,
     } else if (e < ny + 2 * nc) {
       off[q] = edge_sample(vcr, rec_cr, e - ny - nc, val[q]);
       win[q] = vcr.win;
+    } else if (kCc && e < ny + 2 * nc + 2 * kCtu) {
+      // i < kCtu: row y0 - 2 at x0 + i; else column x0 - 2 at row y0 + i
+      // - kCtu
+      const int i = e - ny - 2 * nc, r = i < kCtu;
+      const int x0 = vy.ox + 1, y0 = vy.oy + 1;
+      const int px = r ? x0 + i : x0 - 2, py = r ? y0 - 2 : y0 + i - kCtu;
+      const bool coded = px >= 0 && py >= 0 && px < vy.pw && py < vy.ph;
+      val[q] = coded ? __ldcg(rec_y + (size_t)py * vy.pw + px) : 128;
+      off[q] = r ? i : i - kCtu;
+      win[q] = r ? cc_row : cc_col;
     }
   }
   constexpr uint32_t kMid = 0x80808080u;
@@ -1604,9 +1777,10 @@ __device__ __forceinline__ int mc_sample(const uint8_t* pyr, int h, int w,
 }
 
 // Staging before the row wait, by all threads: the CTU's maps (raster
-// units) and inputs (encode: the source; decode: the levels and each
-// unit's non-zero flags, into sh.unz, which the CTU before left zero).
-template <bool kEncode, bool kInter, bool kB, bool kMl>
+// units; the mts map also under CCLM, whose choice rides bit 3) and inputs
+// (encode: the source; decode: the levels and each unit's non-zero flags,
+// into sh.unz, which the CTU before left zero).
+template <bool kEncode, bool kInter, bool kB, bool kMl, bool kCc>
 __device__ void stage_inputs(const Params& p, Shared& sh, int f, int cx,
                              int cy) {
   const int w = p.width, h = p.height, cw = w / 2, ch = h / 2;
@@ -1618,7 +1792,7 @@ __device__ void stage_inputs(const Params& p, Shared& sh, int f, int cx,
     const size_t mi = (size_t)f * ux_n * uy_n + (size_t)uy * ux_n + ux;
     sh.size[t] = in ? p.size_map[mi] : 0;
     sh.mode[t] = in ? p.mode_map[mi] : 0;
-    sh.mts[t] = in && (p.mts || p.ts || (kMl && (p.mtt || p.lfnst)))
+    sh.mts[t] = in && (kCc || p.mts || p.ts || (kMl && (p.mtt || p.lfnst)))
                     ? p.mts_map[mi] : 0;
     if (kInter) {
       sh.ukind[t >> 3][1 + (t & 7)] = in ? p.pred_map[mi] : kIntra;
@@ -1871,7 +2045,7 @@ __device__ void stage_mc(const Params& p, Shared& sh, int cx, int cy) {
 }
 
 template <bool kEncode, bool kInter, bool kB = false, int kQ = kQPlain,
-          bool kMl = false>
+          bool kMl = false, bool kCc = false>
 __global__ void __launch_bounds__(kThreads)
 recon_kernel(Params p) {
   X266_DYNAMIC_SHARED(int4, smem);
@@ -1904,6 +2078,8 @@ recon_kernel(Params p) {
     sh.lfnst[1][(i & ~255) + (i & 15) * 16 + ((i >> 4) & 15)] = (int8_t)v;
   }
   if (tid < 64) sh.unz[tid] = 0;
+  if (kCc && tid < 64) x266_mbar_init(&sh.cc_bar[tid], 1);
+  if (kCc) x266_mbar_init_fence();
   if (tid == 0) ticket = atomicAdd(p.sync, 1);
   __syncthreads();
   const int f = ticket / ctus_y, cy = ticket % ctus_y;
@@ -1917,7 +2093,7 @@ recon_kernel(Params p) {
                   tid - (plane == 0 ? 0 : plane == 1 ? 128 : 192)};
 
   for (int cx = 0; cx < ctus_x; ++cx) {
-    stage_inputs<kEncode, kInter, kB, kMl>(p, sh, f, cx, cy);
+    stage_inputs<kEncode, kInter, kB, kMl, kCc>(p, sh, f, cx, cy);
     __syncthreads();
     X266_PH(bc, kPhMv);
     // the CU list (and K3's MVs) on warp 1 while thread 0 waits for the
@@ -1957,7 +2133,8 @@ recon_kernel(Params p) {
                    ch, 2, 1};
     const View vcr{sh.win_c[1], kWinC, kPitchC, x0 / 2 - 1, y0 / 2 - 1, cw,
                    ch, 2, 2};
-    load_windows(vy, vcb, vcr, rec_y, rec_c[0], rec_c[1]);
+    load_windows<kCc>(vy, vcb, vcr, rec_y, rec_c[0], rec_c[1], sh.cc_row,
+                      sh.cc_col);
     if (kInter) stage_mc<kB>(p, sh, cx, cy);
     __syncthreads();
     X266_PH(bc, kPhLoad);
@@ -1975,7 +2152,7 @@ recon_kernel(Params p) {
         const int unit = plane ? 4 : 8;
         const int t = cu.uy * 8 + cu.ux;
         if (!small || grp.lt < 32)
-          plane_tu<kEncode, kQ, kMl>(
+          plane_tu<kEncode, kQ, kMl, kCc>(
               p, sh, v, grp, s,
               TuArgs{px0 + cu.ux * unit, py0 + cu.uy * unit, px0, py0,
                      plane ? cu.mode_c : cu.mode,
@@ -1984,9 +2161,16 @@ recon_kernel(Params p) {
                      cu.kind,
                      ((cu.nz >> plane) & 1) != 0, !small && !synced,
                      !p.subst ? nullptr : plane ? sh.rsrc_c[t]
-                                                : sh.rsrc_y[t], f});
+                                                : sh.rsrc_y[t], f,
+                     c, cx & 1, kCc ? sh.mts[t] : 0});
+        // CCLM: the CU's luma is in the window (its TU ended with the
+        // group's barrier, or warp 0's for a small one)
+        if (kCc && plane == 0 && grp.lt == 0) x266_mbar_arrive(&sh.cc_bar[c]);
         synced = !small;
       }
+      // CCLM: the slots past the CTU's CUs complete their phase too
+      for (int c = n_cus; kCc && tid == 0 && c < 64; ++c)
+        x266_mbar_arrive(&sh.cc_bar[c]);
     }
     __syncthreads();
     X266_PH(bc, kPhInvH);
@@ -2017,7 +2201,7 @@ recon_kernel(Params p) {
   X266_PH(blk, kPhBlock);
 }
 
-#ifndef X266_RECON_QUANT_PART
+#ifdef X266_RECON_MAIN_PART
 // A test entry: the warp-scan substitution on one reference vector of
 // side s (host stand-in only: ref, avail and out are host arrays).
 struct SubstTest {
@@ -2078,10 +2262,11 @@ void set_common(Params& p, int frames, int width, int height,
 // Launch `kernel`, an instance of recon_kernel (kInter: K3's), with smem
 // bytes of dynamic shared memory, one block per CTU row of each frame,
 // after zeroing the row ticket and progress counters (and, for K3, the
-// final-MV planes) on the stream.  Every row must be resident at once on
-// the card, or the launch is refused (cudaErrorInvalidConfiguration); so
-// is a mode alphabet larger than the kernel's shift table
-// (cudaErrorInvalidValue).
+// final-MV planes) on the stream, and for K1 under CCLM copying the mts
+// map in to the map out, whose CUs the kernel then overwrites.  Every row
+// must be resident at once on the card, or the launch is refused
+// (cudaErrorInvalidConfiguration); so is a mode alphabet larger than the
+// kernel's shift table (cudaErrorInvalidValue).
 int launch_kernel(Params& p, void (*kernel)(Params), bool kInter,
                   size_t smem, void* stream) {
   void* args[] = {&p};
@@ -2106,6 +2291,11 @@ int launch_kernel(Params& p, void (*kernel)(Params), bool kInter,
   const size_t mv_bytes = sizeof(int16_t) * (p.width / 8) * (p.height / 8);
   for (int i = 0; kInter && i < 2 && err == cudaSuccess; ++i)
     err = cudaMemsetAsync(p.mv_out[i], 0, mv_bytes, st);
+  if (err == cudaSuccess && p.mts_out != nullptr)
+    err = cudaMemcpyAsync(p.mts_out, p.mts_map,
+                          sizeof(int32_t) * p.frames * (p.width / 8) *
+                              (p.height / 8),
+                          cudaMemcpyDeviceToDevice, st);
   if (err == cudaSuccess)
     err = cudaLaunchKernel(kernel, dim3(rows), dim3(kThreads), args, smem, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
@@ -2113,17 +2303,32 @@ int launch_kernel(Params& p, void (*kernel)(Params), bool kInter,
 
 // An intra launch under MTT or LFNST takes the instances with their code
 // (kMl, a template parameter like the quantizer, so the others compile
-// without it); K3's never do (kMl = !kInter is then the default).
+// without it); K3's never do (kMl = !kInter is then the default).  CCLM
+// (kCc, intra only) is the caller's.
 using KernelFn = void (*)(Params);
 
-template <bool kEncode, bool kInter, bool kB, int kQ>
+template <bool kEncode, bool kInter, bool kB, int kQ, bool kCc = false>
 KernelFn instance(const Params& p) {
   return !kInter && (p.mtt || p.lfnst)
-             ? recon_kernel<kEncode, kInter, kB, kQ, !kInter>
-             : recon_kernel<kEncode, kInter, kB, kQ>;
+             ? recon_kernel<kEncode, kInter, kB, kQ, !kInter, kCc>
+             : recon_kernel<kEncode, kInter, kB, kQ, false, kCc>;
 }
 
-#ifndef X266_RECON_QUANT_PART
+#if defined(X266_RECON_CCLM_PART)
+// The CCLM instances of K1 and K2, each quantizer's (an encode under SDH
+// or DQ, a decode under DQ; a decode under SDH is element-wise); DQ's with
+// its scratch.
+int launch_cclm(Params& p, int encode, void* stream) {
+  const KernelFn kernel =
+      encode ? (p.dq    ? instance<true, false, false, kQDq, true>(p)
+                : p.sdh ? instance<true, false, false, kQSdh, true>(p)
+                        : instance<true, false, false, kQPlain, true>(p))
+             : (p.dq ? instance<false, false, false, kQDq, true>(p)
+                     : instance<false, false, false, kQPlain, true>(p));
+  return launch_kernel(p, kernel, false,
+                       sizeof(Shared) + (p.dq ? kDqBytes : 0), stream);
+}
+#elif defined(X266_RECON_MAIN_PART)
 // The element-wise instances (the quantizer of kQPlain).
 template <bool kInter, bool kB = false>
 int launch(Params& p, int encode, void* stream) {
@@ -2163,7 +2368,15 @@ void set_inter(Params& p, int merge, int pyr_hy, int pyr_wy, int pyr_hc,
 
 extern "C" {
 
-#ifdef X266_RECON_QUANT_PART
+#if defined(X266_RECON_CCLM_PART)
+// Launches the CCLM instance of K1 (encode != 0) or K2 on `stream` with
+// the parameters x266_recon_intra set (`params`, a Params); returns
+// cudaGetLastError().
+int x266_recon_cclm(const void* params, int encode, void* stream) {
+  Params p = *static_cast<const Params*>(params);
+  return launch_cclm(p, encode, stream);
+}
+#elif defined(X266_RECON_QUANT_PART)
 // Launches the SDH / DQ instance of K1/K2 (inter 0), K3-P (inter 1, b 0)
 // or K3-B (b 1) on `stream` with the parameters the entry point below
 // set (`params`, a Params); returns cudaGetLastError().
@@ -2177,25 +2390,29 @@ int x266_recon_quant(const void* params, int inter, int b, int encode,
 #else
 int x266_recon_quant(const void* params, int inter, int b, int encode,
                      void* stream);
+int x266_recon_cclm(const void* params, int encode, void* stream);
 
 // Launches K1 (encode != 0) or K2 on `stream`; `sync` is scratch of
 // 1 + frames x CTU rows int32; lossless, ts and pdpc switch the intra
 // tools on, and `mip` holds tables.k_mip; sdh (encode) and dq switch the
 // quantizer, whose instances csrc/recon_quant.cu compiles; mtt takes the
 // BT leaves of bits 4-5 of the mts map, lfnst the LFNST of bits 6-7 with
-// the kernels `lfnst_tab` (tables.k_lfnst).  Returns cudaGetLastError().
+// the kernels `lfnst_tab` (tables.k_lfnst); cclm takes the CCLM instances
+// (csrc/recon_cclm.cu): K2 reads each CU's choice from bit 3 of the mts
+// map, K1 writes the map with its choices to mts_out (int32, as the
+// maps).  Returns cudaGetLastError().
 int x266_recon_intra(
     int encode, int frames, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
     int n_modes, int lossless, int ts, int pdpc, int sdh, int dq, int mtt,
-    int lfnst,
+    int lfnst, int cclm,
     const void* src_y, const void* src_cb, const void* src_cr,
     const void* cin_y, const void* cin_cb, const void* cin_cr,
     const void* size_map, const void* mode_map, const void* mts_map,
     void* rec_y, void* rec_cb, void* rec_cr, void* cout_y, void* cout_cb,
     void* cout_cr, const void* taps, const void* smooth, const void* tx,
     const void* shift, const void* rate, const void* mip,
-    const void* lfnst_tab, void* sync, void* stream) {
+    const void* lfnst_tab, void* mts_out, void* sync, void* stream) {
   const void* src[3] = {src_y, src_cb, src_cr};
   const void* cin[3] = {cin_y, cin_cb, cin_cr};
   void* rec[3] = {rec_y, rec_cb, rec_cr};
@@ -2207,9 +2424,14 @@ int x266_recon_intra(
   p.lossless = lossless; p.ts = ts; p.pdpc = pdpc;
   p.dq = dq;
   p.mtt = mtt; p.lfnst = lfnst;
+  p.cclm = cclm; p.sdh = sdh;
   p.mip = (const int32_t*)mip;
   p.lfnst_tab = (const int32_t*)lfnst_tab;
   p.sync = (int*)sync;
+  if (cclm) {
+    p.mts_out = encode ? (int32_t*)mts_out : nullptr;
+    return x266_recon_cclm(&p, encode, stream);
+  }
   if (dq || (sdh && encode)) return x266_recon_quant(&p, 0, 0, encode, stream);
   return launch<false>(p, encode, stream);
 }
@@ -2296,6 +2518,6 @@ int x266_subst_scan(int s, const void* ref, const void* avail, void* out) {
 const char* x266_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
-#endif  // X266_RECON_QUANT_PART
+#endif  // X266_RECON_QUANT_PART, X266_RECON_CCLM_PART
 
 }  // extern "C"

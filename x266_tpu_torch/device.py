@@ -23,6 +23,15 @@ def check_precision() -> None:
                            "'highest'")
 
 
+def exact_float32() -> None:
+    """Run this process's float32 matmuls and convolutions in full float32
+    (TF32 off), as check_precision requires: for a program that owns its
+    process, as the command line does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
 def resolve(device: str | torch.device) -> torch.device:
     """Device string -> torch.device.  "cuda" requires a visible card
     and full float32 precision; no device is ever chosen implicitly."""

@@ -2,8 +2,9 @@
 P and B pictures one at a time.
 
 Counterpart of x266_tpu/engine/fused.py: ``_unpack_padded`` (:59-71),
-the I step Pass A -> MTS select -> Pass B -> loop filters -> SSE
-(:554-631), the loop filters (``_filters_and_stats`` :399-490), the weighted
+the I step Pass A -> MTS select -> Pass B (whose CCLM choices replace
+the mts map, :590-592) -> loop filters -> SSE (:554-631), the loop
+filters (``_filters_and_stats`` :399-490), the weighted
 prediction reweight (``_reweight_pyr``, ``_apply_wp``, :634-648), the P
 step (``_p_body``, :651-703), the B step (``_b_body``,
 ``make_encode_step_b``, :750-782, 935-961), the reference pyramids
@@ -326,14 +327,18 @@ def make_encode_step_i(cfg: CodecConfig, tab: Tables, with_recon: bool,
     with_pyramids (F = 1), the next P picture's reference pyramids.  With
     loop filters, recon, SSE and pyramids are of the filtered picture,
     and sao (type, band, off) and alf (the ALF parameter tuple) carry the
-    filters' parameters with the frame dim."""
+    filters' parameters with the frame dim.  Under cfg.cclm the mts map
+    is the scan's, with its CCLM choices in bit 3."""
     pass_a = make_pass_a(cfg, tab)
     rp = recon_pass(cfg, tab, encode=True)
 
     def step(y, cb, cr):
         yP, cbP, crP = _unpack_padded(cfg, y, cb, cr)
         maps = pass_a(yP)
-        y8, cb8, cr8, cY, cCb, cCr = rp(yP, cbP, crP, *maps)
+        y8, cb8, cr8, cY, cCb, cCr, *mmap = rp(yP, cbP, crP, *maps)
+        if cfg.cclm:
+            # the scan's CCLM choices ride bit 3 of the mts map
+            maps[2] = mmap[0]
         out = {"coef": (cY, cCb, cCr),
                "maps": tuple(m.to(torch.int16) for m in maps)}
         return _finish(cfg, out, (y8, cb8, cr8), (y, cb, cr),
@@ -411,7 +416,9 @@ def make_encode_step_b(cfg: CodecConfig, tab: Tables, with_recon: bool,
 
 def make_decode_step_i(cfg: CodecConfig, tab: Tables):
     """run(coefY, coefCb, coefCr, size_map, mode_map, mts_map) over F
-    frames (levels int16, maps int32) -> recon (Y, Cb, Cr) uint8."""
+    frames (levels int16, maps int32) -> recon (Y, Cb, Cr) uint8; under
+    cfg.cclm bit 3 of the mts map (the entropy decoder's) picks each
+    CU's chroma model."""
     rp = recon_pass(cfg, tab, encode=False)
 
     def run(cY, cCb, cCr, size_map, mode_map, mts_map):

@@ -263,8 +263,6 @@ def _upsample(a: torch.Tensor, f: int, gy: int, gx: int) -> torch.Tensor:
 
 
 def _check_cfg(cfg: CodecConfig) -> None:
-    if cfg.cclm:
-        raise NotImplementedError("cclm is not in the port's slices")
     if cfg.max_cu_size > 32:
         raise NotImplementedError("max_cu_size 64 is not in the port's "
                                   "slices")

@@ -1,9 +1,9 @@
 """Pass B: the normative reconstruction scan (C6/C10/C11/C12, decode
 C18) -- the plain PyTorch version of kernels K1/K2.
 
-Counterpart of x266_tpu/engine/recon.py:125-541 (intra branches, no
-CCLM): a loop over CTUs in raster order and 8x8 units
-in z-order; at each TU origin predict -> [transform -> quantize] ->
+Counterpart of x266_tpu/engine/recon.py:43-87 (``cclm_pred``) and
+125-541 (the intra branches): a loop over CTUs in raster order and 8x8
+units in z-order; at each TU origin predict -> [transform -> quantize] ->
 dequantize -> inverse -> clip, written back into the padded plane that
 later TUs read their references from.  The intra tools: PDPC on luma
 TUs, MIP modes (a chroma TU of a MIP CU predicts planar), transform skip
@@ -18,7 +18,13 @@ each tiled as two square TUs of half the leaf's side, coded in turn
 (BT-V: the left CU's two, top to bottom, then the right CU's), each
 with the mts value at its own origin; LFNST (bits 6-7, on luma TUs of
 the DCT-II pair) sits between the primary transform and the quantizer
-and between the dequantizer and the primary inverse.  Planes start
+and between the dequantizer and the primary inverse.  CCLM (I
+pictures, square CUs): each CU's chroma TUs predict either by the chroma
+mode (DM) or by the linear model of cclm_pred from the CU's luma, just
+reconstructed; the encoder takes CCLM where its joint Cb + Cr SSE
+against the source is strictly below DM's and returns the mts map with
+that choice in bit 3 of every unit of the CU (over the map's bits 0-2,
+as the reference's seventh output), the decoder reads bit 3.  Planes start
 at mid-gray and are written in coding order, so a reference to a sample
 not yet coded reads mid-gray; with cfg.ref_substitute the decode-order
 availability masks (engine.availability) drive the substitution fill
@@ -79,15 +85,70 @@ def _subst_tables(cfg: CodecConfig, device: torch.device):
     return lum, chro, lum_v, chro_v
 
 
-def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
-        mask, rdoq_lam, luma, lfnst_idx=0):
-    """One intra TU: (recon (s, s), levels (s, s)) int32.  PDPC blends
-    luma TUs only (its gates: the TU's plane x > 0 and y > 0)."""
+def _ds2(lum: torch.Tensor) -> torch.Tensor:
+    """The 2x2 means of a luma block, rounded: (2n, 2m) -> (n, m)."""
+    return (lum[0::2, 0::2] + lum[1::2, 0::2] + lum[0::2, 1::2]
+            + lum[1::2, 1::2] + 2) >> 2
+
+
+def cclm_pred(yP: torch.Tensor, cP: torch.Tensor, xc: int, yc: int,
+              cs: int, maxv: int) -> torch.Tensor:
+    """CCLM's chroma prediction (cs, cs) int32 of the chroma TU at (xc,
+    yc), side cs (x266_tpu/engine/recon.py:43-87).  yP: the padded luma
+    recon with this CU's luma written; cP: the padded chroma recon.  The
+    CU's luma downsampled 2x2; four boundary pairs, two above at 1/4 and
+    3/4 of the width and two to the left at the same fractions, each the
+    2x2 mean of the luma two rows above (two columns left) and the
+    chroma sample one row above (one column left); alpha =
+    clip(((cmax - cmin) << 6) // max(lmax - lmin, 1), -512, 511) from the
+    pairs of least and greatest luma (the first on ties; // floors), beta
+    = cmin - ((alpha * lmin + 32) >> 6), prediction clip(((alpha * ds +
+    32) >> 6) + beta, 0, maxv).  At the picture's top row (left column)
+    the luma pair's start is -1, which the reference's dynamic_slice
+    counts from the end of the axis and then clamps into it: the pair is
+    the plane's last two rows (columns), the bottom (right) padding,
+    mid-gray in the scan."""
+    ds = _ds2(yP[2 * yc + 1:2 * yc + 1 + 2 * cs,
+                 2 * xc + 1:2 * xc + 1 + 2 * cs])
+
+    def start(i, n):
+        return min(i + n if i < 0 else i, n - 2)
+
+    def l_ds_at(py, px):
+        r, c = start(py + 1, yP.shape[0]), start(px + 1, yP.shape[1])
+        return _ds2(yP[r:r + 2, c:c + 2])[0, 0]
+
+    d0, d1 = cs // 4, (3 * cs) // 4
+    cands_c = torch.stack([cP[yc, xc + 1 + d0], cP[yc, xc + 1 + d1],
+                           cP[yc + 1 + d0, xc], cP[yc + 1 + d1, xc]])
+    cands_l = torch.stack([l_ds_at(2 * yc - 2, 2 * (xc + d0)),
+                           l_ds_at(2 * yc - 2, 2 * (xc + d1)),
+                           l_ds_at(2 * (yc + d0), 2 * xc - 2),
+                           l_ds_at(2 * (yc + d1), 2 * xc - 2)])
+    imin, imax = torch.argmin(cands_l), torch.argmax(cands_l)
+    lmin, lmax = cands_l[imin], cands_l[imax]
+    cmin, cmax = cands_c[imin], cands_c[imax]
+    alpha = torch.div((cmax - cmin) * 64, (lmax - lmin).clamp(min=1),
+                      rounding_mode="floor").clamp(-512, 511)
+    beta = cmin - ((alpha * lmin + 32) >> 6)
+    return (((alpha * ds + 32) >> 6) + beta).clamp(0, maxv)
+
+
+def _intra_pred(tab, cfg, plane, x, y, mode, s, mask, luma):
+    """An intra TU's prediction (s, s) int32 from its substituted (mask)
+    references; PDPC blends luma TUs only (its gates: the TU's plane x >
+    0 and y > 0)."""
     ref = _gather_ref(plane, x, y, s)
     if mask is not None:
         ref = kintra.substitute_refs(ref, mask, cfg.mid_val)
-    pred = kintra.predict_mode(tab, ref, mode, s, pdpc=cfg.pdpc and luma,
+    return kintra.predict_mode(tab, ref, mode, s, pdpc=cfg.pdpc and luma,
                                left_ok=x > 0, top_ok=y > 0)
+
+
+def _tu(tab, cfg, plane, src, coef, x, y, mode, s, mts_idx, encode,
+        mask, rdoq_lam, luma, lfnst_idx=0):
+    """One intra TU: (recon (s, s), levels (s, s)) int32."""
+    pred = _intra_pred(tab, cfg, plane, x, y, mode, s, mask, luma)
     return residual_path(tab, cfg, pred, src, coef, x, y, s, mts_idx,
                          encode, rdoq_lam,
                          lfnst=(lfnst_idx, mode) if lfnst_idx else None)
@@ -165,7 +226,8 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
     ``inter.predict(ux, uy, s)`` is called once per CU in coding order;
     it returns None for an intra CU, else the CU's (luma, Cb, Cr) MC
     predictions and its skip flag.  Its final MV planes are appended to
-    the outputs."""
+    the outputs.  An I picture's encode under cfg.cclm appends the mts map
+    with the CCLM choices in bit 3 (int32, H/8 x W/8)."""
     w, h = cfg.width, cfg.height
     cw, ch = w // 2, h // 2
     dev = a.device
@@ -185,6 +247,10 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
     else:
         src = (None, None, None)
         coefs = [a, b, c]
+    # CCLM rides I pictures only (the reference's inter scan has none)
+    cclm = cfg.cclm and inter is None
+    mmap = (torch.from_numpy(np.array(mts_map, dtype=np.int32))
+            if cclm and encode else None)
     for cy in range(cfg.ctus_y):
         for cx in range(cfg.ctus_x):
             for z in range(64):
@@ -221,11 +287,27 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
                     planes = ((yP, 0, xt, yt, st, mts_idx, mode),
                               (cbP, 1, xc, yc, cs, 0, mode_c),
                               (crP, 2, xc, yc, cs, 0, mode_c))
+                    cpred = None
                     for plane, k, px, py, ps, m, pm in planes:
+                        if cclm and k == 1:
+                            cpred = _cclm_choice(tab, cfg, encode, yP, cbP,
+                                                 crP, src, xc, yc, cs,
+                                                 mode_c, chro_masks,
+                                                 int(mts_map[uy, ux]))
+                            if mmap is not None:
+                                # the reference's dynamic_update_slice keeps
+                                # the CU's block inside the map
+                                y0 = min(uy, cfg.units_y - u)
+                                x0 = min(ux, cfg.units_x - u)
+                                mmap[y0:y0 + u, x0:x0 + u] = cpred[2]
                         if mcp is not None:
                             rec, lev = residual_path(
                                 tab, cfg, mcp[0][k], src[k], coefs[k], px,
                                 py, ps, m, encode, rdoq_lam, skip=mcp[1])
+                        elif cpred is not None:
+                            rec, lev = residual_path(
+                                tab, cfg, cpred[k - 1], src[k], coefs[k], px,
+                                py, ps, m, encode, rdoq_lam)
                         else:
                             lm = ((lum_v if bt == 2 else lum_masks) if k == 0
                                   else (chro_v if bt == 2 else chro_masks))
@@ -243,7 +325,34 @@ def _scan_frame(cfg, tab, encode, a, b, c, size_map, mode_map, mts_map,
            *(cf.to(torch.int16) for cf in coefs))
     if inter is not None:
         out = out + inter.final_mvs()
+    if mmap is not None:
+        out = out + (mmap.to(dev),)
     return out
+
+
+def _cclm_choice(tab, cfg, encode, yP, cbP, crP, src, xc, yc, cs, mode_c,
+                 chro_masks, mval):
+    """A square CU's chroma predictions under CCLM, (Cb, Cr), and its mts
+    value out (x266_tpu/engine/recon.py:332-391): the linear model's or
+    DM's (the chroma mode, substituted under cfg.ref_substitute), by the
+    encoder's joint SSE against the source (CCLM where strictly below)
+    or the decoder's bit 3 of the CU's mts value mval; the value out is
+    (mval & 7) | choice << 3."""
+    cc = [cclm_pred(yP, p, xc, yc, cs, cfg.max_val) for p in (cbP, crP)]
+    msk = (chro_masks[cs][yc // cs, xc // cs]
+           if chro_masks is not None else None)
+    dm = [_intra_pred(tab, cfg, p, xc, yc, mode_c, cs, msk, False)
+          for p in (cbP, crP)]
+    if encode:
+        def sse(preds):
+            return sum(int(((q - o[yc + 1:yc + 1 + cs,
+                                  xc + 1:xc + 1 + cs]) ** 2).sum())
+                       for q, o in zip(preds, src[1:]))
+
+        use_cc = sse(cc) < sse(dm)
+    else:
+        use_cc = (mval >> 3) & 1 == 1
+    return (*(cc if use_cc else dm), (mval & 7) | (int(use_cc) << 3))
 
 
 def _transform_index(cfg: CodecConfig, v: int) -> int:
@@ -272,7 +381,9 @@ def make_recon_pass_raw(cfg: CodecConfig, tab: Tables, encode: bool):
     Inputs carry a leading frame dim: padded planes (F, 1+H+PAD,
     1+W+PAD), coefficient planes (F, H, W) / (F, H/2, W/2), maps
     (F, H/8, W/8).  Returns (reconY, reconCb, reconCr) uint8 and
-    (coefY, coefCb, coefCr) int16, each with the frame dim.
+    (coefY, coefCb, coefCr) int16, each with the frame dim, and under
+    cfg.cclm (encode) the mts map with the CCLM choices in bit 3 (F, H/8,
+    W/8) int32, the reference's seventh output.
     """
     check_slice(cfg)
     masks = {}                          # device -> availability masks

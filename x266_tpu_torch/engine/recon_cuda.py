@@ -20,7 +20,9 @@ and DQ instances (csrc/recon_quant.cu); their lambda is
 cfg.lambda_mode, which is also their default without RDOQ.  cfg's mtt
 and lfnst select K1 and K2's MTT / LFNST instances: the BT leaves of the
 mts map's bits 4-5 and LFNST's index in bits 6-7, with the kernels
-tab.k_lfnst.
+tab.k_lfnst.  cfg.cclm selects their CCLM instances (csrc/recon_cclm.cu):
+K1 returns the mts map with its CCLM choices in bit 3, K2 reads them
+there.
 """
 
 from __future__ import annotations
@@ -72,7 +74,9 @@ def recon_intra(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
     1+W+PAD) / (F, 1+H/2+PAD, 1+W/2+PAD); decode: the int16 level planes
     (F, H, W) / (F, H/2, W/2).  Maps are int32 (F, H/8, W/8).  Returns
     (reconY, reconCb, reconCr) uint8 and (coefY, coefCb, coefCr) int16,
-    as make_recon_pass_raw; in decode the levels are the inputs."""
+    as make_recon_pass_raw; in decode the levels are the inputs.  Under
+    cfg.cclm K1 also returns the mts map with its CCLM choices in bit 3
+    (F, H/8, W/8) int32, as the plain scan's seventh output."""
     h, w = cfg.height, cfg.width
     ch, cw = h // 2, w // 2
     f = a.shape[0]
@@ -96,6 +100,8 @@ def recon_intra(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
         err, out = _launch(lib, stream, cfg, tab, encode, a, b, c,
                            size_map, mode_map, mts_map)
     _build.check(err)
+    if len(out) > 6:
+        check_tensor(out[6], "mts_out", torch.int32, mts_map.shape)
     LAUNCHES["K1" if encode else "K2"] += 1
     return out
 
@@ -103,7 +109,8 @@ def recon_intra(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
 def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
             mts_map):
     """Allocate the outputs and call the library's entry point on
-    checked tensors; returns (error code, outputs)."""
+    checked tensors; returns (error code, outputs), K1 under CCLM's with
+    the mts map out."""
     h, w = cfg.height, cfg.width
     ch, cw = h // 2, w // 2
     f = a.shape[0]
@@ -125,6 +132,7 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    mts_out = (torch.empty_like(mts_map) if cfg.cclm and encode else None)
     sync = _sync_buffer(f, h, dev)
     err = lib.x266_recon_intra(
         int(encode), f, w, h, py[1], pc[1], py[0] * py[1], pc[0] * pc[1],
@@ -132,13 +140,14 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
         int(cfg.rdoq and encode), int(cfg.mts), int(cfg.ref_substitute),
         cfg.n_pred_modes, int(cfg.lossless), int(cfg.transform_skip),
         int(cfg.pdpc), int(cfg.sign_data_hiding and encode),
-        int(cfg.dep_quant), int(cfg.mtt), int(cfg.lfnst), *map(ptr, src),
-        *map(ptr, cin), size_map.data_ptr(), mode_map.data_ptr(),
-        mts_map.data_ptr(), *map(ptr, rec), *map(ptr, cout),
-        tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(), tab.k_tx.data_ptr(),
-        tab.k_shift.data_ptr(), tab.rate.data_ptr(), tab.k_mip.data_ptr(),
-        tab.k_lfnst.data_ptr(), sync.data_ptr(), stream)
-    return err, (*rec, *coef)
+        int(cfg.dep_quant), int(cfg.mtt), int(cfg.lfnst), int(cfg.cclm),
+        *map(ptr, src), *map(ptr, cin), size_map.data_ptr(),
+        mode_map.data_ptr(), mts_map.data_ptr(), *map(ptr, rec),
+        *map(ptr, cout), tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(),
+        tab.k_tx.data_ptr(), tab.k_shift.data_ptr(), tab.rate.data_ptr(),
+        tab.k_mip.data_ptr(), tab.k_lfnst.data_ptr(), ptr(mts_out),
+        sync.data_ptr(), stream)
+    return err, (*rec, *coef, *([] if mts_out is None else [mts_out]))
 
 
 def _sync_buffer(frames: int, height: int, dev) -> torch.Tensor:
