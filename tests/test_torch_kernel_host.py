@@ -1051,6 +1051,189 @@ def test_warp_scan_substitution_matches_serial_scan(s, host_lib):
         assert plain[0].tolist() == want, name
 
 
+# One TU's quantizer on the threads the recon kernels give it: (side,
+# threads, plane group) -- luma 8 on a warp, 16 and 32 on 128 threads;
+# chroma 4 and 8 on a warp, 16 on 64 threads
+QUANT_TUS = [(4, 32, 1), (8, 32, 0), (8, 32, 2), (16, 64, 1), (16, 128, 0),
+             (32, 128, 0)]
+QUANT_QPS = (22, 27, 32, 37)
+# (side, QP): a seed of _quant_coefs's transform-skip coefficients whose
+# trellis path steps through a zero coefficient on a level of parity 1
+# (found with the plain trellis at default_lam(QP)): the TU emits 0
+# there, so the levels' parities leave the trellis's states
+PARITY_STEP_SEEDS = {(8, 22): 2, (8, 27): 168, (16, 22): 26, (16, 27): 115,
+                     (32, 22): 29, (32, 27): 42}
+
+
+def _quant_coefs(rng, s, qp, tab):
+    """(kind, (n, s, s) int32 coefficients) of one TU side at one QP:
+    random ones (a spread of amplitudes falling with frequency, a few at
+    the int16 limits), near-ties on or next to the dependent quantizers'
+    half-steps (tests/test_torch_sdh_dq.py's _half_steps), transform
+    skip's (sparse residuals << 7 - log2 s, where the trellis may step
+    through a zero coefficient on a level of parity 1, which the TU
+    emits as 0), all zeros."""
+    amp = rng.choice([8, 60, 400, 3000], size=(3, 1, 1))
+    c = rng.integers(-1, 2, (3, s, s)) * rng.integers(0, 1 << 15,
+                                                       (3, s, s)) % (amp + 1)
+    c = c // (1 + np.add.outer(np.arange(s), np.arange(s))[None])
+    c[0, 0, :2] = (-32768, 32767)
+    qbits = 14 + qp // 6 + 7 - int(np.log2(s))
+    m = rng.integers(0, 40, (2, s, s))
+    a = np.rint((m + 0.5) * (1 << (qbits - 1)) / tab.quant_scales[qp % 6])
+    a = a.astype(np.int64) + rng.integers(-1, 2, a.shape)
+    ties = np.clip(rng.choice([-1, 1], a.shape) * a, -32768, 32767)
+    def skip(g, n):
+        res = g.integers(-60, 61, (n, s, s)) * (g.random((n, s, s)) < 0.5)
+        return (res << (7 - int(np.log2(s)))).astype(np.int32)
+
+    kinds = [("random", c.astype(np.int32)),
+             ("near-ties", ties.astype(np.int32)),
+             ("transform-skip", skip(rng, 4)),
+             ("zeros", np.zeros((1, s, s), np.int32))]
+    if (s, qp) in PARITY_STEP_SEEDS:
+        kinds.append(("parity step at a zero", skip(np.random.default_rng(
+            PARITY_STEP_SEEDS[s, qp]), 1)))
+    return kinds
+
+
+def _quant_tu(lib, dq, s, g, plane, qp, rdoq, lam, rate, c):
+    lev = np.full((s, s), -99999, np.int32)
+    deq = np.full((s, s), -99999, np.int32)
+    assert lib.x266_quant_tu(int(dq), s, g, plane, qp, int(rdoq), lam,
+                             rate.ctypes.data, c.ctypes.data,
+                             lev.ctypes.data, deq.ctypes.data) == 0
+    return lev, deq
+
+
+@pytest.mark.parametrize("dq", [False, True], ids=["sdh", "dq"])
+@pytest.mark.parametrize("s,g,plane", QUANT_TUS,
+                         ids=[f"{s}x{s}-g{g}-p{p}" for s, g, p in QUANT_TUS])
+def test_quantizer_tu_matches_plain(s, g, plane, dq, host_lib):
+    """The recon kernels' TU-wide quantizers alone (x266_quant_tu) on one
+    TU of each side at the luma and chroma group widths: DQ's trellis and
+    its state-dependent dequantization against kernels/quant.py's
+    dq_quantize_trellis and dq_dequantize, SDH (on RDOQ's and on the
+    deadzone quantizer's levels) against sdh_adjust, bit for bit, at QPs
+    22-37 on random coefficients, near-ties and all zeros; the quantizer
+    changes levels somewhere."""
+    from x266_tpu_torch.kernels import quant as tq
+
+    tab = tables.from_reference(CodecConfig(width=64, height=64), "cpu")
+    rate = tab.rate.numpy().astype(np.float32)
+    rng = np.random.default_rng(s * 7 + g + plane)
+    changed = 0
+    for qp in QUANT_QPS:
+        lam = float(np.float32(tq.default_lam(qp) * (1.5 if qp > 30
+                                                     else 1.0)))
+        for kind, coefs in _quant_coefs(rng, s, qp, tab):
+            ct = torch.from_numpy(coefs)
+            if dq:
+                want = tq.dq_quantize_trellis(tab, ct, qp, s, lam)
+                wdeq = tq.dq_dequantize(tab, want, qp, s)
+            for i, c in enumerate(coefs):
+                rdoq = i % 2 == 0
+                lev, deq = _quant_tu(host_lib, dq, s, g, plane, qp, rdoq,
+                                     lam, rate, c)
+                if dq:
+                    assert lev.tolist() == want[i].tolist(), (kind, qp, i)
+                    assert deq.tolist() == wdeq[i].tolist(), (kind, qp, i)
+                    base = tq.quantize(tab, ct[i], qp, s)
+                else:
+                    base = (tq.rd_quantize(tab, ct[i], qp, s, lam) if rdoq
+                            else tq.quantize(tab, ct[i], qp, s))
+                    w = tq.sdh_adjust(tab, base, s, coef=ct[i], qp=qp,
+                                      lam=lam)
+                    assert lev.tolist() == w.tolist(), (kind, qp, i, rdoq)
+                changed += int((torch.from_numpy(lev) != base).any())
+    assert changed > 0
+
+
+def test_quantizer_warp_sync_mutation_is_caught(tmp_path_factory):
+    """A build whose DQ trellis drops its warps' __syncwarp
+    (X266_MUTATE_DQ_WARP_SYNC: a lane reads rows its warp's other lanes
+    have not written) fails the per-TU case on a warp's 8x8 TU."""
+    from x266_tpu_torch.kernels import quant as tq
+
+    lib = ctypes.CDLL(_host_build(
+        tmp_path_factory, [s for s in _build.SOURCES
+                           if s.endswith("recon_quant.cu")],
+        ("X266_MUTATE_DQ_WARP_SYNC",)))
+    lib.x266_quant_tu.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_float]
+                                  + [ctypes.c_void_p] * 4)
+    tab = tables.from_reference(CodecConfig(width=64, height=64), "cpu")
+    rate = tab.rate.numpy().astype(np.float32)
+    c = _quant_coefs(np.random.default_rng(3), 8, 27, tab)[1][1][0]
+    lam = float(np.float32(tq.default_lam(27)))
+    want = tq.dq_quantize_trellis(tab, torch.from_numpy(c), 27, 8, lam)
+    assert (want != 0).sum() > 16
+    lev, _ = _quant_tu(lib, True, 8, 32, 0, 27, True, lam, rate, c)
+    assert lev.tolist() != want.tolist()
+
+
+def _tie_coefs(tab, s, qp):
+    """(4, s, s) int32 TUs of side s at QP qp, each with one coefficient
+    (at a corner, the DC, or within; of either sign) halfway between DQ
+    quantizer 0's dequantized levels 1 and 2, the rest zero: at lambda 0
+    the trellis's states 0 and 2 after it, and two states at each
+    position after it, cost exactly the same, and the first state wins
+    (level 2 there)."""
+    tsh = 7 - int(np.log2(s))
+    dscale = tab.dequant_scales[qp % 6] << (qp // 6)
+    d1, d2 = ((2 * k * dscale + (1 << (6 - tsh))) >> (7 - tsh)
+              for k in (1, 2))
+    assert (d1 + d2) % 2 == 0
+    c = np.zeros((4, s, s), np.int32)
+    for i, (y, x) in enumerate([(0, 0), (s - 1, s - 1), (0, 1),
+                                (s // 2, s // 2 - 1)]):
+        c[i, y, x] = (d1 + d2) // 2 * (-1 if i % 2 else 1)
+    return c
+
+
+@pytest.mark.parametrize("s,g,plane", QUANT_TUS,
+                         ids=[f"{s}x{s}-g{g}-p{p}" for s, g, p in QUANT_TUS])
+def test_quantizer_state_ties_match_plain(s, g, plane, host_lib):
+    """DQ's trellis on TUs whose states tie exactly (_tie_coefs, lambda
+    0) picks the first least state, as dq_quantize_trellis's argmin does:
+    the levels and dequantized values equal the plain scan's, level 2 at
+    the tie."""
+    from x266_tpu_torch.kernels import quant as tq
+
+    tab = tables.from_reference(CodecConfig(width=64, height=64), "cpu")
+    rate = tab.rate.numpy().astype(np.float32)
+    for qp in (22, 32):
+        coefs = _tie_coefs(tab, s, qp)
+        want = tq.dq_quantize_trellis(tab, torch.from_numpy(coefs), qp, s,
+                                      0.0)
+        wdeq = tq.dq_dequantize(tab, want, qp, s)
+        for i, c in enumerate(coefs):
+            assert want[i].abs().tolist() == (2 * (c != 0)).tolist(), (qp,
+                                                                     i)
+            lev, deq = _quant_tu(host_lib, True, s, g, plane, qp, True, 0.0,
+                                 rate, c)
+            assert lev.tolist() == want[i].tolist(), (qp, i)
+            assert deq.tolist() == wdeq[i].tolist(), (qp, i)
+
+
+def test_quantizer_tie_order_mutation_is_caught(tmp_path_factory):
+    """A build whose trellis takes the last least state on ties
+    (X266_MUTATE_DQ_TIE) fails the tie case on a chroma 4x4 TU."""
+    from x266_tpu_torch.kernels import quant as tq
+
+    lib = ctypes.CDLL(_host_build(
+        tmp_path_factory, [s for s in _build.SOURCES
+                           if s.endswith("recon_quant.cu")],
+        ("X266_MUTATE_DQ_TIE",)))
+    lib.x266_quant_tu.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_float]
+                                  + [ctypes.c_void_p] * 4)
+    tab = tables.from_reference(CodecConfig(width=64, height=64), "cpu")
+    rate = tab.rate.numpy().astype(np.float32)
+    c = _tie_coefs(tab, 4, 22)[0]
+    want = tq.dq_quantize_trellis(tab, torch.from_numpy(c), 22, 4, 0.0)
+    lev, _ = _quant_tu(lib, True, 4, 32, 1, 22, True, 0.0, rate, c)
+    assert lev.tolist() != want.tolist()
+
+
 @pytest.mark.parametrize("plane", ["Y", "Cb", "Cr"])
 def test_group_barrier_mutation_is_caught(plane, tmp_path_factory,
                                           monkeypatch):

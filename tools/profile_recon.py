@@ -10,23 +10,30 @@ The workloads are chip_smoke.py's main-path shapes, on its inputs: K1 on
 config 2's, cfg2t's and lossless's batches of four 1080p frames; K2 on
 frame 0 of each; K3-P encode and decode on config 3's and lossless_p's
 1080p P picture; K3-B encode and decode on config 4's 3840x2160 and
-tools_ra's 1080p B picture.
+tools_ra's 1080p B picture; and the SDH and DQ instances on
+chip_smoke.py time_quant_flags's shapes (K1 on config 2's batch, K3-P on
+config 3's and K3-B on config 4's 1080p picture, each with SDH and with
+DQ, and the DQ decodes): ``--only sdh dq`` takes those alone.
 
 --split builds the kernel library with X266_RECON_PHASES (the clock64()
 phase split of csrc/recon_intra.cu, which the main path's build never
 sets), from each FILE in place of csrc/recon_intra.cu (default: the
 package's own), and prints, for each workload after a warm launch, the
 share of the blocks' cycles in each block-level phase and, per plane and
-TU size, the TUs walked and the cycles per TU of each TU phase.  The
+TU size, the TUs walked and the cycles per TU of each TU phase (under
+SDH and DQ also the quantizer's own steps, csrc/recon_intra.cu's
+kPhDq* / kPhSdh*, taken out of its quant phase).  The
 phases' slots are the Phase enum of csrc/recon_intra.cu; a source with
 another TU pipeline may leave some empty or stamp others.  A FILE without
 the split (no x266_recon_phases) is refused.
 
---split-parent FILE takes the parent commit's recon_intra.cu as ``git
-show d418144:x266_tpu_torch/csrc/recon_intra.cu`` gives it, adds the
-phase split of tools/recon_intra_d418144_phases.patch (the same Phase
-slots around that source's one-thread-per-step pipeline), writes it
-beside FILE as <name>_phases.cu and splits it first.
+--split-parent FILE takes a parent commit's recon_intra.cu as ``git show
+REV:x266_tpu_torch/csrc/recon_intra.cu`` gives it, saved as
+recon_intra_REV.cu, adds the phase split of
+tools/recon_intra_REV_phases.patch (d418144: the same Phase slots around
+that source's one-thread-per-step pipeline; 74ae6c4: the sums of its
+SDH / DQ and CCLM parts, which its own split left out), writes it beside
+FILE as <name>_phases.cu and splits it first.
 
 --parent FILE builds FILE in place of csrc/recon_intra.cu (e.g. the
 parent commit's, from ``git show REV:x266_tpu_torch/csrc/recon_intra.cu``
@@ -67,15 +74,16 @@ RECON = os.path.join(_build.PKG, "csrc", "recon_intra.cu")
 # beside RECON
 RECON_QUANT = os.path.join(_build.PKG, "csrc", "recon_quant.cu")
 RECON_CCLM = os.path.join(_build.PKG, "csrc", "recon_cclm.cu")
-# the phase split added to the parent commit's recon_intra.cu (d418144),
-# at the same Phase slots as the package's
-PARENT_PATCH = os.path.join(ROOT, "tools", "recon_intra_d418144_phases.patch")
 # csrc/recon_intra.cu's Phase enum and its slots
 BLOCK_PHASES = {2: "MV state / staging", 0: "row wait", 1: "window load",
                 13: "CU set-up", 12: "the CUs' TUs", 3: "window store"}
 TU_PHASES = ["ref load", "substitution", "extension", "prediction",
              "forward transform", "quant / level load", "dequant",
              "inverse vertical", "inverse horizontal + write"]
+# a TU row's slots 0-3: the TU-wide quantizer's own steps (csrc Phase),
+# taken out of "quant / level load"
+QUANT_STEPS = ["quant step 1", "quant step 2", "quant step 3",
+               "quant step 4"]
 N_PHASES, SLOTS = 16, 14 * 16
 PLANES = ("Y", "Cb", "Cr")
 SIZES = (4, 8, 16, 32)                      # csrc size_index order
@@ -127,22 +135,64 @@ def declare_older(lib, sdh_dq: bool, mtt: bool = False):
     return lib
 
 
-def quant_part(recon_src: str) -> str:
-    """The SDH / DQ instances of an older recon_intra.cu: a file beside it,
-    <name>_quant.cu, that compiles it with X266_RECON_QUANT_PART (as
-    csrc/recon_quant.cu compiles the package's); its path."""
-    out = os.path.splitext(recon_src)[0] + "_quant.cu"
+def part(recon_src: str, name: str) -> str:
+    """One part of an older recon_intra.cu (name "quant": its SDH / DQ
+    instances, "cclm": its CCLM ones): a file beside it, <src>_<name>.cu,
+    that compiles it with X266_RECON_<NAME>_PART, as csrc/recon_quant.cu
+    and csrc/recon_cclm.cu compile the package's; its path."""
+    out = os.path.splitext(recon_src)[0] + f"_{name}.cu"
     with open(out, "w") as f:
-        f.write("#define X266_RECON_QUANT_PART\n"
+        f.write(f"#define X266_RECON_{name.upper()}_PART\n"
                 f'#include "{os.path.basename(recon_src)}"\n')
+    return out
+
+
+def apply_patch(text: str, patch: str) -> str:
+    """text with a unified diff's hunks applied in order; raises where a
+    hunk's context or removed lines are not text's at that place."""
+    lines = text.splitlines(keepends=True)
+    out, pos = [], 0
+    parts = re.split(r"^@@ -(\d+)(?:,\d+)? \+\d+(?:,\d+)? @@.*\n", patch,
+                     flags=re.M)
+    for start, body in zip(parts[1::2], parts[2::2]):
+        start = int(start) - 1
+        if start < pos:
+            raise ValueError(f"patch hunk at line {start + 1} overlaps")
+        out += lines[pos:start]
+        pos = start
+        for line in body.splitlines(keepends=True):
+            tag, rest = line[0], line[1:]
+            if tag in " -":
+                if pos >= len(lines) or lines[pos] != rest:
+                    raise ValueError(f"patch does not apply at line {pos + 1}")
+                if tag == " ":
+                    out.append(rest)
+                pos += 1
+            elif tag == "+":
+                out.append(rest)
+    return "".join(out + lines[pos:])
+
+
+def parent_phases(src: str) -> str:
+    """A parent commit's recon_intra.cu (src, named recon_intra_<rev>.cu
+    as ``git show <rev>:...`` gives it) with the phase split of
+    tools/recon_intra_<rev>_phases.patch, written beside src as
+    <name>_phases.cu; its path."""
+    name = os.path.splitext(os.path.basename(src))[0]
+    with open(src) as f, open(os.path.join(
+            ROOT, "tools", f"{name}_phases.patch")) as g:
+        text = apply_patch(f.read(), g.read())
+    out = os.path.splitext(src)[0] + "_phases.cu"
+    with open(out, "w") as f:
+        f.write(text)
     return out
 
 
 def build(recon_src: str, phases: bool):
     """A library of recon_src, a version of csrc/recon_intra.cu (the
     phase split on when phases; the package's own with
-    csrc/recon_quant.cu, an older one with its quant_part when it has
-    the SDH / DQ instances), built by _build.Library into
+    csrc/recon_quant.cu and csrc/recon_cclm.cu, an older one with the
+    parts it has, part()), built by _build.Library into
     build/x266_tpu_torch/profile-<hash>/; a source without the mtt and
     lfnst arguments (or the sdh and dq ones) comes wrapped in
     OlderSignature."""
@@ -152,10 +202,10 @@ def build(recon_src: str, phases: bool):
     cclm = "int cclm," in text
     if recon_src == RECON:
         srcs = [recon_src, RECON_QUANT, RECON_CCLM]
-    elif "X266_RECON_QUANT_PART" in text:
-        srcs = [recon_src, quant_part(recon_src)]
     else:
-        srcs = [recon_src]
+        srcs = [recon_src] + [part(recon_src, name)
+                              for name in ("quant", "cclm")
+                              if f"X266_RECON_{name.upper()}_PART" in text]
     so = pc.build(srcs, ["X266_RECON_PHASES"] if phases else [],
                   _build.declare_recon if cclm
                   else (lambda lib: declare_older(lib, sdh_dq, mtt))).lib
@@ -260,6 +310,57 @@ def workloads(lib, only=()):
         planes = cs._upload(synthetic_clip(1920, 1080, 1, "motion", seed=9))
         out += inter_workloads(lib, "tools_ra", cs.tools_ra_cfg(), True,
                                planes, *cs.b_references(planes, amp=40))
+    return out + quant_workloads(lib, want)
+
+
+def quant_workloads(lib, want):
+    """The SDH and DQ instances on chip_smoke.time_quant_flags's inputs:
+    K1 on config 2's batch of four 1080p frames, K3-P on config 3's and
+    K3-B on config 4's 1080p picture (both on the VVC profile), each with
+    SDH and with DQ; under DQ also the decode (K2 on frame 0, K3d, K3Bd)
+    of lib's levels (a decode under SDH is the element-wise instance)."""
+    from x266_tpu_torch.config import Profile
+
+    def runner(cfg, tab, pic, encode, inputs):
+        if pic == "I":
+            return lambda lib: pc.checked(recon_cuda._launch(
+                lib, pc.stream(), cfg, tab, encode, *inputs))
+        return lambda lib: pc.checked(recon_cuda._launch_inter(
+            lib, pc.stream(), cfg, tab, encode, *inputs))
+
+    vvc = dict(profile=Profile.VVC)
+    out = []
+    for tag, cfg, pic in (("config2", cs.main_cfg(), "I"),
+                          ("config3", cs.cfg3().replace(**vvc), "P"),
+                          ("config4 1080p",
+                           cs.cfg4(1920, 1080).replace(**vvc), "B")):
+        for flag in ("sdh", "dq"):
+            name = f"{tag} {flag}"
+            if not want(name):
+                continue
+            c = cfg.replace(sign_data_hiding=flag == "sdh",
+                            dep_quant=flag == "dq")
+            if pic == "I":
+                tab, src, maps = cs._inputs(c, 4, 0, "mixed")
+                enc_in, args = (*src, *maps), tuple(maps)
+            else:
+                tab, enc_in, args, maps = cs._quant_inputs(c, pic, 9,
+                                                           "motion")
+            k, kd = cs.QUANT_KERNELS[pic]
+            sm = maps[0].cpu().numpy()
+            run = runner(c, tab, pic, True, enc_in)
+            out.append(Workload(f"{k} {name}" + (" x4" if pic == "I" else ""),
+                                k, c, sm, run))
+            if flag != "dq":
+                continue
+            got = run(lib)
+            one = (got[3:6] if pic != "I" else
+                   [g[:1].contiguous() for g in got[3:6]])
+            a1 = args if pic != "I" else [m[:1].contiguous() for m in args]
+            dec_in = cs._dec_inputs(pic, (*got[:3], *one, *got[6:]), a1)
+            out.append(Workload(f"{kd} {name}", kd, c,
+                                sm[:1] if pic == "I" else sm,
+                                runner(c, tab, pic, False, dec_in)))
     return out
 
 
@@ -284,11 +385,20 @@ def split(lib, wl) -> dict:
             n = ph[13][p * 4 + si]
             if n == 0:
                 continue
-            cyc = ph[p * 4 + si][4:13]
+            cyc, steps = ph[p * 4 + si][4:13], ph[p * 4 + si][:4]
+            phases = {name: float(c / n) for name, c in zip(TU_PHASES, cyc)}
+            phases.update({name: float(c / n) for name, c in
+                           zip(QUANT_STEPS, steps) if c})
             res["tus"][f"{plane} {s}x{s}"] = {
-                "count": int(n), "cycles_per_tu": float(cyc.sum() / n),
-                "phases": {name: float(c / n)
-                           for name, c in zip(TU_PHASES, cyc)}}
+                "count": int(n),
+                "cycles_per_tu": float((cyc.sum() + steps.sum()) / n),
+                "phases": phases}
+    # DQ's fallback to dq_dequant: TUs by plane (slots 12-14 of counts)
+    if wl.kernel in ("K1", "K3", "K3B") and " dq" in wl.name:
+        res["dq_fallback"] = {
+            plane: [int(ph[13][12 + p]),
+                    int(sum(ph[13][p * 4 + si] for si in range(4)))]
+            for p, plane in enumerate(PLANES)}
     return res
 
 
@@ -300,6 +410,11 @@ def print_split(r):
         ph = ", ".join(f"{k} {v:.0f}" for k, v in t["phases"].items())
         print(f"[split] {r['workload']} {key}: {t['count']} TUs, "
               f"{t['cycles_per_tu']:.0f} cycles per TU: {ph}", flush=True)
+    if "dq_fallback" in r:
+        fb = ", ".join(f"{k} {a} of {n}" for k, (a, n) in
+                       r["dq_fallback"].items())
+        print(f"[split] {r['workload']}: TUs whose dequantization fell back "
+              f"to dq_dequant: {fb}", flush=True)
 
 
 def compare(parent, new, wl, reps) -> dict:

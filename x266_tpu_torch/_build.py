@@ -154,6 +154,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     declare_sse(lib)
     lib.x266_subst_scan.argtypes = [i] + [p] * 3   # host stand-in tests
     lib.x266_subst_scan.restype = i
+    lib.x266_quant_tu.argtypes = [i] * 6 + [ctypes.c_float] + [p] * 4
+    lib.x266_quant_tu.restype = i
     return lib
 
 

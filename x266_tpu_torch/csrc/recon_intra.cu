@@ -111,17 +111,22 @@
 // on its XLA scan, not in the Pallas kernel) work over a TU in scan order,
 // so they are a template parameter of the kernel (kQSdh, kQDq), whose
 // instances csrc/recon_quant.cu compiles; the element-wise instances
-// (kQPlain) are the code above unchanged.  Both stage the TU's
-// coefficients in shared memory.  SDH: a lane a 4x4 group quantizes its
-// 16 coefficients and makes the parity move.  DQ: the 4-state trellis's
-// (4, 4) (min,+) matrices are combined in the tree of
-// jax.lax.associative_scan (every prefix and suffix entry a float32 sum
-// grouped as the reference groups it), going up as matrices and coming
-// down as the two rows the trellis reads (the prefix's row 0 and the
-// suffix's row minima); the states and the state-dependent dequantized
-// values come from the emitted levels' parities by a warp scan of 4-state
-// maps (also the decode's).  DQ's scratch is dynamic shared memory after
-// Shared.
+// (kQPlain) quantize a coefficient a thread (quant_level, the same level
+// and cost code).  Both stage the TU's coefficients in shared memory, and
+// on the chain a TU's latency counts, so both spread the TU over its
+// threads.  SDH: 16 lanes a 4x4 group, a
+// lane a coefficient; ballots give the group's ends and parity, a 16-lane
+// min the parity move.  DQ: the 4-state trellis's (4, 4) (min,+) matrices
+// are combined in the tree of jax.lax.associative_scan (every prefix and
+// suffix entry a float32 sum of the operands the reference sums), going
+// up as matrices and coming down as the two rows the trellis reads (the
+// prefix's row 0 and the suffix's row minima): each thread prices its run
+// of positions once and walks its subtree in registers, each warp its
+// levels between __syncwarp, and one group barrier joins the warps (see
+// dq_trellis).  The state-dependent dequantized values come from the
+// trellis's states where the levels' parities follow them, else (and in
+// the decode) from the levels' parities by a warp scan of 4-state maps.
+// DQ's scratch is dynamic shared memory after Shared.
 //
 // MTT binary splits and LFNST (x266_tpu/engine/recon.py:117-161, 393-499;
 // the reference runs them on its XLA scan only) are a template parameter
@@ -243,9 +248,16 @@ __constant__ int kDequantScale[6] = {40, 45, 51, 57, 64, 72};
 // with the count of TUs of each; thread 0 does the same for the
 // block-level phases (staging, row wait, window load and MC staging, the
 // CUs' TUs, window store, the whole block).
+// A TU's row has its quantizer's own steps in the block-level slots 0-3:
+// DQ's pricing and thread subtree, the warp and group levels up, the
+// down walk, the thread's own walk and levels; SDH's levels and ballots,
+// its moves.  The counts' row has, in slots 12-14, the
+// DQ TUs of each plane whose dequantization fell back to dq_dequant.
 enum Phase {
   kPhWait, kPhLoad, kPhMv, kPhStore, kPhRef, kPhSubst, kPhExt, kPhPred,
-  kPhFwd, kPhQuant, kPhDeq, kPhInvV, kPhInvH, kPhCu, kPhBlock, kPhases = 16
+  kPhFwd, kPhQuant, kPhDeq, kPhInvV, kPhInvH, kPhCu, kPhBlock, kPhases = 16,
+  kPhDqOwnUp = 0, kPhDqUp = 1, kPhDqDown = 2, kPhDqOwnDown = 3,
+  kPhSdhLevels = 0, kPhSdhMoves = 1
 };
 #ifdef X266_RECON_PHASES
 constexpr int kPhaseSlots = 14 * kPhases;   // 3 planes x 4 sizes, block, counts
@@ -419,16 +431,55 @@ struct Shared {
 // dependent quantization.
 constexpr int kQPlain = 0, kQSdh = 1, kQDq = 2;
 
-// Dependent quantization's scratch, after Shared in dynamic shared memory
-// in the DQ instances: per group, the trellis's (min,+) matrices of tree
-// levels 2 and up (n/2 - 1 of 16 floats for n = S*S positions) and each
-// tree node's prefix row and suffix row minima of levels 1 and up (n - 1
-// of 8 floats), luma n <= 1024, chroma n <= 256; then each group's warp
-// totals of the state scan (4 words a group).
-constexpr int dq_floats(int n) { return (n / 2 - 1) * 16 + (n - 1) * 8; }
-constexpr int kDqLuma = dq_floats(1024), kDqChroma = dq_floats(256);
+__host__ __device__ constexpr int ilog2(int x) {
+  return x > 1 ? 1 + ilog2(x / 2) : 0;
+}
+
+// Dependent quantization's schedule for a side-S TU on G threads: T
+// threads own R = n / T consecutive positions each in coding order (T =
+// G, or 16 for a 4x4 TU), a node of tree level h = log2 R; the Wn warps
+// own TW threads each, a node of level hw = h + log2 TW, the warp's top;
+// the levels above hw (none on one warp) join the warps.  Its scratch, in
+// float4 (16-byte) units after Shared in dynamic shared memory (DQ
+// instances only): the node matrices of levels h..hw (row a of node m at
+// a * kTab + m); the threads' matrices of levels 1..h-1 (row a of a
+// thread's k-th at (k * 4 + a) * T + t); each node's prefix row 0 and
+// suffix row minima of levels h..hw-1 (at m and kVec + m); per warp the
+// matrices above hw and the rows of levels hw..L.
+template <int S, int G>
+struct DqShape {
+  static constexpr int n = S * S, L = ilog2(n);
+  static constexpr int T = n >= G ? G : n, R = n / T, h = ilog2(R);
+  static constexpr int Wn = T >= 32 ? T / 32 : 1, TW = T / Wn;
+  static constexpr int hw = h + ilog2(TW);
+  // nodes of levels a..b-1 (a tree of n leaves)
+  __host__ __device__ static constexpr int nodes(int a, int b) {
+    return a >= b ? 0 : ((2 * n) >> a) - ((2 * n) >> b);
+  }
+  static constexpr int kTab = nodes(h, hw + 1), kVec = nodes(h, hw);
+  static constexpr int kLoc = R >= 4 ? R - 2 : 0;   // a thread's
+  static constexpr int kCross = Wn - 1, kTopRows = 2 * Wn - 1;
+  static constexpr int kTop = 4 * kCross + 2 * kTopRows;   // a warp's
+  static constexpr int kUnits = 4 * kTab + 4 * kLoc * T + 2 * kVec +
+                                Wn * kTop;
+};
+template <int S, int G>
+__host__ __device__ constexpr int dq_floats() {
+  return 4 * DqShape<S, G>::kUnits;
+}
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// each plane group's scratch: luma TUs 8 (a warp), 16 and 32 (128
+// threads); chroma 4, 8 (a warp) and 16 (64 threads); then each group's
+// warp totals of the state scan (4 words a group)
+constexpr int kDqLuma = cmax(cmax(dq_floats<8, 32>(), dq_floats<16, 128>()),
+                             dq_floats<32, 128>());
+constexpr int kDqChroma = cmax(cmax(dq_floats<4, 32>(), dq_floats<8, 32>()),
+                               dq_floats<16, 64>());
 constexpr int kDqTot = kDqLuma + 2 * kDqChroma;
 constexpr size_t kDqBytes = sizeof(float) * kDqTot + sizeof(uint32_t) * 12;
+static_assert(kDqLuma % 4 == 0 && kDqChroma % 4 == 0, "float4 units");
+static_assert(sizeof(Shared) + kDqBytes <= 232448,
+              "a DQ instance's block fits the H100's 227 KB of shared memory");
 
 __device__ __forceinline__ int rshift_round(int x, int sh) {
   return (x + (1 << (sh - 1))) >> sh;
@@ -712,10 +763,13 @@ __device__ __forceinline__ void row_pass(int row0, int col, const int8_t* t,
 
 // tu_scan (cabac/syntax.py): scan index i of a TU of side S is position
 // kScan4[i & 15] of the 4x4 group at kScanCg[i >> 4] (diagonal orders,
-// x | y << 4), the groups of a side-S TU at offset S/4 - 1 + ...
-__constant__ uint8_t kScan4[16] = {0, 16, 1, 32, 17, 2, 48, 33,
-                                   18, 3, 49, 34, 19, 50, 35, 51};
-__constant__ uint8_t kScanCg[1 + 4 + 16 + 64] = {
+// x | y << 4), the groups of a side-S TU at offset S/4 - 1 + ...  In
+// global memory, read through the read-only cache: a warp's lanes read
+// different entries, which the constant cache would serve one address at
+// a time.
+__device__ const uint8_t kScan4[16] = {0, 16, 1, 32, 17, 2, 48, 33,
+                                       18, 3, 49, 34, 19, 50, 35, 51};
+__device__ const uint8_t kScanCg[1 + 4 + 16 + 64] = {
     0,                                                      // 1x1
     0, 16, 1, 17,                                           // 2x2
     0, 16, 1, 32, 17, 2, 48, 33, 18, 3, 49, 34, 19, 50, 35, 51,   // 4x4
@@ -729,110 +783,158 @@ __constant__ uint8_t kScanCg[1 + 4 + 16 + 64] = {
 template <int S>
 __device__ __forceinline__ int scan_raster(int i) {
   constexpr int base = S == 4 ? 0 : S == 8 ? 1 : S == 16 ? 5 : 21;
-  const int g = kScanCg[base + (i >> 4)], e = kScan4[i & 15];
+  const int g = __ldg(kScanCg + base + (i >> 4));
+  const int e = __ldg(kScan4 + (i & 15));
   return ((g >> 4) * 4 + (e >> 4)) * S + (g & 15) * 4 + (e & 15);
 }
 
-// RDOQ's rate of level l (0 <= l <= 32767).
-__device__ __forceinline__ float rate_of(const Params& p, const Shared& sh,
-                                         int l) {
-  return l < kRateShared ? sh.rate[l] : __ldg(p.rate + l);
+// A TU's quantizer constants, read from Params once and passed by value
+// (in registers): its QP's and size's scales and shifts, RDOQ, lambda,
+// and the rate table (levels 0-255 in shared memory).
+struct QuantArgs {
+  int qbits, qscale, dscale, ishift, rdoq;
+  float err_scale, lam;
+  const float* rate_sh;
+  const float* rate;
+};
+
+__device__ __forceinline__ QuantArgs quant_args(const Params& p,
+                                                const Shared& sh, int tsh) {
+  return QuantArgs{14 + p.qp / 6 + tsh, kQuantScale[p.qp % 6],
+                   kDequantScale[p.qp % 6] << (p.qp / 6), 6 - tsh, p.rdoq,
+                   ldexpf(1.0f, -2 * tsh), p.lam, sh.rate, p.rate};
 }
 
-// The element-wise quantizer's level of |coefficient| aa: RDOQ (the level
-// of {0, l_dn, l_up} of least e*e*err_scale + lam*rate) or the deadzone
-// one; qbits, qscale, dscale and ishift of the TU's size and QP.
-__device__ __forceinline__ int quant_mag(const Params& p, const Shared& sh,
-                                         int aa, int qbits, int qscale,
-                                         int dscale, int ishift, int tsh) {
-  if (p.rdoq) {
-    const int lup = clampi((aa * qscale + (1 << (qbits - 1))) >> qbits, 0,
-                           32767);
+// RDOQ's rate of level l (0 <= l <= 32767): one generic load from the
+// shared or the global table, no branch (so the compiler interleaves a
+// thread's positions).
+__device__ __forceinline__ float rate_q(const QuantArgs& q, int l) {
+  return *(l < kRateShared ? q.rate_sh + l : q.rate + l);
+}
+
+// RDOQ's cost of level l (>= 0) whose dequantized value misses the
+// coefficient by e: e*e*err_scale + lam*rate.
+__device__ __forceinline__ float rd_cost(const QuantArgs& q, int e, int l) {
+  const float x = (float)e;
+  return __fadd_rn(__fmul_rn(__fmul_rn(x, x), q.err_scale),
+                   __fmul_rn(q.lam, rate_q(q, l)));
+}
+
+// The level of |coefficient| aa: RDOQ (the level of {0, l_dn, l_up} of
+// least rd_cost) or the deadzone one.
+__device__ __forceinline__ int quant_level(const QuantArgs& q, int aa) {
+  if (q.rdoq) {
+    const int lup = clampi((aa * q.qscale + (1 << (q.qbits - 1))) >> q.qbits,
+                           0, 32767);
     const int ldn = lup > 0 ? lup - 1 : 0;
-    const float err_scale = ldexpf(1.0f, -2 * tsh);
     auto cost = [&](int l) {
-      const int d = clampi((l * dscale + (1 << (ishift - 1))) >> ishift,
+      const int d = clampi((l * q.dscale + (1 << (q.ishift - 1))) >> q.ishift,
                            -32768, 32767);
-      const float e = (float)(aa - d);
-      return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
-                       __fmul_rn(p.lam, rate_of(p, sh, l)));
+      return rd_cost(q, aa - d, l);
     };
     const float c0 = cost(0), cd = cost(ldn), cu = cost(lup);
     const int lbest = cu <= cd ? lup : ldn;
     return fminf(cu, cd) <= c0 ? lbest : 0;
   }
-  const int add = 171 << (qbits - 9);
-  return clampi((aa * qscale + add) >> qbits, 0, 32767);
+  const int add = 171 << (q.qbits - 9);
+  return clampi((aa * q.qscale + add) >> q.qbits, 0, 32767);
 }
 
 constexpr int kSdhSpan = 4;
 constexpr float kSdhBig = 3.4e38f;
 
-// Sign-data hiding on 4x4 group cg (scan order) of a side-S TU: its 16
-// levels from the coefficients `coef` (raster, pitch S) by quant_mag,
-// then, where the group's first and last significant scan positions are
-// >= 4 apart and the first one's sign disagrees with the parity of the
-// group's absolute sum, the +-1 move in [first, last] of least D + lam*R
-// increase that zeroes neither end (ties: the -1 move, then the first
-// position); the levels into `lev` (raster, pitch S).
-template <int S>
-__device__ X266_NOINLINE void sdh_group(const Params& p, const Shared& sh,
-                                        int cg, const int* coef, int* lev,
-                                        int tsh) {
-  const int qbits = 14 + p.qp / 6 + tsh;
-  const int qscale = kQuantScale[p.qp % 6];
-  const int ishift = 6 - tsh;
-  const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
-  const float err_scale = ldexpf(1.0f, -2 * tsh);
-  int v[16], c[16], r[16];
-  int first = -1, last = -1, sum = 0;
+// Sign-data hiding on a side-S TU on its G threads (lt), 16 lanes a 4x4
+// group (scan order): each half of a warp takes a group, lane e its scan
+// position e, so the group's threads take G / 16 groups at a time (a
+// thread's groups, its passes, step by step together).  Each lane
+// quantizes its coefficient (quant_level, from `coef`: raster, pitch S);
+// the half's ballots give the group's first and last significant
+// positions, the parity of its absolute sum (that of its odd levels'
+// count) and the first one's sign.  Where those two are >= 4 apart and
+// the sign disagrees with the parity, each lane prices its position's two
+// moves (kSdhBig outside [first, last], for a move that zeroes an end or
+// changes nothing; the -1 move on ties) and a 16-lane min of (delta,
+// position) takes the first least one, as a scan from position 0 that
+// keeps a strictly lesser delta (position 0 when every delta is kSdhBig).
+// The levels into `lev` (raster, pitch S).
+template <int S, int G>
+__device__ __forceinline__ void sdh_tu(const QuantArgs q, int lt,
+                                       const int* coef,
+                                       int* lev X266_PH_PARAM) {
+  constexpr int kGroups = S * S / 16, kAtOnce = G / 16;
+  const int e = lt & 15, half = lt & 16;
+  auto rdcost = [&](int l, int cc) {
+    const int d = clampi((l * q.dscale + (1 << (q.ishift - 1))) >> q.ishift,
+                         -32768, 32767);
+    return rd_cost(q, d - cc, l < 0 ? -l : l);
+  };
+  // the thread's kP groups (passes), each step for all of them at once
+  constexpr int kP = (kGroups + kAtOnce - 1) / kAtOnce;
+  int r[kP], c[kP], v[kP], first[kP], last[kP];
+  bool on[kP], hide[kP];
+  bool any = false;
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    r[k] = scan_raster<S>(cg * 16 + k);
-    c[k] = coef[r[k]];
-    const int m = quant_mag(p, sh, c[k] < 0 ? -c[k] : c[k], qbits, qscale,
-                            dscale, ishift, tsh);
-    v[k] = c[k] < 0 ? -m : (c[k] > 0 ? m : 0);
-    if (v[k] != 0) {
-      if (first < 0) first = k;
-      last = k;
-    }
-    sum += v[k] < 0 ? -v[k] : v[k];
+  for (int i = 0; i < kP; ++i) {
+    const int cg = i * kAtOnce + (lt >> 4);
+    on[i] = cg < kGroups;             // a 4x4 TU: lanes 16-31 have none
+    r[i] = on[i] ? scan_raster<S>(cg * 16 + e) : 0;
+    c[i] = on[i] ? coef[r[i]] : 0;
+    const int m = quant_level(q, c[i] < 0 ? -c[i] : c[i]);
+    v[i] = c[i] < 0 ? -m : (c[i] > 0 ? m : 0);
   }
-  if (first >= 0 && last - first >= kSdhSpan &&
-      (v[first] < 0) != ((sum & 1) == 1)) {
-    auto rdcost = [&](int l, int cc) {
-      const int d = clampi((l * dscale + (1 << (ishift - 1))) >> ishift,
-                           -32768, 32767);
-      const float e = (float)(d - cc);
-      return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
-                       __fmul_rn(p.lam, rate_of(p, sh, l < 0 ? -l : l)));
-    };
-    float best = 0.0f;
-    int pos = 0, nv_best = 0;
-    for (int k = 0; k < 16; ++k) {
-      const float e0 = rdcost(v[k], c[k]);
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const unsigned nz = (__ballot_sync(kFull, v[i] != 0) >> half) & 0xffffu;
+    const unsigned odd = (__ballot_sync(kFull, v[i] & 1) >> half) & 0xffffu;
+    const unsigned neg = (__ballot_sync(kFull, v[i] < 0) >> half) & 0xffffu;
+    first[i] = nz ? __ffs((int)nz) - 1 : -1;
+    last[i] = nz ? 31 - __clz((int)nz) : -1;
+    hide[i] = first[i] >= 0 && last[i] - first[i] >= kSdhSpan &&
+              ((neg >> first[i]) & 1) != (unsigned)(__popc(odd) & 1);
+    any = any || hide[i];
+  }
+  X266_PH(pc, kPhSdhLevels);
+  if (__any_sync(kFull, any)) {
+    float best[kP];
+    int pos[kP], nvb[kP];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const float e0 = rdcost(v[i], c[i]);
       float dl[2];
       int nv[2];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        nv[q] = clampi(v[k] + (q ? 1 : -1), -32767, 32767);
-        const bool ok = k >= first && k <= last &&
-                        !(nv[q] == 0 && (k == first || k == last)) &&
-                        nv[q] != v[k];
-        dl[q] = ok ? __fsub_rn(rdcost(nv[q], c[k]), e0) : kSdhBig;
+      for (int u = 0; u < 2; ++u) {
+        nv[u] = clampi(v[i] + (u ? 1 : -1), -32767, 32767);
+        const bool ok = e >= first[i] && e <= last[i] &&
+                        !(nv[u] == 0 && (e == first[i] || e == last[i])) &&
+                        nv[u] != v[i];
+        dl[u] = ok ? __fsub_rn(rdcost(nv[u], c[i]), e0) : kSdhBig;
       }
-      const int q = dl[1] < dl[0];
-      if (k == 0 || dl[q] < best) {
-        best = dl[q];
-        pos = k;
-        nv_best = nv[q];
+      const int u = dl[1] < dl[0];
+      best[i] = dl[u];
+      pos[i] = e;
+      nvb[i] = nv[u];
+    }
+#pragma unroll
+    for (int d = 8; d >= 1; d >>= 1) {
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        const float ob = __shfl_xor_sync(kFull, best[i], d);
+        const int op = __shfl_xor_sync(kFull, pos[i], d);
+        if (ob < best[i] || (ob == best[i] && op < pos[i])) {
+          best[i] = ob;
+          pos[i] = op;
+        }
       }
     }
-    v[pos] = nv_best;
+#pragma unroll
+    for (int i = 0; i < kP; ++i)
+      if (hide[i] && pos[i] == e) v[i] = nvb[i];
   }
 #pragma unroll
-  for (int k = 0; k < 16; ++k) lev[r[k]] = v[k];
+  for (int i = 0; i < kP; ++i)
+    if (on[i]) lev[r[i]] = v[i];
+  X266_PH(pc, kPhSdhMoves);
 }
 
 // DQ: next state = (map >> 2 * state) & 3 for a level of parity 0 or 1
@@ -862,27 +964,21 @@ struct DqPos {
   int k[2][2];
 };
 
-__device__ __forceinline__ DqPos dq_pos(const Params& p, const Shared& sh,
-                                        int a, int tsh) {
-  const int qbits = 14 + p.qp / 6 + tsh;
-  const int qscale = kQuantScale[p.qp % 6];
-  const int ishift = 6 - tsh;
-  const int dscale = kDequantScale[p.qp % 6] << (p.qp / 6);
-  const float err_scale = ldexpf(1.0f, -2 * tsh);
+__device__ __forceinline__ DqPos dq_pos(const QuantArgs& q, int a) {
   DqPos r;
+  const int u = (a * q.qscale + (1 << (q.qbits - 2))) >> (q.qbits - 1);
+  // level 0's cost is both quantizers' (its dequantized value is 0)
+  const float c0 = rd_cost(q, a, 0);
 #pragma unroll
   for (int q1 = 0; q1 < 2; ++q1) {
-    const int u = (a * qscale + (1 << (qbits - 2))) >> (qbits - 1);
     const int kup = clampi((u + q1 + 1) >> 1, 0, 32767);
     const int kdn = kup > 0 ? kup - 1 : 0;
     auto cost = [&](int k) {
-      const int d = ((2 * k - (k > 0 ? q1 : 0)) * dscale + (1 << ishift)) >>
-                    (ishift + 1);
-      const float e = (float)(a - d);
-      return __fadd_rn(__fmul_rn(__fmul_rn(e, e), err_scale),
-                       __fmul_rn(p.lam, rate_of(p, sh, k)));
+      const int d = ((2 * k - (k > 0 ? q1 : 0)) * q.dscale +
+                     (1 << q.ishift)) >> (q.ishift + 1);
+      return rd_cost(q, a - d, k);
     };
-    const float cu = cost(kup), cd = cost(kdn), c0 = cost(0);
+    const float cu = cost(kup), cd = cost(kdn);
 #pragma unroll
     for (int par = 0; par < 2; ++par) {
       const float cu_p = (kup & 1) == par ? cu : kDqBig;
@@ -900,62 +996,130 @@ __device__ __forceinline__ DqPos dq_pos(const Params& p, const Shared& sh,
   return r;
 }
 
-// The position's (4, 4) (min,+) transition matrix: M[s][next(s, p)] =
-// c[s >= 2][p], kDqBig elsewhere.
-__device__ __forceinline__ void dq_matrix(const DqPos& d, float* m) {
+// Entry i of v.
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The position's (4, 4) (min,+) transition matrix as four rows, from its
+// costs c[2 q + p] (DqPos.c[q][p]): M[s][next(s, p)] = c[s >= 2][p],
+// kDqBig elsewhere.
+__device__ __forceinline__ void dq_leaf(const float (&c)[4],
+                                        float4 (&m)[4]) {
+  float e[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) m[i] = kDqBig;
+  for (int i = 0; i < 16; ++i) e[i] = kDqBig;
 #pragma unroll
   for (int st = 0; st < 4; ++st)
 #pragma unroll
     for (int par = 0; par < 2; ++par)
-      m[st * 4 + dq_next(st, par)] = fminf(kDqBig, d.c[st >= 2][par]);
+      e[st * 4 + dq_next(st, par)] = fminf(kDqBig, c[(st >= 2) * 2 + par]);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    m[a] = float4{e[4 * a], e[4 * a + 1], e[4 * a + 2], e[4 * a + 3]};
 }
 
-// (min,+) products: of two matrices, row vector by matrix, and the row
-// minima of a matrix times a vector of row minima (min_x min_c (A[a][x] +
-// B[x][c]) = min_x (A[a][x] + min_c B[x][c]): rounding is monotonic).
-__device__ __forceinline__ void mp_mat(const float* a, const float* b,
-                                       float* out) {
+// The product of two positions' matrices (dq_leaf's of the costs ca,
+// cb) entry by entry from their structure: entry (i, c) has one path i ->
+// x -> c through both, so its four sums are a + b on that path, A's other
+// successor's a' + kDqBig, kDqBig + B's other predecessor's b', and
+// kDqBig + kDqBig (inf, which the minimum never takes): the dense
+// product's value from 24 of its 64 sums (a' + kDqBig and kDqBig + b'
+// are four each).
+__device__ __forceinline__ void dq_leaf_pair(const float (&ca)[4],
+                                             const float (&cb)[4],
+                                             float4 (&o)[4]) {
+  float a[4], b[4], fa[4], fb[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a[k] = fminf(kDqBig, ca[k]);
+    b[k] = fminf(kDqBig, cb[k]);
+    fa[k] = __fadd_rn(a[k], kDqBig);
+    fb[k] = __fadd_rn(kDqBig, b[k]);
+  }
+  float e[16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      float m = __fadd_rn(a[i * 4], b[c]);
+      int px = 0, pb = 0, y = 0, py = 0;
 #pragma unroll
-      for (int x = 1; x < 4; ++x) m = fminf(m, __fadd_rn(a[i * 4 + x], b[x * 4 + c]));
-      out[i * 4 + c] = m;
+      for (int p = 0; p < 2; ++p) {
+        const int x = dq_next(i, p);
+        if (dq_next(x, 0) == c || dq_next(x, 1) == c) {
+          px = p;
+          pb = dq_next(x, 0) == c ? 0 : 1;
+        }
+      }
+      const int x = dq_next(i, px);
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (st != x && dq_next(st, p) == c) {
+            y = st;
+            py = p;
+          }
+      const int qi = i >= 2, qx = x >= 2, qy = y >= 2;
+      e[i * 4 + c] = fminf(fminf(__fadd_rn(a[2 * qi + px], b[2 * qx + pb]),
+                                 fa[2 * qi + 1 - px]),
+                           fb[2 * qy + py]);
     }
-}
-
-__device__ __forceinline__ float mp_vec_mat(const float* v, const float* m,
-                                            int c) {
-  float r = __fadd_rn(v[0], m[c]);
 #pragma unroll
-  for (int x = 1; x < 4; ++x) r = fminf(r, __fadd_rn(v[x], m[x * 4 + c]));
-  return r;
+  for (int i = 0; i < 4; ++i)
+    o[i] = float4{e[4 * i], e[4 * i + 1], e[4 * i + 2], e[4 * i + 3]};
 }
 
-__device__ __forceinline__ float mp_mat_vec(const float* m, const float* v,
-                                            int a) {
-  float r = __fadd_rn(m[a * 4], v[0]);
-#pragma unroll
-  for (int x = 1; x < 4; ++x) r = fminf(r, __fadd_rn(m[a * 4 + x], v[x]));
-  return r;
+// (min,+) products on rows (rounding is monotonic, so the minima are
+// exact in any order; each sum is the same two operands as the
+// reference's): entry c of a row vector times a matrix, min_x v[x] +
+// m[x][c]; entry a of a matrix times a vector of row minima, min_x
+// m[a][x] + v[x] (= min_x min_c (A[a][x] + B[x][c])).
+__device__ __forceinline__ float mp_vm(const float4& v, const float4 (&m)[4],
+                                       int c) {
+  float r = __fadd_rn(v.x, f4(m[0], c));
+  r = fminf(r, __fadd_rn(v.y, f4(m[1], c)));
+  r = fminf(r, __fadd_rn(v.z, f4(m[2], c)));
+  return fminf(r, __fadd_rn(v.w, f4(m[3], c)));
 }
 
-__device__ __forceinline__ float row_min(const float* m, int a) {
-  return fminf(fminf(m[a * 4], m[a * 4 + 1]), fminf(m[a * 4 + 2], m[a * 4 + 3]));
+__device__ __forceinline__ float mp_mv(const float4 (&m)[4], const float4& v,
+                                       int a) {
+  float r = __fadd_rn(m[a].x, v.x);
+  r = fminf(r, __fadd_rn(m[a].y, v.y));
+  r = fminf(r, __fadd_rn(m[a].z, v.z));
+  return fminf(r, __fadd_rn(m[a].w, v.w));
 }
 
-// The first index of the least of v[b] + t[b] (t null: zeros).
-__device__ __forceinline__ int argmin_sum(const float* v, const float* t) {
+__device__ __forceinline__ float4 mp_row(const float4& v,
+                                         const float4 (&m)[4]) {
+  return float4{mp_vm(v, m, 0), mp_vm(v, m, 1), mp_vm(v, m, 2),
+                mp_vm(v, m, 3)};
+}
+
+__device__ __forceinline__ float4 mp_col(const float4 (&m)[4],
+                                         const float4& v) {
+  return float4{mp_mv(m, v, 0), mp_mv(m, v, 1), mp_mv(m, v, 2),
+                mp_mv(m, v, 3)};
+}
+
+#ifdef X266_MUTATE_DQ_TIE
+// tests only: argmin4 takes the last least index, which the host tests
+// must catch
+#define X266_DQ_LESS(x, m) ((x) <= (m))
+#else
+#define X266_DQ_LESS(x, m) ((x) < (m))
+#endif
+
+// The first index of the least v[b] + t[b] (tail false: of v[b]).
+__device__ __forceinline__ int argmin4(const float4& v, const float4& t,
+                                       bool tail) {
   int best = 0;
-  float m = t ? __fadd_rn(v[0], t[0]) : v[0];
+  float m = tail ? __fadd_rn(v.x, t.x) : v.x;
 #pragma unroll
   for (int b = 1; b < 4; ++b) {
-    const float x = t ? __fadd_rn(v[b], t[b]) : v[b];
-    if (x < m) {
+    const float x = tail ? __fadd_rn(f4(v, b), f4(t, b)) : f4(v, b);
+    if (X266_DQ_LESS(x, m)) {
       m = x;
       best = b;
     }
@@ -963,142 +1127,264 @@ __device__ __forceinline__ int argmin_sum(const float* v, const float* t) {
   return best;
 }
 
-// Node b of a tree level of nl nodes (matrix m), output o: o < 4 entry o
-// of its prefix's row 0, else entry o - 4 of its suffix's row minima, from
-// the level above's rows `up` (8 floats a node: prefix row 0, suffix row
-// minima).  The grouping of jax.lax.associative_scan (the prefix of an
-// odd node is its parent's, of an even one its parent's left neighbour's
-// times the node; the suffix of an even node is its parent's, of an odd
-// one the node times its right neighbour's parent's; a level's first
-// prefix and last suffix are the node's own).
-__device__ __forceinline__ float dq_down(const float* m, const float* up,
-                                         int b, int nl, int o) {
-  if (o < 4) {
-    if (b == 0) return m[o];
-    if (b & 1) return up[8 * (b >> 1) + o];
-    return mp_vec_mat(up + 8 * (b / 2 - 1), m, o);
-  }
-  const int a = o - 4;
-  if (b == nl - 1) return row_min(m, a);
-  if (!(b & 1)) return up[8 * (b >> 1) + 4 + a];
-  return mp_mat_vec(m, up + 8 * ((b + 1) >> 1) + 4, a);
-}
-
-// Offsets (in nodes) of tree level l in the scratch: matrices of levels
-// >= 2, rows of levels >= 1.
-__device__ __forceinline__ int dq_mat_off(int n, int l) {
-  return (n >> 1) - (n >> (l - 1));
-}
-__device__ __forceinline__ int dq_vec_off(int n, int l) {
-  return n - (n >> (l - 1));
-}
+#ifdef X266_MUTATE_DQ_WARP_SYNC
+// tests only: the DQ trellis skips its warps' __syncwarp, which the host
+// tests must catch
+#define X266_DQ_SYNCWARP() ((void)0)
+#else
+#define X266_DQ_SYNCWARP() __syncwarp()
+#endif
 
 // Dependent quantization of a side-S TU on its G threads (lt): the exact
 // 4-state trellis of quant.py's dq_quantize_trellis over the coefficients
 // `coef` (raster, pitch S) in coding order (the reverse scan), the levels
-// into `lev` (raster).  Each position's costs are recomputed where they
-// are needed (the same integers and float32 ops each time).  The tree:
-// level 1 pairs positions, level l + 1 pairs level l's nodes; going up,
-// threads take quads (level 2) and then a matrix entry each; coming down,
-// each node's prefix row 0 and suffix row minima -- all the trellis reads
-// of a product -- from the level above; level 0 reads each position's
-// state after it (argmin of prefix row 0 + the next suffix's row minima,
-// first on ties), the state before it, and so its quantizer and parity.
-// `scratch`: the group's DQ scratch.  Ends before the caller's barrier.
+// into `lev` (raster).  The (min,+) products follow the tree of
+// jax.lax.associative_scan: level 1 pairs positions, level l + 1 pairs
+// level l's nodes; a node's prefix row 0 is, for the first node of a
+// level, its own row 0, for an odd node its parent's, for an even one its
+// parent's left neighbour's times the node; its suffix row minima, for
+// the last node, its own, for an even node its parent's, for an odd one
+// the node times its right neighbour's parent's.  So the first node of
+// any subtree has its root's suffix and the last its root's prefix, and a
+// subtree needs from outside only its root's rows and its neighbours'.
+// The schedule (DqShape):
+// - a thread prices its R positions once (DqPos, in registers) and
+//   multiplies its subtree up to level h in registers (its leaf pairs by
+//   dq_leaf_pair);
+// - each warp multiplies its levels h+1 .. hw, a lane a row, between
+//   __syncwarp (the nodes in the scratch table);
+// - one barrier of the group; then each warp multiplies the levels above
+//   hw and walks them down into its own copy of their rows, then its
+//   levels hw-1 .. h, a lane a node, a neighbour warp's top rows for a
+//   parent outside its run;
+// - a thread walks its subtree down in registers and reads each of its
+//   positions' state after it (argmin of the prefix row 0 + the next
+//   position's suffix row minima, first on ties), the state before it,
+//   and so its quantizer, parity and level.
+// Every entry is the reference's float32 sum of the same two operands.
+// Each position's coefficient in `coef` is replaced by its level's
+// dequantized value under the trellis's state before it: dq_dequantize's
+// value wherever the emitted levels' parities walk the trellis's states,
+// which the thread returns (true: each of its levels' parities leads
+// from the state before it to the state after it; a zero coefficient
+// emits level 0 whatever level its step took).  `scratch`: the group's DQ
+// scratch.  Ends before the caller's barrier.
 template <int S, int G>
-__device__ X266_NOINLINE void dq_trellis(const Params& p, const Shared& sh,
-                                         const Group& g, bool small, int lt,
-                                         const int* coef, int* lev,
-                                         float* scratch, int tsh) {
-  constexpr int n = S * S;
-  constexpr int L = S == 4 ? 4 : S == 8 ? 6 : S == 16 ? 8 : 10;   // log2 n
-  float* mats = scratch;
-  float* vecs = scratch + 16 * (n / 2 - 1);
+__device__ X266_NOINLINE bool dq_trellis(const QuantArgs q, const Group& g,
+                                         bool small, int lt, int* coef,
+                                         int* lev,
+                                         float* scratch X266_PH_PARAM) {
+  using D = DqShape<S, G>;
+  constexpr int n = D::n, L = D::L, T = D::T, R = D::R, h = D::h;
+  constexpr int Wn = D::Wn, TW = D::TW, hw = D::hw;
+  constexpr int kTab = D::kTab, kVec = D::kVec, kX = D::kCross;
+  float4* tab = reinterpret_cast<float4*>(scratch);
+  float4* loc = tab + 4 * kTab;
+  float4* vec = loc + 4 * D::kLoc * T;
+  const int t = lt, w = lt >> 5, lane = lt & 31;
+  float4* top = vec + 2 * kVec + w * D::kTop;    // this warp's
+  const bool own = t < T;                        // holds positions
+  // the vectors that make a first node's prefix row 0 its own row 0
+  // (mp_row(kRow0, m) = m[0]) and a last node's suffix row minima its own
+  // (mp_col(m, kMins)): x + 0 = x and inf + x = inf for every entry here
+  const float4 kRow0{0.0f, INFINITY, INFINITY, INFINITY};
+  const float4 kMins{0.0f, 0.0f, 0.0f, 0.0f};
   auto pos = [&](int j) { return scan_raster<S>(n - 1 - j); };
-  auto costs = [&](int j) {
-    const int c = coef[pos(j)];
-    return dq_pos(p, sh, c < 0 ? -c : c, tsh);
+  // row a of node b of level l: the table (h..hw), this warp's copy above
+  auto node = [&](int l, int b, int a) -> float4& {
+    return l <= hw ? tab[a * kTab + D::nodes(h, l) + b]
+                   : top[a * kX + D::nodes(hw + 1, l) + b];
   };
-  // up: level 2 from quads of positions
-  for (int i = lt; i < n / 4; i += G) {
-    float m0[16], m1[16], la[16], lb[16];
-    dq_matrix(costs(4 * i), m0);
-    dq_matrix(costs(4 * i + 1), m1);
-    mp_mat(m0, m1, la);
-    dq_matrix(costs(4 * i + 2), m0);
-    dq_matrix(costs(4 * i + 3), m1);
-    mp_mat(m0, m1, lb);
-    mp_mat(la, lb, mats + 16 * i);
-  }
-  group_sync(g, small);
-  for (int l = 3; l <= L; ++l) {
-    const float* src = mats + 16 * dq_mat_off(n, l - 1);
-    float* dst = mats + 16 * dq_mat_off(n, l);
-    for (int e = lt; e < (n >> l) * 16; e += G) {
-      const int i = e >> 4, a = (e >> 2) & 3, c = e & 3;
-      const float* x = src + 32 * i;
-      float m = __fadd_rn(x[a * 4], x[16 + c]);
+  // prefix row 0 and suffix row minima of node b of level l: vec (h ..
+  // hw-1), this warp's copy (hw .. L)
+  auto pre = [&](int l, int b) -> float4& {
+    return l < hw ? vec[D::nodes(h, l) + b]
+                  : top[4 * kX + D::nodes(hw, l) + b];
+  };
+  auto suf = [&](int l, int b) -> float4& {
+    return l < hw ? vec[kVec + D::nodes(h, l) + b]
+                  : top[4 * kX + D::kTopRows + D::nodes(hw, l) + b];
+  };
+
+  // up: the thread's positions and subtree
+  float cst[R][4];
+  uint32_t kk[R][2];         // levels k[q][0] | k[q][1] << 16
+  if (own) {
 #pragma unroll
-      for (int k = 1; k < 4; ++k)
-        m = fminf(m, __fadd_rn(x[a * 4 + k], x[16 + k * 4 + c]));
-      dst[16 * i + a * 4 + c] = m;
+    for (int j = 0; j < R; ++j) {
+      const int c = coef[pos(t * R + j)];
+      const DqPos d = dq_pos(q, c < 0 ? -c : c);
+#pragma unroll
+      for (int q1 = 0; q1 < 2; ++q1) {
+        cst[j][2 * q1] = d.c[q1][0];
+        cst[j][2 * q1 + 1] = d.c[q1][1];
+        kk[j][q1] = (uint32_t)d.k[q1][0] | (uint32_t)d.k[q1][1] << 16;
+      }
     }
-    group_sync(g, small);
+    if constexpr (h == 0) {
+      float4 m[4];
+      dq_leaf(cst[0], m);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) node(0, t, a) = m[a];
+    } else {
+      float4 m[R / 2][4];
+#pragma unroll
+      for (int l = 1; l <= h; ++l) {
+#pragma unroll
+        for (int i = 0; i < (R >> l); ++i) {
+          float4 o[4];
+          if (l == 1) {
+            dq_leaf_pair(cst[2 * i], cst[2 * i + 1], o);
+          } else {
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+              o[a] = mp_row(m[2 * i][a], m[2 * i + 1]);
+          }
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            m[i][a] = o[a];
+            if (l == h) node(h, t, a) = o[a];
+            else loc[((R - (R >> (l - 1)) + i) * 4 + a) * T + t] = o[a];
+          }
+        }
+      }
+    }
   }
-  // down: the root's rows, then levels L - 1 .. 2
-  if (lt < 8) {
-    const float* t = mats + 16 * dq_mat_off(n, L);
-    vecs[8 * dq_vec_off(n, L) + lt] = lt < 4 ? t[lt] : row_min(t, lt - 4);
+  X266_PH(pc, kPhDqOwnUp);
+  // up: the warp's levels h+1 .. hw
+#pragma unroll
+  for (int l = h + 1; l <= hw; ++l) {
+    X266_DQ_SYNCWARP();
+    constexpr int kPer = TW * R;                  // the warp's positions
+    const int cw = kPer >> l;
+    for (int r = lane; r < 4 * cw; r += 32) {
+      const int b = w * cw + (r >> 2), a = r & 3;
+      float4 y[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) y[x] = node(l - 1, 2 * b + 1, x);
+      node(l, b, a) = mp_row(node(l - 1, 2 * b, a), y);
+    }
   }
-  group_sync(g, small);
-  for (int l = L - 1; l >= 2; --l) {
+  group_sync(g, small);      // every warp's top node in the table
+  // up: the levels above hw, each warp its own copy
+#pragma unroll
+  for (int l = hw + 1; l <= L; ++l) {
+    if (lane < 4 * (n >> l)) {
+      const int b = lane >> 2, a = lane & 3;
+      float4 y[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) y[x] = node(l - 1, 2 * b + 1, x);
+      node(l, b, a) = mp_row(node(l - 1, 2 * b, a), y);
+    }
+    X266_DQ_SYNCWARP();
+  }
+  X266_PH(pc, kPhDqUp);
+  // down: the rows of levels L .. hw (this warp's copy), then of the
+  // warp's levels hw-1 .. h; a lane a node, its prefix row 0 and suffix
+  // row minima
+#pragma unroll
+  for (int l = L; l >= h; --l) {
     const int nl = n >> l;
-    const float* m = mats + 16 * dq_mat_off(n, l);
-    const float* up = vecs + 8 * dq_vec_off(n, l + 1);
-    float* v = vecs + 8 * dq_vec_off(n, l);
-    for (int e = lt; e < nl * 8; e += G)
-      v[e] = dq_down(m + 16 * (e >> 3), up, e >> 3, nl, e & 7);
-    group_sync(g, small);
-  }
-  // level 1: each pair's product again
-  for (int b = lt; b < n / 2; b += G) {
-    float m0[16], m1[16], l1[16];
-    dq_matrix(costs(2 * b), m0);
-    dq_matrix(costs(2 * b + 1), m1);
-    mp_mat(m0, m1, l1);
-    const float* up = vecs + 8 * dq_vec_off(n, 2);
+    const int cw = l >= hw ? nl : (TW * R) >> l;  // the nodes walked
+    const int b0 = l >= hw ? 0 : w * cw;          // the first of them
+    if (lane < cw) {
+      const int b = b0 + lane;
+      float4 m[4];
 #pragma unroll
-    for (int o = 0; o < 8; ++o) vecs[8 * b + o] = dq_down(l1, up, b, n / 2, o);
-  }
-  group_sync(g, small);
-  // level 0: the states and the levels
-  for (int i = lt; i < n / 2; i += G) {
-    const DqPos d0 = costs(2 * i), d1 = costs(2 * i + 1);
-    float m0[16], m1[16], alpha0[4], beta1[4];
-    dq_matrix(d0, m0);
-    dq_matrix(d1, m1);
-    const float* v1 = vecs;                  // level 1's rows
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      alpha0[c] = i == 0 ? m0[c] : mp_vec_mat(v1 + 8 * (i - 1), m0, c);
-      beta1[c] = i == n / 2 - 1 ? row_min(m1, c)
-                                : mp_mat_vec(m1, v1 + 8 * (i + 1) + 4, c);
+      for (int x = 0; x < 4; ++x) m[x] = node(l, b, x);
+      // the parent level's rows (prefix (b - 1) / 2, suffix (b + 1) / 2);
+      // below hw, outside the warp's run, the neighbour warp's top's
+      const int kp = (b - 1) >> 1, ks = (b + 1) >> 1;
+      const bool in_p = l + 1 >= hw || kp >= b0 / 2;
+      const bool in_s = l + 1 >= hw || ks < (b0 + cw) / 2;
+      const float4 up_p = b == 0 ? kRow0 : in_p ? pre(l + 1, kp)
+                                                : pre(hw, w - 1);
+      const float4 up_s = b == nl - 1 ? kMins : in_s ? suf(l + 1, ks)
+                                                     : suf(hw, w + 1);
+      pre(l, b) = (b & 1) ? up_p : mp_row(up_p, m);
+      suf(l, b) = (b & 1) || b == nl - 1 ? mp_col(m, up_s) : up_s;
     }
-    const int s0 = argmin_sum(alpha0, beta1);
-    const int s1 = argmin_sum(v1 + 8 * i,
-                              i + 1 < n / 2 ? v1 + 8 * (i + 1) + 4 : nullptr);
-    const int sb = i == 0 ? 0 : argmin_sum(v1 + 8 * (i - 1), v1 + 8 * i + 4);
-    const int st[3] = {sb, s0, s1};
+    X266_DQ_SYNCWARP();
+  }
+  X266_PH(pc, kPhDqDown);
+  if (!own) return true;
+  // down: the thread's subtree, from its node's rows and its neighbours'
+  const float4 po = pre(h, t), so = suf(h, t);
+  const float4 pl = t == 0 ? po : t % TW == 0 ? pre(hw, w - 1)
+                                              : pre(h, t - 1);
+  const float4 sr = t == T - 1 ? so : t % TW == TW - 1 ? suf(hw, w + 1)
+                                                       : suf(h, t + 1);
+  int sig[R + 1];            // the state before each position, then after
+  sig[0] = t == 0 ? 0 : argmin4(pl, so, true);
+  if constexpr (R == 1) {
+    sig[1] = argmin4(po, sr, t != T - 1);
+  } else {
+    float4 pp[R / 2], ps[R / 2];      // level l + 1's rows, then level l's
+    pp[0] = po;
+    ps[0] = so;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const DqPos& d = h ? d1 : d0;
-      const int before = st[h], after = st[h + 1];
-      const int k = d.k[before >= 2][dq_next(before, 1) == after];
-      const int r = pos(2 * i + h);
-      const int c = coef[r];
-      lev[r] = c < 0 ? -k : (c > 0 ? k : 0);
+    for (int l = h - 1; l >= 1; --l) {
+      const int cnt = R >> l;
+      float4 np[R / 2], ns[R / 2];
+#pragma unroll
+      for (int i = 0; i < cnt; ++i) {
+        float4 m[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          m[a] = loc[((R - (R >> (l - 1)) + i) * 4 + a) * T + t];
+        const int gb = t * cnt + i;
+        if (i & 1) {
+          np[i] = pp[i >> 1];
+          ns[i] = mp_col(m, gb == (n >> l) - 1 ? kMins
+                            : i == cnt - 1     ? sr
+                                               : ps[(i + 1) >> 1]);
+        } else {
+          np[i] = mp_row(gb == 0 ? kRow0 : i == 0 ? pl : pp[i / 2 - 1], m);
+          ns[i] = ps[i >> 1];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < cnt; ++i) {
+        pp[i] = np[i];
+        ps[i] = ns[i];
+      }
+    }
+    // level 0: position 2i's prefix and 2i+1's suffix from the leaves
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      float4 m0[4], m1[4];
+      dq_leaf(cst[2 * i], m0);
+      dq_leaf(cst[2 * i + 1], m1);
+      const int j0 = t * R + 2 * i;
+      const float4 a0 =
+          mp_row(j0 == 0 ? kRow0 : i == 0 ? pl : pp[i - 1], m0);
+      const float4 nx = i + 1 == R / 2 ? sr : ps[i + 1];
+      const float4 b1 = mp_col(m1, j0 + 1 == n - 1 ? kMins : nx);
+      sig[2 * i + 1] = argmin4(a0, b1, true);
+      sig[2 * i + 2] = argmin4(pp[i], nx, j0 + 2 != n);
     }
   }
+  bool path = true;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int before = sig[j], after = sig[j + 1];
+    const uint32_t kq = before >= 2 ? kk[j][1] : kk[j][0];
+    const int k = (kq >> (dq_next(before, 1) == after ? 16 : 0)) & 0xffff;
+    const int r = pos(t * R + j);
+    const int c = coef[r];
+    // the level emitted: 0 where the coefficient is (whatever k the path
+    // took there), so its parity may leave the path
+    const int e = c != 0 ? k : 0;
+    lev[r] = c < 0 ? -e : e;
+    // dq_dequantize's value, with the trellis's state before the position
+    path = path && dq_next(before, e & 1) == after;
+    const int mag = ((2 * e - (e > 0 && before >= 2 ? 1 : 0)) * q.dscale +
+                     (1 << q.ishift)) >> (q.ishift + 1);
+    const int v = mag < 32767 ? mag : 32767;
+    coef[r] = c < 0 ? -v : v;
+  }
+  X266_PH(pc, kPhDqOwnDown);
+  return path;
 }
 
 // Dependent dequantization of a side-S TU's levels `lev` (raster, pitch
@@ -1117,17 +1403,23 @@ __device__ X266_NOINLINE void dq_dequant(Shared& sh, const Group& g,
                       reinterpret_cast<float*>(&sh + 1) + kDqTot) +
                   4 * plane;
   constexpr int n = S * S, C = n >= G ? n / G : 1;
-  auto at = [&](int j, int& r) {
-    const int i = scan_raster<S>(n - 1 - j);
-    r = i;
-    return (int)lev[(i / S) * pitch + (i & (S - 1))];
-  };
-  uint32_t m = kDqId;
+  // the thread's positions lt*C .. lt*C + C - 1: raster index, level, and
+  // the map of their parities (each start state walked through them)
+  int r[C], k[C];
+  uint32_t m = 0;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int j = lt * C + c;
-    int r;
-    if (j < n) m = dq_compose(m, (at(j, r) & 1) ? kDqP1 : kDqP0);
+    r[c] = j < n ? scan_raster<S>(n - 1 - j) : 0;
+    k[c] = j < n ? (int)lev[(r[c] / S) * pitch + (r[c] & (S - 1))] : 0;
+  }
+#pragma unroll
+  for (int s0 = 0; s0 < 4; ++s0) {
+    int s = s0;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (lt * C + c < n) s = dq_next(s, k[c] & 1);
+    m |= (uint32_t)s << (2 * s0);
   }
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -1148,18 +1440,40 @@ __device__ X266_NOINLINE void dq_dequant(Shared& sh, const Group& g,
   int s = ex & 3;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int j = lt * C + c;
-    if (j >= n) continue;
-    int r;
-    const int k = at(j, r);
-    const int a = k < 0 ? -k : k;
+    if (lt * C + c >= n) continue;
+    const int a = k[c] < 0 ? -k[c] : k[c];
     const int mag = ((2 * a - (a > 0 && s >= 2 ? 1 : 0)) * dscale +
                      (1 << ishift)) >> (ishift + 1);
     const int v = mag < 32767 ? mag : 32767;
-    out[r] = k < 0 ? -v : (k > 0 ? v : 0);
+    out[r[c]] = k[c] < 0 ? -v : (k[c] > 0 ? v : 0);
     s = dq_next(s, a & 1);
   }
   group_sync(g, small);
+}
+
+// A plane group's DQ scratch (kDqBytes after Shared, DQ instances only).
+__device__ __forceinline__ float* dq_scratch(Shared& sh, int plane) {
+  return reinterpret_cast<float*>(&sh + 1) +
+         (plane == 0 ? 0 : kDqLuma + (plane - 1) * kDqChroma);
+}
+
+// Dependent quantization of a side-S TU on its G threads: the trellis's
+// levels (coefficients `a` in, dequantized values out; levels into `b`),
+// each dequantized value under the trellis's state, or where a level's
+// parity leaves the trellis's path in the TU, under the parities' states
+// (dq_dequant).  Ends with the group's barrier.
+template <int S, int G>
+__device__ __forceinline__ void dq_quantize(const QuantArgs& q, Shared& sh,
+                                            const Group& g, bool small,
+                                            int lt, int plane, int* a,
+                                            int* b X266_PH_PARAM) {
+  const bool path = dq_trellis<S, G>(q, g, small, lt, a, b,
+                                     dq_scratch(sh, plane) X266_PH_PASS);
+  const bool fallback = group_any(g, small, !path);
+  // the phase split counts the TUs that fall back, by plane
+  X266_PH_COUNT(12 + plane, fallback && lt == 0);
+  if (fallback)
+    dq_dequant<S, G>(sh, g, small, lt, plane, b, S, a, q.dscale, q.ishift);
 }
 
 // The arguments of one TU: plane coords (x, y) of a CU of the CTU at plane
@@ -1334,11 +1648,6 @@ __device__ X266_NOINLINE void lfnst_inverse(const Shared& sh, const Group& g,
 // One TU of side S of plane v.plane, on G threads: the group (a TU of more
 // than 64 samples) or the group's warp 0 (G = 32; the caller keeps the
 // other warps out).
-// A plane group's DQ scratch (kDqBytes after Shared, DQ instances only).
-__device__ __forceinline__ float* dq_scratch(Shared& sh, const View& v) {
-  return reinterpret_cast<float*>(&sh + 1) +
-         (v.plane == 0 ? 0 : kDqLuma + (v.plane - 1) * kDqChroma);
-}
 
 template <bool kEncode, int S, int G, int kQ, bool kMl, bool kCc>
 __device__ void tu(const Params& p, Shared& sh, const View& v,
@@ -1527,22 +1836,21 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
     bool any = false;
     if constexpr (kQ != kQPlain) {
       // the TU-wide quantizers: the coefficients into a, the levels into
-      // b (SDH: a lane a 4x4 group; DQ: the trellis on the TU's threads),
-      // under DQ the state-dependent dequantized values into a
+      // b (SDH: a lane a coefficient; DQ: the trellis on the TU's
+      // threads), under DQ the state-dependent dequantized values into a
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (active) sa[(row0 + k * kStep) * S + col] = c[k];
       group_sync(g, kSmall);
-      if constexpr (kQ == kQDq)
-        dq_trellis<S, G>(p, sh, g, kSmall, lt, sa, sb, dq_scratch(sh, v),
-                         tsh);
-      else
-        for (int cg = lt; cg < S * S / 16; cg += G)
-          sdh_group<S>(p, sh, cg, sa, sb, tsh);
-      group_sync(g, kSmall);
-      if constexpr (kQ == kQDq)
-        dq_dequant<S, G>(sh, g, kSmall, lt, v.plane, sb, S, sa, dscale,
-                         ishift);
+      const QuantArgs qa = quant_args(p, sh, tsh);
+      if constexpr (kQ == kQDq) {
+        dq_quantize<S, G>(qa, sh, g, kSmall, lt, v.plane, sa, sb
+                          X266_PH_PASS);
+        X266_PH(pc, kPhDeq);
+      } else {
+        sdh_tu<S, G>(qa, lt, sa, sb X266_PH_PASS);
+        group_sync(g, kSmall);
+      }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (!active) continue;
@@ -1558,14 +1866,12 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
         else if (kQ != kQDq) sa[rr * S + col] = dq;
       }
     } else {
-      const int qbits = 14 + p.qp / 6 + tsh;
-      const int qscale = kQuantScale[p.qp % 6];
+      const QuantArgs qa = quant_args(p, sh, tsh);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (!active) continue;
         const int cc = c[k];
-        int lv = quant_mag(p, sh, cc < 0 ? -cc : cc, qbits, qscale, dscale,
-                           ishift, tsh);
+        int lv = quant_level(qa, cc < 0 ? -cc : cc);
         lv = cc < 0 ? -lv : (cc > 0 ? lv : 0);
         const int rr = row0 + k * kStep;
         co[(size_t)rr * cpitch + col] = (int16_t)lv;
@@ -2348,6 +2654,56 @@ int launch_quant(Params& p, int encode, void* stream) {
   return launch_kernel(p, kernel, kInter,
                        sizeof(Shared) + (p.dq ? kDqBytes : 0), stream);
 }
+
+// A test entry: one TU's quantizer alone, on one block of a plane group's
+// G threads (the TU's own on a warp), from the coefficients `coef`
+// (raster, int32): SDH's levels, or DQ's levels and their state-dependent
+// dequantized values.
+struct QuantTest {
+  Params p;
+  int dq, s, g, plane;
+  const int* coef;
+  int* lev;
+  int* deq;
+};
+
+template <int S, int G>
+__device__ void quant_test_tu(const QuantTest& a, Shared& sh) {
+  constexpr bool kSmall = S * S <= 64;
+  constexpr int tsh = 7 - Map<S, G>::kLog2;
+  const Group g{1 + a.plane, G, (int)threadIdx.x};
+  int* sa = a.plane == 0 ? sh.a_y : sh.a_c[a.plane - 1];
+  int* sb = a.plane == 0 ? sh.b_y : sh.b_c[a.plane - 1];
+  for (int i = threadIdx.x; i < S * S; i += G) sa[i] = a.coef[i];
+  __syncthreads();
+  X266_PH_START(pc, 0, false);
+  const QuantArgs qa = quant_args(a.p, sh, tsh);
+  if (a.dq) {
+    dq_quantize<S, G>(qa, sh, g, kSmall, g.lt, a.plane, sa, sb X266_PH_PASS);
+  } else {
+    sdh_tu<S, G>(qa, g.lt, sa, sb X266_PH_PASS);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < S * S; i += G) {
+    a.lev[i] = sb[i];
+    if (a.dq) a.deq[i] = sa[i];
+  }
+}
+
+__global__ void quant_test_kernel(QuantTest a) {
+  X266_DYNAMIC_SHARED(int4, smem);
+  Shared& sh = *reinterpret_cast<Shared*>(smem);
+  for (int i = threadIdx.x; i < kRateShared; i += a.g)
+    sh.rate[i] = __ldg(a.p.rate + i);
+  __syncthreads();
+  switch (a.s * 1000 + a.g) {
+    case 4032: quant_test_tu<4, 32>(a, sh); break;
+    case 8032: quant_test_tu<8, 32>(a, sh); break;
+    case 16064: quant_test_tu<16, 64>(a, sh); break;
+    case 16128: quant_test_tu<16, 128>(a, sh); break;
+    default: quant_test_tu<32, 128>(a, sh); break;
+  }
+}
 #endif
 
 void set_inter(Params& p, int merge, int pyr_hy, int pyr_wy, int pyr_hc,
@@ -2368,6 +2724,31 @@ void set_inter(Params& p, int merge, int pyr_hy, int pyr_wy, int pyr_hc,
 
 extern "C" {
 
+#ifdef X266_RECON_PHASES
+// The phase split's sums of this part's kernels since the last call
+// (kPhaseSlots uint64: see Phase), added to host memory `out`, then
+// zeroed: csrc/recon_intra.cu, recon_quant.cu and recon_cclm.cu each hold
+// their own.
+#if defined(X266_RECON_CCLM_PART)
+int x266_recon_phases_cclm(void* out) {
+#elif defined(X266_RECON_QUANT_PART)
+int x266_recon_phases_quant(void* out) {
+#else
+int x266_recon_phases_main(void* out) {
+#endif
+  unsigned long long part[kPhaseSlots];
+  static const unsigned long long zero[kPhaseSlots] = {};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(part, g_recon_phases, sizeof(part));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_recon_phases, zero, sizeof(zero));
+  for (int i = 0; err == cudaSuccess && i < kPhaseSlots; ++i)
+    static_cast<unsigned long long*>(out)[i] += part[i];
+  return (int)err;
+}
+#endif
+
 #if defined(X266_RECON_CCLM_PART)
 // Launches the CCLM instance of K1 (encode != 0) or K2 on `stream` with
 // the parameters x266_recon_intra set (`params`, a Params); returns
@@ -2386,6 +2767,40 @@ int x266_recon_quant(const void* params, int inter, int b, int encode,
   if (!inter) return launch_quant<false, false>(p, encode, stream);
   if (!b) return launch_quant<true, false>(p, encode, stream);
   return launch_quant<true, true>(p, encode, stream);
+}
+
+// One TU's quantizer alone (dq 0: SDH, 1: DQ) at side s on g threads as
+// the recon kernels run it: (s, g) one of (4, 32), (8, 32), (16, 64),
+// (16, 128), (32, 128), in plane group `plane`'s scratch, with the
+// quantizer's qp, rdoq, lam and the rate table `rate` (float32, 32768);
+// coef the TU's coefficients (int32 s x s raster), lev its levels and,
+// under DQ, deq their dequantized values (int32 s x s).  A test entry;
+// returns the launch's error.
+int x266_quant_tu(int dq, int s, int g, int plane, int qp, int rdoq,
+                  float lam, const void* rate, const void* coef, void* lev,
+                  void* deq) {
+  const int key = s * 1000 + g;
+  if (key != 4032 && key != 8032 && key != 16064 && key != 16128 &&
+      key != 32128)
+    return (int)cudaErrorInvalidValue;
+  QuantTest a{};
+  a.p.qp = qp;
+  a.p.rdoq = rdoq;
+  a.p.lam = lam;
+  a.p.dq = dq;
+  a.p.rate = (const float*)rate;
+  a.dq = dq; a.s = s; a.g = g; a.plane = plane;
+  a.coef = (const int*)coef;
+  a.lev = (int*)lev;
+  a.deq = (int*)deq;
+  void* args[] = {&a};
+  void (*kernel)(QuantTest) = quant_test_kernel;
+  const size_t smem = sizeof(Shared) + kDqBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernel(kernel, dim3(1), dim3(g), args, smem, nullptr);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 #else
 int x266_recon_quant(const void* params, int inter, int b, int encode,
@@ -2491,16 +2906,19 @@ int x266_recon_inter(
 }
 
 #ifdef X266_RECON_PHASES
-// The phase split's sums since the last call (kPhaseSlots uint64: see
-// Phase), copied to host memory `out`, then zeroed.
+int x266_recon_phases_quant(void* out);
+int x266_recon_phases_cclm(void* out);
+
+// The phase split's sums since the last call over the three parts
+// (kPhaseSlots uint64: see Phase), copied to host memory `out`, then
+// zeroed.
 int x266_recon_phases(void* out) {
-  static const unsigned long long zero[kPhaseSlots] = {};
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(out, g_recon_phases, sizeof(zero));
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(g_recon_phases, zero, sizeof(zero));
-  return (int)err;
+  for (int i = 0; i < kPhaseSlots; ++i)
+    static_cast<unsigned long long*>(out)[i] = 0;
+  int err = x266_recon_phases_main(out);
+  if (err == 0) err = x266_recon_phases_quant(out);
+  if (err == 0) err = x266_recon_phases_cclm(out);
+  return err;
 }
 #endif
 
