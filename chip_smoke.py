@@ -77,9 +77,11 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     paths: the luma equations of the clipped features aligned by the
     transposes and the chroma ones of the clipped diamond at each of the
     4 clip levels, CC-ALF's 7x7 equations and solve, the per-class SSE of
-    4x4 blocks of the 4 filtered luma planes (ALFCLS) and CC-ALF's flags
-    and whole-filter gate, each against its plain version bit for bit,
-    with their 4K times;
+    4x4 blocks of the 4 filtered luma planes in uint8 (ALFCLS, with its
+    longest ordered lane chain) and CC-ALF's flags and whole-filter gate
+    (the CTB kernel's tail), each against its plain version bit for bit,
+    with their 4K times (the gate's also at 1080p; ALFCLS's on the
+    encoder's planes and on noise, with its dependent-add floor);
  9. [golden-filters] decode the fixtures lowdelay_p_filters (deblock,
     SAO) and ra_alf (random access, nonlinear ALF, CC-ALF, signalled
     reference lists) to their manifest MD5s;
@@ -212,6 +214,7 @@ last line is the result.
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
 
+import functools
 import hashlib
 import json
 import os
@@ -2277,6 +2280,137 @@ def alf_nl_check(tag, what, got):
     return check
 
 
+@functools.cache
+def add_cycles() -> float:
+    """The cycles of a dependent float32 add on the card, for the ordered
+    chains' dependent-add floors: a chain of 4,096 adds on one thread
+    (tools/add_latency.cu, clock64 around it), measured once."""
+    import ctypes
+
+    from x266_tpu_torch import _build
+
+    def declare(lib):
+        p = ctypes.c_void_p
+        lib.x266_add_latency.argtypes = [ctypes.c_int, p, p, p, p]
+        lib.x266_add_latency.restype = ctypes.c_int
+        return lib
+
+    lib = _build.Library([os.path.join(ROOT, "tools", "add_latency.cu")],
+                         (), "tools-", declare).build()
+    n = 4096
+    ab = torch.tensor([1.0, 0.5], device="cuda")
+    out = torch.empty(1, device="cuda")
+    cycles = torch.empty(1, dtype=torch.int64, device="cuda")
+    for _ in range(2):              # the first call loads the module
+        err = lib.x266_add_latency(n, ab.data_ptr(), out.data_ptr(),
+                                   cycles.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"add_latency launch failed ({err})")
+    return int(cycles) / n
+
+
+@functools.cache
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def add_floor(adds: int) -> dict:
+    """A chain of dependent adds at add_cycles() each: cycles and ms at
+    the card's highest SM clock."""
+    cycles = adds * add_cycles()
+    return {"adds": adds, "cycles_per_add": add_cycles(), "cycles": cycles,
+            "ms": cycles / (sm_clock_mhz() * 1e3)}
+
+
+def gate_adds(cy: int, cx: int) -> int:
+    """The dependent adds of CC-ALF's gate on a cy x cx CTB grid
+    (alf.gain_total): a lane's rows, the fold in halves, the rows after
+    the lanes."""
+    lanes = 4 if cy == 4 else 8 if cy >= 8 else 0
+    if not lanes:
+        return cy * cx
+    r0 = cy - cy % lanes
+    return r0 // lanes * cx + lanes.bit_length() - 1 + (cy - r0) * cx
+
+
+def class_chain_lengths(filts, orig, cls) -> dict:
+    """The class SSE's lane chains (alf.class_sse_plain's order) whose
+    total passes 2^24, which the kernel walks: their count, the longest's
+    blocks (the walk's dependent adds) and how many of them are float32
+    adds past its exact prefix."""
+    from x266_tpu_torch.kernels import alf as kalf
+
+    d = kalf.block_sse(filts, orig).reshape(filts.shape[0], -1).long()
+    n = d.shape[1]
+    lanes = 16 if n < kalf.CLASS_SSE_FUSED else 8
+    key = (cls.reshape(-1).long() * lanes
+           + torch.arange(n, device=d.device) % lanes)
+    order = torch.argsort(key, stable=True)
+    k = key[order]
+    groups = kalf.NUM_CLASSES * lanes
+    count = torch.bincount(k, minlength=groups)
+    start = torch.cumsum(count, 0) - count
+    out = {"ordered_chains": 0, "longest_blocks": 0, "longest_float_adds": 0}
+    for lv in range(d.shape[0]):
+        v = d[lv][order]
+        run = torch.cumsum(v, 0)
+        run = run - (run - v)[start[k]]           # the chain's own prefix
+        exact = torch.bincount(k, weights=(run <= 2 ** 24).double(),
+                               minlength=groups).long()
+        total = torch.zeros(groups, dtype=torch.long,
+                            device=d.device).index_add_(0, k, v)
+        ordered = total > 2 ** 24
+        out["ordered_chains"] += int(ordered.sum())
+        if ordered.any():
+            i = int(torch.where(ordered, count, -1).argmax())
+            if int(count[i]) > out["longest_blocks"]:
+                out["longest_blocks"] = int(count[i])
+                out["longest_float_adds"] = int(count[i] - exact[i])
+    return out
+
+
+def nl_levels(o, r, check=None):
+    """The nonlinear luma estimator's four filtered levels of r (uint8, as
+    kernels/alf.py estimate_alf_nonlinear writes them), its class map and
+    transposes: (levels, cls, tr).  check(v, outputs, cls, tr), if given,
+    gets each clip value's normal-equation kernel outputs (coef, gram,
+    rhs, stats)."""
+    from x266_tpu_torch.kernels import alf as kalf
+    from x266_tpu_torch.kernels import alf_cuda
+
+    h, w = o.shape
+    cls, tr = kalf.classify_full(r)
+    on64 = torch.ones((-(-h // 64), -(-w // 64)), dtype=torch.int32,
+                      device="cuda")
+    levels = kalf.clip_levels()
+    filts = torch.empty((len(levels), h, w), dtype=torch.uint8,
+                        device="cuda")
+    for lvl, v in enumerate(levels):
+        out = alf_cuda.normal_solve(r, o, cls, True, clip=v, transpose=tr,
+                                    with_stats=True)
+        if check is not None:
+            check(v, out, cls, tr)
+        filts[lvl] = kalf.level_plane(r, cls, tr, out[0], lvl, on64)
+    return filts, cls, tr
+
+
+def cc_filtered(r, rc, oc):
+    """CC-ALF's filtered chroma plane rc (all CTBs on) from the luma r, as
+    the estimator forms it before its flags and gate."""
+    from x266_tpu_torch.kernels import alf as kalf
+    from x266_tpu_torch.kernels import alf_cuda
+
+    coef = alf_cuda.cc_normal_solve(r, rc, oc)[0]
+    on32 = torch.ones((-(-rc.shape[0] // 32), -(-rc.shape[1] // 32)),
+                      dtype=torch.int32, device="cuda")
+    return kalf.apply_ccalf(rc, r, coef, on32)
+
+
 def compare_alf_nl_kernels(w, h, data, stats):
     """The ALF kernels' nonlinear and CC-ALF paths against their plain
     versions on the card, bit for bit, on the data sets of _alf_data: the
@@ -2284,9 +2418,12 @@ def compare_alf_nl_kernels(w, h, data, stats):
     transposes and the chroma ones of the clipped 5x5 diamond at each of
     the 4 clip levels, CC-ALF's 7x7 equations and n = 7 solve (both
     planes' plain versions on the CPU in a worker), the per-class SSE of
-    the luma planes those levels filter (ALFCLS) and CC-ALF's flags and
-    gate.  The shares of chains summed exactly and in order are printed;
-    at 4K the times, the encoder's luma going into the kernels line."""
+    the uint8 luma planes those levels filter (ALFCLS, against the plain
+    version on the same levels in int32) and CC-ALF's flags and gate.
+    The shares of chains summed exactly and in order are printed, and the
+    class SSE's ordered lane chains; the gate's times at 1080p and 4K,
+    the other times at 4K, the encoder's luma going into the kernels
+    line with the noise planes' class SSE."""
     from x266_tpu_torch.kernels import alf as kalf
     from x266_tpu_torch.kernels import alf_cuda
 
@@ -2295,23 +2432,22 @@ def compare_alf_nl_kernels(w, h, data, stats):
         tag = f"{w}x{h} {kind}"
         o, r, lam = planes["luma"]
         oc, rc, _ = planes["chroma"]
-        cls, tr = kalf.classify_full(r)
-        on64 = torch.ones((-(-h // 64), -(-w // 64)), dtype=torch.int32,
-                          device="cuda")
-        filts, ex, od = [], 0, 0
-        for v in levels:
-            *got, st = alf_cuda.normal_solve(r, o, cls, True, clip=v,
-                                             transpose=tr, with_stats=True)
+        st_luma = [0, 0]
+
+        def check(v, out, cls, tr):
+            *got, st = out
             want = kalf.normal_solve_plain(r, o, cls, True, v, tr)
             _require_equal("ALF", f"{tag} luma clip {v}",
                            ("coef", "gram", "rhs"), got, want)
-            ex, od = ex + int(st[0]), od + int(st[1])
-            filts.append(kalf.level_plane(r, cls, tr, got[0], len(filts),
-                                          on64))
-        filts = torch.stack(filts)
+            st_luma[0] += int(st[0])
+            st_luma[1] += int(st[1])
+
+        filts, cls, tr = nl_levels(o, r, check)
+        ex, od = st_luma
         sse, cst = alf_cuda.class_sse(filts, o, cls, with_stats=True)
-        want_sse, pc_ms = timed(kalf.class_sse_plain, filts, o, cls)
+        want_sse, pc_ms = timed(kalf.class_sse_plain, filts.int(), o, cls)
         _require_equal("ALFCLS", tag, ("class sse",), [sse], [want_sse])
+        chains = class_chain_lengths(filts, o, cls)
         for v in levels:
             *got, st = alf_cuda.normal_solve(rc, oc, None, True, clip=v,
                                              with_stats=True)
@@ -2325,9 +2461,7 @@ def compare_alf_nl_kernels(w, h, data, stats):
                r.cpu().numpy())
         ALF_SHARES["exact"] += ex
         ALF_SHARES["ordered"] += od
-        all_on = torch.ones((-(-rc.shape[0] // 32), -(-rc.shape[1] // 32)),
-                            dtype=torch.int32, device="cuda")
-        cfilt = kalf.apply_ccalf(rc, r, got[0][0], all_on)
+        cfilt = cc_filtered(r, rc, oc)
         flags, worth = alf_cuda.ccalf_gate(cfilt, rc, oc, lam)
         want_f, want_w = kalf._ccalf_gate(cfilt, rc, oc, lam)
         _require_equal("ALFSSE", f"{tag} cc-alf gate", ("flags", "worth"),
@@ -2336,13 +2470,56 @@ def compare_alf_nl_kernels(w, h, data, stats):
         log(f"[kernels-alf] {tag}: nonlinear luma (4 levels) and chroma (4 "
             f"levels), CC-ALF == plain; chains exact {ex}, ordered {od}; "
             f"ALFCLS == plain (lane chains exact {int(cst[0])}, with an "
-            f"ordered tail {int(cst[1])}; classes at level 1-3: "
+            f"ordered tail {int(cst[1])}; the longest ordered chain "
+            f"{chains['longest_blocks']} blocks, {chains['longest_float_adds']}"
+            f" of them float adds; classes at level 1-3: "
             f"{int((sse.argmin(0) > 0).sum())}); CC-ALF flags == plain "
             f"({int(flags.sum())} of {flags.numel()} on), gate "
             f"{bool(worth)}")
-        if (w, h) != (3840, 2160) or kind == "crossing":
+        if w < 1920 or kind == "crossing":
             continue
+        # CC-ALF's gate (ccalf_gate, run by the CTB kernel's last block):
+        # the CTB call with the gate less the same call without it; the
+        # function reads each CTB's two SSEs and flag and writes one word,
+        # a subtraction, a select and an add a CTB
+        g_ms = event_ms(alf_cuda.ccalf_gate, cfilt, rc, oc, lam, reps=10)
+        f_ms = event_ms(alf_cuda.ctb_flags, cfilt, rc, oc, 32, lam, reps=10)
+        n_ctb = flags.numel()
+        bg = bound(n_ctb * (2 * 4 + 4) + 4, 3.0 * n_ctb)
+        fg = add_floor(gate_adds(*flags.shape))
+        stats["ALFSSE"].setdefault("ccalf_gate", {})[f"{kind} {h}p"] = {
+            "ms": g_ms - f_ms, "with_ctb_kernel_ms": g_ms,
+            "ctb_kernel_ms": f_ms, "bound_ms": bg[0], "bound_by": bg[1],
+            "dependent_add_floor": fg, "ctbs": n_ctb}
+        log(f"[kernels-alf] {tag}: CC-ALF gate {g_ms - f_ms:.4f} ms (the CTB "
+            f"call with it {g_ms:.4f} ms, without {f_ms:.4f} ms; {n_ctb} "
+            f"CTBs; bound {bg[0]:.6f} ms, {bg[1]}; dependent-add floor "
+            f"{fg['adds']} adds, {fg['cycles']:.0f} cycles at "
+            f"{fg['cycles_per_add']:.2f} an add, {fg['ms']:.6f} ms)")
         n = r.numel()
+        ks_ms = event_ms(alf_cuda.class_sse, filts, o, cls, reps=10)
+        # four filtered planes, the source and the class map read once (a
+        # byte a sample and a class), the (4, 25) sums written; per sample
+        # and level a subtraction, a square and an add
+        bs = bound(samples(filts, o, cls) + nbytes(sse),
+                   3.0 * n * len(levels))
+        fs = add_floor(chains["longest_blocks"])
+        log(f"[kernels-alf] {tag}: ALFCLS {ks_ms:.4f} ms (plain {pc_ms:.0f} "
+            f"ms on the cuda; bound {bs[0]:.4f} ms, {bs[1]}; "
+            f"{chains['ordered_chains']} ordered lane chains, the longest "
+            f"{chains['longest_blocks']} blocks: dependent-add floor "
+            f"{fs['cycles']:.0f} cycles at {fs['cycles_per_add']:.2f} an add, "
+            f"{fs['ms']:.6f} ms)")
+        if w < 3840:
+            continue
+        if kind == "noise":
+            _record(stats, "ALFCLS", 0, noise_ms=ks_ms, noise_chains=chains,
+                    noise_dependent_add_floor=fs)
+        else:
+            _record(stats, "ALFCLS", 0, ms=ks_ms, plain_ms=pc_ms,
+                    bound_ms=bs[0], bound_by=bs[1], chains=chains,
+                    dependent_add_floor=fs, shape=f"{w}x{h} luma, 4 uint8 "
+                    "levels, the encoder's planes")
         k_ms = event_ms(alf_cuda.normal_solve, r, o, cls, False, 8, False,
                         levels[1], tr, reps=10)
         b = bound(samples(r, o, cls, tr), 2.0 * n * (12 * 12 + 12))
@@ -2351,37 +2528,12 @@ def compare_alf_nl_kernels(w, h, data, stats):
         bc = bound(samples(rc, oc), 2.0 * rc.numel() * (6 * 6 + 6))
         kx_ms = event_ms(alf_cuda.cc_normal_solve, r, rc, oc, reps=10)
         bx = bound(samples(r, rc, oc), 2.0 * rc.numel() * (7 * 7 + 7))
-        ks_ms = event_ms(alf_cuda.class_sse, filts, o, cls, reps=10)
-        # four filtered planes, the source and the class map read once (a
-        # byte a sample and a class), the (4, 25) sums written; per sample
-        # and level a subtraction, a square and an add
-        bs = bound(samples(filts, o, cls) + nbytes(sse),
-                   3.0 * n * len(levels))
-        # CC-ALF's gate (alf_ccalf_gate, one thread behind the CTB
-        # kernel): the CTB call with the gate less the same call without
-        # it; it reads each CTB's two SSEs and flag and writes one word,
-        # a subtraction, a select and an add a CTB
-        g_ms = event_ms(alf_cuda.ccalf_gate, cfilt, rc, oc, lam, reps=10)
-        f_ms = event_ms(alf_cuda.ctb_flags, cfilt, rc, oc, 32, lam, reps=10)
-        n_ctb = flags.numel()
-        bg = bound(n_ctb * (2 * 4 + 4) + 4, 3.0 * n_ctb)
-        stats["ALFSSE"].setdefault("ccalf_gate", {})[kind] = {
-            "ms": g_ms - f_ms, "with_ctb_kernel_ms": g_ms,
-            "ctb_kernel_ms": f_ms, "bound_ms": bg[0], "bound_by": bg[1],
-            "ctbs": n_ctb}
-        log(f"[kernels-alf] {tag}: CC-ALF gate {g_ms - f_ms:.4f} ms (the CTB "
-            f"call with it {g_ms:.4f} ms, without {f_ms:.4f} ms; {n_ctb} "
-            f"CTBs; bound {bg[0]:.6f} ms, {bg[1]})")
         log(f"[kernels-alf] {tag}: ALF kernel, luma clip {levels[1]} "
             f"aligned {k_ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}); chroma "
             f"clip {levels[1]} {kc_ms:.4f} ms (bound {bc[0]:.4f} ms, "
             f"{bc[1]}); CC-ALF {kx_ms:.4f} ms (bound {bx[0]:.4f} ms, "
-            f"{bx[1]}); ALFCLS {ks_ms:.4f} ms (plain {pc_ms:.0f} ms on the "
-            f"cuda; bound {bs[0]:.4f} ms, {bs[1]})")
+            f"{bx[1]})")
         if kind == "encoder":
-            _record(stats, "ALFCLS", 0, ms=ks_ms, plain_ms=pc_ms,
-                    bound_ms=bs[0], bound_by=bs[1],
-                    shape=f"{w}x{h} luma, 4 levels, the encoder's planes")
             stats["ALF"]["at_4k_nl"] = {
                 "luma_clip32_aligned_ms": k_ms, "luma_bound_ms": b[0],
                 "chroma_clip32_ms": kc_ms, "chroma_bound_ms": bc[0],
@@ -3326,7 +3478,8 @@ def main() -> int:
              "shape", "tus_by_size_map", "ms_per_chain_ctu",
              "us_per_chain_luma_tu", "launches_cfg4", "launches_gpb",
              "launches_rc", "at_4k", "at_4k_nl", "ccalf_gate",
-             "launches_tools", "tools")
+             "launches_tools", "tools", "chains", "dependent_add_floor",
+             "noise_ms", "noise_chains", "noise_dependent_add_floor")
             if key in stats[k]}}
         for k in KERNELS]}))
     log(card)

@@ -641,63 +641,139 @@ def test_alf_kernel_feature_kinds_match_plain(feats, case, host_lib):
                              and feats in ("luma-clip256", "cc"))
 
 
-@pytest.mark.parametrize("shape", [(64, 128), (80, 112), (256, 256)],
-                         ids=["512-fused", "560-fused", "4096-gemv"])
-@pytest.mark.parametrize("case", ["realistic", "noise"])
-def test_alf_class_kernel_matches_plain(shape, case, host_lib):
-    """The class-SSE kernel's (4, 25) per-class SSEs of 4x4 blocks equal
-    class_sse_plain's bit for bit in both of XLA's orders (16 lanes below
-    4,096 blocks, 8 from there with class 24 folded otherwise), on
-    filtered planes near their source (every lane chain exact) and far
-    from it (chains past 2^24, the ordered tail)."""
-    h, w = shape
+def _class_case(case, h, w):
+    """(filt (4, H, W) int32, orig, recon) for the class-SSE kernel:
+    "realistic", levels near a smooth source (every lane chain exact);
+    "noise", a source of 0s and 255s, the levels mostly its opposite and
+    the top three quarters of the recon flat (one class, whose lane chains
+    pass 2^24 at once); "crossing", that flat class's blocks near the
+    source on the top half and at 255 from it below, down to three
+    quarters: its lane chains cross 2^24 partway (at 512x512 a lane's
+    chain spans six of the ordered pass's tiles)."""
     o, r = _alf_planes("realistic", w, h, w)
     rng = np.random.default_rng(h)
+    near = (o[None] + torch.from_numpy(rng.integers(-3, 4, (4, h, w)))
+            ).clamp(0, 255)
     if case == "realistic":
-        filt = (o[None] + torch.from_numpy(rng.integers(-3, 4, (4, h, w)))
-                ).clamp(0, 255)
-    else:
-        # a source of 0s and 255s, the filtered planes mostly its
-        # opposite, and the top three quarters of the recon flat: one
-        # class, whose lane chains pass 2^24
-        o = torch.from_numpy(np.where(rng.random((h, w)) < 0.5, 0, 255)
-                             .astype(np.int32))
+        return near.int(), o, r
+    extreme = torch.from_numpy(np.where(rng.random((h, w)) < 0.5, 0, 255)
+                               .astype(np.int32))
+    r[: 3 * h // 4] = 128
+    if case == "noise":
         filt = torch.where(torch.from_numpy(rng.random((4, h, w)) < 0.9),
-                           255 - o[None], o[None])
-        r[: 3 * h // 4] = 128
-    filt = filt.int().contiguous()
+                           255 - extreme[None], extreme[None])
+        return filt.int(), extreme, r
+    band = (torch.arange(h) >= h // 2) & (torch.arange(h) < 3 * h // 4)
+    o = torch.where(band[:, None], extreme, o)
+    filt = torch.where(band[None, :, None], 255 - o[None], near)
+    return filt.int(), o, r
+
+
+CLASS_SHAPES = {"512-fused": (64, 128), "560-fused": (80, 112),
+                "4096-gemv": (256, 256), "16384-gemv": (512, 512)}
+
+
+@pytest.mark.parametrize("case,shape", [
+    pytest.param(case, shape, id=f"{case}-{name}")
+    for case in ("realistic", "noise", "crossing")
+    for name, shape in CLASS_SHAPES.items()
+    # below 4,096 blocks a lane holds too few of the band's blocks to pass
+    # 2^24
+    if case != "crossing" or shape[0] >= 256])
+def test_alf_class_kernel_matches_plain(case, shape, host_lib, monkeypatch):
+    """The class-SSE kernel's (4, 25) per-class SSEs of 4x4 blocks of
+    uint8 levels equal class_sse_plain's of the same levels in uint8 and
+    in int32, bit for bit, in both of XLA's orders (16 lanes below 4,096
+    blocks, 8 from there with class 24 folded otherwise), on the cases of
+    _class_case; twice on one buffer of chain totals, the blocks one
+    after another and then eight at once (X266_HOST_BLOCKS), each call
+    leaving the totals at 0."""
+    h, w = shape
+    filt, o, r = _class_case(case, h, w)
     cls = alf.classify(r).contiguous()
-    code, (got, stats) = alf_cuda._launch_class(host_lib, 0, filt, o, cls)
-    assert code == 0
-    assert torch.equal(alf.class_sse_plain(filt, o, cls), got)
-    assert (stats[1] > 0) == (case == "noise")
-    assert stats.sum() == 4 * alf.NUM_CLASSES * (16 if h * w < 65536 else 8)
+    want = alf.class_sse_plain(filt, o, cls)
+    levels = filt.to(torch.uint8).contiguous()
+    assert torch.equal(alf.class_sse_plain(levels, o, cls), want)
+    _, tot = alf_cuda.new_work("cpu")
+    for blocks in ("1", "8"):
+        monkeypatch.setenv("X266_HOST_BLOCKS", blocks)
+        code, (got, stats) = alf_cuda._launch_class(host_lib, 0, levels, o,
+                                                    cls, tot)
+        assert code == 0
+        assert torch.equal(want, got)
+        assert not tot.any()
+        assert (stats[1] > 0) == (case != "realistic")
+        assert stats.sum() == 4 * alf.NUM_CLASSES * (16 if h * w < 65536
+                                                     else 8)
 
 
 @pytest.mark.parametrize("shape", [(32, 64), (64, 64), (128, 224),
-                                   (544, 64)], ids=["1x2", "2x2", "4x7",
-                                                    "17x2"])
+                                   (192, 96), (544, 64), (1088, 1920)],
+                         ids=["1x2", "2x2", "4x7", "6x3", "17x2", "34x60"])
 @pytest.mark.parametrize("lam", [2.0, 4.0e3])
-def test_ccalf_gate_kernel_matches_plain(shape, lam, host_lib):
+def test_ccalf_gate_kernel_matches_plain(shape, lam, host_lib, monkeypatch):
     """CC-ALF's flags and whole-filter gate from the CTB kernel equal
     _ccalf_gate's on CTB grids of each of XLA's orders for the kept
-    gains' sum (1, 2, 4 and 17 rows), with a lambda that keeps the filter
-    and one that drops it; the CTBs' SSEs pass 2^24, so the order counts."""
+    gains' sum (1, 2, 4, 6, 17 and 34 rows; 34x60 is a 4K chroma plane's
+    grid), at two lambdas; the CTBs' SSEs pass 2^24 and the lanes' sums
+    differ by orders of magnitude, so the order counts, and the kept
+    gains' total is held to gain_total's bit for bit (by the gate's
+    decision on either side of it).  Twice on one ticket, the
+    blocks one after another and then eight at once (X266_HOST_BLOCKS:
+    the last block to take a ticket runs the gate), each call leaving the
+    ticket at 0."""
     h, w = shape
     rng = np.random.default_rng(h + w)
-    o = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32))
-    c = torch.from_numpy(np.where(rng.random((h, w)) < 0.5, 0, 255)
-                         .astype(np.int32))
-    filt = torch.where(torch.from_numpy(rng.random((h, w)) < 0.6), o,
-                       c).int().contiguous()
-    worth = torch.empty(1, dtype=torch.int32)
-    code, (flags, _, _) = alf_cuda._launch_flags(host_lib, 0, filt, c, o, 32,
-                                                 lam, False, worth)
-    assert code == 0
+    o = rng.integers(0, 256, (h, w)).astype(np.int32)
+    c = np.where(o < 128, 255, 0).astype(np.int32)
+    # a CTB's filtered plane is the source on a share of its samples: half
+    # on rows 0 and 1 of each 8, 0.1-3 % elsewhere, none on a fifth of the
+    # CTBs, so that the lanes' sums differ by orders of magnitude and each
+    # of XLA's orders rounds its own way
+    cy, cx = -(-h // 32), -(-w // 32)
+    share = np.where((np.arange(cy) % 8 < 2)[:, None], 0.5,
+                     10 ** rng.uniform(-3, -1.5, (cy, cx)))
+    share *= rng.random((cy, cx)) < 0.8
+    up = np.repeat(np.repeat(share, 32, 0), 32, 1)[:h, :w]
+    filt = torch.from_numpy(np.where(rng.random((h, w)) < up, o, c)
+                            .astype(np.int32))
+    o, c = torch.from_numpy(o), torch.from_numpy(c)
     want_f, want_w = alf._ccalf_gate(filt, c, o, lam)
-    assert torch.equal(want_f, flags)
-    assert bool(want_w) == bool(worth[0])
+    gain = alf.ctb_sse_plain(filt, o, 32) - alf.ctb_sse_plain(c, o, 32)
+    total = float(alf.gain_total(torch.where(want_f > 0, gain, 0.0)))
+    above = float(np.nextafter(np.float32(total), np.float32(np.inf)))
+    ticket, _ = alf_cuda.new_work("cpu")
+    for blocks in ("1", "8"):
+        monkeypatch.setenv("X266_HOST_BLOCKS", blocks)
+        worth = torch.full((1,), -1, dtype=torch.int32)
+        code, (flags, _, _) = alf_cuda._launch_flags(
+            host_lib, 0, filt, c, o, 32, lam, False, worth, ticket)
+        assert code == 0
+        assert torch.equal(want_f, flags)
+        assert bool(want_w) == bool(worth[0]) and worth[0] in (0, 1)
+        assert not ticket.any()
+        # the kernel's total is gain_total's to the bit: total - total is
+        # not below 0, and total - (total's next float32) is
+        got = [_gate_worth(host_lib, filt, c, o, lam, -t, ticket)
+               for t in (total, above)]
+        assert got == [0, 1]
     assert flags.any()
+
+
+def _gate_worth(lib, filt, c, orig, lam, lam_gate, ticket) -> int:
+    """The CTB kernel's gate decision with the constant lam_gate."""
+    h, w = orig.shape
+    cy, cx = -(-h // 32), -(-w // 32)
+    flags = torch.empty((cy, cx), dtype=torch.int32)
+    sse = torch.empty((2, cy, cx), dtype=torch.float32)
+    worth = torch.full((1,), -1, dtype=torch.int32)
+    code = lib.x266_alf_ctb_flags(
+        h, w, alf_cuda.sse_mode(32, w), float(np.float32(lam * 1.5)),
+        filt.data_ptr(), c.data_ptr(), orig.data_ptr(), flags.data_ptr(),
+        sse.data_ptr(), None, lam_gate, worth.data_ptr(), ticket.data_ptr(),
+        0)
+    assert code == 0
+    return int(worth[0])
 
 
 # 3x3 CTUs, the last row and column 8 samples wide; tool -> (config,

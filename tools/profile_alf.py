@@ -35,6 +35,18 @@ in turns (parent, new, new, parent; chip_smoke.event_ms, --reps calls
 each), after checking that both give the same coefficients, gram and
 rhs; writes profile_alf_<FILE's name>.json.  With --parent-kinds FILE's
 x266_alf_normal takes the feature kinds, as the package's does.
+
+--parent FILE --gate-cls (FILE's CC-ALF gate a launch of its own behind
+the CTB kernel and its class SSE on int32 levels, as in ``git show
+7db3715:x266_tpu_torch/csrc/alf.cu > parent_src/alf_7db3715.cu``) times
+instead, on chip_smoke.py [kernels-alf]'s encoder and noise planes, after
+checking that both libraries' outputs are equal: the CTB decision
+without the gate on 4K luma (64x64 CTBs) and 4K chroma (32x32); CC-ALF's
+gate as chip_smoke.py measures it, the CTB call with the gate less the
+call without it, each turn timing both, on 4K and 1080p chroma; and the
+class SSE (x266_alf_class_sse: the parent's on the four levels in int32,
+the package's on the same levels in uint8) on 4K luma, with the class
+SSE's longest ordered lane chain and its dependent-add floor.
 """
 
 import argparse
@@ -262,12 +274,152 @@ def compare_parent(path, kinds, reps, card) -> dict:
     return out
 
 
+def declare_gate_cls(lib):
+    """The entry points of an alf.cu whose CC-ALF gate has no ticket."""
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    declare_kinds(lib)
+    lib.x266_alf_ctb_flags.argtypes = [i] * 3 + [fl] + [p] * 6 + [fl, p, p]
+    lib.x266_alf_ctb_flags.restype = i
+    lib.x266_alf_class_sse.argtypes = [i] * 3 + [p] * 8
+    lib.x266_alf_class_sse.restype = i
+    return lib
+
+
+class NoTicket:
+    """A library whose CTB entry point takes no ticket, called as
+    alf_cuda._launch_flags calls the package's: the ticket is dropped."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def x266_alf_ctb_flags(self, *args):
+        return self.lib.x266_alf_ctb_flags(*args[:-2], args[-1])
+
+
+def class_sse_int32(lib, stream, filt, orig, cls):
+    """The class SSE of a library whose levels are int32 (it zeroes its
+    chain totals itself): (error code, (sse, stats))."""
+    lv, h, w = filt.shape
+    dev = orig.device
+    dblk = torch.empty(lv * (h // 4) * (w // 4), dtype=torch.int32,
+                       device=dev)
+    tot = torch.empty(lv * kalf.NUM_CLASSES * 16, dtype=torch.int64,
+                      device=dev)
+    out = torch.empty((lv, kalf.NUM_CLASSES), dtype=torch.float32,
+                      device=dev)
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
+    code = lib.x266_alf_class_sse(lv, h, w, filt.data_ptr(), orig.data_ptr(),
+                                  cls.data_ptr(), dblk.data_ptr(),
+                                  tot.data_ptr(), out.data_ptr(),
+                                  stats.data_ptr(), stream)
+    return code, (out, stats)
+
+
+def compare_gate_cls(path, reps, card) -> dict:
+    """FILE's CTB decision, CC-ALF gate and class SSE against the
+    package's, in turns (see the module doc)."""
+    import chip_smoke as cs
+    import profile_common as pc
+
+    from x266_tpu_torch import _build
+    from x266_tpu_torch.kernels import alf_cuda
+
+    lib_p = pc.build([path], (), declare_gate_cls).lib
+    lib_n = _build.LIBRARY.build()
+    parent, new = NoTicket(lib_p), lib_n
+    ticket, tot = alf_cuda.new_work("cuda")
+    out = {"card": card, "parent": os.path.relpath(path, ROOT),
+           "sm_clock_max_mhz": cs.sm_clock_mhz()}
+
+    def equal(name, a, b):
+        for x, y in zip(a, b):
+            if x is not None and not torch.equal(x, y):
+                raise AssertionError(f"{name}: the outputs differ from the "
+                                     "parent's")
+
+    for w, h in ((3840, 2160), (1920, 1080)):
+        data = cs._alf_data(w, h, 31)
+        for kind in ("encoder", "noise"):
+            o, r, lam = data[kind]["luma"]
+            oc, rc, _ = data[kind]["chroma"]
+            tag = f"{w}x{h} {kind}"
+            filts, cls, _ = cs.nl_levels(o, r)
+            cfilt = cs.cc_filtered(r, rc, oc)
+            lum = [x.int().contiguous() for x in (filts[0], r, o)]
+            chrom = [x.int().contiguous() for x in (cfilt, rc, oc)]
+            worth = torch.empty(1, dtype=torch.int32, device="cuda")
+
+            def flags(lib, planes, ctb):
+                return pc.checked(alf_cuda._launch_flags(
+                    lib, pc.stream(), *planes, ctb, lam, False))
+
+            def gate(lib):
+                return pc.checked(alf_cuda._launch_flags(
+                    lib, pc.stream(), *chrom, 32, lam, False, worth,
+                    ticket)) + (worth.clone(),)
+
+            sets = [("ctb flags chroma", lambda lib: flags(lib, chrom, 32))]
+            if w == 3840:
+                sets.insert(0, ("ctb flags luma",
+                                lambda lib: flags(lib, lum, 64)))
+            for name, run in sets:
+                equal(f"{tag} {name}", run(parent), run(new))
+                res = pc.in_turns(parent, new, run, reps)
+                out[f"{tag} {name}"] = res
+                print(f"[parent] {tag} {name}: parent {res['ms_parent']:.4f}"
+                      f" ms, new {res['ms_new']:.4f} ms (turns "
+                      f"{res['turns_ms']}); outputs equal", flush=True)
+            equal(f"{tag} gate", gate(parent), gate(new))
+            turns = []
+            for lib in (parent, new, new, parent):
+                g = cs.event_ms(gate, lib, reps=reps)
+                f = cs.event_ms(flags, lib, chrom, 32, reps=reps)
+                turns.append({"with_gate_ms": g, "without_ms": f,
+                              "gate_ms": g - f})
+            gp = (turns[0]["gate_ms"] + turns[3]["gate_ms"]) / 2
+            gn = (turns[1]["gate_ms"] + turns[2]["gate_ms"]) / 2
+            cy, cx = -(-rc.shape[0] // 32), -(-rc.shape[1] // 32)
+            floor = cs.add_floor(cs.gate_adds(cy, cx))
+            out[f"{tag} gate"] = {"ms_parent": gp, "ms_new": gn,
+                                  "turns": turns, "ctbs": cy * cx,
+                                  "dependent_add_floor": floor}
+            print(f"[parent] {tag} CC-ALF gate ({cy * cx} CTBs): parent "
+                  f"{gp:.4f} ms, new {gn:.4f} ms (turns {turns}); "
+                  f"dependent-add floor {floor}; outputs equal", flush=True)
+            if w != 3840:
+                continue
+            f32 = filts.int().contiguous()
+            o32, c32 = o.int().contiguous(), cls.int().contiguous()
+
+            def cls_sse(lib):
+                if lib is parent:
+                    return pc.checked(class_sse_int32(lib_p, pc.stream(),
+                                                      f32, o32, c32))
+                return pc.checked(alf_cuda._launch_class(
+                    lib, pc.stream(), filts, o32, c32, tot))
+
+            equal(f"{tag} class sse", cls_sse(parent), cls_sse(new))
+            res = pc.in_turns(parent, new, cls_sse, reps)
+            chains = cs.class_chain_lengths(filts, o, cls)
+            res["chains"] = chains
+            res["dependent_add_floor"] = cs.add_floor(
+                chains["longest_blocks"])
+            out[f"{tag} class sse"] = res
+            print(f"[parent] {tag} class sse: parent {res['ms_parent']:.4f}"
+                  f" ms, new {res['ms_new']:.4f} ms (turns "
+                  f"{res['turns_ms']}); {chains}, floor "
+                  f"{res['dependent_add_floor']}; outputs equal", flush=True)
+    print(card)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--parent")
     ap.add_argument("--parent-kinds", action="store_true")
+    ap.add_argument("--gate-cls", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -278,8 +430,9 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     if args.parent:
-        out = compare_parent(os.path.abspath(args.parent),
-                             args.parent_kinds, args.reps, card)
+        path = os.path.abspath(args.parent)
+        out = (compare_gate_cls(path, args.reps, card) if args.gate_cls else
+               compare_parent(path, args.parent_kinds, args.reps, card))
         os.makedirs(args.out, exist_ok=True)
         name = os.path.splitext(os.path.basename(args.parent))[0]
         with open(os.path.join(args.out, f"profile_alf_{name}.json"),

@@ -147,7 +147,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     + [i] * 8 + [p] * 11)
     lib.x266_alf_normal.restype = i
     lib.x266_alf_ctb_flags.argtypes = ([i] * 3 + [ctypes.c_float] + [p] * 6
-                                       + [ctypes.c_float, p, p])
+                                       + [ctypes.c_float, p, p, p])
     lib.x266_alf_ctb_flags.restype = i
     lib.x266_alf_class_sse.argtypes = [i] * 3 + [p] * 8
     lib.x266_alf_class_sse.restype = i

@@ -81,7 +81,10 @@
 //      filtered and the unfiltered plane against the source, per 32x32
 //      window in int32; a window past 2^24 is summed in XLA's order from
 //      the planes; then the two SSEs' float32 difference + lam * 1.5 < 0
-//      is the CTB's flag.
+//      is the CTB's flag.  Its GATE instance ends with CC-ALF's
+//      whole-filter gate, run by the block that takes the last ticket.
+//   7. alf_class_blocks and alf_class_chains, the nonlinear estimator's
+//      per-class SSE of 4x4 blocks (see there).
 //
 // What bounds it on the H100: operations.  The normal equations read the
 // recon, the source and the class map once (a 4K luma plane: 66 MB of
@@ -116,6 +119,8 @@ constexpr int kBlockThreads = 128;
 constexpr int kSegment = 8192;     // samples per plane segment
 constexpr int kMaxSegments = 256;   // a 4K chroma plane has 254
 constexpr int kChainSamples = 4096;  // samples a plane-chain step adds
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
+constexpr size_t kMaxGateBytes = 200 * 1024;  // a gate's kept gains
 
 // The estimator's inputs and one order of its sums.
 struct Plane {
@@ -888,16 +893,22 @@ __global__ void alf_solve(SolveParams p) {
 // (cost.py row_vector_sum) -- then flag = (sse_f - sse_r) + lam15 < 0.
 // Samples past the plane are 0; the plane's width is a multiple of 4.  A
 // window whose int32 total is <= 2^24 is that total; one past it is
-// summed in order from the planes.
+// summed in order from the planes.  The GATE instance (CC-ALF's 32x32
+// CTBs) ends with the whole-filter gate, ccalf_gate below.
 struct FlagParams {
   const int32_t* filt;
   const int32_t* recon;
   const int32_t* orig;
   int32_t* flags;         // (cy, cx)
-  float* sse;             // (2, cy, cx) filtered, unfiltered, or null
+  float* sse;             // (2, cy, cx) filtered, unfiltered, or null;
+                          // GATE: the kept gains, (cy, cx)
   int* stats;             // [exact, ordered] windows
   float lam15;
   int h, w, cy, cx, mode;
+  // GATE only
+  unsigned long long* ticket;   // 0 between calls
+  int32_t* worth;               // (1)
+  float lam_gate;
 };
 
 __device__ float sq_err(const FlagParams& p, const int32_t* a, int y, int x) {
@@ -926,6 +937,117 @@ __device__ float row_vector_sum32(const FlagParams& p, const int32_t* a,
   return tot;
 }
 
+// CC-ALF's whole-filter gate (alf.py _ccalf_gate, gain_total): the sum of
+// the gains of the CTBs whose flag is on, in the order of XLA CPU's fused
+// reduction -- with 8 rows or more lane l adds rows l, l + 8, ... below
+// the last whole group of 8, each row in order, the lanes fold in halves
+// and the remaining rows follow in raster order; with 4 rows each row is a
+// lane, folded in halves; otherwise raster order -- then worth = total +
+// lam_gate < 0.  Run by the CTB kernel's last block, once every CTB has
+// written its kept gain (the gain where its flag is on, else 0) to the
+// first row of sse: its threads copy the gains into shared memory (16-byte
+// loads, 8 ahead a thread) as rows of gate_pitch floats, 16-byte aligned
+// and an odd number of 16-byte words apart, so that the lanes' 16-byte
+// loads fall in distinct banks; one thread a lane adds its rows, thread 0
+// folds the lanes, adds the remaining rows, writes worth and resets the
+// ticket.  Each chain reads its next 16-byte word while it adds the last.
+__host__ __device__ inline int gate_pitch(int cx) {
+  const int p = (cx + 3) & ~3;
+  return (p / 4) % 2 ? p : p + 4;
+}
+
+// acc plus the first m floats of row (16-byte aligned), in order: four
+// 16-byte words a step, the next step's read while this one is added, so
+// that the dependent adds, not the loads, set the pace.
+__device__ __forceinline__ float add_row(float acc, const float* row,
+                                         int m) {
+  const float4* r4 = (const float4*)row;
+  const int m4 = m / 4, steps = m4 / 4;
+  float4 v[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    v[u] = u < m4 ? r4[u] : float4{0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < steps; ++i) {
+    float4 next[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = 4 * (i + 1) + u;
+      next[u] = k < m4 ? r4[k] : v[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, v[u].x), v[u].y),
+                                v[u].z), v[u].w);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = next[u];
+  }
+#pragma unroll
+  for (int u = 0; u < 3; ++u)          // the words after the last step
+    if (4 * steps + u < m4)
+      acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, v[u].x), v[u].y),
+                                v[u].z), v[u].w);
+  for (int c = 4 * m4; c < m; ++c) acc = __fadd_rn(acc, row[c]);
+  return acc;
+}
+
+__device__ void ccalf_gate(const FlagParams& p) {
+  using Lanes = float[8];
+  X266_SHARED(Lanes, lanes);
+  X266_DYNAMIC_SHARED(float4, gain4);         // [cy][gate_pitch(cx) / 4]
+  float* gain = (float*)gain4;
+  constexpr int kAhead = 8;
+  const int tid = threadIdx.x, n = p.cy * p.cx, pitch = gate_pitch(p.cx);
+  const int n4 = n / 4;
+  const float4* src = (const float4*)p.sse;   // 16-byte aligned
+  for (int i0 = tid; i0 < n4; i0 += kAhead * blockDim.x) {
+    float4 v[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int i = i0 + j * blockDim.x;
+      v[j] = i < n4 ? __ldcg(src + i) : float4{0.f, 0.f, 0.f, 0.f};
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int i = i0 + j * blockDim.x;
+      if (i >= n4) break;
+      int r = 4 * i / p.cx, c = 4 * i - r * p.cx;
+      const float g[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        gain[r * pitch + c] = g[u];
+        if (++c == p.cx) {
+          c = 0;
+          ++r;
+        }
+      }
+    }
+  }
+  for (int k = 4 * n4 + tid; k < n; k += blockDim.x)
+    gain[(k / p.cx) * pitch + k % p.cx] = __ldcg(p.sse + k);
+  __syncthreads();
+  const int nl = p.cy == 4 ? 4 : p.cy >= 8 ? 8 : 0;     // lanes
+  const int r0 = nl ? p.cy - p.cy % nl : 0;            // rows in lanes
+  if (tid < nl) {
+    float acc = 0.f;
+    for (int r = tid; r < r0; r += nl)
+      acc = add_row(acc, gain + r * pitch, p.cx);
+    lanes[tid] = acc;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float tot = nl == 8 ? combine(lanes, 8, 1)
+              : nl == 4 ? combine(lanes, 4, 1) : 0.f;
+    for (int r = r0; r < p.cy; ++r) tot = add_row(tot, gain + r * pitch, p.cx);
+    p.worth[0] = __fadd_rn(tot, p.lam_gate) < 0.f ? 1 : 0;
+    *p.ticket = 0;
+  }
+}
+
+// One thread block per CTB.  GATE: thread 0 takes a ticket with an
+// acquire-release atomic add once it has written the CTB's flag and kept
+// gain, and the block that takes the last ticket runs ccalf_gate; the
+// instance without it compiles to the decision alone.
+template <bool GATE>
 __global__ void __launch_bounds__(kThreads) alf_ctb_flags(FlagParams p) {
   using Tot = int[2][4];
   using WSum = float[2][4];
@@ -993,6 +1115,7 @@ __global__ void __launch_bounds__(kThreads) alf_ctb_flags(FlagParams p) {
     if (p.stats) atomicAdd(&p.stats[exact ? 0 : 1], 1);
   }
   __syncthreads();
+  bool last = false;
   if (tid == 0) {
     float sse[2];
     for (int pl = 0; pl < 2; ++pl) {
@@ -1001,51 +1124,23 @@ __global__ void __launch_bounds__(kThreads) alf_ctb_flags(FlagParams p) {
       sse[pl] = s;
     }
     const float gain = __fsub_rn(sse[0], sse[1]);
-    p.flags[blockIdx.x] = __fadd_rn(gain, p.lam15) < 0.f ? 1 : 0;
-    if (p.sse) {
+    const int flag = __fadd_rn(gain, p.lam15) < 0.f ? 1 : 0;
+    p.flags[blockIdx.x] = flag;
+    if constexpr (GATE) {
+      p.sse[blockIdx.x] = flag ? gain : 0.f;      // the kept gain
+      last = x266_atom_add_acq_rel(p.ticket, 1) ==
+             (unsigned long long)(p.cy * p.cx - 1);
+    } else if (p.sse) {
       p.sse[blockIdx.x] = sse[0];
       p.sse[(size_t)p.cy * p.cx + blockIdx.x] = sse[1];
     }
   }
-}
-
-// CC-ALF's whole-filter gate (alf.py _ccalf_gate, gain_total): the sum of
-// the gains of the CTBs whose flag is on, in the order of XLA CPU's fused
-// reduction -- with 8 rows or more lane l adds rows l, l + 8, ... below
-// the last whole group of 8, each row in order, the lanes fold in halves
-// and the remaining rows follow in raster order; with 4 rows each row is a
-// lane, folded in halves; otherwise raster order -- then worth = total +
-// lam_gate < 0.  One thread: a plane has a few hundred CTBs.
-struct GateParams {
-  const float* sse;       // (2, cy, cx) filtered, unfiltered
-  const int32_t* flags;   // (cy, cx)
-  int* worth;             // (1)
-  float lam_gate;
-  int cy, cx;
-};
-
-__device__ float kept_gain(const GateParams& p, int r, int c) {
-  const int k = r * p.cx + c;
-  return p.flags[k] ? __fsub_rn(p.sse[k], p.sse[p.cy * p.cx + k]) : 0.f;
-}
-
-__global__ void alf_ccalf_gate(GateParams p) {
-  if (threadIdx.x != 0) return;
-  float lanes[8], tot = 0.f;
-  int r0 = 0;
-  if (p.cy == 4 || p.cy >= 8) {
-    const int n = p.cy == 4 ? 4 : 8;
-    r0 = p.cy == 4 ? 4 : p.cy - p.cy % 8;
-    for (int l = 0; l < n; ++l) lanes[l] = 0.f;
-    for (int g = 0; g < r0; g += n)
-      for (int c = 0; c < p.cx; ++c)
-        for (int l = 0; l < n; ++l)
-          lanes[l] = __fadd_rn(lanes[l], kept_gain(p, g + l, c));
-    tot = combine(lanes, n, 1);
+  if constexpr (GATE) {
+    X266_SHARED(int, gate);
+    if (tid == 0) gate = last;
+    __syncthreads();
+    if (gate) ccalf_gate(p);
   }
-  for (int r = r0; r < p.cy; ++r)
-    for (int c = 0; c < p.cx; ++c) tot = __fadd_rn(tot, kept_gain(p, r, c));
-  p.worth[0] = __fadd_rn(tot, p.lam_gate) < 0.f ? 1 : 0;
 }
 
 // The nonlinear luma estimator's per-class SSE of 4x4 blocks at each clip
@@ -1060,16 +1155,39 @@ __global__ void alf_ccalf_gate(GateParams p) {
 // and alf_class_chains walks only the chains whose total passes 2^24 --
 // their prefix up to 2^24 as an int32 sum, the rest by float32 adds in
 // order.
+//
+// What bounds it: the bytes.  The exact pass reads each byte once -- a
+// thread forms a block's SSE at every level from one read of the source's
+// rows and the class, the levels as samples of S (uint8_t at 8 bits: 4
+// bytes a block row) -- and writes the blocks' SSEs (int32) for the
+// ordered pass.  The ordered pass gives each (level, class) with a chain
+// past 2^24 a thread block, whose warps stream the class map and the
+// level's block SSEs and keep only the class's blocks, lane by lane, for
+// the walks: a chain's dependent adds are its class's blocks of the lane,
+// not every block of the plane.  The chain totals are 0 between calls:
+// alf_class_chains, their last reader, resets them.
 constexpr int kFusedBlocks = 4096;
 constexpr int kClsLanes = 16;
 constexpr int kClsPerThread = 4;   // blocks a thread of alf_class_blocks forms
+constexpr int kMaxLevels = 4;      // the nonlinear estimator's clip levels
+constexpr int kChainWarps = 8;     // compacting warps of alf_class_chains
+constexpr int kChainThreads = 32 * (kChainWarps + 1);
+constexpr int kChainPer = 16;      // blocks a compacting thread holds a tile
+constexpr int kChainTile = 32 * kChainWarps * kChainPer;
+// a lane's row of slots in a tile: its kChainTile / L blocks, padded so
+// that the walkers' 16-byte loads of 8 lanes hit distinct banks
+__host__ __device__ constexpr int slot_pitch(int lanes) {
+  return kChainTile / lanes + 4;
+}
+constexpr int kSlotFloats = 2 * kClsLanes * slot_pitch(kClsLanes);
 
 struct ClassParams {
-  const int32_t* filt;    // (levels, h, w)
+  const void* filt;       // (levels, h, w) samples
   const int32_t* orig;    // (h, w)
-  const int32_t* cls;     // (h/4, w/4)
+  const int32_t* cls;     // (h/4, w/4), 16-byte aligned
   int32_t* dblk;          // (levels, n) scratch: the blocks' SSEs
-  unsigned long long* tot;  // (levels, 25, kClsLanes) chain totals, zeroed
+  unsigned long long* tot;  // (kMaxLevels, 25, kClsLanes) chain totals, 0
+                            // between calls
   float* out;             // (levels, 25)
   int* stats;             // [exact, ordered] lane chains
   int levels, h, w, n;
@@ -1079,95 +1197,233 @@ __device__ __forceinline__ int class_lanes(int n) {
   return n < kFusedBlocks ? 16 : 8;
 }
 
-// One thread block per level and run of kThreads * kClsPerThread blocks:
-// each thread forms kClsPerThread blocks' SSEs, and the thread block's
-// (class, lane) sums (int32: at most 1,024 blocks of <= 1,040,400) go to
-// the chain totals.
+// Four samples of a block row (4-byte aligned), widened.
+template <typename S>
+__device__ __forceinline__ void load_row4(const S* s, int* v) {
+  if constexpr (sizeof(S) == 1) {
+    const uint32_t q = __ldg((const uint32_t*)s);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = (int)((q >> (8 * u)) & 255u);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = (int)__ldg(s + u);
+  }
+}
+
+__device__ __forceinline__ int sq4(const int* a, int4 o) {
+  return (a[0] - o.x) * (a[0] - o.x) + (a[1] - o.y) * (a[1] - o.y) +
+         (a[2] - o.z) * (a[2] - o.z) + (a[3] - o.w) * (a[3] - o.w);
+}
+
+// One thread block per run of kThreads * kClsPerThread blocks: each thread
+// forms kClsPerThread blocks' SSEs at every level, and the thread block's
+// (level, class, lane) sums (int32: at most 1,024 blocks of <= 1,040,400)
+// go to the chain totals.
+template <typename S>
 __global__ void __launch_bounds__(kThreads) alf_class_blocks(ClassParams p) {
-  using Sums = int[kMaxClasses][kClsLanes];
+  using Sums = int[kMaxLevels][kMaxClasses][kClsLanes];
   X266_SHARED(Sums, sums);
   constexpr int per = kThreads * kClsPerThread;
-  const int runs = (p.n + per - 1) / per;
-  const int lv = blockIdx.x / runs, run = blockIdx.x % runs;
-  const int tid = threadIdx.x, L = class_lanes(p.n);
-  for (int i = tid; i < kMaxClasses * kClsLanes; i += kThreads)
-    sums[i / kClsLanes][i % kClsLanes] = 0;
+  const int tid = threadIdx.x, L = class_lanes(p.n), b0 = blockIdx.x * per;
+  for (int i = tid; i < kMaxLevels * kMaxClasses * kClsLanes; i += kThreads)
+    sums[i / (kMaxClasses * kClsLanes)][(i / kClsLanes) % kMaxClasses]
+        [i % kClsLanes] = 0;
   __syncthreads();
   const int bw = p.w >> 2;
-  const int32_t* f = p.filt + (size_t)lv * p.h * p.w;
-  const int b0 = run * per;
+  const size_t plane = (size_t)p.h * p.w;
+  const S* f = (const S*)p.filt;
   for (int u = 0; u < kClsPerThread; ++u) {
     const int b = b0 + u * kThreads + tid;
     if (b >= p.n) break;
     const int y0 = (b / bw) * 4, x0 = (b % bw) * 4;
-    int acc = 0;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int4 a = *(const int4*)(f + (size_t)(y0 + r) * p.w + x0);
-      const int4 o = *(const int4*)(p.orig + (size_t)(y0 + r) * p.w + x0);
-      acc += (a.x - o.x) * (a.x - o.x) + (a.y - o.y) * (a.y - o.y) +
-             (a.z - o.z) * (a.z - o.z) + (a.w - o.w) * (a.w - o.w);
-    }
-    p.dblk[(size_t)lv * p.n + b] = acc;
-    const int c = p.cls[b];
+    const int c = __ldg(p.cls + b);
     X266_ASSERT(c >= 0 && c < kMaxClasses);
-    if (acc) atomicAdd(&sums[c][b % L], acc);
+    int4 o[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      o[r] = __ldg((const int4*)(p.orig + (size_t)(y0 + r) * p.w + x0));
+#pragma unroll
+    for (int lv = 0; lv < kMaxLevels; ++lv) {
+      if (lv < p.levels) {
+        const S* s = f + lv * plane + (size_t)y0 * p.w + x0;
+        int acc = 0;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          int a[4];
+          load_row4(s + (size_t)r * p.w, a);
+          acc += sq4(a, o[r]);
+        }
+        p.dblk[(size_t)lv * p.n + b] = acc;
+        if (acc) atomicAdd(&sums[lv][c][b % L], acc);
+      }
+    }
   }
   __syncthreads();
-  for (int i = tid; i < kMaxClasses * L; i += kThreads) {
-    const int v = sums[i / L][i % L];
+  for (int i = tid; i < p.levels * kMaxClasses * L; i += kThreads) {
+    const int lv = i / (kMaxClasses * L), c = (i / L) % kMaxClasses;
+    const int l = i % L, v = sums[lv][c][l];
     if (v)
-      atomicAdd(p.tot + ((size_t)lv * kMaxClasses + i / L) * kClsLanes +
-                    i % L,
+      atomicAdd(p.tot + ((size_t)lv * kMaxClasses + c) * kClsLanes + l,
                 (unsigned long long)v);
   }
 }
 
-// One thread block per (level, class), one thread per lane: a chain whose
-// total is <= 2^24 is that total; another adds the class's blocks l, l +
-// L, ... in order, 8 loads ahead of the adds.  Then thread 0 folds the
-// lanes.
-__global__ void alf_class_chains(ClassParams p) {
-  using Lanes = float[kClsLanes];
-  X266_SHARED(Lanes, lane);
-  const int lv = blockIdx.x / kMaxClasses, c = blockIdx.x % kMaxClasses;
-  const int L = class_lanes(p.n), l = threadIdx.x;
+// The ordered chains of (level lv, class c).  Tile t is kChainTile
+// blocks: warp w > 0's thread q holds blocks t * kChainTile + ((w - 1) *
+// 32 + q) * kChainPer + i, i < kChainPer (16-byte loads of the class map
+// and the block SSEs, the next tile's issued before this one is used),
+// kChainPer / L blocks of each lane.  For each lane j the compacting
+// warps write the tile's blocks of class c, in raster order and as
+// float32 (exact: below 2^24), into lane j's row of slots: ballots give a
+// warp's blocks and their places among its own, the warps' counts (behind
+// a barrier of the compacting warps alone) each warp's offset.  Warp 0's
+// thread j walks lane j's row of the tile before: the chain's integer sum
+// while it stays <= 2^24, then float32 adds in order (add_row).  Two
+// tiles of rows alternate, one block barrier a tile.
+template <int L>
+__device__ float class_chain(const ClassParams& p, int lv, int c,
+                             bool ordered, float* slot, int* count,
+                             int (*wcount)[kClsLanes]) {
+  constexpr int kVec = kChainPer / 4;
+  constexpr int kHalves = kChainPer / L;
+  constexpr int kPitch = slot_pitch(L);
+  const int tid = threadIdx.x, warp = tid / 32, q = tid % 32;
+  const int tiles = (p.n + kChainTile - 1) / kChainTile;
   const int32_t* d = p.dblk + (size_t)lv * p.n;
-  if (l < L) {
-    const unsigned long long total =
-        p.tot[((size_t)lv * kMaxClasses + c) * kClsLanes + l];
-    const bool ordered = total > (unsigned long long)kExact;
-    float acc = (float)total;    // exact when the chain is
-    if (ordered) {
-      int exact = 0;
-      bool past = false;
-      for (int k0 = l; k0 < p.n; k0 += 8 * L) {
-        int v[8];
+  auto load = [&](int t, int4* cc, int4* dd) {
+    const int k0 = t * kChainTile + ((warp - 1) * 32 + q) * kChainPer;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int k = k0 + j * L;
-          v[j] = k < p.n && __ldg(p.cls + k) == c ? __ldg(d + k) : -1;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (v[j] < 0) continue;
-          if (!past && exact + v[j] <= kExact) {
-            exact += v[j];
-          } else {
-            if (!past) acc = (float)exact;   // an integer <= 2^24
-            past = true;
-            acc = __fadd_rn(acc, (float)v[j]);
-          }
-        }
+    for (int u = 0; u < kVec; ++u) {
+      if (k0 + 4 * u < p.n) {    // n is a multiple of 4
+        cc[u] = __ldg((const int4*)(p.cls + k0) + u);
+        dd[u] = __ldg((const int4*)(d + k0) + u);
+      } else {
+        cc[u] = int4{-1, -1, -1, -1};
+        dd[u] = int4{0, 0, 0, 0};
       }
     }
-    lane[l] = acc;
-    if (p.stats) atomicAdd(&p.stats[ordered ? 1 : 0], 1);
+  };
+  int4 cv[kVec], dv[kVec], cn[kVec], dn[kVec];
+  int exact = 0;
+  bool past = false;
+  float acc = 0.f;
+  if (warp > 0) load(0, cv, dv);
+  for (int t = 0; t <= tiles; ++t) {
+    const int buf = t & 1;
+    if (warp > 0 && t < tiles) {
+      if (t + 1 < tiles) load(t + 1, cn, dn);
+      const int w = warp - 1;
+      int cl[kChainPer], vl[kChainPer];
+      unsigned m[kChainPer];
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) {
+        cl[4 * u] = cv[u].x, cl[4 * u + 1] = cv[u].y;
+        cl[4 * u + 2] = cv[u].z, cl[4 * u + 3] = cv[u].w;
+        vl[4 * u] = dv[u].x, vl[4 * u + 1] = dv[u].y;
+        vl[4 * u + 2] = dv[u].z, vl[4 * u + 3] = dv[u].w;
+      }
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        int k = 0;
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h) {
+          m[h * L + j] = __ballot_sync(0xffffffffu, cl[h * L + j] == c);
+          k += __popc(m[h * L + j]);
+        }
+        if (q == j) wcount[w][j] = k;
+      }
+      x266_bar_sync(1, kChainWarps * 32);
+      int before = 0;                  // lane q's blocks in earlier warps
+      if (q < L) {
+#pragma unroll
+        for (int u = 0; u < kChainWarps - 1; ++u)
+          before += u < w ? wcount[u][q] : 0;
+      }
+      const unsigned below = (1u << q) - 1u;
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        int at = __shfl_sync(0xffffffffu, before, j);
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h) at += __popc(m[h * L + j] & below);
+        float* row = slot + (buf * L + j) * kPitch;
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h)
+          if (cl[h * L + j] == c) row[at++] = (float)vl[h * L + j];
+      }
+      if (w == kChainWarps - 1 && q < L)
+        count[buf * kClsLanes + q] = before + wcount[w][q];
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) {
+        cv[u] = cn[u];
+        dv[u] = dn[u];
+      }
+    } else if (warp == 0 && t > 0 && ordered) {
+      const int pb = buf ^ 1, m = count[pb * kClsLanes + q];
+      const float* s = slot + (pb * L + q) * kPitch;
+      int e = 0;
+      for (; e < m && !past; ++e) {
+        const int v = (int)s[e];
+        if (exact + v <= kExact) {
+          exact += v;
+        } else {
+          acc = __fadd_rn((float)exact, s[e]);   // an integer <= 2^24
+          past = true;
+        }
+      }
+      for (; e < m && (e & 3); ++e) acc = __fadd_rn(acc, s[e]);
+      if (e < m) acc = add_row(acc, s + e, m - e);
+    }
+    __syncthreads();
+  }
+  return past ? acc : (float)exact;
+}
+
+// One thread block per (level, class): each lane's total is read and reset
+// to 0; a chain whose total is <= 2^24 is that total; if any passes it,
+// class_chain walks the (level, class)'s chains.  Then thread 0 folds the
+// lanes.
+__global__ void __launch_bounds__(kChainThreads) alf_class_chains(
+    ClassParams p) {
+  using Lanes = float[kClsLanes];
+  // two tiles of slots, a row a lane (float4: the walkers' 16-byte loads;
+  // 8 lanes' rows take as many floats as 16 lanes')
+  using Slots = float4[kSlotFloats / 4];
+  using Counts = int[2 * kClsLanes];
+  using WCounts = int[kChainWarps][kClsLanes];
+  X266_SHARED(Lanes, lane);
+  X266_SHARED(int, any);
+  X266_SHARED(Slots, slot);
+  X266_SHARED(Counts, count);
+  X266_SHARED(WCounts, wcount);
+  const int lv = blockIdx.x / kMaxClasses, c = blockIdx.x % kMaxClasses;
+  const int tid = threadIdx.x, L = class_lanes(p.n);
+  if (tid == 0) any = 0;
+  __syncthreads();
+  unsigned long long total = 0;
+  if (tid < L) {
+    unsigned long long* t =
+        p.tot + ((size_t)lv * kMaxClasses + c) * kClsLanes + tid;
+    total = *t;
+    *t = 0;                        // for the next call
+    if (total > (unsigned long long)kExact) any = 1;
+    if (p.stats) atomicAdd(&p.stats[total > kExact ? 1 : 0], 1);
   }
   __syncthreads();
-  if (l == 0) {
+  const bool ordered = tid < L && total > (unsigned long long)kExact;
+  float acc = (float)total;        // exact when the chain is
+  if (any) {
+    float* s = (float*)slot;
+    const float v = L == 8 ? class_chain<8>(p, lv, c, ordered, s, count,
+                                            wcount)
+                           : class_chain<16>(p, lv, c, ordered, s, count,
+                                             wcount);
+    if (ordered) acc = v;
+  }
+  if (tid < L) lane[tid] = acc;
+  __syncthreads();
+  if (tid == 0) {
     float v[kClsLanes];
-    for (int q = 0; q < L; ++q) v[q] = lane[q];
+    for (int u = 0; u < L; ++u) v[u] = lane[u];
     const bool pairs = L == 8 && c < kMaxClasses - 1;
     p.out[lv * kMaxClasses + c] = combine(v, L, !pairs);
   }
@@ -1331,62 +1587,72 @@ int x266_alf_normal(int h, int w, int t, int n_classes, const void* recon,
 // h x w), into flags (cy x cx int32) on `stream`, in the order `mode` (see
 // alf_ctb_flags); sse (2 x cy x cx float, the two SSEs) and stats (2
 // int32: windows exact, ordered) may be null.  With worth (1 int32; sse
-// not null) CC-ALF's whole-filter gate too (alf_ccalf_gate, lam_gate the
-// float32 of lam * (112 + cy * cx)).  Returns cudaGetLastError().
+// and ticket not null, mode 1 or 2) CC-ALF's whole-filter gate too, at the
+// end of the same launch (ccalf_gate, lam_gate the float32 of lam * (112 +
+// cy * cx)); sse (16-byte aligned) then holds the CTBs' kept gains in its
+// first row instead of the SSEs; ticket (1 uint64) is 0 before the call
+// and after it.
+// Returns cudaGetLastError().
 int x266_alf_ctb_flags(int h, int w, int mode, float lam15, const void* filt,
                        const void* recon, const void* orig, void* flags,
                        void* sse, void* stats, float lam_gate, void* worth,
-                       void* stream) {
+                       void* ticket, void* stream) {
   const int ctb = mode == 0 ? 64 : 32;
-  if (worth && (!sse || mode == 0)) return (int)cudaErrorInvalidValue;
+  if (worth && (!sse || !ticket || mode == 0 || ((uintptr_t)sse & 15)))
+    return (int)cudaErrorInvalidValue;
   FlagParams p{(const int32_t*)filt, (const int32_t*)recon,
                (const int32_t*)orig, (int32_t*)flags, (float*)sse,
                (int*)stats, lam15, h, w, (h + ctb - 1) / ctb,
-               (w + ctb - 1) / ctb, mode};
+               (w + ctb - 1) / ctb, mode, (unsigned long long*)ticket,
+               (int32_t*)worth, lam_gate};
   void* args[] = {&p};
-  cudaError_t err = cudaLaunchKernel(alf_ctb_flags, dim3(p.cy * p.cx),
-                                     dim3(ctb * ctb / 16), args, 0,
-                                     (cudaStream_t)stream);
-  if (err != cudaSuccess || !worth) return (int)(err != cudaSuccess ? err
-                                                     : cudaGetLastError());
-  GateParams g{(const float*)sse, (const int32_t*)flags, (int*)worth,
-               lam_gate, p.cy, p.cx};
-  void* gargs[] = {&g};
-  err = cudaLaunchKernel(alf_ccalf_gate, dim3(1), dim3(32), gargs, 0,
-                         (cudaStream_t)stream);
+  const dim3 grid(p.cy * p.cx), block(ctb * ctb / 16);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (!worth) {
+    err = cudaLaunchKernel(alf_ctb_flags<false>, grid, block, args, 0, st);
+  } else {
+    // the gate's kept gains, rows of gate_pitch floats
+    const size_t bytes = sizeof(float) * p.cy * gate_pitch(p.cx);
+    if (bytes > kMaxGateBytes) return (int)cudaErrorInvalidValue;
+    if (bytes > kDefaultSharedBytes) {
+      err = cudaFuncSetAttribute(alf_ctb_flags<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaLaunchKernel(alf_ctb_flags<true>, grid, block, args, bytes, st);
+  }
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The per-class SSE of 4x4 blocks of `levels` filtered planes (levels x h
-// x w int32) against orig (h x w) by the class map cls (h/4 x w/4) into
-// out (levels x 25 float) on `stream`, in XLA's order (alf_class_chains);
-// scratch: dblk, levels x (h/4)(w/4) int32, and tot, levels x 25 x 16
-// int64 (zeroed here); stats (2 int32: lane chains exact, with an ordered
-// tail) may be null.  Returns cudaGetLastError().
+// The per-class SSE of 4x4 blocks of `levels` (<= 4) filtered planes
+// (levels x h x w uint8) against orig (h x w int32) by the class map cls
+// (h/4 x w/4 int32, 16-byte aligned) into out (levels x 25 float) on
+// `stream`, in XLA's order (alf_class_chains); scratch: dblk, levels x
+// (h/4)(w/4) int32, and tot, 4 x 25 x 16 uint64, 0 before the call and
+// after it; stats (2 int32: lane chains exact, with an ordered tail) may
+// be null.  Returns cudaGetLastError().
 int x266_alf_class_sse(int levels, int h, int w, const void* filt,
                        const void* orig, const void* cls, void* dblk,
                        void* tot, void* out, void* stats, void* stream) {
   const int n = (h / 4) * (w / 4);
-  if ((h & 3) || (w & 3) || levels < 1 ||
-      (n < kFusedBlocks ? n % 16 : n % 8))
+  if ((h & 3) || (w & 3) || levels < 1 || levels > kMaxLevels ||
+      (n < kFusedBlocks ? n % 16 : n % 8) || ((uintptr_t)cls & 15) ||
+      ((uintptr_t)dblk & 15))
     return (int)cudaErrorInvalidValue;
-  ClassParams p{(const int32_t*)filt, (const int32_t*)orig,
-                (const int32_t*)cls, (int32_t*)dblk,
-                (unsigned long long*)tot, (float*)out, (int*)stats, levels,
-                h, w, n};
+  ClassParams p{filt, (const int32_t*)orig, (const int32_t*)cls,
+                (int32_t*)dblk, (unsigned long long*)tot, (float*)out,
+                (int*)stats, levels, h, w, n};
   void* args[] = {&p};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(
-      tot, 0, sizeof(unsigned long long) * levels * kMaxClasses * kClsLanes,
-      st);
-  if (err != cudaSuccess) return (int)err;
   const int per = kThreads * kClsPerThread;
-  err = cudaLaunchKernel(alf_class_blocks,
-                         dim3((n + per - 1) / per * levels), dim3(kThreads),
-                         args, 0, st);
+  cudaError_t err = cudaLaunchKernel(alf_class_blocks<uint8_t>,
+                                     dim3((n + per - 1) / per),
+                                     dim3(kThreads), args, 0, st);
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernel(alf_class_chains, dim3(levels * kMaxClasses),
-                         dim3(32), args, 0, st);
+                         dim3(kChainThreads), args, 0, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -657,8 +657,8 @@ def class_sse(filt, orig, cls) -> torch.Tensor:
     """The per-class float32 SSE of the 4x4 blocks of each filtered plane
     filt (L, H, W) against orig (H, W) by the class map cls (H/4, W/4):
     (L, 25), in XLA CPU's order (:454-456, SUM_ORDERS "class_sse_*").  The
-    class kernel of kernels/alf_cuda.py for CUDA tensors, class_sse_plain
-    for CPU ones."""
+    class kernel of kernels/alf_cuda.py for CUDA tensors (filt uint8),
+    class_sse_plain for CPU ones (any integer dtype)."""
     if orig.device.type == "cuda":
         from x266_tpu_torch.kernels import alf_cuda
         return alf_cuda.class_sse(filt, orig, cls)
@@ -751,14 +751,19 @@ def estimate_alf_nonlinear(orig, recon, lam: float, bit_depth: int = 8,
     cls, tr = classify_full(recon)
     all_on = torch.ones((-(-h // 64), -(-w // 64)), dtype=torch.int32,
                         device=orig.device)
-    coefs, filts = [], []
-    for lvl, v in enumerate(clip_levels(bit_depth)):
+    levels = clip_levels(bit_depth)
+    # each level's plane written straight into one buffer of the samples'
+    # width (the class SSE kernel reads 8-bit levels as bytes)
+    filts = torch.empty((len(levels), h, w), device=orig.device,
+                        dtype=torch.uint8 if bit_depth <= 8 else torch.int16)
+    coefs = []
+    for lvl, v in enumerate(levels):
         coef = normal_solve(recon, orig, cls, bit_depth=bit_depth, clip=v,
                             transpose=tr)
-        filts.append(level_plane(recon, cls, tr, coef, lvl, all_on,
-                                 bit_depth))
+        filts[lvl] = level_plane(recon, cls, tr, coef, lvl, all_on,
+                                 bit_depth)
         coefs.append(coef)
-    sse = class_sse(torch.stack(filts), orig, cls)
+    sse = class_sse(filts, orig, cls)
     clip_idx = torch.argmin(sse, 0).to(torch.int32)
     coeffs = torch.stack(coefs)[clip_idx.long(),
                                 torch.arange(NUM_CLASSES, device=orig.device)]

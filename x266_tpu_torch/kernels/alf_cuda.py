@@ -18,9 +18,15 @@ The plain versions are kernels/alf.py (``normal_solve_plain``,
 and keep CPU ones.  These wrappers launch their kernel or raise -- they
 never fall back.
 
+CC-ALF's gate runs at the end of the CTB kernel's launch, in the block
+that takes the last of a ticket, and the class SSE's chain totals are
+read and reset by its last kernel: both scratch buffers must be 0 before
+a call and are left so.  So each stream keeps one pair, zeroed once
+(``_WORK``).  The class SSE reads the filtered levels as uint8.
+
 LAUNCHES counts each wrapper's calls ("ALF": one call of the normal
 equations' kernels -- the block sums, totals and solve; "ALFSSE": one
-launch of the CTB decision kernel, with CC-ALF's gate behind it;
+launch of the CTB decision kernel, with CC-ALF's gate at its end;
 "ALFCLS": one call of the class-SSE kernels), so a run can show that its
 main path went through them.
 """
@@ -37,11 +43,28 @@ LAUNCHES = {"ALF": 0, "ALFSSE": 0, "ALFCLS": 0}
 SEGMENT = 8192          # samples per plane segment (csrc/alf.cu kSegment)
 CHUNK_BLOCKS = 128      # blocks per chunk of the totals (kChunkBlocks)
 CLASS_LANES = 16        # lanes of a class-SSE chain total (kClsLanes)
+MAX_LEVELS = 4          # filtered levels a class-SSE call (kMaxLevels)
+_WORK: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def new_work(device) -> tuple:
+    """A zeroed (ticket (1,), chain totals (4 * 25 * 16,)) int64 pair: the
+    gate's ticket and the class SSE's (level, class, lane) totals."""
+    return (torch.zeros(1, dtype=torch.int64, device=device),
+            torch.zeros(MAX_LEVELS * alf.NUM_CLASSES * CLASS_LANES,
+                        dtype=torch.int64, device=device))
+
+
+def _work(dev, stream) -> tuple:
+    key = (dev, stream)
+    if key not in _WORK:
+        _WORK[key] = new_work(dev)
+    return _WORK[key]
 
 
 def _orders(kind: str):
@@ -184,12 +207,14 @@ def sse_mode(ctb: int, width: int) -> int:
 
 
 def _launch_flags(lib, stream, filt, recon, orig, ctb, lam, extras=True,
-                  worth=None):
+                  worth=None, ticket=None):
     """Call the CTB entry point on int32 contiguous planes; returns (error
     code, (flags (Cy, Cx) int32, and with extras the SSEs (2, Cy, Cx)
     float32 and the (2,) int32 counts of windows summed exactly and in
     order, else None, None)).  worth, a (1,) int32 tensor: CC-ALF's gate
-    writes its decision there."""
+    writes its decision there (the kernel then keeps the CTBs' kept gains
+    where the SSEs would go, which are not returned); ticket, new_work's
+    (1,) int64 ticket, is then the launch's."""
     h, w = orig.shape
     dev = orig.device
     cy, cx = -(-h // ctb), -(-w // ctb)
@@ -205,7 +230,8 @@ def _launch_flags(lib, stream, filt, recon, orig, ctb, lam, extras=True,
         None if sse is None else sse.data_ptr(),
         None if stats is None else stats.data_ptr(),
         alf._gate_constant(lam, cy, cx),
-        None if worth is None else worth.data_ptr(), stream)
+        None if worth is None else worth.data_ptr(),
+        None if ticket is None else ticket.data_ptr(), stream)
     return code, (flags, sse if extras else None, stats)
 
 
@@ -221,8 +247,9 @@ def _flags(filt, recon, orig, ctb, lam, extras, worth=None):
     lib = _build.LIBRARY.build()
     with torch.cuda.device(orig.device):
         stream = torch.cuda.current_stream(orig.device).cuda_stream
+        ticket = None if worth is None else _work(orig.device, stream)[0]
         code, out = _launch_flags(lib, stream, *_planes(filt, recon, orig),
-                                  ctb, lam, extras, worth)
+                                  ctb, lam, extras, worth, ticket)
     _build.check(code)
     LAUNCHES["ALFSSE"] += 1
     return out
@@ -246,36 +273,44 @@ def ctb_sse(a, orig, ctb: int) -> torch.Tensor:
 def ccalf_gate(filt, c, orig_c, lam: float):
     """alf.ccalf_gate on the card: filt, c and orig_c (H, W) integer CUDA
     tensors (32x32 CTBs); (flags (Cy, Cx) int32, worth () bool), in one
-    launch of the CTB kernel and its gate, without a host sync."""
+    launch of the CTB kernel, whose last block runs the gate, without a
+    host sync."""
     worth = torch.empty(1, dtype=torch.int32, device=orig_c.device)
     flags = _flags(filt, c, orig_c, 32, lam, False, worth)[0]
     return flags, worth[0] > 0
 
 
-def _launch_class(lib, stream, filt, orig, cls):
-    """Call the class-SSE entry point on int32 contiguous planes; returns
-    (error code, (sse (L, 25) float32, stats (2,) int32: lane chains
-    exact, with an ordered tail))."""
+def _launch_class(lib, stream, filt, orig, cls, tot, with_stats=True):
+    """Call the class-SSE entry point on filt (L, H, W) uint8, orig (H, W)
+    and cls (H/4, W/4) int32, contiguous and 16-byte aligned, with tot,
+    new_work's zeroed chain totals; returns (error code, (sse (L, 25)
+    float32, with_stats the (2,) int32 counts of lane chains exact and
+    with an ordered tail, else None))."""
     lv, h, w = filt.shape
     dblk = torch.empty(lv * (h // 4) * (w // 4), dtype=torch.int32,
                        device=orig.device)
-    tot = torch.empty(lv * alf.NUM_CLASSES * CLASS_LANES, dtype=torch.int64,
-                      device=orig.device)
     out = torch.empty((lv, alf.NUM_CLASSES), dtype=torch.float32,
                       device=orig.device)
-    stats = torch.zeros(2, dtype=torch.int32, device=orig.device)
+    stats = (torch.zeros(2, dtype=torch.int32, device=orig.device)
+             if with_stats else None)
     code = lib.x266_alf_class_sse(lv, h, w, filt.data_ptr(), orig.data_ptr(),
                                   cls.data_ptr(), dblk.data_ptr(),
                                   tot.data_ptr(), out.data_ptr(),
-                                  stats.data_ptr(), stream)
+                                  None if stats is None else stats.data_ptr(),
+                                  stream)
     return code, (out, stats)
 
 
+def _aligned(x):
+    """x, or a copy of it where its data is not 16-byte aligned."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def class_sse(filt, orig, cls, with_stats: bool = False):
-    """alf.class_sse on the card: filt (L, H, W), orig (H, W) and cls
-    (H/4, W/4) integer CUDA tensors; (L, 25) float32, and with_stats the
-    (2,) int32 counts of lane chains summed exactly and with an ordered
-    tail."""
+    """alf.class_sse on the card: filt (L, H, W) uint8 (L <= 4: the
+    filtered levels of 8-bit samples), orig (H, W) and cls (H/4, W/4)
+    integer CUDA tensors; (L, 25) float32, and with_stats the (2,) int32
+    counts of lane chains summed exactly and with an ordered tail."""
     for name, x in (("filt", filt), ("orig", orig), ("cls", cls)):
         _check(name, x)
     lv, h, w = filt.shape
@@ -284,10 +319,16 @@ def class_sse(filt, orig, cls, with_stats: bool = False):
         raise ValueError(f"expected planes (L, H, W), (H, W) and (H/4, W/4) "
                          f"with sides multiples of 4, got {tuple(filt.shape)}"
                          f", {tuple(orig.shape)} and {tuple(cls.shape)}")
+    if filt.dtype != torch.uint8 or not 1 <= lv <= MAX_LEVELS:
+        raise ValueError(f"the class-SSE kernel reads 1 to {MAX_LEVELS} "
+                         f"levels of uint8, got {lv} of {filt.dtype}")
     lib = _build.LIBRARY.build()
     with torch.cuda.device(orig.device):
         stream = torch.cuda.current_stream(orig.device).cuda_stream
-        code, out = _launch_class(lib, stream, *_planes(filt, orig, cls))
+        f, o, c = (_aligned(x) for x in (filt.contiguous(),
+                                         *_planes(orig, cls)))
+        code, out = _launch_class(lib, stream, f, o, c,
+                                  _work(orig.device, stream)[1], with_stats)
     _build.check(code)
     LAUNCHES["ALFCLS"] += 1
     return out if with_stats else out[0]
