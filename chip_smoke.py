@@ -185,7 +185,20 @@ Phases (each prints its lines; any failure raises, exit code non-zero):
     config 2's 1080p batch and K2 on its frame 0 without and with CCLM,
     in turns; [main-cclm] config 2 with CCLM, frames 0-3 of 'mixed' with
     chroma made from the luma, against data/cfg2c_1080p_ref.json as
-    [main-mtt], with the CUs of each size taking each choice; [cli]
+    [main-mtt], with the CUs of each size taking each choice;
+    [kernels-cu64] K1/K2's CU-64 instances (the 64-point DCT and its
+    zero-out) against the plain scans run on the CPU in the worker
+    processes, bit for bit, at 416x240 on smooth directional blocks
+    (utils.clips.smooth_blocks, on which 64 CUs win) with chroma made
+    from the luma: CU 64 alone, with CCLM, with LFNST; with the CUs of
+    each size counted (no 64 CU fails), timed beside their bounds
+    (recon_ops: a 64-TU's transforms over its coded 32x32 band); then K1
+    on config 2 + CU 64's 1080p batch (frame 0's recon held to
+    data/cfg2cu64_1080p_ref.json's) and K2 on its frame 0, against the
+    same frames at CU 32 and with LFNST and CCLM, in turns; [main-cu64]
+    config 2 with CU 64,
+    frames 0-3 of 'mixed', against data/cfg2cu64_1080p_ref.json as
+    [main-mtt], with its 64 CUs counted; [cli]
     ``python3 -m x266_tpu_torch.cli encode`` and ``decode`` as
     subprocesses on a 416x240 raw clip with CCLM (low-delay, deblock,
     SAO): the stream equals data/cli416x240_ref.json's (the JAX
@@ -465,7 +478,10 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
     ops a sample (its 2x2 luma mean 5, the model's multiply, add, shift,
     add and clip 5), when encoding for every CU with both predictions'
     SSE against the source (3 ops a sample each), 16 in all, when
-    decoding only for the CUs whose mts value has bit 3 set."""
+    decoding only for the CUs whose mts value has bit 3 set.  A 64-TU
+    (CU 64) transforms only its coded low 32x32 band: the forward's
+    vertical pass makes 32 rows of 64 (64 MACs each) and its horizontal
+    pass their 32 low columns, the inverse the same two products."""
     ops = 0.0
     for f in range(size_map.shape[0]):
         kinds = (pred_map[f] if pred_map is not None
@@ -484,7 +500,9 @@ def recon_ops(size_map, encode: bool, pred_map=None, mode_map=None,
                 # intra: 4 taps a sample; bi: an add and a shift; MC: copy
                 pred = (8 * side * side if kind == 0 else
                         2 * side * side if kind == 4 else 0)
-                tx = 4 * side ** 3
+                # a 64-TU (CU 64) transforms its coded 32x32 band only:
+                # each way 32 x 64 x 64 and 32 x 32 x 64 MACs
+                tx = 4 * side ** 3 if side < 64 else 6 * 32 * 32 * 64
                 if cfg is not None and kind == 0 and luma:
                     if cfg.mip and mode >= cfg.n_intra_modes:
                         pred = 32 * side * side + 4 * side
@@ -526,7 +544,8 @@ def tu_walk(size_map, width: int, height: int, mts_map=None,
     """The TUs a recon launch walks, derived from its size maps ((F,
     H/8, W/8), numpy; the kernel does not count them): per plane, the
     TUs of each size (a CU of side s has one luma TU of s and a Cb and a
-    Cr TU of s/2; under MTT a BT leaf four TUs of s/2, tu_sizes); the
+    Cr TU of s/2; under MTT a BT leaf four TUs of s/2, tu_sizes; 64 where
+    a CU-64 configuration codes one); the
     CTUs on the wavefront's chain, ctus_x + 2 (ctus_y
     - 1) (a batch's rows run at once, so its chain is one frame's); and
     the luma TUs on that chain, a frame's mean luma TUs per CTU times the
@@ -538,10 +557,10 @@ def tu_walk(size_map, width: int, height: int, mts_map=None,
     uy, ux = np.mgrid[0:size_map.shape[1], 0:size_map.shape[2]]
     origin = ((ux % u) == 0) & ((uy % u) == 0)
     sizes = size_map[origin]
-    walk = {"Y": {str(s): int((sizes == s).sum()) for s in (8, 16, 32)}}
+    ys = (8, 16, 32) + ((64,) if (sizes == 64).any() else ())
+    walk = {"Y": {str(s): int((sizes == s).sum()) for s in ys}}
     for c in ("Cb", "Cr"):
-        walk[c] = {str(s // 2): n for s, n in zip((8, 16, 32),
-                                                   walk["Y"].values())}
+        walk[c] = {str(s // 2): n for s, n in zip(ys, walk["Y"].values())}
     ctus_x, ctus_y = -(-width // 64), -(-height // 64)
     chain = ctus_x + 2 * (ctus_y - 1)
     luma_per_ctu = sizes.size / size_map.shape[0] / (ctus_x * ctus_y)
@@ -616,13 +635,13 @@ def phase_build():
 
 
 def kernel_name(mangled: str) -> str:
-    """recon_kernel<encode,inter,b,quantizer,mtt/lfnst,cclm> for a recon
-    instance, else the first name of the mangled symbol's (nested) name
-    that holds "kernel"."""
+    """recon_kernel<encode,inter,b,quantizer,mtt/lfnst,cclm,cu64> for a
+    recon instance, else the first name of the mangled symbol's (nested)
+    name that holds "kernel"."""
     t = re.search(r"recon_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)E"
-                  r"Lb(\d)E", mangled)
+                  r"Lb(\d)ELb(\d)E", mangled)
     if t:
-        return "recon_kernel<%s,%s,%s,%s,%s,%s>" % t.groups()
+        return "recon_kernel<%s,%s,%s,%s,%s,%s,%s>" % t.groups()
     pos = 3 if mangled.startswith("_ZN") else 2
     while m := re.match(r"\d+", mangled[pos:]):
         start = pos + m.end()
@@ -2139,6 +2158,202 @@ def run_main_cclm(stats, card):
     stats["K1"].setdefault("tools", {})[tag] = {"cclm_cus": counts}
 
 
+def cfg2cu64():
+    """Config 2 (1080p, its segments) with 64x64 CUs."""
+    return main_cfg().replace(max_cu_size=64)
+
+
+def _cu64_inputs(cfg, n, seed, kind):
+    """Padded planes and Pass-A maps of n frames on the card: kind
+    "blocks", smooth directional blocks (utils.clips.smooth_blocks over
+    'mixed', on which 64 CUs win) with chroma made from the luma; else
+    the synthetic clip of that kind."""
+    from x266_tpu_torch import tables
+    from x266_tpu_torch.core.yuv import synthetic_clip
+    from x266_tpu_torch.engine import fused
+    from x266_tpu_torch.utils.clips import luma_chroma, smooth_blocks
+
+    tab = tables.from_reference(cfg, "cuda")
+    frames = synthetic_clip(cfg.width, cfg.height, n,
+                            "mixed" if kind == "blocks" else kind, seed=seed)
+    if kind == "blocks":
+        frames = luma_chroma(smooth_blocks(frames, seed))
+    src = fused._unpack_padded(cfg, *_upload(frames))
+    return tab, src, fused.make_pass_a(cfg, tab)(src[0])
+
+
+def cu_counts(size_map) -> dict:
+    """The CUs of each size (64 included) at their origins."""
+    sm = size_map.cpu().numpy()
+    uy, ux = np.mgrid[0:sm.shape[1], 0:sm.shape[2]]
+    u = sm // 8
+    origin = ((ux % u) == 0) & ((uy % u) == 0)
+    return {f"cu{s}": int((origin & (sm == s)).sum())
+            for s in (8, 16, 32, 64)}
+
+
+def cu64_bounds(cfg, tab, src, maps, got, dec, one):
+    """The bounds of a CU-64 encode launch and of the decode of its first
+    `one` frames (cclm_bounds under CCLM, else quant_bounds)."""
+    part = [m[:one] for m in maps]
+    if cfg.cclm:
+        return (cclm_bounds(cfg, tab, src, maps, got, got)[0],
+                cclm_bounds(cfg, tab, [t[:one] for t in src], part,
+                            [g[:one] for g in got], dec)[1])
+    return (quant_bounds(cfg, tab, "I", src, maps, got, dec, maps)[0],
+            quant_bounds(cfg, tab, "I", [t[:one] for t in src], part,
+                         [g[:one] for g in got], dec, part)[1])
+
+
+def compare_cu64_kernels(tag, cfg, stats, seed):
+    """K1 and K2's CU-64 instances on one picture of smooth directional
+    blocks (the port's Pass-A maps), on the card: K2 on K1's levels (and
+    under CCLM its mts map out) gives K1's recon (under LFNST only the
+    plain decode's: the map keeps no LFNST index); the CUs of each size
+    are counted (no 64 CU fails); the plain scans of the same inputs run
+    on the CPU in a worker process, whose check (bit for bit, before the
+    kernels line) also records their times."""
+    tab, src, maps = _cu64_inputs(cfg, 1, seed, "blocks")
+    enc_in = (*src, *maps)
+    got = _run_quant(cfg, tab, "I", True, *enc_in)
+    dec_in = (*got[3:6], maps[0], maps[1], got[6] if cfg.cclm else maps[2])
+    dec = _run_quant(cfg, tab, "I", False, *dec_in)
+    names = ["reconY", "reconCb", "reconCr", "coefY", "coefCb", "coefCr",
+             "mts_out"]
+    if not cfg.lfnst:
+        _require_equal("K2", tag + " (its own encode's recon)", names[:3],
+                       dec[:3], got[:3])
+    counts = cu_counts(maps[0])
+    if not counts["cu64"]:
+        raise AssertionError(f"[kernels-cu64] {tag}: no 64 CU: {counts}")
+    k_ms = event_ms(_run_quant, cfg, tab, "I", True, *enc_in)
+    kd_ms = event_ms(_run_quant, cfg, tab, "I", False, *dec_in)
+    be, bd = cu64_bounds(cfg, tab, src, maps, got, dec, 1)
+    walk = tu_walk(maps[0].cpu().numpy(), cfg.width, cfg.height)
+    entry = {}
+    for key, ms, b in (("K1", k_ms, be), ("K2", kd_ms, bd)):
+        entry[key] = stats[key].setdefault("tools", {}).setdefault(tag, {})
+        entry[key].update({"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                           "shape": f"{cfg.width}x{cfg.height}",
+                           "cus": counts, **per_chain(walk, ms)})
+    got_h = [g.cpu() for g in got]
+    dec_h = [d.cpu() for d in dec]
+
+    def check(outs, ms):
+        _require_equal("K1", tag, names, got_h, [torch.from_numpy(r)
+                                                 for r in outs[0]])
+        _require_equal("K2", tag, names, dec_h, [torch.from_numpy(r)
+                                                 for r in outs[1]])
+        entry["K1"]["plain_ms_cpu"], entry["K2"]["plain_ms_cpu"] = ms
+        log(f"[kernels-cu64] {tag}: K1 and K2 equal the plain scans (on "
+            f"the cpu in a worker: {ms[0]:.0f} / {ms[1]:.0f} ms); "
+            f"max_abs_err 0")
+
+    on_cpu("kernels-cu64", check, _plain_quant_cpu, cfg, "I",
+           [t.cpu().numpy() for t in enc_in],
+           [t.cpu().numpy() for t in dec_in])
+    log(f"[kernels-cu64] {tag}: K1 {k_ms:.3f} ms (bound {be[0]:.4f} ms, "
+        f"{be[1]}), K2 {kd_ms:.3f} ms (bound {bd[0]:.4f} ms, {bd[1]}); "
+        f"CUs by size {counts}; the plain scans run on the cpu; "
+        f"{chain_text(walk, K1=k_ms, K2=kd_ms)}")
+
+
+def time_cu64(stats, n=4):
+    """K1 on config 2's 1080p batch of n frames of 'mixed' and K2 on its
+    frame 0, at CU 32, at CU 64 and at CU 64 with LFNST and with CCLM
+    (each on its own Pass-A maps), timed in turns (forth and back), each
+    beside its bound; at CU 64 K1's frame 0 recon is held to
+    data/cfg2cu64_1080p_ref.json's (config 2 has no loop filter), and
+    everywhere K2 on frame 0's levels and maps (under CCLM K1's mts map
+    out) to K1's recon."""
+    from x266_tpu_torch.core.hashing import frame_md5
+    from x266_tpu_torch.core.yuv import Frame
+
+    cfgs = {"cu32": main_cfg(), "cu64": cfg2cu64(),
+            "cu64-lfnst": cfg2cu64().replace(lfnst=True),
+            "cu64-cclm": cfg2cu64().replace(cclm=True)}
+    runs, bounds, counts, walks = {}, {}, {}, {}
+    for name, c in cfgs.items():
+        tab, src, maps = _cu64_inputs(c, n, 0, "mixed")
+        got = _run_quant(c, tab, "I", True, *src, *maps)
+        one = [t[:1].contiguous() for t in (
+            *got[3:6], maps[0], maps[1], got[6] if c.cclm else maps[2])]
+        dec = _run_quant(c, tab, "I", False, *one)
+        _require_equal("K2", f"config2 1080p {name}",
+                       ("reconY", "reconCb", "reconCr"), dec[:3],
+                       [g[:1] for g in got[:3]])
+        runs[name] = (c, tab, (*src, *maps), one)
+        bounds[name] = cu64_bounds(c, tab, src, maps, got, dec, 1)
+        counts[name] = cu_counts(maps[0])
+        walks[name] = tu_walk(maps[0].cpu().numpy(), c.width, c.height)
+        if name == "cu64":
+            with open(os.path.join(DATA, "cfg2cu64_1080p_ref.json")) as f:
+                want = json.load(f)["frames"][0]["recon_md5"]
+            rec = Frame(*(g[0].cpu().numpy() for g in got[:3]))
+            if frame_md5(rec) != want or not counts[name]["cu64"]:
+                raise AssertionError(
+                    "[kernels-cu64] config2 1080p: K1's frame 0 differs "
+                    f"from the reference's recon, or no 64 CU: "
+                    f"{counts[name]}")
+    times = {key: {name: [] for name in cfgs} for key in ("K1", "K2")}
+    for name in (*cfgs, *reversed(cfgs)):
+        c, tab, enc_in, dec_in = runs[name]
+        times["K1"][name].append(event_ms(_run_quant, c, tab, "I", True,
+                                          *enc_in))
+        times["K2"][name].append(event_ms(_run_quant, c, tab, "I", False,
+                                          *dec_in))
+    for i, key in enumerate(("K1", "K2")):
+        ms = {name: float(np.mean(v)) for name, v in times[key].items()}
+        bd = {name: bounds[name][i] for name in cfgs}
+        stats[key].setdefault("tools", {})["config2 1080p cu64"] = {
+            **{f"ms_{name}": v for name, v in ms.items()},
+            "bound_ms": {name: b[0] for name, b in bd.items()},
+            "bound_by": {name: b[1] for name, b in bd.items()},
+            "cus": counts,
+            "tus_by_size_map": {name: w["tus_by_size_map"]
+                                for name, w in walks.items()},
+            "shape": f"1920x1080x{n if key == 'K1' else 1}"}
+        log(f"[kernels-cu64] config2 1080p: {key} "
+            + ", ".join(f"{name} {v:.3f} ms" for name, v in ms.items())
+            + " (in turns); bounds "
+            + ", ".join(f"{name} {b[0]:.4f} ms ({b[1]})"
+                        for name, b in bd.items())
+            + f"; CUs by size {counts}")
+    tus = {k: w["tus_by_size_map"]["Y"] for k, w in walks.items()}
+    log("[kernels-cu64] config2 1080p: K1's frame 0 at CU 64 equals the "
+        "reference's recon, K2 K1's recon; luma TUs by size of the batch "
+        f"{tus}")
+
+
+def phase_kernels_cu64(stats):
+    """K1/K2's CU-64 instances against the plain scans at 416x240: CU 64
+    alone, with CCLM, with LFNST; then K1 and K2 at config 2's 1080p
+    shapes at CU 32, CU 64, CU 64 + LFNST and CU 64 + CCLM, in turns."""
+    from x266_tpu_torch.config import preset_cfg2
+
+    base = preset_cfg2(416, 240).replace(max_cu_size=64)
+    for tag, cfg in (("cu64 I 416x240", base),
+                     ("cu64-cclm I 416x240", base.replace(cclm=True)),
+                     ("cu64-lfnst I 416x240", base.replace(lfnst=True))):
+        compare_cu64_kernels(tag, cfg, stats, seed=13)
+    time_cu64(stats)
+
+
+def run_main_cu64(stats, card):
+    """run_main on frames 0-3 of 'mixed' under config 2 + CU 64, against
+    data/cfg2cu64_1080p_ref.json; then the CUs of each size on those
+    frames (their Pass-A maps; no 64 CU fails)."""
+    tag = "main-cu64"
+    cfg = cfg2cu64()
+    run_main(tag, cfg, "mixed", "cfg2cu64_1080p_ref.json", ("K1", "K2"),
+             stats, card, tools=True, batch_frames=4)
+    counts = cu_counts(_cu64_inputs(cfg, 4, 0, "mixed")[2][0])
+    if not counts["cu64"]:
+        raise AssertionError(f"[{tag}] no 64 CU in frames 0-3: {counts}")
+    log(f"[{tag}] CUs by size in frames 0-3: {counts}")
+    stats["K1"].setdefault("tools", {})[tag] = {"cus": counts}
+
+
 def phase_cli(stats, card):
     """The command line on the card, as a user runs it: ``python3 -m
     x266_tpu_torch.cli encode`` of a 416x240 raw clip with CCLM (chroma
@@ -3466,6 +3681,8 @@ def main() -> int:
         "cfg2ml_1080p_ref.json", stats, card)
     run("kernels-cclm", phase_kernels_cclm, stats)
     run("main-cclm", run_main_cclm, stats, card)
+    run("kernels-cu64", phase_kernels_cu64, stats)
+    run("main-cu64", run_main_cu64, stats, card)
     run("cli", phase_cli, stats, card)
     run("main-ra", run_main_ra, stats, card)
     run("cpu-checks", finish_cpu_checks)

@@ -570,6 +570,105 @@ def test_cclm_streams_on_card_equal_recorded_jax(cuda):
         assert recon_cuda.LAUNCHES["K2"] > 0
 
 
+CU64_CFGS = {
+    "cu64": CodecConfig(width=192, height=128, qp=32, rdoq=True,
+                        profile=Profile.VVC, max_cu_size=64, mts=True,
+                        ref_substitute=True, pdpc=True),
+    "cu64-cclm": CodecConfig(width=192, height=128, qp=32, rdoq=True,
+                             profile=Profile.VVC, max_cu_size=64,
+                             cclm=True),
+    "cu64-lfnst": CodecConfig(width=192, height=128, qp=32, rdoq=True,
+                              profile=Profile.VVC, max_cu_size=64,
+                              mts=True, lfnst=True),
+}
+
+
+def _cu64_inputs(cfg, dev):
+    """Smooth directional blocks (64 CUs win on them), chroma made from
+    the luma, and the port's Pass-A maps."""
+    from x266_tpu_torch.utils.clips import luma_chroma, smooth_blocks
+
+    tab = tables.from_reference(cfg, dev)
+    frames = luma_chroma(smooth_blocks(synthetic_clip(
+        cfg.width, cfg.height, 2, "mixed", seed=3), 3))
+    planes = [torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+              .to(dev) for p in ("y", "cb", "cr")]
+    src = fused._unpack_padded(cfg, *planes)
+    return tab, src, fused.make_pass_a(cfg, tab)(src[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CU64_CFGS))
+def test_cu64_kernels_match_plain_scan_on_card(name, cuda):
+    """K1 and K2's CU-64 instances on the card: the plain scan's levels
+    and recon (under CCLM its mts map), and K2 on those levels the plain
+    decode's recon, with 64 CUs coded."""
+    cfg = CU64_CFGS[name]
+    tab, src, maps = _cu64_inputs(cfg, cuda)
+    assert (maps[0] == 64).any()
+    got = recon_cuda.recon_intra(cfg, tab, True, *src, *maps)
+    want = recon.make_recon_pass_raw(cfg, tab, True)(*src, *maps)
+    assert len(got) == len(want)
+    for n, w, g in zip(NAMES[:6] + ["mts_out"], want, got):
+        assert torch.equal(w, g), n
+    dargs = (*got[3:6], maps[0], maps[1], got[6] if cfg.cclm else maps[2])
+    dec = recon_cuda.recon_intra(cfg, tab, False, *dargs)
+    dwant = recon.make_recon_pass_raw(cfg, tab, False)(*dargs)
+    for n, w, g in zip(NAMES, dwant, dec):
+        assert torch.equal(w, g), n
+
+
+@pytest.mark.gpu
+def test_cu64_streams_on_card_equal_recorded_jax(cuda):
+    """On the card: the 128x64 CU-64 clips give data/cu64_128x64_ref.json's
+    streams and recon through the recon kernels, and the Decoder gives
+    the JAX decoder's pictures of each."""
+    import base64
+    import json
+    import os
+
+    from x266_tpu_torch import config as tconfig
+    from x266_tpu_torch.utils.clips import luma_chroma, smooth_blocks
+
+    here = os.path.dirname(__file__)
+    with open(os.path.join(here, "..", "x266_tpu_torch", "data",
+                           "cu64_128x64_ref.json")) as f:
+        ref = json.load(f)["variants"]
+    names = {k: getattr(tconfig, k) for k in ("CodecConfig", "Profile")}
+    for name, v in ref.items():
+        cfg = eval(v["config"], names)
+        frames = eval(v["clip"], {"luma_chroma": luma_chroma,
+                                  "smooth_blocks": smooth_blocks,
+                                  "synthetic_clip": synthetic_clip})
+        recon_cuda.reset_launches()
+        res = Encoder(cfg).encode(frames)
+        assert res.bitstream == base64.b64decode(v["stream_b64"]), name
+        assert [frame_md5(r) for r in res.recon] == [
+            f["recon_md5"] for f in v["frames"]], name
+        assert recon_cuda.LAUNCHES["K1"] > 0
+        _, dec = Decoder().decode(res.bitstream)
+        assert [frame_md5(d) for d in dec] == [
+            f["decode_md5"] for f in v["frames"]], name
+        assert recon_cuda.LAUNCHES["K2"] > 0
+
+
+def test_cu64_entry_points_default_to_the_card():
+    """Encoder and Decoder of a CU-64 configuration default to the card
+    and raise on a host without one (no fall back to the CPU); the recon
+    kernels' wrappers refuse CPU tensors under CU 64."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a host without a card")
+    cfg = CU64_CFGS["cu64-cclm"]
+    with pytest.raises(RuntimeError, match="is_available"):
+        Encoder(cfg)
+    with pytest.raises(RuntimeError, match="is_available"):
+        Decoder()
+    tab, src, maps = _cu64_inputs(cfg, "cpu")
+    for encode in (True, False):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            recon_cuda.recon_intra(cfg, tab, encode, *src, *maps)
+
+
 def test_cclm_entry_points_default_to_the_card():
     """Encoder and Decoder of a configuration with CCLM default to the
     card and raise on a host without one (no fall back to the CPU); the

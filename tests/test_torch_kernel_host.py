@@ -1322,7 +1322,8 @@ def test_group_barrier_mutation_is_caught(plane, tmp_path_factory,
 
     bar = 1 + ["Y", "Cb", "Cr"].index(plane)
     recon_src = [s for s in _build.SOURCES if s.endswith(
-        ("recon_intra.cu", "recon_quant.cu", "recon_cclm.cu"))]
+        ("recon_intra.cu", "recon_quant.cu", "recon_cclm.cu",
+         "recon_cu64.cu", "recon_cu64_cclm.cu"))]
     lib = _build.declare_recon(ctypes.CDLL(_host_build(
         tmp_path_factory, recon_src,
         (f"X266_MUTATE_GROUP_BARRIER={bar}",))))
@@ -1406,7 +1407,8 @@ def test_cclm_wait_mutation_is_caught(tmp_path_factory, monkeypatch):
     import ctypes
 
     recon_src = [s for s in _build.SOURCES if s.endswith(
-        ("recon_intra.cu", "recon_quant.cu", "recon_cclm.cu"))]
+        ("recon_intra.cu", "recon_quant.cu", "recon_cclm.cu",
+         "recon_cu64.cu", "recon_cu64_cclm.cu"))]
     lib = _build.declare_recon(ctypes.CDLL(_host_build(
         tmp_path_factory, recon_src, ("X266_MUTATE_CCLM_WAIT",))))
     monkeypatch.setenv("X266_HOST_BLOCKS", "8")

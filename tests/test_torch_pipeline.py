@@ -494,15 +494,16 @@ def test_single_frame_step_equals_batched():
 
 
 @pytest.mark.parametrize("kw", [
-    # CCLM alone codes; with CU 64 (ROADMAP item 20) it is refused
-    dict(profile=Profile.VVC, cclm=True, max_cu_size=64),
-    dict(profile=Profile.VVC, lfnst=True, max_cu_size=64),
+    # CU 64 codes with CCLM and LFNST beside it (ROADMAP item 20a); at 10
+    # bits (item 20b) they are refused
+    dict(profile=Profile.VVC, cclm=True, max_cu_size=64, bit_depth=10),
+    dict(profile=Profile.VVC, lfnst=True, max_cu_size=64, bit_depth=10),
     dict(tile_rows=1), dict(profile=Profile.VVC, dep_quant=True,
                             bit_depth=10),
     dict(profile=Profile.VVC, mtt=True, bit_depth=10),
     dict(profile=Profile.VVC, mtt=True, sign_data_hiding=True, tile_rows=1),
     dict(bit_depth=10),
-    dict(profile=Profile.VVC, max_cu_size=64),
+    dict(profile=Profile.VVC, max_cu_size=64, bit_depth=10),
     dict(alf=True, alf_nonlinear=True, bit_depth=10)])
 def test_out_of_slice_configs_raise(kw):
     cfg = CodecConfig(width=128, height=128, **kw)
@@ -511,10 +512,17 @@ def test_out_of_slice_configs_raise(kw):
 
 
 def test_out_of_slice_streams_raise():
-    """The ai_vvc_cu64 fixture (CU 64 with the 64-point DCT) is not in
-    the slices."""
+    """A 10-bit stream (ROADMAP item 20b), one 64x64 frame the JAX
+    encoder writes here, is not in the slices (the ai_vvc_cu64 fixture,
+    which this test refused before CU 64 was ported, decodes in
+    tests/test_torch_cu64.py)."""
+    from x266_tpu.api import Encoder as JaxEncoder
+
+    cfg = CodecConfig(width=64, height=64, qp=32, bit_depth=10)
+    stream = JaxEncoder(cfg, with_recon=False).encode(
+        synthetic_clip(64, 64, 1, "gradient")).bitstream
     with pytest.raises(NotImplementedError):
-        Decoder(device="cpu").decode(_fixture("ai_vvc_cu64"))
+        Decoder(device="cpu").decode(stream)
 
 
 GPB_RPL_WP = dict(width=96, height=64, qp=32, rdoq=True, intra_period=16,

@@ -97,7 +97,13 @@ these files.
   data/cfg2q_1080p_ref.json, data/cfg2ml_1080p_ref.json; mttlfnst128x64:
   three 128x64 clips for the CPU tests (config 2 + both on 'text', the
   quality preset, a low-delay clip with deblock) ->
-  data/mttlfnst128x64_ref.json.
+  data/mttlfnst128x64_ref.json;
+- 64x64 CUs (all-intra VVC, the 64-point DCT with its zero-out): cfg2cu64
+  (config 2 + max_cu_size=64, frames 0-3 of 'mixed' at 1080p;
+  chip_smoke.py [main-cu64]) -> data/cfg2cu64_1080p_ref.json;
+  cu64_128x64: six 128x64 clips for the CPU tests (alone on 'gradient'
+  and on smooth directional blocks, with MTS and substitution, with PDPC
+  and transform skip, with LFNST, with CCLM) -> data/cu64_128x64_ref.json.
 
     python tools/make_torch_refs.py [cfg2] [cfg3] [cfg2t] [lossless]
         [p128x64] [t128x64] [c128x64] [cfg4] [cfg4noalf] [ra128x64]
@@ -105,7 +111,8 @@ these files.
         [tools128x64] [cfg4_4k] [cfg5] [gpb_wp] [wp128x64]
         [ra_nl_1080p] [ra_nl128x64] [rc_1080p] [rc128x64] [cfg2s]
         [cfg2dq] [cfg3dq] [ra_sdh] [ra_dq] [sdhdq128x64] [cfg2q] [cfg2ml]
-        [mttlfnst128x64]
+        [mttlfnst128x64] [cfg2c] [cclm128x64] [cli416x240] [cfg2cu64]
+        [cu64_128x64]
     # default: cfg2 to ra128x64; minutes per 1080p frame, about two
     # minutes for each 416x240 RA clip and for ra128x64, half an hour
     # for cfg4_4k
@@ -133,7 +140,8 @@ from x266_tpu.config import (CodecConfig, Profile, preset_cfg2,  # noqa
 from x266_tpu.core.hashing import frame_md5  # noqa: E402
 from x266_tpu.core.nal import NalType, split_nals, write_nal  # noqa: E402
 from x266_tpu.core.yuv import Frame, synthetic_clip  # noqa: E402
-from x266_tpu_torch.utils.clips import luma_chroma  # noqa: E402
+from x266_tpu_torch.utils.clips import (luma_chroma,  # noqa: E402
+                                        smooth_blocks)
 
 W, H, N = 1920, 1080, 4
 DATA = os.path.join(ROOT, "x266_tpu_torch", "data")
@@ -187,6 +195,11 @@ REFS = {
         rows_per_segment=1, ctx_inherit=True, cclm=True),
               "preset_cfg2(1920, 1080).replace(rows_per_segment=1, "
               "ctx_inherit=True, cclm=True)", "mixed", True),
+    # 64x64 CUs with the 64-point DCT and its zero-out (all-intra VVC)
+    "cfg2cu64": (lambda: preset_cfg2(W, H).replace(
+        rows_per_segment=1, ctx_inherit=True, max_cu_size=64),
+                 "preset_cfg2(1920, 1080).replace(rows_per_segment=1, "
+                 "ctx_inherit=True, max_cu_size=64)", "mixed"),
 }
 
 
@@ -827,6 +840,57 @@ def make_cclm128() -> None:
     print(f"wrote {path}")
 
 
+# 64x64 CUs at 128x64 for the CPU tests, with each tool CodecConfig
+# admits beside them: alone on the smooth 'gradient' clip and on smooth
+# directional blocks (utils.clips.smooth_blocks, on which 64 CUs win beside
+# smaller ones); with MTS and substitution; with PDPC, transform skip, MTS
+# and substitution; with LFNST and MTS; with CCLM.  The blocks' chroma is
+# made from their luma (luma_chroma).
+CU64_BASE = ("CodecConfig(width=128, height=64, qp=32, rdoq=True, "
+             "profile=Profile.VVC, max_cu_size=64")
+
+
+def _blocks(n: int, seed: int) -> str:
+    return (f"luma_chroma(smooth_blocks(synthetic_clip(128, 64, {n}, "
+            f"'mixed', seed={seed}), {seed}))")
+
+
+CU64_128 = {   # name -> (config text, clip text)
+    "gradient": (CU64_BASE + ")", "synthetic_clip(128, 64, 1, 'gradient')"),
+    "blocks": (CU64_BASE + ")", _blocks(2, 1)),
+    "mts_subst": (CU64_BASE + ", mts=True, ref_substitute=True)",
+                  _blocks(2, 5)),
+    "pdpc_ts": (CU64_BASE + ", mts=True, ref_substitute=True, pdpc=True, "
+                "transform_skip=True)", _blocks(2, 5)),
+    "lfnst": (CU64_BASE + ", mts=True, lfnst=True)", _blocks(2, 7)),
+    "cclm": (CU64_BASE + ", cclm=True)", _blocks(2, 7)),
+}
+
+
+def cu64_128_config(name: str):
+    return eval(CU64_128[name][0])
+
+
+def cu64_128_frames(name: str):
+    return eval(CU64_128[name][1], {"synthetic_clip": synthetic_clip,
+                                    "luma_chroma": luma_chroma,
+                                    "smooth_blocks": smooth_blocks})
+
+
+def make_cu64_128() -> None:
+    out = {"source": "x266_tpu (JAX, CPU backend), tools/make_torch_refs.py",
+           "variants": {}}
+    for name, (text, clip) in CU64_128.items():
+        out["variants"][name] = {
+            "config": text, "clip": clip,
+            **_ra_record(cu64_128_config(name), cu64_128_frames(name))}
+        print(name, out["variants"][name]["frames"], flush=True)
+    path = os.path.join(DATA, "cu64_128x64_ref.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
 # the command line on the card (chip_smoke.py [cli]): the JAX package's
 # own CLI on a 416x240 raw clip with CCLM, low-delay with the loop filters
 CLI416_FLAGS = ["-s", "416x240", "--profile", "vvc", "--cclm", "--mts",
@@ -878,6 +942,7 @@ def main() -> None:
               "sdhdq128x64": make_sdhdq128,
               "mttlfnst128x64": make_mttlfnst128,
               "cclm128x64": make_cclm128, "cli416x240": make_cli416,
+              "cu64_128x64": make_cu64_128,
               **{k: (lambda k=k: make_ai128(k)) for k in AI128},
               "ra128x64": make_ra128, "tools128x64": make_tools128,
               **{k: (lambda k=k: make(k)) for k in REFS},

@@ -70,10 +70,10 @@ from x266_tpu_torch.core.yuv import synthetic_clip  # noqa: E402
 from x266_tpu_torch.engine import fused, inter, recon_cuda  # noqa: E402
 
 RECON = os.path.join(_build.PKG, "csrc", "recon_intra.cu")
-# the recon kernels' SDH and DQ instances and their CCLM ones, compiled
-# beside RECON
-RECON_QUANT = os.path.join(_build.PKG, "csrc", "recon_quant.cu")
-RECON_CCLM = os.path.join(_build.PKG, "csrc", "recon_cclm.cu")
+# the recon kernels' SDH and DQ instances, their CCLM ones and their CU-64
+# ones (without and with CCLM), compiled beside RECON
+RECON_PARTS = [os.path.join(_build.PKG, "csrc", f"recon_{name}.cu")
+               for name in ("quant", "cclm", "cu64", "cu64_cclm")]
 # csrc/recon_intra.cu's Phase enum and its slots
 BLOCK_PHASES = {2: "MV state / staging", 0: "row wait", 1: "window load",
                 13: "CU set-up", 12: "the CUs' TUs", 3: "window store"}
@@ -116,16 +116,19 @@ class OlderSignature:
         return call
 
 
-def declare_older(lib, sdh_dq: bool, mtt: bool = False):
-    """The C signatures of an older library: without the cclm argument
-    and the mts map out (mtt: the source has mtt and lfnst and the LFNST
-    table), without those and mtt, lfnst and the LFNST table (sdh_dq: the
-    source has sdh and dq), or without those and sdh and dq too."""
+def declare_older(lib, sdh_dq: bool, mtt: bool = False, cclm: bool = False):
+    """The C signatures of an older library: without the cu64 argument
+    (cclm: the source has cclm and the mts map out), without those and
+    the cclm argument and the mts map out (mtt: the source has mtt and
+    lfnst and the LFNST table), without those and mtt, lfnst and the
+    LFNST table (sdh_dq: the source has sdh and dq), or without those and
+    sdh and dq too."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q = 2 if sdh_dq else 0
     m = 2 if mtt else 0
     lib.x266_recon_intra.argtypes = (
-        [i] * 9 + [fl] + [i] * (7 + q + m) + [p] * (22 + (mtt)) + [p])
+        [i] * 9 + [fl] + [i] * (7 + q + m + cclm)
+        + [p] * (22 + mtt + cclm) + [p])
     lib.x266_recon_intra.restype = i
     lib.x266_recon_inter.argtypes = (
         [i] * 8 + [fl] + [i] * (12 + q) + [p] * 35 + [p])
@@ -136,10 +139,11 @@ def declare_older(lib, sdh_dq: bool, mtt: bool = False):
 
 
 def part(recon_src: str, name: str) -> str:
-    """One part of an older recon_intra.cu (name "quant": its SDH / DQ
-    instances, "cclm": its CCLM ones): a file beside it, <src>_<name>.cu,
-    that compiles it with X266_RECON_<NAME>_PART, as csrc/recon_quant.cu
-    and csrc/recon_cclm.cu compile the package's; its path."""
+    """One part of a recon_intra.cu (name "quant": its SDH / DQ
+    instances, "cclm": its CCLM ones, "cu64" and "cu64_cclm": its CU-64
+    ones): a file beside it, <src>_<name>.cu, that compiles it with
+    X266_RECON_<NAME>_PART, as csrc/recon_<name>.cu compiles the
+    package's; its path."""
     out = os.path.splitext(recon_src)[0] + f"_{name}.cu"
     with open(out, "w") as f:
         f.write(f"#define X266_RECON_{name.upper()}_PART\n"
@@ -191,33 +195,37 @@ def parent_phases(src: str) -> str:
 def build(recon_src: str, phases: bool):
     """A library of recon_src, a version of csrc/recon_intra.cu (the
     phase split on when phases; the package's own with
-    csrc/recon_quant.cu and csrc/recon_cclm.cu, an older one with the
-    parts it has, part()), built by _build.Library into
-    build/x266_tpu_torch/profile-<hash>/; a source without the mtt and
-    lfnst arguments (or the sdh and dq ones) comes wrapped in
-    OlderSignature."""
+    RECON_PARTS, an older one with the parts it has, part()), built by
+    _build.Library
+    into build/x266_tpu_torch/profile-<hash>/; a source without the cu64
+    argument (or the cclm, the mtt and lfnst, the sdh and dq ones) comes
+    wrapped in OlderSignature."""
     with open(recon_src) as f:
         text = f.read()
     sdh_dq, mtt = "int sdh, int dq" in text, "int mtt," in text
-    cclm = "int cclm," in text
+    cclm, cu64 = "int cclm," in text, "int cu64," in text
     if recon_src == RECON:
-        srcs = [recon_src, RECON_QUANT, RECON_CCLM]
+        srcs = [recon_src, *RECON_PARTS]
     else:
         srcs = [recon_src] + [part(recon_src, name)
-                              for name in ("quant", "cclm")
+                              for name in ("quant", "cclm", "cu64",
+                                           "cu64_cclm")
                               if f"X266_RECON_{name.upper()}_PART" in text]
     so = pc.build(srcs, ["X266_RECON_PHASES"] if phases else [],
-                  _build.declare_recon if cclm
-                  else (lambda lib: declare_older(lib, sdh_dq, mtt))).lib
-    if not cclm:
+                  _build.declare_recon if cu64
+                  else (lambda lib: declare_older(lib, sdh_dq, mtt,
+                                                  cclm))).lib
+    if not cu64:
         # x266_recon_intra: sdh, dq at 17, 18; mtt, lfnst at 19, 20; cclm
-        # at 21; the LFNST table at 43 and the mts map out at 44;
-        # x266_recon_inter: sdh, dq at 16, 17
-        so = (OlderSignature(so, {21, 44}, set(), {21}, set()) if mtt else
-              OlderSignature(so, {19, 20, 21, 43, 44}, set(), {19, 20, 21},
-                             set()) if sdh_dq else
-              OlderSignature(so, {17, 18, 19, 20, 21, 43, 44}, {16, 17},
-                             {17, 18, 19, 20, 21}, {16, 17}))
+        # at 21; cu64 at 22; the LFNST table at 44 and the mts map out at
+        # 45; x266_recon_inter: sdh, dq at 16, 17
+        so = (OlderSignature(so, {22}, set(), {22}, set()) if cclm else
+              OlderSignature(so, {21, 22, 45}, set(), {21, 22}, set())
+              if mtt else
+              OlderSignature(so, {19, 20, 21, 22, 44, 45}, set(),
+                             {19, 20, 21, 22}, set()) if sdh_dq else
+              OlderSignature(so, {17, 18, 19, 20, 21, 22, 44, 45}, {16, 17},
+                             {17, 18, 19, 20, 21, 22}, {16, 17}))
     if phases:
         if not hasattr(so, "x266_recon_phases"):
             raise SystemExit(

@@ -108,7 +108,7 @@ def declare_recon(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of csrc/recon_intra.cu's launch entry points."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.x266_recon_intra.argtypes = (
-        [i] * 9 + [fl] + [i] * 12 + [p] * 24 + [p])  # ..., sync, stream
+        [i] * 9 + [fl] + [i] * 13 + [p] * 24 + [p])  # ..., sync, stream
     lib.x266_recon_intra.restype = i
     lib.x266_recon_inter.argtypes = (
         [i] * 8 + [fl] + [i] * 14 + [p] * 35 + [p])  # ..., sync, stream

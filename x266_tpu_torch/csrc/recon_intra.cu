@@ -215,10 +215,15 @@
 
 #include "x266_device.cuh"
 
-// csrc/recon_quant.cu and csrc/recon_cclm.cu compile this file again for
-// the SDH / DQ instances and the CCLM ones; the entry points and the test
-// kernel are this file's own.
-#if !defined(X266_RECON_QUANT_PART) && !defined(X266_RECON_CCLM_PART)
+// csrc/recon_quant.cu, csrc/recon_cclm.cu, csrc/recon_cu64.cu and
+// csrc/recon_cu64_cclm.cu compile this file again for the SDH / DQ
+// instances, the CCLM ones and the CU-64 ones without and with CCLM; the
+// entry points and the test kernel are this file's own.
+#if defined(X266_RECON_CU64_CCLM_PART) && !defined(X266_RECON_CU64_PART)
+#define X266_RECON_CU64_PART
+#endif
+#if !defined(X266_RECON_QUANT_PART) && !defined(X266_RECON_CCLM_PART) && \
+    !defined(X266_RECON_CU64_PART)
 #define X266_RECON_MAIN_PART
 #endif
 
@@ -227,9 +232,6 @@ namespace {
 constexpr int kThreads = 256;     // luma group 128, Cb 64, Cr 64
 constexpr int kCtu = 64;
 constexpr int kMaxSpins = 1 << 24;   // row wait cap, ~10 s at 64 ns a spin
-constexpr int kWinY = 1 + 96;     // luma window: CTU origin -1 .. +95
-constexpr int kWinC = 1 + 48;     // chroma window
-constexpr int kPitchY = 100, kPitchC = 52;   // their row pitches (words)
 constexpr int kMaxR = 4 * 32 + 1; // reference vector of a 32x32 TU
 constexpr int kMaxModes = 128;    // shift table entries per size
 constexpr int kRateShared = 256;  // rate table entries kept in shared memory
@@ -323,21 +325,26 @@ struct Params {
   int* sync;                      // row ticket, then progress per row
 };
 
-// Offsets of size s in the flat tables (sizes 4, 8, 16, 32 in order).
+// Offsets of size s in the flat tables (sizes 4, 8, 16, 32 in order; the
+// CU-64 instances' tables append the 64 size to the taps, smoothing taps,
+// shifts and, as a fourth block after the three types, the 64-point
+// DCT-II: tables.kernel_tables).
 constexpr int kTxPerType = 16 + 64 + 256 + 1024;
 constexpr int kSmooth = (17 + 33 + 65 + 129) * 3;
+constexpr int kTx64 = 64 * 64, kSmooth64 = 257 * 3;
 
 __device__ __forceinline__ int size_index(int s) {
-  return s == 4 ? 0 : s == 8 ? 1 : s == 16 ? 2 : 3;
+  return s == 4 ? 0 : s == 8 ? 1 : s == 16 ? 2 : s == 32 ? 3 : 4;
 }
 
 __device__ __forceinline__ int tx_offset(int s) {
-  return s == 4 ? 0 : s == 8 ? 16 : s == 16 ? 80 : 336;
+  return s == 4 ? 0 : s == 8 ? 16 : s == 16 ? 80 : s == 32 ? 336
+                                                           : 3 * kTxPerType;
 }
 
 __device__ __forceinline__ int smooth_offset(int s) {
   return s == 4 ? 0 : s == 8 ? 17 * 3 : s == 16 ? (17 + 33) * 3
-                                               : (17 + 33 + 65) * 3;
+                    : s == 32 ? (17 + 33 + 65) * 3 : kSmooth;
 }
 
 __device__ __forceinline__ int taps_offset(int s, int n_modes) {
@@ -352,10 +359,11 @@ __device__ __forceinline__ int mip_offset(int s) {
   return s == 8 ? 0 : s == 16 ? kMipK * 64 * 16 : kMipK * (64 + 256) * 16;
 }
 
-// One warp's reference scratch: [substituted refs, smoothed refs] and the
-// MIP group sums.
-struct Refs {
-  int ext[2 * kMaxR];
+// One warp's reference scratch for TUs of up to R - 1 / 4 samples a side:
+// [substituted refs, smoothed refs] and the MIP group sums.
+template <int R>
+struct RefsT {
+  int ext[2 * R];
   int grp[16];
 };
 
@@ -379,14 +387,43 @@ constexpr int kLfOn = 0x80;
 // 5120 (32 a row).
 constexpr int kStage = 64 * 64 + 2 * 32 * 32;
 
-struct Shared {
+// A substitution source index: uint8_t up to a 32-TU's 129 entries (255
+// mid-gray), uint16_t for a 64-TU's 257 (65535 mid-gray).
+template <bool kWide> struct SrcIndex { using T = uint8_t; };
+template <> struct SrcIndex<true> { using T = uint16_t; };
+
+// The sizes of an instance's shared memory: kC64, the CU-64 instances', for
+// a 64x64 luma TU and its 32x32 chroma TUs; the others' for TUs of up to
+// 32 (luma) and 16 (chroma).  A TU of side s at the CTU's far corner reads
+// references up to 2s - 1 past it: the windows reach origin + 127 (luma)
+// and + 63 (chroma), + 95 and + 47 without CU 64.
+template <bool kC64>
+struct Layout {
+  static constexpr bool kCu64 = kC64;
+  static constexpr int kTuY = kC64 ? 64 : 32, kTuC = kTuY / 2;
+  static constexpr int kWinY = 1 + kCtu + kTuY;   // CTU origin -1 .. +127 / +95
+  static constexpr int kWinC = 1 + kCtu / 2 + kTuC;
+  static constexpr int kPitchY = kC64 ? 132 : 100;   // row pitches (words)
+  static constexpr int kPitchC = kC64 ? 68 : 52;
+  static constexpr int kRefY = 4 * kTuY + 1, kRefC = 4 * kTuC + 1;
+  static constexpr int kTx = 3 * kTxPerType + (kC64 ? kTx64 : 0);
+  static constexpr int kSmoothN = kSmooth + (kC64 ? kSmooth64 : 0);
+  static constexpr int kSizes = kC64 ? 5 : 4;     // luma TU sizes of the shifts
+  static constexpr int kSrcWords = (kRefY + 31) / 32;   // substitution ballots
+  using Src = typename SrcIndex<kC64>::T;
+  using Refs = RefsT<kRefY>;
+};
+
+template <bool kC64>
+struct SharedT : Layout<kC64> {
+  using L = Layout<kC64>;
   // the windows: the CTU, the row above and the column to the left
-  alignas(16) uint8_t win_y[kWinY * kPitchY];
-  alignas(16) uint8_t win_c[2][kWinC * kPitchC];
+  alignas(16) uint8_t win_y[L::kWinY * L::kPitchY];
+  alignas(16) uint8_t win_c[2][L::kWinC * L::kPitchC];
   // tables, once per launch: the transform matrices [k][n], transposed
-  int8_t tx[2][3 * kTxPerType];
-  int smooth[kSmooth];
-  int shift[4 * kMaxModes];
+  int8_t tx[2][L::kTx];
+  int smooth[L::kSmoothN];
+  int shift[L::kSizes * kMaxModes];
   float rate[kRateShared];        // RDOQ's rate of levels 0-255
   int8_t lfnst[2][8 * 256];       // LFNST kernels [k][i][j], transposed
   // the CTU's staged inputs
@@ -405,17 +442,17 @@ struct Shared {
   int16_t cu_mv1[2][64];          // the mv1 of the unit's CU (bi)
   int unz[64];                    // decode: bit p, plane p non-zero
   // each CU's substitution sources (subst_sources), by its first unit
-  uint8_t rsrc_y[64][kMaxR];
-  uint8_t rsrc_c[64][2 * 32 + 1];
+  typename L::Src rsrc_y[64][L::kRefY];
+  typename L::Src rsrc_c[64][L::kRefC];
   Cu cus[64];
   int n_cus;
   // per group: the TU's coefficients; per warp: its reference vector
-  alignas(16) int a_y[32 * 32];
-  alignas(16) int b_y[32 * 32];
-  alignas(16) int a_c[2][16 * 16];
-  alignas(16) int b_c[2][16 * 16];
+  alignas(16) int a_y[L::kTuY * L::kTuY];
+  alignas(16) int b_y[L::kTuY * L::kTuY];
+  alignas(16) int a_c[2][L::kTuC * L::kTuC];
+  alignas(16) int b_c[2][L::kTuC * L::kTuC];
   int lf_vec[3][16];              // per group: an LFNST input vector
-  Refs refs[8];
+  typename L::Refs refs[8];
   // CCLM (its instances): the luma two rows above the CTU (x0 .. x0 + 63)
   // and two columns to its left (y0 .. y0 + 63), one mbarrier per CU (the
   // CU's luma is in the window), and K1's SSE exchange [CU parity][Cb,
@@ -424,6 +461,10 @@ struct Shared {
   alignas(8) uint64_t cc_bar[64];
   int cc_sse[2][2][2][2];
 };
+using Shared = SharedT<false>;
+static_assert(sizeof(SharedT<true>) <= 232448,
+              "a CU-64 instance's block fits the H100's 227 KB of shared "
+              "memory");
 
 // The quantizer of a recon kernel instance (a template parameter, so the
 // instances without SDH or DQ compile to the code they had before them):
@@ -576,26 +617,29 @@ __device__ __forceinline__ void ref_pos(int i, int x, int y, int s, int& px,
 }
 
 // Substitution as a warp scan: m[w] bit l is the availability of scan
-// position 32 w + l (left bottom->top, corner, top left->right).  Writes,
-// for each entry i of [corner, top 2s, left 2s], the entry whose sample it
-// takes: itself when available; else the last available one before it in
-// the scan (__clz on the masked word, or the last word before it with one),
-// for a leading gap the first available one; 255 (mid-gray) for an empty
-// vector.  The serial scan's integers by construction.
-__device__ void subst_sources(int s, const unsigned (&m)[5], uint8_t* src) {
+// position 32 w + l (left bottom->top, corner, top left->right), kW words
+// (5 up to a 32-TU's 129 entries, 9 for a 64-TU's 257).  Writes, for each
+// entry i of [corner, top 2s, left 2s], the entry whose sample it takes:
+// itself when available; else the last available one before it in the scan
+// (__clz on the masked word, or the last word before it with one), for a
+// leading gap the first available one; the index type's largest value
+// (mid-gray) for an empty vector.  The serial scan's integers by
+// construction.
+template <int kW, typename Src>
+__device__ void subst_sources(int s, const unsigned (&m)[kW], Src* src) {
   const int lane = threadIdx.x & 31;
   const int r_len = 4 * s + 1;
-  int before[5], last = -1, first = -1;
+  int before[kW], last = -1, first = -1;
 #pragma unroll
-  for (int w = 0; w < 5; ++w) {
+  for (int w = 0; w < kW; ++w) {
     before[w] = last;
     if (m[w]) last = 32 * w + 31 - __clz((int)m[w]);
   }
 #pragma unroll
-  for (int w = 4; w >= 0; --w)
+  for (int w = kW - 1; w >= 0; --w)
     if (m[w]) first = 32 * w + __ffs((int)m[w]) - 1;
 #pragma unroll
-  for (int w = 0; w < 5; ++w) {
+  for (int w = 0; w < kW; ++w) {
     const int k = lane + 32 * w;
     if (k >= r_len) continue;
     int from = k;
@@ -604,7 +648,7 @@ __device__ void subst_sources(int s, const unsigned (&m)[5], uint8_t* src) {
       from = below ? 32 * w + 31 - __clz((int)below) : before[w];
       if (from < 0) from = first;
     }
-    src[scan_index(k, s)] = from < 0 ? 255 : scan_index(from, s);
+    src[scan_index(k, s)] = from < 0 ? (Src)~0u : (Src)scan_index(from, s);
   }
 }
 
@@ -618,12 +662,13 @@ struct BtvLeaf {
 // side s, on a plane of scale 1 (luma) or 2 (chroma), from
 // decoded_before's availability of each entry; inside a BT-V leaf the
 // leaf's order decides (engine.availability.ref_masks with btv_leaf).
+template <int kW, typename Src>
 __device__ void ref_sources(const Params& p, int x, int y, int s, int scale,
-                            const BtvLeaf& leaf, uint8_t* src) {
+                            const BtvLeaf& leaf, Src* src) {
   const int lane = threadIdx.x & 31;
-  unsigned m[5];
+  unsigned m[kW];
 #pragma unroll
-  for (int w = 0; w < 5; ++w) {
+  for (int w = 0; w < kW; ++w) {
     const int k = lane + 32 * w;
     bool avail = false;
     if (k < 4 * s + 1) {
@@ -646,13 +691,13 @@ __device__ void ref_sources(const Params& p, int x, int y, int s, int scale,
 
 // The reference vector of the TU at plane coords (x, y), side S, built by
 // the calling warp into r.ext: [corner, top 2S, left 2S] from the window
-// (entry i reads entry src[i]'s sample, mid-gray for 255, when src is
-// given: substitution), the smoothed copy from 4S + 1, MIP's 16 group
-// sums into r.grp; returns the DC sum (mode 1).
-template <int S>
-__device__ int build_refs(const Shared& sh, const View& v, Refs& r, int x,
-                          int y, int mode, bool mip,
-                          const uint8_t* src X266_PH_PARAM) {
+// (entry i reads entry src[i]'s sample, mid-gray for the index type's
+// largest value, when src is given: substitution), the smoothed copy from
+// 4S + 1, MIP's 16 group sums into r.grp; returns the DC sum (mode 1).
+template <int S, typename Sh, typename R, typename Src>
+__device__ int build_refs(const Sh& sh, const View& v, R& r, int x, int y,
+                          int mode, bool mip,
+                          const Src* src X266_PH_PARAM) {
   constexpr int r_len = 4 * S + 1;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -661,7 +706,7 @@ __device__ int build_refs(const Shared& sh, const View& v, Refs& r, int x,
     if (i >= r_len) continue;
     const int j = src ? src[i] : i;
     int val = 128, px, py;
-    if (j != 255) {
+    if (j != (Src)~0u) {
       ref_pos(j, x, y, S, px, py);
       val = at(v, px, py);
     }
@@ -685,7 +730,13 @@ __device__ int build_refs(const Shared& sh, const View& v, Refs& r, int x,
   }
   int dc = 0;
   if (mode == 1) {
-    if (lane < S) dc = r.ext[1 + lane] + r.ext[1 + 2 * S + lane];
+    if constexpr (S <= 32) {
+      if (lane < S) dc = r.ext[1 + lane] + r.ext[1 + 2 * S + lane];
+    } else {
+#pragma unroll
+      for (int j = lane; j < S; j += 32)
+        dc += r.ext[1 + j] + r.ext[1 + 2 * S + j];
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) dc += __shfl_xor_sync(kFull, dc, o);
   }
@@ -709,14 +760,34 @@ template <int S, int G>
 struct Map {
   static constexpr int kK = S * S >= G ? S * S / G : 1;
   static constexpr int kStep = G / S;
-  static constexpr int kLog2 = S == 4 ? 2 : S == 8 ? 3 : S == 16 ? 4 : 5;
+  static constexpr int kLog2 = ilog2(S);
 };
 
 // A column pass, out[k] = sum_j W(row_k, j) * in[j][col], W(r, j) =
 // t[r * S + j] (forward vertical) or t[j * S + r] (inverse vertical,
 // kTrans); in from `in` (int, pitch S) or, kLev, the dequantized staged
-// levels lev (pitch sp).
+// levels lev (pitch sp); j < kJ (a 64-TU's inverse: its rows from 32 on
+// are zero).  A 64-TU's j loop (32 samples a thread) is unrolled four
+// steps at a time, which keeps the CU-64 instances' code and nvcc's time
+// down.
 template <int S, int K, int kStep, bool kTrans, bool kLev>
+__device__ __forceinline__ void column_step(int j, int row0, int col,
+                                            const int8_t* t, const int* in,
+                                            const int16_t* lev, int sp,
+                                            int dscale, int ishift,
+                                            int (&out)[K]) {
+  const int v =
+      kLev ? clampi((lev[j * sp + col] * dscale + (1 << (ishift - 1))) >>
+                        ishift, -32768, 32767)
+           : in[j * S + col];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int r = row0 + k * kStep;
+    out[k] += t[kTrans ? j * S + r : r * S + j] * v;
+  }
+}
+
+template <int S, int K, int kStep, bool kTrans, bool kLev, int kJ = S>
 __device__ __forceinline__ void column_pass(int row0, int col,
                                             const int8_t* t, const int* in,
                                             const int16_t* lev, int sp,
@@ -724,37 +795,50 @@ __device__ __forceinline__ void column_pass(int row0, int col,
                                             int (&out)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) out[k] = 0;
+  if constexpr (S <= 32) {
 #pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const int v =
-        kLev ? clampi((lev[j * sp + col] * dscale + (1 << (ishift - 1))) >>
-                          ishift, -32768, 32767)
-             : in[j * S + col];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int r = row0 + k * kStep;
-      out[k] += t[kTrans ? j * S + r : r * S + j] * v;
-    }
+    for (int j = 0; j < kJ; ++j)
+      column_step<S, K, kStep, kTrans, kLev>(j, row0, col, t, in, lev, sp,
+                                             dscale, ishift, out);
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < kJ; ++j)
+      column_step<S, K, kStep, kTrans, kLev>(j, row0, col, t, in, lev, sp,
+                                             dscale, ishift, out);
   }
 }
 
 // A row pass, out[k] = sum_j in[row_k][j] * t[j * S + col], the row's
-// entries four at a time in 16-byte loads.
+// entries four at a time in 16-byte loads; j < kJ (a 64-TU's inverse: its
+// columns from 32 on are zero), a 64-TU's loop unrolled two loads at a
+// time.
 template <int S, int K, int kStep>
+__device__ __forceinline__ void row_step(int j, int row0, int col,
+                                         const int8_t* t, const int* in,
+                                         int (&out)[K]) {
+  const int t0 = t[j * S + col], t1 = t[(j + 1) * S + col];
+  const int t2 = t[(j + 2) * S + col], t3 = t[(j + 3) * S + col];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int4 v = *reinterpret_cast<const int4*>(
+        in + (row0 + k * kStep) * S + j);
+    out[k] += v.x * t0 + v.y * t1 + v.z * t2 + v.w * t3;
+  }
+}
+
+template <int S, int K, int kStep, int kJ = S>
 __device__ __forceinline__ void row_pass(int row0, int col, const int8_t* t,
                                          const int* in, int (&out)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) out[k] = 0;
+  if constexpr (S <= 32) {
 #pragma unroll
-  for (int j = 0; j < S; j += 4) {
-    const int t0 = t[j * S + col], t1 = t[(j + 1) * S + col];
-    const int t2 = t[(j + 2) * S + col], t3 = t[(j + 3) * S + col];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int4 v = *reinterpret_cast<const int4*>(
-          in + (row0 + k * kStep) * S + j);
-      out[k] += v.x * t0 + v.y * t1 + v.z * t2 + v.w * t3;
-    }
+    for (int j = 0; j < kJ; j += 4)
+      row_step<S, K, kStep>(j, row0, col, t, in, out);
+  } else {
+#pragma unroll 2
+    for (int j = 0; j < kJ; j += 4)
+      row_step<S, K, kStep>(j, row0, col, t, in, out);
   }
 }
 
@@ -798,8 +882,9 @@ struct QuantArgs {
   const float* rate;
 };
 
+template <typename Sh>
 __device__ __forceinline__ QuantArgs quant_args(const Params& p,
-                                                const Shared& sh, int tsh) {
+                                                const Sh& sh, int tsh) {
   return QuantArgs{14 + p.qp / 6 + tsh, kQuantScale[p.qp % 6],
                    kDequantScale[p.qp % 6] << (p.qp / 6), 6 - tsh, p.rdoq,
                    ldexpf(1.0f, -2 * tsh), p.lam, sh.rate, p.rate};
@@ -1484,12 +1569,13 @@ __device__ __forceinline__ void dq_quantize(const QuantArgs& q, Shared& sh,
 // substitution sources (nullptr without substitution), its LFNST (Cu::lf),
 // its frame, and under CCLM its CU's index in the CTU's list, the CTU's
 // mbarrier parity and the CU's mts map value.
+template <typename Src>
 struct TuArgs {
   int x, y, x0, y0, mode, shift, tv, th, lf;
   bool ts;
   int kind;
   bool nz, sync_first;
-  const uint8_t* src;
+  const Src* src;
   int f;
   int cu, par, mval;
 };
@@ -1508,9 +1594,9 @@ struct TuArgs {
 // strictly below DM's, writing the choice over the CU's units of the mts
 // map out.  The luma view is the CTU's window, with the row two above it
 // and the column two to its left beside it.
-template <bool kEncode, int S, int G>
-__device__ __forceinline__ void cclm(const Params& p, Shared& sh,
-                                     const View& v, const TuArgs& a,
+template <bool kEncode, int S, int G, typename Sh, typename A>
+__device__ __forceinline__ void cclm(const Params& p, Sh& sh,
+                                     const View& v, const A& a,
                                      bool active, int lt, int row0, int col,
                                      int st, int (&pr)[Map<S, G>::kK]) {
   using M = Map<S, G>;
@@ -1520,7 +1606,7 @@ __device__ __forceinline__ void cclm(const Params& p, Shared& sh,
   if (!kEncode && !use) return;
   if (X266_CCLM_WAIT_ON) x266_mbar_wait(&sh.cc_bar[a.cu], a.par);
   const int lx0 = 2 * a.x0, ly0 = 2 * a.y0;   // the CTU's luma origin
-  const View vy{sh.win_y, kWinY, kPitchY, lx0 - 1, ly0 - 1, p.width,
+  const View vy{sh.win_y, Sh::kWinY, Sh::kPitchY, lx0 - 1, ly0 - 1, p.width,
                 p.height, 1, 0};
   auto lum = [&](int px, int py) -> int {
     if (py == ly0 - 2) return sh.cc_row[px - lx0];
@@ -1613,7 +1699,8 @@ __device__ __forceinline__ int lfnst_index(int lf, int r, int c) {
   return (lf & 1) ? c * 4 + r : r * 4 + c;
 }
 
-__device__ __forceinline__ int lfnst_entry(const Shared& sh, int lf,
+template <typename Sh>
+__device__ __forceinline__ int lfnst_entry(const Sh& sh, int lf,
                                            bool inverse, const int* vec,
                                            int vi) {
   const int8_t* m = sh.lfnst[inverse] + ((lf >> 1) & 7) * 256 + vi * 16;
@@ -1627,8 +1714,8 @@ __device__ __forceinline__ int lfnst_entry(const Shared& sh, int lf,
 // pitch S) of a TU's threads; thread (row0, col) of the first sample row
 // block owns entry (row0, col).  Starts after a barrier over a's writes
 // and ends with one.
-template <int S>
-__device__ X266_NOINLINE void lfnst_inverse(const Shared& sh, const Group& g,
+template <int S, typename Sh>
+__device__ X266_NOINLINE void lfnst_inverse(const Sh& sh, const Group& g,
                                             bool small, int lf, int row0,
                                             int col, int* a) {
   const bool low = row0 < 4 && col < 4;
@@ -1647,14 +1734,25 @@ __device__ X266_NOINLINE void lfnst_inverse(const Shared& sh, const Group& g,
 
 // One TU of side S of plane v.plane, on G threads: the group (a TU of more
 // than 64 samples) or the group's warp 0 (G = 32; the caller keeps the
-// other warps out).
+// other warps out).  A 64-TU (CU-64 instances, on the luma group: 32
+// samples a thread, two rows apart) codes only its low 32x32 band (the
+// zero-out, x266_tpu/kernels/transforms.py:90-97): the forward vertical
+// pass makes rows 0-31, the horizontal one their columns 0-31, the others
+// quantize to 0; the inverse sums over those 32 rows and columns only.  It
+// takes no LFNST or transform skip (its mts map value is 0), and its
+// angular taps are loaded as its prediction reads them.
 
-template <bool kEncode, int S, int G, int kQ, bool kMl, bool kCc>
-__device__ void tu(const Params& p, Shared& sh, const View& v,
-                   const Group& g, const TuArgs& a) {
+template <bool kEncode, int S, int G, int kQ, bool kMl, bool kCc,
+          typename Sh, typename A>
+__device__ void tu(const Params& p, Sh& sh, const View& v,
+                   const Group& g, const A& a) {
   using M = Map<S, G>;
   constexpr int K = M::kK, kStep = M::kStep, kLog2 = M::kLog2;
   constexpr bool kSmall = S * S <= 64;
+  constexpr bool k64 = S == 64;
+  // a 64-TU's rows 0-31 are its samples k < kBand; its coded band
+  // (rows and columns 0-31) is 32 wide
+  constexpr int kBand = k64 ? K / 2 : K, kZo = k64 ? 32 : S;
   static_assert(!kSmall || G == 32, "a TU of <= 64 samples is one warp's");
   const int x = a.x, y = a.y, mode = a.mode;
   const int lt = kSmall ? (threadIdx.x & 31) : g.lt;
@@ -1670,20 +1768,22 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
                  (x - a.x0);                  // staged (0, 0)
   int* sa = luma ? sh.a_y : sh.a_c[v.plane - 1];
   int* sb = luma ? sh.b_y : sh.b_c[v.plane - 1];
-  Refs& r = sh.refs[threadIdx.x >> 5];
+  auto& r = sh.refs[threadIdx.x >> 5];
   X266_PH_START(pc, (v.plane * 4 + size_index(S)) * kPhases, g.lt == 0);
   X266_PH_COUNT(v.plane * 4 + size_index(S), g.lt == 0);
 
   // the angular taps of this thread's samples, in flight while the
   // reference vector is built
   const bool taps = !is_mc && !mip && mode != 1;
-  int4 tp[K];
-  if (taps && active) {
-    const int4* t4 = reinterpret_cast<const int4*>(
-        p.taps + taps_offset(S, p.n_std)) + mode * S * S;
+  const int4* t4 = reinterpret_cast<const int4*>(
+      p.taps + taps_offset(S, p.n_std)) + mode * S * S;
+  int4 tp[k64 ? 1 : K];
+  if constexpr (!k64) {
+    if (taps && active) {
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-      tp[k] = x266_ldg_early(t4 + (row0 + k * kStep) * S + col);
+      for (int k = 0; k < K; ++k)
+        tp[k] = x266_ldg_early(t4 + (row0 + k * kStep) * S + col);
+    }
   }
   if (a.sync_first) group_sync(g, false);
   int dc = 0;
@@ -1722,7 +1822,9 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int4 e = tp[k];
+      int4 e;
+      if constexpr (k64) e = __ldg(t4 + (row0 + k * kStep) * S + col);
+      else e = tp[k];
       pr[k] = rshift_round(
           (e.x & 255) * r.ext[e.x >> 8] + (e.y & 255) * r.ext[e.y >> 8] +
               (e.z & 255) * r.ext[e.z >> 8] + (e.w & 255) * r.ext[e.w >> 8],
@@ -1801,26 +1903,29 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
     }
     if (!a.ts) {
       group_sync(g, kSmall);
-      // forward vertical: b[k][m] = sum_j Tv[k][j] a[j][m]
+      // forward vertical: b[k][m] = sum_j Tv[k][j] a[j][m] (a 64-TU: rows
+      // k < 32)
       if (active) {
-        column_pass<S, K, kStep, false, false>(row0, col, tvm, sa, nullptr,
-                                               0, 0, 1, acc);
+        int fa[kBand];
+        column_pass<S, kBand, kStep, false, false>(row0, col, tvm, sa,
+                                                   nullptr, 0, 0, 1, fa);
 #pragma unroll
-        for (int k = 0; k < K; ++k)
-          sb[(row0 + k * kStep) * S + col] = rshift_round(acc[k], kLog2 - 1);
+        for (int k = 0; k < kBand; ++k)
+          sb[(row0 + k * kStep) * S + col] = rshift_round(fa[k], kLog2 - 1);
       }
       group_sync(g, kSmall);
       X266_PH(pc, kPhFwd);
-      // forward horizontal: c[k][l] = sum_j b[k][j] Th[l][j]
-      if (active) {
-        row_pass<S, K, kStep>(row0, col,
-                              sh.tx[1] + a.th * kTxPerType + tx_offset(S), sb,
-                              acc);
+      // forward horizontal: c[k][l] = sum_j b[k][j] Th[l][j] (a 64-TU:
+      // columns l < 32 of those rows)
+      if (active && col < kZo) {
+        int fa[kBand];
+        row_pass<S, kBand, kStep>(
+            row0, col, sh.tx[1] + a.th * kTxPerType + tx_offset(S), sb, fa);
 #pragma unroll
-        for (int k = 0; k < K; ++k)
-          c[k] = clampi(rshift_round(acc[k], kLog2 + 6), -32768, 32767);
+        for (int k = 0; k < kBand; ++k)
+          c[k] = clampi(rshift_round(fa[k], kLog2 + 6), -32768, 32767);
       }
-      if (kMl && a.lf) {
+      if (kMl && !k64 && a.lf) {
         // the forward LFNST on the low 4x4 (k = 0: kStep >= 4), from its
         // entries in vector order
         int* vec = sh.lf_vec[v.plane];
@@ -1871,7 +1976,9 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
       for (int k = 0; k < K; ++k) {
         if (!active) continue;
         const int cc = c[k];
-        int lv = quant_level(qa, cc < 0 ? -cc : cc);
+        // outside a 64-TU's band the level is 0 (as quant_level(0))
+        int lv = k < kBand && col < kZo ? quant_level(qa, cc < 0 ? -cc : cc)
+                                        : 0;
         lv = cc < 0 ? -lv : (cc > 0 ? lv : 0);
         const int rr = row0 + k * kStep;
         co[(size_t)rr * cpitch + col] = (int16_t)lv;
@@ -1924,17 +2031,18 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
   }
   // the inverse LFNST between the dequantizer and the primary inverse (a
   // TU whose levels are all 0 has none: it maps 0 to 0)
-  if (kMl && inverse && a.lf)
+  if (kMl && !k64 && inverse && a.lf)
     lfnst_inverse<S>(sh, g, kSmall, a.lf, row0, col, sa);
   if (inverse) {
     // inverse vertical: b[n][m] = clip((sum_k Tv[k][n] a[k][m] + 64) >> 7)
-    if (active) {
+    // (a 64-TU: k < 32, and columns m < 32, the others being 0)
+    if (active && col < kZo) {
       if (lev)
-        column_pass<S, K, kStep, true, true>(row0, col, tvm, sa, lev, sp,
-                                             dscale, ishift, acc);
+        column_pass<S, K, kStep, true, true, kZo>(row0, col, tvm, sa, lev,
+                                                  sp, dscale, ishift, acc);
       else
-        column_pass<S, K, kStep, true, false>(row0, col, tvm, sa, nullptr, 0,
-                                              0, 1, acc);
+        column_pass<S, K, kStep, true, false, kZo>(row0, col, tvm, sa,
+                                                   nullptr, 0, 0, 1, acc);
 #pragma unroll
       for (int k = 0; k < K; ++k)
         sb[(row0 + k * kStep) * S + col] =
@@ -1942,9 +2050,9 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
     }
     group_sync(g, kSmall);
     X266_PH(pc, kPhInvV);
-    // inverse horizontal
+    // inverse horizontal (a 64-TU: over columns j < 32 of b)
     if (active) {
-      row_pass<S, K, kStep>(row0, col, thm, sb, acc);
+      row_pass<S, K, kStep, kZo>(row0, col, thm, sb, acc);
 #pragma unroll
       for (int k = 0; k < K; ++k)
         res[k] = clampi(rshift_round(acc[k], 12), -32768, 32767);
@@ -1963,11 +2071,19 @@ __device__ void tu(const Params& p, Shared& sh, const View& v,
 
 // A plane's TU of side s: the instance of tu for its size and thread
 // count (luma 8 on a warp, 16 and 32 on 128 threads; chroma 4 and 8 on a
-// warp, 16 on 64 threads).
-template <bool kEncode, int kQ, bool kMl, bool kCc>
-__device__ __forceinline__ void plane_tu(const Params& p, Shared& sh,
+// warp, 16 on 64 threads; the CU-64 instances' luma 64 on 128 threads and
+// chroma 32 on 64).
+template <bool kEncode, int kQ, bool kMl, bool kCc, typename Sh, typename A>
+__device__ __forceinline__ void plane_tu(const Params& p, Sh& sh,
                                          const View& v, const Group& g,
-                                         int s, const TuArgs& a) {
+                                         int s, const A& a) {
+  if constexpr (Sh::kCu64) {
+    if (s == (v.plane == 0 ? 64 : 32)) {
+      if (v.plane == 0) tu<kEncode, 64, 128, kQ, kMl, kCc>(p, sh, v, g, a);
+      else tu<kEncode, 32, 64, kQ, kMl, kCc>(p, sh, v, g, a);
+      return;
+    }
+  }
   switch (v.plane == 0 ? (s == 8 ? 1 : s == 16 ? 3 : 4)
                        : (s == 4 ? 0 : s == 8 ? 1 : 2)) {
     case 0: tu<kEncode, 4, 32, kQ, kMl, kCc>(p, sh, v, g, a); break;
@@ -1998,18 +2114,26 @@ __device__ __forceinline__ int edge_sample(const View& v, const uint8_t* rec,
 // column to the left (first column) -- from the output planes, everything
 // else mid-gray; kCc: also the luma two rows above the CTU and two columns
 // to its left into cc_row and cc_col (mid-gray outside the picture).  The
-// global loads go out first, one or two a thread, so that one round trip
-// to the L2 covers them all.
-template <bool kCc>
+// global loads go out first, one to three a thread, so that one round trip
+// to the L2 covers them all.  L: the instance's Layout.
+template <bool kCc, typename L>
 __device__ void load_windows(const View& vy, const View& vcb,
                              const View& vcr, const uint8_t* rec_y,
                              const uint8_t* rec_cb, const uint8_t* rec_cr,
                              uint8_t* cc_row, uint8_t* cc_col) {
-  constexpr int ny = kWinY + kCtu, nc = kWinC + kCtu / 2;
-  int off[2] = {-1, -1}, val[2] = {0, 0};
-  uint8_t* win[2] = {nullptr, nullptr};
+  constexpr int ny = L::kWinY + kCtu, nc = L::kWinC + kCtu / 2;
+  constexpr int kQ = (ny + 2 * nc + (kCc ? 2 * kCtu : 0) + kThreads - 1) /
+                     kThreads;
+  int off[kQ], val[kQ];
+  uint8_t* win[kQ];
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
+  for (int q = 0; q < kQ; ++q) {
+    off[q] = -1;
+    val[q] = 0;
+    win[q] = nullptr;
+  }
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
     const int e = threadIdx.x + kThreads * q;
     if (e < ny) {
       off[q] = edge_sample(vy, rec_y, e, val[q]);
@@ -2033,15 +2157,15 @@ __device__ void load_windows(const View& vy, const View& vcb,
     }
   }
   constexpr uint32_t kMid = 0x80808080u;
-  for (int i = threadIdx.x; i < kWinY * kPitchY / 4; i += kThreads)
+  for (int i = threadIdx.x; i < L::kWinY * L::kPitchY / 4; i += kThreads)
     reinterpret_cast<uint32_t*>(vy.win)[i] = kMid;
-  for (int i = threadIdx.x; i < kWinC * kPitchC / 4; i += kThreads) {
+  for (int i = threadIdx.x; i < L::kWinC * L::kPitchC / 4; i += kThreads) {
     reinterpret_cast<uint32_t*>(vcb.win)[i] = kMid;
     reinterpret_cast<uint32_t*>(vcr.win)[i] = kMid;
   }
   __syncthreads();
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
+  for (int q = 0; q < kQ; ++q)
     if (off[q] >= 0) win[q][off[q]] = (uint8_t)val[q];
 }
 
@@ -2086,8 +2210,9 @@ __device__ __forceinline__ int mc_sample(const uint8_t* pyr, int h, int w,
 // units; the mts map also under CCLM, whose choice rides bit 3) and inputs
 // (encode: the source; decode: the levels and each unit's non-zero flags,
 // into sh.unz, which the CTU before left zero).
-template <bool kEncode, bool kInter, bool kB, bool kMl, bool kCc>
-__device__ void stage_inputs(const Params& p, Shared& sh, int f, int cx,
+template <bool kEncode, bool kInter, bool kB, bool kMl, bool kCc,
+          typename Sh>
+__device__ void stage_inputs(const Params& p, Sh& sh, int f, int cx,
                              int cy) {
   const int w = p.width, h = p.height, cw = w / 2, ch = h / 2;
   const int ux_n = w / 8, uy_n = h / 8;
@@ -2162,8 +2287,8 @@ __device__ void stage_inputs(const Params& p, Shared& sh, int f, int cx,
 // A unit's TU under MTT (bits 4-5 of the mts map: 1 BT-H, 2 BT-V): a BT
 // leaf of side s tiles as four TUs of side s / 2, else the CU is one TU.
 // Returns the TU's side in units (0 outside the picture) and bt.
-template <bool kMl>
-__device__ __forceinline__ int tu_units(const Params& p, const Shared& sh,
+template <bool kMl, typename Sh>
+__device__ __forceinline__ int tu_units(const Params& p, const Sh& sh,
                                         int t, int& bt) {
   const int u = sh.size[t] >> 3;
   bt = kMl && p.mtt ? (sh.mts[t] >> 4) & 3 : 0;
@@ -2178,8 +2303,8 @@ __device__ __forceinline__ int tu_units(const Params& p, const Shared& sh,
 // choice, LFNST, levels and prediction shifts its own; z-order but for a
 // BT-V leaf, whose left CU's two TUs come first (entries 1 and 2 of the
 // leaf swap).
-template <bool kEncode, bool kInter, bool kB, bool kMl>
-__device__ void build_cus(const Params& p, Shared& sh, int cx, int cy) {
+template <bool kEncode, bool kInter, bool kB, bool kMl, typename Sh>
+__device__ void build_cus(const Params& p, Sh& sh, int cx, int cy) {
   const int lane = threadIdx.x & 31;
   unsigned ball[2];
   bool org[2];
@@ -2307,8 +2432,8 @@ __device__ void build_cus(const Params& p, Shared& sh, int cx, int cy) {
 // K3, after the row wait, beside the window load: each inter CU's MC
 // prediction into sh.mcp (a bi CU's two blocks averaged); eight samples'
 // loads go out before their stores.
-template <bool kB>
-__device__ void stage_mc(const Params& p, Shared& sh, int cx, int cy) {
+template <bool kB, typename Sh>
+__device__ void stage_mc(const Params& p, Sh& sh, int cx, int cy) {
   constexpr int kPer = kStage / kThreads, kBatch = 8;
   static_assert(kPer % kBatch == 0, "whole batches");
   for (int b = 0; b < kPer; b += kBatch) {
@@ -2351,11 +2476,12 @@ __device__ void stage_mc(const Params& p, Shared& sh, int cx, int cy) {
 }
 
 template <bool kEncode, bool kInter, bool kB = false, int kQ = kQPlain,
-          bool kMl = false, bool kCc = false>
+          bool kMl = false, bool kCc = false, bool kC64 = false>
 __global__ void __launch_bounds__(kThreads)
 recon_kernel(Params p) {
+  using Sh = SharedT<kC64>;
   X266_DYNAMIC_SHARED(int4, smem);
-  Shared& sh = *reinterpret_cast<Shared*>(smem);
+  Sh& sh = *reinterpret_cast<Sh*>(smem);
   X266_SHARED(int, ticket);
   X266_PH_START(bc, 12 * kPhases, threadIdx.x == 0);
   X266_PH_START(blk, 12 * kPhases, threadIdx.x == 0);
@@ -2374,8 +2500,15 @@ recon_kernel(Params p) {
     sh.tx[1][type * kTxPerType + tx_offset(s) + (e & (s - 1)) * s +
              (e >> log2s)] = (int8_t)v;
   }
-  for (int i = tid; i < kSmooth; i += kThreads) sh.smooth[i] = __ldg(p.smooth + i);
-  for (int i = tid; i < 4 * p.n_modes; i += kThreads)
+  // CU 64: the 64-point DCT-II after the three types
+  for (int i = tid; kC64 && i < kTx64; i += kThreads) {
+    const int v = __ldg(p.tx + 3 * kTxPerType + i);
+    sh.tx[0][3 * kTxPerType + i] = (int8_t)v;
+    sh.tx[1][3 * kTxPerType + (i & 63) * 64 + (i >> 6)] = (int8_t)v;
+  }
+  for (int i = tid; i < Sh::kSmoothN; i += kThreads)
+    sh.smooth[i] = __ldg(p.smooth + i);
+  for (int i = tid; i < Sh::kSizes * p.n_modes; i += kThreads)
     sh.shift[i] = __ldg(p.shift + i);
   for (int i = tid; i < kRateShared; i += kThreads) sh.rate[i] = __ldg(p.rate + i);
   for (int i = tid; kMl && p.lfnst && i < 8 * 256; i += kThreads) {
@@ -2416,9 +2549,11 @@ recon_kernel(Params p) {
         // a BT-V leaf's TUs compare by its order inside it
         const int lf = bt == 2 ? 2 * s : 0;
         const int lx = x & ~(lf - 1), ly = y & ~(lf - 1);
-        ref_sources(p, x, y, s, 1, BtvLeaf{lx, ly, lf}, sh.rsrc_y[t]);
-        ref_sources(p, x / 2, y / 2, s / 2, 2,
-                    BtvLeaf{lx / 2, ly / 2, lf / 2}, sh.rsrc_c[t]);
+        ref_sources<Sh::kSrcWords>(p, x, y, s, 1, BtvLeaf{lx, ly, lf},
+                                   sh.rsrc_y[t]);
+        ref_sources<Sh::kSrcWords>(p, x / 2, y / 2, s / 2, 2,
+                                   BtvLeaf{lx / 2, ly / 2, lf / 2},
+                                   sh.rsrc_c[t]);
       }
     }
     if (cy > 0 && tid == 0) {
@@ -2434,13 +2569,14 @@ recon_kernel(Params p) {
     // the planes' views (built in registers: an array of them indexed by
     // the plane would sit in local memory and make every window access a
     // generic one)
-    const View vy{sh.win_y, kWinY, kPitchY, x0 - 1, y0 - 1, w, h, 1, 0};
-    const View vcb{sh.win_c[0], kWinC, kPitchC, x0 / 2 - 1, y0 / 2 - 1, cw,
-                   ch, 2, 1};
-    const View vcr{sh.win_c[1], kWinC, kPitchC, x0 / 2 - 1, y0 / 2 - 1, cw,
-                   ch, 2, 2};
-    load_windows<kCc>(vy, vcb, vcr, rec_y, rec_c[0], rec_c[1], sh.cc_row,
-                      sh.cc_col);
+    const View vy{sh.win_y, Sh::kWinY, Sh::kPitchY, x0 - 1, y0 - 1, w, h, 1,
+                  0};
+    const View vcb{sh.win_c[0], Sh::kWinC, Sh::kPitchC, x0 / 2 - 1,
+                   y0 / 2 - 1, cw, ch, 2, 1};
+    const View vcr{sh.win_c[1], Sh::kWinC, Sh::kPitchC, x0 / 2 - 1,
+                   y0 / 2 - 1, cw, ch, 2, 2};
+    load_windows<kCc, Sh>(vy, vcb, vcr, rec_y, rec_c[0], rec_c[1], sh.cc_row,
+                          sh.cc_col);
     if (kInter) stage_mc<kB>(p, sh, cx, cy);
     __syncthreads();
     X266_PH(bc, kPhLoad);
@@ -2460,7 +2596,7 @@ recon_kernel(Params p) {
         if (!small || grp.lt < 32)
           plane_tu<kEncode, kQ, kMl, kCc>(
               p, sh, v, grp, s,
-              TuArgs{px0 + cu.ux * unit, py0 + cu.uy * unit, px0, py0,
+              TuArgs<typename Sh::Src>{px0 + cu.ux * unit, py0 + cu.uy * unit, px0, py0,
                      plane ? cu.mode_c : cu.mode,
                      plane ? cu.shift_c : cu.shift_y, plane ? 0 : cu.tv,
                      plane ? 0 : cu.th, plane ? 0 : cu.lf, !plane && cu.ts,
@@ -2634,6 +2770,29 @@ int launch_cclm(Params& p, int encode, void* stream) {
   return launch_kernel(p, kernel, false,
                        sizeof(Shared) + (p.dq ? kDqBytes : 0), stream);
 }
+#elif defined(X266_RECON_CU64_PART)
+// The CU-64 instances of K1 and K2 (kC64; element-wise quantizer: CU 64
+// comes without SDH and DQ), with and without LFNST (kMl): this part's
+// with CCLM (kCc, csrc/recon_cu64_cclm.cu) or without it
+// (csrc/recon_cu64.cu), so that the two build at once.
+#if defined(X266_RECON_CU64_CCLM_PART)
+constexpr bool kCu64Cc = true;
+#else
+constexpr bool kCu64Cc = false;
+#endif
+template <bool kEncode>
+KernelFn instance64(const Params& p) {
+  return p.mtt || p.lfnst
+             ? recon_kernel<kEncode, false, false, kQPlain, true, kCu64Cc,
+                            true>
+             : recon_kernel<kEncode, false, false, kQPlain, false, kCu64Cc,
+                            true>;
+}
+
+int launch_cu64(Params& p, int encode, void* stream) {
+  return launch_kernel(p, encode ? instance64<true>(p) : instance64<false>(p),
+                       false, sizeof(SharedT<true>), stream);
+}
 #elif defined(X266_RECON_MAIN_PART)
 // The element-wise instances (the quantizer of kQPlain).
 template <bool kInter, bool kB = false>
@@ -2731,6 +2890,10 @@ extern "C" {
 // their own.
 #if defined(X266_RECON_CCLM_PART)
 int x266_recon_phases_cclm(void* out) {
+#elif defined(X266_RECON_CU64_CCLM_PART)
+int x266_recon_phases_cu64_cclm(void* out) {
+#elif defined(X266_RECON_CU64_PART)
+int x266_recon_phases_cu64(void* out) {
 #elif defined(X266_RECON_QUANT_PART)
 int x266_recon_phases_quant(void* out) {
 #else
@@ -2756,6 +2919,25 @@ int x266_recon_phases_main(void* out) {
 int x266_recon_cclm(const void* params, int encode, void* stream) {
   Params p = *static_cast<const Params*>(params);
   return launch_cclm(p, encode, stream);
+}
+#elif defined(X266_RECON_CU64_CCLM_PART)
+// Launches the CU-64 CCLM instance of K1 (encode != 0) or K2 on `stream`
+// with the parameters x266_recon_intra set (`params`, a Params); returns
+// cudaGetLastError().
+int x266_recon_cu64_cclm(const void* params, int encode, void* stream) {
+  Params p = *static_cast<const Params*>(params);
+  return launch_cu64(p, encode, stream);
+}
+#elif defined(X266_RECON_CU64_PART)
+int x266_recon_cu64_cclm(const void* params, int encode, void* stream);
+
+// Launches the CU-64 instance of K1 (encode != 0) or K2 on `stream` with
+// the parameters x266_recon_intra set (`params`, a Params), under CCLM
+// csrc/recon_cu64_cclm.cu's; returns cudaGetLastError().
+int x266_recon_cu64(const void* params, int encode, void* stream) {
+  Params p = *static_cast<const Params*>(params);
+  if (p.cclm) return x266_recon_cu64_cclm(params, encode, stream);
+  return launch_cu64(p, encode, stream);
 }
 #elif defined(X266_RECON_QUANT_PART)
 // Launches the SDH / DQ instance of K1/K2 (inter 0), K3-P (inter 1, b 0)
@@ -2806,6 +2988,7 @@ int x266_quant_tu(int dq, int s, int g, int plane, int qp, int rdoq,
 int x266_recon_quant(const void* params, int inter, int b, int encode,
                      void* stream);
 int x266_recon_cclm(const void* params, int encode, void* stream);
+int x266_recon_cu64(const void* params, int encode, void* stream);
 
 // Launches K1 (encode != 0) or K2 on `stream`; `sync` is scratch of
 // 1 + frames x CTU rows int32; lossless, ts and pdpc switch the intra
@@ -2815,12 +2998,15 @@ int x266_recon_cclm(const void* params, int encode, void* stream);
 // the kernels `lfnst_tab` (tables.k_lfnst); cclm takes the CCLM instances
 // (csrc/recon_cclm.cu): K2 reads each CU's choice from bit 3 of the mts
 // map, K1 writes the map with its choices to mts_out (int32, as the
-// maps).  Returns cudaGetLastError().
+// maps); cu64 (max_cu_size 64) takes the CU-64 instances
+// (csrc/recon_cu64.cu, csrc/recon_cu64_cclm.cu), with the tables' 64
+// size.  Returns
+// cudaGetLastError().
 int x266_recon_intra(
     int encode, int frames, int width, int height, int pitch_y, int pitch_c,
     int plane_y, int plane_c, int qp, float lam, int rdoq, int mts, int subst,
     int n_modes, int lossless, int ts, int pdpc, int sdh, int dq, int mtt,
-    int lfnst, int cclm,
+    int lfnst, int cclm, int cu64,
     const void* src_y, const void* src_cb, const void* src_cr,
     const void* cin_y, const void* cin_cb, const void* cin_cr,
     const void* size_map, const void* mode_map, const void* mts_map,
@@ -2843,10 +3029,9 @@ int x266_recon_intra(
   p.mip = (const int32_t*)mip;
   p.lfnst_tab = (const int32_t*)lfnst_tab;
   p.sync = (int*)sync;
-  if (cclm) {
-    p.mts_out = encode ? (int32_t*)mts_out : nullptr;
-    return x266_recon_cclm(&p, encode, stream);
-  }
+  p.mts_out = cclm && encode ? (int32_t*)mts_out : nullptr;
+  if (cu64) return x266_recon_cu64(&p, encode, stream);
+  if (cclm) return x266_recon_cclm(&p, encode, stream);
   if (dq || (sdh && encode)) return x266_recon_quant(&p, 0, 0, encode, stream);
   return launch<false>(p, encode, stream);
 }
@@ -2908,6 +3093,8 @@ int x266_recon_inter(
 #ifdef X266_RECON_PHASES
 int x266_recon_phases_quant(void* out);
 int x266_recon_phases_cclm(void* out);
+int x266_recon_phases_cu64(void* out);
+int x266_recon_phases_cu64_cclm(void* out);
 
 // The phase split's sums since the last call over the three parts
 // (kPhaseSlots uint64: see Phase), copied to host memory `out`, then
@@ -2918,6 +3105,8 @@ int x266_recon_phases(void* out) {
   int err = x266_recon_phases_main(out);
   if (err == 0) err = x266_recon_phases_quant(out);
   if (err == 0) err = x266_recon_phases_cclm(out);
+  if (err == 0) err = x266_recon_phases_cu64(out);
+  if (err == 0) err = x266_recon_phases_cu64_cclm(out);
   return err;
 }
 #endif

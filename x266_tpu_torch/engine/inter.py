@@ -44,7 +44,7 @@ from x266_tpu_torch.config import CodecConfig
 from x266_tpu_torch.engine import recon, recon_cuda
 from x266_tpu_torch.engine.mode_decision import (SPLIT_BITS, _block_gather,
                                                  _block_positions,
-                                                 _check_cfg, _eval_size,
+                                                 _eval_size,
                                                  _Geometry, _sum_children,
                                                  _upsample)
 from x266_tpu_torch.kernels import cost as kcost
@@ -214,7 +214,6 @@ def make_mode_decision_p_raw(cfg: CodecConfig, tab: Tables):
     luma pyramid -> (size_map, mode_map, pred_map, mvx_map, mvy_map),
     each (H/8, W/8) int32.  With cfg.merge_cands skip CUs carry their
     merge index in the mvx map."""
-    _check_cfg(cfg)
     uy, ux = cfg.units_y, cfg.units_x
     geom = _Geometry(cfg, tab.device)
     mvbits = torch.from_numpy(np.load(MVBITS_PATH)).to(tab.device)
@@ -399,7 +398,6 @@ def make_mode_decision_b_raw(cfg: CodecConfig, tab: Tables):
     for INTER, SKIP and BI and L1's for PRED_L1 (skip CUs the merge index
     with cfg.merge_cands); the mv1 maps carry BI's L1 MV, else 0.  K4
     warps T = 6 fields on L0 and T = 2 on L1, K5 refines once per list."""
-    _check_cfg(cfg)
     uy, ux = cfg.units_y, cfg.units_x
     geom = _Geometry(cfg, tab.device)
     mvbits = torch.from_numpy(np.load(MVBITS_PATH)).to(tab.device)

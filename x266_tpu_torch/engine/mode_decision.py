@@ -113,7 +113,7 @@ class _Geometry:
     def __init__(self, cfg: CodecConfig, device: torch.device):
         self.by_size = {}
         self.gates = {}
-        for s in (8, 16, 32):
+        for s in (8, 16, 32, 64):
             if s > cfg.max_cu_size:
                 continue
             xs, ys, gy, gx = _block_positions(cfg.width, cfg.height, s)
@@ -154,17 +154,21 @@ def _rd_chain(tab: Tables, cfg: CodecConfig, res_k: torch.Tensor,
     """D + lam * (R + extra) of residual candidates res_k (B, K, s, s)
     against orig (B, 1, s, s): the forward transform, quantizer, rate
     (rate_nested), dequantizer, inverse and clipped recon, as one fused
-    multiply-add (rd_cost).  (B, K) float32."""
+    multiply-add (rd_cost); at s = 64 in XLA's order there (rd_cost64).
+    (B, K) float32."""
     nb, k = res_k.shape[:2]
     bd = cfg.bit_depth
     coefs = ktx.forward_transform(tab, res_k.reshape(nb * k, s, s), s,
                                   bit_depth=bd)
     levels = kquant.quantize(tab, coefs, cfg.qp, s, bd)
-    rate = kcost.rate_nested(tab, levels).reshape(nb, k)
     deq = kquant.dequantize(tab, levels, cfg.qp, s, bd)
     rres = ktx.inverse_transform(tab, deq, s, bit_depth=bd).reshape(
         nb, k, s, s)
     recon = (orig - res_k + rres).clamp(0, cfg.max_val)
+    if s == 64:
+        return kcost.rd_cost64(tab, levels.reshape(nb, k, s, s),
+                               recon - orig, lam, extra)
+    rate = kcost.rate_nested(tab, levels).reshape(nb, k)
     return kcost.rd_cost(kcost.sse(recon, orig), lam, rate + extra)
 
 
@@ -262,12 +266,6 @@ def _upsample(a: torch.Tensor, f: int, gy: int, gx: int) -> torch.Tensor:
     return a.repeat_interleave(f, 0).repeat_interleave(f, 1)[:gy, :gx]
 
 
-def _check_cfg(cfg: CodecConfig) -> None:
-    if cfg.max_cu_size > 32:
-        raise NotImplementedError("max_cu_size 64 is not in the port's "
-                                  "slices")
-
-
 def _bt_leaves(cost_s, child, pair_h, pair_v, lam: float):
     """MTT's four-way choice at a leaf size s (x266_tpu/engine/
     mode_decision.py:380-405): the square CU, the quadtree children, or
@@ -303,8 +301,10 @@ def make_mode_decision_raw(cfg: CodecConfig, tab: Tables,
     cfg.mtt (x266_tpu/engine/mode_decision.py:366-419) each 16 and 32
     leaf also competes against its two binary splits, and the third
     output is bt_map (0 none, 1 BT-H, 2 BT-V a unit) in place of the
-    residuals: a BT leaf's units carry the winning half's shared mode."""
-    _check_cfg(cfg)
+    residuals: a BT leaf's units carry the winning half's shared mode.
+    With max_cu_size 64 (all-intra VVC without MTT) the 64 size competes
+    with its four 32 children as the smaller sizes do
+    (x266_tpu/engine/mode_decision.py:356-357)."""
     uy, ux = cfg.units_y, cfg.units_x
     geom = _Geometry(cfg, tab.device)
     lam = np.float32(cfg.lambda_mode)
@@ -319,7 +319,7 @@ def make_mode_decision_raw(cfg: CodecConfig, tab: Tables,
                               device=plane.device)
         bt_map = torch.zeros_like(size_map)
         mode_map = mode8
-        for s in (16, 32):
+        for s in (16, 32, 64):
             if s > cfg.max_cu_size:
                 continue
             f = s // 8
@@ -375,8 +375,9 @@ def make_mts_select_raw(cfg: CodecConfig, tab: Tables):
     (bt_map given, res_by_size None) the choice is made at each unit's
     effective TU size (a BT leaf's TUs are half its side) and every
     block is predicted with mode_map's mode at its origin, as the
-    reference does (x266_tpu/engine/mode_decision.py:442-547)."""
-    _check_cfg(cfg)
+    reference does (x266_tpu/engine/mode_decision.py:442-547).  A 64 CU
+    takes no choice (the reference's loop stops at 32): its map stays 0,
+    DCT-II without LFNST or transform skip."""
     uy, ux = cfg.units_y, cfg.units_x
     lam = float(np.float32(cfg.lambda_mode))
     combos = MTS_COMBOS if cfg.mts else MTS_COMBOS[:1]

@@ -45,7 +45,7 @@ from x266_tpu_torch.engine import availability as avail
 
 from x266_tpu_torch.engine import recon_cuda
 from x266_tpu_torch.engine.availability import ref_masks
-from x266_tpu_torch.engine.mode_decision import PAD, TS_IDX, _check_cfg
+from x266_tpu_torch.engine.mode_decision import PAD, TS_IDX
 from x266_tpu_torch.kernels import intra as kintra
 from x266_tpu_torch.kernels import lfnst as klfnst
 from x266_tpu_torch.kernels import quant as kquant
@@ -60,13 +60,14 @@ def _gather_ref(plane: torch.Tensor, x: int, y: int, s: int):
 
 
 def _subst_tables(cfg: CodecConfig, device: torch.device):
-    """{s: (gy, gx, 4s+1) bool} luma and {s/2: ...} chroma masks, and
+    """{s: (gy, gx, 4s+1) bool} luma and {s/2: ...} chroma masks (64 and
+    32 too under max_cu_size 64, x266_tpu/engine/recon.py:257-261), and
     under MTT the BT-V-order masks of the leaves' t-TUs, luma {t: ...}
     and chroma {t/2: ...} (x266_tpu/engine/recon.py:278-295)."""
     if not cfg.ref_substitute:
         return None, None, None, None
     w, h = cfg.width, cfg.height
-    sizes = [s for s in (8, 16, 32) if s <= cfg.max_cu_size]
+    sizes = [s for s in (8, 16, 32, 64) if s <= cfg.max_cu_size]
 
     def dev(m):
         return torch.from_numpy(np.ascontiguousarray(m)).to(device)
@@ -366,8 +367,8 @@ def _transform_index(cfg: CodecConfig, v: int) -> int:
 
 
 def check_slice(cfg: CodecConfig) -> None:
-    """Raise for configurations outside the port's slices."""
-    _check_cfg(cfg)
+    """Raise for configurations outside the port's slices (CU 64 is in
+    them: CodecConfig admits it on all-intra VVC only)."""
     if cfg.bit_depth != 8:
         raise NotImplementedError("the port's slices are 8-bit")
 

@@ -22,7 +22,10 @@ and lfnst select K1 and K2's MTT / LFNST instances: the BT leaves of the
 mts map's bits 4-5 and LFNST's index in bits 6-7, with the kernels
 tab.k_lfnst.  cfg.cclm selects their CCLM instances (csrc/recon_cclm.cu):
 K1 returns the mts map with its CCLM choices in bit 3, K2 reads them
-there.
+there.  cfg.max_cu_size 64 selects their CU-64 instances
+(csrc/recon_cu64.cu, and csrc/recon_cu64_cclm.cu under CCLM: the
+64-point DCT with its zero-out, with or without LFNST), whose tables
+carry the 64 size (tab.cu64).
 """
 
 from __future__ import annotations
@@ -57,7 +60,9 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _check_tables(tab: Tables) -> None:
+def _check_tables(tab: Tables, cfg: CodecConfig = None) -> None:
+    if cfg is not None and tab.cu64 != (cfg.max_cu_size == 64):
+        raise ValueError("the tables' 64 size must match cfg.max_cu_size")
     for name, t in (("taps", tab.k_taps), ("smooth", tab.k_smooth),
                     ("tx", tab.k_tx), ("shift", tab.k_shift),
                     ("mip", tab.k_mip)):
@@ -92,7 +97,7 @@ def recon_intra(cfg: CodecConfig, tab: Tables, encode: bool, a, b, c,
     for name, m in (("size_map", size_map), ("mode_map", mode_map),
                     ("mts_map", mts_map)):
         check_tensor(m, name, torch.int32, (f, cfg.units_y, cfg.units_x))
-    _check_tables(tab)
+    _check_tables(tab, cfg)
 
     lib = _build.LIBRARY.build()
     with torch.cuda.device(a.device):
@@ -141,9 +146,10 @@ def _launch(lib, stream, cfg, tab, encode, a, b, c, size_map, mode_map,
         cfg.n_pred_modes, int(cfg.lossless), int(cfg.transform_skip),
         int(cfg.pdpc), int(cfg.sign_data_hiding and encode),
         int(cfg.dep_quant), int(cfg.mtt), int(cfg.lfnst), int(cfg.cclm),
-        *map(ptr, src), *map(ptr, cin), size_map.data_ptr(),
-        mode_map.data_ptr(), mts_map.data_ptr(), *map(ptr, rec),
-        *map(ptr, cout), tab.k_taps.data_ptr(), tab.k_smooth.data_ptr(),
+        int(cfg.max_cu_size == 64), *map(ptr, src), *map(ptr, cin),
+        size_map.data_ptr(), mode_map.data_ptr(), mts_map.data_ptr(),
+        *map(ptr, rec), *map(ptr, cout), tab.k_taps.data_ptr(),
+        tab.k_smooth.data_ptr(),
         tab.k_tx.data_ptr(), tab.k_shift.data_ptr(), tab.rate.data_ptr(),
         tab.k_mip.data_ptr(), tab.k_lfnst.data_ptr(), ptr(mts_out),
         sync.data_ptr(), stream)

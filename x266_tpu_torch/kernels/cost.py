@@ -16,6 +16,9 @@ exactly as the reference does:
   of the argmin fusions (intra Pass A, F12; P and B Pass A, F13),
   ``fma_f32`` any float32 fused multiply-add, and
   ``rate_inter_residual`` the lossless inter rates (F13).
+- ``window_raster_sum`` and ``rd_cost64`` are the rate sums, SSE and
+  D + lam * R of Pass A's 64 size, where XLA CPU rewrites the 64x64
+  reductions into 32x32 windows (F12 at 64).
 - ``plane_sse_f32`` is the reference's float32 SSE of a whole picture
   plane (x266_tpu/engine/fused.py:483-486) in XLA CPU's order, reported
   beside the exact int64 sum (ROADMAP F4).
@@ -143,6 +146,40 @@ def rd_cost(sse: torch.Tensor, lam: float, bits: torch.Tensor) -> torch.Tensor:
     lam64 = float(np.float32(lam))
     return (sse.to(torch.float64) + lam64 * bits.to(torch.float64)).to(
         torch.float32)
+
+
+def window_raster_sum(v: torch.Tensor) -> torch.Tensor:
+    """float32 sums over the trailing (64, 64) dims of each of v's
+    leading planes (v: (P, ..., 64, 64)), in XLA CPU's order for Pass
+    A's 64 size (read from its optimized HLO and LLVM IR): a
+    reduce-window of 32x32 windows, each added in raster order from 0 by
+    a scalar loop, then the 2x2 window sums nested in the argmin's
+    fusion as (w00 + w01) + (w10 + w11).  The planes share one loop of
+    1,024 adds."""
+    lead = v.shape[:-2]
+    blocks = v.reshape(*lead, 2, 32, 2, 32).transpose(-3, -2).reshape(
+        *lead, 2, 2, 1024)
+    acc = torch.zeros(blocks.shape[:-1], dtype=torch.float32,
+                      device=v.device)
+    for k in range(1024):
+        acc = acc + blocks[..., k]
+    return (acc[..., 0, 0] + acc[..., 0, 1]) + (acc[..., 1, 0]
+                                                + acc[..., 1, 1])
+
+
+def rd_cost64(tab: Tables, levels: torch.Tensor, err: torch.Tensor,
+              lam: float, extra: float) -> torch.Tensor:
+    """D + lam * (R + extra) of 64x64 candidates as XLA CPU computes
+    them in Pass A's argmin fusion at the 64 size: the surrogate rate of
+    the levels and the float32 squares of the integer errors err summed
+    by window_raster_sum, then D + lam * (R + extra) as one fused
+    multiply-add (rd_cost; the optimized LLVM IR has a separate fmul
+    and fadd, which the CPU's code generation contracts: the live op
+    rounds once)."""
+    rate = tab.rate[levels.abs().long()]
+    e = err.to(torch.float32)
+    rate, dist = window_raster_sum(torch.stack([rate, e * e]))
+    return rd_cost(dist, lam, rate + extra)
 
 
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ modes included (rows n_intra_modes and up).  The matmul runs in float32:
 references <= 255 and |weights| summing to at most 2^14 per row
 (tables.check_passa_exact) keep every partial sum an integer below
 2^24, so the result is exact as long as TF32 is off
-(device.check_precision).  PDPC (x266_tpu/kernels/intra.py:91-127,
+(device.check_precision).  The 64 weights are int8 (tables.Tables), widened
+to float32 a few modes at a time.  PDPC (x266_tpu/kernels/intra.py:91-127,
 162-190) blends planar, DC and pure H/V luma predictions with the raw
 references after the shift.
 """
@@ -101,6 +102,10 @@ def apply_pdpc(pred: torch.Tensor, refs: torch.Tensor, modes: torch.Tensor,
     return torch.where(both & (cls == spec.PDPC_HOR), hor, out)
 
 
+# the int8 64 weights' modes a product takes at once (67 MB widened)
+_INT8_MODES = 8
+
+
 def predict_all_modes(tab: Tables, refs: torch.Tensor, size: int,
                       pdpc: bool = False, left_ok=None,
                       top_ok=None) -> torch.Tensor:
@@ -109,8 +114,19 @@ def predict_all_modes(tab: Tables, refs: torch.Tensor, size: int,
     w = tab.intra_w[size]                             # (nm, s*s, 2R)
     nm = w.shape[0]
     ext = extend_refs(tab, refs, size).to(torch.float32)
-    p = torch.matmul(ext, w.reshape(nm * size * size, -1).T)
-    p = p.to(torch.int32).reshape(-1, nm, size * size)
+    if w.dtype == torch.float32:
+        p = torch.matmul(ext, w.reshape(nm * size * size, -1).T).to(
+            torch.int32)
+    else:
+        # the int8 64 weights (564 MB as float32), a few modes at a time
+        n = size * size
+        p = torch.empty((ext.shape[0], nm * n), dtype=torch.int32,
+                        device=ext.device)
+        for m0 in range(0, nm, _INT8_MODES):
+            c = w[m0:m0 + _INT8_MODES]
+            p[:, m0 * n:(m0 + c.shape[0]) * n] = torch.matmul(
+                ext, c.reshape(-1, c.shape[-1]).to(torch.float32).T)
+    p = p.reshape(-1, nm, size * size)
     sh = tab.intra_shift[size][None, :, None]
     p = (p + (1 << (sh - 1))) >> sh
     p = p.reshape(-1, nm, size, size)
@@ -127,7 +143,8 @@ def predict_mode(tab: Tables, ref: torch.Tensor, mode: int, size: int,
     """One (R,) reference vector and a mode -> (s, s) int32; with pdpc
     the blend of apply_pdpc, gated by left_ok / top_ok."""
     ext = extend_refs(tab, ref[None], size)[0].to(torch.float32)
-    p = torch.matmul(tab.intra_w[size][mode], ext).to(torch.int32)
+    p = torch.matmul(tab.intra_w[size][mode].to(torch.float32), ext).to(
+        torch.int32)
     sh = tab.intra_shift_host[size][mode]
     p = ((p + (1 << (sh - 1))) >> sh).reshape(size, size)
     if pdpc:

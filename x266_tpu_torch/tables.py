@@ -16,6 +16,7 @@ the kernel applies directly instead of their 4s-tap raw-reference rows.
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -40,10 +41,26 @@ MTS_COMBOS = ((spec_tx.TX_DCT2, spec_tx.TX_DCT2),
               (spec_tx.TX_DCT8, spec_tx.TX_DCT8))
 TX_TYPES = (spec_tx.TX_DCT2, spec_tx.TX_DST7, spec_tx.TX_DCT8)
 TU_SIZES = (4, 8, 16, 32)
+CU64 = 64         # the luma TU of a 64x64 CU (max_cu_size=64), DCT-II only
 MIP_SIZES = (8, 16, 32)   # luma TU sizes; a chroma TU of a MIP CU is planar
 N_TAPS = 4        # nonzero weights per predicted sample, DC excepted
 
 
+def tu_sizes(cfg: CodecConfig) -> tuple:
+    """The TU sizes of cfg's tables: TU_SIZES, and CU64 when
+    cfg.max_cu_size is 64 (its weights are 141 M entries, so they are
+    built for such configurations only)."""
+    return TU_SIZES + ((CU64,) if cfg.max_cu_size == CU64 else ())
+
+
+@functools.lru_cache(maxsize=8)
+def _stacked(size: int, n_modes: int):
+    """specmodel.intra.stacked_weights, made once a process (the 64
+    weights take about a second)."""
+    return spec_intra.stacked_weights(size, n_modes)
+
+
+@functools.lru_cache(maxsize=8)
 def intra_taps(size: int, n_modes: int) -> np.ndarray:
     """(n_modes, s*s, N_TAPS) int32 sparse form of the stacked weights of
     the analytic modes (n_modes <= 67; MIP's signed rows are k_mip's):
@@ -51,20 +68,21 @@ def intra_taps(size: int, n_modes: int) -> np.ndarray:
     an unused slot.  DC (mode 1) rows have 2s taps and are left empty:
     the kernel sums its references directly (checked here)."""
     assert n_modes <= spec_intra.NUM_MODES_VVC
-    w, _ = spec_intra.stacked_weights(size, n_modes)
+    w, _ = _stacked(size, n_modes)
     r = spec_intra.ref_len(size)
     dc = np.zeros(2 * r, np.int8)
     dc[1:1 + size] = 1
     dc[1 + 2 * size:1 + 3 * size] = 1
     assert (w[spec_intra.DC] == dc).all()
-    w = w.astype(np.int32)
-    w[spec_intra.DC] = 0
     m, p, c = np.nonzero(w)                   # sorted by (mode, sample)
+    keep = m != spec_intra.DC
+    m, p, c = m[keep], p[keep], c[keep]
+    v = w[m, p, c].astype(np.int32)
     row = m * size * size + p
     rank = np.arange(row.size) - np.searchsorted(row, row)
-    assert rank.max() < N_TAPS and (w[m, p, c] > 0).all()
+    assert rank.max() < N_TAPS and (v > 0).all()
     taps = np.zeros((n_modes, size * size, N_TAPS), np.int32)
-    taps[m, p, rank] = (c << 8) | w[m, p, c]
+    taps[m, p, rank] = (c << 8) | v
     return taps
 
 
@@ -100,8 +118,11 @@ def check_passa_exact(w: np.ndarray) -> None:
     """Pass A's float32 product of (n_modes, s*s, 2R) integer weights
     with references <= 255 is exact when every partial sum is an
     integer of magnitude below 2^24: assert sum |w| * 255 < 2^24 per
-    row (the MIP rows at s = 32 reach ~4.1e6)."""
-    assert int(np.abs(w.astype(np.int64)).sum(-1).max()) * 255 < 1 << 24
+    row (the MIP rows at s = 32 reach ~4.1e6; DC's 128 references at
+    s = 64 reach 32,640), a mode at a time (the 64 weights are 141 M
+    entries)."""
+    assert max(int(np.abs(wm.astype(np.int32)).sum(-1).max())
+               for wm in w) * 255 < 1 << 24
 
 
 @dataclass
@@ -110,13 +131,17 @@ class Tables:
 
     intra_w[s]: (n_modes, s*s, 2R) float32 stacked weights (exact: all
     products and partial sums are integers below 2^24, check_passa_exact;
-    MIP's modes are rows n_intra_modes and up); intra_shift[s]:
+    MIP's modes are rows n_intra_modes and up), int8 at s = 64 (564 MB
+    as float32; kernels.intra widens them a few modes at a time), which
+    only a max_cu_size=64 configuration has (tu_sizes); intra_shift[s]:
     (n_modes,) int32 (intra_shift_host[s]: the same as a tuple, so a
     per-TU lookup needs no device read); smooth[s]: (R, R) float32;
     tx[(type, s)]: (s, s) float64 transform matrices; rate: (32768,)
     float32.  k_taps / k_smooth / k_tx / k_shift / k_mip: the flat int32
     tables of the CUDA kernel (kernel_tables); k_lfnst: LFNST's (8, 16,
-    16) int32 kernels (kernels/lfnst_tables.py, |m| <= 127)."""
+    16) int32 kernels (kernels/lfnst_tables.py, |m| <= 127).  cu64: the
+    64 tables are there, in tu_sizes and appended to the kernel's
+    (kernel_tables)."""
     device: torch.device
     n_modes: int
     intra_w: dict
@@ -133,25 +158,32 @@ class Tables:
     k_shift: torch.Tensor
     k_mip: torch.Tensor
     k_lfnst: torch.Tensor
+    cu64: bool = False
 
 
-def kernel_tables(n_modes: int):
+def kernel_tables(n_modes: int, cu64: bool = False):
     """Flat int32 tables for the CUDA kernel, sizes in TU_SIZES order:
     taps of the analytic modes (sum_s n_std*s*s*N_TAPS, n_std =
     min(n_modes, 67)), smoothing taps (sum_s (4s+1)*3), transform
     matrices (3 types x sum_s s*s), shifts (4 x n_modes) and the MIP
     matrices (MIP_K x sum over MIP_SIZES of s*s*16; all zero without
-    MIP modes, never read)."""
+    MIP modes, never read).  cu64 appends the 64 size to the first four:
+    its taps, its smoothing taps, the DCT-II matrix (a 64 TU takes no
+    other) and its shifts, so the other sizes keep their offsets."""
     n_std = min(n_modes, spec_intra.NUM_MODES_VVC)
+    big = (CU64,) if cu64 else ()
     taps = np.concatenate([intra_taps(s, n_std).ravel()
-                           for s in TU_SIZES])
-    smooth = np.concatenate([smooth_taps(s).ravel() for s in TU_SIZES])
+                           for s in TU_SIZES + big])
+    smooth = np.concatenate([smooth_taps(s).ravel()
+                             for s in TU_SIZES + big])
     tx = np.concatenate([spec_tx.matrix_for(t, s).astype(np.int32).ravel()
-                         for t in TX_TYPES for s in TU_SIZES])
+                         for t in TX_TYPES for s in TU_SIZES]
+                        + [spec_tx.matrix_for(spec_tx.TX_DCT2, s).astype(
+                            np.int32).ravel() for s in big])
     # the recon kernel keeps the matrices in shared memory as int8
     assert np.abs(tx).max() <= 127
-    shift = np.concatenate([spec_intra.stacked_weights(s, n_modes)[1]
-                            for s in TU_SIZES]).astype(np.int32)
+    shift = np.concatenate([_stacked(s, n_modes)[1]
+                            for s in TU_SIZES + big]).astype(np.int32)
     mip = np.concatenate([mip_matrices(s).ravel() for s in MIP_SIZES])
     if n_modes <= spec_intra.NUM_MODES_VVC:
         mip = np.zeros_like(mip)
@@ -162,10 +194,11 @@ def from_reference(cfg: CodecConfig, device) -> Tables:
     device = torch.device(device)
     n_modes = cfg.n_pred_modes
     intra_w, intra_shift, shift_host, smooth, tx = {}, {}, {}, {}, {}
-    for s in TU_SIZES:
-        w, sh = spec_intra.stacked_weights(s, n_modes)
+    for s in tu_sizes(cfg):
+        w, sh = _stacked(s, n_modes)
         check_passa_exact(w)
-        intra_w[s] = torch.from_numpy(w.astype(np.float32)).to(device)
+        intra_w[s] = torch.from_numpy(
+            w if s == CU64 else w.astype(np.float32)).to(device)
         intra_shift[s] = torch.from_numpy(sh.astype(np.int32)).to(device)
         shift_host[s] = tuple(int(v) for v in sh)
         smooth[s] = torch.from_numpy(
@@ -175,7 +208,9 @@ def from_reference(cfg: CodecConfig, device) -> Tables:
             assert np.abs(m).max() <= 255
             tx[(t, s)] = torch.from_numpy(m).to(device)
     rate = torch.from_numpy(np.load(RATE_PATH)).to(device)
-    k = [torch.from_numpy(a).to(device) for a in kernel_tables(n_modes)]
+    cu64 = CU64 in tu_sizes(cfg)
+    k = [torch.from_numpy(a).to(device)
+         for a in kernel_tables(n_modes, cu64)]
     # the recon kernel keeps the LFNST kernels in shared memory as int8
     assert np.abs(LFNST_TABLES).max() <= 127
     lfnst = torch.from_numpy(np.ascontiguousarray(LFNST_TABLES,
@@ -183,4 +218,4 @@ def from_reference(cfg: CodecConfig, device) -> Tables:
     return Tables(device, n_modes, intra_w, intra_shift, shift_host, smooth,
                   tx, rate,
                   tuple(int(v) for v in QUANT_SCALES),
-                  tuple(int(v) for v in DEQUANT_SCALES), *k, lfnst)
+                  tuple(int(v) for v in DEQUANT_SCALES), *k, lfnst, cu64)
